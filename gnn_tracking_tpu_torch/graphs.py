@@ -1,0 +1,176 @@
+"""Masked event graphs — the port's data container.
+
+Counterpart of ``gnn_tracking_tpu/graphs.py``: the same fields and
+conventions, as a plain dataclass of tensors.
+
+* ``edge_index`` is ``[2, E]`` int32, row 0 = source, row 1 = target
+  (messages flow source -> target).
+* ``node_mask`` / ``edge_mask`` mark the valid nodes and edges; every
+  consumer honours them.
+* Padding buckets (``PaddingConfig``) are a TPU static-shape device and are
+  not part of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+PAD_PARTICLE_ID = -1
+
+NODE_FIELDS = (
+    "x", "particle_id", "pt", "eta", "reconstructable", "node_mask",
+    "layer", "sector", "batch",
+)
+EDGE_FIELDS = ("edge_index", "edge_attr", "y", "edge_mask")
+TRUE_EDGE_FIELDS = ("true_edge_index", "true_edge_mask")
+ARRAY_FIELDS = NODE_FIELDS + EDGE_FIELDS + TRUE_EDGE_FIELDS
+
+
+@dataclasses.dataclass
+class EventGraph:
+    """One event's hit graph (fields as in the JAX ``EventGraph``)."""
+
+    # --- nodes ---
+    x: torch.Tensor  # [N, F] node features
+    particle_id: torch.Tensor  # [N]; 0 = noise, <0 = padding
+    pt: torch.Tensor  # [N]
+    eta: torch.Tensor  # [N]
+    reconstructable: torch.Tensor  # [N]
+    node_mask: torch.Tensor  # [N] bool
+    layer: torch.Tensor  # [N] int32 detector layer
+    sector: torch.Tensor  # [N] int32 azimuthal sector
+    batch: torch.Tensor  # [N] int32 graph id
+    # --- candidate edges ---
+    edge_index: torch.Tensor  # [2, E] int32
+    edge_attr: torch.Tensor  # [E, Fe]
+    y: torch.Tensor  # [E] edge truth
+    edge_mask: torch.Tensor  # [E] bool
+    # --- truth edges ---
+    true_edge_index: torch.Tensor  # [2, Et] int32
+    true_edge_mask: torch.Tensor  # [Et] bool
+    # --- optional extras (e.g. baked EC scores, the CSR row pointer) ---
+    extras: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    @property
+    def num_nodes(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def num_edges(self) -> int:
+        return self.edge_index.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def replace(self, **changes) -> "EventGraph":
+        return dataclasses.replace(self, **changes)
+
+    def to(
+        self, device: str | torch.device, dtype: torch.dtype | None = None
+    ) -> "EventGraph":
+        """Move every tensor to ``device``; with ``dtype``, also cast the
+        floating-point ones."""
+
+        def move(t):
+            if dtype is not None and t.is_floating_point():
+                return t.to(device=device, dtype=dtype)
+            return t.to(device)
+
+        fields = {f: move(getattr(self, f)) for f in ARRAY_FIELDS}
+        extras = {k: move(v) for k, v in self.extras.items()}
+        return EventGraph(**fields, extras=extras)
+
+    @classmethod
+    def from_arrays(
+        cls,
+        *,
+        x: Any,
+        edge_index: Any = None,
+        edge_attr: Any = None,
+        y: Any = None,
+        particle_id: Any = None,
+        extras: dict[str, Any] | None = None,
+        dtype: torch.dtype = torch.float32,
+    ) -> "EventGraph":
+        """Build an unmasked graph from host arrays (CPU tensors)."""
+        x = torch.as_tensor(np.asarray(x), dtype=dtype)
+        n = x.shape[0]
+        if edge_index is None:
+            edge_index = np.zeros((2, 0), dtype=np.int32)
+        edge_index = torch.as_tensor(np.asarray(edge_index), dtype=torch.int32)
+        e = edge_index.shape[1]
+        edge_attr = (
+            torch.zeros((e, 0), dtype=dtype)
+            if edge_attr is None
+            else torch.as_tensor(np.asarray(edge_attr), dtype=dtype)
+        )
+        pid = (
+            torch.zeros(n, dtype=torch.int64)
+            if particle_id is None
+            else torch.as_tensor(np.asarray(particle_id), dtype=torch.int64)
+        )
+        return cls(
+            x=x,
+            particle_id=pid,
+            pt=torch.zeros(n, dtype=dtype),
+            eta=torch.zeros(n, dtype=dtype),
+            reconstructable=torch.zeros(n, dtype=dtype),
+            node_mask=torch.ones(n, dtype=torch.bool),
+            layer=torch.zeros(n, dtype=torch.int32),
+            sector=torch.zeros(n, dtype=torch.int32),
+            batch=torch.zeros(n, dtype=torch.int32),
+            edge_index=edge_index,
+            edge_attr=edge_attr,
+            y=(
+                torch.zeros(e, dtype=torch.bool)
+                if y is None
+                else torch.as_tensor(np.asarray(y)).to(torch.bool)
+            ),
+            edge_mask=torch.ones(e, dtype=torch.bool),
+            true_edge_index=torch.zeros((2, 0), dtype=torch.int32),
+            true_edge_mask=torch.zeros(0, dtype=torch.bool),
+            extras={
+                k: torch.as_tensor(np.asarray(v)) for k, v in (extras or {}).items()
+            },
+        )
+
+    def sort_edges_by_target(self, *, with_unsort: bool = False) -> "EventGraph":
+        """Reorder edges so ``edge_index[1]`` is non-decreasing, valid edges
+        first (JAX ``EventGraph.sort_edges_by_target``, ``graphs.py:204``).
+
+        Masked edges go last and are re-pointed at the last node. The CSR
+        row pointer of the sorted targets is stored in
+        ``extras["dst_rowptr"]`` (``[N + 1]`` int32): edges of node ``i``
+        are ``rowptr[i]:rowptr[i+1]``. The fused interaction-network kernel
+        needs it. With ``with_unsort=True`` the inverse permutation is in
+        ``extras["edge_unsort"]``: ``out[edge_unsort]`` maps a per-edge
+        output back to the caller's edge order.
+        """
+        n, e = self.num_nodes, self.num_edges
+        dst = self.edge_index[1].to(torch.int64)
+        key = torch.where(self.edge_mask, dst, torch.full_like(dst, n))
+        order = torch.argsort(key, stable=True)
+        ei = self.edge_index[:, order]
+        mask = self.edge_mask[order]
+        last = torch.full_like(ei[1], n - 1)
+        ei = torch.stack([ei[0], torch.where(mask, ei[1], last)]).contiguous()
+        extras = {
+            k: (v[order] if v.shape[0] == e and k != "dst_rowptr" else v)
+            for k, v in self.extras.items()
+        }
+        nodes = torch.arange(n + 1, device=ei.device, dtype=ei.dtype)
+        extras["dst_rowptr"] = torch.searchsorted(ei[1], nodes).to(torch.int32)
+        if with_unsort:
+            extras["edge_unsort"] = torch.argsort(order)
+        return self.replace(
+            edge_index=ei,
+            edge_attr=self.edge_attr[order].contiguous(),
+            y=self.y[order],
+            edge_mask=mask,
+            extras=extras,
+        )

@@ -1,0 +1,80 @@
+"""Interaction network — the core message-passing op (counterpart of the JAX
+``models/interaction_network.py`` with ``segment_impl="fused"``).
+
+The relational half (gather endpoints -> 3-layer MLP -> masked segment-add
+at the target) is one call of :func:`ops.fused_relational.fused_relational_fwd`;
+the object model is ``MLP([x, agg])``. Parameters use the fused layout
+(``relational_w1..b3``) in PyTorch's ``[out, in]`` order. Masked edges'
+``e_tilde`` are zero (the JAX XLA path leaves them intact; everything
+observable through the mask is the same).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from gnn_tracking_tpu_torch.models.mlp import MLP
+from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational_fwd
+
+
+def _uniform(shape, fan_in, generator):
+    bound = 1.0 / math.sqrt(fan_in)
+    return nn.Parameter((torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound)
+
+
+class InteractionNetwork(nn.Module):
+    """Message ``e' = MLP_R([x_dst, x_src, e])``, aggregation at the target,
+    update ``x' = MLP_O([x, agg])``. Returns ``(x', e')``."""
+
+    def __init__(
+        self,
+        node_indim: int,
+        edge_indim: int,
+        node_outdim: int = 3,
+        edge_outdim: int = 4,
+        node_hidden_dim: int | None = 40,
+        edge_hidden_dim: int | None = 40,
+        *,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        fan1 = 2 * node_indim + edge_indim
+        h = edge_hidden_dim or max(fan1, edge_outdim)
+        self.relational_w1 = _uniform((h, fan1), fan1, generator)
+        self.relational_b1 = _uniform((h,), fan1, generator)
+        self.relational_w2 = _uniform((h, h), h, generator)
+        self.relational_b2 = _uniform((h,), h, generator)
+        self.relational_w3 = _uniform((edge_outdim, h), h, generator)
+        self.relational_b3 = _uniform((edge_outdim,), h, generator)
+        self.object_model = MLP(
+            node_indim + edge_outdim, node_outdim, node_hidden_dim, L=3,
+            generator=generator,
+        )
+
+    def relational_weights(self) -> dict[str, torch.Tensor]:
+        return {
+            "w1": self.relational_w1, "b1": self.relational_b1,
+            "w2": self.relational_w2, "b2": self.relational_b2,
+            "w3": self.relational_w3, "b3": self.relational_b3,
+        }
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        edge_index: torch.Tensor,
+        edge_attr: torch.Tensor,
+        edge_mask: torch.Tensor,
+        *,
+        rowptr: torch.Tensor | None = None,
+        relu_edge: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``relu_edge`` applies a ReLU to ``edge_attr`` inside the kernel."""
+        e_tilde, agg = fused_relational_fwd(
+            x, edge_attr, edge_index, edge_mask, self.relational_weights(),
+            rowptr=rowptr, relu_edge=relu_edge,
+        )
+        x_tilde = self.object_model(torch.cat([x, agg], dim=1))
+        return x_tilde, e_tilde

@@ -1,0 +1,170 @@
+"""Track-condensation networks (counterpart of the JAX
+``models/track_condensation_networks.py``: ``ModularGraphTCN`` with an edge
+classifier, and ``GraphTCN``).
+
+As in the JAX package, the EC cut is an edge mask that the condensation
+interaction networks run under; outputs keep the full (masked) length.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from gnn_tracking_tpu_torch.graphs import EventGraph
+from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+from gnn_tracking_tpu_torch.models.mlp import MLP, ResFCNN
+from gnn_tracking_tpu_torch.models.resin import ResIN
+from gnn_tracking_tpu_torch.utils.device import resolve_device
+
+
+class ModularGraphTCN(nn.Module):
+    """Edge classifier + HC encoders + condensation ResIN + beta /
+    cluster-coordinate heads. (The JAX module's EC-less form and its
+    metric-learning options, ``alpha_latent`` and the heterogeneous node
+    encoder, are not ported.)
+
+    Output dict: ``W`` edge weights, ``H`` clustering coordinates,
+    ``B`` condensation likelihood, ``ec_hit_mask`` / ``ec_edge_mask``.
+    """
+
+    def __init__(
+        self,
+        hc_in: ResIN,
+        ec: ECForGraphTCN,
+        node_indim: int,
+        edge_indim: int,
+        h_dim: int = 5,
+        e_dim: int = 4,
+        h_outdim: int = 2,
+        hidden_dim: int = 40,
+        feed_edge_weights: bool = False,
+        ec_threshold: float = 0.5,
+        mask_orphan_nodes: bool = False,
+        use_ec_embeddings_for_hc: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ec = ec
+        self.hc_in = hc_in
+        self.ec_threshold = ec_threshold
+        self.feed_edge_weights = feed_edge_weights
+        self.mask_orphan_nodes = mask_orphan_nodes
+        self.use_ec_embeddings_for_hc = use_ec_embeddings_for_hc
+        x_in, e_in = node_indim, edge_indim
+        if use_ec_embeddings_for_hc:
+            x_in += ec.ec_node_encoder.linears[-1].weight.shape[0]
+            e_in += ec.ec_edge_encoder.linears[-1].weight.shape[0]
+        if feed_edge_weights:
+            e_in += 1
+        g = generator
+        # depth=1 (== L=2), alpha=0 for backwards compatibility
+        self.hc_node_encoder = ResFCNN(
+            x_in, h_dim, hidden_dim, depth=1, alpha=0.0, bias=False, generator=g
+        )
+        self.hc_edge_encoder = MLP(e_in, e_dim, hidden_dim, L=2, bias=False, generator=g)
+        self.p_beta = MLP(h_dim, 1, hidden_dim, L=3, generator=g)
+        self.p_cluster = MLP(h_dim, h_outdim, hidden_dim, L=3, generator=g)
+        self.latent_normalization = nn.Parameter(torch.ones(1))
+        self.to(dev)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+        hit_mask = data.node_mask
+        xs, edge_attrs = [data.x], [data.edge_attr]
+        ec_result = self.ec(data)
+        edge_weights = ec_result["W"]
+        # EC cut as masking (reference: data.edge_subgraph)
+        ec_edge_mask = data.edge_mask & (edge_weights > self.ec_threshold)
+        if self.mask_orphan_nodes:
+            deg = torch.zeros(data.num_nodes, dtype=torch.int32, device=data.device)
+            for row in data.edge_index:
+                deg.index_add_(0, row, ec_edge_mask.to(torch.int32))
+            hit_mask = data.node_mask & (deg > 0)
+        if self.use_ec_embeddings_for_hc:
+            xs.append(ec_result["node_embedding"])
+            edge_attrs.append(ec_result["edge_embedding"])
+        if self.feed_edge_weights:
+            edge_attrs.append(edge_weights.reshape(-1, 1))
+        x = torch.cat(xs, dim=1)
+        edge_attr = torch.cat(edge_attrs, dim=1)
+
+        h_hc = torch.relu(self.hc_node_encoder(x))
+        edge_attr_hc = torch.relu(self.hc_edge_encoder(edge_attr))
+        # track condenser runs under the post-EC edge mask
+        h_hc, _, _ = self.hc_in(
+            h_hc, data.edge_index, edge_attr_hc, ec_edge_mask,
+            rowptr=data.extras.get("dst_rowptr"),
+        )
+        beta = torch.sigmoid(self.p_beta(h_hc))
+        epsilon = 1e-6  # soft clipping against NaN in arctanh(beta)
+        beta = epsilon + (1 - 2 * epsilon) * beta
+        h = self.p_cluster(h_hc) * self.latent_normalization
+        return {
+            "W": edge_weights,
+            "H": h,
+            "B": beta.squeeze(-1),
+            "ec_hit_mask": hit_mask,
+            "ec_edge_mask": ec_edge_mask,
+        }
+
+
+class GraphTCN(ModularGraphTCN):
+    """``ModularGraphTCN`` with a fresh ``ECForGraphTCN``.
+
+    The JAX GraphTCN wraps a ModularGraphTCN whose own parameters sit under
+    ``gtcn`` in its tree; this class *is* the ModularGraphTCN, so
+    ``utils.param_convert`` drops that level. ``model_config`` holds the
+    constructor arguments (what a checkpoint stores).
+    """
+
+    def __init__(
+        self,
+        node_indim: int,
+        edge_indim: int,
+        h_dim: int = 5,
+        e_dim: int = 4,
+        h_outdim: int = 2,
+        hidden_dim: int = 40,
+        L_ec: int = 3,
+        L_hc: int = 3,
+        alpha_ec: float = 0.5,
+        alpha_hc: float = 0.5,
+        ec_threshold: float = 0.5,
+        mask_orphan_nodes: bool = False,
+        use_ec_embeddings_for_hc: bool = False,
+        feed_edge_weights: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        resolve_device(device)
+        config = {
+            "node_indim": node_indim, "edge_indim": edge_indim, "h_dim": h_dim,
+            "e_dim": e_dim, "h_outdim": h_outdim, "hidden_dim": hidden_dim,
+            "L_ec": L_ec, "L_hc": L_hc, "alpha_ec": alpha_ec, "alpha_hc": alpha_hc,
+            "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
+            "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
+            "feed_edge_weights": feed_edge_weights,
+        }
+        ec = ECForGraphTCN(
+            node_indim, edge_indim, interaction_node_dim=h_dim,
+            interaction_edge_dim=e_dim, hidden_dim=hidden_dim, L_ec=L_ec,
+            alpha=alpha_ec, device="cpu", generator=generator,
+        )
+        hc_in = ResIN(
+            h_dim, e_dim, object_hidden_dim=hidden_dim,
+            relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
+            generator=generator,
+        )
+        super().__init__(
+            hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
+            h_outdim=h_outdim, hidden_dim=hidden_dim,
+            feed_edge_weights=feed_edge_weights, ec_threshold=ec_threshold,
+            mask_orphan_nodes=mask_orphan_nodes,
+            use_ec_embeddings_for_hc=use_ec_embeddings_for_hc,
+            device=device, generator=generator,
+        )
+        self.model_config = config

@@ -1,0 +1,117 @@
+"""Carry weights from the JAX package into the port.
+
+Counterpart of the JAX ``utils/param_convert.py``. The input is a JAX
+``params`` tree as nested dicts of numpy arrays (optionally wrapped as
+``{"params": ...}``), in either interaction-network layout:
+
+* XLA: ``relational_model/TorchLinear_{0,1,2}/{kernel,bias}``;
+* fused: ``relational_w1, relational_b1, ..., relational_b3``.
+
+Both become the port's fused parameters ``relational_w{1,2,3}`` /
+``relational_b{1,2,3}`` (the re-nesting of the JAX ``mlp_to_fused``, in
+this module's own copy). Flax ``[in, out]`` kernels are transposed into
+PyTorch's ``[out, in]``. Path names map as ``TorchLinear_i`` /
+``NormalLinear_i`` -> ``linears.i``, ``layer_i`` -> ``layers.i``; the
+``gtcn`` level of a JAX ``GraphTCN`` is dropped (the port's ``GraphTCN`` is
+a ``ModularGraphTCN``).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+_INDEXED = re.compile(r"^(TorchLinear|NormalLinear|layer)_(\d+)$")
+_RELATIONAL = re.compile(r"^relational_([wb])([123])$")
+
+
+def _rename(key: str) -> str | None:
+    """Port name of one JAX path component (None: the level is dropped)."""
+    if key == "gtcn":
+        return None
+    m = _INDEXED.match(key)
+    if m:
+        prefix = "layers" if m.group(1) == "layer" else "linears"
+        return f"{prefix}.{m.group(2)}"
+    return key
+
+
+def _relational_from_mlp(mlp: dict) -> dict[str, np.ndarray]:
+    if set(mlp) != {"TorchLinear_0", "TorchLinear_1", "TorchLinear_2"}:
+        msg = f"relational_model with layers {sorted(mlp)} is not a 3-layer MLP"
+        raise ValueError(msg)
+    out = {}
+    for i in range(3):
+        layer = mlp[f"TorchLinear_{i}"]
+        if set(layer) != {"kernel", "bias"}:
+            msg = f"relational_model/TorchLinear_{i} has leaves {sorted(layer)}"
+            raise ValueError(msg)
+        out[f"relational_w{i + 1}"] = np.asarray(layer["kernel"]).T
+        out[f"relational_b{i + 1}"] = np.asarray(layer["bias"])
+    return out
+
+
+def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
+    """Flatten a JAX params tree into a port ``state_dict`` of numpy arrays.
+
+    Raises on any leaf it cannot place.
+    """
+    if isinstance(tree, dict) and set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, np.ndarray] = {}
+
+    def put(name: str, value: np.ndarray) -> None:
+        if name in out:
+            msg = f"two JAX leaves map to {name!r}"
+            raise ValueError(msg)
+        out[name] = np.asarray(value)
+
+    def walk(node: dict, prefix: list[str]) -> None:
+        for key, value in node.items():
+            if key == "relational_model":
+                for leaf, arr in _relational_from_mlp(value).items():
+                    put(".".join([*prefix, leaf]), arr)
+                continue
+            if isinstance(value, dict):
+                part = _rename(key)
+                walk(value, prefix if part is None else [*prefix, part])
+                continue
+            arr = np.asarray(value)
+            m = _RELATIONAL.match(key)
+            if key == "kernel":
+                put(".".join([*prefix, "weight"]), arr.T)
+            elif key == "bias" or key == "latent_normalization":
+                put(".".join([*prefix, key]), arr)
+            elif m:
+                put(".".join([*prefix, key]), arr.T if m.group(1) == "w" else arr)
+            else:
+                msg = f"JAX leaf {'/'.join([*prefix, key])!r} has no counterpart in the port"
+                raise ValueError(msg)
+
+    walk(tree, [])
+    return out
+
+
+def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
+    """Copy a JAX params tree into ``module`` (cast to each parameter's
+    dtype and device). Raises unless every JAX leaf and every parameter of
+    the module are matched one to one with equal shapes."""
+    state = params_from_jax(tree)
+    own = module.state_dict()
+    unused = sorted(set(state) - set(own))
+    missing = sorted(set(own) - set(state))
+    if unused or missing:
+        msg = f"JAX leaves without a port parameter: {unused}; port parameters without a JAX leaf: {missing}"
+        raise ValueError(msg)
+    with torch.no_grad():
+        for name, target in own.items():
+            src = state[name]
+            if tuple(src.shape) != tuple(target.shape):
+                msg = f"{name}: JAX shape {src.shape} != port shape {tuple(target.shape)}"
+                raise ValueError(msg)
+            target.copy_(torch.from_numpy(np.array(src)).to(target.dtype))
+    return module
