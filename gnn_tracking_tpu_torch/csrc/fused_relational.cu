@@ -203,15 +203,23 @@ int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int k = 2 * fx + fe;
   const size_t smem = smem_floats(k, h, fo) * sizeof(float);
+  // widths whose weights and tiles exceed one block's shared memory fail here; the error is
+  // returned, and cleared so that it does not resurface in a later call's cudaGetLastError()
   cudaError_t err = cudaFuncSetAttribute(edge_mlp_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
   if (n_edges > 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_kernel, THREADS, smem);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     const int tiles = (n_edges + TE - 1) / TE;
     const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;

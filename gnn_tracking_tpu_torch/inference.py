@@ -38,6 +38,8 @@ from gnn_tracking_tpu_torch.utils.loading import load_graph
 _MODEL_CLASSES = {"GraphTCN": GraphTCN}
 #: events whose npz is decompressed ahead of the one being predicted
 LOADS_AHEAD = 2
+#: label files being compressed and written while later events are predicted
+WRITES_IN_FLIGHT = 4
 
 
 def save_checkpoint(model: nn.Module, path: str | Path) -> None:
@@ -140,16 +142,17 @@ class TrackingPredictor:
         evaluate: bool = False,
     ) -> dict[str, float]:
         """Predict every ``.npz`` event graph under ``indir``; writes
-        ``<stem>_labels.npz`` (uncompressed) per event when ``outdir`` is
-        given.
+        ``<stem>_labels.npz`` (``np.savez_compressed``, as the JAX
+        predictor does) per event when ``outdir`` is given.
 
-        Host IO rides under device work: background threads decompress the
-        next ``LOADS_AHEAD`` events while the current one is predicted,
-        and another writes the previous event's labels (zlib and file IO
-        release the GIL). Returns throughput stats; events/s excludes the
-        first event (warm-up). ``load_ms``, ``predict_ms`` and ``write_ms``
-        are the mean host times of the three stages (load and write run in
-        the background)."""
+        The first event is loaded, predicted and written alone (warm-up);
+        the clock starts after it, and events/s counts the rest. For those,
+        host IO rides under device work: background threads decompress the
+        next ``LOADS_AHEAD`` events while the current one is predicted, and
+        up to ``WRITES_IN_FLIGHT`` earlier events' labels are compressed and
+        written meanwhile (zlib and file IO release the GIL). ``load_ms``,
+        ``predict_ms`` and ``write_ms`` are the mean host times of the three
+        stages over all events."""
         if batch_size != 1 or evaluate:
             msg = "predict_dir: batched prediction and evaluate=True are not ported"
             raise NotImplementedError(msg)
@@ -161,6 +164,7 @@ class TrackingPredictor:
             outdir = Path(outdir)
             outdir.mkdir(parents=True, exist_ok=True)
         times: dict[str, list[float]] = {"load_ms": [], "predict_ms": [], "write_ms": []}
+        n_tracks = 0
 
         def timed(key, fn, *args, **kwargs):
             t0 = time.perf_counter()
@@ -168,38 +172,44 @@ class TrackingPredictor:
             times[key].append((time.perf_counter() - t0) * 1e3)
             return out
 
-        depth = LOADS_AHEAD
-        n_tracks = 0
-        t_first = None
-        with ThreadPoolExecutor(max_workers=depth + 1) as pool:
+        def predict(graph):
+            nonlocal n_tracks
+            res = timed("predict_ms", self.predict, graph)
+            n_tracks += int(res["labels"].max()) + 1 if res["labels"].size else 0
+            return res
+
+        def write(f, res):
+            np.savez_compressed(outdir / f"{f.stem}_labels.npz", **res)
+
+        res = predict(timed("load_ms", load_graph, files[0], device="cpu"))
+        if outdir is not None:
+            timed("write_ms", write, files[0], res)
+        rest = files[1:]
+        t_start = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=LOADS_AHEAD + WRITES_IN_FLIGHT) as pool:
             loading = deque(
                 pool.submit(timed, "load_ms", load_graph, f, device="cpu")
-                for f in files[:depth]
+                for f in rest[:LOADS_AHEAD]
             )
-            writing = None
-            for i, f in enumerate(files):
+            writing: deque = deque()
+            for i, f in enumerate(rest):
                 graph = loading.popleft().result()
-                if i + depth < len(files):
+                if i + LOADS_AHEAD < len(rest):
                     loading.append(
-                        pool.submit(timed, "load_ms", load_graph, files[i + depth], device="cpu")
+                        pool.submit(timed, "load_ms", load_graph, rest[i + LOADS_AHEAD], device="cpu")
                     )
-                res = timed("predict_ms", self.predict, graph)
-                n_tracks += int(res["labels"].max()) + 1 if res["labels"].size else 0
+                res = predict(graph)
                 if outdir is not None:
-                    if writing is not None:
-                        writing.result()
-                    writing = pool.submit(
-                        timed, "write_ms", np.savez, outdir / f"{f.stem}_labels.npz", **res
-                    )
-                if t_first is None:
-                    t_first = time.perf_counter()
-            if writing is not None:
-                writing.result()
-        dt = time.perf_counter() - t_first
+                    if len(writing) == WRITES_IN_FLIGHT:
+                        writing.popleft().result()
+                    writing.append(pool.submit(timed, "write_ms", write, f, res))
+            for w in writing:
+                w.result()
+        dt = time.perf_counter() - t_start
         stats = {
             "n_events": len(files),
             "n_tracks_total": n_tracks,
-            "events_per_s": (len(files) - 1) / dt if len(files) > 1 and dt > 0 else float("nan"),
+            "events_per_s": len(rest) / dt if rest and dt > 0 else float("nan"),
         }
         stats |= {k: float(np.mean(v)) for k, v in times.items() if v}
         return stats

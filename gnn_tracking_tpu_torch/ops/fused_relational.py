@@ -21,23 +21,9 @@ from torch.nn import functional as F
 
 from gnn_tracking_tpu_torch import _build
 
-#: edges per tile of the CUDA kernel (``TE`` in the source)
-TILE_EDGES = 32
-#: shared memory one block may use on Hopper (opt-in maximum)
-MAX_SMEM_BYTES = 232_448
-WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
-
 _SIGNATURES = {
     "fused_relational_fwd": [_build.P] * 13 + [_build.I] * 7 + [_build.P],
 }
-
-
-def smem_bytes(fx: int, fe: int, h: int, fo: int) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel."""
-    k = 2 * fx + fe
-    weights = k * h + h + h * h + h + h * fo + fo
-    buffers = TILE_EDGES * (max(k, h) + 1) + TILE_EDGES * (h + 1)
-    return 4 * (weights + buffers)
 
 
 def fused_relational_plain(
@@ -74,7 +60,9 @@ def fused_relational_fwd(
     relu_edge: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(e_tilde [E, Fo], agg [N, Fo])``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel (``rowptr`` required)."""
+    version; CUDA tensors launch the kernel (``rowptr`` required), which
+    raises ``RuntimeError`` for widths whose weights do not fit one block's
+    shared memory."""
     if x.device.type == "cpu":
         return fused_relational_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge
@@ -124,9 +112,6 @@ def _launch(x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge):
             raise ValueError(msg)
     if h % 4 or fo % 4:
         msg = f"fused_relational_fwd: hidden ({h}) and output ({fo}) widths must be multiples of 4"
-        raise ValueError(msg)
-    if smem_bytes(fx, fe, h, fo) > MAX_SMEM_BYTES:
-        msg = f"fused_relational_fwd: widths {(fx, fe, h, fo)} exceed one block's shared memory"
         raise ValueError(msg)
     e_out = torch.empty((e, fo), dtype=torch.float32, device=x.device)
     agg = torch.empty((n, fo), dtype=torch.float32, device=x.device)

@@ -294,6 +294,33 @@ def test_cuda_fused_relational_matches_plain(cuda):
 
 
 @pytest.mark.cuda
+def test_cuda_fused_relational_rejects_widths_beyond_shared_memory(cuda):
+    n, e = 64, 256
+    dst = torch.sort(torch.randint(0, n, (e,), device=cuda)).values.int()
+    ei = torch.stack([torch.randint(0, n, (e,), device=cuda).int(), dst])
+    rowptr = torch.searchsorted(dst, torch.arange(n + 1, device=cuda, dtype=torch.int32)).int()
+    mask = torch.ones(e, dtype=torch.bool, device=cuda)
+
+    def weights(k, h, fo):
+        return {"w1": torch.randn(h, k, device=cuda), "b1": torch.randn(h, device=cuda),
+                "w2": torch.randn(h, h, device=cuda), "b2": torch.randn(h, device=cuda),
+                "w3": torch.randn(fo, h, device=cuda), "b3": torch.randn(fo, device=cuda)}
+
+    # W1 alone is 384 x 256 f32 = 384 KiB, beyond one block's shared memory
+    x, ea = torch.randn(n, 128, device=cuda), torch.randn(e, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_relational_fwd(x, ea, ei, mask, weights(384, 256, 8), rowptr=rowptr)
+    # the error does not leak into the next launch
+    x, ea = torch.randn(n, 8, device=cuda), torch.randn(e, 8, device=cuda)
+    w = weights(24, 32, 8)
+    et, agg = fused_relational_fwd(x, ea, ei, mask, w, rowptr=rowptr)
+    pet, pagg = fused_relational_plain(x, ea, ei, mask, w)
+    torch.cuda.synchronize()
+    assert (et - pet).abs().max() <= 1e-4 * pet.abs().max()
+    assert (agg - pagg).abs().max() <= 1e-4 * pagg.abs().max()
+
+
+@pytest.mark.cuda
 def test_cuda_pairwise_topk_matches_plain(cuda):
     x, mask, batch = _points(6, n=2000, d=8)
     args = [torch.from_numpy(a).to(cuda) for a in (x, mask, batch)]
