@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments::
 
-    python3 chip_smoke.py [--seed 0] [--events 32] [--profile]
+    python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--profile]
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -13,8 +13,11 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    versions) and on the card (kernels) must agree;
 3. one phase per kernel at the serving shapes (32,768 hits, 262,144 edges,
    GraphTCN 32/32/8/128): the kernel against its plain PyTorch version on
-   the same inputs, with its median time, the plain version's time and its
-   analytic bound;
+   the same inputs, with its median time, the plain version's time, the
+   time of one library call that computes the same function where there is
+   one, and its analytic bound. The training kernels (the fused relational
+   backward, the sorted segment-sum and the sorted gather) run at the HC
+   layer's shapes and must give the same bits on a second launch;
 4. the main path: ``TrackingPredictor(device="cuda").predict_dir`` over
    synthetic full-width events (locality-structured graphs; GraphTCN with
    seeded random weights plus a particle-structured latent offset, so that
@@ -22,7 +25,17 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    positive, the labels must equal those of the plain path on the same
    card, and the track count must be close to 2048. It prints events/s and
    the forward / radius graph / DBSCAN split;
-5. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
+5. the training path: ``TCModule`` steps of the same GraphTCN under
+   ``CondensationLossTiger(max_n_objects=2048, object_block_size=256)``
+   and Adam on a bench-style event (``bench.py:548-563``). Step 0's
+   parameter gradients through the kernels must agree with the plain path's
+   on the same card; then ``--train-steps`` timed steps print steps/s, the
+   forward / loss / backward / optimizer split, peak memory and the launches
+   per step of every kernel on the path;
+6. ``Trainer.fit`` for one epoch over 4 npz events with an EMA of the
+   weights; ``TrackingPredictor`` serves one event from the epoch
+   checkpoint, with labels equal to the plain path's;
+7. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -57,13 +70,22 @@ EPS, MIN_SAMPLES, CAP, N_TRACKS = 0.3, 1, 64, 2048
 # H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# training configuration (bench.py:538-591, extra_graphtcn): the same model
+LOSS = {"max_n_objects": 2048, "object_block_size": 256}
+LR = 1e-3
 TPU_KERNELS = {
     "fused_relational_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:373",
+    "fused_relational_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:415",
+    "sorted_segment_sum": "gnn_tracking_tpu/ops/pallas/csr_segment.py:162",
+    "sorted_gather": "gnn_tracking_tpu/ops/pallas/csr_segment.py:212",
     "pairwise_topk_filter": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:466",
     "cc_neighbors": "gnn_tracking_tpu/ops/pallas/cc_kernel.py:93",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
+    "fused_relational_bwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
+    "sorted_segment_sum": "gnn_tracking_tpu_torch/csrc/csr_segment.cu",
+    "sorted_gather": "gnn_tracking_tpu_torch/csrc/csr_segment.cu",
     "pairwise_topk_filter": "gnn_tracking_tpu_torch/csrc/pairwise_topk.cu",
     "cc_neighbors": "gnn_tracking_tpu_torch/csrc/cc_neighbors.cu",
 }
@@ -91,6 +113,49 @@ def make_event(seed: int):
         "y": pid[src] == pid[dst], "particle_id": pid,
         "extras": {"serving_centers": latent},
     }
+
+
+def make_train_event(seed: int):
+    """The bench's GraphTCN training event (``bench.py:548-563``): the
+    serving event's graph with particle ids in [0, 2048) and per-particle
+    pt, eta, all hits reconstructable."""
+    ev = make_event(seed)
+    rng = np.random.default_rng(seed + 1)
+    pid = ev["particle_id"]
+    src, dst = ev["edge_index"]
+    return {
+        "x": ev["x"], "edge_index": ev["edge_index"], "edge_attr": ev["edge_attr"],
+        "y": (pid[src] == pid[dst]) & (pid[src] > 0), "particle_id": pid,
+        "pt": (2 * rng.random(N_TRACKS))[pid], "eta": (8 * (rng.random(N_TRACKS) - 0.5))[pid],
+        "reconstructable": np.ones(N_NODES),
+    }
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time on the card (ms) and what bounds it: f32 operations at
+    the CUDA-core peak, or bytes at the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def calibrate_ec_threshold(model, g) -> float:
+    """Set the EC cut at the median edge weight of ``g``, so that about
+    half of the edges reach the condensation layers. With random weights
+    every edge weight falls below the default 0.5 and the cut would remove
+    them all; a trained EC passes a share of them. The threshold goes into
+    ``model_config``, so a checkpoint serves with it."""
+    import torch
+
+    with torch.no_grad():
+        w = model.ec(g)["W"][g.edge_mask]
+    threshold = float(torch.median(w))
+    model.ec_threshold = threshold
+    model.model_config["ec_threshold"] = threshold
+    return threshold
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def cuda_ms(fn, *, reps: int = 5, rounds: int = 5) -> float:
@@ -129,26 +194,30 @@ def host_ms(fn, *, rounds: int = 5) -> float:
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the port's three kernel call sites to their plain versions."""
-    from gnn_tracking_tpu_torch.models import interaction_network
-    from gnn_tracking_tpu_torch.ops import cc, knn
+    """Route the port's kernel call sites to their plain versions: the
+    fused relational forward and backward (which hold the sorted segment-sum
+    and gather launches), the top-k filter and connected components."""
+    from gnn_tracking_tpu_torch.ops import cc, fused_relational, knn
     from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors_plain
-    from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational_plain
     from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain
 
     saved = (
-        interaction_network.fused_relational_fwd, knn.pairwise_topk_filter, cc.cc_neighbors
+        fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
+        knn.pairwise_topk_filter, cc.cc_neighbors,
     )
-    interaction_network.fused_relational_fwd = (
-        lambda *a, rowptr=None, **kw: fused_relational_plain(*a, **kw)
+    fused_relational.fused_relational_fwd = (
+        lambda *a, rowptr=None, **kw: fused_relational.fused_relational_plain(*a, **kw)
+    )
+    fused_relational.fused_relational_bwd = (
+        lambda *a, **kw: fused_relational.fused_relational_bwd_plain(*a[:7], **kw)
     )
     knn.pairwise_topk_filter = pairwise_topk_filter_plain
     cc.cc_neighbors = cc_neighbors_plain
     try:
         yield
     finally:
-        (interaction_network.fused_relational_fwd, knn.pairwise_topk_filter,
-         cc.cc_neighbors) = saved
+        (fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
+         knn.pairwise_topk_filter, cc.cc_neighbors) = saved
 
 
 def compare_topk(kd, ki, pd, pi, boundary2):
@@ -186,15 +255,17 @@ def compare_topk(kd, ki, pd, pi, boundary2):
     return err, n_boundary, n_tie
 
 
-def profile_serving(predictor, indir, outdir):
-    """``torch.profiler`` over one ``predict_dir``: device time by kernel
-    name, and the device's busy and idle share of the loop's wall time.
-    The Chrome trace goes to ``chiprun_out/serving_trace.json``."""
+def profile_run(fn, name: str):
+    """``torch.profiler`` over ``fn()``: device time by kernel name, and the
+    device's busy and idle share of the wall time. The Chrome trace goes to
+    ``<name>_trace.json`` in the output directory beside this script."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predictor.predict_dir(indir, outdir)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
 
@@ -218,11 +289,292 @@ def profile_serving(predictor, indir, outdir):
         sort_by="self_device_time_total", row_limit=20, max_name_column_width=60))
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "serving_trace.json"))
-    log("profile: " + json.dumps({
+    prof.export_chrome_trace(str(out / f"{name}_trace.json"))
+    log(f"profile {name}: " + json.dumps({
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms, "device_idle_share": 1 - device_ms / wall_ms,
     }))
+
+
+def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
+    """Rows #2, #9 and #10 at the HC layer's shapes, each against its plain
+    version on the card; rows #2 and #9 must repeat bit for bit."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import csr_segment
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    dev = g.x.device
+    csr = g.csr()
+    rowptr, dst = csr["dst_rowptr"], g.edge_index[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    results = []
+    with torch.no_grad():
+        # HC layer 1: relu'd node encodings, raw edge encodings (so that the
+        # in-kernel ReLU of relu_edge has negative inputs to cut)
+        x = torch.relu(tcn.hc_node_encoder(g.x)).contiguous()
+        ea = tcn.hc_edge_encoder(g.edge_attr).contiguous()
+        weights = {k: v.detach() for k, v in tcn.hc_in.layers[1].relational_weights().items()}
+        mask = torch.from_numpy(np.random.default_rng(seed + 3).random(N_EDGES) < 0.8).to(dev)
+        fo = weights["w3"].shape[0]
+        g_e = torch.randn((N_EDGES, fo), generator=gen, device=dev)
+        g_a = torch.randn((N_NODES, fo), generator=gen, device=dev)
+        args = (x, ea, g.edge_index, mask, weights, g_e, g_a)
+        args64 = (x.double(), ea.double(), g.edge_index, mask,
+                  {k: v.double() for k, v in weights.items()}, g_e.double(), g_a.double())
+
+        def named(out):
+            return {"g_x": out[0], "g_edge_attr": out[1], **out[2]}
+
+        err2 = 0.0
+        for relu_edge in (False, True):
+            k_out = named(fr.fused_relational_bwd(*args, csr, relu_edge=relu_edge))
+            k_again = named(fr.fused_relational_bwd(*args, csr, relu_edge=relu_edge))
+            p_out = named(fr.fused_relational_bwd_plain(*args, relu_edge=relu_edge))
+            r_out = named(fr.fused_relational_bwd_plain(*args64, relu_edge=relu_edge))
+            torch.cuda.synchronize()
+            worst = []
+            for name, kt in k_out.items():
+                assert torch.equal(kt, k_again[name]), f"fused_relational_bwd {name}: second launch differs"
+                ek = (kt.double() - r_out[name]).abs().max().item()
+                ep = (p_out[name].double() - r_out[name]).abs().max().item()
+                assert math.isfinite(ek) and ek <= 4 * ep, (
+                    f"fused_relational_bwd {name} relu_edge={relu_edge}: kernel err {ek:.3e} "
+                    f"> 4 x plain f32 err {ep:.3e} (against float64)")
+                worst.append(f"{name} {ek:.2e}/{ep:.2e}")
+                err2 = max(err2, ek)
+            log(f"  fused_relational_bwd relu_edge={relu_edge}: max|err| vs float64, kernel/plain f32: "
+                + ", ".join(worst))
+        ms2 = cuda_ms(lambda: fr.fused_relational_bwd(*args, csr))
+        plain2 = cuda_ms(lambda: fr.fused_relational_bwd_plain(*args))
+        fx, fe, hid = x.shape[1], ea.shape[1], weights["w2"].shape[0]
+        n_valid = int(mask.sum())
+        flops2 = 3 * 2.0 * n_valid * ((2 * fx + fe) * hid + hid * hid + hid * fo)
+        outs2 = named(fr.fused_relational_bwd(*args, csr))
+        bytes2 = nbytes(*args[:4], *weights.values(), g_e, g_a, *csr.values(), *outs2.values())
+        bound2, by2 = bound(flops2, bytes2)
+        results.append({"name": "fused_relational_bwd", "max_abs_err": err2, "ms": ms2,
+                        "plain_ms": plain2, "bound_ms": bound2, "bound_by": by2, "library_ms": None})
+        log(f"kernel fused_relational_bwd: OK (each output within 4x the plain f32 error against "
+            f"float64, repeat bitwise); {ms2:.3f} ms (plain {plain2:.3f} ms, bound {bound2:.4f} ms, "
+            f"{flops2 / 1e9:.1f} GFLOP f32 at {n_valid} unmasked edges)")
+
+        # row #9: target side (contiguous rows) and source side (through src_perm)
+        msgs = torch.randn((N_EDGES, fo), generator=gen, device=dev)
+        k9 = csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr)
+        k9b = csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr)
+        p9 = csr_segment.sorted_segment_sum_plain(msgs, dst, N_NODES)
+        k9s = csr_segment.segment_sum_csr(msgs, csr["src_rowptr"], perm=csr["src_perm"])
+        p9s = csr_segment.sorted_segment_sum_plain(msgs, g.edge_index[0], N_NODES)
+        offsets = rowptr.long()
+        lib9_out = torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True)
+        torch.cuda.synchronize()
+        assert torch.equal(k9, k9b), "sorted_segment_sum: second launch differs"
+        err9 = (k9 - p9).abs().max().item()
+        lim9 = 1e-6 * p9.abs().max().item()
+        assert err9 <= lim9, f"sorted_segment_sum: {err9} > {lim9}"
+        # the source side has segments of ~4000 edges (the generator clips
+        # sources at nodes 0 and N-1), where f32 sums in any order miss by
+        # more than 1e-6 of the largest sum: hold each node to the bound of
+        # recursive summation against float64, (count - 1) * 2^-24 * sum |m|
+        src_long = g.edge_index[0].long()
+        ref9s = torch.zeros((N_NODES, fo), dtype=torch.float64, device=dev).index_add_(
+            0, src_long, msgs.double())
+        abs9s = torch.zeros_like(ref9s).index_add_(0, src_long, msgs.double().abs())
+        count = torch.bincount(src_long, minlength=N_NODES).double()[:, None]
+        slack = (k9s.double() - ref9s).abs() - (count - 1).clamp(min=0) * 2.0**-24 * abs9s
+        assert slack.max().item() <= 0, f"sorted_segment_sum (source side): beyond the bound by {slack.max().item()}"
+        err9s = (k9s - p9s).abs().max().item()
+        ms9 = cuda_ms(lambda: csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr))
+        ms9s = cuda_ms(lambda: csr_segment.segment_sum_csr(
+            msgs, csr["src_rowptr"], perm=csr["src_perm"]))
+        plain9 = cuda_ms(lambda: csr_segment.sorted_segment_sum_plain(msgs, dst, N_NODES))
+        lib9 = cuda_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True))
+        bound9, by9 = bound(float(N_EDGES * fo), nbytes(msgs, rowptr, p9))
+        results.append({"name": "sorted_segment_sum", "max_abs_err": max(err9, err9s), "ms": ms9,
+                        "plain_ms": plain9, "bound_ms": bound9, "bound_by": by9, "library_ms": lib9})
+        log(f"kernel sorted_segment_sum: OK max|err| {err9:.3e} (source side through src_perm "
+            f"{err9s:.3e}), repeat bitwise; {ms9:.4f} ms (source side, random row reads: "
+            f"{ms9s:.4f} ms; plain {plain9:.4f} ms; torch.segment_reduce {lib9:.4f} ms, "
+            f"max|diff| {(lib9_out - p9).abs().max().item():.3e}; bound {bound9:.4f} ms)")
+
+        # row #10
+        vals = torch.randn((N_NODES, fo), generator=gen, device=dev)
+        k10 = csr_segment.sorted_gather(vals, dst, rowptr=rowptr)
+        p10 = csr_segment.sorted_gather_plain(vals, dst)
+        torch.cuda.synchronize()
+        assert torch.equal(k10, p10), "sorted_gather differs from index_select"
+        ms10 = cuda_ms(lambda: csr_segment.sorted_gather(vals, dst, rowptr=rowptr))
+        plain10 = cuda_ms(lambda: csr_segment.sorted_gather_plain(vals, dst))
+        lib10 = cuda_ms(lambda: torch.index_select(vals, 0, dst))
+        bound10, by10 = bound(0.0, nbytes(vals, dst, p10))
+        results.append({"name": "sorted_gather", "max_abs_err": 0.0, "ms": ms10,
+                        "plain_ms": plain10, "bound_ms": bound10, "bound_by": by10,
+                        "library_ms": lib10})
+        log(f"kernel sorted_gather: OK bitwise equal to index_select; {ms10:.4f} ms (plain "
+            f"{plain10:.4f} ms, torch.index_select {lib10:.4f} ms, bound {bound10:.4f} ms)")
+    return results
+
+
+def training_path(seed: int, steps: int, counters: dict, profile: bool) -> tuple[dict, dict]:
+    """The GraphTCN training step at full width: step 0's gradients against
+    the plain path on this card, then ``steps`` timed steps. Returns the
+    summary and the kernel launches over the timed steps."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.oc import CondensationLossTiger
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.training.module import TCModule
+
+    dev = torch.device("cuda")
+    g = EventGraph.from_arrays(**make_train_event(seed + 5)).sort_edges_by_target().to(dev)
+    model = GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 2))
+    module = TCModule(model=model, loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+    module.setup_params(g)
+    threshold = calibrate_ec_threshold(model, g)
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out = model(g)
+        loss, _ = module.get_losses(out, g)
+        loss.backward()
+        loss = loss.detach()
+        grads = {n: None if p.grad is None else p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, out["ec_edge_mask"].detach().clone(), loss.item()
+
+    for fn in counters.values():
+        fn.launches = 0
+    gk, mk, lk = step0()
+    step0_launches = {name: fn.launches for name, fn in counters.items()}
+    with plain_path():
+        gp, mp, lp = step0()
+    n_cut_diff = int((mk != mp).sum())
+    no_grad = [n for n in gp if gp[n] is None]
+    # Per tensor, |g_kernel - g_plain| <= 1e-4 |g_plain|, plus a floor of
+    # 1e-7 of the whole gradient's norm: the exact gradient of the latent's
+    # output bias is zero (the loss sees differences of H only), so its
+    # computed value is rounding noise, and noise has no relative error.
+    total = math.sqrt(sum(gp[n].square().sum().item() for n in gp if gp[n] is not None))
+    worst_name, worst, at_floor = None, 0.0, []
+    for name in gk:
+        if gp[name] is None:
+            assert gk[name] is None, f"{name}: a gradient through the kernels only"
+            continue
+        assert gk[name] is not None, f"{name}: no gradient through the kernels"
+        assert torch.isfinite(gk[name]).all(), f"{name}: non-finite gradient"
+        diff = (gk[name] - gp[name]).norm().item()
+        ref = gp[name].norm().item()
+        assert diff <= 1e-4 * ref + 1e-7 * total, (
+            f"{name}: |g_kernel - g_plain| {diff:.3e} > 1e-4 x {ref:.3e} + 1e-7 x {total:.3e}")
+        if diff > 1e-4 * ref:
+            at_floor.append(f"{name} ({ref:.1e})")
+        elif ref > 0 and diff / ref >= worst:
+            worst_name, worst = name, diff / ref
+    assert no_grad and all(n.startswith("ec.") for n in no_grad), no_grad
+    assert all(step0_launches[k] > 0 for k in step0_launches), step0_launches
+    log(f"training step 0: loss {lk:.6f} (plain {lp:.6f}); {len(gk) - len(no_grad)} parameter "
+        f"gradients agree with the plain path (worst {worst_name}: {worst:.3e} relative; within "
+        f"the floor of 1e-7 x {total:.3e} only: {at_floor or 'none'}); "
+        f"{len(no_grad)} EC parameters without gradient in both; EC cut at {threshold:.6f} keeps "
+        f"{int(mk.sum())} of {int(mk.numel())} edges; mask entries that differ between the "
+        f"paths: {n_cut_diff}")
+
+    for _ in range(2):
+        module.training_step(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = module.training_step(g)
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        assert n > 0, f"training path never launched {name}"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+
+    def split_once():
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.train()
+        out = model(g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        loss, _ = module.get_losses(out, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        module.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        module.optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip([t, *times[:-1]], times)]
+
+    splits = [split_once() for _ in range(5)]
+    split = {k: statistics.median(s[i] for s in splits)
+             for i, k in enumerate(("forward_ms", "loss_ms", "backward_ms", "optimizer_ms"))}
+    summary = {
+        "steps": steps, "steps_per_s": steps / dt, "step_ms": dt / steps * 1e3, **split,
+        "peak_mem_gib": peak, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "total": metrics["total"],
+    }
+    log("training: " + json.dumps(summary))
+    if profile:
+        profile_run(lambda: [module.training_step(g) for _ in range(3)], "training")
+    return summary, launches
+
+
+def fit_and_serve(seed: int, tmp: Path) -> None:
+    """``Trainer.fit`` for one epoch over 4 npz events with an EMA of the
+    weights, then serve one event from the epoch checkpoint; the labels must
+    equal the plain path's."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.inference import TrackingPredictor
+    from gnn_tracking_tpu_torch.losses.oc import CondensationLossTiger
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.training.module import TCModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, load_graph, save_graph
+
+    train_dir = tmp / "train"
+    train_dir.mkdir()
+    for i in range(4):
+        save_graph(EventGraph.from_arrays(**make_train_event(seed + 60 + i)), train_dir / f"ev{i:02d}.npz")
+    model = GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 4))
+    module = TCModule(model=model, loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+    calibrate_ec_threshold(model, load_graph(train_dir / "ev00.npz", device="cuda").sort_edges_by_target())
+    dm = TrackingDataModule(train={"dirs": [train_dir]}, val={"dirs": [train_dir], "stop": 1}, seed=seed)
+    trainer = Trainer(max_epochs=1, log_dir=tmp / "runs", name="smoke", ema_decay=0.998,
+                      print_validation_results=False)
+    t0 = time.perf_counter()
+    val = trainer.fit(module, dm)
+    fit_s = time.perf_counter() - t0
+    assert module.step == 4 and len(trainer.checkpoints) == 1, (module.step, trainer.checkpoints)
+    assert math.isfinite(val["total"]), val
+    params = dict(model.named_parameters())
+    assert any(not torch.equal(e, params[k]) for k, e in trainer.ema_params.items()), "EMA == raw"
+    predictor = TrackingPredictor(trainer.checkpoints[-1], eps=EPS, min_samples=MIN_SAMPLES,
+                                  max_num_neighbors=CAP, device="cuda")
+    graph = load_graph(train_dir / "ev00.npz", device="cpu")
+    got = predictor.predict(graph)
+    with plain_path():
+        want = predictor.predict(graph)
+    assert np.array_equal(got["labels"], want["labels"]), "checkpoint labels differ from the plain path"
+    assert np.isfinite(got["beta"]).all() and got["labels"].shape == (N_NODES,)
+    log(f"Trainer.fit: {module.step} steps in {fit_s:.1f} s (EMA 0.998, validation on the EMA "
+        f"weights: total {val['total']:.6f}); {trainer.checkpoints[-1].name} served on the card, "
+        f"labels equal to the plain path's ({int(got['labels'].max()) + 1} clusters)")
 
 
 def main(argv=None) -> int:
@@ -231,11 +583,15 @@ def main(argv=None) -> int:
     p.add_argument("--events", type=int, default=32,
                    help="events served; the first is warm-up, and the rest's "
                    "events/s includes the loop's fill and drain")
+    p.add_argument("--train-steps", type=int, default=10,
+                   help="timed training steps (after 2 warm-up steps)")
     p.add_argument("--profile", action="store_true",
-                   help="also trace one predict_dir with torch.profiler")
+                   help="also trace one predict_dir and 3 training steps with torch.profiler")
     args = p.parse_args(argv)
     if args.events < 3:
         p.error("--events must be at least 3")
+    if args.train_steps < 1:
+        p.error("--train-steps must be at least 1")
 
     import torch
 
@@ -254,7 +610,7 @@ def main(argv=None) -> int:
     from gnn_tracking_tpu_torch.graphs import EventGraph
     from gnn_tracking_tpu_torch.inference import TrackingPredictor
     from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
-    from gnn_tracking_tpu_torch.ops import cc_kernel, fused_relational, pairwise_topk
+    from gnn_tracking_tpu_torch.ops import cc_kernel, csr_segment, fused_relational, pairwise_topk
     from gnn_tracking_tpu_torch.ops.dbscan import dbscan_from_graph
     from gnn_tracking_tpu_torch.ops.knn import radius_graph
     from gnn_tracking_tpu_torch.utils.loading import load_graph, save_graph
@@ -353,7 +709,7 @@ def main(argv=None) -> int:
         bound1 = max(flops1 / PEAK_F32_FLOPS, bytes1 / PEAK_BYTES_PER_S) * 1e3
         results.append({
             "name": "fused_relational_fwd", "max_abs_err": err1, "ms": ms1, "plain_ms": plain1,
-            "bound_ms": bound1,
+            "bound_ms": bound1, "library_ms": None,
             "bound_by": "operations" if flops1 / PEAK_F32_FLOPS >= bytes1 / PEAK_BYTES_PER_S else "bytes",
         })
         log(f"kernel fused_relational_fwd: OK max|err| {err1:.3e}; {ms1:.3f} ms (plain {plain1:.3f} ms, "
@@ -379,7 +735,7 @@ def main(argv=None) -> int:
         bound2 = max(flops2 / PEAK_F32_FLOPS, bytes2 / PEAK_BYTES_PER_S) * 1e3
         results.append({
             "name": "pairwise_topk_filter", "max_abs_err": max(err2, err2n), "ms": ms2, "plain_ms": plain2,
-            "bound_ms": bound2,
+            "bound_ms": bound2, "library_ms": None,
             "bound_by": "operations" if flops2 / PEAK_F32_FLOPS >= bytes2 / PEAK_BYTES_PER_S else "bytes",
         })
         log(f"kernel pairwise_topk_filter: OK radius mode max|err| {err2:.3e} ({filled} filled slots, "
@@ -405,10 +761,11 @@ def main(argv=None) -> int:
         bound3 = bytes3 / PEAK_BYTES_PER_S * 1e3
         results.append({
             "name": "cc_neighbors", "max_abs_err": float(n_diff), "ms": ms3, "plain_ms": plain3,
-            "bound_ms": bound3, "bound_by": "bytes",
+            "bound_ms": bound3, "bound_by": "bytes", "library_ms": None,
         })
         log(f"kernel cc_neighbors: OK labels identical ({len(torch.unique(k_lab))} components, "
             f"{sweeps} sweeps); {ms3:.3f} ms (plain {plain3:.3f} ms, bound {bound3:.4f} ms)")
+    results += training_kernel_phases(model.tcn, g0, args.seed)
 
     # ---- 4. main path -------------------------------------------------------
     counters = {
@@ -416,17 +773,22 @@ def main(argv=None) -> int:
         "pairwise_topk_filter": pairwise_topk.pairwise_topk_filter,
         "cc_neighbors": cc_kernel.cc_neighbors,
     }
+    serving_extra = {"sorted_segment_sum": csr_segment.sorted_segment_sum}
     predictor = TrackingPredictor(model, eps=EPS, min_samples=MIN_SAMPLES, max_num_neighbors=CAP, device="cuda")
-    for fn in counters.values():
+    for fn in (*counters.values(), *serving_extra.values()):
         fn.launches = 0
     stats = predictor.predict_dir(indir, outdir)
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, n in launches.items():
         assert n > 0, f"main path never launched {name}"
     for r in results:
-        r["launches"] = launches[r["name"]]
-    log(f"main path: {stats['n_events']} events, launches {launches}")
+        if r["name"] in launches:
+            r["launches"] = launches[r["name"]]
+    log(f"main path: {stats['n_events']} events, launches {launches}, and "
+        f"{serving_extra['sorted_segment_sum'].launches} of sorted_segment_sum (the forward's aggregation)")
     for r in results:
+        if r["name"] not in launches:
+            continue
         log(f"  {r['name']}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}), {r['launches']} launches "
             f"in {stats['n_events']} events")
@@ -478,15 +840,33 @@ def main(argv=None) -> int:
     log("serving: " + json.dumps(serving))
     assert math.isfinite(stats["events_per_s"]) and stats["events_per_s"] > 0
     if args.profile:
-        profile_serving(predictor, indir, tmp / "profiled")
+        profile_run(lambda: predictor.predict_dir(indir, tmp / "profiled"), "serving")
 
-    # ---- 5. results -------------------------------------------------------
+    # ---- 5. training path -------------------------------------------------
+    train_counters = {
+        "fused_relational_fwd": fused_relational.fused_relational_fwd,
+        "fused_relational_bwd": fused_relational.fused_relational_bwd,
+        "sorted_segment_sum": csr_segment.sorted_segment_sum,
+        "sorted_gather": csr_segment.sorted_gather,
+    }
+    training, train_launches = training_path(args.seed, args.train_steps, train_counters, args.profile)
+    for r in results:
+        if r["name"] not in launches:
+            r["launches"] = train_launches[r["name"]]
+            log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
+                f"{r['launches']} launches in {training['steps']} training steps")
+
+    # ---- 6. Trainer.fit, then serve its checkpoint ---------------------------
+    fit_and_serve(args.seed, tmp)
+
+    # ---- 7. results -------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": TPU_KERNELS[r["name"]], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         }
         for r in results
     ]

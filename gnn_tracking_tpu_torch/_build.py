@@ -22,7 +22,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_relational", "pairwise_topk", "cc_neighbors")
+SOURCES = ("fused_relational", "csr_segment", "pairwise_topk", "cc_neighbors")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,27 +1,47 @@
-// Fused interaction-network edge pipeline, forward, for Hopper (sm_90a).
+// Fused interaction-network edge pipeline, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel gnn_tracking_tpu/ops/pallas/fused_relational.py::fused_relational
-// (forward, _fwd_kernel): for every edge (src -> dst)
+// Replaces the TPU kernels gnn_tracking_tpu/ops/pallas/fused_relational.py::fused_relational:
+// the forward (_fwd_kernel) and the backward (_bwd_kernel). For every edge (src -> dst)
 //     e' = mask * ( relu( relu([x_dst, x_src, ea] W1 + b1) W2 + b2 ) W3 + b3 )
-// and agg[i] = sum of e' over the edges whose target is i. Masked edges come out as exact
-// zeros and add nothing. With relu_edge the incoming edge features pass through a ReLU first.
+// Masked edges come out as exact zeros. With relu_edge the incoming edge features pass through a
+// ReLU first. The aggregation agg[i] = sum of e' over the edges whose target is i is the sorted
+// segment-sum kernel of csr_segment.cu, launched by the wrapper after this file's edge kernel.
 //
-// What bounds it on this card: arithmetic. Per edge the MLP costs 2 (K H + H H + H Fo) flops
-// (K = 2 Fx + Fe); at the serving shapes (K = 96, H = 128, Fo = 32, E = 262144) that is
-// 17.2 GFLOP per layer against ~37 MB of compulsory traffic (x, edge features, indices, e', agg),
-// some 460 flop per byte, far above the card's f32 ridge point.
+// What bounds them on this card: arithmetic. Per edge the forward MLP costs 2 (K H + H H + H Fo)
+// flops (K = 2 Fx + Fe); at the serving shapes (K = 96, H = 128, Fo = 32, E = 262144) that is
+// 17.2 GFLOP per layer against ~37 MB of compulsory traffic, some 460 flop per byte, far above the
+// card's f32 ridge point. The backward does three times the forward's MLP work (recompute of the
+// two hidden layers, input gradients, weight gradients): 51.5 GFLOP at all 262,144 edges.
 //
-// Design (simple and exact first; tensor cores are later work):
+// Forward design (simple and exact first; tensor cores are later work):
 //  * f32 FMA on the CUDA cores, persistent blocks (as many as fit, one per SM at these widths);
 //  * each block stages W1, W2, W3 and the biases ONCE into shared memory, transposed to
 //    [in][out] so that a warp reads consecutive outputs of one input row as float4;
 //  * edges are processed in tiles of TE = 32: the tile's gathered inputs [x_dst, x_src, ea]
 //    and both hidden activations live in shared memory only; each thread of a hidden layer owns
 //    a 4-edge x 4-output register tile (16 FMA per 4 broadcast loads + 1 float4 load);
-//  * the output layer writes e' straight to device memory, masked;
-//  * aggregation: edges arrive sorted by target with a CSR row pointer (built once per event by
-//    EventGraph.sort_edges_by_target), and a second kernel sums each node's contiguous rows of
-//    e' in edge order. No atomics: the result is bitwise deterministic.
+//  * the output layer writes e' straight to device memory, masked.
+//
+// Backward design. It needs every weight in both orientations (W for the recompute, W^T for the
+// input gradients) and somewhere to sum 33k weight-gradient values, which together exceed one
+// block's 227 KB. So:
+//  * the weights are staged ONCE in PyTorch's [out][in] layout with rows padded to an odd stride
+//    (130 KB at the serving widths). A thread owns outputs strided by a quarter of the width, so
+//    a warp reads consecutive rows (recompute: contraction along a row) or consecutive columns
+//    (input gradients: contraction down a column) without bank conflicts, both with scalar loads;
+//  * per tile of TE = 32 edges, everything lives in shared memory (65 KB): the gathered input,
+//    h1, h2 (then g_h1), g_h2 and g_et = mask * (g_e' + g_agg[dst]). The recompute repeats the
+//    forward's FMA order, so it gives the forward's activations bit for bit. Nothing of the
+//    forward is saved between the passes, as in the TPU kernel;
+//  * weight gradients: each block adds its tiles' sums (each tile's from 0) into its own slice
+//    of a [blocks, P] partial buffer in device memory (L2-resident, 17 MB at 132 blocks). Each
+//    entry belongs to one thread for the whole launch (a 4 x 4 register tile per 32-edge step), so
+//    the read-modify-write needs no atomics and no barrier. A second kernel sums the partials over
+//    blocks in block order: three levels of summation (tile, block, grid), not one long chain;
+//  * node gradients: the kernel writes the per-edge dst and src parts of the input gradient; the
+//    wrapper sums them per node with csr_segment.cu's segment-sum, in target order and in
+//    source order (through src_perm), in edge order within each node;
+//  * so there are no float atomics anywhere: two launches on the same inputs give the same bits.
 // The TPU's slab windows, one-hot MXU gathers and 8-sublane index tiles are not carried over.
 
 #include <cuda_runtime.h>
@@ -174,17 +194,309 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   }
 }
 
-// agg[i][f] = sum over e in [rowptr[i], rowptr[i+1]) of e_out[e][f], in edge order.
-__global__ void csr_rows_sum_kernel(const float* __restrict__ e_out,
-                                    const int* __restrict__ rowptr, int n, int fo,
-                                    float* __restrict__ agg) {
+// ------------------------------------------------------------------ backward
+__host__ __device__ inline int odd_ld(int n) { return n | 1; }
+
+__host__ __device__ inline long bwd_smem_floats(int k, int h, int fo) {
+  const long ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
+  const long weights = h * ldk + h * ldh + fo * ldh + 2L * h;
+  const long tiles = TE * (ldk + 3 * ldh + ldo);
+  return weights + tiles;
+}
+
+// weight-gradient values, packed as w1 [h][k], b1 [h], w2 [h][h], b2 [h], w3 [fo][h], b3 [fo]
+__host__ __device__ inline long grad_floats(int k, int h, int fo) {
+  return (long)h * k + h + (long)h * h + h + (long)fo * h + fo;
+}
+
+// out[e][j] = relu(sum_k in[e][k] w[j][k] + b[j]) for j < m (m % 4 == 0); w is [m][ldw].
+// Same FMA order as dense_smem, so the same bits as the forward's activations.
+__device__ __forceinline__ void recompute_layer(const float* __restrict__ in, int ld_in, int kin,
+                                                const float* __restrict__ w, int ldw,
+                                                const float* __restrict__ b, int m,
+                                                float* __restrict__ out, int ld_out) {
+  const int groups = m / 4;
+  const int units = (TE / 4) * groups;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int jg = u % groups;
+    const int e0 = (u / groups) * 4;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    }
+    for (int kk = 0; kk < kin; ++kk) {
+      float a[4], wv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = in[(e0 + r) * ld_in + kk];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wv[c] = w[(jg + groups * c) * ldw + kk];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], wv[c], acc[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = jg + groups * c;
+        out[(e0 + r) * ld_out + j] = fmaxf(acc[r][c] + b[j], 0.f);
+      }
+    }
+  }
+}
+
+// v[e][i] = sum_j g[e][j] w[j][i] for i < kin (contraction down the columns of w [m][ldw]),
+// zeroed where act[e][i] <= 0 when act is given; store(e, i, v) writes it.
+template <typename Store>
+__device__ __forceinline__ void backprop_layer(const float* __restrict__ g, int ld_g, int m,
+                                               const float* __restrict__ w, int ldw, int kin,
+                                               const float* __restrict__ act, int ld_act,
+                                               Store store) {
+  const int groups = (kin + 3) / 4;
+  const int units = (TE / 4) * groups;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ig = u % groups;
+    const int e0 = (u / groups) * 4;
+    int col[4];
+    bool ok[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      col[c] = ig + groups * c;
+      ok[c] = col[c] < kin;
+      if (!ok[c]) col[c] = 0;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+    }
+    for (int j = 0; j < m; ++j) {
+      float a[4], wv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = g[(e0 + r) * ld_g + j];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wv[c] = w[j * ldw + col[c]];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], wv[c], acc[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (!ok[c]) continue;
+        float v = acc[r][c];
+        if (act != nullptr && !(act[(e0 + r) * ld_act + col[c]] > 0.f)) v = 0.f;
+        store(e0 + r, col[c], v);
+      }
+    }
+  }
+}
+
+// part_w[j][i] (+)= sum_e g[e][j] a[e][i] (j < m, i < kin), part_b[j] (+)= sum_e g[e][j], over the
+// tile's TE rows; `first` starts from zero. Each tile's sum starts from 0 and is then added to the
+// partial (two-level summation: a block's ~2000 edges do not run through one accumulator). The
+// entries a thread touches depend on threadIdx only.
+__device__ __forceinline__ void weight_grad(const float* __restrict__ g, int ld_g, int m,
+                                            const float* __restrict__ a, int ld_a, int kin,
+                                            float* __restrict__ part_w,
+                                            float* __restrict__ part_b, bool first) {
+  const int ign = (kin + 3) / 4;
+  const int jgn = m / 4;
+  const int units = ign * jgn;
+  for (int u = threadIdx.x; u < units; u += blockDim.x) {
+    const int ig = u % ign;
+    const int jg = u / ign;
+    int col[4];
+    bool ok[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      col[c] = ig + ign * c;
+      ok[c] = col[c] < kin;
+      if (!ok[c]) col[c] = 0;
+    }
+    // the partial is read before the tile's FMAs, so its latency hides behind them
+    float acc[4][4], prev[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][c] = 0.f;
+        prev[r][c] = (first || !ok[c]) ? 0.f : part_w[(long)(jg + jgn * r) * kin + col[c]];
+      }
+    }
+    for (int e = 0; e < TE; ++e) {
+      float gv[4], av[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) gv[r] = g[e * ld_g + jg + jgn * r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) av[c] = a[e * ld_a + col[c]];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(gv[r], av[c], acc[r][c]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (ok[c]) part_w[(long)(jg + jgn * r) * kin + col[c]] = first ? acc[r][c] : prev[r][c] + acc[r][c];
+      }
+    }
+  }
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    float s = 0.f;
+    for (int e = 0; e < TE; ++e) s += g[e * ld_g + j];
+    part_b[j] = first ? s : part_b[j] + s;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
+                    const int* __restrict__ src, const int* __restrict__ dst,
+                    const uint8_t* __restrict__ mask,
+                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    const float* __restrict__ w3,
+                    const float* __restrict__ g_eout, const float* __restrict__ g_agg_e,
+                    float* __restrict__ g_xd, float* __restrict__ g_xs,
+                    float* __restrict__ g_ea, float* __restrict__ partial, int n_edges, int fx,
+                    int fe, int h, int fo, int relu_edge) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int k = 2 * fx + fe;
+  const int ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
+  float* sw1 = smem;             // [h][ldk]   W1 as [out][in]
+  float* sw2 = sw1 + h * ldk;    // [h][ldh]
+  float* sw3 = sw2 + h * ldh;    // [fo][ldh]
+  float* sb1 = sw3 + fo * ldh;   // [h]
+  float* sb2 = sb1 + h;          // [h]
+  float* bm = sb2 + h;           // [TE][ldk]  gathered [x_dst, x_src, ea]
+  float* bh1 = bm + TE * ldk;    // [TE][ldh]  h1
+  float* bh2 = bh1 + TE * ldh;   // [TE][ldh]  h2, then g_h1
+  float* bgh2 = bh2 + TE * ldh;  // [TE][ldh]  g_h2
+  float* bget = bgh2 + TE * ldh; // [TE][ldo]  g_et
+
+  for (int i = threadIdx.x; i < h * k; i += blockDim.x) sw1[(i / k) * ldk + i % k] = w1[i];
+  for (int i = threadIdx.x; i < h * h; i += blockDim.x) sw2[(i / h) * ldh + i % h] = w2[i];
+  for (int i = threadIdx.x; i < fo * h; i += blockDim.x) sw3[(i / h) * ldh + i % h] = w3[i];
+  for (int i = threadIdx.x; i < h; i += blockDim.x) {
+    sb1[i] = b1[i];
+    sb2[i] = b2[i];
+  }
+
+  float* pw1 = partial + (long)blockIdx.x * grad_floats(k, h, fo);
+  float* pb1 = pw1 + (long)h * k;
+  float* pw2 = pb1 + h;
+  float* pb2 = pw2 + (long)h * h;
+  float* pw3 = pb2 + h;
+  float* pb3 = pw3 + (long)fo * h;
+
+  const int n_tiles = (n_edges + TE - 1) / TE;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long t0 = (long)tile * TE;
+    const bool first = tile == (int)blockIdx.x;
+    __syncthreads();  // weights staged / previous tile's buffers consumed
+    for (int i = threadIdx.x; i < TE * k; i += blockDim.x) {
+      const int e = i / k;
+      const int c = i % k;
+      const long edge = t0 + e;
+      float v = 0.f;
+      if (edge < n_edges) {
+        if (c < fx) {
+          v = x[(long)dst[edge] * fx + c];
+        } else if (c < 2 * fx) {
+          v = x[(long)src[edge] * fx + (c - fx)];
+        } else {
+          v = ea[edge * fe + (c - 2 * fx)];
+          if (relu_edge) v = fmaxf(v, 0.f);
+        }
+      }
+      bm[e * ldk + c] = v;
+    }
+    // g_et = mask * (g_e' + g_agg[dst]); zero past the last edge
+    for (int i = threadIdx.x; i < TE * fo; i += blockDim.x) {
+      const int e = i / fo;
+      const int c = i % fo;
+      const long edge = t0 + e;
+      float v = 0.f;
+      if (edge < n_edges && mask[edge]) v = g_eout[edge * fo + c] + g_agg_e[edge * fo + c];
+      bget[e * ldo + c] = v;
+    }
+    __syncthreads();
+    recompute_layer(bm, ldk, k, sw1, ldk, sb1, h, bh1, ldh);
+    __syncthreads();
+    recompute_layer(bh1, ldh, h, sw2, ldh, sb2, h, bh2, ldh);
+    __syncthreads();
+    // g_h2 = (g_et W3) * (h2 > 0); dW3 += g_et^T h2
+    backprop_layer(bget, ldo, fo, sw3, ldh, h, bh2, ldh,
+                   [&](int e, int i, float v) { bgh2[e * ldh + i] = v; });
+    weight_grad(bget, ldo, fo, bh2, ldh, h, pw3, pb3, first);
+    __syncthreads();
+    // g_h1 = (g_h2 W2) * (h1 > 0) over h2's buffer; dW2 += g_h2^T h1
+    backprop_layer(bgh2, ldh, h, sw2, ldh, h, bh1, ldh,
+                   [&](int e, int i, float v) { bh2[e * ldh + i] = v; });
+    weight_grad(bgh2, ldh, h, bh1, ldh, h, pw2, pb2, first);
+    __syncthreads();
+    // g_m = g_h1 W1, split into the dst, src and edge blocks; dW1 += g_h1^T m
+    backprop_layer(bh2, ldh, h, sw1, ldk, k, nullptr, 0, [&](int e, int i, float v) {
+      const long edge = t0 + e;
+      if (edge >= n_edges) return;
+      if (i < fx) {
+        g_xd[edge * fx + i] = v;
+      } else if (i < 2 * fx) {
+        g_xs[edge * fx + (i - fx)] = v;
+      } else {
+        if (relu_edge && !(bm[e * ldk + i] > 0.f)) v = 0.f;
+        g_ea[edge * fe + (i - 2 * fx)] = v;
+      }
+    });
+    weight_grad(bh2, ldh, h, bm, ldk, k, pw1, pb1, first);
+  }
+}
+
+// out[i] = sum over b < blocks of partial[b][i], in block order
+__global__ void __launch_bounds__(THREADS)
+sum_partials_kernel(const float* __restrict__ partial, int blocks, long p,
+                    float* __restrict__ out) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (long)n * fo) return;
-  const int node = (int)(i / fo);
-  const int f = (int)(i % fo);
+  if (i >= p) return;
   float s = 0.f;
-  for (int e = rowptr[node]; e < rowptr[node + 1]; ++e) s += e_out[(long)e * fo + f];
-  agg[i] = s;
+  for (int b = 0; b < blocks; ++b) s += partial[(long)b * p + i];
+  out[i] = s;
+}
+
+// grid of the backward's edge kernel (persistent: as many blocks as fit, at most one per tile)
+cudaError_t bwd_grid(int k, int h, int fo, int n_edges, int* blocks) {
+  const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(edge_mlp_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  *blocks = 0;
+  if (n_edges == 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_bwd_kernel, THREADS, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (n_edges + TE - 1) / TE;
+  *blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -193,13 +505,13 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// edge_index is [2, E] int32 (row 0 source, row 1 target, targets non-decreasing);
-// rowptr [N + 1] int32; mask [E] uint8; weights in [out][in] layout. Returns cudaGetLastError().
+// edge_index is [2, E] int32 (row 0 source, row 1 target); mask [E] uint8; weights in
+// [out][in] layout. Writes e_out [E, Fo]. Returns cudaGetLastError().
 int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
-                         const uint8_t* mask, const int* rowptr, const float* w1,
-                         const float* b1, const float* w2, const float* b2, const float* w3,
-                         const float* b3, float* e_out, float* agg, int n, int n_edges, int fx,
-                         int fe, int h, int fo, int relu_edge, void* stream_ptr) {
+                         const uint8_t* mask, const float* w1, const float* b1, const float* w2,
+                         const float* b2, const float* w3, const float* b3, float* e_out,
+                         int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+                         void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int k = 2 * fx + fe;
   const size_t smem = smem_floats(k, h, fo) * sizeof(float);
@@ -211,29 +523,56 @@ int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
     cudaGetLastError();
     return err;
   }
-  if (n_edges > 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_kernel, THREADS, smem);
-    if (err != cudaSuccess) {
-      cudaGetLastError();
-      return err;
-    }
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const int tiles = (n_edges + TE - 1) / TE;
-    const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-    edge_mlp_kernel<<<grid, THREADS, smem, stream>>>(x, ea, edge_index, edge_index + n_edges,
-                                                     mask, w1, b1, w2, b2, w3, b3, e_out,
-                                                     n_edges, fx, fe, h, fo, relu_edge);
+  if (n_edges == 0) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_kernel, THREADS, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int tiles = (n_edges + TE - 1) / TE;
+  const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  edge_mlp_kernel<<<grid, THREADS, smem, stream>>>(x, ea, edge_index, edge_index + n_edges, mask,
+                                                   w1, b1, w2, b2, w3, b3, e_out, n_edges, fx,
+                                                   fe, h, fo, relu_edge);
+  return cudaGetLastError();
+}
+
+// Blocks the backward will launch for these widths and edges (0 for no edges): the wrapper
+// sizes the [blocks, P] partial buffer with it. Returns a CUDA error for widths that do not fit.
+int fused_relational_bwd_blocks(int fx, int fe, int h, int fo, int n_edges, int* blocks) {
+  return bwd_grid(2 * fx + fe, h, fo, n_edges, blocks);
+}
+
+// Backward. g_eout [E, Fo]; g_agg_e [E, Fo] = g_agg[dst] (sorted_gather); writes g_xd, g_xs
+// [E, Fx] (per-edge gradients of x_dst and x_src), g_ea [E, Fe], and grads [P] packed as
+// w1, b1, w2, b2, w3, b3 ([out][in]); partial is [blocks, P] scratch. Returns cudaGetLastError().
+int fused_relational_bwd(const float* x, const float* ea, const int* edge_index,
+                         const uint8_t* mask, const float* w1, const float* b1, const float* w2,
+                         const float* b2, const float* w3, const float* g_eout,
+                         const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
+                         float* partial, float* grads, int n_edges, int fx, int fe, int h, int fo,
+                         int relu_edge, int blocks, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int k = 2 * fx + fe;
+  int expected = 0;
+  cudaError_t err = bwd_grid(k, h, fo, n_edges, &expected);
+  if (err != cudaSuccess) return err;
+  if (blocks != expected) return cudaErrorInvalidValue;
+  if (blocks > 0) {
+    const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
+    edge_mlp_bwd_kernel<<<blocks, THREADS, smem, stream>>>(
+        x, ea, edge_index, edge_index + n_edges, mask, w1, b1, w2, b2, w3, g_eout, g_agg_e, g_xd,
+        g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const long outs = (long)n * fo;
-  if (outs > 0) {
-    csr_rows_sum_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, stream>>>(e_out, rowptr, n,
-                                                                            fo, agg);
-  }
+  const long p = grad_floats(k, h, fo);
+  sum_partials_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      partial, blocks, p, grads);
   return cudaGetLastError();
 }
 

@@ -28,6 +28,10 @@ NODE_FIELDS = (
 EDGE_FIELDS = ("edge_index", "edge_attr", "y", "edge_mask")
 TRUE_EDGE_FIELDS = ("true_edge_index", "true_edge_mask")
 ARRAY_FIELDS = NODE_FIELDS + EDGE_FIELDS + TRUE_EDGE_FIELDS
+#: CSR arrays of a target-sorted graph that the fused interaction-network op takes
+CSR_KEYS = ("dst_rowptr", "src_perm", "src_rowptr")
+#: extras that ``sort_edges_by_target`` derives from the edge order
+DERIVED_KEYS = (*CSR_KEYS, "src_sorted", "edge_unsort")
 
 
 @dataclasses.dataclass
@@ -94,10 +98,14 @@ class EventGraph:
         edge_attr: Any = None,
         y: Any = None,
         particle_id: Any = None,
+        pt: Any = None,
+        eta: Any = None,
+        reconstructable: Any = None,
         extras: dict[str, Any] | None = None,
         dtype: torch.dtype = torch.float32,
     ) -> "EventGraph":
-        """Build an unmasked graph from host arrays (CPU tensors)."""
+        """Build an unmasked graph from host arrays (CPU tensors); node
+        fields not given are zeros."""
         x = torch.as_tensor(np.asarray(x), dtype=dtype)
         n = x.shape[0]
         if edge_index is None:
@@ -114,12 +122,18 @@ class EventGraph:
             if particle_id is None
             else torch.as_tensor(np.asarray(particle_id), dtype=torch.int64)
         )
+
+        def node_field(v):
+            if v is None:
+                return torch.zeros(n, dtype=dtype)
+            return torch.as_tensor(np.asarray(v), dtype=dtype)
+
         return cls(
             x=x,
             particle_id=pid,
-            pt=torch.zeros(n, dtype=dtype),
-            eta=torch.zeros(n, dtype=dtype),
-            reconstructable=torch.zeros(n, dtype=dtype),
+            pt=node_field(pt),
+            eta=node_field(eta),
+            reconstructable=node_field(reconstructable),
             node_mask=torch.ones(n, dtype=torch.bool),
             layer=torch.zeros(n, dtype=torch.int32),
             sector=torch.zeros(n, dtype=torch.int32),
@@ -139,16 +153,30 @@ class EventGraph:
             },
         )
 
+    def csr(self) -> dict[str, torch.Tensor]:
+        """The CSR arrays of a target-sorted graph (those of ``CSR_KEYS``
+        that ``sort_edges_by_target`` stored), as the fused
+        interaction-network op takes them."""
+        return {k: self.extras[k] for k in CSR_KEYS if k in self.extras}
+
     def sort_edges_by_target(self, *, with_unsort: bool = False) -> "EventGraph":
         """Reorder edges so ``edge_index[1]`` is non-decreasing, valid edges
         first (JAX ``EventGraph.sort_edges_by_target``, ``graphs.py:204``).
 
-        Masked edges go last and are re-pointed at the last node. The CSR
-        row pointer of the sorted targets is stored in
-        ``extras["dst_rowptr"]`` (``[N + 1]`` int32): edges of node ``i``
-        are ``rowptr[i]:rowptr[i+1]``. The fused interaction-network kernel
-        needs it. With ``with_unsort=True`` the inverse permutation is in
-        ``extras["edge_unsort"]``: ``out[edge_unsort]`` maps a per-edge
+        Masked edges go last and are re-pointed at the last node. Stored in
+        ``extras``, computed on the sorted edges (``[N + 1]`` and ``[E]``
+        int32):
+
+        * ``dst_rowptr``: CSR row pointer of the targets; the edges of node
+          ``i`` are ``rowptr[i]:rowptr[i+1]``;
+        * ``src_perm``: stable argsort of the sources, and ``src_sorted``,
+          the sources in that order (as the JAX version stores them);
+        * ``src_rowptr``: CSR row pointer of ``src_sorted``; the edges
+          whose source is ``i`` are ``src_perm[src_rowptr[i]:src_rowptr[i+1]]``.
+
+        The fused interaction-network kernels need the three of
+        ``CSR_KEYS``. With ``with_unsort=True`` the inverse permutation is
+        in ``extras["edge_unsort"]``: ``out[edge_unsort]`` maps a per-edge
         output back to the caller's edge order.
         """
         n, e = self.num_nodes, self.num_edges
@@ -159,12 +187,20 @@ class EventGraph:
         mask = self.edge_mask[order]
         last = torch.full_like(ei[1], n - 1)
         ei = torch.stack([ei[0], torch.where(mask, ei[1], last)]).contiguous()
+        # per-edge extras follow the edges; the derived arrays are rebuilt
+        # below (a [N + 1] pointer must never be permuted as an edge array)
         extras = {
-            k: (v[order] if v.shape[0] == e and k != "dst_rowptr" else v)
+            k: (v[order] if v.shape[0] == e else v)
             for k, v in self.extras.items()
+            if k not in DERIVED_KEYS
         }
         nodes = torch.arange(n + 1, device=ei.device, dtype=ei.dtype)
         extras["dst_rowptr"] = torch.searchsorted(ei[1], nodes).to(torch.int32)
+        src_perm = torch.argsort(ei[0], stable=True)
+        src_sorted = ei[0][src_perm].contiguous()
+        extras["src_perm"] = src_perm.to(torch.int32)
+        extras["src_sorted"] = src_sorted
+        extras["src_rowptr"] = torch.searchsorted(src_sorted, nodes).to(torch.int32)
         if with_unsort:
             extras["edge_unsort"] = torch.argsort(order)
         return self.replace(

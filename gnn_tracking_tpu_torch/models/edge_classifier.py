@@ -66,7 +66,7 @@ class ECForGraphTCN(nn.Module):
         edge_attr_ec = torch.relu(self.ec_edge_encoder(data.edge_attr))
         h_ec, edge_attr_ec, edge_attrs_ec = self.ec_resin(
             h_ec, edge_index, edge_attr_ec, data.edge_mask,
-            rowptr=data.extras.get("dst_rowptr"),
+            csr=data.csr(),
         )
         w_input = [edge_attr_ec]
         if self.use_intermediate_edge_embeddings:

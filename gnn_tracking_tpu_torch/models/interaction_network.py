@@ -2,7 +2,8 @@
 ``models/interaction_network.py`` with ``segment_impl="fused"``).
 
 The relational half (gather endpoints -> 3-layer MLP -> masked segment-add
-at the target) is one call of :func:`ops.fused_relational.fused_relational_fwd`;
+at the target) is one call of the differentiable
+:func:`ops.fused_relational.fused_relational`;
 the object model is ``MLP([x, agg])``. Parameters use the fused layout
 (``relational_w1..b3``) in PyTorch's ``[out, in]`` order. Masked edges'
 ``e_tilde`` are zero (the JAX XLA path leaves them intact; everything
@@ -17,7 +18,7 @@ import torch
 from torch import nn
 
 from gnn_tracking_tpu_torch.models.mlp import MLP
-from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational_fwd
+from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational
 
 
 def _uniform(shape, fan_in, generator):
@@ -68,13 +69,15 @@ class InteractionNetwork(nn.Module):
         edge_attr: torch.Tensor,
         edge_mask: torch.Tensor,
         *,
-        rowptr: torch.Tensor | None = None,
+        csr: dict[str, torch.Tensor] | None = None,
         relu_edge: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``relu_edge`` applies a ReLU to ``edge_attr`` inside the kernel."""
-        e_tilde, agg = fused_relational_fwd(
+        """``csr``: the target-sorted graph's CSR arrays (``EventGraph.csr()``,
+        needed on CUDA); ``relu_edge`` applies a ReLU to ``edge_attr`` inside
+        the op, gradient included."""
+        e_tilde, agg = fused_relational(
             x, edge_attr, edge_index, edge_mask, self.relational_weights(),
-            rowptr=rowptr, relu_edge=relu_edge,
+            csr=csr, relu_edge=relu_edge,
         )
         x_tilde = self.object_model(torch.cat([x, agg], dim=1))
         return x_tilde, e_tilde

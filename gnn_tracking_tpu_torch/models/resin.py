@@ -72,14 +72,15 @@ class ResIN(nn.Module):
         edge_attr: torch.Tensor,
         edge_mask: torch.Tensor,
         *,
-        rowptr: torch.Tensor | None = None,
+        csr: dict[str, torch.Tensor] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor] | None]:
         edge_attrs = [edge_attr] if self.collect_hidden_edge_embeds else None
         for i, layer in enumerate(self.layers):
-            # layers i > 0 see relu(x) and relu(e); the edge relu runs in the kernel
+            # layers i > 0 see relu(x) and relu(e); the edge relu runs in the
+            # fused op (its gradient too), the node relu in autograd
             delta_x, edge_attr = layer(
                 torch.relu(x) if i > 0 else x, edge_index, edge_attr, edge_mask,
-                rowptr=rowptr, relu_edge=i > 0,
+                csr=csr, relu_edge=i > 0,
             )
             x = sqconvex_combination(delta=delta_x, residue=x, alpha_residue=self.alpha)
             if edge_attrs is not None:

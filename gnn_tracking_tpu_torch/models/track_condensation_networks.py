@@ -96,7 +96,7 @@ class ModularGraphTCN(nn.Module):
         # track condenser runs under the post-EC edge mask
         h_hc, _, _ = self.hc_in(
             h_hc, data.edge_index, edge_attr_hc, ec_edge_mask,
-            rowptr=data.extras.get("dst_rowptr"),
+            csr=data.csr(),
         )
         beta = torch.sigmoid(self.p_beta(h_hc))
         epsilon = 1e-6  # soft clipping against NaN in arctanh(beta)

@@ -1,8 +1,13 @@
 """Event graphs on disk: the ``.npz`` archives that the JAX package's
-``utils/loading.py:save_graph`` writes, read and written without JAX."""
+``utils/loading.py:save_graph`` writes, read and written without JAX; and
+the datasets, loaders and data module that feed the trainer (JAX
+``utils/loading.py:148-335``)."""
 
 from __future__ import annotations
 
+from collections import deque
+from collections.abc import Iterator, Sequence
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -35,3 +40,163 @@ def load_graph(path: str | Path, *, device: str | torch.device = "cuda") -> Even
             if k.startswith("extra_")
         }
     return EventGraph(**fields, extras=extras)
+
+
+class TrackingDataset:
+    """Sorted ``.npz`` graph files from one or more directories, with
+    start/stop windowing (JAX ``TrackingDataset``). Each graph is loaded on
+    the host and sorted by target (``EventGraph.sort_edges_by_target``), so
+    it carries the CSR arrays that the CUDA kernels need."""
+
+    def __init__(
+        self,
+        in_dir: str | Path | Sequence[str | Path],
+        *,
+        start: int = 0,
+        stop: int | None = None,
+        sector: int | None = None,
+        suffix: str = "*.npz",
+    ):
+        dirs = [in_dir] if isinstance(in_dir, (str, Path)) else list(in_dir)
+        available: list[Path] = []
+        for d in map(Path, dirs):
+            if not d.exists():
+                msg = f"Directory {d} does not exist"
+                raise FileNotFoundError(msg)
+            glob = suffix if sector is None else f"*_s{sector}{suffix.lstrip('*')}"
+            available.extend(sorted(d.glob(glob)))
+        if stop is not None and stop > len(available):
+            msg = f"stop={stop} exceeds number of available files ({len(available)})"
+            raise ValueError(msg)
+        self._paths = available[start:stop]
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def __getitem__(self, idx: int) -> EventGraph:
+        return load_graph(self._paths[idx], device="cpu").sort_edges_by_target()
+
+
+class GraphLoader:
+    """Host-side loader: optional shuffling (explicit generator, reseeded
+    from ``seed`` once per loader), subsampling, and ``prefetch`` graphs
+    loaded ahead in background threads (npz decompression releases the
+    GIL). One graph per batch; the JAX loader's padding and multi-graph
+    batches are not ported."""
+
+    def __init__(
+        self,
+        dataset,
+        *,
+        batch_size: int = 1,
+        shuffle: bool = False,
+        sample_size: int | None = None,
+        seed: int = 0,
+        prefetch: int = 2,
+    ):
+        if batch_size != 1:
+            msg = "batch_size > 1 (batch_graphs) is not ported"
+            raise NotImplementedError(msg)
+        self._dataset = dataset
+        self._shuffle = shuffle
+        self._sample_size = sample_size
+        self._generator = torch.Generator().manual_seed(seed)
+        self._prefetch = prefetch
+        self.batch_size = batch_size
+
+    def __len__(self) -> int:
+        n = len(self._dataset)
+        return n if self._sample_size is None else min(n, self._sample_size)
+
+    def _indices(self) -> list[int]:
+        n = len(self._dataset)
+        order = (
+            torch.randperm(n, generator=self._generator).tolist()
+            if self._shuffle
+            else list(range(n))
+        )
+        return order[: len(self)]
+
+    def __iter__(self) -> Iterator[EventGraph]:
+        indices = self._indices()
+        if self._prefetch <= 0:
+            for i in indices:
+                yield self._dataset[i]
+            return
+        with ThreadPoolExecutor(max_workers=self._prefetch) as pool:
+            ahead = deque(pool.submit(self._dataset.__getitem__, i) for i in indices[: self._prefetch])
+            for k in range(len(indices)):
+                graph = ahead.popleft().result()
+                if k + self._prefetch < len(indices):
+                    ahead.append(pool.submit(self._dataset.__getitem__, indices[k + self._prefetch]))
+                yield graph
+
+
+class TrackingDataModule:
+    """Train/val/test loaders from dict configs (JAX ``TrackingDataModule``)::
+
+        dm = TrackingDataModule(
+            train=dict(dirs=["/data/train"], stop=900),
+            val=dict(dirs=["/data/val"], stop=50),
+        )
+
+    Config keys: ``dirs``, ``start``, ``stop``, ``sector``, ``batch_size``
+    (1 only), ``sample_size``. The training loader shuffles with a
+    generator seeded from ``seed``. ``PaddingConfig`` is a TPU static-shape
+    device and is not ported.
+    """
+
+    def __init__(
+        self,
+        *,
+        train: dict | None = None,
+        val: dict | None = None,
+        test: dict | None = None,
+        seed: int = 0,
+    ):
+        self._configs = {"train": train, "val": val, "test": test}
+        self._seed = seed
+        self._datasets: dict[str, TrackingDataset | None] = {}
+
+    def setup(self, stage: str = "fit") -> None:
+        wanted = {"fit": ["train", "val"], "validate": ["val"], "test": ["test"]}[stage]
+        for key in wanted:
+            config = self._configs.get(key)
+            if config is None:
+                if key == "train":
+                    msg = f"DataModule not configured for {key} data"
+                    raise ValueError(msg)
+                self._datasets[key] = None
+                continue
+            self._datasets[key] = TrackingDataset(
+                config["dirs"],
+                start=config.get("start", 0),
+                stop=config.get("stop"),
+                sector=config.get("sector"),
+            )
+
+    def has(self, key: str) -> bool:
+        """Whether ``key`` ("train", "val", "test") is set up."""
+        return self._datasets.get(key) is not None
+
+    def _loader(self, key: str, shuffle: bool) -> GraphLoader:
+        if not self.has(key):
+            msg = f"DataModule not configured for {key} data"
+            raise ValueError(msg)
+        config = self._configs[key]
+        return GraphLoader(
+            self._datasets[key],
+            batch_size=config.get("batch_size", 1),
+            sample_size=config.get("sample_size"),
+            shuffle=shuffle,
+            seed=self._seed,
+        )
+
+    def train_dataloader(self) -> GraphLoader:
+        return self._loader("train", shuffle=True)
+
+    def val_dataloader(self) -> GraphLoader:
+        return self._loader("val", shuffle=False)
+
+    def test_dataloader(self) -> GraphLoader:
+        return self._loader("test", shuffle=False)

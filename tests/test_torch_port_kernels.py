@@ -1,4 +1,4 @@
-"""The port's three kernel modules against the JAX package, on the CPU.
+"""The port's kernel modules against the JAX package, on the CPU.
 
 On the CPU each wrapper takes its plain PyTorch version; these tests hold
 that version against the JAX function (Pallas kernels in interpret mode, as
@@ -7,6 +7,14 @@ the JAX package's own tests run them). Tolerances:
 * fused relational forward: rtol/atol 1e-5 against the float32 Pallas
   kernel (the JAX tests' own tolerance for it), 1e-9 / 1e-10 in float64
   against the plain-JAX reference and the XLA interaction network;
+* fused relational backward: the plain backward against ``jax.vjp`` of the
+  float32 Pallas kernel (its custom VJP, the Pallas backward) at rtol 1e-5
+  and atol 1e-5 times each gradient's largest magnitude (weight gradients
+  are f32 sums over ~2000 edges), and of the plain-JAX reference in float64
+  at 1e-9 / 1e-10 (the same scaling);
+  ``torch.autograd.gradcheck`` of ``FusedRelational`` in float64;
+* sorted segment-sum / gather: forward and VJP against the Pallas kernels
+  at 1e-6 in float32 (a sum of a few terms; the gather is exact);
 * pairwise top-k: identical indices; squared distances rtol 1e-5 (the JAX
   kernel expands norms, the port sums (q - c)^2 directly), and in radius
   mode entries whose d^2 lies within 1e-5 r^2 of r^2 are exempt;
@@ -27,6 +35,7 @@ import torch
 
 from gnn_tracking_tpu.models.interaction_network import InteractionNetwork as JaxIN
 from gnn_tracking_tpu.ops.cc import connected_components_neighbors as jax_cc_neighbors
+from gnn_tracking_tpu.ops.pallas import csr_segment as jax_csr
 from gnn_tracking_tpu.ops.pallas.cc_kernel import cc_neighbors_pallas
 from gnn_tracking_tpu.ops.pallas.fused_relational import (
     fused_relational,
@@ -37,8 +46,22 @@ from gnn_tracking_tpu.ops.pallas.pairwise_topk import (
 )
 from gnn_tracking_tpu.ops.pallas.slab_layout import default_spec, slab_partition
 from gnn_tracking_tpu.ops.segment import masked_segment_sum
+from gnn_tracking_tpu_torch.graphs import EventGraph
+from gnn_tracking_tpu_torch.models.interaction_network import InteractionNetwork
 from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors, cc_neighbors_plain
+from gnn_tracking_tpu_torch.ops.csr_segment import (
+    segment_sum_csr,
+    sorted_gather,
+    sorted_gather_plain,
+    sorted_segment_sum,
+    sorted_segment_sum_plain,
+)
 from gnn_tracking_tpu_torch.ops.fused_relational import (
+    fused_relational as port_fused_relational,
+)
+from gnn_tracking_tpu_torch.ops.fused_relational import (
+    fused_relational_bwd,
+    fused_relational_bwd_plain,
     fused_relational_fwd,
     fused_relational_plain,
 )
@@ -154,6 +177,183 @@ def test_fused_relational_plain_matches_xla_interaction_network():
     )
     np.testing.assert_allclose(pet.numpy()[valid], np.asarray(e_ref)[valid], rtol=1e-9, atol=1e-10)
     np.testing.assert_allclose(pagg.numpy(), np.asarray(agg_ref), rtol=1e-9, atol=1e-10)
+
+
+# ------------------------------------------------- kernel 1 backward (row #2)
+def _slab_inputs(seed, dtype):
+    """The slab-layout inputs of the JAX op and the port's caller-order
+    inputs for the same edges, cotangents included."""
+    x, ea, src, dst, valid, w = _relational_setup(seed=seed)
+    n, e = x.shape[0], ea.shape[0]
+    part = slab_partition(src, dst, valid, n, default_spec(n, int(valid.sum()), window=W, block_e=EB))
+    rows, orig, mask = _in_window(part, e)
+    take = np.maximum(part["perm"], 0)
+    ea_slab = np.where(part["perm"][:, None] >= 0, ea[take], 0)
+    rng = np.random.default_rng(seed + 100)
+    fo = w["w3"].shape[1]
+    g_e = rng.normal(size=(e, fo))
+    g_e_slab = np.zeros((ea_slab.shape[0], fo))
+    g_e_slab[rows] = g_e[orig]
+    g_agg = rng.normal(size=(n, fo))
+    jax_args = {
+        "x": x, "ea_slab": ea_slab, "part": part, "w": w, "g_e_slab": g_e_slab, "g_agg": g_agg,
+    }
+    t = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    port_args = (t(x), t(ea), torch.from_numpy(np.stack([src, dst])), torch.from_numpy(mask),
+                 _port_weights(w, dtype), t(g_e), t(g_agg))
+    return jax_args, port_args, rows, orig, mask
+
+
+def _port_weight_grads(gw):
+    """JAX split ``[in, out]`` weight gradients -> the port's ``[out, in]``."""
+    g1 = np.concatenate([np.asarray(gw["w1d"]), np.asarray(gw["w1s"]), np.asarray(gw["w1e"])], axis=0)
+    return {"w1": g1.T, "b1": gw["b1"], "w2": np.asarray(gw["w2"]).T, "b2": gw["b2"],
+            "w3": np.asarray(gw["w3"]).T, "b3": gw["b3"]}
+
+
+def _check_backward(port_out, jax_grads, rows, orig, ea, relu_edge, rtol, atol):
+    """atol is taken relative to each tensor's largest magnitude (at least
+    1): the weight gradients are f32 sums over ~2000 edges of terms up to
+    ~40, summed in other orders by the two frameworks."""
+    g_x, g_ea, g_w = port_out
+    jg_x, jg_ea_slab, jg_w = jax_grads
+    want_ea = np.zeros_like(g_ea.numpy())
+    want_ea[orig] = np.asarray(jg_ea_slab)[rows]
+    if relu_edge:  # the JAX op took relu(ea) as its input
+        want_ea = np.where(ea > 0, want_ea, 0)
+    pairs = {"g_x": (g_x, jg_x), "g_edge_attr": (g_ea, want_ea)}
+    pairs |= {k: (g_w[k], want) for k, want in _port_weight_grads(jg_w).items()}
+    for k, (got, want) in pairs.items():
+        want = np.asarray(want)
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol * scale, err_msg=k)
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_fused_relational_bwd_plain_matches_pallas_vjp(relu_edge):
+    ja, pa, rows, orig, mask = _slab_inputs(10, torch.float32)
+    part = ja["part"]
+    ea_slab = ja["ea_slab"].astype(np.float32)
+    ea_in = np.maximum(ea_slab, 0) if relu_edge else ea_slab
+
+    def op(x, ea, w):
+        return fused_relational(
+            W, EB, "float32", True, x, ea, jnp.asarray(part["srcloc"]), jnp.asarray(part["dstloc"]),
+            jnp.asarray(part["inwin"].astype(np.float32)), w,
+        )
+
+    _, vjp = jax.vjp(op, jnp.asarray(ja["x"], jnp.float32), jnp.asarray(ea_in),
+                     {k: jnp.asarray(v, jnp.float32) for k, v in ja["w"].items()})
+    jax_grads = vjp((jnp.asarray(ja["g_e_slab"], jnp.float32), jnp.asarray(ja["g_agg"], jnp.float32)))
+    out = fused_relational_bwd_plain(*pa, relu_edge=relu_edge)
+    _check_backward(out, jax_grads, rows, orig, pa[1].numpy(), relu_edge, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_fused_relational_bwd_plain_matches_reference_vjp_float64(relu_edge):
+    ja, pa, rows, orig, mask = _slab_inputs(11, torch.float64)
+    part = ja["part"]
+    ea_in = np.maximum(ja["ea_slab"], 0) if relu_edge else ja["ea_slab"]
+
+    def op(x, ea, w):
+        return fused_relational_reference(
+            x, ea, jnp.asarray(part["srcloc"]), jnp.asarray(part["dstloc"]),
+            jnp.asarray(part["inwin"].astype(np.float64)), w, window=W, block_e=EB,
+        )
+
+    _, vjp = jax.vjp(op, jnp.asarray(ja["x"], jnp.float64), jnp.asarray(ea_in, jnp.float64),
+                     {k: jnp.asarray(v, jnp.float64) for k, v in ja["w"].items()})
+    jax_grads = vjp((jnp.asarray(ja["g_e_slab"]), jnp.asarray(ja["g_agg"])))
+    out = fused_relational_bwd_plain(*pa, relu_edge=relu_edge)
+    assert (~mask).sum() > 0  # masked edges take part
+    _check_backward(out, jax_grads, rows, orig, pa[1].numpy(), relu_edge, 1e-9, 1e-10)
+    # the op's autograd backward is the same function on the CPU
+    x, ea, ei, m, w, g_e, g_agg = pa
+    leaves = [x.requires_grad_(), ea.requires_grad_(), *(v.requires_grad_() for v in w.values())]
+    outs = port_fused_relational(x, ea, ei, m, w, relu_edge=relu_edge)
+    got = torch.autograd.grad(outs, leaves, (g_e, g_agg))
+    for a, b in zip(got, [out[0], out[1], *out[2].values()]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_fused_relational_gradcheck(relu_edge):
+    rng = np.random.default_rng(12)
+    n, e, fx, fe, h, fo = 12, 40, 3, 2, 8, 4
+    t = lambda *shape: torch.tensor(rng.normal(size=shape), dtype=torch.float64, requires_grad=True)
+    ei = torch.from_numpy(rng.integers(0, n, size=(2, e)).astype(np.int32))
+    mask = torch.from_numpy(rng.random(e) < 0.8)
+    ws = {"w1": t(h, 2 * fx + fe), "b1": t(h), "w2": t(h, h), "b2": t(h), "w3": t(fo, h), "b3": t(fo)}
+
+    def f(x, ea, *w):
+        return port_fused_relational(x, ea, ei, mask, dict(zip(ws, w)), relu_edge=relu_edge)
+
+    assert torch.autograd.gradcheck(f, (t(n, fx), t(e, fe), *ws.values()))
+
+
+# ----------------------------------------------- sorted segment-sum / gather
+def _sorted_edges(seed, n=100, e=640, f=8):
+    """Target-sorted edges with empty segments (a run of absent targets and
+    every 7th node), N not a multiple of the JAX window."""
+    rng = np.random.default_rng(seed)
+    nodes = np.array([i for i in range(n) if i % 7 and not 40 <= i < 50])
+    dst = np.sort(rng.choice(nodes, size=e)).astype(np.int32)
+    return rng, dst, rng.normal(size=(e, f)).astype(np.float32), rng.normal(size=(n, f)).astype(np.float32)
+
+
+SEG = {"block_e": 64, "window": 32}
+
+
+def test_sorted_segment_sum_matches_pallas():
+    rng, dst, msgs, _ = _sorted_edges(20)
+    n = 100
+    jf = lambda m: jax_csr.sorted_segment_sum(m, jnp.asarray(dst), n, SEG["block_e"], SEG["window"], True)
+    want, vjp = jax.vjp(jf, jnp.asarray(msgs))
+    ct = rng.normal(size=(n, msgs.shape[1])).astype(np.float32)
+    (want_g,) = vjp(jnp.asarray(ct))
+    m = torch.from_numpy(msgs).requires_grad_()
+    got = sorted_segment_sum(m, torch.from_numpy(dst), n)
+    (got_g,) = torch.autograd.grad(got, m, torch.from_numpy(ct))
+    assert (got.detach().numpy() == 0).all(axis=1).sum() >= 20  # empty segments
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-6)
+
+
+def test_sorted_gather_matches_pallas():
+    rng, dst, _, vals = _sorted_edges(21)
+    jf = lambda v: jax_csr.sorted_gather(v, jnp.asarray(dst), SEG["block_e"], SEG["window"], True)
+    want, vjp = jax.vjp(jf, jnp.asarray(vals))
+    ct = rng.normal(size=(dst.shape[0], vals.shape[1])).astype(np.float32)
+    (want_g,) = vjp(jnp.asarray(ct))
+    v = torch.from_numpy(vals).requires_grad_()
+    got = sorted_gather(v, torch.from_numpy(dst))
+    (got_g,) = torch.autograd.grad(got, v, torch.from_numpy(ct))
+    np.testing.assert_array_equal(got.detach().numpy(), vals[dst])
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-6)
+
+
+def test_sort_edges_by_target_csr_arrays():
+    """dst and src row pointers index the sorted edges' targets and sources;
+    summing through them gives the plain segment sums."""
+    rng = np.random.default_rng(22)
+    n, e = 50, 300
+    g = EventGraph.from_arrays(x=rng.normal(size=(n, 2)), edge_index=rng.integers(0, n, size=(2, e)))
+    g = g.replace(edge_mask=torch.from_numpy(rng.random(e) < 0.9)).sort_edges_by_target()
+    src, dst = g.edge_index.long()
+    csr = g.csr()
+    assert set(csr) == {"dst_rowptr", "src_perm", "src_rowptr"}
+    assert all(v.dtype == torch.int32 for v in csr.values())
+    assert csr["dst_rowptr"].shape == csr["src_rowptr"].shape == (n + 1,)
+    counts = lambda rp: rp.long().diff()
+    assert torch.equal(torch.repeat_interleave(torch.arange(n), counts(csr["dst_rowptr"])), dst)
+    perm = csr["src_perm"].long()
+    assert torch.equal(src[perm], g.extras["src_sorted"].long())
+    assert torch.equal(torch.repeat_interleave(torch.arange(n), counts(csr["src_rowptr"])), src[perm])
+    # sorting again rebuilds the derived arrays, and never permutes a [N + 1] pointer
+    g2 = g.sort_edges_by_target()
+    for k in csr:
+        assert torch.equal(g2.extras[k], csr[k]), k
 
 
 # ------------------------------------------------------------------ kernel 2
@@ -318,6 +518,68 @@ def test_cuda_fused_relational_rejects_widths_beyond_shared_memory(cuda):
     torch.cuda.synchronize()
     assert (et - pet).abs().max() <= 1e-4 * pet.abs().max()
     assert (agg - pagg).abs().max() <= 1e-4 * pagg.abs().max()
+
+
+def _cuda_graph(cuda, n=500, e=4000, seed=0):
+    rng = np.random.default_rng(seed)
+    g = EventGraph.from_arrays(x=rng.normal(size=(n, 2)), edge_index=rng.integers(0, n, size=(2, e)))
+    g = g.replace(edge_mask=torch.from_numpy(rng.random(e) < 0.9)).sort_edges_by_target()
+    return g.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_cuda_fused_relational_bwd_matches_plain(cuda, relu_edge):
+    g = _cuda_graph(cuda)
+    n, e, fx, fe, h, fo = g.num_nodes, g.num_edges, 8, 8, 32, 8
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    r = lambda *shape, s=1.0: torch.randn(shape, generator=gen, device=cuda) * s
+    w = {"w1": r(h, 2 * fx + fe, s=0.2), "b1": r(h), "w2": r(h, h, s=0.2), "b2": r(h),
+         "w3": r(fo, h, s=0.2), "b3": r(fo)}
+    mask = g.edge_mask & (torch.rand(e, generator=gen, device=cuda) < 0.8)
+    args = (r(n, fx), r(e, fe), g.edge_index, mask, w, r(e, fo), r(n, fo))
+    k = fused_relational_bwd(*args, g.csr(), relu_edge=relu_edge)
+    k2 = fused_relational_bwd(*args, g.csr(), relu_edge=relu_edge)
+    p = fused_relational_bwd_plain(*args, relu_edge=relu_edge)
+    torch.cuda.synchronize()
+    for a, a2, b in zip([k[0], k[1], *k[2].values()], [k2[0], k2[1], *k2[2].values()],
+                        [p[0], p[1], *p[2].values()]):
+        assert torch.equal(a, a2)
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_sorted_segment_sum_and_gather_match_plain(cuda):
+    g = _cuda_graph(cuda, seed=1)
+    n, e = g.num_nodes, g.num_edges
+    csr, dst = g.csr(), g.edge_index[1]
+    msgs = torch.randn(e, 32, device=cuda)
+    got = sorted_segment_sum(msgs, dst, n, rowptr=csr["dst_rowptr"])
+    want = sorted_segment_sum_plain(msgs, dst, n)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    by_src = segment_sum_csr(msgs, csr["src_rowptr"], perm=csr["src_perm"])
+    want_src = sorted_segment_sum_plain(msgs, g.edge_index[0], n)
+    assert (by_src - want_src).abs().max() <= 1e-6 * want_src.abs().max()
+    vals = torch.randn(n, 32, device=cuda)
+    assert torch.equal(sorted_gather(vals, dst, rowptr=csr["dst_rowptr"]), sorted_gather_plain(vals, dst))
+    with pytest.raises(ValueError, match="row pointer"):
+        sorted_segment_sum(msgs, dst, n)
+
+
+@pytest.mark.cuda
+def test_cuda_interaction_network_weights_get_gradients(cuda):
+    """The forward on the card is differentiable: every relational weight of
+    an InteractionNetwork gets a finite gradient."""
+    g = _cuda_graph(cuda, seed=2)
+    gen = torch.Generator().manual_seed(0)
+    layer = InteractionNetwork(8, 8, 8, 8, 16, 16, generator=gen).to(cuda)
+    x = torch.randn(g.num_nodes, 8, device=cuda, requires_grad=True)
+    ea = torch.randn(g.num_edges, 8, device=cuda, requires_grad=True)
+    x_out, e_out = layer(x, g.edge_index, ea, g.edge_mask, csr=g.csr(), relu_edge=True)
+    (x_out.square().sum() + e_out.square().sum()).backward()
+    for name, p in [*layer.named_parameters(), ("x", x), ("edge_attr", ea)]:
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
 
 
 @pytest.mark.cuda
