@@ -34,7 +34,9 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    per step of every kernel on the path;
 6. ``Trainer.fit`` for one epoch over 4 npz events with an EMA of the
    weights; ``TrackingPredictor`` serves one event from the epoch
-   checkpoint, with labels equal to the plain path's;
+   checkpoint (with the latent offset of phase 4), with beta and edge
+   weights within 1e-5 of the plain path's and labels equal to them, ~2048
+   tracks;
 7. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
@@ -139,16 +141,21 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def calibrate_ec_threshold(model, g) -> float:
-    """Set the EC cut at the median edge weight of ``g``, so that about
+    """Set the EC cut near the median edge weight of ``g``, so that about
     half of the edges reach the condensation layers. With random weights
     every edge weight falls below the default 0.5 and the cut would remove
-    them all; a trained EC passes a share of them. The threshold goes into
-    ``model_config``, so a checkpoint serves with it."""
+    them all; a trained EC passes a share of them. The cut sits in the
+    middle of the widest gap between adjacent weights of the middle tenth,
+    so that rounding differences between the kernels and the plain path
+    move no edge across it. The threshold goes into ``model_config``, so a
+    checkpoint serves with it."""
     import torch
 
     with torch.no_grad():
-        w = model.ec(g)["W"][g.edge_mask]
-    threshold = float(torch.median(w))
+        w = torch.sort(model.ec(g)["W"][g.edge_mask]).values
+    lo, hi = int(0.45 * len(w)), int(0.55 * len(w))
+    i = lo + int(torch.argmax(w[lo + 1 : hi + 1] - w[lo:hi]))
+    threshold = float((w[i] + w[i + 1]) / 2)
     model.ec_threshold = threshold
     model.model_config["ec_threshold"] = threshold
     return threshold
@@ -349,7 +356,11 @@ def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
         plain2 = cuda_ms(lambda: fr.fused_relational_bwd_plain(*args))
         fx, fe, hid = x.shape[1], ea.shape[1], weights["w2"].shape[0]
         n_valid = int(mask.sum())
-        flops2 = 3 * 2.0 * n_valid * ((2 * fx + fe) * hid + hid * hid + hid * fo)
+        # per unmasked edge: recompute of h1 and h2 (the output layer is
+        # linear, its value unused), input gradients of the three layers and
+        # their weight gradients
+        k2 = 2 * fx + fe
+        flops2 = 2.0 * n_valid * (3 * k2 * hid + 3 * hid * hid + 2 * hid * fo)
         outs2 = named(fr.fused_relational_bwd(*args, csr))
         bytes2 = nbytes(*args[:4], *weights.values(), g_e, g_a, *csr.values(), *outs2.values())
         bound2, by2 = bound(flops2, bytes2)
@@ -533,10 +544,14 @@ def training_path(seed: int, steps: int, counters: dict, profile: bool) -> tuple
     return summary, launches
 
 
-def fit_and_serve(seed: int, tmp: Path) -> None:
+def fit_and_serve(seed: int, tmp: Path, condensed) -> None:
     """``Trainer.fit`` for one epoch over 4 npz events with an EMA of the
-    weights, then serve one event from the epoch checkpoint; the labels must
-    equal the plain path's."""
+    weights, then serve the first event from the epoch checkpoint, on the
+    kernels and on the plain path. Its beta and edge weights must agree
+    within 1e-5 of their largest value. The briefly trained latent is not
+    yet separated, so for labels the served model gets the event's
+    particle-structured latent offset (``condensed``); they must equal the
+    plain path's and hold many tracks."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -566,15 +581,25 @@ def fit_and_serve(seed: int, tmp: Path) -> None:
     assert any(not torch.equal(e, params[k]) for k, e in trainer.ema_params.items()), "EMA == raw"
     predictor = TrackingPredictor(trainer.checkpoints[-1], eps=EPS, min_samples=MIN_SAMPLES,
                                   max_num_neighbors=CAP, device="cuda")
-    graph = load_graph(train_dir / "ev00.npz", device="cpu")
+    predictor.model = condensed(predictor.model).eval()
+    # ev00's graph, with its latent offset in extras
+    graph = EventGraph.from_arrays(**make_event(seed + 60))
     got = predictor.predict(graph)
     with plain_path():
         want = predictor.predict(graph)
+    errs = {}
+    for key in ("beta", "w"):
+        assert np.isfinite(got[key]).all(), key
+        errs[key] = float(np.abs(got[key] - want[key]).max())
+        lim = 1e-5 * float(np.abs(want[key]).max())
+        assert errs[key] <= lim, f"checkpoint {key}: max|kernel - plain| {errs[key]:.3e} > {lim:.3e}"
     assert np.array_equal(got["labels"], want["labels"]), "checkpoint labels differ from the plain path"
-    assert np.isfinite(got["beta"]).all() and got["labels"].shape == (N_NODES,)
+    n_clusters = int(got["labels"].max()) + 1
+    assert got["labels"].shape == (N_NODES,) and 0.9 * N_TRACKS <= n_clusters <= N_TRACKS, n_clusters
     log(f"Trainer.fit: {module.step} steps in {fit_s:.1f} s (EMA 0.998, validation on the EMA "
-        f"weights: total {val['total']:.6f}); {trainer.checkpoints[-1].name} served on the card, "
-        f"labels equal to the plain path's ({int(got['labels'].max()) + 1} clusters)")
+        f"weights: total {val['total']:.6f}); {trainer.checkpoints[-1].name} served on the card: "
+        f"max|kernel - plain| beta {errs['beta']:.3e}, w {errs['w']:.3e}; labels equal to the "
+        f"plain path's ({n_clusters} clusters)")
 
 
 def main(argv=None) -> int:
@@ -858,7 +883,7 @@ def main(argv=None) -> int:
                 f"{r['launches']} launches in {training['steps']} training steps")
 
     # ---- 6. Trainer.fit, then serve its checkpoint ---------------------------
-    fit_and_serve(args.seed, tmp)
+    fit_and_serve(args.seed, tmp, CondensedGraphTCN)
 
     # ---- 7. results -------------------------------------------------------
     kernels = [

@@ -10,8 +10,9 @@
 // What bounds them on this card: arithmetic. Per edge the forward MLP costs 2 (K H + H H + H Fo)
 // flops (K = 2 Fx + Fe); at the serving shapes (K = 96, H = 128, Fo = 32, E = 262144) that is
 // 17.2 GFLOP per layer against ~37 MB of compulsory traffic, some 460 flop per byte, far above the
-// card's f32 ridge point. The backward does three times the forward's MLP work (recompute of the
-// two hidden layers, input gradients, weight gradients): 51.5 GFLOP at all 262,144 edges.
+// card's f32 ridge point. The backward recomputes the two hidden layers (the output layer is linear
+// and its value is not needed) and computes the input and weight gradients of all three:
+// 2 (3 K H + 3 H H + 2 H Fo) flops per edge, 49.4 GFLOP at all 262,144 edges.
 //
 // Forward design (simple and exact first; tensor cores are later work):
 //  * f32 FMA on the CUDA cores, persistent blocks (as many as fit, one per SM at these widths);
@@ -474,31 +475,6 @@ sum_partials_kernel(const float* __restrict__ partial, int blocks, long p,
   out[i] = s;
 }
 
-// grid of the backward's edge kernel (persistent: as many blocks as fit, at most one per tile)
-cudaError_t bwd_grid(int k, int h, int fo, int n_edges, int* blocks) {
-  const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(edge_mlp_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  *blocks = 0;
-  if (n_edges == 0) return cudaSuccess;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_bwd_kernel, THREADS, smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int tiles = (n_edges + TE - 1) / TE;
-  *blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -541,29 +517,31 @@ int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
   return cudaGetLastError();
 }
 
-// Blocks the backward will launch for these widths and edges (0 for no edges): the wrapper
-// sizes the [blocks, P] partial buffer with it. Returns a CUDA error for widths that do not fit.
-int fused_relational_bwd_blocks(int fx, int fe, int h, int fo, int n_edges, int* blocks) {
-  return bwd_grid(2 * fx + fe, h, fo, n_edges, blocks);
-}
-
 // Backward. g_eout [E, Fo]; g_agg_e [E, Fo] = g_agg[dst] (sorted_gather); writes g_xd, g_xs
 // [E, Fx] (per-edge gradients of x_dst and x_src), g_ea [E, Fe], and grads [P] packed as
-// w1, b1, w2, b2, w3, b3 ([out][in]); partial is [blocks, P] scratch. Returns cudaGetLastError().
+// w1, b1, w2, b2, w3, b3 ([out][in]); partial is [max_blocks, P] scratch. The edge kernel is
+// persistent with min(tiles, max_blocks) blocks; the wrapper passes the SM count, since the
+// kernel's shared memory leaves room for one block per SM at the model's widths. Returns
+// cudaGetLastError(), or the error of widths whose shared memory does not fit one block.
 int fused_relational_bwd(const float* x, const float* ea, const int* edge_index,
                          const uint8_t* mask, const float* w1, const float* b1, const float* w2,
                          const float* b2, const float* w3, const float* g_eout,
                          const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
                          float* partial, float* grads, int n_edges, int fx, int fe, int h, int fo,
-                         int relu_edge, int blocks, void* stream_ptr) {
+                         int relu_edge, int max_blocks, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int k = 2 * fx + fe;
-  int expected = 0;
-  cudaError_t err = bwd_grid(k, h, fo, n_edges, &expected);
-  if (err != cudaSuccess) return err;
-  if (blocks != expected) return cudaErrorInvalidValue;
+  const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(edge_mlp_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  if (max_blocks < 1) return cudaErrorInvalidValue;
+  const int tiles = (n_edges + TE - 1) / TE;
+  const int blocks = tiles < max_blocks ? tiles : max_blocks;
   if (blocks > 0) {
-    const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
     edge_mlp_bwd_kernel<<<blocks, THREADS, smem, stream>>>(
         x, ea, edge_index, edge_index + n_edges, mask, w1, b1, w2, b2, w3, g_eout, g_agg_e, g_xd,
         g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge);

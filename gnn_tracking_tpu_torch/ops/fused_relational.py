@@ -23,8 +23,6 @@ backward. Weights use PyTorch's ``[out, in]`` layout.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 from torch.nn import functional as F
 
@@ -35,7 +33,6 @@ WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 _SIGNATURES = {
     "fused_relational_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
-    "fused_relational_bwd_blocks": [_build.I] * 5 + [_build.P],
     "fused_relational_bwd": [_build.P] * 16 + [_build.I] * 7 + [_build.P],
 }
 
@@ -213,7 +210,7 @@ def fused_relational_bwd(
             relu_edge=relu_edge,
         )
     n, e, fo = x.shape[0], edge_attr.shape[0], weights["w3"].shape[0]
-    n, e, fx, fe, h, fo = _check_inputs(
+    _, _, fx, fe, h, _ = _check_inputs(
         "fused_relational_bwd", x, edge_attr, edge_index, edge_mask, weights,
         [
             ("g_e_out", g_e_out, torch.float32, (e, fo)),
@@ -226,13 +223,12 @@ def fused_relational_bwd(
     dev = x.device
     g_agg_e = gather_rows(g_agg, edge_index[1])
     lib = _build.library("fused_relational", _SIGNATURES)
-    blocks = ctypes.c_int(0)
-    err = lib.fused_relational_bwd_blocks(fx, fe, h, fo, e, ctypes.byref(blocks))
-    _build.check(lib, err, "fused_relational_bwd")
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
-    partial = torch.empty((blocks.value, sum(sizes)), dtype=torch.float32, device=dev)
+    # one weight-gradient partial per block of the edge kernel, at most one block per SM
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
     packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     g_xd = torch.empty((e, fx), dtype=torch.float32, device=dev)
     g_xs = torch.empty((e, fx), dtype=torch.float32, device=dev)
@@ -242,7 +238,7 @@ def fused_relational_bwd(
         p(x), p(edge_attr), p(edge_index), p(edge_mask),
         *(p(weights[key]) for key in WEIGHT_KEYS[:5]),
         p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
-        e, fx, fe, h, fo, int(relu_edge), blocks.value, _build.stream_ptr(dev),
+        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
     )
     _build.check(lib, err, "fused_relational_bwd")
     fused_relational_bwd.launches += 1
