@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments::
 
-    python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--profile]
+    python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10] [--profile]
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -37,7 +37,28 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    checkpoint (with the latent offset of phase 4), with beta and edge
    weights within 1e-5 of the plain path's and labels equal to them, ~2048
    tracks;
-7. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
+7. metric-learning training at ``examples/configs/ml.yml``'s width
+   (``GraphConstructionFCNN(14, 256, 8, depth 5)``, the hinge loss with
+   ``max_num_neighbors=256``, Adam 1e-3) with ``MLModule`` on a seeded
+   32,768-hit point cloud (2048 particles, true edges between consecutive
+   hits): step 0's gradients through the kernels against the plain path's,
+   then ``--ml-steps`` timed steps (steps/s, forward / loss / backward /
+   Adam split, peak memory, the top-k filter's launches per step);
+8. graph construction on a 262,144-hit point cloud. (a) The kernels of the
+   two exact full-detector builders, the IVF probe and the banded top-k,
+   at the inputs that a build gives them: each against its plain version,
+   bitwise equal on a second launch, timed beside its bound. (c) Builds
+   with ``MLGraphConstruction(max_num_neighbors=8, max_radius=1.0)`` (the
+   FCNN embedding plus a particle-structured offset, so the latent is
+   clustered like a trained one; the resident top-k filter), with
+   ``knn_graph_ivf(k=8)`` over the same latent (certified: it widens the
+   probe until ``n_uncert == 0``, and raises after 3 attempts) and with
+   ``knn_graph_windowed(k=8)`` over the hits' spatial
+   coordinates (where the principal-axis band certifies). The exact
+   builders' neighbour sets must agree (ties aside) and a seeded sample of
+   4,096 queries must match a plain brute force; it prints ms per build and
+   the built graph's edge efficiency and purity;
+9. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -75,6 +96,16 @@ PEAK_BYTES_PER_S = 3.35e12
 # training configuration (bench.py:538-591, extra_graphtcn): the same model
 LOSS = {"max_n_objects": 2048, "object_block_size": 256}
 LR = 1e-3
+# metric-learning configuration (examples/configs/ml.yml): model, loss, Adam
+ML_MODEL = {"in_dim": NODE_DIM, "hidden_dim": 256, "out_dim": 8, "depth": 5}
+ML_LOSS = {"lw_repulsive": 0.5, "max_num_neighbors": 256}
+ML_HITS, ML_PARTICLES = 32768, 2048
+# graph construction at full-detector scale (bench.py:484-509, extra_knn)
+GC_HITS, GC_PARTICLES, GC_K, GC_RADIUS = 262144, 16384, 8, 1.0
+# the banded kNN's fallback covers the violators of the spatial cloud in one
+# pass (~11k of 262,144 fail the band at radius 4 before the fallback)
+WINDOWED_FALLBACK = 16384
+LAYER_RADII = np.linspace(0.03, 1.0, 16)
 TPU_KERNELS = {
     "fused_relational_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:373",
     "fused_relational_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:415",
@@ -82,6 +113,8 @@ TPU_KERNELS = {
     "sorted_gather": "gnn_tracking_tpu/ops/pallas/csr_segment.py:212",
     "pairwise_topk_filter": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:466",
     "cc_neighbors": "gnn_tracking_tpu/ops/pallas/cc_kernel.py:93",
+    "banded_topk_sorted": "gnn_tracking_tpu/ops/pallas/windowed_topk.py:173",
+    "ivf_probe": "gnn_tracking_tpu/ops/pallas/ivf_probe.py:161",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -90,6 +123,8 @@ SOURCES = {
     "sorted_gather": "gnn_tracking_tpu_torch/csrc/csr_segment.cu",
     "pairwise_topk_filter": "gnn_tracking_tpu_torch/csrc/pairwise_topk.cu",
     "cc_neighbors": "gnn_tracking_tpu_torch/csrc/cc_neighbors.cu",
+    "banded_topk_sorted": "gnn_tracking_tpu_torch/csrc/banded_topk.cu",
+    "ivf_probe": "gnn_tracking_tpu_torch/csrc/ivf_probe.cu",
 }
 
 
@@ -131,6 +166,53 @@ def make_train_event(seed: int):
         "pt": (2 * rng.random(N_TRACKS))[pid], "eta": (8 * (rng.random(N_TRACKS) - 0.5))[pid],
         "reconstructable": np.ones(N_NODES),
     }
+
+
+def make_point_cloud(seed: int, n_hits: int, n_particles: int):
+    """Hits of straight tracks from the origin in a 16-layer barrel (radii
+    0.03-1 m): particle ids in [0, n_particles) (0 = noise, each noise hit
+    its own direction), per-particle pt in [0, 2) and eta in [-4, 4) as in
+    the training phase; 14 node features (position, radius, direction,
+    pseudorapidity, then noise); true edges between consecutive hits of each
+    particle (point-cloud layout: ``edge_index``, no edge features). Extras:
+    ``xyz``, the spatial coordinates, and ``latent_centers``, a random 8-d
+    centre per particle."""
+    rng = np.random.default_rng(seed)
+    pid = rng.integers(0, n_particles, size=n_hits)
+    pt, eta, phi = 2 * rng.random(n_particles), 8 * (rng.random(n_particles) - 0.5), 2 * np.pi * rng.random(n_particles)
+    noise = pid == 0
+    eta_h = np.where(noise, 8 * (rng.random(n_hits) - 0.5), eta[pid])
+    phi_h = np.where(noise, 2 * np.pi * rng.random(n_hits), phi[pid]) + 0.002 * rng.normal(size=n_hits)
+    r = LAYER_RADII[rng.integers(0, len(LAYER_RADII), size=n_hits)]
+    z = r * np.sinh(eta_h) + 0.001 * rng.normal(size=n_hits)
+    xyz = np.stack([r * np.cos(phi_h), r * np.sin(phi_h), z], axis=1).astype(np.float32)
+    x = np.concatenate([
+        xyz, np.stack([r, np.cos(phi_h), np.sin(phi_h), np.arcsinh(z / r)], axis=1),
+        rng.normal(size=(n_hits, NODE_DIM - 7)),
+    ], axis=1).astype(np.float32)
+    order = np.lexsort((r, pid))
+    same = (pid[order][1:] == pid[order][:-1]) & (pid[order][1:] > 0)
+    centers = rng.normal(size=(n_particles, 8)).astype(np.float32)
+    return {
+        "x": x, "edge_index": np.stack([order[:-1][same], order[1:][same]]).astype(np.int32),
+        "particle_id": pid, "pt": pt[pid], "eta": eta_h, "reconstructable": np.ones(n_hits),
+        "extras": {"xyz": xyz, "latent_centers": centers[pid]},
+    }
+
+
+def all_pairs(pid: np.ndarray) -> np.ndarray:
+    """Every intra-particle hit pair once, noise (id 0) excluded: the true
+    edges that the edge efficiency counts against (the JAX
+    ``get_truth_edge_index``)."""
+    order = np.argsort(pid, kind="stable")
+    starts = np.flatnonzero(np.r_[True, pid[order][1:] != pid[order][:-1]])
+    edges = []
+    for a, b in zip(starts, np.r_[starts[1:], len(pid)]):
+        if pid[order[a]] != 0 and b - a > 1:
+            members = np.sort(order[a:b])
+            iu = np.triu_indices(b - a, k=1)
+            edges.append(np.stack([members[iu[0]], members[iu[1]]]))
+    return np.concatenate(edges, axis=1).astype(np.int32)
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -203,14 +285,17 @@ def host_ms(fn, *, rounds: int = 5) -> float:
 def plain_path():
     """Route the port's kernel call sites to their plain versions: the
     fused relational forward and backward (which hold the sorted segment-sum
-    and gather launches), the top-k filter and connected components."""
-    from gnn_tracking_tpu_torch.ops import cc, fused_relational, knn
+    and gather launches), the top-k filter, connected components, the banded
+    top-k and the IVF probe."""
+    from gnn_tracking_tpu_torch.ops import cc, fused_relational, ivf_knn, knn, windowed_topk
     from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors_plain
+    from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe_plain
     from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain
 
     saved = (
         fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
-        knn.pairwise_topk_filter, cc.cc_neighbors,
+        knn.pairwise_topk_filter, cc.cc_neighbors, windowed_topk.banded_topk_sorted,
+        ivf_knn.ivf_probe,
     )
     fused_relational.fused_relational_fwd = (
         lambda *a, rowptr=None, **kw: fused_relational.fused_relational_plain(*a, **kw)
@@ -220,18 +305,22 @@ def plain_path():
     )
     knn.pairwise_topk_filter = pairwise_topk_filter_plain
     cc.cc_neighbors = cc_neighbors_plain
+    windowed_topk.banded_topk_sorted = windowed_topk.banded_topk_sorted_plain
+    ivf_knn.ivf_probe = ivf_probe_plain
     try:
         yield
     finally:
         (fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
-         knn.pairwise_topk_filter, cc.cc_neighbors) = saved
+         knn.pairwise_topk_filter, cc.cc_neighbors, windowed_topk.banded_topk_sorted,
+         ivf_knn.ivf_probe) = saved
 
 
 def compare_topk(kd, ki, pd, pi, boundary2):
     """Kernel vs plain top-k. Squared distances in the slots both fill agree
     within 1e-5 * max(boundary, max plain d^2); indices are identical except
-    (a) rows whose differing entries lie within 1e-5 * boundary of the
-    selection boundary (the radius, or the k-th distance) and (b) swaps of
+    (a) rows whose differing entries lie within 1e-5 * boundary of a
+    selection boundary (the radius; the k-th distance in kNN mode, and in
+    radius mode on a row whose k slots are all filled) and (b) swaps of
     equal-distance neighbours. Returns (max_abs_err, n_boundary_rows,
     n_tie_rows)."""
     import torch
@@ -246,8 +335,9 @@ def compare_topk(kd, ki, pd, pi, boundary2):
     n_boundary = n_tie = 0
     for r in bad_rows:
         dk, dp = kd[r], pd[r]
-        bound = boundary2 if boundary2 is not None else pd[r][fin_p[r]].max().item()
-        tol = 1e-5 * max(bound, 1e-30)
+        bounds = [] if boundary2 is None else [boundary2]
+        if boundary2 is None or bool(fin_p[r].all()):
+            bounds.append(pd[r][fin_p[r]].max().item())
         sk = set(ki[r][fin_k[r]].tolist())
         sp = set(pi[r][fin_p[r]].tolist())
         if sk == sp:
@@ -257,7 +347,8 @@ def compare_topk(kd, ki, pd, pi, boundary2):
         # the differing members must sit on the boundary
         diff_d = [dk[j].item() for j in range(kd.shape[1]) if fin_k[r, j] and ki[r, j].item() not in sp]
         diff_d += [dp[j].item() for j in range(pd.shape[1]) if fin_p[r, j] and pi[r, j].item() not in sk]
-        assert all(abs(d - bound) <= tol for d in diff_d), f"row {r}: {sorted(sk ^ sp)}"
+        assert all(any(abs(d - b) <= 1e-5 * max(b, 1e-30) for b in bounds) for d in diff_d), (
+            f"row {r}: {sorted(sk ^ sp)} at {diff_d}, boundaries {bounds}")
         n_boundary += 1
     return err, n_boundary, n_tie
 
@@ -301,6 +392,66 @@ def profile_run(fn, name: str):
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms, "device_idle_share": 1 - device_ms / wall_ms,
     }))
+
+
+def compare_grads(gk: dict, gp: dict):
+    """Step-0 parameter gradients through the kernels (``gk``) against the
+    plain path's (``gp``): per tensor, |g_kernel - g_plain| <= 1e-4
+    |g_plain|, plus a floor of 1e-7 of the whole gradient's norm (an exact
+    zero gradient, such as a bias the loss cannot see, is computed as
+    rounding noise, and noise has no relative error). Returns the worst
+    relative tensor, its error, the tensors within the floor only, the
+    parameters without a gradient in both, and the total norm."""
+    import torch
+
+    no_grad = [n for n in gp if gp[n] is None]
+    total = math.sqrt(sum(gp[n].square().sum().item() for n in gp if gp[n] is not None))
+    worst_name, worst, at_floor = None, 0.0, []
+    for name in gk:
+        if gp[name] is None:
+            assert gk[name] is None, f"{name}: a gradient through the kernels only"
+            continue
+        assert gk[name] is not None, f"{name}: no gradient through the kernels"
+        assert torch.isfinite(gk[name]).all(), f"{name}: non-finite gradient"
+        diff = (gk[name] - gp[name]).norm().item()
+        ref = gp[name].norm().item()
+        assert diff <= 1e-4 * ref + 1e-7 * total, (
+            f"{name}: |g_kernel - g_plain| {diff:.3e} > 1e-4 x {ref:.3e} + 1e-7 x {total:.3e}")
+        if diff > 1e-4 * ref:
+            at_floor.append(f"{name} ({ref:.1e})")
+        elif ref > 0 and diff / ref >= worst:
+            worst_name, worst = name, diff / ref
+    return worst_name, worst, at_floor, no_grad, total
+
+
+def step_split(module, g, rounds: int = 5) -> dict:
+    """Median forward / loss / backward / optimizer times (ms) of one
+    training step, each stage ended by a synchronise."""
+    import torch
+
+    def once():
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        module.model.train()
+        out = module.model(g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        loss, _ = module.get_losses(out, g)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        module.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        module.optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip([t, *times[:-1]], times)]
+
+    splits = [once() for _ in range(rounds)]
+    return {k: statistics.median(s[i] for s in splits)
+            for i, k in enumerate(("forward_ms", "loss_ms", "backward_ms", "optimizer_ms"))}
 
 
 def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
@@ -464,27 +615,7 @@ def training_path(seed: int, steps: int, counters: dict, profile: bool) -> tuple
     with plain_path():
         gp, mp, lp = step0()
     n_cut_diff = int((mk != mp).sum())
-    no_grad = [n for n in gp if gp[n] is None]
-    # Per tensor, |g_kernel - g_plain| <= 1e-4 |g_plain|, plus a floor of
-    # 1e-7 of the whole gradient's norm: the exact gradient of the latent's
-    # output bias is zero (the loss sees differences of H only), so its
-    # computed value is rounding noise, and noise has no relative error.
-    total = math.sqrt(sum(gp[n].square().sum().item() for n in gp if gp[n] is not None))
-    worst_name, worst, at_floor = None, 0.0, []
-    for name in gk:
-        if gp[name] is None:
-            assert gk[name] is None, f"{name}: a gradient through the kernels only"
-            continue
-        assert gk[name] is not None, f"{name}: no gradient through the kernels"
-        assert torch.isfinite(gk[name]).all(), f"{name}: non-finite gradient"
-        diff = (gk[name] - gp[name]).norm().item()
-        ref = gp[name].norm().item()
-        assert diff <= 1e-4 * ref + 1e-7 * total, (
-            f"{name}: |g_kernel - g_plain| {diff:.3e} > 1e-4 x {ref:.3e} + 1e-7 x {total:.3e}")
-        if diff > 1e-4 * ref:
-            at_floor.append(f"{name} ({ref:.1e})")
-        elif ref > 0 and diff / ref >= worst:
-            worst_name, worst = name, diff / ref
+    worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
     assert no_grad and all(n.startswith("ec.") for n in no_grad), no_grad
     assert all(step0_launches[k] > 0 for k in step0_launches), step0_launches
     log(f"training step 0: loss {lk:.6f} (plain {lp:.6f}); {len(gk) - len(no_grad)} parameter "
@@ -510,29 +641,7 @@ def training_path(seed: int, steps: int, counters: dict, profile: bool) -> tuple
     peak = torch.cuda.max_memory_allocated() / 2**30
     assert all(math.isfinite(v) for v in metrics.values()), metrics
 
-    def split_once():
-        times = []
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        model.train()
-        out = model(g)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter())
-        loss, _ = module.get_losses(out, g)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter())
-        module.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter())
-        module.optimizer.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter())
-        return [(b - a) * 1e3 for a, b in zip([t, *times[:-1]], times)]
-
-    splits = [split_once() for _ in range(5)]
-    split = {k: statistics.median(s[i] for s in splits)
-             for i, k in enumerate(("forward_ms", "loss_ms", "backward_ms", "optimizer_ms"))}
+    split = step_split(module, g)
     summary = {
         "steps": steps, "steps_per_s": steps / dt, "step_ms": dt / steps * 1e3, **split,
         "peak_mem_gib": peak, "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -602,6 +711,313 @@ def fit_and_serve(seed: int, tmp: Path, condensed) -> None:
         f"plain path's ({n_clusters} clusters)")
 
 
+def ml_training_path(seed: int, steps: int, profile: bool) -> dict:
+    """Metric-learning training at ``ml.yml``'s width on a 32,768-hit point
+    cloud: step 0's gradients through the kernels against the plain path,
+    then ``steps`` timed steps; row #12 (radius mode, k = 256) timed at the
+    step's latent. Returns the summary."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.models.graph_construction import GraphConstructionFCNN
+    from gnn_tracking_tpu_torch.ops import pairwise_topk
+    from gnn_tracking_tpu_torch.training.module import MLModule
+
+    topk = pairwise_topk.pairwise_topk_filter
+    g = EventGraph.from_arrays(**make_point_cloud(seed + 80, ML_HITS, ML_PARTICLES)).to("cuda")
+    model = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 81))
+    module = MLModule(model=model, loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR,
+                      device="cuda")
+    module.setup_params(g)
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, metrics = module.get_losses(model(g), g)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.item(), int(metrics["n_edges_rep"])
+
+    topk.launches = 0
+    gk, lk, rep_k = step0()
+    assert topk.launches == 1, topk.launches
+    with plain_path():
+        gp, lp, rep_p = step0()
+    worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
+    assert not no_grad, no_grad
+    log(f"ML step 0: loss {lk:.6f} (plain {lp:.6f}); {len(gk)} parameter gradients agree with the "
+        f"plain path (worst {worst_name}: {worst:.3e} relative; within the floor of 1e-7 x "
+        f"{total:.3e} only: {at_floor or 'none'}); repulsive edges {rep_k} (plain {rep_p})")
+
+    def radius_topk(when: str) -> dict:
+        """Row #12 in the loss's radius mode on the model's current latent:
+        kernel against plain, and both timed."""
+        with torch.no_grad():
+            h = model(g)["H"].detach().contiguous()
+        k, r2 = ML_LOSS["max_num_neighbors"], ML_LOSS.get("r_emb", 1.0) ** 2 * (1.0 + 1e-3)
+        kd, ki = topk(h, k=k, radius2=r2)
+        pd, pi = pairwise_topk.pairwise_topk_filter_plain(h, k=k, radius2=r2)
+        torch.cuda.synchronize()
+        err, nb, nt = compare_topk(kd, ki, pd, pi, r2)
+        filled = torch.isfinite(kd).sum(dim=1).float()
+        ms = cuda_ms(lambda: topk(h, k=k, radius2=r2), reps=1, rounds=5)
+        plain = cuda_ms(lambda: pairwise_topk.pairwise_topk_filter_plain(h, k=k, radius2=r2),
+                        reps=1, rounds=3)
+        log(f"  pairwise_topk_filter, radius mode at k = {k} on the ML latent {when} ({ML_HITS} "
+            f"hits): agrees with the plain version (max|err| {err:.3e}, {nb} boundary rows, {nt} "
+            f"tie rows); filled slots per hit mean {filled.mean().item():.1f}, max "
+            f"{int(filled.max())}; {ms:.3f} ms (plain {plain:.3f} ms)")
+        return {"ms": ms, "plain_ms": plain, "filled_mean": filled.mean().item(),
+                "full_rows": int((filled == k).sum())}
+
+    topk_step0 = radius_topk("at step 0")
+    for _ in range(2):
+        module.training_step(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    topk.launches = 0
+    # each step ends in its metrics' transfer to the host, so the host clock
+    # times it whole; the radius top-k's cost falls as the latent spreads
+    ticks = [time.perf_counter()]
+    for _ in range(steps):
+        metrics = module.training_step(g)
+        ticks.append(time.perf_counter())
+    dt = ticks[-1] - ticks[0]
+    launches = topk.launches
+    assert launches > 0, "ML training never launched pairwise_topk_filter"
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = {
+        "steps": steps, "steps_per_s": steps / dt, "step_ms": dt / steps * 1e3,
+        "step_ms_each": [(b - a) * 1e3 for a, b in zip(ticks, ticks[1:])],
+        **step_split(module, g), "peak_mem_gib": peak,
+        "pairwise_topk_filter_launches_per_step": launches / steps,
+        "radius_topk_step0": topk_step0, "radius_topk_trained": radius_topk(f"after {steps + 7} steps"),
+        "total": metrics["total"], "n_edges_rep": metrics["n_edges_rep"],
+        "n_edges_att": metrics["n_edges_att"],
+    }
+    log("ml training: " + json.dumps(summary))
+    if profile:
+        profile_run(lambda: [module.training_step(g) for _ in range(3)], "ml_training")
+    return summary
+
+
+def capture(module, name: str):
+    """Wrap ``module.name`` to record the arguments of its calls (and
+    still call it); returns the record and an undo function."""
+    calls = []
+    fn = getattr(module, name)
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return fn(*a, **kw)
+
+    # the wrapper counts a launch on whatever its module's name holds,
+    # which is this recorder while it is in place
+    recording.launches = 0
+    setattr(module, name, recording)
+    return calls, lambda: setattr(module, name, fn)
+
+
+def compare_neighbours(what: str, a, b, k: int) -> int:
+    """Two exact kNN graphs (``(edge_index, mask, dists)``, query-major with
+    ``k`` slots) agree: the same slots are filled, each row's sorted
+    distances agree within 1e-5 relative, and a row whose neighbour set
+    differs has the same distances (a tie). Returns the number of tie rows."""
+    import torch
+
+    (ea, ma, da), (eb, mb, db) = a, b
+    assert torch.equal(ma, mb), f"{what}: filled slots differ"
+    n = ma.numel() // k
+    da = torch.sort(torch.where(ma, da, 0.0).view(n, k), dim=1).values
+    db = torch.sort(torch.where(mb, db, 0.0).view(n, k), dim=1).values
+    err = (da - db).abs().max().item()
+    assert err <= 1e-5 * db.max().item(), f"{what}: distances differ by {err}"
+    ia = torch.sort(torch.where(ma, ea[0], -1).view(n, k), dim=1).values
+    ib = torch.sort(torch.where(mb, eb[0], -1).view(n, k), dim=1).values
+    return int((ia != ib).any(dim=1).sum())
+
+
+def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) -> int:
+    """A seeded sample of queries against a plain brute force on the card
+    (direct float32 distances, stable sort): the built graph's sorted
+    distances within 1e-5 relative, its neighbour sets equal up to ties.
+    Returns the number of tie rows."""
+    import torch
+
+    n = x.shape[0]
+    rows = torch.from_numpy(np.random.default_rng(seed).choice(n, n_sample, replace=False)).to(x.device)
+    want_d, want_i = [], []
+    for s in range(0, n_sample, 512):
+        q = rows[s : s + 512]
+        dist = torch.zeros((len(q), n), device=x.device)
+        for j in range(x.shape[1]):
+            dist += (x[q, j, None] - x[None, :, j]) ** 2
+        dist[torch.arange(len(q), device=x.device), q] = math.inf
+        sd, si = torch.sort(dist, dim=1, stable=True)
+        want_d.append(torch.sqrt(sd[:, :k]))
+        want_i.append(si[:, :k])
+    want_d, want_i = torch.cat(want_d), torch.cat(want_i)
+    m = mask.view(n, k)[rows]
+    assert m.all(), "a sampled query has fewer than k neighbours"
+    got_d = torch.sort(dists.view(n, k)[rows], dim=1).values
+    err = (got_d - want_d).abs().max().item()
+    assert err <= 1e-5 * want_d.max().item(), f"brute-force sample: distances differ by {err}"
+    got_i = torch.sort(ei[0].view(n, k)[rows].long(), dim=1).values
+    return int((got_i != torch.sort(want_i, dim=1).values).any(dim=1).sum())
+
+
+def graph_construction_phase(seed: int) -> tuple[list[dict], dict]:
+    """Kernel phases of rows #14 and #15 at the inputs a full-detector build
+    gives them, then the three builders on a 262,144-hit cloud (see the
+    module docstring). Returns the two kernels' results and the summary."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.metrics.graph_construction import get_efficiency_purity_edges
+    from gnn_tracking_tpu_torch.models.graph_construction import (
+        GraphConstructionFCNN,
+        MLGraphConstruction,
+    )
+    from gnn_tracking_tpu_torch.ops import ivf_knn, ivf_probe, knn, pairwise_topk, windowed_topk
+
+    cloud = make_point_cloud(seed + 90, GC_HITS, GC_PARTICLES)
+    del cloud["edge_index"]
+    te = torch.from_numpy(all_pairs(cloud["particle_id"]))
+    g = EventGraph.from_arrays(**cloud).replace(
+        true_edge_index=te, true_edge_mask=torch.ones(te.shape[1], dtype=torch.bool)).to("cuda")
+    class OffsetLatent(torch.nn.Module):
+        """The FCNN's latent scaled by 0.05 plus the hit's particle centre
+        (``extras["latent_centers"]``): random weights give an unclustered
+        latent, a trained model a clustered one."""
+
+        def __init__(self, fcnn):
+            super().__init__()
+            self.fcnn = fcnn
+
+        def forward(self, data):
+            return {"H": data.extras["latent_centers"] + 0.05 * self.fcnn(data)["H"]}
+
+    fcnn = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 91))
+    embed = OffsetLatent(fcnn).to("cuda").eval()
+    gc = MLGraphConstruction(embed, max_num_neighbors=GC_K, max_radius=GC_RADIUS).eval()
+    with torch.no_grad():
+        latent = embed(g)["H"].contiguous()
+    xyz = g.extras["xyz"].contiguous()
+
+    # ---- (a) rows #15 and #14 at the inputs of one build each ---------------
+    # (the IVF's first attempt, at its default probe width: knn_graph_ivf
+    # widens it while queries stay uncertified, so this one may leave some)
+    probe_calls, undo = capture(ivf_knn, "ivf_probe")
+    _, _, n_unc_ivf, stats = ivf_knn.ivf_knn(latent, k=GC_K, return_stats=True)
+    undo()
+    stats["n_uncert_after_fallback"] = int(n_unc_ivf)
+    band_calls, undo = capture(windowed_topk, "banded_topk_sorted")
+    _, _, n_unc_win = windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=WINDOWED_FALLBACK)
+    undo()
+    assert int(n_unc_win) == 0, int(n_unc_win)
+    assert len(probe_calls) == 1 and len(band_calls) == 1
+    # the queries each certification leaves to its fallback
+    uncertified = {
+        "ivf_probe8": int(ivf_knn.ivf_knn(latent, k=GC_K, fallback=False)[2]),
+        "windowed_radius4": int(windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=0)[2]),
+    }
+    results = []
+
+    pa, pkw = probe_calls[0]
+    xb, ib, xc, ic, nbr = pa
+    kd, ki = ivf_probe.ivf_probe(*pa, **pkw)
+    kd2, ki2 = ivf_probe.ivf_probe(*pa, **pkw)
+    pd, pi = ivf_probe.ivf_probe_plain(*pa, **pkw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2), "ivf_probe: second launch differs"
+    err15, nb15, nt15 = compare_topk(kd, ki, pd, pi, None)
+    ms15 = cuda_ms(lambda: ivf_probe.ivf_probe(*pa, **pkw))
+    plain15 = cuda_ms(lambda: ivf_probe.ivf_probe_plain(*pa, **pkw), reps=1, rounds=3)
+    # the pairs this table needs: valid query slots x valid candidate slots
+    # of the probed cells, at 3 flops per dimension
+    nq = (xb[..., 0].abs() < 1e29).sum(dim=1).double()
+    nc = (xc[..., 0].abs() < 1e29).sum(dim=1).double()
+    pairs15 = float((nq * nc[nbr.long()].sum(dim=1)).sum())
+    d = xb.shape[2]
+    bound15, by15 = bound(3.0 * d * pairs15, nbytes(*pa, kd, ki))
+    results.append({"name": "ivf_probe", "max_abs_err": err15, "ms": ms15, "plain_ms": plain15,
+                    "bound_ms": bound15, "bound_by": by15, "library_ms": None})
+    log(f"kernel ivf_probe: OK max|err| {err15:.3e} ({nb15} k-th boundary rows, {nt15} tie-order "
+        f"rows), repeat bitwise; C={xb.shape[0]} cap={xb.shape[1]} capc={xc.shape[1]} T={nbr.shape[1]} "
+        f"kw={pkw['kw']}; {ms15:.3f} ms (plain {plain15:.3f} ms, bound {bound15:.4f} ms by {by15}, "
+        f"{pairs15:.3e} valid pairs of {float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1]):.3e} "
+        f"in the table); IVF stats {stats}")
+
+    ba, bkw = band_calls[0]
+    kd, ki = windowed_topk.banded_topk_sorted(*ba, **bkw)
+    kd2, ki2 = windowed_topk.banded_topk_sorted(*ba, **bkw)
+    pd, pi = windowed_topk.banded_topk_sorted_plain(*ba, **bkw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2), "banded_topk_sorted: second launch differs"
+    err14, nb14, nt14 = compare_topk(kd, ki, pd, pi, None)
+    ms14 = cuda_ms(lambda: windowed_topk.banded_topk_sorted(*ba, **bkw))
+    plain14 = cuda_ms(lambda: windowed_topk.banded_topk_sorted_plain(*ba, **bkw), reps=1, rounds=3)
+    xs, valid = ba[0], bkw["valid"]
+    lo, hi = windowed_topk._band(xs.shape[0], bkw["block_q"], bkw["block_c"], bkw["radius"],
+                                 torch.arange(xs.shape[0], device=xs.device))
+    pairs14 = float(((hi - lo) * valid).sum())
+    bound14, by14 = bound(3.0 * xs.shape[1] * pairs14, nbytes(xs, valid, kd, ki))
+    results.append({"name": "banded_topk_sorted", "max_abs_err": err14, "ms": ms14,
+                    "plain_ms": plain14, "bound_ms": bound14, "bound_by": by14, "library_ms": None})
+    log(f"kernel banded_topk_sorted: OK max|err| {err14:.3e} ({nb14} k-th boundary rows, {nt14} "
+        f"tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} radius={bkw['radius']} "
+        f"block_q={bkw['block_q']} block_c={bkw['block_c']}; {ms14:.3f} ms (plain {plain14:.3f} ms, "
+        f"bound {bound14:.4f} ms by {by14}, {pairs14:.3e} pairs)")
+
+    # ---- (c) the builders -------------------------------------------------
+    counters = {"pairwise_topk_filter": pairwise_topk.pairwise_topk_filter,
+                "banded_topk_sorted": windowed_topk.banded_topk_sorted,
+                "ivf_probe": ivf_probe.ivf_probe}
+    for fn in counters.values():
+        fn.launches = 0
+    with torch.no_grad():
+        built = gc(g)
+        resident = knn.knn_graph(latent, GC_K)
+        ivf = knn.knn_graph_ivf(latent, GC_K)  # raises unless every query is certified
+        ivf_attempts = ivf_probe.ivf_probe.launches  # one probe per attempt
+        windowed = knn.knn_graph_windowed(xyz, GC_K, fallback_cap=WINDOWED_FALLBACK)
+        resident_xyz = knn.knn_graph(xyz, GC_K)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, n in launches.items():
+        assert n > 0, f"graph construction never launched {name}"
+    assert torch.equal(built.edge_index, resident[0])
+    assert torch.equal(built.edge_mask, resident[1] & (resident[2] <= GC_RADIUS))
+    ties_ivf = compare_neighbours("IVF vs resident top-k (latent)", ivf, resident, GC_K)
+    ties_win = compare_neighbours("banded vs resident top-k (spatial)", windowed, resident_xyz, GC_K)
+    ties_bf = brute_sample(latent, *resident, GC_K, seed)
+    ties_bf_win = brute_sample(xyz, *windowed, GC_K, seed + 1)
+    eff = get_efficiency_purity_edges(built)
+    with torch.no_grad():
+        times = {
+            "mlgc_ms": host_ms(lambda: gc(g), rounds=3),
+            "knn_resident_ms": host_ms(lambda: knn.knn_graph(latent, GC_K), rounds=3),
+            "knn_ivf_ms": host_ms(lambda: knn.knn_graph_ivf(latent, GC_K), rounds=3),
+            "knn_windowed_ms": host_ms(
+                lambda: knn.knn_graph_windowed(xyz, GC_K, fallback_cap=WINDOWED_FALLBACK), rounds=3),
+            "topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk_filter(latent, k=GC_K),
+                                    reps=1, rounds=3),
+        }
+    summary = {
+        "hits": GC_HITS, "k": GC_K, **times, **eff, "launches": launches,
+        "ivf_attempts": ivf_attempts, "uncertified_before_fallback": uncertified,
+        "edges_kept_by_radius": int(built.edge_mask.sum()), "tie_rows_ivf": ties_ivf,
+        "tie_rows_windowed": ties_win, "tie_rows_brute_sample": ties_bf,
+        "tie_rows_brute_sample_windowed": ties_bf_win, "ivf_stats": stats,
+    }
+    log("graph construction: " + json.dumps(summary))
+    for r in results:
+        r["launches"] = launches[r["name"]]
+    return results, summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -610,13 +1026,16 @@ def main(argv=None) -> int:
                    "events/s includes the loop's fill and drain")
     p.add_argument("--train-steps", type=int, default=10,
                    help="timed training steps (after 2 warm-up steps)")
+    p.add_argument("--ml-steps", type=int, default=10,
+                   help="timed metric-learning steps (after 2 warm-up steps)")
     p.add_argument("--profile", action="store_true",
-                   help="also trace one predict_dir and 3 training steps with torch.profiler")
+                   help="also trace one predict_dir, 3 training steps and 3 metric-learning "
+                   "steps with torch.profiler")
     args = p.parse_args(argv)
     if args.events < 3:
         p.error("--events must be at least 3")
-    if args.train_steps < 1:
-        p.error("--train-steps must be at least 1")
+    if args.train_steps < 1 or args.ml_steps < 1:
+        p.error("--train-steps and --ml-steps must be at least 1")
 
     import torch
 
@@ -885,7 +1304,14 @@ def main(argv=None) -> int:
     # ---- 6. Trainer.fit, then serve its checkpoint ---------------------------
     fit_and_serve(args.seed, tmp, CondensedGraphTCN)
 
-    # ---- 7. results -------------------------------------------------------
+    # ---- 7. metric-learning training ----------------------------------------
+    ml_training_path(args.seed, args.ml_steps, args.profile)
+
+    # ---- 8. graph construction ---------------------------------------------
+    gc_results, _ = graph_construction_phase(args.seed)
+    results += gc_results
+
+    # ---- 9. results -------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],

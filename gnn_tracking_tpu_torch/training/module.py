@@ -1,5 +1,5 @@
 """Training task modules (counterpart of the JAX ``training/module.py``:
-``TrackingModule`` and ``TCModule``).
+``TrackingModule``, ``TCModule`` and ``MLModule``).
 
 A module holds the model, the loss and the optimizer. ``training_step``
 runs forward, loss, ``backward`` and one optimizer step, and returns the
@@ -9,8 +9,8 @@ step's metrics as floats after one device-to-host transfer. The optimizer is
 loss come from the module's ``torch.Generator``.
 
 Not ported yet (raise ``NotImplementedError``): precision policies other
-than ``"f32"``, a custom optimizer, ``preproc``, ``frozen_prefixes`` and
-the cluster scanner.
+than ``"f32"``, a custom optimizer, ``preproc``, ``frozen_prefixes``, the
+cluster scanner and the graph-construction scanner (``gc_scanner``).
 """
 
 from __future__ import annotations
@@ -153,4 +153,46 @@ class TCModule(TrackingModule):
             "trk.lhc_pt0.9",
             "trk.perfect_pt0.9",
             "trk.double_majority_pt0.9",
+        ]
+
+
+class MLModule(TrackingModule):
+    """Metric-learning (graph construction) training (reference
+    ``training/ml.py``). A point cloud without ``true_edge_index`` carries
+    its true edges as ``edge_index``; they are taken from there."""
+
+    def __init__(self, *, loss_fct, gc_scanner=None, **kwargs):
+        if gc_scanner is not None:
+            msg = "the graph-construction scanner is not ported"
+            raise NotImplementedError(msg)
+        super().__init__(**kwargs)
+        self.loss_fct = loss_fct
+
+    def get_losses(self, out, data: EventGraph):
+        true_edge_index, true_edge_mask = data.true_edge_index, data.true_edge_mask
+        if true_edge_index.shape[1] == 0:
+            true_edge_index, true_edge_mask = data.edge_index, data.edge_mask
+        losses = self.loss_fct(
+            x=out["H"],
+            particle_id=data.particle_id,
+            batch=data.batch,
+            true_edge_index=true_edge_index,
+            true_edge_mask=true_edge_mask,
+            pt=data.pt,
+            eta=data.eta,
+            reconstructable=data.reconstructable,
+            node_mask=data.node_mask,
+        )
+        metrics = dict(losses.loss_dct)
+        metrics |= {f"{k}_weighted": v for k, v in losses.weighted_losses.items()}
+        metrics |= dict(losses.extra_metrics)
+        return losses.loss, metrics
+
+    def highlight_metric(self, metric: str) -> bool:
+        return metric in [
+            "n_edges_frac_segment50_95",
+            "total",
+            "attractive",
+            "repulsive",
+            "max_frac_segment50",
         ]
