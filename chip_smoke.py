@@ -41,23 +41,37 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    (``GraphConstructionFCNN(14, 256, 8, depth 5)``, the hinge loss with
    ``max_num_neighbors=256``, Adam 1e-3) with ``MLModule`` on a seeded
    32,768-hit point cloud (2048 particles, true edges between consecutive
-   hits): step 0's gradients through the kernels against the plain path's,
-   then ``--ml-steps`` timed steps (steps/s, forward / loss / backward /
-   Adam split, peak memory, the top-k filter's launches per step);
-8. graph construction on a 262,144-hit point cloud. (a) The kernels of the
-   two exact full-detector builders, the IVF probe and the banded top-k,
-   at the inputs that a build gives them: each against its plain version,
-   bitwise equal on a second launch, timed beside its bound. (c) Builds
-   with ``MLGraphConstruction(max_num_neighbors=8, max_radius=1.0)`` (the
-   FCNN embedding plus a particle-structured offset, so the latent is
-   clustered like a trained one; the resident top-k filter), with
-   ``knn_graph_ivf(k=8)`` over the same latent (certified: it widens the
-   probe until ``n_uncert == 0``, and raises after 3 attempts) and with
-   ``knn_graph_windowed(k=8)`` over the hits' spatial
-   coordinates (where the principal-axis band certifies). The exact
-   builders' neighbour sets must agree (ties aside) and a seeded sample of
-   4,096 queries must match a plain brute force; it prints ms per build and
-   the built graph's edge efficiency and purity;
+   hits): step 0's gradients through the kernels against the plain path;
+   the first step timed alone (the random model's compact latent, on which
+   the top-k filter fills all 256 slots of most rows); ``ML_WARMUP`` steps
+   in all, after which a step's cost is steady; then ``--ml-steps`` timed
+   steps (steps/s, each step's time, peak memory, the top-k filter's
+   launches per step) and the forward / loss / backward / Adam split of
+   the 5 steps that follow them;
+8. graph construction at 262,144 points, on three inputs: a hit cloud of
+   16,384 particles embedded by the FCNN that phase 7 trained, its hits'
+   3-d spatial coordinates, and the JAX package's kNN benchmark cloud
+   (``bench.py:484-509``: 4,096 8-d clusters of 64 points). The briefly
+   trained model's latent is not yet clustered, and on such a cloud the
+   IVF's certification fails for most queries (the JAX package's notes say
+   so of uniform 8-d clouds), so the IVF builds over the benchmark's cloud. Each
+   cloud's cluster RMS radius and nearest-centroid distance are printed.
+   (a) The kernels of the two exact full-detector builders, the IVF probe
+   (benchmark cloud) and the banded top-k (spatial coordinates, d = 3, and
+   the trained latent, d = 8), at the inputs that a build gives them: each
+   against its plain version, bitwise equal on a second launch, timed
+   beside its bound; the queries each certification leaves before its
+   fallback. (c) Builds with ``MLGraphConstruction(max_num_neighbors=8,
+   max_radius=1.0)`` over the trained latent (the resident top-k filter),
+   ``knn_graph_ivf(k=8)`` over the benchmark cloud (certified: it widens
+   the probe until ``n_uncert == 0``, and raises after 3 attempts) and
+   ``knn_graph_windowed(k=8)`` over the spatial coordinates (where the
+   principal-axis band certifies), the last two at their defaults, with
+   their attempt counts. Each exact builder's neighbour sets must agree
+   with the resident top-k's on the same input (ties aside) and a seeded
+   sample of 4,096 queries of each input must match a plain brute force;
+   it prints ms per build (the resident top-k on the benchmark cloud too)
+   and the built graph's edge efficiency and purity;
 9. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
@@ -101,10 +115,10 @@ ML_MODEL = {"in_dim": NODE_DIM, "hidden_dim": 256, "out_dim": 8, "depth": 5}
 ML_LOSS = {"lw_repulsive": 0.5, "max_num_neighbors": 256}
 ML_HITS, ML_PARTICLES = 32768, 2048
 # graph construction at full-detector scale (bench.py:484-509, extra_knn)
+# steps before phase 7's timed window: the random model's compact latent
+# makes the first steps ~20x dearer, and by then it has spread
+ML_WARMUP = 30
 GC_HITS, GC_PARTICLES, GC_K, GC_RADIUS = 262144, 16384, 8, 1.0
-# the banded kNN's fallback covers the violators of the spatial cloud in one
-# pass (~11k of 262,144 fail the band at radius 4 before the fallback)
-WINDOWED_FALLBACK = 16384
 LAYER_RADII = np.linspace(0.03, 1.0, 16)
 TPU_KERNELS = {
     "fused_relational_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:373",
@@ -174,9 +188,8 @@ def make_point_cloud(seed: int, n_hits: int, n_particles: int):
     its own direction), per-particle pt in [0, 2) and eta in [-4, 4) as in
     the training phase; 14 node features (position, radius, direction,
     pseudorapidity, then noise); true edges between consecutive hits of each
-    particle (point-cloud layout: ``edge_index``, no edge features). Extras:
-    ``xyz``, the spatial coordinates, and ``latent_centers``, a random 8-d
-    centre per particle."""
+    particle (point-cloud layout: ``edge_index``, no edge features). Extra:
+    ``xyz``, the spatial coordinates."""
     rng = np.random.default_rng(seed)
     pid = rng.integers(0, n_particles, size=n_hits)
     pt, eta, phi = 2 * rng.random(n_particles), 8 * (rng.random(n_particles) - 0.5), 2 * np.pi * rng.random(n_particles)
@@ -192,12 +205,22 @@ def make_point_cloud(seed: int, n_hits: int, n_particles: int):
     ], axis=1).astype(np.float32)
     order = np.lexsort((r, pid))
     same = (pid[order][1:] == pid[order][:-1]) & (pid[order][1:] > 0)
-    centers = rng.normal(size=(n_particles, 8)).astype(np.float32)
     return {
         "x": x, "edge_index": np.stack([order[:-1][same], order[1:][same]]).astype(np.int32),
         "particle_id": pid, "pt": pt[pid], "eta": eta_h, "reconstructable": np.ones(n_hits),
-        "extras": {"xyz": xyz, "latent_centers": centers[pid]},
+        "extras": {"xyz": xyz},
     }
+
+
+def make_bench_latent(seed: int, n: int) -> np.ndarray:
+    """The JAX package's full-detector kNN benchmark cloud
+    (``bench.py:484-509``, ``extra_knn``): ``n / 64`` unit-normal 8-d
+    centres, each point a random centre plus 0.05 of unit-normal noise.
+    Returns the points and their centres' ids, from 1."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n // 64, 8)).astype(np.float32)
+    ids = rng.integers(0, n // 64, size=n)
+    return centers[ids] + 0.05 * rng.normal(size=(n, 8)).astype(np.float32), ids + 1
 
 
 def all_pairs(pid: np.ndarray) -> np.ndarray:
@@ -711,11 +734,38 @@ def fit_and_serve(seed: int, tmp: Path, condensed) -> None:
         f"plain path's ({n_clusters} clusters)")
 
 
-def ml_training_path(seed: int, steps: int, profile: bool) -> dict:
+def cluster_geometry(h, pid) -> dict:
+    """How tight the particles' clusters are in the latent ``h``: for each
+    particle of at least 2 hits (noise, id 0, excluded), the RMS distance of
+    its hits to their centroid and the distance from that centroid to the
+    nearest other particle's; their medians, and the median of the ratio."""
+    import torch
+
+    keep = pid > 0
+    hk = h[keep].float()
+    ids, inv, counts = torch.unique(pid[keep], return_inverse=True, return_counts=True)
+    cnt = counts.float()
+    cent = torch.zeros((len(ids), h.shape[1]), device=h.device).index_add_(0, inv, hk) / cnt[:, None]
+    sq = ((hk - cent[inv]) ** 2).sum(dim=1)
+    rms = torch.sqrt(torch.zeros(len(ids), device=h.device).index_add_(0, inv, sq) / cnt)
+    nearest = []
+    for s in range(0, len(ids), 2048):
+        d = torch.cdist(cent[s : s + 2048], cent)
+        rows = torch.arange(d.shape[0], device=h.device)
+        d[rows, s + rows] = math.inf
+        nearest.append(d.amin(dim=1))
+    nearest = torch.cat(nearest)
+    multi = counts > 1
+    return {"rms_radius_median": rms[multi].median().item(),
+            "nearest_centroid_median": nearest[multi].median().item(),
+            "rms_over_nearest_median": (rms / nearest)[multi].median().item()}
+
+
+def ml_training_path(seed: int, steps: int, profile: bool):
     """Metric-learning training at ``ml.yml``'s width on a 32,768-hit point
-    cloud: step 0's gradients through the kernels against the plain path,
-    then ``steps`` timed steps; row #12 (radius mode, k = 256) timed at the
-    step's latent. Returns the summary."""
+    cloud (see the module docstring, phase 7); row #12 (radius mode, k =
+    256) against its plain version and timed at step 0 and after the timed
+    window. Returns the summary and the trained model."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -770,16 +820,18 @@ def ml_training_path(seed: int, steps: int, profile: bool) -> dict:
             f"tie rows); filled slots per hit mean {filled.mean().item():.1f}, max "
             f"{int(filled.max())}; {ms:.3f} ms (plain {plain:.3f} ms)")
         return {"ms": ms, "plain_ms": plain, "filled_mean": filled.mean().item(),
-                "full_rows": int((filled == k).sum())}
+                "full_rows": int((filled == k).sum()), "clusters": cluster_geometry(h, g.particle_id)}
 
     topk_step0 = radius_topk("at step 0")
-    for _ in range(2):
+    # each step ends in its metrics' transfer to the host, so the host clock
+    # times it whole; the first steps pay for the compact latent
+    warmup_ms = []
+    while module.step < ML_WARMUP:
+        t = time.perf_counter()
         module.training_step(g)
-    torch.cuda.synchronize()
+        warmup_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.reset_peak_memory_stats()
     topk.launches = 0
-    # each step ends in its metrics' transfer to the host, so the host clock
-    # times it whole; the radius top-k's cost falls as the latent spreads
     ticks = [time.perf_counter()]
     for _ in range(steps):
         metrics = module.training_step(g)
@@ -789,19 +841,26 @@ def ml_training_path(seed: int, steps: int, profile: bool) -> dict:
     assert launches > 0, "ML training never launched pairwise_topk_filter"
     assert all(math.isfinite(v) for v in metrics.values()), metrics
     peak = torch.cuda.max_memory_allocated() / 2**30
+    each = [(b - a) * 1e3 for a, b in zip(ticks, ticks[1:])]
     summary = {
-        "steps": steps, "steps_per_s": steps / dt, "step_ms": dt / steps * 1e3,
-        "step_ms_each": [(b - a) * 1e3 for a, b in zip(ticks, ticks[1:])],
-        **step_split(module, g), "peak_mem_gib": peak,
+        "first_step_ms": warmup_ms[0], "warmup_step_ms": warmup_ms,
+        "window": f"steps {ML_WARMUP + 1}-{ML_WARMUP + steps}", "steps": steps,
+        "steps_per_s": steps / dt, "step_ms": dt / steps * 1e3, "step_ms_each": each,
+        "window_max_over_min": max(each) / min(each), "peak_mem_gib": peak,
         "pairwise_topk_filter_launches_per_step": launches / steps,
-        "radius_topk_step0": topk_step0, "radius_topk_trained": radius_topk(f"after {steps + 7} steps"),
+    }
+    # step_split's 5 rounds are optimizer steps outside module.step's count
+    done = module.step
+    summary.update({
+        "split_window": f"steps {done + 1}-{done + 5}", **step_split(module, g),
+        "radius_topk_step0": topk_step0, "radius_topk_trained": radius_topk(f"after {done + 5} steps"),
         "total": metrics["total"], "n_edges_rep": metrics["n_edges_rep"],
         "n_edges_att": metrics["n_edges_att"],
-    }
+    })
     log("ml training: " + json.dumps(summary))
     if profile:
         profile_run(lambda: [module.training_step(g) for _ in range(3)], "ml_training")
-    return summary
+    return summary, model
 
 
 def capture(module, name: str):
@@ -869,18 +928,16 @@ def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) ->
     return int((got_i != torch.sort(want_i, dim=1).values).any(dim=1).sum())
 
 
-def graph_construction_phase(seed: int) -> tuple[list[dict], dict]:
+def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
     """Kernel phases of rows #14 and #15 at the inputs a full-detector build
-    gives them, then the three builders on a 262,144-hit cloud (see the
-    module docstring). Returns the two kernels' results and the summary."""
+    gives them, then the three builders at 262,144 points (see the module
+    docstring); ``fcnn`` is phase 7's trained model. Returns the two
+    kernels' results and the summary."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
     from gnn_tracking_tpu_torch.metrics.graph_construction import get_efficiency_purity_edges
-    from gnn_tracking_tpu_torch.models.graph_construction import (
-        GraphConstructionFCNN,
-        MLGraphConstruction,
-    )
+    from gnn_tracking_tpu_torch.models.graph_construction import MLGraphConstruction
     from gnn_tracking_tpu_torch.ops import ivf_knn, ivf_probe, knn, pairwise_topk, windowed_topk
 
     cloud = make_point_cloud(seed + 90, GC_HITS, GC_PARTICLES)
@@ -888,42 +945,33 @@ def graph_construction_phase(seed: int) -> tuple[list[dict], dict]:
     te = torch.from_numpy(all_pairs(cloud["particle_id"]))
     g = EventGraph.from_arrays(**cloud).replace(
         true_edge_index=te, true_edge_mask=torch.ones(te.shape[1], dtype=torch.bool)).to("cuda")
-    class OffsetLatent(torch.nn.Module):
-        """The FCNN's latent scaled by 0.05 plus the hit's particle centre
-        (``extras["latent_centers"]``): random weights give an unclustered
-        latent, a trained model a clustered one."""
-
-        def __init__(self, fcnn):
-            super().__init__()
-            self.fcnn = fcnn
-
-        def forward(self, data):
-            return {"H": data.extras["latent_centers"] + 0.05 * self.fcnn(data)["H"]}
-
-    fcnn = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 91))
-    embed = OffsetLatent(fcnn).to("cuda").eval()
-    gc = MLGraphConstruction(embed, max_num_neighbors=GC_K, max_radius=GC_RADIUS).eval()
+    fcnn = fcnn.eval()
+    gc = MLGraphConstruction(fcnn, max_num_neighbors=GC_K, max_radius=GC_RADIUS).eval()
     with torch.no_grad():
-        latent = embed(g)["H"].contiguous()
+        latent = fcnn(g)["H"].contiguous()
     xyz = g.extras["xyz"].contiguous()
+    bench, bench_ids = (torch.from_numpy(a).to("cuda") for a in make_bench_latent(seed + 92, GC_HITS))
+    geometry = {"trained": cluster_geometry(latent, g.particle_id),
+                "bench": cluster_geometry(bench, bench_ids)}
+    log(f"graph construction latents ({GC_HITS} points): phase 7's FCNN on hits of {GC_PARTICLES} "
+        f"particles, and the JAX benchmark's cloud of 64-point clusters: " + json.dumps(geometry))
 
     # ---- (a) rows #15 and #14 at the inputs of one build each ---------------
-    # (the IVF's first attempt, at its default probe width: knn_graph_ivf
-    # widens it while queries stay uncertified, so this one may leave some)
+    # (first attempts at the default widths, without their fallbacks: the
+    # kernel checks need no certification; the counts are the queries each
+    # certification would leave to its fallback)
     probe_calls, undo = capture(ivf_knn, "ivf_probe")
-    _, _, n_unc_ivf, stats = ivf_knn.ivf_knn(latent, k=GC_K, return_stats=True)
+    _, _, n_unc_ivf, stats = ivf_knn.ivf_knn(bench, k=GC_K, fallback=False, return_stats=True)
     undo()
-    stats["n_uncert_after_fallback"] = int(n_unc_ivf)
     band_calls, undo = capture(windowed_topk, "banded_topk_sorted")
-    _, _, n_unc_win = windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=WINDOWED_FALLBACK)
-    undo()
-    assert int(n_unc_win) == 0, int(n_unc_win)
-    assert len(probe_calls) == 1 and len(band_calls) == 1
-    # the queries each certification leaves to its fallback
     uncertified = {
-        "ivf_probe8": int(ivf_knn.ivf_knn(latent, k=GC_K, fallback=False)[2]),
-        "windowed_radius4": int(windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=0)[2]),
+        "ivf_probe8_bench": int(n_unc_ivf),
+        "ivf_probe8_trained": int(ivf_knn.ivf_knn(latent, k=GC_K, fallback=False)[2]),
+        "band_radius4_spatial": int(windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=0)[2]),
+        "band_radius4_trained": int(windowed_topk.windowed_knn(latent, k=GC_K, fallback_cap=0)[2]),
     }
+    undo()
+    assert len(probe_calls) == 1 and len(band_calls) == 2
     results = []
 
     pa, pkw = probe_calls[0]
@@ -951,28 +999,33 @@ def graph_construction_phase(seed: int) -> tuple[list[dict], dict]:
         f"{pairs15:.3e} valid pairs of {float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1]):.3e} "
         f"in the table); IVF stats {stats}")
 
-    ba, bkw = band_calls[0]
-    kd, ki = windowed_topk.banded_topk_sorted(*ba, **bkw)
-    kd2, ki2 = windowed_topk.banded_topk_sorted(*ba, **bkw)
-    pd, pi = windowed_topk.banded_topk_sorted_plain(*ba, **bkw)
-    torch.cuda.synchronize()
-    assert torch.equal(kd, kd2) and torch.equal(ki, ki2), "banded_topk_sorted: second launch differs"
-    err14, nb14, nt14 = compare_topk(kd, ki, pd, pi, None)
-    ms14 = cuda_ms(lambda: windowed_topk.banded_topk_sorted(*ba, **bkw))
-    plain14 = cuda_ms(lambda: windowed_topk.banded_topk_sorted_plain(*ba, **bkw), reps=1, rounds=3)
-    xs, valid = ba[0], bkw["valid"]
-    lo, hi = windowed_topk._band(xs.shape[0], bkw["block_q"], bkw["block_c"], bkw["radius"],
-                                 torch.arange(xs.shape[0], device=xs.device))
-    pairs14 = float(((hi - lo) * valid).sum())
-    bound14, by14 = bound(3.0 * xs.shape[1] * pairs14, nbytes(xs, valid, kd, ki))
-    results.append({"name": "banded_topk_sorted", "max_abs_err": err14, "ms": ms14,
-                    "plain_ms": plain14, "bound_ms": bound14, "bound_by": by14, "library_ms": None})
-    log(f"kernel banded_topk_sorted: OK max|err| {err14:.3e} ({nb14} k-th boundary rows, {nt14} "
-        f"tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} radius={bkw['radius']} "
-        f"block_q={bkw['block_q']} block_c={bkw['block_c']}; {ms14:.3f} ms (plain {plain14:.3f} ms, "
-        f"bound {bound14:.4f} ms by {by14}, {pairs14:.3e} pairs)")
+    band = {}
+    for what, (ba, bkw) in zip(("spatial", "trained"), band_calls):
+        kd, ki = windowed_topk.banded_topk_sorted(*ba, **bkw)
+        kd2, ki2 = windowed_topk.banded_topk_sorted(*ba, **bkw)
+        pd, pi = windowed_topk.banded_topk_sorted_plain(*ba, **bkw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"banded_topk_sorted ({what}): second launch differs"
+        err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+        ms = cuda_ms(lambda: windowed_topk.banded_topk_sorted(*ba, **bkw))
+        plain = cuda_ms(lambda: windowed_topk.banded_topk_sorted_plain(*ba, **bkw), reps=1, rounds=3)
+        xs, valid = ba[0], bkw["valid"]
+        lo, hi = windowed_topk._band(xs.shape[0], bkw["block_q"], bkw["block_c"], bkw["radius"],
+                                     torch.arange(xs.shape[0], device=xs.device))
+        pairs = float(((hi - lo) * valid).sum())
+        bnd, by = bound(3.0 * xs.shape[1] * pairs, nbytes(xs, valid, kd, ki))
+        band[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+                      "d": xs.shape[1], "pairs": pairs}
+        log(f"kernel banded_topk_sorted ({what}): OK max|err| {err:.3e} ({nb} k-th boundary rows, "
+            f"{nt} tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} "
+            f"radius={bkw['radius']} block_q={bkw['block_q']} block_c={bkw['block_c']}; {ms:.3f} ms "
+            f"(plain {plain:.3f} ms, bound {bnd:.4f} ms by {by}, {pairs:.3e} pairs)")
+    # the line's entry is the shape the windowed build runs (spatial, d = 3)
+    results.append({"name": "banded_topk_sorted", **{k: band["spatial"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "max_abs_err": max(b["max_abs_err"] for b in band.values())})
 
-    # ---- (c) the builders -------------------------------------------------
+    # ---- (c) the builders, at their defaults ----------------------------------
     counters = {"pairwise_topk_filter": pairwise_topk.pairwise_topk_filter,
                 "banded_topk_sorted": windowed_topk.banded_topk_sorted,
                 "ivf_probe": ivf_probe.ivf_probe}
@@ -981,36 +1034,41 @@ def graph_construction_phase(seed: int) -> tuple[list[dict], dict]:
     with torch.no_grad():
         built = gc(g)
         resident = knn.knn_graph(latent, GC_K)
-        ivf = knn.knn_graph_ivf(latent, GC_K)  # raises unless every query is certified
-        ivf_attempts = ivf_probe.ivf_probe.launches  # one probe per attempt
-        windowed = knn.knn_graph_windowed(xyz, GC_K, fallback_cap=WINDOWED_FALLBACK)
+        ivf = knn.knn_graph_ivf(bench, GC_K)  # raises unless every query is certified
+        windowed = knn.knn_graph_windowed(xyz, GC_K)  # the same
+        resident_bench = knn.knn_graph(bench, GC_K)
         resident_xyz = knn.knn_graph(xyz, GC_K)
     launches = {name: fn.launches for name, fn in counters.items()}
     for name, n in launches.items():
         assert n > 0, f"graph construction never launched {name}"
+    # one probe or band launch per attempt
+    attempts = {"ivf": launches["ivf_probe"], "windowed": launches["banded_topk_sorted"]}
     assert torch.equal(built.edge_index, resident[0])
     assert torch.equal(built.edge_mask, resident[1] & (resident[2] <= GC_RADIUS))
-    ties_ivf = compare_neighbours("IVF vs resident top-k (latent)", ivf, resident, GC_K)
-    ties_win = compare_neighbours("banded vs resident top-k (spatial)", windowed, resident_xyz, GC_K)
-    ties_bf = brute_sample(latent, *resident, GC_K, seed)
-    ties_bf_win = brute_sample(xyz, *windowed, GC_K, seed + 1)
+    ties = {
+        "ivf_vs_resident": compare_neighbours("IVF vs resident top-k (bench)", ivf, resident_bench, GC_K),
+        "windowed_vs_resident": compare_neighbours(
+            "banded vs resident top-k (spatial)", windowed, resident_xyz, GC_K),
+        "brute_sample_trained": brute_sample(latent, *resident, GC_K, seed),
+        "brute_sample_bench": brute_sample(bench, *ivf, GC_K, seed + 1),
+        "brute_sample_spatial": brute_sample(xyz, *windowed, GC_K, seed + 2),
+    }
     eff = get_efficiency_purity_edges(built)
     with torch.no_grad():
         times = {
             "mlgc_ms": host_ms(lambda: gc(g), rounds=3),
             "knn_resident_ms": host_ms(lambda: knn.knn_graph(latent, GC_K), rounds=3),
-            "knn_ivf_ms": host_ms(lambda: knn.knn_graph_ivf(latent, GC_K), rounds=3),
-            "knn_windowed_ms": host_ms(
-                lambda: knn.knn_graph_windowed(xyz, GC_K, fallback_cap=WINDOWED_FALLBACK), rounds=3),
+            "knn_ivf_bench_ms": host_ms(lambda: knn.knn_graph_ivf(bench, GC_K), rounds=3),
+            "knn_resident_bench_ms": host_ms(lambda: knn.knn_graph(bench, GC_K), rounds=3),
+            "knn_windowed_ms": host_ms(lambda: knn.knn_graph_windowed(xyz, GC_K), rounds=3),
             "topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk_filter(latent, k=GC_K),
                                     reps=1, rounds=3),
         }
     summary = {
-        "hits": GC_HITS, "k": GC_K, **times, **eff, "launches": launches,
-        "ivf_attempts": ivf_attempts, "uncertified_before_fallback": uncertified,
-        "edges_kept_by_radius": int(built.edge_mask.sum()), "tie_rows_ivf": ties_ivf,
-        "tie_rows_windowed": ties_win, "tie_rows_brute_sample": ties_bf,
-        "tie_rows_brute_sample_windowed": ties_bf_win, "ivf_stats": stats,
+        "hits": GC_HITS, "k": GC_K, **times, **eff, "launches": launches, "attempts": attempts,
+        "uncertified_before_fallback": uncertified, "clusters": geometry,
+        "banded_topk_sorted": band, "edges_kept_by_radius": int(built.edge_mask.sum()),
+        "tie_rows": ties, "ivf_stats": stats,
     }
     log("graph construction: " + json.dumps(summary))
     for r in results:
@@ -1027,7 +1085,7 @@ def main(argv=None) -> int:
     p.add_argument("--train-steps", type=int, default=10,
                    help="timed training steps (after 2 warm-up steps)")
     p.add_argument("--ml-steps", type=int, default=10,
-                   help="timed metric-learning steps (after 2 warm-up steps)")
+                   help=f"timed metric-learning steps (after {ML_WARMUP} warm-up steps)")
     p.add_argument("--profile", action="store_true",
                    help="also trace one predict_dir, 3 training steps and 3 metric-learning "
                    "steps with torch.profiler")
@@ -1305,10 +1363,10 @@ def main(argv=None) -> int:
     fit_and_serve(args.seed, tmp, CondensedGraphTCN)
 
     # ---- 7. metric-learning training ----------------------------------------
-    ml_training_path(args.seed, args.ml_steps, args.profile)
+    _, ml_model = ml_training_path(args.seed, args.ml_steps, args.profile)
 
     # ---- 8. graph construction ---------------------------------------------
-    gc_results, _ = graph_construction_phase(args.seed)
+    gc_results, _ = graph_construction_phase(args.seed, ml_model)
     results += gc_results
 
     # ---- 9. results -------------------------------------------------------

@@ -12,9 +12,11 @@
 // ascending; ties go to the lower index. Distances are direct, sum_d (q - c)^2 with fmaf
 // (the TPU kernel used the norm expansion at HIGHEST precision).
 //
-// What bounds it on this card: arithmetic. At 262,144 points of 8 dimensions with radius 4,
-// block_q 256 and block_c 1024, a query meets 9 blocks of 1024 candidates: 2.4e9 pairs,
-// 58 GFLOP at 3 flops per dimension (0.87 ms at 67 TFLOP/s f32), against 8.4 MB of points.
+// What bounds it on this card: arithmetic. At 262,144 points with radius 4, block_q 256 and
+// block_c 1024, a query meets up to 9 blocks of 1024 candidates: 2.4e9 pairs, at 3 flops per
+// dimension 21.6 GFLOP for the 3-d spatial coordinates (0.32 ms at 67 TFLOP/s f32) and
+// 57.5 GFLOP for an 8-d latent (0.86 ms), against 3-8 MB of points and 17 MB of outputs.
+// chip_smoke.py computes the bound from the band of each of its two inputs.
 // Design: one block of 128 threads per 128 consecutive queries, one thread per query; the query
 // vector (zero-padded to DP = 4, 8, 16 or 32) stays in registers. The union of the block's
 // bands (one band when 128 divides block_q) is streamed through shared memory in tiles of 256

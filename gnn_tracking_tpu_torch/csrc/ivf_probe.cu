@@ -11,10 +11,13 @@
 // it with +inf and the id of the first candidate; only finite entries carry meaning.)
 // Ids are int32 throughout (the TPU kernel carried them as an f32 lane, exact below 2^24).
 //
-// What bounds it on this card: arithmetic. At the full-detector shapes (C = 8192 cells,
-// cap = 96 slots, T = 8 slabs of capc = 256 candidates, d = 8) it evaluates 1.61e9 pairs,
-// 38.7 GFLOP at 3 flops per dimension (0.58 ms at 67 TFLOP/s f32), against ~0.6 GB of slab
-// reads even with no reuse.
+// What bounds it on this card: memory. The work the data needs is the pairs of valid query
+// slots and valid candidate slots of the probed cells, at 3 flops per dimension; at the
+// full-detector shapes (C = 8192 cells, cap = 96 slots, T = 8 slabs of capc = 256 candidates,
+// d = 8, kw = 16) that is ~7e7 pairs for 262,144 points (N x T x ~32 points a cell), ~1.7 GFLOP
+// (0.03 ms at 67 TFLOP/s f32), while the tables and the outputs are ~200 MB (0.06 ms at
+// 3.35 TB/s). chip_smoke.py computes both for the tables of its build. The kernel walks every
+// slot, empty ones included: C * cap * T * capc = 1.61e9 pairs, ~20x the pairs the bound counts.
 // Design: one block per (cell, group of up to 256 query slots), one thread per slot; the query
 // vector (coordinates zero-padded to DP = 4, 8, 16 or 32) stays in registers, and the T slabs
 // are streamed in order through shared memory in tiles of 256 candidates, so a warp reads

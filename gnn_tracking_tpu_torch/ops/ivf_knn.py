@@ -1,7 +1,7 @@
 """IVF-certified exact kNN for full-detector point clouds (counterpart of
 ``gnn_tracking_tpu/ops/ivf_knn.py``, its default configuration).
 
-1. coarse quantization: k-means cells (``lloyd_iters`` Lloyd sweeps from
+1. coarse quantization: k-means cells (``LLOYD_ITERS`` Lloyd sweeps from
    seeds spread along the principal axis);
 2. bucketing: points sorted by cell into ``[C, cell_cap]`` query slabs and
    wider ``[C, cand_cap]`` candidate slabs (gather formulation); points over
@@ -22,10 +22,11 @@ then the number of uncertified queries once before the fallback ladder and
 once after each rung that runs. A fully certified call makes two reads.
 
 Not ported (``NotImplementedError``): ``probe_impl="xla"``,
-``bucket_impl="scatter"``, ``spill_passes`` other than True. Cell
-assignment runs in float32 with TF32 off whatever ``fast_assign`` says (the
-JAX package's chip assigns at its default matmul precision); assignment
-moves cells, never the exact result.
+``bucket_impl="scatter"``, ``spill_passes`` other than True. The JAX
+function's ``fast_assign``, ``lloyd_iters`` and ``block_n`` are not
+arguments: cell assignment runs in float32 with TF32 off (the JAX package's
+chip assigns at its default matmul precision; assignment moves cells, never
+the exact result), with the JAX defaults ``LLOYD_ITERS`` and ``BLOCK_N``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe
 from gnn_tracking_tpu_torch.ops.windowed_topk import _fallback_brute, principal_axis
 
 _FAR = 1e30
+#: Lloyd sweeps of the coarse quantizer
+LLOYD_ITERS = 2
+#: points per block of the assignment, extra-pass and certification sweeps
+BLOCK_N = 4096
 
 
 def _merge_sorted_pairs(da, ia, db, ib, k_out):
@@ -71,12 +76,12 @@ def _pdist2(q, c):
     return torch.clamp(qn + cn - 2.0 * (q @ c.T), min=0.0)
 
 
-def _assign_blocks(x, centroids, block_n):
+def _assign_blocks(x, centroids):
     """Nearest-centroid id (first on ties) and squared distance per point,
     blockwise over the points."""
     ids, ds = [], []
-    for s in range(0, x.shape[0], block_n):
-        d = _pdist2(x[s : s + block_n], centroids)
+    for s in range(0, x.shape[0], BLOCK_N):
+        d = _pdist2(x[s : s + BLOCK_N], centroids)
         dmin, a = torch.min(d, dim=1)
         ids.append(a)
         ds.append(dmin)
@@ -126,14 +131,11 @@ def ivf_knn(
     n_probe: int = 8,
     extra_cap: int = 8192,
     fallback_cap: int = 8192,
-    lloyd_iters: int = 2,
-    block_n: int = 4096,
     certify: bool = True,
     fallback: bool = True,
     spill_passes: bool = True,
     probe_impl: str | None = None,
     cand_cap: int | None = None,
-    fast_assign: bool = True,
     bucket_impl: str = "gather",
     return_stats: bool = False,
 ):
@@ -154,7 +156,6 @@ def ivf_knn(
     if spill_passes is not True:
         msg = f"spill_passes={spill_passes!r}: only True is ported"
         raise NotImplementedError(msg)
-    del fast_assign  # float32 assignment either way (module docstring)
     n, d = x.shape
     dev = x.device
     if node_mask is None:
@@ -181,14 +182,14 @@ def ivf_knn(
     order0 = _principal_order(xf, node_mask)
     stride = max(1, n // n_cells)
     centroids = xf[order0[(torch.arange(n_cells, device=dev) * stride) % n]]
-    for _ in range(lloyd_iters):
-        a, _ = _assign_blocks(xf, centroids, block_n)
+    for _ in range(LLOYD_ITERS):
+        a, _ = _assign_blocks(xf, centroids)
         sums = torch.zeros_like(centroids).index_add_(0, a, xf * w[:, None])
         cnts = torch.zeros(n_cells, device=dev).index_add_(0, a, w)
         centroids = torch.where(
             cnts[:, None] > 0, sums / torch.clamp(cnts, min=1.0)[:, None], centroids
         )
-    assign, _ = _assign_blocks(xf, centroids, block_n)
+    assign, _ = _assign_blocks(xf, centroids)
     assign = torch.where(node_mask, assign, n_cells - 1)
     # cell radius over all assigned valid points (spilled ones too)
     dist_own = torch.sqrt(torch.clamp(((xf - centroids[assign]) ** 2).sum(1), min=0.0))
@@ -261,8 +262,8 @@ def ivf_knn(
         cap = _ladder(n_resid, rungs)
         x_r, ids_r, valid_r = x_resid[:cap], resid_ids[:cap], resid_valid[:cap]
         de, ie = [], []
-        for s in range(0, n, block_n):
-            dd = _pdist2(xf[s : s + block_n], x_r)
+        for s in range(0, n, BLOCK_N):
+            dd = _pdist2(xf[s : s + BLOCK_N], x_r)
             bad = ~valid_r[None, :]
             if not loop:
                 bad = bad | (ids_r[None, :] == torch.arange(s, s + dd.shape[0], device=dev)[:, None])
@@ -335,12 +336,11 @@ def ivf_knn(
     found_all = torch.isfinite(dists).all(dim=1)
     visited = nbr[assign]  # [N, T]
     cert = []
-    bn = min(block_n, 2048)
-    for s in range(0, n, bn):
-        q = xf[s : s + bn]
+    for s in range(0, n, 2048):
+        q = xf[s : s + 2048]
         bound = torch.sqrt(_pdist2(q, centroids)) - rad[None, :]
-        bound = bound.scatter(1, visited[s : s + bn], math.inf)
-        r = kth[s : s + bn]
+        bound = bound.scatter(1, visited[s : s + 2048], math.inf)
+        r = kth[s : s + 2048]
         # margin: never let rounding certify a borderline query
         cert.append(r <= bound.amin(dim=1) - 1e-5 * torch.clamp(r, min=1.0))
     certified = (torch.cat(cert) & found_all & (spill_lost == 0)) | ~node_mask
