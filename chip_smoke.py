@@ -3,7 +3,8 @@
 
 Run from the repository root with no arguments::
 
-    python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10] [--profile]
+    python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10]
+                          [--ec-steps 10] [--profile]
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -72,7 +73,25 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    sample of 4,096 queries of each input must match a plain brute force;
    it prints ms per build (the resident top-k on the benchmark cloud too)
    and the built graph's edge efficiency and purity;
-9. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
+9. bf16 edge-classifier training at ``examples/configs/ec.yml``'s width
+   (``ECForGraphTCN(14, 4, 64, 64, hidden 128, L_ec 6)``, focal loss alpha
+   0.25 / gamma 2, Adam 1e-3, ``ECModule(precision="bf16")``) on a
+   bench-style event with 30 % true edges (``bench.py:66-79``). (a) Kernels
+   A-D of ``csrc/fused_relational_bf16.cu`` (table rows #3-#8) at the EC
+   layer's shapes (the model's second layer: bf16, 80 % of the edges
+   unmasked, ``relu_edge`` off and on): each output within 2e-2 of its
+   plain bf16 version's norm, its error against a float64 evaluation at
+   most 2x the plain version's (norms: see ``check``), bitwise equal on a
+   second launch, C/D bitwise equal to A/B; timed beside its bound at the
+   data sheet's 989 TFLOP/s bf16 and 3.35 TB/s. (b) Step 0's parameter gradients
+   through the kernels against the plain path's (per tensor within 5e-2 of
+   its largest magnitude); one step with ``fused_save_acts`` (kernels C/D)
+   giving the same loss and gradients bitwise; 2 warm-up steps and
+   ``--ec-steps`` timed steps (steps/s, edges/s, the forward / loss /
+   backward / Adam split, peak memory, launches per step of A, B and rows
+   #9 / #10). (c) ``Trainer.fit`` for one epoch over 4 npz events, with
+   finite ROC AUC from ``ECModule.validation_extra``;
+10. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -104,8 +123,10 @@ MODEL = {
     "h_outdim": 8, "hidden_dim": 128, "L_ec": 6, "L_hc": 3,
 }
 EPS, MIN_SAMPLES, CAP, N_TRACKS = 0.3, 1, 64, 2048
-# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, HBM3 bandwidth
+# H100 SXM data-sheet peaks (dense): f32 on the CUDA cores, bf16 on the
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # training configuration (bench.py:538-591, extra_graphtcn): the same model
 LOSS = {"max_n_objects": 2048, "object_block_size": 256}
@@ -120,6 +141,12 @@ ML_HITS, ML_PARTICLES = 32768, 2048
 ML_WARMUP = 30
 GC_HITS, GC_PARTICLES, GC_K, GC_RADIUS = 262144, 16384, 8, 1.0
 LAYER_RADII = np.linspace(0.03, 1.0, 16)
+# edge-classifier training (examples/configs/ec.yml; bench.py:107-158 trained it in bf16)
+EC_MODEL = {
+    "node_indim": NODE_DIM, "edge_indim": EDGE_DIM, "interaction_node_dim": 64,
+    "interaction_edge_dim": 64, "hidden_dim": 128, "L_ec": 6,
+}
+EC_LOSS = {"alpha": 0.25, "gamma": 2.0}
 TPU_KERNELS = {
     "fused_relational_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:373",
     "fused_relational_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:415",
@@ -129,6 +156,12 @@ TPU_KERNELS = {
     "cc_neighbors": "gnn_tracking_tpu/ops/pallas/cc_kernel.py:93",
     "banded_topk_sorted": "gnn_tracking_tpu/ops/pallas/windowed_topk.py:173",
     "ivf_probe": "gnn_tracking_tpu/ops/pallas/ivf_probe.py:161",
+    "fused_relational_bf16_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:721 and "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:308",
+    "fused_relational_bf16_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:781 and "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377",
+    "fused_relational_bf16_fwd_save": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:610",
+    "fused_relational_bf16_bwd_saved": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:680",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -139,6 +172,8 @@ SOURCES = {
     "cc_neighbors": "gnn_tracking_tpu_torch/csrc/cc_neighbors.cu",
     "banded_topk_sorted": "gnn_tracking_tpu_torch/csrc/banded_topk.cu",
     "ivf_probe": "gnn_tracking_tpu_torch/csrc/ivf_probe.cu",
+    **{f"fused_relational_bf16_{k}": "gnn_tracking_tpu_torch/csrc/fused_relational_bf16.cu"
+       for k in ("fwd", "bwd", "fwd_save", "bwd_saved")},
 }
 
 
@@ -238,10 +273,11 @@ def all_pairs(pid: np.ndarray) -> np.ndarray:
     return np.concatenate(edges, axis=1).astype(np.int32)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the card (ms) and what bounds it: f32 operations at
-    the CUDA-core peak, or bytes at the HBM rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time on the card (ms) and what bounds it: operations at
+    ``peak`` (f32 on the CUDA cores unless given), or bytes at the HBM
+    rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -307,35 +343,38 @@ def host_ms(fn, *, rounds: int = 5) -> float:
 @contextlib.contextmanager
 def plain_path():
     """Route the port's kernel call sites to their plain versions: the
-    fused relational forward and backward (which hold the sorted segment-sum
-    and gather launches), the top-k filter, connected components, the banded
-    top-k and the IVF probe."""
-    from gnn_tracking_tpu_torch.ops import cc, fused_relational, ivf_knn, knn, windowed_topk
+    fused relational forward and backward, f32 and bf16 (which hold the
+    sorted segment-sum and gather launches), the top-k filter, connected
+    components, the banded top-k and the IVF probe."""
+    from gnn_tracking_tpu_torch.ops import cc, ivf_knn, knn, windowed_topk
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
     from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors_plain
     from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe_plain
     from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain
 
-    saved = (
-        fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
-        knn.pairwise_topk_filter, cc.cc_neighbors, windowed_topk.banded_topk_sorted,
-        ivf_knn.ivf_probe,
-    )
-    fused_relational.fused_relational_fwd = (
-        lambda *a, rowptr=None, **kw: fused_relational.fused_relational_plain(*a, **kw)
-    )
-    fused_relational.fused_relational_bwd = (
-        lambda *a, **kw: fused_relational.fused_relational_bwd_plain(*a[:7], **kw)
-    )
-    knn.pairwise_topk_filter = pairwise_topk_filter_plain
-    cc.cc_neighbors = cc_neighbors_plain
-    windowed_topk.banded_topk_sorted = windowed_topk.banded_topk_sorted_plain
-    ivf_knn.ivf_probe = ivf_probe_plain
+    sites = [
+        (fr, "fused_relational_fwd", lambda *a, rowptr=None, **kw: fr.fused_relational_plain(*a, **kw)),
+        (fr, "fused_relational_bwd", lambda *a, **kw: fr.fused_relational_bwd_plain(*a[:7], **kw)),
+        (fr, "fused_relational_bf16_fwd",
+         lambda *a, rowptr=None, **kw: fr.fused_relational_bf16_plain(*a, **kw)),
+        (fr, "fused_relational_bf16_fwd_save",
+         lambda *a, rowptr=None, **kw: fr.fused_relational_bf16_fwd_save_plain(*a, **kw)),
+        (fr, "fused_relational_bf16_bwd", lambda *a, **kw: fr.fused_relational_bf16_bwd_plain(*a[:7], **kw)),
+        (fr, "fused_relational_bf16_bwd_saved",
+         lambda *a, **kw: fr.fused_relational_bf16_bwd_saved_plain(*a[:8], a[9], **kw)),
+        (knn, "pairwise_topk_filter", pairwise_topk_filter_plain),
+        (cc, "cc_neighbors", cc_neighbors_plain),
+        (windowed_topk, "banded_topk_sorted", windowed_topk.banded_topk_sorted_plain),
+        (ivf_knn, "ivf_probe", ivf_probe_plain),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    for mod, name, plain in sites:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (fused_relational.fused_relational_fwd, fused_relational.fused_relational_bwd,
-         knn.pairwise_topk_filter, cc.cc_neighbors, windowed_topk.banded_topk_sorted,
-         ivf_knn.ivf_probe) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def compare_topk(kd, ki, pd, pi, boundary2):
@@ -457,10 +496,10 @@ def step_split(module, g, rounds: int = 5) -> dict:
         torch.cuda.synchronize()
         t = time.perf_counter()
         module.model.train()
-        out = module.model(g)
+        out, pdata = module.apply_model(g)
         torch.cuda.synchronize()
         times.append(time.perf_counter())
-        loss, _ = module.get_losses(out, g)
+        loss, _ = module.get_losses(out, pdata)
         torch.cuda.synchronize()
         times.append(time.perf_counter())
         module.optimizer.zero_grad(set_to_none=True)
@@ -1076,6 +1115,276 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
     return results, summary
 
 
+def make_ec_event(seed: int):
+    """The JAX EC benchmark's event (``bench.py:66-79``): the training
+    event's locality graph, with 30 % of the edges true at random."""
+    ev = make_train_event(seed)
+    ev["y"] = np.random.default_rng(seed + 2).random(N_EDGES) < 0.3
+    return ev
+
+
+def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
+    """Kernels A-D (table rows #3-#8) at the EC layer's shapes (see the
+    module docstring, phase 9 (a)); ``model`` is the EC model, whose second
+    layer gives the weights and whose encoders give the inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    dev = g.x.device
+    csr, bf = g.csr(), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    with torch.no_grad():
+        # a relu'd node encoding, a raw edge encoding (so that relu_edge cuts)
+        x = torch.relu(model.ec_node_encoder(g.x)).to(bf).contiguous()
+        ea = model.ec_edge_encoder(g.edge_attr).to(bf).contiguous()
+        weights = {k: v.detach().to(bf).contiguous()
+                   for k, v in model.ec_resin.layers[1].relational_weights().items()}
+        mask = torch.from_numpy(np.random.default_rng(seed + 3).random(N_EDGES) < 0.8).to(dev)
+        fo = weights["w3"].shape[0]
+        g_e = torch.randn((N_EDGES, fo), generator=gen, device=dev).to(bf)
+        g_a = torch.randn((N_NODES, fo), generator=gen, device=dev).to(bf)
+        args = (x, ea, g.edge_index, mask, weights)
+        args64 = (x.double(), ea.double(), g.edge_index, mask,
+                  {k: v.double() for k, v in weights.items()})
+        rowptr = csr["dst_rowptr"]
+
+        def check(name, outs, again, plain, ref):
+            """Repeat bitwise; norm-wise within 2e-2 of the plain version
+            (|k - p| <= 2e-2 |p|, Frobenius); norm-wise error against float64
+            at most 2x the plain version's. Norms, not the largest element: a
+            pre-activation within f32 rounding of 0 falls on the ReLU's other
+            side in another summation order, and then that edge's whole
+            gradient row differs (a dozen of the 262,144 edges)."""
+            errs = []
+            for (key, kt), kt2, pt, rt in zip(outs.items(), again.values(), plain.values(), ref.values()):
+                assert torch.equal(kt, kt2), f"{name} {key}: second launch differs"
+                kd, pd = kt.double(), pt.double()
+                rel = ((kd - pd).norm() / pd.norm()).item()
+                assert rel <= 2e-2, f"{name} {key}: |kernel - plain| is {rel:.3e} of |plain| (> 2e-2)"
+                ek, ep = (kd - rt).norm().item(), (pd - rt).norm().item()
+                assert math.isfinite(ek) and ek <= 2 * ep, (
+                    f"{name} {key}: |kernel - float64| {ek:.3e} > 2 x |plain - float64| {ep:.3e}")
+                rows = int(((kd - pd).abs().reshape(kd.shape[0], -1) > 1e-2 * pd.abs().max()).any(dim=1).sum())
+                errs.append((key, (kd - pd).abs().max().item(), rel, rows, ek / rd if (rd := rt.norm().item()) else 0.0,
+                             ep / rd if rd else 0.0))
+            return errs
+
+        fwd_names = ("e_tilde", "agg")
+        bwd = lambda out: {"g_x": out[0], "g_edge_attr": out[1], **out[2]}
+        worst = {k: 0.0 for k in ("A", "B", "C", "D")}
+        for relu_edge in (False, True):
+            kw = {"relu_edge": relu_edge}
+            ref_f = dict(zip(fwd_names, fr.fused_relational_plain(*args64, **kw)))
+            ref_b = bwd(fr.fused_relational_bwd_plain(*args64, g_e.double(), g_a.double(), **kw))
+            a = dict(zip(fwd_names, fr.fused_relational_bf16_fwd(*args, rowptr=rowptr, **kw)))
+            a2 = dict(zip(fwd_names, fr.fused_relational_bf16_fwd(*args, rowptr=rowptr, **kw)))
+            c = fr.fused_relational_bf16_fwd_save(*args, rowptr=rowptr, **kw)
+            c2 = fr.fused_relational_bf16_fwd_save(*args, rowptr=rowptr, **kw)
+            b = bwd(fr.fused_relational_bf16_bwd(*args, g_e, g_a, csr, **kw))
+            b2 = bwd(fr.fused_relational_bf16_bwd(*args, g_e, g_a, csr, **kw))
+            d = bwd(fr.fused_relational_bf16_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, N_NODES, **kw))
+            d2 = bwd(fr.fused_relational_bf16_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, N_NODES, **kw))
+            pa = dict(zip(fwd_names, fr.fused_relational_bf16_plain(*args, **kw)))
+            pb = bwd(fr.fused_relational_bf16_bwd_plain(*args, g_e, g_a, **kw))
+            torch.cuda.synchronize()
+            report = {
+                "A": check("fused_relational_bf16_fwd", a, a2, pa, ref_f),
+                "C": check("fused_relational_bf16_fwd_save", dict(zip(fwd_names, c)),
+                           dict(zip(fwd_names, c2)), pa, ref_f),
+                "B": check("fused_relational_bf16_bwd", b, b2, pb, ref_b),
+                "D": check("fused_relational_bf16_bwd_saved", d, d2, pb, ref_b),
+            }
+            dst, src = g.edge_index[1].long(), g.edge_index[0].long()
+            assert torch.equal(c[2], x[dst]) and torch.equal(c[3], x[src]), "C: saved rows differ from x[dst], x[src]"
+            assert all(torch.equal(a[k], v) for k, v in zip(fwd_names, c)), "C differs from A"
+            assert all(torch.equal(b[k], d[k]) for k in b), "D differs from B"
+            for k, errs in report.items():
+                worst[k] = max(worst[k], max(e[1] for e in errs))
+            log(f"  bf16 kernels relu_edge={relu_edge}: C/D bitwise equal to A/B, every launch repeats "
+                "bitwise; per output: max|kernel - plain|, |kernel - plain| / |plain|, rows with an "
+                "element off by > 1e-2 of the largest, |err| / |float64| kernel/plain: " + "; ".join(
+                    f"{k} " + ", ".join(f"{n} {e:.2e} {rel:.1e} {rows} ({ek:.2e}/{ep:.2e})"
+                                        for n, e, rel, rows, ek, ep in errs)
+                    for k, errs in report.items() if k in ("A", "B")))
+
+        # timed with relu_edge (layers 2-6 of the stack run it)
+        kw = {"relu_edge": True}
+        c = fr.fused_relational_bf16_fwd_save(*args, rowptr=rowptr, **kw)
+        calls = {
+            "A": (lambda: fr.fused_relational_bf16_fwd(*args, rowptr=rowptr, **kw),
+                  lambda: fr.fused_relational_bf16_plain(*args, **kw)),
+            "C": (lambda: fr.fused_relational_bf16_fwd_save(*args, rowptr=rowptr, **kw),
+                  lambda: fr.fused_relational_bf16_fwd_save_plain(*args, **kw)),
+            "B": (lambda: fr.fused_relational_bf16_bwd(*args, g_e, g_a, csr, **kw),
+                  lambda: fr.fused_relational_bf16_bwd_plain(*args, g_e, g_a, **kw)),
+            "D": (lambda: fr.fused_relational_bf16_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, N_NODES, **kw),
+                  lambda: fr.fused_relational_bf16_bwd_saved_plain(c[2], c[3], *args[1:], g_e, g_a, N_NODES, **kw)),
+        }
+        fx, fe, hid = x.shape[1], ea.shape[1], weights["w2"].shape[0]
+        k = 2 * fx + fe
+        n_valid = int(mask.sum())
+        # MLP flops of the unmasked edges: the forward's three layers; the
+        # backward's recompute of h1, h2, the input gradients and the weight
+        # gradients of the three layers
+        flops = {"A": 2.0 * n_valid * (k * hid + hid * hid + hid * fo)}
+        flops["C"] = flops["A"]
+        flops["B"] = flops["D"] = 2.0 * n_valid * (3 * k * hid + 3 * hid * hid + 2 * hid * fo)
+        # each input read once, each output written once
+        common = nbytes(ea, g.edge_index, mask, *weights.values())
+        fwd_out = nbytes(*c[:2])
+        g_x, g_ea, grads = calls["B"][0]()
+        bwd_io = nbytes(g_e, g_a, *csr.values(), g_x, g_ea, *grads.values())
+        sizes = {
+            "A": common + nbytes(x, rowptr) + fwd_out,
+            "C": common + nbytes(x, rowptr) + fwd_out + nbytes(c[2], c[3]),
+            "B": common + nbytes(x) + bwd_io,
+            "D": common + nbytes(c[2], c[3]) + bwd_io,
+        }
+        names = {"A": "fused_relational_bf16_fwd", "B": "fused_relational_bf16_bwd",
+                 "C": "fused_relational_bf16_fwd_save", "D": "fused_relational_bf16_bwd_saved"}
+        results = []
+        for key in ("A", "B", "C", "D"):
+            kernel, plain = calls[key]
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            bnd, by = bound(flops[key], sizes[key], peak=PEAK_BF16_FLOPS)
+            results.append({"name": names[key], "max_abs_err": worst[key], "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bnd, "bound_by": by, "library_ms": None})
+            log(f"kernel {names[key]} ({key}): OK; {ms:.4f} ms (plain bf16 {plain_ms:.4f} ms, bound "
+                f"{bnd:.4f} ms by {by}: {flops[key] / 1e9:.1f} GFLOP bf16 at {n_valid} unmasked edges, "
+                f"{sizes[key] / 1e6:.1f} MB)")
+    return results
+
+
+def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[list[dict], dict]:
+    """Phase 9: bf16 EC training at ``ec.yml``'s width (see the module
+    docstring). Returns kernels A-D's results, with their launches on the
+    training path, and the summary."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.ops import csr_segment
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.training.module import ECModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, save_graph
+
+    g = EventGraph.from_arrays(**make_ec_event(seed + 120)).sort_edges_by_target().to("cuda")
+    model = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 121))
+    module = ECModule(model=model, loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR, precision="bf16",
+                      device="cuda")
+    module.setup_params(g)
+    results = bf16_kernel_phases(model, g, seed)
+
+    counters = {
+        "fused_relational_bf16_fwd": fr.fused_relational_bf16_fwd,
+        "fused_relational_bf16_bwd": fr.fused_relational_bf16_bwd,
+        "fused_relational_bf16_fwd_save": fr.fused_relational_bf16_fwd_save,
+        "fused_relational_bf16_bwd_saved": fr.fused_relational_bf16_bwd_saved,
+        "sorted_segment_sum": csr_segment.sorted_segment_sum,
+        "sorted_gather": csr_segment.sorted_gather,
+    }
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out, pdata = module.apply_model(g)
+        loss, _ = module.get_losses(out, pdata)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.detach()
+
+    reset()
+    gk, lk = step0()
+    launches0 = {k: fn.launches for k, fn in counters.items()}
+    with plain_path():
+        gp, lp = step0()
+    worst_name, worst = None, 0.0
+    for name, gpt in gp.items():
+        assert torch.isfinite(gk[name]).all(), f"{name}: non-finite gradient"
+        ratio = (gk[name] - gpt).abs().max().item() / gpt.abs().max().item()
+        assert ratio <= 5e-2, f"{name}: max|g_kernel - g_plain| is {ratio:.3e} of its largest magnitude"
+        if ratio >= worst:
+            worst_name, worst = name, ratio
+    L = EC_MODEL["L_ec"]
+    assert launches0["fused_relational_bf16_fwd"] == L and launches0["fused_relational_bf16_bwd"] == L, launches0
+    log(f"EC step 0: loss {lk.item():.6f} (plain {lp.item():.6f}); {len(gk)} parameter gradients agree "
+        f"with the plain path, the worst max|g_kernel - g_plain| {worst:.3e} of its largest magnitude "
+        f"({worst_name}; bound 5e-2); launches {launches0}")
+
+    for layer in model.ec_resin.layers:
+        layer.fused_save_acts = True
+    reset()
+    gs, ls = step0()
+    saved_launches = {k: counters[k].launches for k in ("fused_relational_bf16_fwd_save",
+                                                        "fused_relational_bf16_bwd_saved")}
+    for layer in model.ec_resin.layers:
+        layer.fused_save_acts = False
+    assert all(n == L for n in saved_launches.values()), saved_launches
+    assert counters["fused_relational_bf16_fwd"].launches == 0 == counters["fused_relational_bf16_bwd"].launches
+    assert torch.equal(ls, lk), f"fused_save_acts: loss {ls.item()} != {lk.item()}"
+    differ = [n for n in gk if not torch.equal(gk[n], gs[n])]
+    assert not differ, f"fused_save_acts: gradients differ bitwise: {differ}"
+    log(f"EC step with fused_save_acts: loss and {len(gk)} gradients bitwise equal; launches {saved_launches}")
+
+    for _ in range(2):
+        module.training_step(g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = module.training_step(g)
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
+    assert per_step["fused_relational_bf16_fwd"] == L and per_step["fused_relational_bf16_bwd"] == L, per_step
+    assert per_step["sorted_segment_sum"] > 0, per_step
+    assert math.isfinite(metrics["total"]), metrics
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summary = {
+        "steps": steps, "steps_per_s": steps / dt, "edges_per_s": N_EDGES * steps / dt,
+        "step_ms": dt / steps * 1e3, **step_split(module, g), "peak_mem_gib": peak,
+        "launches_per_step": per_step, "total": metrics["total"],
+    }
+    log("ec training: " + json.dumps(summary))
+    if profile:
+        profile_run(lambda: [module.training_step(g) for _ in range(3)], "ec_training")
+
+    # (c) Trainer.fit over 4 npz events, validation on the first
+    ec_dir = tmp / "ec_train"
+    ec_dir.mkdir()
+    for i in range(4):
+        save_graph(EventGraph.from_arrays(**make_ec_event(seed + 130 + i)), ec_dir / f"ev{i:02d}.npz")
+    fit_model = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 122))
+    fit_module = ECModule(model=fit_model, loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR,
+                          precision="bf16", device="cuda")
+    dm = TrackingDataModule(train={"dirs": [ec_dir]}, val={"dirs": [ec_dir], "stop": 1}, seed=seed)
+    trainer = Trainer(max_epochs=1, log_dir=tmp / "runs", name="ec", print_validation_results=False)
+    t0 = time.perf_counter()
+    val = trainer.fit(fit_module, dm)
+    fit_s = time.perf_counter() - t0
+    assert fit_module.step == 4 and len(trainer.checkpoints) == 1, (fit_module.step, trainer.checkpoints)
+    aucs = {k: v for k, v in val.items() if k.startswith("roc_auc") and not k.endswith("_std")}
+    assert len(aucs) == 12 and all(math.isfinite(v) for v in aucs.values()), aucs
+    assert math.isfinite(val["total"]), val
+    log(f"EC Trainer.fit: 4 steps in {fit_s:.1f} s; validation total {val['total']:.6f}, "
+        f"max_mcc_pt0.9 {val['max_mcc_pt0.9']:.4f}, ROC AUC " + json.dumps(aucs))
+    summary["fit_s"], summary["val_roc_auc"] = fit_s, aucs
+
+    for r in results:
+        r["launches"] = (saved_launches[r["name"]] if r["name"] in saved_launches
+                         else launches[r["name"]])
+    return results, summary
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1086,14 +1395,16 @@ def main(argv=None) -> int:
                    help="timed training steps (after 2 warm-up steps)")
     p.add_argument("--ml-steps", type=int, default=10,
                    help=f"timed metric-learning steps (after {ML_WARMUP} warm-up steps)")
+    p.add_argument("--ec-steps", type=int, default=10,
+                   help="timed bf16 EC training steps (after 2 warm-up steps)")
     p.add_argument("--profile", action="store_true",
-                   help="also trace one predict_dir, 3 training steps and 3 metric-learning "
-                   "steps with torch.profiler")
+                   help="also trace one predict_dir, 3 training steps, 3 metric-learning "
+                   "steps and 3 EC steps with torch.profiler")
     args = p.parse_args(argv)
     if args.events < 3:
         p.error("--events must be at least 3")
-    if args.train_steps < 1 or args.ml_steps < 1:
-        p.error("--train-steps and --ml-steps must be at least 1")
+    if args.train_steps < 1 or args.ml_steps < 1 or args.ec_steps < 1:
+        p.error("--train-steps, --ml-steps and --ec-steps must be at least 1")
 
     import torch
 
@@ -1369,7 +1680,11 @@ def main(argv=None) -> int:
     gc_results, _ = graph_construction_phase(args.seed, ml_model)
     results += gc_results
 
-    # ---- 9. results -------------------------------------------------------
+    # ---- 9. bf16 EC training: kernels A-D, then the training path -------------
+    ec_results, _ = ec_training_path(args.seed, args.ec_steps, args.profile, tmp)
+    results += ec_results
+
+    # ---- 10. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],

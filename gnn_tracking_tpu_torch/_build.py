@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
-    "fused_relational", "csr_segment", "pairwise_topk", "cc_neighbors",
-    "banded_topk", "ivf_probe",
+    "fused_relational", "fused_relational_bf16", "csr_segment", "pairwise_topk",
+    "cc_neighbors", "banded_topk", "ivf_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

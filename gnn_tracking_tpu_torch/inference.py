@@ -30,12 +30,13 @@ import torch
 from torch import nn
 
 from gnn_tracking_tpu_torch.graphs import EventGraph
+from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
 from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
 from gnn_tracking_tpu_torch.ops.dbscan import dbscan
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 from gnn_tracking_tpu_torch.utils.loading import load_graph
 
-_MODEL_CLASSES = {"GraphTCN": GraphTCN}
+_MODEL_CLASSES = {"GraphTCN": GraphTCN, "ECForGraphTCN": ECForGraphTCN}
 #: events whose npz is decompressed ahead of the one being predicted
 LOADS_AHEAD = 2
 #: label files being compressed and written while later events are predicted

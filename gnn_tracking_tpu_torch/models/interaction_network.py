@@ -7,7 +7,10 @@ at the target) is one call of the differentiable
 the object model is ``MLP([x, agg])``. Parameters use the fused layout
 (``relational_w1..b3``) in PyTorch's ``[out, in]`` order. Masked edges'
 ``e_tilde`` are zero (the JAX XLA path leaves them intact; everything
-observable through the mask is the same).
+observable through the mask is the same). bf16 inputs and weights (the
+``bf16`` precision policy) take the op's bf16 route; ``fused_save_acts``
+(the JAX option of that name) keeps its gathered endpoint rows for the
+backward.
 """
 
 from __future__ import annotations
@@ -38,10 +41,12 @@ class InteractionNetwork(nn.Module):
         edge_outdim: int = 4,
         node_hidden_dim: int | None = 40,
         edge_hidden_dim: int | None = 40,
+        fused_save_acts: bool = False,
         *,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        self.fused_save_acts = fused_save_acts
         fan1 = 2 * node_indim + edge_indim
         h = edge_hidden_dim or max(fan1, edge_outdim)
         self.relational_w1 = _uniform((h, fan1), fan1, generator)
@@ -77,7 +82,7 @@ class InteractionNetwork(nn.Module):
         the op, gradient included."""
         e_tilde, agg = fused_relational(
             x, edge_attr, edge_index, edge_mask, self.relational_weights(),
-            csr=csr, relu_edge=relu_edge,
+            csr=csr, relu_edge=relu_edge, save_acts=self.fused_save_acts,
         )
         x_tilde = self.object_model(torch.cat([x, agg], dim=1))
         return x_tilde, e_tilde

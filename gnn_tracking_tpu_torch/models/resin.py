@@ -22,7 +22,8 @@ def sqconvex_combination(
 
 
 class ResIN(nn.Module):
-    """Stack of identical interaction networks with skip1 residuals.
+    """Stack of identical interaction networks with skip1 residuals;
+    ``fused_save_acts`` is handed to each layer.
 
     Returns ``(node embedding, last edge embedding, list of edge embeddings
     from all levels including the input, or None)``.
@@ -39,6 +40,7 @@ class ResIN(nn.Module):
         residual_type: str = "skip1",
         collect_hidden_edge_embeds: bool = True,
         add_bn: bool = False,
+        fused_save_acts: bool = False,
         *,
         generator: torch.Generator | None = None,
     ):
@@ -55,7 +57,8 @@ class ResIN(nn.Module):
             InteractionNetwork(
                 node_dim, edge_dim, node_outdim=node_dim, edge_outdim=edge_dim,
                 node_hidden_dim=object_hidden_dim,
-                edge_hidden_dim=relational_hidden_dim, generator=generator,
+                edge_hidden_dim=relational_hidden_dim, fused_save_acts=fused_save_acts,
+                generator=generator,
             )
             for _ in range(n_layers)
         )

@@ -26,7 +26,9 @@ from gnn_tracking_tpu_torch import _build
 
 _SIGNATURES = {
     "sorted_segment_sum": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
+    "sorted_segment_sum_bf16": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
     "sorted_gather": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
+    "sorted_gather_bf16": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
 }
 
 
@@ -64,21 +66,25 @@ def segment_sum_csr(
     """Kernel launch: ``out[i] = sum of messages[row(p)]`` for ``p`` in
     ``rowptr[i]:rowptr[i+1]``, in ``p`` order, where ``row(p)`` is ``p``, or
     ``perm[p]`` when a permutation is given (the source-sorted order of a
-    target-sorted graph: ``src_perm`` with ``src_rowptr``). CUDA only."""
+    target-sorted graph: ``src_perm`` with ``src_rowptr``). ``messages`` is
+    float32 or bfloat16 (widened to f32 value by value); the sums and the
+    output are float32. CUDA only."""
     dev = messages.device
     if dev.type != "cuda":
         msg = f"segment_sum_csr: the kernel runs on CUDA tensors, got {dev}"
         raise ValueError(msg)
     rows, f = messages.shape
     n = rowptr.shape[0] - 1
-    _check("sorted_segment_sum: messages", messages, torch.float32, (rows, f), dev)
+    dtype = torch.bfloat16 if messages.dtype == torch.bfloat16 else torch.float32
+    _check("sorted_segment_sum: messages", messages, dtype, (rows, f), dev)
     _check("sorted_segment_sum: rowptr", rowptr, torch.int32, (n + 1,), dev)
     if perm is not None:
         _check("sorted_segment_sum: perm", perm, torch.int32, (rows,), dev)
     out = torch.empty((n, f), dtype=torch.float32, device=dev)
     lib = _build.library("csr_segment", _SIGNATURES)
     p = _build.ptr
-    err = lib.sorted_segment_sum(
+    entry = lib.sorted_segment_sum_bf16 if dtype == torch.bfloat16 else lib.sorted_segment_sum
+    err = entry(
         p(messages), p(rowptr), None if perm is None else p(perm), p(out), n, f,
         _build.stream_ptr(dev),
     )
@@ -88,19 +94,22 @@ def segment_sum_csr(
 
 
 def gather_rows(values: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Kernel launch: ``values[dst]`` (exact). CUDA only."""
+    """Kernel launch: ``values[dst]`` (exact), float32 or bfloat16. CUDA
+    only."""
     dev = values.device
     if dev.type != "cuda":
         msg = f"gather_rows: the kernel runs on CUDA tensors, got {dev}"
         raise ValueError(msg)
     n, f = values.shape
     e = dst.shape[0]
-    _check("sorted_gather: values", values, torch.float32, (n, f), dev)
+    dtype = torch.bfloat16 if values.dtype == torch.bfloat16 else torch.float32
+    _check("sorted_gather: values", values, dtype, (n, f), dev)
     _check("sorted_gather: dst", dst, torch.int32, (e,), dev)
-    out = torch.empty((e, f), dtype=torch.float32, device=dev)
+    out = torch.empty((e, f), dtype=dtype, device=dev)
     lib = _build.library("csr_segment", _SIGNATURES)
     p = _build.ptr
-    err = lib.sorted_gather(p(values), p(dst), p(out), e, f, _build.stream_ptr(dev))
+    entry = lib.sorted_gather_bf16 if dtype == torch.bfloat16 else lib.sorted_gather
+    err = entry(p(values), p(dst), p(out), e, f, _build.stream_ptr(dev))
     _build.check(lib, err, "sorted_gather")
     sorted_gather.launches += 1
     return out
@@ -118,7 +127,7 @@ def _segment_sum(messages, dst, num_nodes, rowptr):
     if rowptr.shape[0] != num_nodes + 1:
         msg = f"sorted_segment_sum: rowptr has {rowptr.shape[0]} entries, expected {num_nodes + 1}"
         raise ValueError(msg)
-    return segment_sum_csr(messages.contiguous(), rowptr)
+    return segment_sum_csr(messages.contiguous(), rowptr).to(messages.dtype)
 
 
 def _gather(values, dst):
@@ -175,6 +184,35 @@ def sorted_gather(
     gradient of ``values`` is :func:`sorted_segment_sum` of the cotangent
     (which on CUDA needs ``rowptr``)."""
     return _SortedGather.apply(values, dst, rowptr)
+
+
+class _GatherBySource(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, src, csr):
+        ctx.save_for_backward(src)
+        ctx.csr, ctx.num_nodes = csr, values.shape[0]
+        return _gather(values, src)
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        if g.device.type == "cpu":
+            return sorted_segment_sum_plain(g, src, ctx.num_nodes), None, None
+        out = segment_sum_csr(g.contiguous(), ctx.csr["src_rowptr"], perm=ctx.csr["src_perm"])
+        return out.to(g.dtype), None, None
+
+
+def gather_endpoints(
+    values: torch.Tensor, edge_index: torch.Tensor, csr: dict[str, torch.Tensor]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(values[src], values[dst])`` of a target-sorted graph (``csr`` from
+    ``EventGraph.csr()``), whose gradients are the sorted segment-sums, per
+    source through ``src_perm`` and per target: a fixed summation order, as
+    the JAX ``take_sorted_by`` / ``sorted_take`` pair (where ``index_select``'s
+    CUDA backward adds with atomics, in no fixed order)."""
+    src, dst = edge_index[0], edge_index[1]
+    return (_GatherBySource.apply(values, src, csr),
+            sorted_gather(values, dst, rowptr=csr.get("dst_rowptr")))
 
 
 #: kernel launches (csrc/csr_segment.cu), counted where each kernel launches

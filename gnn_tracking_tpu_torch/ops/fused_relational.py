@@ -19,6 +19,24 @@ aggregation's cotangent). They need the edges sorted by target and the CSR
 arrays that ``EventGraph.sort_edges_by_target`` stores (``EventGraph.csr``):
 ``dst_rowptr`` for the forward, plus ``src_perm`` and ``src_rowptr`` for the
 backward. Weights use PyTorch's ``[out, in]`` layout.
+
+**bf16.** When ``x``, ``edge_attr`` and the weights are bfloat16 the op
+takes the bf16 route, the JAX kernels' ``compute_dtype="bfloat16"``
+(``fused_relational``, ``fused_relational_flat``, ``fused_relational_flat_t``,
+``fused_relational_layer_tt``), with their rounding points: every product
+of bf16 operands accumulates in f32; pre-activations are f32 plus the bf16
+biases, and the ReLU masks come from them; ``h1``, ``h2`` and the masked
+``e'`` are rounded to bf16; ``agg`` is the f32 sum of the bf16 ``e'``,
+rounded. In the backward ``g_e' = bf16(mask * (g_e'_out + g_agg[dst]))``,
+``g_h2 = bf16((g_e' W3) * m2)``, ``g_h1 = bf16((g_h2 W2) * m1)``, the
+per-edge input gradients are rounded to bf16 before their f32 node sums
+(``g_x`` is rounded after them), and the weight gradients are f32 sums of
+bf16 products, rounded to bf16. Its kernels are
+``csrc/fused_relational_bf16.cu`` (tensor cores) and the segment sum of
+``csrc/csr_segment.cu`` over bf16 rows. ``save_acts`` (bf16 only, the JAX
+``fused_relational_layer_tt`` option) keeps the two gathered endpoint
+streams of the forward for the backward, which then gathers nothing; its
+outputs and gradients are bitwise those of the recomputing pair.
 """
 
 from __future__ import annotations
@@ -34,6 +52,14 @@ WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 _SIGNATURES = {
     "fused_relational_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
     "fused_relational_bwd": [_build.P] * 16 + [_build.I] * 7 + [_build.P],
+}
+# the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
+# relu_edge (and the backward's block count), then the stream
+_SIGNATURES_BF16 = {
+    "fused_relational_bf16_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
+    "fused_relational_bf16_fwd_save": [_build.P] * 13 + [_build.I] * 6 + [_build.P],
+    "fused_relational_bf16_bwd": [_build.P] * 16 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bf16_bwd_saved": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
 }
 
 
@@ -104,9 +130,11 @@ def fused_relational_bwd_plain(
     return g_x, g_ea.contiguous(), grads
 
 
-def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=()):
-    """Device, dtype, shape and contiguity of the kernel's inputs; returns
-    the widths ``(n, e, fx, fe, h, fo)``."""
+def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=(),
+                  dtype=torch.float32):
+    """Device, dtype, shape and contiguity of the kernel's inputs: ``x``,
+    ``edge_attr`` and the weights all ``dtype``. Returns the widths
+    ``(n, e, fx, fe, h, fo)``."""
     if x.device.type != "cuda":
         msg = f"{what}: unsupported device {x.device}"
         raise ValueError(msg)
@@ -115,16 +143,16 @@ def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=()):
     h = weights["w2"].shape[0]
     fo = weights["w3"].shape[0]
     expected = {
-        "x": (x, torch.float32, (n, fx)),
-        "edge_attr": (edge_attr, torch.float32, (e, fe)),
+        "x": (x, dtype, (n, fx)),
+        "edge_attr": (edge_attr, dtype, (e, fe)),
         "edge_index": (edge_index, torch.int32, (2, e)),
         "edge_mask": (edge_mask, torch.bool, (e,)),
-        "w1": (weights["w1"], torch.float32, (h, 2 * fx + fe)),
-        "b1": (weights["b1"], torch.float32, (h,)),
-        "w2": (weights["w2"], torch.float32, (h, h)),
-        "b2": (weights["b2"], torch.float32, (h,)),
-        "w3": (weights["w3"], torch.float32, (fo, h)),
-        "b3": (weights["b3"], torch.float32, (fo,)),
+        "w1": (weights["w1"], dtype, (h, 2 * fx + fe)),
+        "b1": (weights["b1"], dtype, (h,)),
+        "w2": (weights["w2"], dtype, (h, h)),
+        "b2": (weights["b2"], dtype, (h,)),
+        "w3": (weights["w3"], dtype, (fo, h)),
+        "b3": (weights["b3"], dtype, (fo,)),
     }
     for name, t, dtype, shape in extra:
         expected[name] = (t, dtype, shape)
@@ -256,32 +284,297 @@ fused_relational_fwd.launches = 0
 fused_relational_bwd.launches = 0
 
 
+# ------------------------------------------------------------------- bf16 route
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of bf16 operands with f32 accumulation: both widened to f32
+    (exact), multiplied in f32 (TF32 off)."""
+    return a.float() @ b.float()
+
+
+def _bf16_mlp(m, weights):
+    """The relational MLP with the JAX kernels' bf16 rounding points; returns
+    the bf16 activations, the f32 pre-activations of the two hidden layers
+    (whose signs are the ReLU masks) and the f32 output layer."""
+    pre1 = _mm(m, weights["w1"].T) + weights["b1"].float()
+    h1 = torch.relu(pre1).to(torch.bfloat16)
+    pre2 = _mm(h1, weights["w2"].T) + weights["b2"].float()
+    h2 = torch.relu(pre2).to(torch.bfloat16)
+    return h1, h2, pre1, pre2, _mm(h2, weights["w3"].T) + weights["b3"].float()
+
+
+def fused_relational_bf16_fwd_save_plain(
+    x, edge_attr, edge_index, edge_mask, weights, *, relu_edge=False,
+):
+    """Plain version of kernel C: ``(e_tilde, agg, x[dst], x[src])``, bf16."""
+    src, dst = edge_index[0], edge_index[1]
+    gd, gs = x.index_select(0, dst), x.index_select(0, src)
+    ea = torch.relu(edge_attr) if relu_edge else edge_attr
+    et = _bf16_mlp(torch.cat([gd, gs, ea], dim=1), weights)[-1]
+    et = torch.where(edge_mask[:, None], et, 0.0).to(torch.bfloat16)
+    agg = torch.zeros((x.shape[0], et.shape[1]), dtype=torch.float32, device=x.device)
+    agg.index_add_(0, dst, et.float())
+    return et, agg.to(torch.bfloat16), gd, gs
+
+
+def fused_relational_bf16_plain(
+    x, edge_attr, edge_index, edge_mask, weights, *, relu_edge=False,
+):
+    """Plain version of kernel A (and of the aggregation): ``(e_tilde [E,
+    Fo], agg [N, Fo])``, bf16, at the JAX kernels' rounding points."""
+    return fused_relational_bf16_fwd_save_plain(
+        x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)[:2]
+
+
+def fused_relational_bf16_bwd_saved_plain(
+    gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
+    *, relu_edge=False,
+):
+    """Plain version of kernel D: the backward from the gathered endpoint
+    rows ``gd = x[dst]``, ``gs = x[src]``; ``(g_x, g_edge_attr, weight
+    gradients)``, bf16."""
+    src, dst = edge_index[0], edge_index[1]
+    fx = gd.shape[1]
+    ea = torch.relu(edge_attr) if relu_edge else edge_attr
+    m = torch.cat([gd, gs, ea], dim=1)
+    h1, h2, pre1, pre2, _ = _bf16_mlp(m, weights)
+    g_et = g_e_out.float() + g_agg.float().index_select(0, dst)
+    g_et = torch.where(edge_mask[:, None], g_et, 0.0).to(torch.bfloat16)
+    g_h2 = torch.where(pre2 > 0, _mm(g_et, weights["w3"]), 0.0).to(torch.bfloat16)
+    g_h1 = torch.where(pre1 > 0, _mm(g_h2, weights["w2"]), 0.0).to(torch.bfloat16)
+    g_m = _mm(g_h1, weights["w1"]).to(torch.bfloat16)
+    g_ea = g_m[:, 2 * fx :]
+    if relu_edge:
+        g_ea = torch.where(edge_attr > 0, g_ea, 0.0)
+    g_x = torch.zeros((num_nodes, fx), dtype=torch.float32, device=gd.device)
+    g_x_src = torch.zeros_like(g_x)
+    g_x.index_add_(0, dst, g_m[:, :fx].float())
+    g_x_src.index_add_(0, src, g_m[:, fx : 2 * fx].float())
+    grads = {
+        "w1": _mm(g_h1.T, m), "b1": g_h1.float().sum(dim=0),
+        "w2": _mm(g_h2.T, h1), "b2": g_h2.float().sum(dim=0),
+        "w3": _mm(g_et.T, h2), "b3": g_et.float().sum(dim=0),
+    }
+    grads = {k: v.to(torch.bfloat16) for k, v in grads.items()}
+    return (g_x + g_x_src).to(torch.bfloat16), g_ea.contiguous(), grads
+
+
+def fused_relational_bf16_bwd_plain(
+    x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, *, relu_edge=False,
+):
+    """Plain version of kernel B: the backward, gathering the endpoint rows
+    again; ``(g_x, g_edge_attr, weight gradients)``, bf16."""
+    src, dst = edge_index[0], edge_index[1]
+    return fused_relational_bf16_bwd_saved_plain(
+        x.index_select(0, dst), x.index_select(0, src), edge_attr, edge_index, edge_mask,
+        weights, g_e_out, g_agg, x.shape[0], relu_edge=relu_edge,
+    )
+
+
+def _check_bf16(what, x, edge_attr, edge_index, edge_mask, weights, extra=()):
+    widths = _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra,
+                           dtype=torch.bfloat16)
+    if any(w % 32 for w in widths[2:]):
+        msg = f"{what}: the bf16 kernels take widths (Fx, Fe, H, Fo) that are multiples of 32, got {widths[2:]}"
+        raise ValueError(msg)
+    # bf16 rows are read 16 bytes at a time
+    tensors = [x, edge_attr, *weights.values(), *(t for _, t, _, _ in extra)]
+    if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
+        msg = f"{what}: bf16 tensors must start at 16-byte aligned addresses"
+        raise ValueError(msg)
+    return widths
+
+
+def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save):
+    """Launch C entry ``entry`` (A, or C with ``save``), then row #9's sum."""
+    n, e, fx, fe, h, fo = _check_bf16(
+        entry, x, edge_attr, edge_index, edge_mask, weights,
+        [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
+    )
+    dev = x.device
+    e_out = torch.empty((e, fo), dtype=torch.bfloat16, device=dev)
+    saved = [torch.empty((e, fx), dtype=torch.bfloat16, device=dev) for _ in range(2 if save else 0)]
+    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
+    p = _build.ptr
+    err = getattr(lib, entry)(
+        p(x), p(edge_attr), p(edge_index), p(edge_mask),
+        *(p(weights[key]) for key in WEIGHT_KEYS), p(e_out), *(p(t) for t in saved),
+        e, fx, fe, h, fo, int(relu_edge), _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, entry)
+    agg = segment_sum_csr(e_out, rowptr).to(torch.bfloat16)
+    return e_out, agg, *saved
+
+
+def fused_relational_bf16_fwd(
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+):
+    """Kernel A: ``(e_tilde [E, Fo], agg [N, Fo])``, bf16, not differentiable
+    (see :func:`fused_relational`). CPU tensors take the plain version; CUDA
+    tensors launch the edge kernel, then the sorted segment-sum over its bf16
+    rows (``rowptr`` required)."""
+    if x.device.type == "cpu":
+        return fused_relational_bf16_plain(
+            x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
+    out = _fwd_bf16("fused_relational_bf16_fwd", x, edge_attr, edge_index, edge_mask, weights,
+                    rowptr, relu_edge, save=False)
+    fused_relational_bf16_fwd.launches += 1
+    return out
+
+
+def fused_relational_bf16_fwd_save(
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+):
+    """Kernel C: kernel A's outputs and the gathered endpoint rows
+    ``(e_tilde, agg, x[dst], x[src])``, for :func:`fused_relational_bf16_bwd_saved`."""
+    if x.device.type == "cpu":
+        return fused_relational_bf16_fwd_save_plain(
+            x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
+    out = _fwd_bf16("fused_relational_bf16_fwd_save", x, edge_attr, edge_index, edge_mask,
+                    weights, rowptr, relu_edge, save=True)
+    fused_relational_bf16_fwd_save.launches += 1
+    return out
+
+
+def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
+              num_nodes, relu_edge):
+    e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
+    extra = [
+        ("g_e_out", g_e_out, torch.bfloat16, (e, fo)),
+        ("g_agg", g_agg, torch.bfloat16, (n, fo)),
+        ("dst_rowptr", csr.get("dst_rowptr"), torch.int32, (n + 1,)),
+        ("src_perm", csr.get("src_perm"), torch.int32, (e,)),
+        ("src_rowptr", csr.get("src_rowptr"), torch.int32, (n + 1,)),
+    ]
+    if x is not None:
+        rows_in = x
+    else:  # the saved x[dst] stands in for x in the checks, x[src] beside it
+        rows_in = gd
+        extra.append(("gs", gs, torch.bfloat16, tuple(gd.shape)))
+    _, _, fx, fe, h, _ = _check_bf16(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
+    dev = edge_attr.device
+    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
+    k = 2 * fx + fe
+    shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
+    sizes = [torch.Size(s).numel() for s in shapes.values()]
+    # one weight-gradient partial per block of the edge kernel, at most one block per SM
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
+    packed = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+    g_xd = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
+    g_xs = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
+    g_ea = torch.empty((e, fe), dtype=torch.bfloat16, device=dev)
+    p = _build.ptr
+    rows = [p(x)] if x is not None else [p(gd), p(gs)]
+    entry = lib.fused_relational_bf16_bwd if x is not None else lib.fused_relational_bf16_bwd_saved
+    err = entry(
+        *rows, p(edge_attr), p(edge_index), p(edge_mask),
+        *(p(weights[key]) for key in WEIGHT_KEYS[:5]),
+        p(g_e_out), p(g_agg), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
+        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, what)
+    g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
+    g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
+    grads = {
+        name: part.view(shape)
+        for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
+    }
+    return g_x.to(torch.bfloat16), g_ea, grads
+
+
+def fused_relational_bf16_bwd(
+    x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, *, relu_edge=False,
+):
+    """Kernel B: ``(g_x [N, Fx], g_edge_attr [E, Fe], weight gradients)``,
+    bf16, from the cotangents of ``(e_tilde, agg)``. CPU tensors take the
+    plain version. CUDA tensors launch the backward edge kernel (which reads
+    ``g_agg`` by target itself) and the sorted segment-sum of the per-edge
+    node gradients per target and per source; ``csr`` as for
+    :func:`fused_relational_bwd`."""
+    if x.device.type == "cpu":
+        return fused_relational_bf16_bwd_plain(
+            x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, relu_edge=relu_edge)
+    out = _bwd_bf16("fused_relational_bf16_bwd", x, None, None, edge_attr, edge_index, edge_mask,
+                    weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
+    fused_relational_bf16_bwd.launches += 1
+    return out
+
+
+def fused_relational_bf16_bwd_saved(
+    gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
+    *, relu_edge=False,
+):
+    """Kernel D: kernel B from the rows ``gd = x[dst]``, ``gs = x[src]``
+    that kernel C saved; bitwise B's outputs."""
+    if gd.device.type == "cpu":
+        return fused_relational_bf16_bwd_saved_plain(
+            gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
+            relu_edge=relu_edge)
+    out = _bwd_bf16("fused_relational_bf16_bwd_saved", None, gd, gs, edge_attr, edge_index,
+                    edge_mask, weights, g_e_out, g_agg, csr, num_nodes, relu_edge)
+    fused_relational_bf16_bwd_saved.launches += 1
+    return out
+
+
+#: kernel launches (csrc/fused_relational_bf16.cu: A, C, B, D), counted where each launches
+fused_relational_bf16_fwd.launches = 0
+fused_relational_bf16_fwd_save.launches = 0
+fused_relational_bf16_bwd.launches = 0
+fused_relational_bf16_bwd_saved.launches = 0
+
+
 class FusedRelational(torch.autograd.Function):
     """Differentiable fused edge pipeline. The forward saves its inputs, the
     mask, the index tensors and the weights, and no activation; the backward
-    recomputes them (:func:`fused_relational_bwd`). Gradients flow to ``x``,
-    ``edge_attr`` and the six weights."""
+    recomputes them (:func:`fused_relational_bwd`, or
+    :func:`fused_relational_bf16_bwd` for bf16). With ``save_acts`` (bf16)
+    the forward saves the gathered endpoint rows in place of ``x`` and the
+    backward reads them (kernels C and D). Gradients flow to ``x``,
+    ``edge_attr`` and the six weights, in their dtype."""
 
     @staticmethod
-    def forward(ctx, x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask, csr, relu_edge):
+    def forward(ctx, x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask, csr, relu_edge,
+                save_acts):
         weights = dict(zip(WEIGHT_KEYS, (w1, b1, w2, b2, w3, b3)))
-        e_out, agg = fused_relational_fwd(
-            x, edge_attr, edge_index, edge_mask, weights,
-            rowptr=csr.get("dst_rowptr"), relu_edge=relu_edge,
-        )
-        ctx.save_for_backward(x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
-        ctx.csr = csr
-        ctx.relu_edge = relu_edge
+        bf16 = x.dtype == torch.bfloat16
+        dtypes = {t.dtype for t in (x, edge_attr, *weights.values())}
+        if bf16 and dtypes != {torch.bfloat16}:
+            msg = f"fused_relational: bf16 x needs bf16 edge_attr and weights, got {sorted(map(str, dtypes))}"
+            raise ValueError(msg)
+        if save_acts and not bf16:
+            msg = "fused_relational: save_acts is ported for bf16 only"
+            raise NotImplementedError(msg)
+        rowptr = csr.get("dst_rowptr")
+        if save_acts:
+            e_out, agg, gd, gs = fused_relational_bf16_fwd_save(
+                x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr, relu_edge=relu_edge)
+            ctx.save_for_backward(gd, gs, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
+        else:
+            fwd = fused_relational_bf16_fwd if bf16 else fused_relational_fwd
+            e_out, agg = fwd(x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr,
+                             relu_edge=relu_edge)
+            ctx.save_for_backward(x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
+        ctx.csr, ctx.relu_edge, ctx.save_acts, ctx.bf16 = csr, relu_edge, save_acts, bf16
+        ctx.num_nodes = x.shape[0]
         return e_out, agg
 
     @staticmethod
     def backward(ctx, g_e_out, g_agg):
-        x, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
-        g_x, g_ea, grads = fused_relational_bwd(
-            x, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)),
-            g_e_out.contiguous(), g_agg.contiguous(), ctx.csr, relu_edge=ctx.relu_edge,
-        )
-        return (g_x, g_ea, *(grads[k] for k in WEIGHT_KEYS), None, None, None, None)
+        cts = (g_e_out.contiguous(), g_agg.contiguous())
+        if ctx.save_acts:
+            gd, gs, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
+            g_x, g_ea, grads = fused_relational_bf16_bwd_saved(
+                gd, gs, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts,
+                ctx.csr, ctx.num_nodes, relu_edge=ctx.relu_edge,
+            )
+        else:
+            x, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
+            bwd = fused_relational_bf16_bwd if ctx.bf16 else fused_relational_bwd
+            g_x, g_ea, grads = bwd(
+                x, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts, ctx.csr,
+                relu_edge=ctx.relu_edge,
+            )
+        return (g_x, g_ea, *(grads[k] for k in WEIGHT_KEYS), None, None, None, None, None)
 
 
 def fused_relational(
@@ -293,12 +586,14 @@ def fused_relational(
     *,
     csr: dict[str, torch.Tensor] | None = None,
     relu_edge: bool = False,
+    save_acts: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(e_tilde [E, Fo], agg [N, Fo])`` with gradients (``FusedRelational``).
     ``csr`` holds the target-sorted graph's CSR arrays (``EventGraph.csr()``),
     which CUDA tensors need; ``relu_edge`` applies a ReLU to ``edge_attr``
-    inside the op."""
+    inside the op. bf16 inputs take the bf16 route; ``save_acts`` (bf16
+    only) keeps the gathered endpoint rows for the backward."""
     return FusedRelational.apply(
         x, edge_attr, *(weights[k] for k in WEIGHT_KEYS), edge_index, edge_mask,
-        csr or {}, relu_edge,
+        csr or {}, relu_edge, save_acts,
     )

@@ -1,5 +1,5 @@
 """Training task modules (counterpart of the JAX ``training/module.py``:
-``TrackingModule``, ``TCModule`` and ``MLModule``).
+``TrackingModule``, ``TCModule``, ``ECModule`` and ``MLModule``).
 
 A module holds the model, the loss and the optimizer. ``training_step``
 runs forward, loss, ``backward`` and one optimizer step, and returns the
@@ -8,19 +8,34 @@ step's metrics as floats after one device-to-host transfer. The optimizer is
 1e-8 added outside the square root in both frameworks). Random draws of the
 loss come from the module's ``torch.Generator``.
 
-Not ported yet (raise ``NotImplementedError``): precision policies other
-than ``"f32"``, a custom optimizer, ``preproc``, ``frozen_prefixes``, the
-cluster scanner and the graph-construction scanner (``gc_scanner``).
+``precision`` names a policy of ``training/precision.py``, applied as the
+JAX module applies it in training and validation steps: each forward runs on
+a copy of the parameters and of the graph's floating fields in the compute
+dtype (the copy's gradient flows back to the master parameters, which Adam
+updates in their own dtype), and the outputs and the graph are cast to the
+output dtype before the loss. ``forward`` runs the model as it is, as the
+JAX module's does.
+
+Not ported yet (raise ``NotImplementedError``): a custom optimizer,
+``preproc``, ``frozen_prefixes``, the cluster scanner and the
+graph-construction scanner (``gc_scanner``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from gnn_tracking_tpu_torch.graphs import EventGraph
+from gnn_tracking_tpu_torch.metrics.binary_classification import (
+    get_maximized_bcs,
+    get_roc_auc_scores,
+)
+from gnn_tracking_tpu_torch.training.precision import get_policy
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 
 
@@ -47,9 +62,7 @@ class TrackingModule:
         device: str | torch.device = "cuda",
     ):
         self.device = resolve_device(device)
-        if precision != "f32":
-            msg = f"precision={precision!r}: only f32 is ported"
-            raise NotImplementedError(msg)
+        self.policy = get_policy(precision)
         if optimizer is not None or preproc is not None or frozen_prefixes:
             msg = "a custom optimizer, preproc and frozen_prefixes are not ported"
             raise NotImplementedError(msg)
@@ -83,13 +96,21 @@ class TrackingModule:
     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         raise NotImplementedError
 
+    def apply_model(self, data: EventGraph) -> tuple[dict[str, Any], EventGraph]:
+        """The model under the precision policy: ``(outputs, graph)``, both
+        cast to the output dtype, as the loss sees them."""
+        cdata = self.policy.cast_to_compute(data)
+        # parameters already in the compute dtype pass through as themselves
+        params = self.policy.cast_to_compute(dict(self.model.named_parameters()))
+        out = functional_call(self.model, params, (cdata,))
+        return self.policy.cast_to_output(out), self.policy.cast_to_output(cdata)
+
     def training_step(self, data: EventGraph) -> dict[str, float]:
         """One optimization step; returns the train metrics (``total`` is
         the loss before the step)."""
         self.setup_params(data)
-        data = data.to(self.device)
         self.model.train()
-        out = self.model(data)
+        out, data = self.apply_model(data.to(self.device))
         loss, metrics = self.get_losses(out, data)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -100,9 +121,8 @@ class TrackingModule:
 
     @torch.no_grad()
     def validation_step(self, data: EventGraph, batch_idx: int) -> dict[str, float]:
-        data = data.to(self.device)
         self.model.eval()
-        out = self.model(data)
+        out, data = self.apply_model(data.to(self.device))
         loss, metrics = self.get_losses(out, data)
         metrics["total"] = loss
         return to_floats(metrics) | self.validation_extra(out, data, batch_idx)
@@ -154,6 +174,43 @@ class TCModule(TrackingModule):
             "trk.perfect_pt0.9",
             "trk.double_majority_pt0.9",
         ]
+
+
+class ECModule(TrackingModule):
+    """Edge-classification training (reference ``training/ec.py``): the
+    loss takes the edge weights ``W``; validation adds ROC AUC (also at max
+    FPR 0.01 and 0.001) and the best balanced accuracy, F1 and MCC over
+    thresholds, on the unmasked edges with an endpoint above each of
+    ``pt_thlds`` (suffix ``_pt<thld>``; all unmasked edges at 0)."""
+
+    def __init__(self, *, loss_fct, pt_thlds=(0.0, 0.5, 0.9, 1.5), **kwargs):
+        super().__init__(**kwargs)
+        self.loss_fct = loss_fct
+        self.pt_thlds = pt_thlds
+
+    def get_losses(self, out, data: EventGraph):
+        loss = self.loss_fct(
+            w=out["W"], y=data.y.to(out["W"].dtype), pt=data.pt,
+            edge_index=data.edge_index, edge_mask=data.edge_mask,
+        )
+        return loss, {}
+
+    def validation_extra(self, out, data: EventGraph, batch_idx: int) -> dict[str, float]:
+        metrics: dict[str, float] = {}
+        w, y = out["W"], data.y
+        src, dst = data.edge_index.long()
+        for pt in self.pt_thlds:
+            mask = data.edge_mask
+            if pt > 0:
+                mask = mask & ((data.pt[src] > pt) | (data.pt[dst] > pt))
+            found = get_roc_auc_scores(
+                true=y, predicted=w, max_fprs=[None, 0.01, 0.001], mask=mask
+            ) | get_maximized_bcs(y=y, output=w, mask=mask)
+            metrics |= {k if math.isclose(pt, 0.0) else f"{k}_pt{pt}": v for k, v in found.items()}
+        return metrics
+
+    def highlight_metric(self, metric: str) -> bool:
+        return metric in ["max_mcc_pt0.9", "total", "tpr_eq_tnr_pt0.9"]
 
 
 class MLModule(TrackingModule):

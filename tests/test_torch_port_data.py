@@ -14,7 +14,10 @@ import torch
 from gnn_tracking_tpu.utils.loading import save_graph as jax_save_graph
 from gnn_tracking_tpu_torch.graphs import ARRAY_FIELDS
 from gnn_tracking_tpu_torch.inference import TrackingPredictor
+from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
 from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+from gnn_tracking_tpu_torch.training.module import ECModule
 from gnn_tracking_tpu_torch.utils.loading import load_graph, save_graph
 
 from .test_training import make_graph
@@ -54,6 +57,15 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_no_jax():
     files = sorted((REPO / "gnn_tracking_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    # the bf16 EC slice's modules, and the wrapper of csrc/fused_relational_bf16.cu
+    scanned = {f.relative_to(REPO).as_posix() for f in files}
+    assert scanned >= {
+        f"gnn_tracking_tpu_torch/{m}.py" for m in (
+            "training/precision", "losses/ec", "metrics/binary_classification",
+            "ops/fused_relational", "training/module", "models/edge_classifier",
+        )
+    }
+    assert (REPO / "gnn_tracking_tpu_torch/csrc/fused_relational_bf16.cu").exists()
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
@@ -66,8 +78,11 @@ def test_port_imports_no_jax():
         lambda: GraphTCN(6, 3),
         lambda: TrackingPredictor(GraphTCN(6, 3, device="cpu")),
         lambda: load_graph(Path(__file__)),
+        lambda: ECForGraphTCN(6, 3),
+        lambda: ECModule(model=ECForGraphTCN(6, 3, device="cpu"), loss_fct=EdgeWeightFocalLoss(),
+                         precision="bf16"),
     ],
-    ids=["model", "predictor", "load_graph"],
+    ids=["model", "predictor", "load_graph", "ec_model", "ec_module"],
 )
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():

@@ -279,9 +279,9 @@ def test_entry_points_need_cuda_or_raise():
         pytest.skip("a CUDA device is present; the default is valid here")
     with pytest.raises(RuntimeError, match="cuda"):
         TCModule(model=GraphTCN(FX, FE, device="cpu"), loss_fct=CondensationLossTiger())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Unknown precision policy"):
         TCModule(model=GraphTCN(FX, FE, device="cpu"), loss_fct=CondensationLossTiger(),
-                 precision="bf16", device="cpu")
+                 precision="fp8", device="cpu")
     with pytest.raises(NotImplementedError):
         Trainer(monitor="total")
 
