@@ -4,7 +4,7 @@
 Run from the repository root with no arguments::
 
     python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10]
-                          [--ec-steps 10] [--profile]
+                          [--ec-steps 10] [--val-epochs 75] [--profile]
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -63,16 +63,20 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    against its plain version, bitwise equal on a second launch, timed
    beside its bound; the queries each certification leaves before its
    fallback. (c) Builds with ``MLGraphConstruction(max_num_neighbors=8,
-   max_radius=1.0)`` over the trained latent (the resident top-k filter),
+   max_radius=1.0)`` over the trained latent (the resident top-k, which at
+   k = 8 is the split pair of row #13; its graph must equal row #12's),
    ``knn_graph_ivf(k=8)`` over the benchmark cloud (certified: it widens
    the probe until ``n_uncert == 0``, and raises after 3 attempts) and
    ``knn_graph_windowed(k=8)`` over the spatial coordinates (where the
    principal-axis band certifies), the last two at their defaults, with
    their attempt counts. Each exact builder's neighbour sets must agree
-   with the resident top-k's on the same input (ties aside) and a seeded
-   sample of 4,096 queries of each input must match a plain brute force;
-   it prints ms per build (the resident top-k on the benchmark cloud too)
-   and the built graph's edge efficiency and purity;
+   with the resident top-k's on the same input (ties aside), and every
+   query of each of the three builds must agree with the exact brute-force
+   top-k of ``pairwise_topk_streaming`` (row #11; distances within 1e-5
+   relative, neighbour sets equal up to ties), and 4,096 seeded queries of
+   each with a plain brute force on the card (direct distances, stable
+   sort); it prints ms per build (the resident top-k on the benchmark cloud
+   too) and the built graph's edge efficiency and purity;
 9. bf16 edge-classifier training at ``examples/configs/ec.yml``'s width
    (``ECForGraphTCN(14, 4, 64, 64, hidden 128, L_ec 6)``, focal loss alpha
    0.25 / gamma 2, Adam 1e-3, ``ECModule(precision="bf16")``) on a
@@ -91,7 +95,30 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    backward / Adam split, peak memory, launches per step of A, B and rows
    #9 / #10). (c) ``Trainer.fit`` for one epoch over 4 npz events, with
    finite ROC AUC from ``ECModule.validation_extra``;
-10. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
+10. metric-learning validation (``examples/configs/ml.yml``'s
+   ``gc_scanner``). (a) The split kernel pair of
+   ``csrc/pairwise_topk_split.cu``: as row #13 (``pairwise_topk``) on a
+   32,768-point clustered 8-d cloud with two batch ids and 10 % masked
+   nodes at k = 8, 16, 32, 64 and 256, against its plain version
+   (``compare_topk``) and bitwise equal to row #12's kernel on the unmasked
+   queries, each k timed beside row #12 (the times behind
+   ``knn.SPLIT_MAX_K``); as row #11
+   (``pairwise_topk_streaming``) at 262,144 points, k = 8, on the JAX kNN
+   benchmark's cloud, against its plain version on every query; each timed
+   beside its bound; rows #1/#2 at ``ec.yml``'s widths (K = 192, H = 128,
+   Fo = 64, where W1 stays in device memory) against their plain versions
+   with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
+   ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
+   (row #13 at these k): ``Trainer.fit`` trains ``--val-epochs`` epochs over two
+   32,768-hit point clouds (the briefly trained latent of phase 7 does not
+   yet gather any particle's hits) and validates 2 more at the end (true
+   edges: every intra-particle pair); row #13 must launch 8 times per
+   validation event; the figures
+   of merit must be finite where the JAX rules give a number and equal to
+   validations under ``knn._SMALL_TOPK_IMPL = "pallas"`` (row #13) and
+   ``"filter"`` (row #12); both validations timed. Then one f32 ``ECModule`` step at ``ec.yml``'s widths: step 0's
+   gradients through rows #1/#2 against the plain path (``compare_grads``);
+11. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -162,6 +189,8 @@ TPU_KERNELS = {
     "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377",
     "fused_relational_bf16_fwd_save": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:610",
     "fused_relational_bf16_bwd_saved": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:680",
+    "pairwise_topk": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:534",
+    "pairwise_topk_streaming": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:230",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -174,7 +203,14 @@ SOURCES = {
     "ivf_probe": "gnn_tracking_tpu_torch/csrc/ivf_probe.cu",
     **{f"fused_relational_bf16_{k}": "gnn_tracking_tpu_torch/csrc/fused_relational_bf16.cu"
        for k in ("fwd", "bwd", "fwd_save", "bwd_saved")},
+    "pairwise_topk": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
+    "pairwise_topk_streaming": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
 }
+# metric-learning validation (examples/configs/ml.yml's gc_scanner)
+VAL_KS = list(range(1, 9))
+# k at which phase 10 (a) holds row #13 against its plain version and times it beside row #12
+# (256: the hinge loss's cap, which GNN_TRACKING_RADIUS_IMPL=topk sends through knn_graph)
+SPLIT_SWEEP_KS = (8, 16, 32, 64, 256)
 
 
 def log(*parts):
@@ -344,13 +380,13 @@ def host_ms(fn, *, rounds: int = 5) -> float:
 def plain_path():
     """Route the port's kernel call sites to their plain versions: the
     fused relational forward and backward, f32 and bf16 (which hold the
-    sorted segment-sum and gather launches), the top-k filter, connected
-    components, the banded top-k and the IVF probe."""
+    sorted segment-sum and gather launches), the top-k filter and the split
+    top-k, connected components, the banded top-k and the IVF probe."""
     from gnn_tracking_tpu_torch.ops import cc, ivf_knn, knn, windowed_topk
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
     from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors_plain
     from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe_plain
-    from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain
+    from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain, pairwise_topk_plain
 
     sites = [
         (fr, "fused_relational_fwd", lambda *a, rowptr=None, **kw: fr.fused_relational_plain(*a, **kw)),
@@ -363,6 +399,7 @@ def plain_path():
         (fr, "fused_relational_bf16_bwd_saved",
          lambda *a, **kw: fr.fused_relational_bf16_bwd_saved_plain(*a[:8], a[9], **kw)),
         (knn, "pairwise_topk_filter", pairwise_topk_filter_plain),
+        (knn, "pairwise_topk", pairwise_topk_plain),
         (cc, "cc_neighbors", cc_neighbors_plain),
         (windowed_topk, "banded_topk_sorted", windowed_topk.banded_topk_sorted_plain),
         (ivf_knn, "ivf_probe", ivf_probe_plain),
@@ -967,11 +1004,11 @@ def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) ->
     return int((got_i != torch.sort(want_i, dim=1).values).any(dim=1).sum())
 
 
-def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
+def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
     """Kernel phases of rows #14 and #15 at the inputs a full-detector build
-    gives them, then the three builders at 262,144 points (see the module
-    docstring); ``fcnn`` is phase 7's trained model. Returns the two
-    kernels' results and the summary."""
+    gives them, then the three builders at 262,144 points, each held against
+    row #11 (see the module docstring); ``fcnn`` is phase 7's trained model.
+    Returns the two kernels' results, the summary and row #11's launches."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -1065,7 +1102,8 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
         "max_abs_err": max(b["max_abs_err"] for b in band.values())})
 
     # ---- (c) the builders, at their defaults ----------------------------------
-    counters = {"pairwise_topk_filter": pairwise_topk.pairwise_topk_filter,
+    # (the resident top-k at k = 8 is the split pair, row #13)
+    counters = {"pairwise_topk": pairwise_topk.pairwise_topk,
                 "banded_topk_sorted": windowed_topk.banded_topk_sorted,
                 "ivf_probe": ivf_probe.ivf_probe}
     for fn in counters.values():
@@ -1084,14 +1122,27 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
     attempts = {"ivf": launches["ivf_probe"], "windowed": launches["banded_topk_sorted"]}
     assert torch.equal(built.edge_index, resident[0])
     assert torch.equal(built.edge_mask, resident[1] & (resident[2] <= GC_RADIUS))
+    with torch.no_grad():
+        filtered = knn._edges_from_neighbor_topk(latent, *pairwise_topk.pairwise_topk_filter(latent, k=GC_K), None)
+    assert all(torch.equal(a, b) for a, b in zip(resident, filtered)), (
+        "the resident build (row #13) differs from row #12's graph on the same latent")
     ties = {
         "ivf_vs_resident": compare_neighbours("IVF vs resident top-k (bench)", ivf, resident_bench, GC_K),
         "windowed_vs_resident": compare_neighbours(
             "banded vs resident top-k (spatial)", windowed, resident_xyz, GC_K),
-        "brute_sample_trained": brute_sample(latent, *resident, GC_K, seed),
-        "brute_sample_bench": brute_sample(bench, *ivf, GC_K, seed + 1),
-        "brute_sample_spatial": brute_sample(xyz, *windowed, GC_K, seed + 2),
     }
+    # (c) row #11, the exact brute-force top-k, as the reference of every query of each build,
+    # and a plain brute force on a seeded sample of each build's queries
+    streaming = pairwise_topk.pairwise_topk_streaming
+    streaming.launches = 0
+    for i, (what, x, graph) in enumerate(
+            (("trained", latent, resident), ("bench", bench, ivf), ("spatial", xyz, windowed))):
+        with torch.no_grad():
+            exact = knn._edges_from_exact(*streaming(x, k=GC_K), None)
+        ties[f"row11_vs_{what}"] = compare_neighbours(f"{what} build vs row #11", graph, exact, GC_K)
+        ties[f"brute_sample_{what}"] = brute_sample(x, *graph, GC_K, seed + i)
+    launches["pairwise_topk_streaming"] = streaming.launches
+    assert streaming.launches == 3, streaming.launches
     eff = get_efficiency_purity_edges(built)
     with torch.no_grad():
         times = {
@@ -1102,6 +1153,8 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
             "knn_windowed_ms": host_ms(lambda: knn.knn_graph_windowed(xyz, GC_K), rounds=3),
             "topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk_filter(latent, k=GC_K),
                                     reps=1, rounds=3),
+            "split_topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk(latent, k=GC_K),
+                                          reps=1, rounds=3),
         }
     summary = {
         "hits": GC_HITS, "k": GC_K, **times, **eff, "launches": launches, "attempts": attempts,
@@ -1112,7 +1165,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict]:
     log("graph construction: " + json.dumps(summary))
     for r in results:
         r["launches"] = launches[r["name"]]
-    return results, summary
+    return results, summary, launches["pairwise_topk_streaming"]
 
 
 def make_ec_event(seed: int):
@@ -1385,6 +1438,293 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
     return results, summary
 
 
+def topk_bound(x, k: int, mask, batch) -> tuple[float, str]:
+    """Row #11/#13's bound: 3 flops per dimension for each pair of a valid
+    query and a valid candidate of its batch; bytes of the points, mask,
+    batch ids and the [N, k] outputs."""
+    import torch
+
+    counts = torch.bincount(batch[mask].long()).double()
+    pairs = float((counts * counts).sum())
+    return bound(3.0 * x.shape[1] * pairs, nbytes(x, mask, batch) + 8 * x.shape[0] * k)
+
+
+def validation_kernel_phases(seed: int) -> list[dict]:
+    """Phase 10 (a): the split kernel pair as rows #13 and #11 against their
+    plain versions, and rows #1/#2 at ``ec.yml``'s widths (see the module
+    docstring). Returns rows #13 and #11's results."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.ops import knn
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    results = []
+    # ---- row #13 at 32,768 points: two batch ids, 10 % masked
+    x = torch.from_numpy(make_bench_latent(seed + 140, ML_HITS)[0]).to(dev)
+    rng = np.random.default_rng(seed + 141)
+    mask = torch.from_numpy(rng.random(ML_HITS) >= 0.1).to(dev)
+    batch = torch.from_numpy((np.arange(ML_HITS) >= ML_HITS // 2).astype(np.int32)).to(dev)
+    row13 = {}
+    for k in SPLIT_SWEEP_KS:
+        kw = {"k": k, "node_mask": mask, "batch": batch}
+        kd, ki = pt.pairwise_topk(x, **kw)
+        pd, pi = pt.pairwise_topk_plain(x, **kw)
+        fd, fi = pt.pairwise_topk_filter(x, **kw)
+        torch.cuda.synchronize()
+        err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+        assert torch.isinf(kd[~mask]).all() and (ki[~mask] == 0).all(), "masked queries must be (+inf, 0)"
+        assert torch.equal(kd[mask], fd[mask]) and torch.equal(ki[mask], fi[mask]), (
+            "pairwise_topk differs from pairwise_topk_filter's kernel on the unmasked queries")
+        reps = 5 if k <= 64 else 1  # ~0.4 s a launch at k = 256
+        ms = cuda_ms(lambda: pt.pairwise_topk(x, **kw), reps=reps, rounds=5 if k <= 64 else 3)
+        plain = cuda_ms(lambda: pt.pairwise_topk_plain(x, **kw), reps=1, rounds=3)
+        filt = cuda_ms(lambda: pt.pairwise_topk_filter(x, **kw), reps=reps, rounds=5 if k <= 64 else 3)
+        bnd, by = topk_bound(x, k, mask, batch)
+        row13[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "filter_ms": filt, "bound_ms": bnd,
+                    "bound_by": by}
+        log(f"kernel pairwise_topk (row #13) k={k}, {pt.pairwise_topk.last_splits} candidate splits: OK "
+            f"max|err| {err:.3e} ({nb} k-th boundary rows, {nt} tie-order rows), masked queries (+inf, 0), "
+            f"unmasked rows bitwise equal to row #12's kernel; "
+            f"{ms:.3f} ms (row #12 on the same input {filt:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} "
+            f"ms by {by})")
+    faster = [k for k in SPLIT_SWEEP_KS if row13[k]["ms"] < row13[k]["filter_ms"]]
+    log(f"row #13 against row #12 on this input: faster at k in {faster} of {list(SPLIT_SWEEP_KS)}; "
+        f"knn_graph takes row #13 at k <= knn.SPLIT_MAX_K = {knn.SPLIT_MAX_K}")
+    # the line's entry is the scanner's k (at most 8)
+    results.append({"name": "pairwise_topk", **{k: row13[8][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "max_abs_err": max(r["max_abs_err"] for r in row13.values())})
+
+    # ---- row #11 at 262,144 points on the JAX kNN benchmark's cloud, every query
+    xb = torch.from_numpy(make_bench_latent(seed + 92, GC_HITS)[0]).to(dev)
+    kd, ki = pt.pairwise_topk_streaming(xb, k=GC_K)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    pd, pi = pt.pairwise_topk_streaming_plain(xb, k=GC_K)
+    end.record()
+    end.synchronize()
+    plain11 = start.elapsed_time(end)
+    err11, nb11, nt11 = compare_topk(kd, ki, pd, pi, None)
+    del pd, pi
+    ms11 = cuda_ms(lambda: pt.pairwise_topk_streaming(xb, k=GC_K), reps=1, rounds=3)
+    ones = torch.ones(GC_HITS, dtype=torch.bool, device=dev)
+    bnd11, by11 = topk_bound(xb, GC_K, ones, torch.zeros(GC_HITS, dtype=torch.int32, device=dev))
+    results.append({"name": "pairwise_topk_streaming", "max_abs_err": err11, "ms": ms11,
+                    "plain_ms": plain11, "bound_ms": bnd11, "bound_by": by11, "library_ms": None})
+    log(f"kernel pairwise_topk_streaming (row #11) at {GC_HITS} points, k={GC_K}, "
+        f"{pt.pairwise_topk_streaming.last_splits} candidate splits: OK on every query, max|err| "
+        f"{err11:.3e} ({nb11} k-th boundary rows, {nt11} tie-order rows); {ms11:.3f} ms (plain {plain11:.1f} "
+        f"ms, one call; bound {bnd11:.4f} ms by {by11})")
+
+    # ---- rows #1/#2 at ec.yml's widths (W1 in device memory)
+    g = EventGraph.from_arrays(**make_ec_event(seed + 142)).sort_edges_by_target().to(dev)
+    model = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 143)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 144)
+    csr = g.csr()
+    with torch.no_grad():
+        h = torch.relu(model.ec_node_encoder(g.x)).contiguous()
+        ea = model.ec_edge_encoder(g.edge_attr).contiguous()
+        weights = {k: v.detach() for k, v in model.ec_resin.layers[1].relational_weights().items()}
+        emask = torch.from_numpy(np.random.default_rng(seed + 145).random(N_EDGES) < 0.8).to(dev)
+        fo, hid = weights["w3"].shape[0], weights["w2"].shape[0]
+        g_e = torch.randn((N_EDGES, fo), generator=gen, device=dev)
+        g_a = torch.randn((N_NODES, fo), generator=gen, device=dev)
+        args = (h, ea, g.edge_index, emask, weights)
+        args64 = (h.double(), ea.double(), g.edge_index, emask, {k: v.double() for k, v in weights.items()})
+        err1 = err2 = 0.0
+        for relu_edge in (False, True):
+            for kt, pt_ in zip(fr.fused_relational_fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=relu_edge),
+                               fr.fused_relational_plain(*args, relu_edge=relu_edge)):
+                err = (kt - pt_).abs().max().item()
+                assert err <= 1e-4 * pt_.abs().max().item(), f"fused_relational_fwd at ec.yml widths: {err}"
+                err1 = max(err1, err)
+            named = lambda out: [out[0], out[1], *out[2].values()]
+            kb = named(fr.fused_relational_bwd(*args, g_e, g_a, csr, relu_edge=relu_edge))
+            kb2 = named(fr.fused_relational_bwd(*args, g_e, g_a, csr, relu_edge=relu_edge))
+            pb = named(fr.fused_relational_bwd_plain(*args, g_e, g_a, relu_edge=relu_edge))
+            rb = named(fr.fused_relational_bwd_plain(*args64, g_e.double(), g_a.double(), relu_edge=relu_edge))
+            torch.cuda.synchronize()
+            for kt, kt2, pt_, rt in zip(kb, kb2, pb, rb):
+                assert torch.equal(kt, kt2), "fused_relational_bwd at ec.yml widths: second launch differs"
+                ek, ep = (kt.double() - rt).abs().max().item(), (pt_.double() - rt).abs().max().item()
+                assert math.isfinite(ek) and ek <= 4 * ep, (
+                    f"fused_relational_bwd at ec.yml widths: kernel err {ek:.3e} > 4 x plain f32 err {ep:.3e}")
+                err2 = max(err2, ek)
+        ms1 = cuda_ms(lambda: fr.fused_relational_fwd(*args, rowptr=csr["dst_rowptr"]))
+        plain1 = cuda_ms(lambda: fr.fused_relational_plain(*args))
+        ms2 = cuda_ms(lambda: fr.fused_relational_bwd(*args, g_e, g_a, csr))
+        plain2 = cuda_ms(lambda: fr.fused_relational_bwd_plain(*args, g_e, g_a))
+    k2, n_valid = 2 * h.shape[1] + ea.shape[1], int(emask.sum())
+    bnd1, by1 = bound(2.0 * n_valid * (k2 * hid + hid * hid + hid * fo),
+                      nbytes(h, ea, g.edge_index, emask, csr["dst_rowptr"], *weights.values())
+                      + 4 * (N_EDGES + N_NODES) * fo)
+    bnd2, by2 = bound(2.0 * n_valid * (3 * k2 * hid + 3 * hid * hid + 2 * hid * fo),
+                      nbytes(h, ea, g.edge_index, emask, *weights.values(), g_e, g_a, *csr.values(), *kb))
+    log(f"kernels fused_relational_fwd/bwd at ec.yml widths (K={k2}, H={hid}, Fo={fo}; W1 in device memory): "
+        f"OK forward max|err| {err1:.3e} (<= 1e-4 of the largest), backward max|err| vs float64 {err2:.3e} "
+        f"(<= 4x the plain f32 version's), repeat bitwise; forward {ms1:.3f} ms (plain {plain1:.3f} ms, bound "
+        f"{bnd1:.4f} ms by {by1}), backward {ms2:.3f} ms (plain {plain2:.3f} ms, bound {bnd2:.4f} ms by {by2})")
+    return results
+
+
+def save_clouds(directory: Path, seeds, *, all_pair_truth: bool) -> None:
+    """32,768-hit point clouds as npz; ``all_pair_truth`` stores every
+    intra-particle pair as the true edges (so the scanner's edge
+    efficiency is defined), else the point-cloud layout."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.utils.loading import save_graph
+
+    directory.mkdir()
+    for s in seeds:
+        cloud = make_point_cloud(s, ML_HITS, ML_PARTICLES)
+        if not all_pair_truth:
+            save_graph(EventGraph.from_arrays(**cloud), directory / f"pc{s}.npz")
+            continue
+        del cloud["edge_index"]
+        te = torch.from_numpy(all_pairs(cloud["particle_id"]))
+        save_graph(EventGraph.from_arrays(**cloud).replace(
+            true_edge_index=te, true_edge_mask=torch.ones(te.shape[1], dtype=torch.bool)),
+            directory / f"pc{s}.npz")
+
+
+def foms_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        (math.isnan(a[k]) and math.isnan(b[k])) or math.isclose(a[k], b[k], rel_tol=1e-9, abs_tol=1e-12)
+        for k in a)
+
+
+def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, int]:
+    """Phase 10 (b): ``MLModule`` with the k-scanner through
+    ``Trainer.fit`` under the default choice (row #13 at k <= 8),
+    validations under ``"pallas"`` and ``"filter"``, and one f32 EC step at ``ec.yml``'s widths. Returns the
+    summary and row #13's launches in ``Trainer.fit``."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graph_construction.k_scanner import GraphConstructionKNNScanner
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.ops import knn, pairwise_topk
+    from gnn_tracking_tpu_torch.training.module import ECModule, MLModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule
+
+    save_clouds(tmp / "ml_train", [seed + 150, seed + 151], all_pair_truth=False)
+    save_clouds(tmp / "ml_val", [seed + 160, seed + 161], all_pair_truth=True)
+    scanner = GraphConstructionKNNScanner(ks=VAL_KS)
+    module = MLModule(model=copy.deepcopy(fcnn), loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS),
+                      lr=LR, gc_scanner=scanner, device="cuda")
+    dm = TrackingDataModule(train={"dirs": [tmp / "ml_train"]}, val={"dirs": [tmp / "ml_val"]}, seed=seed)
+    trainer = Trainer(max_epochs=epochs, val_every_n_epochs=epochs, log_dir=tmp / "runs", name="ml_val",
+                      checkpoint_every_epoch=False, print_validation_results=False)
+    split, resident = pairwise_topk.pairwise_topk, pairwise_topk.pairwise_topk_filter
+    saved_impl = knn._SMALL_TOPK_IMPL
+    try:
+        knn._SMALL_TOPK_IMPL = None  # the default: row #13 at the scanner's k <= knn.SPLIT_MAX_K
+        split.launches = resident.launches = 0
+        t0 = time.perf_counter()
+        fit_val = trainer.fit(module, dm)
+        fit_s = time.perf_counter() - t0
+        launches = split.launches
+        fit_resident = resident.launches  # the hinge loss's radius graphs (radius mode)
+        assert module.step == 2 * epochs, module.step
+        assert max(VAL_KS) <= knn.SPLIT_MAX_K
+        assert launches == len(VAL_KS) * 2, f"row #13 launched {launches} times in 2 validation events"
+        records, results = scanner.results_raw, scanner.get_results()
+        foms = module.on_validation_epoch_end()
+        assert foms_equal(foms, {k: fit_val[k] for k in foms}), "figures of merit differ from Trainer.fit's"
+        timed = {}
+        for impl in ("pallas", "filter"):
+            knn._SMALL_TOPK_IMPL = impl
+            split.launches = resident.launches = 0
+            t0 = time.perf_counter()
+            trainer.validate(module, dm)
+            timed[impl] = {"val_s": time.perf_counter() - t0, "row13": split.launches,
+                           "row12": resident.launches, "foms": module.on_validation_epoch_end()}
+            same = len(scanner.results_raw) == len(records) and all(
+                foms_equal(a, b) for a, b in zip(scanner.results_raw, records))
+            assert same, f"per-k records under '{impl}' differ from Trainer.fit's"
+    finally:
+        knn._SMALL_TOPK_IMPL = saved_impl
+    assert foms_equal(timed["pallas"]["foms"], foms), "a second validation under 'pallas' differs"
+    assert foms_equal(timed["filter"]["foms"], foms), (
+        "validation under 'filter' (row #12) differs from 'pallas' (row #13)")
+    # row #12 serves the hinge loss's radius graph of each event, and under
+    # 'filter' the scanner's kNN graphs too
+    assert timed["pallas"]["row13"] == launches and timed["pallas"]["row12"] == 2, timed
+    assert timed["filter"]["row13"] == 0 and timed["filter"]["row12"] == launches + 2, timed
+    # finite where the JAX rules give a number: an at-target figure is NaN
+    # when the target lies above the largest mean frac50, or when its column
+    # has a NaN at some k
+    max50 = float(np.nanmax(results.df["frac50"]))
+    nan_cols = {c for c, v in results.df.items() if np.isnan(v).any()}
+    for t in scanner.targets:
+        for key, col in ([(f"n_edges_frac_segment50_{t * 100:.0f}", "n_edges")]
+                         + [(f"{v}_at_segment50_{t * 100:.0f}", v) for v in results._extra_metrics]):
+            assert math.isnan(foms[key]) == (t > max50 or col in nan_cols), (key, foms[key], max50)
+    for key in ("max_frac_segment50", "n_edges_max_frac_segment50", "efficiency_at_max_frac_segment50"):
+        assert math.isfinite(foms[key]), (key, foms[key])
+    for r in records:
+        for key in ("max_double_majority_pt0.9", "max_perfect_pt0.9", "max_lhc_pt0.9", "efficiency", "purity"):
+            assert math.isfinite(r[key]), (r["k"], key, r[key])
+    by_k = {r["k"]: r for r in records[: len(VAL_KS)]}
+    log(f"ML validation: Trainer.fit ({2 * epochs} steps, 2 validation events of {ML_HITS} hits, ks {VAL_KS}) in "
+        f"{fit_s:.2f} s; row #13 launches {launches} (row #12 {fit_resident}, the hinge loss's radius graphs); "
+        f"validation epoch {timed['pallas']['val_s']:.2f} s under 'pallas', {timed['filter']['val_s']:.2f} s "
+        f"under 'filter' (row #12 in place of row #13), figures of merit equal; "
+        f"max_frac_segment50 {foms['max_frac_segment50']:.4f} at k {foms['k_at_max_frac_segment50']:.0f}; "
+        f"first event's k: frac50 / max_double_majority_pt0.9 / n_edges "
+        + ", ".join(f"{k}: {r['frac50']:.4f}/{r['max_double_majority_pt0.9']:.4f}/{r['n_edges']}"
+                    for k, r in by_k.items()))
+    log("ML validation FOMs: " + json.dumps(foms))
+
+    # ---- one f32 EC step at ec.yml's widths: step-0 gradients against the plain path
+    g = EventGraph.from_arrays(**make_ec_event(seed + 170)).sort_edges_by_target().to("cuda")
+    model = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 171))
+    ec = ECModule(model=model, loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR, precision="f32", device="cuda")
+    ec.setup_params(g)
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out, pdata = ec.apply_model(g)
+        loss, _ = ec.get_losses(out, pdata)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    fr.fused_relational_fwd.launches = fr.fused_relational_bwd.launches = 0
+    gk, lk = step0()
+    f32_launches = {"fused_relational_fwd": fr.fused_relational_fwd.launches,
+                    "fused_relational_bwd": fr.fused_relational_bwd.launches}
+    with plain_path():
+        gp, lp = step0()
+    worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
+    assert not no_grad, no_grad
+    assert all(n == EC_MODEL["L_ec"] for n in f32_launches.values()), f32_launches
+    t0 = time.perf_counter()
+    metrics = ec.training_step(g)
+    ec_step_ms = (time.perf_counter() - t0) * 1e3
+    assert math.isfinite(metrics["total"]), metrics
+    log(f"f32 EC step at ec.yml widths: loss {lk:.6f} (plain {lp:.6f}); {len(gk)} parameter gradients agree "
+        f"with the plain path (worst {worst_name}: {worst:.3e} relative; within the floor of 1e-7 x "
+        f"{total:.3e} only: {at_floor or 'none'}); launches {f32_launches}; one training_step "
+        f"{ec_step_ms:.1f} ms (host clock, the first)")
+    summary = {"fit_s": fit_s, "steps": 2 * epochs, "validations": timed, "row13_launches_fit": launches,
+               "foms": foms, "ec_f32_step_ms": ec_step_ms, "ec_f32_launches": f32_launches}
+    return summary, launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1397,14 +1737,16 @@ def main(argv=None) -> int:
                    help=f"timed metric-learning steps (after {ML_WARMUP} warm-up steps)")
     p.add_argument("--ec-steps", type=int, default=10,
                    help="timed bf16 EC training steps (after 2 warm-up steps)")
+    p.add_argument("--val-epochs", type=int, default=75,
+                   help="metric-learning epochs over 2 point clouds before phase 10's validation")
     p.add_argument("--profile", action="store_true",
                    help="also trace one predict_dir, 3 training steps, 3 metric-learning "
                    "steps and 3 EC steps with torch.profiler")
     args = p.parse_args(argv)
     if args.events < 3:
         p.error("--events must be at least 3")
-    if args.train_steps < 1 or args.ml_steps < 1 or args.ec_steps < 1:
-        p.error("--train-steps, --ml-steps and --ec-steps must be at least 1")
+    if min(args.train_steps, args.ml_steps, args.ec_steps, args.val_epochs) < 1:
+        p.error("--train-steps, --ml-steps, --ec-steps and --val-epochs must be at least 1")
 
     import torch
 
@@ -1677,14 +2019,21 @@ def main(argv=None) -> int:
     _, ml_model = ml_training_path(args.seed, args.ml_steps, args.profile)
 
     # ---- 8. graph construction ---------------------------------------------
-    gc_results, _ = graph_construction_phase(args.seed, ml_model)
+    gc_results, _, row11_launches = graph_construction_phase(args.seed, ml_model)
     results += gc_results
 
     # ---- 9. bf16 EC training: kernels A-D, then the training path -------------
     ec_results, _ = ec_training_path(args.seed, args.ec_steps, args.profile, tmp)
     results += ec_results
 
-    # ---- 10. results ------------------------------------------------------
+    # ---- 10. metric-learning validation: rows #13 / #11, wide f32 rows #1 / #2 --
+    val_results = validation_kernel_phases(args.seed)
+    _, row13_launches = ml_validation_path(args.seed, args.val_epochs, ml_model, tmp)
+    for r in val_results:
+        r["launches"] = row13_launches if r["name"] == "pairwise_topk" else row11_launches
+    results += val_results
+
+    # ---- 11. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],

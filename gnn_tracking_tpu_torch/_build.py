@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "fused_relational", "fused_relational_bf16", "csr_segment", "pairwise_topk",
-    "cc_neighbors", "banded_topk", "ivf_probe",
+    "cc_neighbors", "banded_topk", "ivf_probe", "pairwise_topk_split",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -43,6 +43,14 @@
 //    wrapper sums them per node with csr_segment.cu's segment-sum, in target order and in
 //    source order (through src_perm), in edge order within each node;
 //  * so there are no float atomics anywhere: two launches on the same inputs give the same bits.
+// Wide layers. When the weights and tiles exceed one block's shared memory (ec.yml's K = 192,
+// H = 128, Fo = 64: 233.5 KiB forward, 274.9 KiB backward, against 227 KiB), both take a second
+// layout: W1, the [H, K] block and the largest, stays in device memory (forward 137.5 KiB,
+// backward 178.4 KiB of shared memory at those widths). It is read where a warp's lanes take
+// consecutive addresses: W1^T ([K][H], transposed by the wrapper) for the forward and the
+// backward's recompute, W1 ([H][K]) for the backward's input gradients. Every width that fits
+// keeps the first layout. Each output's FMA order is the same in both layouts, so they give the
+// same bits.
 // The TPU's slab windows, one-hot MXU gathers and 8-sublane index tiles are not carried over.
 
 #include <cuda_runtime.h>
@@ -54,7 +62,8 @@ constexpr int TE = 32;        // edges per tile
 constexpr int THREADS = 256;  // threads per block
 
 // out[e][j] = act(sum_k in[e][k] * wt[k][j] + b[j]) for e < TE, j < m (m % 4 == 0).
-// in: [TE][in_stride] shared, wt: [kin][m] shared, out: [TE][out_stride] shared.
+// in: [TE][in_stride] shared, wt: [kin][m] shared (or in device memory), out: [TE][out_stride]
+// shared.
 template <int RE>
 __device__ __forceinline__ void dense_smem(const float* __restrict__ in, int in_stride, int kin,
                                            const float* __restrict__ wt,
@@ -125,18 +134,21 @@ __device__ __forceinline__ void dense_out(const float* __restrict__ in, int in_s
   }
 }
 
-__host__ __device__ inline long smem_floats(int k, int h, int fo) {
-  const long weights = (long)k * h + h + (long)h * h + h + (long)h * fo + fo;
+// shared memory of the forward; without w1_shared, W1 stays in device memory
+__host__ __device__ inline long smem_floats(int k, int h, int fo, bool w1_shared) {
+  const long weights = (w1_shared ? (long)k * h : 0L) + h + (long)h * h + h + (long)h * fo + fo;
   const long buf_a = (long)TE * ((k > h ? k : h) + 1);  // gathered input, then h2
   const long buf_b = (long)TE * (h + 1);                // h1
   return weights + buf_a + buf_b;
 }
 
+template <bool W1_SHARED>
 __global__ void __launch_bounds__(THREADS)
 edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 const uint8_t* __restrict__ mask,
-                const float* __restrict__ w1, const float* __restrict__ b1,
+                const float* __restrict__ w1, const float* __restrict__ w1t_dev,
+                const float* __restrict__ b1,
                 const float* __restrict__ w2, const float* __restrict__ b2,
                 const float* __restrict__ w3, const float* __restrict__ b3,
                 float* __restrict__ e_out, int n_edges, int fx, int fe, int h, int fo,
@@ -144,8 +156,8 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int k = 2 * fx + fe;
-  float* w1t = smem;              // [k][h]
-  float* sb1 = w1t + k * h;       // [h]
+  float* w1t = smem;              // [k][h] (W1_SHARED)
+  float* sb1 = w1t + (W1_SHARED ? k * h : 0);  // [h]
   float* w2t = sb1 + h;           // [h][h]
   float* sb2 = w2t + h * h;       // [h]
   float* w3t = sb2 + h;           // [h][fo]
@@ -154,7 +166,9 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   float* buf_b = buf_a + TE * ((k > h ? k : h) + 1);  // [TE][h + 1]
 
   // weights arrive in PyTorch's [out][in] layout; stage them as [in][out]
-  for (int i = threadIdx.x; i < h * k; i += blockDim.x) w1t[(i % k) * h + i / k] = w1[i];
+  if (W1_SHARED) {
+    for (int i = threadIdx.x; i < h * k; i += blockDim.x) w1t[(i % k) * h + i / k] = w1[i];
+  }
   for (int i = threadIdx.x; i < h * h; i += blockDim.x) w2t[(i % h) * h + i / h] = w2[i];
   for (int i = threadIdx.x; i < fo * h; i += blockDim.x) w3t[(i % h) * fo + i / h] = w3[i];
   for (int i = threadIdx.x; i < h; i += blockDim.x) {
@@ -187,7 +201,7 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
       buf_a[e * in_stride + c] = v;
     }
     __syncthreads();
-    dense_smem<4>(buf_a, in_stride, k, w1t, sb1, h, buf_b, h_stride);
+    dense_smem<4>(buf_a, in_stride, k, W1_SHARED ? w1t : w1t_dev, sb1, h, buf_b, h_stride);
     __syncthreads();
     dense_smem<4>(buf_b, h_stride, h, w2t, sb2, h, buf_a, h_stride);
     __syncthreads();
@@ -198,9 +212,10 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
 // ------------------------------------------------------------------ backward
 __host__ __device__ inline int odd_ld(int n) { return n | 1; }
 
-__host__ __device__ inline long bwd_smem_floats(int k, int h, int fo) {
+// shared memory of the backward; without w1_shared, W1 stays in device memory
+__host__ __device__ inline long bwd_smem_floats(int k, int h, int fo, bool w1_shared) {
   const long ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
-  const long weights = h * ldk + h * ldh + fo * ldh + 2L * h;
+  const long weights = (w1_shared ? h * ldk : 0L) + h * ldh + fo * ldh + 2L * h;
   const long tiles = TE * (ldk + 3 * ldh + ldo);
   return weights + tiles;
 }
@@ -210,10 +225,11 @@ __host__ __device__ inline long grad_floats(int k, int h, int fo) {
   return (long)h * k + h + (long)h * h + h + (long)fo * h + fo;
 }
 
-// out[e][j] = relu(sum_k in[e][k] w[j][k] + b[j]) for j < m (m % 4 == 0); w is [m][ldw].
+// out[e][j] = relu(sum_k in[e][k] w(j, k) + b[j]) for j < m (m % 4 == 0), w(j, k) at
+// w[j * so + k * si]: [m][ldw] is (ldw, 1), a transposed [kin][m] is (1, m).
 // Same FMA order as dense_smem, so the same bits as the forward's activations.
 __device__ __forceinline__ void recompute_layer(const float* __restrict__ in, int ld_in, int kin,
-                                                const float* __restrict__ w, int ldw,
+                                                const float* __restrict__ w, int so, int si,
                                                 const float* __restrict__ b, int m,
                                                 float* __restrict__ out, int ld_out) {
   const int groups = m / 4;
@@ -232,7 +248,7 @@ __device__ __forceinline__ void recompute_layer(const float* __restrict__ in, in
 #pragma unroll
       for (int r = 0; r < 4; ++r) a[r] = in[(e0 + r) * ld_in + kk];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = w[(jg + groups * c) * ldw + kk];
+      for (int c = 0; c < 4; ++c) wv[c] = w[(long)(jg + groups * c) * so + (long)kk * si];
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
 #pragma unroll
@@ -360,11 +376,13 @@ __device__ __forceinline__ void weight_grad(const float* __restrict__ g, int ld_
   }
 }
 
+template <bool W1_SHARED>
 __global__ void __launch_bounds__(THREADS)
 edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
                     const int* __restrict__ src, const int* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ w1, const float* __restrict__ w1t_dev,
+                    const float* __restrict__ b1,
                     const float* __restrict__ w2, const float* __restrict__ b2,
                     const float* __restrict__ w3,
                     const float* __restrict__ g_eout, const float* __restrict__ g_agg_e,
@@ -375,8 +393,8 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   float* smem = reinterpret_cast<float*>(smem4);
   const int k = 2 * fx + fe;
   const int ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
-  float* sw1 = smem;             // [h][ldk]   W1 as [out][in]
-  float* sw2 = sw1 + h * ldk;    // [h][ldh]
+  float* sw1 = smem;             // [h][ldk]   W1 as [out][in] (W1_SHARED)
+  float* sw2 = sw1 + (W1_SHARED ? h * ldk : 0);  // [h][ldh]
   float* sw3 = sw2 + h * ldh;    // [fo][ldh]
   float* sb1 = sw3 + fo * ldh;   // [h]
   float* sb2 = sb1 + h;          // [h]
@@ -386,7 +404,15 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   float* bgh2 = bh2 + TE * ldh;  // [TE][ldh]  g_h2
   float* bget = bgh2 + TE * ldh; // [TE][ldo]  g_et
 
-  for (int i = threadIdx.x; i < h * k; i += blockDim.x) sw1[(i / k) * ldk + i % k] = w1[i];
+  if (W1_SHARED) {
+    for (int i = threadIdx.x; i < h * k; i += blockDim.x) sw1[(i / k) * ldk + i % k] = w1[i];
+  }
+  // W1 as the layers read it: staged as [h][ldk], or in device memory, where the recompute reads
+  // W1^T [k][h] and the input gradients W1 [h][k] (consecutive lanes, consecutive addresses)
+  const float* w1r = W1_SHARED ? sw1 : w1t_dev;
+  const int so1 = W1_SHARED ? ldk : 1, si1 = W1_SHARED ? 1 : h;
+  const float* w1b = W1_SHARED ? sw1 : w1;
+  const int ldw1 = W1_SHARED ? ldk : k;
   for (int i = threadIdx.x; i < h * h; i += blockDim.x) sw2[(i / h) * ldh + i % h] = w2[i];
   for (int i = threadIdx.x; i < fo * h; i += blockDim.x) sw3[(i / h) * ldh + i % h] = w3[i];
   for (int i = threadIdx.x; i < h; i += blockDim.x) {
@@ -433,9 +459,9 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
       bget[e * ldo + c] = v;
     }
     __syncthreads();
-    recompute_layer(bm, ldk, k, sw1, ldk, sb1, h, bh1, ldh);
+    recompute_layer(bm, ldk, k, w1r, so1, si1, sb1, h, bh1, ldh);
     __syncthreads();
-    recompute_layer(bh1, ldh, h, sw2, ldh, sb2, h, bh2, ldh);
+    recompute_layer(bh1, ldh, h, sw2, ldh, 1, sb2, h, bh2, ldh);
     __syncthreads();
     // g_h2 = (g_et W3) * (h2 > 0); dW3 += g_et^T h2
     backprop_layer(bget, ldo, fo, sw3, ldh, h, bh2, ldh,
@@ -448,7 +474,7 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ ea,
     weight_grad(bgh2, ldh, h, bh1, ldh, h, pw2, pb2, first);
     __syncthreads();
     // g_m = g_h1 W1, split into the dst, src and edge blocks; dW1 += g_h1^T m
-    backprop_layer(bh2, ldh, h, sw1, ldk, k, nullptr, 0, [&](int e, int i, float v) {
+    backprop_layer(bh2, ldh, h, w1b, ldw1, k, nullptr, 0, [&](int e, int i, float v) {
       const long edge = t0 + e;
       if (edge >= n_edges) return;
       if (i < fx) {
@@ -475,25 +501,26 @@ sum_partials_kernel(const float* __restrict__ partial, int blocks, long p,
   out[i] = s;
 }
 
-}  // namespace
+// Shared-memory bytes of a kernel whose first layout needs `resident` bytes and second `wide`:
+// the first where it fits one block's opt-in limit, else the second. Sets *w1_shared.
+inline size_t pick_layout(long resident, long wide, bool* w1_shared) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *w1_shared = resident * (long)sizeof(float) <= optin;
+  return (size_t)(*w1_shared ? resident : wide) * sizeof(float);
+}
 
-extern "C" {
-
-const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
-
-// edge_index is [2, E] int32 (row 0 source, row 1 target); mask [E] uint8; weights in
-// [out][in] layout. Writes e_out [E, Fo]. Returns cudaGetLastError().
-int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
-                         const uint8_t* mask, const float* w1, const float* b1, const float* w2,
-                         const float* b2, const float* w3, const float* b3, float* e_out,
-                         int n_edges, int fx, int fe, int h, int fo, int relu_edge,
-                         void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int k = 2 * fx + fe;
-  const size_t smem = smem_floats(k, h, fo) * sizeof(float);
-  // widths whose weights and tiles exceed one block's shared memory fail here; the error is
+template <bool W1_SHARED>
+cudaError_t launch_fwd(const float* x, const float* ea, const int* edge_index,
+                       const uint8_t* mask, const float* w1, const float* w1t, const float* b1,
+                       const float* w2,
+                       const float* b2, const float* w3, const float* b3, float* e_out,
+                       int n_edges, int fx, int fe, int h, int fo, int relu_edge, size_t smem,
+                       cudaStream_t stream) {
+  // widths whose tiles exceed one block's shared memory even so fail here; the error is
   // returned, and cleared so that it does not resurface in a later call's cudaGetLastError()
-  cudaError_t err = cudaFuncSetAttribute(edge_mlp_kernel,
+  cudaError_t err = cudaFuncSetAttribute(edge_mlp_kernel<W1_SHARED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
@@ -503,7 +530,8 @@ int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_kernel, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, edge_mlp_kernel<W1_SHARED>, THREADS,
+                                                      smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return err;
@@ -511,43 +539,104 @@ int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int tiles = (n_edges + TE - 1) / TE;
   const int grid = tiles < sms * per_sm ? tiles : sms * per_sm;
-  edge_mlp_kernel<<<grid, THREADS, smem, stream>>>(x, ea, edge_index, edge_index + n_edges, mask,
-                                                   w1, b1, w2, b2, w3, b3, e_out, n_edges, fx,
-                                                   fe, h, fo, relu_edge);
+  edge_mlp_kernel<W1_SHARED><<<grid, THREADS, smem, stream>>>(
+      x, ea, edge_index, edge_index + n_edges, mask, w1, w1t, b1, w2, b2, w3, b3, e_out, n_edges,
+      fx, fe, h, fo, relu_edge);
   return cudaGetLastError();
+}
+
+template <bool W1_SHARED>
+cudaError_t launch_bwd(const float* x, const float* ea, const int* edge_index,
+                       const uint8_t* mask, const float* w1, const float* w1t, const float* b1,
+                       const float* w2,
+                       const float* b2, const float* w3, const float* g_eout,
+                       const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
+                       float* partial, int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+                       int blocks, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(edge_mlp_bwd_kernel<W1_SHARED>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  if (blocks > 0) {
+    edge_mlp_bwd_kernel<W1_SHARED><<<blocks, THREADS, smem, stream>>>(
+        x, ea, edge_index, edge_index + n_edges, mask, w1, w1t, b1, w2, b2, w3, g_eout, g_agg_e,
+        g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+// 1 where the forward (backward = 0) or the backward (1) stages W1 in shared memory at these
+// widths, 0 where it reads W1^T from device memory: the wrapper builds W1^T only then.
+int fused_relational_w1_shared(int fx, int fe, int h, int fo, int backward) {
+  const int k = 2 * fx + fe;
+  bool w1_shared = true;
+  pick_layout(backward ? bwd_smem_floats(k, h, fo, true) : smem_floats(k, h, fo, true), 0,
+              &w1_shared);
+  return w1_shared ? 1 : 0;
+}
+
+// edge_index is [2, E] int32 (row 0 source, row 1 target); mask [E] uint8; weights in
+// [out][in] layout, and w1t = W1^T [K][H], read in place of a staged copy where W1 does not fit
+// shared memory (null elsewhere). Writes e_out [E, Fo]. Returns cudaGetLastError().
+int fused_relational_fwd(const float* x, const float* ea, const int* edge_index,
+                         const uint8_t* mask, const float* w1, const float* w1t, const float* b1,
+                         const float* w2,
+                         const float* b2, const float* w3, const float* b3, float* e_out,
+                         int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+                         void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int k = 2 * fx + fe;
+  bool w1_shared = true;
+  const size_t smem = pick_layout(smem_floats(k, h, fo, true), smem_floats(k, h, fo, false),
+                                  &w1_shared);
+  if (!w1_shared && w1t == nullptr) return cudaErrorInvalidValue;
+  if (w1_shared) {
+    return launch_fwd<true>(x, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, b3, e_out, n_edges,
+                            fx, fe, h, fo, relu_edge, smem, stream);
+  }
+  return launch_fwd<false>(x, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, b3, e_out, n_edges,
+                           fx, fe, h, fo, relu_edge, smem, stream);
 }
 
 // Backward. g_eout [E, Fo]; g_agg_e [E, Fo] = g_agg[dst] (sorted_gather); writes g_xd, g_xs
 // [E, Fx] (per-edge gradients of x_dst and x_src), g_ea [E, Fe], and grads [P] packed as
-// w1, b1, w2, b2, w3, b3 ([out][in]); partial is [max_blocks, P] scratch. The edge kernel is
+// w1, b1, w2, b2, w3, b3 ([out][in]); w1t as in the forward; partial is [max_blocks, P] scratch. The edge kernel is
 // persistent with min(tiles, max_blocks) blocks; the wrapper passes the SM count, since the
 // kernel's shared memory leaves room for one block per SM at the model's widths. Returns
-// cudaGetLastError(), or the error of widths whose shared memory does not fit one block.
+// cudaGetLastError(), or the error of widths whose shared memory does not fit one block even
+// with W1 in device memory.
 int fused_relational_bwd(const float* x, const float* ea, const int* edge_index,
-                         const uint8_t* mask, const float* w1, const float* b1, const float* w2,
+                         const uint8_t* mask, const float* w1, const float* w1t, const float* b1,
+                         const float* w2,
                          const float* b2, const float* w3, const float* g_eout,
                          const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
                          float* partial, float* grads, int n_edges, int fx, int fe, int h, int fo,
                          int relu_edge, int max_blocks, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int k = 2 * fx + fe;
-  const size_t smem = bwd_smem_floats(k, h, fo) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(edge_mlp_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return err;
-  }
   if (max_blocks < 1) return cudaErrorInvalidValue;
   const int tiles = (n_edges + TE - 1) / TE;
   const int blocks = tiles < max_blocks ? tiles : max_blocks;
-  if (blocks > 0) {
-    edge_mlp_bwd_kernel<<<blocks, THREADS, smem, stream>>>(
-        x, ea, edge_index, edge_index + n_edges, mask, w1, b1, w2, b2, w3, g_eout, g_agg_e, g_xd,
-        g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  bool w1_shared = true;
+  const size_t smem = pick_layout(bwd_smem_floats(k, h, fo, true),
+                                  bwd_smem_floats(k, h, fo, false), &w1_shared);
+  if (!w1_shared && w1t == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err =
+      w1_shared ? launch_bwd<true>(x, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, g_eout,
+                                   g_agg_e, g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo,
+                                   relu_edge, blocks, smem, stream)
+                : launch_bwd<false>(x, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, g_eout,
+                                    g_agg_e, g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo,
+                                    relu_edge, blocks, smem, stream);
+  if (err != cudaSuccess) return err;
   const long p = grad_floats(k, h, fo);
   sum_partials_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
       partial, blocks, p, grads);

@@ -153,6 +153,14 @@ class EventGraph:
             },
         )
 
+    def mask_nodes(self, keep: torch.Tensor) -> "EventGraph":
+        """Mask the nodes outside ``keep`` and every edge that touches one
+        (JAX ``EventGraph.mask_nodes``, PyG's ``Data.subgraph``)."""
+        node_mask = self.node_mask & keep
+        ei = self.edge_index.long()
+        edge_keep = node_mask[ei[0]] & node_mask[ei[1]]
+        return self.replace(node_mask=node_mask, edge_mask=self.edge_mask & edge_keep)
+
     def csr(self) -> dict[str, torch.Tensor]:
         """The CSR arrays of a target-sorted graph (those of ``CSR_KEYS``
         that ``sort_edges_by_target`` stored), as the fused

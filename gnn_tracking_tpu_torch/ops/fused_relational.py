@@ -50,8 +50,9 @@ from gnn_tracking_tpu_torch.ops.csr_segment import gather_rows, segment_sum_csr
 WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 _SIGNATURES = {
-    "fused_relational_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
-    "fused_relational_bwd": [_build.P] * 16 + [_build.I] * 7 + [_build.P],
+    "fused_relational_fwd": [_build.P] * 12 + [_build.I] * 6 + [_build.P],
+    "fused_relational_bwd": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
+    "fused_relational_w1_shared": [_build.I] * 5,
 }
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
 # relu_edge (and the backward's block count), then the stream
@@ -178,6 +179,15 @@ def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=(),
     return n, e, fx, fe, h, fo
 
 
+def _w1t(lib, w1, fx, fe, h, fo, *, backward):
+    """``W1^T`` where the kernel reads it from device memory (the wide
+    layout), else None: narrower layers stage W1 in shared memory and take
+    a null pointer."""
+    if lib.fused_relational_w1_shared(fx, fe, h, fo, int(backward)):
+        return None
+    return w1.t().contiguous()
+
+
 def fused_relational_fwd(
     x: torch.Tensor,
     edge_attr: torch.Tensor,
@@ -192,7 +202,9 @@ def fused_relational_fwd(
     :func:`fused_relational`). CPU tensors take the plain version; CUDA
     tensors launch the edge kernel and then the sorted segment-sum
     (``rowptr`` required). Widths whose weights do not fit one block's
-    shared memory raise ``RuntimeError``."""
+    shared memory keep ``W1`` in device memory and read it transposed
+    (``ec.yml``'s K = 192, H = 128, Fo = 64); those whose tiles and other
+    weights do not fit even so raise ``RuntimeError``."""
     if x.device.type == "cpu":
         return fused_relational_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge
@@ -204,9 +216,11 @@ def fused_relational_fwd(
     e_out = torch.empty((e, fo), dtype=torch.float32, device=x.device)
     lib = _build.library("fused_relational", _SIGNATURES)
     p = _build.ptr
+    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=False)
     err = lib.fused_relational_fwd(
-        p(x), p(edge_attr), p(edge_index), p(edge_mask),
-        *(p(weights[key]) for key in WEIGHT_KEYS), p(e_out),
+        p(x), p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
+        None if w1t is None else p(w1t),
+        *(p(weights[key]) for key in WEIGHT_KEYS[1:]), p(e_out),
         e, fx, fe, h, fo, int(relu_edge), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "fused_relational_fwd")
@@ -262,9 +276,11 @@ def fused_relational_bwd(
     g_xs = torch.empty((e, fx), dtype=torch.float32, device=dev)
     g_ea = torch.empty((e, fe), dtype=torch.float32, device=dev)
     p = _build.ptr
+    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=True)
     err = lib.fused_relational_bwd(
-        p(x), p(edge_attr), p(edge_index), p(edge_mask),
-        *(p(weights[key]) for key in WEIGHT_KEYS[:5]),
+        p(x), p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
+        None if w1t is None else p(w1t),
+        *(p(weights[key]) for key in WEIGHT_KEYS[1:5]),
         p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
         e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
     )

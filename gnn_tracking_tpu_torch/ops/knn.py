@@ -9,21 +9,68 @@ on the detached points; the returned Euclidean distances are recomputed from
 the live ``x``, so losses differentiate through them.
 
 ``knn_graph`` picks its algorithm as the JAX package does on its chip: the
-resident top-k (``pairwise_topk_filter``) when the points take at most
-8 MiB or a ``batch`` is given, the IVF kNN (``ops/ivf_knn.py``) otherwise.
-Both are exact.
+resident top-k when the points take at most 8 MiB or a ``batch`` is given,
+the IVF kNN (``ops/ivf_knn.py``) otherwise. Both are exact. The resident
+top-k is ``pairwise_topk`` (the split kernel pair) up to ``SPLIT_MAX_K``
+neighbours, where its candidate splits fill the card that
+``pairwise_topk_filter`` leaves part idle, and ``pairwise_topk_filter``
+above, where each split refilling its own list costs more than that (the
+two give the same graph). Two environment variables, read when the module
+is imported as the JAX module reads them, override the choices (tests set
+the module attributes instead):
+
+* ``GNN_TRACKING_KNN_SMALL_IMPL`` (``_SMALL_TOPK_IMPL``, unset: by ``k``
+  as above): ``"filter"`` always ``pairwise_topk_filter``, ``"pallas"``
+  always ``pairwise_topk``;
+* ``GNN_TRACKING_RADIUS_IMPL`` (``_RADIUS_IMPL``), ``radius_graph``:
+  ``"filter"`` (default) the top-k filter in radius mode, ``"topk"``
+  ``knn_graph`` at ``k = min(cap, N)`` and then the exact ``dists <= r``
+  mask.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from gnn_tracking_tpu_torch.ops.ivf_knn import ivf_knn
-from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter
+from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk, pairwise_topk_filter
 from gnn_tracking_tpu_torch.ops.windowed_topk import windowed_knn
 
 #: largest point array (bytes of float32) for the resident top-k
 RESIDENT_BYTES = 8 * 1024 * 1024
+
+#: largest k for which the resident top-k takes the split kernel pair: on an
+#: H100 it beats the filter kernel up to k = 16 and loses from k = 32 (32,768
+#: points; ``chip_smoke.py`` phase 10 (a) times both at k = 8 to 256)
+SPLIT_MAX_K = 16
+
+_SMALL_TOPK_IMPL = os.environ.get("GNN_TRACKING_KNN_SMALL_IMPL")
+_SMALL_TOPK_CHOICES = ("pallas", "filter")
+if _SMALL_TOPK_IMPL is not None and _SMALL_TOPK_IMPL not in _SMALL_TOPK_CHOICES:
+    msg = (
+        "GNN_TRACKING_KNN_SMALL_IMPL must be one of "
+        f"{_SMALL_TOPK_CHOICES}, got {_SMALL_TOPK_IMPL!r}"
+    )
+    raise ValueError(msg)
+
+_RADIUS_IMPL = os.environ.get("GNN_TRACKING_RADIUS_IMPL", "filter")
+if _RADIUS_IMPL not in ("filter", "topk"):
+    msg = (
+        "GNN_TRACKING_RADIUS_IMPL must be one of ('filter', 'topk'), "
+        f"got {_RADIUS_IMPL!r}"
+    )
+    raise ValueError(msg)
+
+
+def _resident_topk(x, k, *, node_mask, batch, loop):
+    """The resident top-k: by ``k`` (see the module docstring), unless
+    ``_SMALL_TOPK_IMPL`` overrides it."""
+    split = k <= SPLIT_MAX_K if _SMALL_TOPK_IMPL is None else _SMALL_TOPK_IMPL == "pallas"
+    if split:
+        return pairwise_topk(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
+    return pairwise_topk_filter(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
 
 
 def _edges_from_neighbor_topk(
@@ -74,9 +121,7 @@ def knn_graph(
     n, d = x.shape
     xs = x.detach()
     if n * d * 4 <= RESIDENT_BYTES or batch is not None:
-        dists_sq, idx = pairwise_topk_filter(
-            xs, k=k, node_mask=node_mask, batch=batch, loop=loop
-        )
+        dists_sq, idx = _resident_topk(xs, k, node_mask=node_mask, batch=batch, loop=loop)
     else:
         dists_sq, idx, _ = ivf_knn(xs, k=k, node_mask=node_mask, loop=loop)
     return _edges_from_neighbor_topk(x, dists_sq, idx, node_mask)
@@ -186,18 +231,23 @@ def radius_graph(
     """Up to ``max_num_neighbors`` nearest neighbours within ``r`` per node.
 
     Returns ``(edge_index [2, N*cap], edge_mask [N*cap], dists [N*cap])``
-    with ``cap = min(max_num_neighbors, N)``. The selection threshold is
-    inflated to ``r^2 (1 + 1e-3)`` so that rounding in the selection can
-    only over-include; the exact ``dists <= r`` mask on the recomputed
-    distances trims (the JAX boundary contract, ``knn.py:430-437``).
+    with ``cap = min(max_num_neighbors, N)``. Under ``_RADIUS_IMPL ==
+    "filter"`` the selection threshold is inflated to ``r^2 (1 + 1e-3)`` so
+    that rounding in the selection can only over-include; under ``"topk"``
+    the cap nearest are selected by :func:`knn_graph`. Either way the exact
+    ``dists <= r`` mask on the recomputed distances trims (the JAX boundary
+    contract, ``knn.py:430-437``).
     """
     n = x.shape[0]
     k = min(max_num_neighbors, n)
     r = float(r)
-    dists_sq, idx = pairwise_topk_filter(
-        x.detach(), k=k, node_mask=node_mask, batch=batch, loop=loop,
-        radius2=r * r * (1.0 + 1e-3),
-    )
-    edge_index, mask, dists = _edges_from_neighbor_topk(x, dists_sq, idx, node_mask)
+    if _RADIUS_IMPL == "topk":
+        edge_index, mask, dists = knn_graph(x, k, node_mask=node_mask, batch=batch, loop=loop)
+    else:
+        dists_sq, idx = pairwise_topk_filter(
+            x.detach(), k=k, node_mask=node_mask, batch=batch, loop=loop,
+            radius2=r * r * (1.0 + 1e-3),
+        )
+        edge_index, mask, dists = _edges_from_neighbor_topk(x, dists_sq, idx, node_mask)
     mask = mask & (dists <= r)
     return edge_index, mask, dists

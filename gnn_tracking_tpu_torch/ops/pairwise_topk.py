@@ -1,17 +1,26 @@
-"""Survivor-filtered pairwise top-k (counterpart of
-``gnn_tracking_tpu/ops/pallas/pairwise_topk.py::pairwise_topk_filter``).
+"""Exact pairwise top-k (counterpart of
+``gnn_tracking_tpu/ops/pallas/pairwise_topk.py``: ``pairwise_topk_filter``,
+``pairwise_topk`` and ``pairwise_topk_streaming``).
 
 Per query: the ``k`` nearest valid candidates by squared distance, sorted
 ascending, ties to the lower index. Candidates must share the query's
-``batch`` id; masked candidates are excluded; masked queries still report
-their neighbours (their coordinates are taken as zero, as in the JAX
-function); ``loop=False`` excludes the query itself. With ``radius2``: at
-most ``k`` nearest with ``d2 <= radius2``. Unfilled slots are ``(+inf, 0)``
-in both modes. The CUDA kernel is ``csrc/pairwise_topk.cu``.
+``batch`` id; masked candidates are excluded; ``loop=False`` excludes the
+query itself. Unfilled slots are ``(+inf, 0)`` everywhere. The functions
+differ in their masked queries and options:
+
+* ``pairwise_topk_filter`` (CUDA kernel ``csrc/pairwise_topk.cu``): masked
+  queries still report their neighbours (their coordinates are taken as
+  zero, as in the JAX function); with ``radius2``, at most ``k`` nearest
+  with ``d2 <= radius2``;
+* ``pairwise_topk`` and ``pairwise_topk_streaming`` (CUDA kernels
+  ``csrc/pairwise_topk_split.cu``, one pair for both): masked queries get
+  ``(+inf, 0)`` in every slot; ``pairwise_topk_streaming`` takes no
+  ``batch``. The split kernel takes ``k <= MAX_K_SPLIT``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -19,11 +28,17 @@ import torch
 from gnn_tracking_tpu_torch import _build
 
 MAX_DIM = 32
+#: largest k of the split kernel (its running top-k takes 128 KB of shared memory there)
+MAX_K_SPLIT = 256
 #: queries per block of the plain version ([BLOCK_Q, N] distances at a time)
 BLOCK_Q = 1024
 
 _SIGNATURES = {
     "pairwise_topk_filter": [_build.P] * 5 + [_build.I] * 4 + [_build.F, _build.P],
+}
+_SIGNATURES_SPLIT = {
+    "pairwise_topk_split_plan": [_build.I] * 3 + [_build.P] * 2,
+    "pairwise_topk_split": [_build.P] * 8 + [_build.I] * 6 + [_build.P],
 }
 
 
@@ -67,8 +82,9 @@ def pairwise_topk_filter_plain(
             invalid |= dist > radius2
         dist = torch.where(invalid, inf, dist)
         sd, si = torch.sort(dist, dim=1, stable=True)
-        outs_d.append(sd[:, :k])
-        outs_i.append(si[:, :k])
+        # copies: a view would keep the block's whole [BLOCK_Q, N] sort alive
+        outs_d.append(sd[:, :k].clone())
+        outs_i.append(si[:, :k].clone())
     dists = torch.cat(outs_d) if outs_d else torch.zeros((0, k), dtype=x.dtype, device=x.device)
     idx = torch.cat(outs_i) if outs_i else torch.zeros((0, k), dtype=torch.int64, device=x.device)
     if dists.shape[1] < k:  # fewer candidates than slots
@@ -94,23 +110,8 @@ def pairwise_topk_filter(
         return pairwise_topk_filter_plain(
             x, k=k, node_mask=node_mask, batch=batch, loop=loop, radius2=radius2
         )
-    if x.device.type != "cuda":
-        msg = f"pairwise_topk_filter: unsupported device {x.device}"
-        raise ValueError(msg)
+    _check_cuda("pairwise_topk_filter", x, node_mask, batch)
     n, d = x.shape
-    if x.dtype != torch.float32:
-        msg = f"pairwise_topk_filter: x must be float32 on CUDA, got {x.dtype}"
-        raise ValueError(msg)
-    if d > MAX_DIM:
-        msg = f"pairwise_topk_filter: at most {MAX_DIM} dimensions, got {d}"
-        raise ValueError(msg)
-    for name, t in (("node_mask", node_mask), ("batch", batch)):
-        if t is not None and (t.device != x.device or tuple(t.shape) != (n,)):
-            msg = f"pairwise_topk_filter: {name} must be [{n}] on {x.device}"
-            raise ValueError(msg)
-    if node_mask is not None and node_mask.dtype != torch.bool:
-        msg = "pairwise_topk_filter: node_mask must be bool"
-        raise ValueError(msg)
     xe, cbatch, qbatch = _defaults(x, node_mask, batch)
     xe, cbatch, qbatch = xe.contiguous(), cbatch.contiguous(), qbatch.contiguous()
     out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
@@ -128,3 +129,120 @@ def pairwise_topk_filter(
 
 
 pairwise_topk_filter.launches = 0
+
+
+def _check_cuda(what, x, node_mask, batch) -> None:
+    """The CUDA kernels' input checks: device, dtype, width, mask and batch
+    shapes."""
+    if x.device.type != "cuda":
+        msg = f"{what}: unsupported device {x.device}"
+        raise ValueError(msg)
+    n, d = x.shape
+    if x.dtype != torch.float32:
+        msg = f"{what}: x must be float32 on CUDA, got {x.dtype}"
+        raise ValueError(msg)
+    if d > MAX_DIM:
+        msg = f"{what}: at most {MAX_DIM} dimensions, got {d}"
+        raise ValueError(msg)
+    for name, t in (("node_mask", node_mask), ("batch", batch)):
+        if t is not None and (t.device != x.device or tuple(t.shape) != (n,)):
+            msg = f"{what}: {name} must be [{n}] on {x.device}"
+            raise ValueError(msg)
+    if node_mask is not None and node_mask.dtype != torch.bool:
+        msg = f"{what}: node_mask must be bool"
+        raise ValueError(msg)
+
+
+def pairwise_topk_plain(
+    x: torch.Tensor,
+    *,
+    k: int,
+    node_mask: torch.Tensor | None = None,
+    batch: torch.Tensor | None = None,
+    loop: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`pairwise_topk`: the filter's plain
+    version (blocked direct distances, stable sort), with the rows of masked
+    queries set to ``(+inf, 0)``."""
+    dists, idx = pairwise_topk_filter_plain(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
+    if node_mask is not None:
+        dists = torch.where(node_mask[:, None], dists, math.inf)
+        idx = torch.where(node_mask[:, None], idx, 0)
+    return dists, idx
+
+
+def pairwise_topk_streaming_plain(
+    x: torch.Tensor, *, k: int, node_mask: torch.Tensor | None = None, loop: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`pairwise_topk_streaming`."""
+    return pairwise_topk_plain(x, k=k, node_mask=node_mask, loop=loop)
+
+
+def _split_topk(what, x, k, node_mask, batch, loop):
+    """Launch the split kernel pair (partial top-k over S candidate ranges,
+    then the S-way merge) on CUDA tensors. Returns ``(dists, idx, S)``."""
+    _check_cuda(what, x, node_mask, batch)
+    if k > MAX_K_SPLIT:
+        msg = f"{what}: the CUDA kernel takes k <= {MAX_K_SPLIT}, got {k}"
+        raise ValueError(msg)
+    n, d = x.shape
+    dev = x.device
+    out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
+    if n == 0 or k == 0:
+        return out_d, out_i, 0
+    xe, cbatch, qbatch = (t.contiguous() for t in _defaults(x, node_mask, batch))
+    qvalid = (
+        torch.ones(n, dtype=torch.bool, device=dev) if node_mask is None else node_mask.contiguous()
+    )
+    lib = _build.library("pairwise_topk_split", _SIGNATURES_SPLIT)
+    splits, span = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.pairwise_topk_split_plan(
+        n, d, k, ctypes.addressof(splits), ctypes.addressof(span)), what)
+    part_d = torch.empty((splits.value, k, n), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits.value, k, n), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    err = lib.pairwise_topk_split(
+        p(xe), p(cbatch), p(qbatch), p(qvalid), p(part_d), p(part_i), p(out_d), p(out_i),
+        n, d, k, int(loop), splits.value, span.value, _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, what)
+    return out_d, out_i, splits.value
+
+
+def pairwise_topk(
+    x: torch.Tensor,
+    *,
+    k: int,
+    node_mask: torch.Tensor | None = None,
+    batch: torch.Tensor | None = None,
+    loop: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dists_sq [N, k], idx [N, k] int32)``: the k nearest valid
+    neighbours of every valid query among the points of its ``batch``;
+    masked queries get ``(+inf, 0)``. CPU tensors take the plain version;
+    CUDA tensors launch the split kernel pair (``pairwise_topk.last_splits``
+    holds the last launch's number of candidate splits)."""
+    if x.device.type == "cpu":
+        return pairwise_topk_plain(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
+    dists, idx, pairwise_topk.last_splits = _split_topk("pairwise_topk", x, k, node_mask, batch, loop)
+    pairwise_topk.launches += 1
+    return dists, idx
+
+
+def pairwise_topk_streaming(
+    x: torch.Tensor, *, k: int, node_mask: torch.Tensor | None = None, loop: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pairwise_topk` without ``batch``, the JAX function for
+    full-detector point sets. CPU tensors take the plain version; CUDA
+    tensors launch the split kernel pair."""
+    if x.device.type == "cpu":
+        return pairwise_topk_streaming_plain(x, k=k, node_mask=node_mask, loop=loop)
+    dists, idx, pairwise_topk_streaming.last_splits = _split_topk(
+        "pairwise_topk_streaming", x, k, node_mask, None, loop)
+    pairwise_topk_streaming.launches += 1
+    return dists, idx
+
+
+pairwise_topk.launches = pairwise_topk_streaming.launches = 0
+pairwise_topk.last_splits = pairwise_topk_streaming.last_splits = 0

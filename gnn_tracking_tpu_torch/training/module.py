@@ -16,14 +16,16 @@ updates in their own dtype), and the outputs and the graph are cast to the
 output dtype before the loss. ``forward`` runs the model as it is, as the
 JAX module's does.
 
+``MLModule(gc_scanner=...)`` runs the graph-construction k-scanner
+(``graph_construction/k_scanner.py``) on every validation event and returns
+its figures of merit at the end of the validation epoch.
+
 Not ported yet (raise ``NotImplementedError``): a custom optimizer,
-``preproc``, ``frozen_prefixes``, the cluster scanner and the
-graph-construction scanner (``gc_scanner``).
+``preproc``, ``frozen_prefixes`` and the cluster scanner of ``TCModule``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
@@ -37,6 +39,8 @@ from gnn_tracking_tpu_torch.metrics.binary_classification import (
 )
 from gnn_tracking_tpu_torch.training.precision import get_policy
 from gnn_tracking_tpu_torch.utils.device import resolve_device
+from gnn_tracking_tpu_torch.utils.dictionaries import add_key_suffix
+from gnn_tracking_tpu_torch.utils.nomenclature import denote_pt
 
 
 def to_floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -162,7 +166,7 @@ class TCModule(TrackingModule):
             generator=self.generator,
         )
         metrics = dict(losses.loss_dct)
-        metrics |= {f"{k}_weighted": v for k, v in losses.weighted_losses.items()}
+        metrics |= add_key_suffix(losses.weighted_losses, "_weighted")
         metrics |= dict(losses.extra_metrics)
         return losses.loss, metrics
 
@@ -206,7 +210,7 @@ class ECModule(TrackingModule):
             found = get_roc_auc_scores(
                 true=y, predicted=w, max_fprs=[None, 0.01, 0.001], mask=mask
             ) | get_maximized_bcs(y=y, output=w, mask=mask)
-            metrics |= {k if math.isclose(pt, 0.0) else f"{k}_pt{pt}": v for k, v in found.items()}
+            metrics |= {denote_pt(k, pt): v for k, v in found.items()}
         return metrics
 
     def highlight_metric(self, metric: str) -> bool:
@@ -216,14 +220,14 @@ class ECModule(TrackingModule):
 class MLModule(TrackingModule):
     """Metric-learning (graph construction) training (reference
     ``training/ml.py``). A point cloud without ``true_edge_index`` carries
-    its true edges as ``edge_index``; they are taken from there."""
+    its true edges as ``edge_index``; they are taken from there. With a
+    ``gc_scanner`` (``GraphConstructionKNNScanner``), validation scans kNN
+    graphs of the latent ``H`` of every event."""
 
     def __init__(self, *, loss_fct, gc_scanner=None, **kwargs):
-        if gc_scanner is not None:
-            msg = "the graph-construction scanner is not ported"
-            raise NotImplementedError(msg)
         super().__init__(**kwargs)
         self.loss_fct = loss_fct
+        self.gc_scanner = gc_scanner
 
     def get_losses(self, out, data: EventGraph):
         true_edge_index, true_edge_mask = data.true_edge_index, data.true_edge_mask
@@ -241,9 +245,19 @@ class MLModule(TrackingModule):
             node_mask=data.node_mask,
         )
         metrics = dict(losses.loss_dct)
-        metrics |= {f"{k}_weighted": v for k, v in losses.weighted_losses.items()}
+        metrics |= add_key_suffix(losses.weighted_losses, "_weighted")
         metrics |= dict(losses.extra_metrics)
         return losses.loss, metrics
+
+    def validation_extra(self, out, data: EventGraph, batch_idx: int) -> dict[str, float]:
+        if self.gc_scanner is not None:
+            self.gc_scanner(data, batch_idx, latent=out["H"])
+        return {}
+
+    def on_validation_epoch_end(self) -> dict[str, float]:
+        if self.gc_scanner is None:
+            return {}
+        return {k: float(v) for k, v in self.gc_scanner.get_foms().items()}
 
     def highlight_metric(self, metric: str) -> bool:
         return metric in [
