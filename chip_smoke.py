@@ -16,9 +16,16 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    GraphTCN 32/32/8/128): the kernel against its plain PyTorch version on
    the same inputs, with its median time, the plain version's time, the
    time of one library call that computes the same function where there is
-   one, and its analytic bound. The training kernels (the fused relational
-   backward, the sorted segment-sum and the sorted gather) run at the HC
-   layer's shapes and must give the same bits on a second launch;
+   one, and its analytic bound. The fused relational forward (row #1) must
+   repeat bitwise and stay within 4x the plain f32 version's error against
+   float64. The training kernels (the fused relational backward, the sorted
+   segment-sum and the sorted gather) run at the HC layer's shapes and must
+   give the same bits on a second launch; the saving forward and the
+   saved-rows backward (C32 / D32, rows #7 / #8 in f32) run there too
+   (``f32_saved_pair``: bitwise rows #1 / #2); the sorted segment-sum is
+   timed on the device (``graph_ms``) beside ``torch.segment_reduce``, at
+   that input and on a masked tail (``segment_sum_timings``: 20 % of the
+   training event's edges masked, ~52k rows at the last node);
 4. the main path: ``TrackingPredictor(device="cuda").predict_dir`` over
    synthetic full-width events (locality-structured graphs; GraphTCN with
    seeded random weights plus a particle-structured latent offset, so that
@@ -105,9 +112,9 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    ``knn.SPLIT_MAX_K``); as row #11
    (``pairwise_topk_streaming``) at 262,144 points, k = 8, on the JAX kNN
    benchmark's cloud, against its plain version on every query; each timed
-   beside its bound; rows #1/#2 at ``ec.yml``'s widths (K = 192, H = 128,
-   Fo = 64, where W1 stays in device memory) against their plain versions
-   with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
+   beside its bound; rows #1/#2 and C32 / D32 at ``ec.yml``'s widths (K =
+   192, H = 128, Fo = 64, where W1 stays in device memory) against their
+   plain versions with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
    (row #13 at these k): ``Trainer.fit`` trains ``--val-epochs`` epochs over two
    32,768-hit point clouds (the briefly trained latent of phase 7 does not
@@ -117,9 +124,15 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    of merit must be finite where the JAX rules give a number and equal to
    validations under ``knn._SMALL_TOPK_IMPL = "pallas"`` (row #13) and
    ``"filter"`` (row #12); both validations timed. Then one f32 ``ECModule`` step at ``ec.yml``'s widths: step 0's
-   gradients through rows #1/#2 against the plain path (``compare_grads``);
+   gradients through rows #1/#2 against the plain path (``compare_grads``),
+   and the same step with ``fused_save_acts`` (C32 / D32, 6 launches each)
+   giving the same loss and gradients bitwise;
 11. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
    and last the device JSON line.
+
+``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
+with ``--package-root DIR`` it runs the package in DIR (an older tree
+unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
 result and exits with code 2.
@@ -191,10 +204,14 @@ TPU_KERNELS = {
     "fused_relational_bf16_bwd_saved": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:680",
     "pairwise_topk": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:534",
     "pairwise_topk_streaming": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:230",
+    "fused_relational_fwd_save": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:610",
+    "fused_relational_bwd_saved": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:680",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
     "fused_relational_bwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
+    "fused_relational_fwd_save": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
+    "fused_relational_bwd_saved": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
     "sorted_segment_sum": "gnn_tracking_tpu_torch/csrc/csr_segment.cu",
     "sorted_gather": "gnn_tracking_tpu_torch/csrc/csr_segment.cu",
     "pairwise_topk_filter": "gnn_tracking_tpu_torch/csrc/pairwise_topk.cu",
@@ -362,6 +379,36 @@ def cuda_ms(fn, *, reps: int = 5, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, *, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    replayed ``rounds`` times between CUDA events; the median per call. The
+    host's work per call (checks, allocations, ctypes) is left out, which
+    ``cuda_ms`` counts wherever it exceeds the device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def host_ms(fn, *, rounds: int = 5) -> float:
     import torch
 
@@ -379,7 +426,8 @@ def host_ms(fn, *, rounds: int = 5) -> float:
 @contextlib.contextmanager
 def plain_path():
     """Route the port's kernel call sites to their plain versions: the
-    fused relational forward and backward, f32 and bf16 (which hold the
+    fused relational forward and backward, f32 and bf16, recomputing and
+    saving (which hold the
     sorted segment-sum and gather launches), the top-k filter and the split
     top-k, connected components, the banded top-k and the IVF probe."""
     from gnn_tracking_tpu_torch.ops import cc, ivf_knn, knn, windowed_topk
@@ -391,6 +439,10 @@ def plain_path():
     sites = [
         (fr, "fused_relational_fwd", lambda *a, rowptr=None, **kw: fr.fused_relational_plain(*a, **kw)),
         (fr, "fused_relational_bwd", lambda *a, **kw: fr.fused_relational_bwd_plain(*a[:7], **kw)),
+        (fr, "fused_relational_fwd_save",
+         lambda *a, rowptr=None, **kw: fr.fused_relational_fwd_save_plain(*a, **kw)),
+        (fr, "fused_relational_bwd_saved",
+         lambda *a, **kw: fr.fused_relational_bwd_saved_plain(*a[:8], a[9], **kw)),
         (fr, "fused_relational_bf16_fwd",
          lambda *a, rowptr=None, **kw: fr.fused_relational_bf16_plain(*a, **kw)),
         (fr, "fused_relational_bf16_fwd_save",
@@ -553,9 +605,128 @@ def step_split(module, g, rounds: int = 5) -> dict:
             for i, k in enumerate(("forward_ms", "loss_ms", "backward_ms", "optimizer_ms"))}
 
 
+def f32_saved_pair(x, ea, ei, mask, weights, csr, g_e, g_a, where: str) -> list[dict]:
+    """Kernels C32 / D32 (rows #7 / #8 in f32) on one layer's inputs:
+    C32's ``e'`` / ``agg`` bitwise row #1's and its saved rows bitwise
+    ``x[dst]`` / ``x[src]``; D32's outputs bitwise row #2's; each within phase
+    3's tolerances of its plain version (forward: 1e-4 of the largest value;
+    backward: at most 4x the plain f32 error against float64) and repeating
+    bitwise; each timed beside its plain version and its bound."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    n = x.shape[0]
+    rowptr = csr["dst_rowptr"]
+    args = (x, ea, ei, mask, weights)
+    args64 = (x.double(), ea.double(), ei, mask, {k: v.double() for k, v in weights.items()})
+    named = lambda out: [out[0], out[1], *out[2].values()]
+    err_c = err_d = 0.0
+    for relu_edge in (False, True):
+        kw = {"relu_edge": relu_edge}
+        a = fr.fused_relational_fwd(*args, rowptr=rowptr, **kw)
+        c = fr.fused_relational_fwd_save(*args, rowptr=rowptr, **kw)
+        c2 = fr.fused_relational_fwd_save(*args, rowptr=rowptr, **kw)
+        pc = fr.fused_relational_fwd_save_plain(*args, **kw)
+        b = named(fr.fused_relational_bwd(*args, g_e, g_a, csr, **kw))
+        d = named(fr.fused_relational_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, n, **kw))
+        d2 = named(fr.fused_relational_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, n, **kw))
+        pd = named(fr.fused_relational_bwd_saved_plain(pc[2], pc[3], *args[1:], g_e, g_a, n, **kw))
+        rd = named(fr.fused_relational_bwd_plain(*args64, g_e.double(), g_a.double(), **kw))
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, c[:2])), f"C32 differs from row #1 ({where})"
+        assert all(torch.equal(u, v) for u, v in zip(c, c2)), f"C32: second launch differs ({where})"
+        assert torch.equal(c[2], pc[2]) and torch.equal(c[3], pc[3]), f"C32: saved rows ({where})"
+        for kt, pt_ in zip(c[:2], pc[:2]):
+            err = (kt - pt_).abs().max().item()
+            assert err <= 1e-4 * pt_.abs().max().item(), f"C32 ({where}): {err}"
+            err_c = max(err_c, err)
+        assert all(torch.equal(u, v) for u, v in zip(b, d)), f"D32 differs from row #2 ({where})"
+        assert all(torch.equal(u, v) for u, v in zip(d, d2)), f"D32: second launch differs ({where})"
+        for kt, pt_, rt in zip(d, pd, rd):
+            ek, ep = (kt.double() - rt).abs().max().item(), (pt_.double() - rt).abs().max().item()
+            assert math.isfinite(ek) and ek <= 4 * ep, f"D32 ({where}): err {ek:.3e} > 4 x plain {ep:.3e}"
+            err_d = max(err_d, ek)
+    c = fr.fused_relational_fwd_save(*args, rowptr=rowptr)
+    ms_c = cuda_ms(lambda: fr.fused_relational_fwd_save(*args, rowptr=rowptr))
+    plain_c = cuda_ms(lambda: fr.fused_relational_fwd_save_plain(*args))
+    ms_d = cuda_ms(lambda: fr.fused_relational_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, n))
+    plain_d = cuda_ms(lambda: fr.fused_relational_bwd_saved_plain(c[2], c[3], *args[1:], g_e, g_a, n))
+    fx, fe, hid, fo = x.shape[1], ea.shape[1], weights["w2"].shape[0], weights["w3"].shape[0]
+    k, n_valid = 2 * fx + fe, int(mask.sum())
+    outs_d = named(fr.fused_relational_bwd_saved(c[2], c[3], *args[1:], g_e, g_a, csr, n))
+    bnd_c, by_c = bound(2.0 * n_valid * (k * hid + hid * hid + hid * fo),
+                        nbytes(x, ea, ei, mask, rowptr, *weights.values(), *c))
+    bnd_d, by_d = bound(2.0 * n_valid * (3 * k * hid + 3 * hid * hid + 2 * hid * fo),
+                        nbytes(c[2], c[3], ea, ei, mask, *weights.values(), g_e, g_a, *csr.values(), *outs_d))
+    log(f"kernels fused_relational_fwd_save / bwd_saved (C32 / D32, {where}; K={k}, H={hid}, Fo={fo}): OK "
+        f"bitwise rows #1 / #2, saved rows bitwise x[dst] / x[src], repeat bitwise; forward max|err| "
+        f"{err_c:.3e} (<= 1e-4 of the largest), backward max|err| vs float64 {err_d:.3e} (<= 4x the plain "
+        f"f32 version's); C32 {ms_c:.3f} ms (plain {plain_c:.3f} ms, bound {bnd_c:.4f} ms by {by_c}), D32 "
+        f"{ms_d:.3f} ms (plain {plain_d:.3f} ms, bound {bnd_d:.4f} ms by {by_d})")
+    return [{"name": "fused_relational_fwd_save", "max_abs_err": err_c, "ms": ms_c, "plain_ms": plain_c,
+             "bound_ms": bnd_c, "bound_by": by_c, "library_ms": None},
+            {"name": "fused_relational_bwd_saved", "max_abs_err": err_d, "ms": ms_d, "plain_ms": plain_d,
+             "bound_ms": bnd_d, "bound_by": by_d, "library_ms": None}]
+
+
+def segment_sum_timings(seed: int) -> dict:
+    """Row #9 on two target-sorted graphs, F = 32 seeded messages: phase 3's
+    (the serving event ev00) and the masked tail (the training event with 20 %
+    of ``edge_mask`` dropped, then ``sort_edges_by_target``, which points the
+    ~52k masked edges at the last node). Each launch repeats bitwise and holds
+    every node to the bound of recursive summation against float64; the kernel
+    and ``torch.segment_reduce`` are timed on the device (``graph_ms``; the
+    kernel's Python call also with ``cuda_ms``), with the bytes bound. It calls only
+    ``segment_sum_csr`` and ``EventGraph``, so ``--segment-sum-only
+    --package-root`` times another tree's kernel on the same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.ops.csr_segment import segment_sum_csr
+
+    dev = torch.device("cuda")
+    tail = make_train_event(seed + 5)
+    tail["edge_mask"] = np.random.default_rng(seed + 6).random(N_EDGES) >= 0.2
+    graphs = {
+        "phase3": EventGraph.from_arrays(**make_event(seed + 10)),
+        "masked_tail": EventGraph.from_arrays(**{k: v for k, v in tail.items() if k != "edge_mask"}).replace(
+            edge_mask=torch.from_numpy(tail["edge_mask"])),
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed + 8)
+    out = {}
+    for name, g in graphs.items():
+        g = g.sort_edges_by_target().to(dev)
+        rowptr = g.extras["dst_rowptr"]
+        msgs = torch.randn((N_EDGES, 32), generator=gen, device=dev)
+        got = segment_sum_csr(msgs, rowptr)
+        again = segment_sum_csr(msgs, rowptr)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"sorted_segment_sum ({name}): second launch differs"
+        ids = g.edge_index[1].long()
+        ref = torch.zeros((N_NODES, 32), dtype=torch.float64, device=dev).index_add_(0, ids, msgs.double())
+        absum = torch.zeros_like(ref).index_add_(0, ids, msgs.double().abs())
+        count = torch.bincount(ids, minlength=N_NODES).double()[:, None]
+        slack = (got.double() - ref).abs() - (count - 1).clamp(min=0) * 2.0**-24 * absum
+        assert slack.max().item() <= 0, f"sorted_segment_sum ({name}): beyond the bound by {slack.max().item()}"
+        offsets = rowptr.long()
+        out[name] = {
+            "ms": graph_ms(lambda: segment_sum_csr(msgs, rowptr)),
+            "call_ms": cuda_ms(lambda: segment_sum_csr(msgs, rowptr)),
+            "segment_reduce_ms": graph_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True)),
+            "bound_ms": bound(float(N_EDGES * 32), nbytes(msgs, rowptr, got))[0],
+            "largest_segment": int(count.max().item()),
+            "max_abs_err_vs_float64": (got.double() - ref).abs().max().item(),
+        }
+    log("sorted_segment_sum timings: " + json.dumps(out))
+    return out
+
+
 def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
     """Rows #2, #9 and #10 at the HC layer's shapes, each against its plain
-    version on the card; rows #2 and #9 must repeat bit for bit."""
+    version on the card; rows #2 and #9 must repeat bit for bit; C32 / D32
+    (rows #7 / #8 in f32) at the same shapes; row #9 also on the masked
+    tail (``segment_sum_timings``)."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import csr_segment
@@ -619,6 +790,7 @@ def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
         log(f"kernel fused_relational_bwd: OK (each output within 4x the plain f32 error against "
             f"float64, repeat bitwise); {ms2:.3f} ms (plain {plain2:.3f} ms, bound {bound2:.4f} ms, "
             f"{flops2 / 1e9:.1f} GFLOP f32 at {n_valid} unmasked edges)")
+        results += f32_saved_pair(x, ea, g.edge_index, mask, weights, csr, g_e, g_a, "GraphTCN widths")
 
         # row #9: target side (contiguous rows) and source side (through src_perm)
         msgs = torch.randn((N_EDGES, fo), generator=gen, device=dev)
@@ -646,18 +818,26 @@ def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
         slack = (k9s.double() - ref9s).abs() - (count - 1).clamp(min=0) * 2.0**-24 * abs9s
         assert slack.max().item() <= 0, f"sorted_segment_sum (source side): beyond the bound by {slack.max().item()}"
         err9s = (k9s - p9s).abs().max().item()
-        ms9 = cuda_ms(lambda: csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr))
-        ms9s = cuda_ms(lambda: csr_segment.segment_sum_csr(
+        # device times (CUDA graph): at ~0.02 ms a call, a Python call's host work is longer
+        ms9 = graph_ms(lambda: csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr))
+        call9 = cuda_ms(lambda: csr_segment.sorted_segment_sum(msgs, dst, N_NODES, rowptr=rowptr))
+        ms9s = graph_ms(lambda: csr_segment.segment_sum_csr(
             msgs, csr["src_rowptr"], perm=csr["src_perm"]))
-        plain9 = cuda_ms(lambda: csr_segment.sorted_segment_sum_plain(msgs, dst, N_NODES))
-        lib9 = cuda_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True))
+        plain9 = graph_ms(lambda: csr_segment.sorted_segment_sum_plain(msgs, dst, N_NODES))
+        lib9 = graph_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True))
+        call_lib9 = cuda_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=offsets, unsafe=True))
         bound9, by9 = bound(float(N_EDGES * fo), nbytes(msgs, rowptr, p9))
         results.append({"name": "sorted_segment_sum", "max_abs_err": max(err9, err9s), "ms": ms9,
                         "plain_ms": plain9, "bound_ms": bound9, "bound_by": by9, "library_ms": lib9})
         log(f"kernel sorted_segment_sum: OK max|err| {err9:.3e} (source side through src_perm "
-            f"{err9s:.3e}), repeat bitwise; {ms9:.4f} ms (source side, random row reads: "
+            f"{err9s:.3e}), repeat bitwise; device time {ms9:.4f} ms (source side, random row reads: "
             f"{ms9s:.4f} ms; plain {plain9:.4f} ms; torch.segment_reduce {lib9:.4f} ms, "
-            f"max|diff| {(lib9_out - p9).abs().max().item():.3e}; bound {bound9:.4f} ms)")
+            f"max|diff| {(lib9_out - p9).abs().max().item():.3e}; bound {bound9:.4f} ms); a call "
+            f"from Python {call9:.4f} ms (torch.segment_reduce {call_lib9:.4f} ms)")
+        tail = segment_sum_timings(seed)["masked_tail"]
+        log(f"kernel sorted_segment_sum on the masked tail ({tail['largest_segment']} rows at the last node): "
+            f"repeat bitwise, within the float64 bound; {tail['ms']:.4f} ms (torch.segment_reduce "
+            f"{tail['segment_reduce_ms']:.4f} ms, bound {tail['bound_ms']:.4f} ms)")
 
         # row #10
         vals = torch.randn((N_NODES, fo), generator=gen, device=dev)
@@ -891,11 +1071,13 @@ def ml_training_path(seed: int, steps: int, profile: bool):
         ms = cuda_ms(lambda: topk(h, k=k, radius2=r2), reps=1, rounds=5)
         plain = cuda_ms(lambda: pairwise_topk.pairwise_topk_filter_plain(h, k=k, radius2=r2),
                         reps=1, rounds=3)
+        ones = torch.ones(h.shape[0], dtype=torch.bool, device=h.device)
+        bnd, by = topk_bound(h, k, ones, torch.zeros(h.shape[0], dtype=torch.int32, device=h.device))
         log(f"  pairwise_topk_filter, radius mode at k = {k} on the ML latent {when} ({ML_HITS} "
             f"hits): agrees with the plain version (max|err| {err:.3e}, {nb} boundary rows, {nt} "
             f"tie rows); filled slots per hit mean {filled.mean().item():.1f}, max "
-            f"{int(filled.max())}; {ms:.3f} ms (plain {plain:.3f} ms)")
-        return {"ms": ms, "plain_ms": plain, "filled_mean": filled.mean().item(),
+            f"{int(filled.max())}; {ms:.3f} ms (plain {plain:.3f} ms, bound {bnd:.4f} ms by {by})")
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bnd, "filled_mean": filled.mean().item(),
                 "full_rows": int((filled == k).sum()), "clusters": cluster_geometry(h, g.particle_id)}
 
     topk_step0 = radius_topk("at step 0")
@@ -1559,6 +1741,7 @@ def validation_kernel_phases(seed: int) -> list[dict]:
         plain1 = cuda_ms(lambda: fr.fused_relational_plain(*args))
         ms2 = cuda_ms(lambda: fr.fused_relational_bwd(*args, g_e, g_a, csr))
         plain2 = cuda_ms(lambda: fr.fused_relational_bwd_plain(*args, g_e, g_a))
+        f32_saved_pair(h, ea, g.edge_index, emask, weights, csr, g_e, g_a, "ec.yml widths")
     k2, n_valid = 2 * h.shape[1] + ea.shape[1], int(emask.sum())
     bnd1, by1 = bound(2.0 * n_valid * (k2 * hid + hid * hid + hid * fo),
                       nbytes(h, ea, g.edge_index, emask, csr["dst_rowptr"], *weights.values())
@@ -1603,8 +1786,9 @@ def foms_equal(a: dict, b: dict) -> bool:
 def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, int]:
     """Phase 10 (b): ``MLModule`` with the k-scanner through
     ``Trainer.fit`` under the default choice (row #13 at k <= 8),
-    validations under ``"pallas"`` and ``"filter"``, and one f32 EC step at ``ec.yml``'s widths. Returns the
-    summary and row #13's launches in ``Trainer.fit``."""
+    validations under ``"pallas"`` and ``"filter"``, and one f32 EC step at ``ec.yml``'s widths, recomputing
+    and with ``fused_save_acts`` (bitwise equal). Returns the summary and row #13's launches in
+    ``Trainer.fit``."""
     import torch
 
     from gnn_tracking_tpu_torch.graph_construction.k_scanner import GraphConstructionKNNScanner
@@ -1712,6 +1896,23 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
     worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
     assert not no_grad, no_grad
     assert all(n == EC_MODEL["L_ec"] for n in f32_launches.values()), f32_launches
+    # the same step with fused_save_acts (kernels C32 / D32): bitwise the recomputing step
+    saving = (fr.fused_relational_fwd_save, fr.fused_relational_bwd_saved)
+    for layer in model.ec_resin.layers:
+        layer.fused_save_acts = True
+    for fn in (fr.fused_relational_fwd, fr.fused_relational_bwd, *saving):
+        fn.launches = 0
+    gs, ls = step0()
+    saved_launches = {fn.__name__: fn.launches for fn in saving}
+    for layer in model.ec_resin.layers:
+        layer.fused_save_acts = False
+    assert all(n == EC_MODEL["L_ec"] for n in saved_launches.values()), saved_launches
+    assert fr.fused_relational_fwd.launches == 0 == fr.fused_relational_bwd.launches
+    assert ls == lk, f"f32 fused_save_acts: loss {ls} != {lk}"
+    differ = [n for n in gk if not torch.equal(gk[n], gs[n])]
+    assert not differ, f"f32 fused_save_acts: gradients differ bitwise: {differ}"
+    log(f"f32 EC step with fused_save_acts: loss and {len(gk)} gradients bitwise equal to the recomputing "
+        f"step's; launches {saved_launches}")
     t0 = time.perf_counter()
     metrics = ec.training_step(g)
     ec_step_ms = (time.perf_counter() - t0) * 1e3
@@ -1721,7 +1922,8 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
         f"{total:.3e} only: {at_floor or 'none'}); launches {f32_launches}; one training_step "
         f"{ec_step_ms:.1f} ms (host clock, the first)")
     summary = {"fit_s": fit_s, "steps": 2 * epochs, "validations": timed, "row13_launches_fit": launches,
-               "foms": foms, "ec_f32_step_ms": ec_step_ms, "ec_f32_launches": f32_launches}
+               "foms": foms, "ec_f32_step_ms": ec_step_ms, "ec_f32_launches": f32_launches,
+               "ec_f32_saved_launches": saved_launches}
     return summary, launches
 
 
@@ -1742,6 +1944,12 @@ def main(argv=None) -> int:
     p.add_argument("--profile", action="store_true",
                    help="also trace one predict_dir, 3 training steps, 3 metric-learning "
                    "steps and 3 EC steps with torch.profiler")
+    p.add_argument("--segment-sum-only", action="store_true",
+                   help="build, time row #9 on phase 3's and the masked-tail input "
+                   "(segment_sum_timings), print them and stop")
+    p.add_argument("--package-root", type=Path, default=REPO,
+                   help="directory holding the gnn_tracking_tpu_torch package to run "
+                   "(default: beside this script), e.g. an older tree to compare on one card")
     args = p.parse_args(argv)
     if args.events < 3:
         p.error("--events must be at least 3")
@@ -1753,10 +1961,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU, no result", file=sys.stderr)
         return 2
-    if not (REPO / "gnn_tracking_tpu_torch" / "csrc").is_dir():
-        print("chip_smoke: the gnn_tracking_tpu_torch package is not beside this script", file=sys.stderr)
+    root = args.package_root.resolve()
+    if not (root / "gnn_tracking_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the gnn_tracking_tpu_torch package is not in {root}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(root))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1783,6 +1992,11 @@ def main(argv=None) -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible), torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.segment_sum_only:
+        log(f"package: {root}")
+        segment_sum_timings(args.seed)
+        print(smi)
+        return 0
 
     class CondensedGraphTCN(torch.nn.Module):
         """GraphTCN + particle-structured latent offset (random weights give
@@ -1845,12 +2059,22 @@ def main(argv=None) -> int:
                 h_ec, e_ec, g0.edge_index, mask, weights, rowptr=rowptr, relu_edge=relu_edge)
             p_out = fused_relational.fused_relational_plain(
                 h_ec, e_ec, g0.edge_index, mask, weights, relu_edge=relu_edge)
+            k_again = fused_relational.fused_relational_fwd(
+                h_ec, e_ec, g0.edge_index, mask, weights, rowptr=rowptr, relu_edge=relu_edge)
+            r_out = fused_relational.fused_relational_plain(
+                h_ec.double(), e_ec.double(), g0.edge_index, mask,
+                {k: v.double() for k, v in weights.items()}, relu_edge=relu_edge)
             torch.cuda.synchronize()
-            for name, k_t, p_t in zip(("e_tilde", "agg"), k_out, p_out):
+            for name, k_t, k2_t, p_t, r_t in zip(("e_tilde", "agg"), k_out, k_again, p_out, r_out):
+                assert torch.equal(k_t, k2_t), f"fused_relational {name}: second launch differs"
                 err = (k_t - p_t).abs().max().item()
                 lim = 1e-4 * p_t.abs().max().item()
                 assert err <= lim, f"fused_relational {name} relu_edge={relu_edge}: {err} > {lim}"
                 err1 = max(err1, err)
+                ek, ep = (k_t.double() - r_t).abs().max().item(), (p_t.double() - r_t).abs().max().item()
+                assert ek <= 4 * ep, f"fused_relational {name}: err {ek:.3e} > 4 x plain f32 err {ep:.3e}"
+                log(f"  fused_relational_fwd {name} relu_edge={relu_edge}: max|err| vs float64 kernel "
+                    f"{ek:.3e}, plain f32 {ep:.3e}")
         ms1 = cuda_ms(lambda: fused_relational.fused_relational_fwd(
             h_ec, e_ec, g0.edge_index, mask, weights, rowptr=rowptr))
         plain1 = cuda_ms(lambda: fused_relational.fused_relational_plain(
@@ -2006,7 +2230,7 @@ def main(argv=None) -> int:
     }
     training, train_launches = training_path(args.seed, args.train_steps, train_counters, args.profile)
     for r in results:
-        if r["name"] not in launches:
+        if r["name"] in train_launches and r["name"] not in launches:
             r["launches"] = train_launches[r["name"]]
             log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
                 f"{r['library_ms']} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
@@ -2028,10 +2252,15 @@ def main(argv=None) -> int:
 
     # ---- 10. metric-learning validation: rows #13 / #11, wide f32 rows #1 / #2 --
     val_results = validation_kernel_phases(args.seed)
-    _, row13_launches = ml_validation_path(args.seed, args.val_epochs, ml_model, tmp)
+    val_summary, row13_launches = ml_validation_path(args.seed, args.val_epochs, ml_model, tmp)
     for r in val_results:
         r["launches"] = row13_launches if r["name"] == "pairwise_topk" else row11_launches
     results += val_results
+    # C32 / D32: launches of the f32 EC step with fused_save_acts
+    for r in results:
+        if r["name"] in val_summary["ec_f32_saved_launches"]:
+            r["launches"] = val_summary["ec_f32_saved_launches"][r["name"]]
+    assert all("launches" in r for r in results), [r["name"] for r in results if "launches" not in r]
 
     # ---- 11. results ------------------------------------------------------
     kernels = [

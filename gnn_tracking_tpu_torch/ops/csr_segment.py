@@ -25,8 +25,8 @@ import torch
 from gnn_tracking_tpu_torch import _build
 
 _SIGNATURES = {
-    "sorted_segment_sum": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
-    "sorted_segment_sum_bf16": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
+    "sorted_segment_sum": [_build.P] * 4 + [_build.I] * 3 + [_build.P] * 2,
+    "sorted_segment_sum_bf16": [_build.P] * 4 + [_build.I] * 3 + [_build.P] * 2,
     "sorted_gather": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
     "sorted_gather_bf16": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
 }
@@ -64,11 +64,14 @@ def segment_sum_csr(
     perm: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Kernel launch: ``out[i] = sum of messages[row(p)]`` for ``p`` in
-    ``rowptr[i]:rowptr[i+1]``, in ``p`` order, where ``row(p)`` is ``p``, or
-    ``perm[p]`` when a permutation is given (the source-sorted order of a
-    target-sorted graph: ``src_perm`` with ``src_rowptr``). ``messages`` is
-    float32 or bfloat16 (widened to f32 value by value); the sums and the
-    output are float32. CUDA only."""
+    ``rowptr[i]:rowptr[i+1]``, where ``row(p)`` is ``p``, or ``perm[p]``
+    when a permutation is given (the source-sorted order of a target-sorted
+    graph: ``src_perm`` with ``src_rowptr``); ``rowptr`` runs from 0 to the
+    row count. The order of the sum is fixed by ``rowptr`` alone: ``p``
+    order within each tile of 16 rows, then tile order (see
+    ``csrc/csr_segment.cu``), so repeated launches give the same bits.
+    ``messages`` is float32 or bfloat16 (widened to f32 value by value); the
+    sums and the output are float32. CUDA only."""
     dev = messages.device
     if dev.type != "cuda":
         msg = f"segment_sum_csr: the kernel runs on CUDA tensors, got {dev}"
@@ -82,11 +85,13 @@ def segment_sum_csr(
         _check("sorted_segment_sum: perm", perm, torch.int32, (rows,), dev)
     out = torch.empty((n, f), dtype=torch.float32, device=dev)
     lib = _build.library("csr_segment", _SIGNATURES)
+    # per block of at least 128 rows: head and tail partial rows, two node ids and a flag
+    scratch = torch.empty(-(-rows // 128) * (2 * f + 3), dtype=torch.int32, device=dev)
     p = _build.ptr
     entry = lib.sorted_segment_sum_bf16 if dtype == torch.bfloat16 else lib.sorted_segment_sum
     err = entry(
-        p(messages), p(rowptr), None if perm is None else p(perm), p(out), n, f,
-        _build.stream_ptr(dev),
+        p(messages), p(rowptr), None if perm is None else p(perm), p(out), n, rows, f,
+        p(scratch), _build.stream_ptr(dev),
     )
     _build.check(lib, err, "sorted_segment_sum")
     sorted_segment_sum.launches += 1

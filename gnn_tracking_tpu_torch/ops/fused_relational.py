@@ -33,10 +33,13 @@ per-edge input gradients are rounded to bf16 before their f32 node sums
 (``g_x`` is rounded after them), and the weight gradients are f32 sums of
 bf16 products, rounded to bf16. Its kernels are
 ``csrc/fused_relational_bf16.cu`` (tensor cores) and the segment sum of
-``csrc/csr_segment.cu`` over bf16 rows. ``save_acts`` (bf16 only, the JAX
-``fused_relational_layer_tt`` option) keeps the two gathered endpoint
-streams of the forward for the backward, which then gathers nothing; its
-outputs and gradients are bitwise those of the recomputing pair.
+``csrc/csr_segment.cu`` over bf16 rows.
+
+**save_acts** (the JAX ``fused_relational_layer_tt`` option, f32 and bf16)
+keeps the two gathered endpoint streams of the forward for the backward,
+which then gathers nothing: kernels C32 / D32 of ``csrc/fused_relational.cu``
+in f32, C / D of ``csrc/fused_relational_bf16.cu`` in bf16. Its outputs and
+gradients are bitwise those of the recomputing pair.
 """
 
 from __future__ import annotations
@@ -50,8 +53,10 @@ from gnn_tracking_tpu_torch.ops.csr_segment import gather_rows, segment_sum_csr
 WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 _SIGNATURES = {
-    "fused_relational_fwd": [_build.P] * 12 + [_build.I] * 6 + [_build.P],
+    "fused_relational_fwd": [_build.P] * 13 + [_build.I] * 6 + [_build.P],
+    "fused_relational_fwd_save": [_build.P] * 15 + [_build.I] * 6 + [_build.P],
     "fused_relational_bwd": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bwd_saved": [_build.P] * 18 + [_build.I] * 7 + [_build.P],
     "fused_relational_w1_shared": [_build.I] * 5,
 }
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
@@ -87,6 +92,16 @@ def fused_relational_plain(
     return et, agg
 
 
+def fused_relational_fwd_save_plain(
+    x, edge_attr, edge_index, edge_mask, weights, *, relu_edge=False,
+):
+    """Plain version of kernel C32: the forward's ``(e_tilde, agg)`` and the
+    gathered endpoint rows ``x[dst]``, ``x[src]``."""
+    src, dst = edge_index[0], edge_index[1]
+    return (*fused_relational_plain(x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge),
+            x.index_select(0, dst), x.index_select(0, src))
+
+
 def fused_relational_bwd_plain(
     x: torch.Tensor,
     edge_attr: torch.Tensor,
@@ -102,11 +117,24 @@ def fused_relational_bwd_plain(
     Returns ``(g_x, g_edge_attr, weight gradients)``; the ReLU derivative at
     0 is 0, as in JAX and PyTorch."""
     src, dst = edge_index[0], edge_index[1]
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    fx = x.shape[1]
+    return fused_relational_bwd_saved_plain(
+        x.index_select(0, dst), x.index_select(0, src), edge_attr, edge_index, edge_mask, weights,
+        g_e_out, g_agg, x.shape[0], relu_edge=relu_edge,
+    )
+
+
+def fused_relational_bwd_saved_plain(
+    gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
+    *, relu_edge=False,
+):
+    """Plain version of kernel D32: :func:`fused_relational_bwd_plain` from the
+    gathered endpoint rows ``gd = x[dst]``, ``gs = x[src]``."""
+    src, dst = edge_index[0], edge_index[1]
+    zero = torch.zeros((), dtype=gd.dtype, device=gd.device)
+    fx = gd.shape[1]
     # 1. recompute the two hidden layers
     ea = torch.relu(edge_attr) if relu_edge else edge_attr
-    m = torch.cat([x.index_select(0, dst), x.index_select(0, src), ea], dim=1)
+    m = torch.cat([gd, gs, ea], dim=1)
     h1 = torch.relu(F.linear(m, weights["w1"], weights["b1"]))
     h2 = torch.relu(F.linear(h1, weights["w2"], weights["b2"]))
     # 2. cotangent of the masked MLP output: its own plus the aggregation's
@@ -115,7 +143,7 @@ def fused_relational_bwd_plain(
     g_h2 = torch.where(h2 > 0, g_et @ weights["w3"], zero)
     g_h1 = torch.where(h1 > 0, g_h2 @ weights["w2"], zero)
     g_m = g_h1 @ weights["w1"]
-    g_x = torch.zeros_like(x)
+    g_x = torch.zeros((num_nodes, fx), dtype=gd.dtype, device=gd.device)
     g_x.index_add_(0, dst, g_m[:, :fx])
     g_x.index_add_(0, src, g_m[:, fx : 2 * fx])
     g_ea = g_m[:, 2 * fx :]
@@ -188,6 +216,42 @@ def _w1t(lib, w1, fx, fe, h, fo, *, backward):
     return w1.t().contiguous()
 
 
+def _compact(edge_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The edge ids partitioned stably, unmasked first (``[E]`` int32), and a
+    one-element view of the unmasked count, both on the device: no host
+    sync."""
+    e, dev = edge_mask.shape[0], edge_mask.device
+    pos = torch.cumsum(edge_mask, 0, dtype=torch.int32)
+    count = pos[e - 1 :]
+    order = torch.arange(e, dtype=torch.int32, device=dev)
+    slot = torch.where(edge_mask, pos - 1, count + order - pos).long()
+    return torch.empty_like(order).scatter_(0, slot, order), count
+
+
+def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save):
+    """Launch C entry ``entry`` (row #1, or C32 with ``save``), then row #9's sum."""
+    n, e, fx, fe, h, fo = _check_inputs(
+        entry, x, edge_attr, edge_index, edge_mask, weights,
+        [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
+    )
+    dev = x.device
+    e_out = torch.empty((e, fo), dtype=torch.float32, device=dev)
+    saved = [torch.empty((e, fx), dtype=torch.float32, device=dev) for _ in range(2 if save else 0)]
+    lib = _build.library("fused_relational", _SIGNATURES)
+    p = _build.ptr
+    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=False)
+    if e > 0:
+        ids, count = _compact(edge_mask)
+        err = getattr(lib, entry)(
+            p(x), p(edge_attr), p(edge_index), p(ids), p(count), p(weights["w1"]),
+            None if w1t is None else p(w1t), *(p(weights[key]) for key in WEIGHT_KEYS[1:]),
+            p(e_out), *(p(t) for t in saved), e, fx, fe, h, fo, int(relu_edge),
+            _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, entry)
+    return e_out, segment_sum_csr(e_out, rowptr), *saved
+
+
 def fused_relational_fwd(
     x: torch.Tensor,
     edge_attr: torch.Tensor,
@@ -200,32 +264,85 @@ def fused_relational_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(e_tilde [E, Fo], agg [N, Fo])``, not differentiable (see
     :func:`fused_relational`). CPU tensors take the plain version; CUDA
-    tensors launch the edge kernel and then the sorted segment-sum
-    (``rowptr`` required). Widths whose weights do not fit one block's
-    shared memory keep ``W1`` in device memory and read it transposed
-    (``ec.yml``'s K = 192, H = 128, Fo = 64); those whose tiles and other
-    weights do not fit even so raise ``RuntimeError``."""
+    tensors compact the unmasked edges, launch the edge kernel and then the
+    sorted segment-sum (``rowptr`` required). Widths whose weights do not
+    fit one block's shared memory keep ``W1`` in device memory and read it
+    transposed (``ec.yml``'s K = 192, H = 128, Fo = 64); those whose tiles
+    and other weights do not fit even so raise ``RuntimeError``."""
     if x.device.type == "cpu":
         return fused_relational_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge
         )
-    n, e, fx, fe, h, fo = _check_inputs(
-        "fused_relational_fwd", x, edge_attr, edge_index, edge_mask, weights,
-        [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
-    )
-    e_out = torch.empty((e, fo), dtype=torch.float32, device=x.device)
-    lib = _build.library("fused_relational", _SIGNATURES)
-    p = _build.ptr
-    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=False)
-    err = lib.fused_relational_fwd(
-        p(x), p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
-        None if w1t is None else p(w1t),
-        *(p(weights[key]) for key in WEIGHT_KEYS[1:]), p(e_out),
-        e, fx, fe, h, fo, int(relu_edge), _build.stream_ptr(x.device),
-    )
-    _build.check(lib, err, "fused_relational_fwd")
+    out = _fwd_f32("fused_relational_fwd", x, edge_attr, edge_index, edge_mask, weights, rowptr,
+                   relu_edge, save=False)
     fused_relational_fwd.launches += 1
-    return e_out, segment_sum_csr(e_out, rowptr)
+    return out
+
+
+def fused_relational_fwd_save(
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+):
+    """Kernel C32: the forward's outputs and the gathered endpoint rows
+    ``(e_tilde, agg, x[dst], x[src])``, for :func:`fused_relational_bwd_saved`;
+    ``e_tilde`` and ``agg`` are bitwise :func:`fused_relational_fwd`'s."""
+    if x.device.type == "cpu":
+        return fused_relational_fwd_save_plain(
+            x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
+    out = _fwd_f32("fused_relational_fwd_save", x, edge_attr, edge_index, edge_mask, weights,
+                   rowptr, relu_edge, save=True)
+    fused_relational_fwd_save.launches += 1
+    return out
+
+
+def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
+             num_nodes, relu_edge):
+    """Launch C entry ``what`` (row #2 from ``x``, or D32 from the saved rows
+    ``gd``, ``gs``), then row #9's per-target and per-source sums."""
+    e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
+    extra = [
+        ("g_e_out", g_e_out, torch.float32, (e, fo)),
+        ("g_agg", g_agg, torch.float32, (n, fo)),
+        ("dst_rowptr", csr.get("dst_rowptr"), torch.int32, (n + 1,)),
+        ("src_perm", csr.get("src_perm"), torch.int32, (e,)),
+        ("src_rowptr", csr.get("src_rowptr"), torch.int32, (n + 1,)),
+    ]
+    if x is not None:
+        rows_in = x
+    else:  # the saved x[dst] stands in for x in the checks, x[src] beside it
+        rows_in = gd
+        extra.append(("gs", gs, torch.float32, tuple(gd.shape)))
+    _, _, fx, fe, h, _ = _check_inputs(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
+    dev = edge_attr.device
+    g_agg_e = gather_rows(g_agg, edge_index[1])
+    lib = _build.library("fused_relational", _SIGNATURES)
+    k = 2 * fx + fe
+    shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
+    sizes = [torch.Size(s).numel() for s in shapes.values()]
+    # one weight-gradient partial per block of the edge kernel, at most one block per SM
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
+    packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    g_xd = torch.empty((e, fx), dtype=torch.float32, device=dev)
+    g_xs = torch.empty((e, fx), dtype=torch.float32, device=dev)
+    g_ea = torch.empty((e, fe), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=True)
+    rows = [p(x)] if x is not None else [p(gd), p(gs)]
+    err = getattr(lib, what)(
+        *rows, p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
+        None if w1t is None else p(w1t),
+        *(p(weights[key]) for key in WEIGHT_KEYS[1:5]),
+        p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
+        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
+    )
+    _build.check(lib, err, what)
+    g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
+    g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
+    grads = {
+        name: part.view(shape)
+        for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
+    }
+    return g_x, g_ea, grads
 
 
 def fused_relational_bwd(
@@ -251,53 +368,33 @@ def fused_relational_bwd(
             x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg,
             relu_edge=relu_edge,
         )
-    n, e, fo = x.shape[0], edge_attr.shape[0], weights["w3"].shape[0]
-    _, _, fx, fe, h, _ = _check_inputs(
-        "fused_relational_bwd", x, edge_attr, edge_index, edge_mask, weights,
-        [
-            ("g_e_out", g_e_out, torch.float32, (e, fo)),
-            ("g_agg", g_agg, torch.float32, (n, fo)),
-            ("dst_rowptr", csr.get("dst_rowptr"), torch.int32, (n + 1,)),
-            ("src_perm", csr.get("src_perm"), torch.int32, (e,)),
-            ("src_rowptr", csr.get("src_rowptr"), torch.int32, (n + 1,)),
-        ],
-    )
-    dev = x.device
-    g_agg_e = gather_rows(g_agg, edge_index[1])
-    lib = _build.library("fused_relational", _SIGNATURES)
-    k = 2 * fx + fe
-    shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
-    sizes = [torch.Size(s).numel() for s in shapes.values()]
-    # one weight-gradient partial per block of the edge kernel, at most one block per SM
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
-    packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-    g_xd = torch.empty((e, fx), dtype=torch.float32, device=dev)
-    g_xs = torch.empty((e, fx), dtype=torch.float32, device=dev)
-    g_ea = torch.empty((e, fe), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=True)
-    err = lib.fused_relational_bwd(
-        p(x), p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
-        None if w1t is None else p(w1t),
-        *(p(weights[key]) for key in WEIGHT_KEYS[1:5]),
-        p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
-        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
-    )
-    _build.check(lib, err, "fused_relational_bwd")
+    out = _bwd_f32("fused_relational_bwd", x, None, None, edge_attr, edge_index, edge_mask,
+                   weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
     fused_relational_bwd.launches += 1
-    g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
-    g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
-    grads = {
-        name: part.view(shape)
-        for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
-    }
-    return g_x, g_ea, grads
+    return out
 
 
-#: kernel launches (csrc/fused_relational.cu), counted where each launches
+def fused_relational_bwd_saved(
+    gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
+    *, relu_edge=False,
+):
+    """Kernel D32: :func:`fused_relational_bwd` from the rows ``gd = x[dst]``,
+    ``gs = x[src]`` that kernel C32 saved; bitwise its outputs."""
+    if gd.device.type == "cpu":
+        return fused_relational_bwd_saved_plain(
+            gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
+            relu_edge=relu_edge)
+    out = _bwd_f32("fused_relational_bwd_saved", None, gd, gs, edge_attr, edge_index, edge_mask,
+                   weights, g_e_out, g_agg, csr, num_nodes, relu_edge)
+    fused_relational_bwd_saved.launches += 1
+    return out
+
+
+#: kernel launches (csrc/fused_relational.cu: rows #1, C32, #2, D32), counted where each launches
 fused_relational_fwd.launches = 0
+fused_relational_fwd_save.launches = 0
 fused_relational_bwd.launches = 0
+fused_relational_bwd_saved.launches = 0
 
 
 # ------------------------------------------------------------------- bf16 route
@@ -543,9 +640,10 @@ class FusedRelational(torch.autograd.Function):
     """Differentiable fused edge pipeline. The forward saves its inputs, the
     mask, the index tensors and the weights, and no activation; the backward
     recomputes them (:func:`fused_relational_bwd`, or
-    :func:`fused_relational_bf16_bwd` for bf16). With ``save_acts`` (bf16)
-    the forward saves the gathered endpoint rows in place of ``x`` and the
-    backward reads them (kernels C and D). Gradients flow to ``x``,
+    :func:`fused_relational_bf16_bwd` for bf16). With ``save_acts`` the
+    forward saves the gathered endpoint rows in place of ``x`` and the
+    backward reads them (kernels C32 and D32 in f32, C and D in bf16), with
+    bitwise the same results. Gradients flow to ``x``,
     ``edge_attr`` and the six weights, in their dtype."""
 
     @staticmethod
@@ -557,12 +655,10 @@ class FusedRelational(torch.autograd.Function):
         if bf16 and dtypes != {torch.bfloat16}:
             msg = f"fused_relational: bf16 x needs bf16 edge_attr and weights, got {sorted(map(str, dtypes))}"
             raise ValueError(msg)
-        if save_acts and not bf16:
-            msg = "fused_relational: save_acts is ported for bf16 only"
-            raise NotImplementedError(msg)
         rowptr = csr.get("dst_rowptr")
         if save_acts:
-            e_out, agg, gd, gs = fused_relational_bf16_fwd_save(
+            fwd_save = fused_relational_bf16_fwd_save if bf16 else fused_relational_fwd_save
+            e_out, agg, gd, gs = fwd_save(
                 x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr, relu_edge=relu_edge)
             ctx.save_for_backward(gd, gs, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
         else:
@@ -579,7 +675,8 @@ class FusedRelational(torch.autograd.Function):
         cts = (g_e_out.contiguous(), g_agg.contiguous())
         if ctx.save_acts:
             gd, gs, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
-            g_x, g_ea, grads = fused_relational_bf16_bwd_saved(
+            bwd_saved = fused_relational_bf16_bwd_saved if ctx.bf16 else fused_relational_bwd_saved
+            g_x, g_ea, grads = bwd_saved(
                 gd, gs, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts,
                 ctx.csr, ctx.num_nodes, relu_edge=ctx.relu_edge,
             )
@@ -607,8 +704,9 @@ def fused_relational(
     """``(e_tilde [E, Fo], agg [N, Fo])`` with gradients (``FusedRelational``).
     ``csr`` holds the target-sorted graph's CSR arrays (``EventGraph.csr()``),
     which CUDA tensors need; ``relu_edge`` applies a ReLU to ``edge_attr``
-    inside the op. bf16 inputs take the bf16 route; ``save_acts`` (bf16
-    only) keeps the gathered endpoint rows for the backward."""
+    inside the op. bf16 inputs take the bf16 route; ``save_acts`` keeps the
+    gathered endpoint rows for the backward (the JAX
+    ``fused_relational_layer_tt`` option, any dtype)."""
     return FusedRelational.apply(
         x, edge_attr, *(weights[k] for k in WEIGHT_KEYS), edge_index, edge_mask,
         csr or {}, relu_edge, save_acts,

@@ -13,7 +13,11 @@ the port. Tolerances:
   a few roundings differ by one ulp). Against a float64 evaluation of the
   same inputs the port's error may be at most 2x the JAX kernel's;
 * ``save_acts`` gives bitwise the outputs and gradients of the recomputing
-  pair;
+  pair, in bf16 and in f32;
+* the f32 op with ``save_acts`` (plain versions of kernels C32 / D32)
+  against ``fused_relational_layer_tt(compute_dtype="float32",
+  save_acts=True)`` interpreted, forward and VJP: rtol 1e-5 plus 1e-6 of each
+  tensor's largest magnitude (f32 sums in other orders);
 * EC losses, binary-classification metrics and ``ECModule``'s validation
   metrics in float64: rtol 1e-12 (the same formulas; sums in other orders);
 * precision policies: the same dtypes as JAX's;
@@ -21,14 +25,16 @@ the port. Tolerances:
   under bf16 against JAX ``segment_impl="fused_stack_t"`` on the flat slab
   layout: W within 2e-2 on the unmasked edges (bf16 activations through 3
   layers; the JAX path rounds its out-of-window edges' pre-activations to
-  bf16, the port's op does not);
+  bf16, the port's op does not); in f32 with ``fused_save_acts`` against
+  the same JAX model at ``fused_dtype="float32"``: W and the parameter
+  gradients within 1e-4 of each tensor's largest magnitude;
 * three ``ECModule(precision="bf16")`` Adam steps: losses within 2e-2
   relative of JAX's;
 * ``Trainer.fit`` with ``ECModule`` on npz files that JAX wrote: finite
   ROC AUC, and the checkpoint loads.
 
-Tests marked ``cuda`` hold kernels A-D against their plain versions and skip
-where there is no card.
+Tests marked ``cuda`` hold kernels A-D and C32 / D32 against their plain
+versions and skip where there is no card.
 """
 
 from __future__ import annotations
@@ -78,7 +84,7 @@ from gnn_tracking_tpu_torch.training.module import ECModule
 from gnn_tracking_tpu_torch.training.precision import POLICIES, get_policy
 from gnn_tracking_tpu_torch.training.trainer import Trainer
 from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule
-from gnn_tracking_tpu_torch.utils.param_convert import load_jax_params
+from gnn_tracking_tpu_torch.utils.param_convert import load_jax_params, params_from_jax
 
 W, EB = 64, 32
 BF16 = torch.bfloat16
@@ -130,20 +136,21 @@ def _port_weight_grads(gw):
             "w3": f64(gw["w3"]).T, "b3": f64(gw["b3"])}
 
 
-def _jax_entry(op, part, relu_edge, save_acts):
+def _jax_entry(op, part, relu_edge, save_acts, dtype="bfloat16"):
     """The JAX entry point as ``f(x, ea, weights) -> (e_tilde [E_pad, Fo],
-    agg)`` over the slab layout's natural edge rows."""
+    agg)`` over the slab layout's natural edge rows, computing in
+    ``dtype``."""
     sl, dl = jnp.asarray(part["srcloc"]), jnp.asarray(part["dstloc"])
     inw = jnp.asarray(part["inwin"].astype(np.float32))
     if op == "fused_relational":
-        return lambda x, ea, w: jax_fused(W, EB, "bfloat16", True, x, ea, sl, dl, inw, w)
+        return lambda x, ea, w: jax_fused(W, EB, dtype, True, x, ea, sl, dl, inw, w)
     bs = jnp.asarray(part["block_slab"])
     if op in ("fused_relational_flat", "fused_relational_flat_t"):
         f = jax_fused_flat if op == "fused_relational_flat" else jax_fused_flat_t
-        return lambda x, ea, w: f(W, EB, "bfloat16", True, x, ea, sl, dl, inw, bs, w)
+        return lambda x, ea, w: f(W, EB, dtype, True, x, ea, sl, dl, inw, bs, w)
 
     def layer_tt(x, ea, w):  # edges transposed in and out (Fe = Fo = 8: no row padding)
-        et_t, agg = jax_layer_tt(W, EB, "bfloat16", True, relu_edge, save_acts,
+        et_t, agg = jax_layer_tt(W, EB, dtype, True, relu_edge, save_acts,
                                  x, ea.T, sl, dl, inw, bs, w)
         return et_t.T, agg
 
@@ -253,13 +260,85 @@ def test_fused_relational_dtype_rules():
     x, ea, src, dst, valid, w, _, _ = _op_setup(seed=31, n=40, e=100)
     ei, tm = torch.from_numpy(np.stack([src, dst])), torch.from_numpy(valid)
     w32 = _port_weights(w, torch.float32)
-    with pytest.raises(NotImplementedError, match="save_acts"):
-        fr.fused_relational(torch.tensor(x), torch.tensor(ea), ei, tm, w32, save_acts=True)
+    # f32 save_acts computes (kernels C32 / D32; their plain versions here), the recompute's values
+    et_s, agg_s = fr.fused_relational(torch.tensor(x), torch.tensor(ea), ei, tm, w32, save_acts=True)
+    et_r, agg_r = fr.fused_relational(torch.tensor(x), torch.tensor(ea), ei, tm, w32)
+    assert et_s.dtype == torch.float32 and torch.equal(et_s, et_r) and torch.equal(agg_s, agg_r)
     with pytest.raises(ValueError, match="bf16"):
         fr.fused_relational(torch.tensor(x, dtype=BF16), torch.tensor(ea, dtype=BF16), ei, tm, w32)
     # f32 keeps the f32 route (rows #1/#2)
     et, _ = fr.fused_relational(torch.tensor(x), torch.tensor(ea), ei, tm, w32)
     assert et.dtype == torch.float32
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_f32_save_acts_op_matches_jax_layer_tt(relu_edge):
+    """The f32 op with ``save_acts`` (plain versions of C32 / D32) against
+    ``fused_relational_layer_tt(compute_dtype="float32", save_acts=True)``
+    interpreted: forward and VJP within rtol 1e-5 plus 1e-6 of each output's
+    largest magnitude."""
+    x, ea, src, dst, valid, w, g_e, g_agg = _op_setup(seed=40 + relu_edge)
+    e = ea.shape[0]
+    spec = SlabLayoutSpec(window=W, block_e=EB, cmax=0, overflow_cap=e)
+    part = flat_slab_partition(src, dst, valid, x.shape[0], spec)
+    rows = np.nonzero(part["inwin"])[0]
+    orig = part["perm"][rows]
+    mask = np.zeros(e, dtype=bool)
+    mask[orig] = True
+    take = np.maximum(part["perm"], 0)
+    slab = lambda a: np.where(part["perm"][:, None] >= 0, a[take], 0)
+    g_e_slab = np.zeros((len(part["perm"]), g_e.shape[1]), np.float32)
+    g_e_slab[rows] = g_e[orig]
+    j32 = lambda a: jnp.asarray(a, jnp.float32)
+    (jet, jagg), vjp = jax.vjp(_jax_entry("fused_relational_layer_tt", part, relu_edge, True, "float32"),
+                               j32(x), j32(slab(ea)), {k: j32(v) for k, v in w.items()})
+    jgx, jgea_slab, jgw = vjp((j32(g_e_slab), j32(g_agg)))
+    jgea = np.zeros_like(ea, dtype=np.float64)
+    jgea[orig] = f64(jgea_slab)[rows]
+    want = {"e_tilde": f64(jet)[rows], "agg": f64(jagg), "g_x": f64(jgx), "g_edge_attr": jgea,
+            **_port_weight_grads(jgw)}
+
+    xt = torch.tensor(x, requires_grad=True)
+    eat = torch.tensor(ea, requires_grad=True)
+    wt = {k: v.requires_grad_() for k, v in _port_weights(w, torch.float32).items()}
+    tm = torch.from_numpy(mask)
+    pet, pagg = fr.fused_relational(xt, eat, torch.from_numpy(np.stack([src, dst])), tm, wt,
+                                    relu_edge=relu_edge, save_acts=True)
+    grads = torch.autograd.grad((pet, pagg), [xt, eat, *wt.values()],
+                                (torch.tensor(g_e), torch.tensor(g_agg)))
+    got = {"e_tilde": f64(pet)[orig], "agg": f64(pagg), "g_x": f64(grads[0]),
+           "g_edge_attr": f64(grads[1]), **{k: f64(g) for k, g in zip(wt, grads[2:])}}
+    assert not pet[~tm].any() and not grads[1][~tm].any()
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=1e-5, atol=1e-6 * np.abs(v).max(), err_msg=k)
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+def test_f32_save_acts_is_bitwise_the_recomputing_pair(relu_edge):
+    """Plain versions of C32 / D32 against rows #1 / #2's, and the op's two
+    modes, in f32."""
+    x, ea, src, dst, valid, w, g_e, g_agg = _op_setup(seed=32)
+    ei = torch.from_numpy(np.stack([src, dst]))
+    tm = torch.from_numpy(valid)
+    args = (torch.tensor(x), torch.tensor(ea), ei, tm, _port_weights(w, torch.float32))
+    cts = (torch.tensor(g_e), torch.tensor(g_agg))
+    et, agg = fr.fused_relational_plain(*args, relu_edge=relu_edge)
+    et2, agg2, gd, gs = fr.fused_relational_fwd_save_plain(*args, relu_edge=relu_edge)
+    assert torch.equal(et, et2) and torch.equal(agg, agg2)
+    assert torch.equal(gd, args[0][ei[1].long()]) and torch.equal(gs, args[0][ei[0].long()])
+    b = fr.fused_relational_bwd_plain(*args, *cts, relu_edge=relu_edge)
+    d = fr.fused_relational_bwd_saved_plain(gd, gs, *args[1:], *cts, x.shape[0], relu_edge=relu_edge)
+    for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
+        assert torch.equal(u, v)
+    outs = []
+    for save in (False, True):
+        leaves = [args[0].clone().requires_grad_(), args[1].clone().requires_grad_(),
+                  *(v.clone().requires_grad_() for v in args[4].values())]
+        o = fr.fused_relational(leaves[0], leaves[1], ei, tm, dict(zip(args[4], leaves[2:])),
+                                relu_edge=relu_edge, save_acts=save)
+        outs.append([*o, *torch.autograd.grad(o, leaves, cts)])
+    for u, v in zip(*outs):
+        assert torch.equal(u, v)
 
 
 # ------------------------------------------------------ losses and metrics
@@ -456,6 +535,37 @@ def test_ec_model_bf16_matches_jax_fused_stack_t():
     assert np.abs(f64(pm(pg)["W"][pg.extras["edge_unsort"]])[m] - got[m]).max() > 1e-4
 
 
+def test_ec_model_f32_save_acts_matches_jax_fused_stack_t():
+    """``ECForGraphTCN(fused_save_acts=True)`` in f32 against JAX's
+    ``fused_stack_t`` with ``fused_dtype="float32"`` and ``fused_save_acts``:
+    W and every parameter gradient of a squared loss on the unmasked edges
+    within 1e-4 of each tensor's largest magnitude."""
+    jg = _flat_graph(_ec_arrays(54))
+    jm = JaxEC(**MODEL, segment_impl="fused_stack_t", fused_window=W, fused_block=EB,
+               fused_dtype="float32", fused_save_acts=True)
+    params = jm.init(jax.random.PRNGKey(3), jg)
+    m = np.asarray(jg.edge_mask)
+
+    def jloss(p):
+        out = jm.apply(p, jg)["W"]
+        return jnp.sum(jnp.where(jg.edge_mask, (out - jg.y) ** 2, 0.0)), out
+
+    (jl, jw), jgrad = jax.value_and_grad(jloss, has_aux=True)(params)
+    pm = ECForGraphTCN(NODE_IN, EDGE_IN, **MODEL, fused_save_acts=True, device="cpu")
+    load_jax_params(pm, jax.tree.map(np.asarray, params))
+    pg = _port_graph(jg)
+    w = pm(pg)["W"][pg.extras["edge_unsort"]]
+    y = torch.from_numpy(np.asarray(jg.y, np.float32))
+    loss = torch.where(torch.from_numpy(m), (w - y) ** 2, 0.0).sum()
+    loss.backward()
+    np.testing.assert_allclose(f64(w)[m], f64(jw)[m], rtol=0, atol=1e-4 * np.abs(f64(jw)[m]).max())
+    assert loss.item() == pytest.approx(float(jl), rel=1e-4)
+    want = params_from_jax(jax.tree.map(np.asarray, jgrad))
+    for name, p in pm.named_parameters():
+        ref = f64(want[name])
+        np.testing.assert_allclose(f64(p.grad), ref, rtol=0, atol=1e-4 * np.abs(ref).max(), err_msg=name)
+
+
 def test_ec_module_three_bf16_adam_steps_follow_jax():
     jg = _flat_graph(_ec_arrays(52))
     loss = {"alpha": 0.25, "gamma": 2.0}
@@ -573,5 +683,29 @@ def test_cuda_bf16_saved_pair_is_bitwise_the_recomputing_pair(cuda):
     torch.cuda.synchronize()
     assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
     assert torch.equal(c[2], args[0][g.edge_index[1].long()])
+    for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx,fe,h,fo", [(32, 32, 128, 32), (64, 64, 128, 64)])
+def test_cuda_f32_saved_pair_is_bitwise_the_recomputing_pair(cuda, fx, fe, h, fo):
+    """C32 / D32 against rows #1 / #2 at the GraphTCN's widths (W1 in shared
+    memory) and at ``ec.yml``'s (W1 in device memory), and against their
+    plain versions (rows #1 / #2's tolerances of ``chip_smoke.py``)."""
+    g, args, cts = _cuda_case(cuda, fx=fx, fe=fe, h=h, fo=fo, seed=2)
+    args = (args[0].float(), args[1].float(), *args[2:4], {k: v.float() for k, v in args[4].items()})
+    cts = tuple(c.float() for c in cts)
+    csr = g.csr()
+    a = fr.fused_relational_fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
+    c = fr.fused_relational_fwd_save(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
+    b = fr.fused_relational_bwd(*args, *cts, csr, relu_edge=True)
+    d = fr.fused_relational_bwd_saved(c[2], c[3], *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
+    p = fr.fused_relational_fwd_save_plain(*args, relu_edge=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+    assert torch.equal(c[2], p[2]) and torch.equal(c[3], p[3])
+    for k, q in zip(c[:2], p[:2]):
+        assert (k - q).abs().max() <= 1e-4 * q.abs().max()
     for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
         assert torch.equal(u, v)
