@@ -131,8 +131,11 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    and last the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
-with ``--package-root DIR`` it runs the package in DIR (an older tree
-unpacked beside this one) on the same inputs and card.
+``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
+and D32 at both widths and at unmasked shares 1.0, 0.8, 0.5, 0.0 and a
+ragged edge count) and stops. With ``--package-root DIR`` either runs the
+package in DIR (an older tree unpacked beside this one) on the same inputs
+and card.
 
 Without CUDA, or without the package beside this script, it prints no
 result and exits with code 2.
@@ -719,6 +722,101 @@ def segment_sum_timings(seed: int) -> dict:
             "max_abs_err_vs_float64": (got.double() - ref).abs().max().item(),
         }
     log("sorted_segment_sum timings: " + json.dumps(out))
+    return out
+
+
+RELATIONAL_BWD_SHARES = (1.0, 0.8, 0.5, 0.0)
+RAGGED_EDGES = N_EDGES - 37  # not a multiple of the backward's 64-edge tiles
+
+
+def relational_bwd_timings(seed: int) -> dict:
+    """Row #2 and D32 (rows #2 / #8 in f32) at the GraphTCN HC layer's shapes
+    (phase 3's graph and layer: K = 96, H = 128, Fo = 32) and at ``ec.yml``'s
+    widths (phase 10's: K = 192, H = 128, Fo = 64), each at the unmasked
+    shares ``RELATIONAL_BWD_SHARES`` and at 0.8 on the first
+    ``RAGGED_EDGES`` edges. Each run: every output within 4x the plain f32
+    version's error against float64, ``relu_edge`` off and on; a second
+    launch bitwise equal; D32 bitwise row #2; the masked edges'
+    ``g_edge_attr`` rows exact zeros; then row #2, D32 and the plain version
+    timed (``cuda_ms``) beside the bound. It calls only the port's public
+    models and ``fused_relational_bwd`` / ``_saved``, so
+    ``--relational-bwd-only --package-root`` times another tree's kernel on
+    the same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    dev = torch.device("cuda")
+    tcn = GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed)).to(dev)
+    ec = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 143)).to(dev)
+    ev_hc, ev_ec = make_event(seed + 10), make_ec_event(seed + 142)
+    ragged = lambda ev: {"x": ev["x"], "edge_index": ev["edge_index"][:, :RAGGED_EDGES],
+                         "edge_attr": ev["edge_attr"][:RAGGED_EDGES]}
+    # (name, model's layer inputs, event arrays, seed of the 0.8 mask as in phases 3 / 10)
+    layers = {
+        "graphtcn_hc": (lambda g: (torch.relu(tcn.hc_node_encoder(g.x)), tcn.hc_edge_encoder(g.edge_attr),
+                                   tcn.hc_in.layers[1].relational_weights()), ev_hc, seed + 3),
+        "ec_yml": (lambda g: (torch.relu(ec.ec_node_encoder(g.x)), ec.ec_edge_encoder(g.edge_attr),
+                              ec.ec_resin.layers[1].relational_weights()), ev_ec, seed + 145),
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    named = lambda out: [out[0], out[1], *out[2].values()]
+    out = {}
+    with torch.no_grad():
+        for name, (inputs, ev, mask_seed) in layers.items():
+            runs = [(f"{share}", share, ev) for share in RELATIONAL_BWD_SHARES]
+            runs.append((f"0.8_E{RAGGED_EDGES}", 0.8, ragged(ev)))
+            for label, share, arrays in runs:
+                g = EventGraph.from_arrays(**arrays).sort_edges_by_target().to(dev)
+                e, n, csr = g.edge_index.shape[1], g.x.shape[0], g.csr()
+                x, ea, weights = inputs(g)
+                x, ea = x.contiguous(), ea.contiguous()
+                weights = {k: v.detach() for k, v in weights.items()}
+                mask = torch.from_numpy(np.random.default_rng(mask_seed).random(e) < share).to(dev)
+                fo = weights["w3"].shape[0]
+                g_e = torch.randn((e, fo), generator=gen, device=dev)
+                g_a = torch.randn((n, fo), generator=gen, device=dev)
+                src, dst = g.edge_index.long()
+                gd, gs = x[dst].contiguous(), x[src].contiguous()
+                args = (x, ea, g.edge_index, mask, weights, g_e, g_a)
+                args64 = (x.double(), ea.double(), g.edge_index, mask,
+                          {k: v.double() for k, v in weights.items()}, g_e.double(), g_a.double())
+                worst = 0.0
+                for relu_edge in (False, True):
+                    kw = {"relu_edge": relu_edge}
+                    k_out = named(fr.fused_relational_bwd(*args, csr, **kw))
+                    k_again = named(fr.fused_relational_bwd(*args, csr, **kw))
+                    d_out = named(fr.fused_relational_bwd_saved(gd, gs, *args[1:], csr, n, **kw))
+                    p_out = named(fr.fused_relational_bwd_plain(*args, **kw))
+                    r_out = named(fr.fused_relational_bwd_plain(*args64, **kw))
+                    torch.cuda.synchronize()
+                    where = f"fused_relational_bwd ({name}, unmasked share {label}, relu_edge={relu_edge})"
+                    assert (k_out[1][~mask] == 0).all(), f"{where}: masked g_edge_attr rows not zero"
+                    for kt, k2, dt, pt_, rt in zip(k_out, k_again, d_out, p_out, r_out):
+                        assert torch.equal(kt, k2), f"{where}: second launch differs"
+                        assert torch.equal(kt, dt), f"{where}: D32 differs from row #2"
+                        ek, ep = (kt.double() - rt).abs().max().item(), (pt_.double() - rt).abs().max().item()
+                        assert math.isfinite(ek) and ek <= 4 * ep, f"{where}: err {ek:.3e} > 4 x plain {ep:.3e}"
+                        worst = max(worst, ek)
+                ms = cuda_ms(lambda: fr.fused_relational_bwd(*args, csr))
+                ms_d = cuda_ms(lambda: fr.fused_relational_bwd_saved(gd, gs, *args[1:], csr, n))
+                plain = cuda_ms(lambda: fr.fused_relational_bwd_plain(*args))
+                k2_ = 2 * x.shape[1] + ea.shape[1]
+                hid, n_valid = weights["w2"].shape[0], int(mask.sum())
+                outs = named(fr.fused_relational_bwd(*args, csr))
+                bnd, by = bound(2.0 * n_valid * (3 * k2_ * hid + 3 * hid * hid + 2 * hid * fo),
+                                nbytes(*args[:4], *weights.values(), g_e, g_a, *csr.values(), *outs))
+                out[f"{name}/{label}"] = {
+                    "edges": e, "unmasked": n_valid, "ms": ms, "d32_ms": ms_d, "plain_ms": plain,
+                    "bound_ms": bnd, "bound_by": by, "max_abs_err_vs_float64": worst,
+                }
+                log(f"  fused_relational_bwd {name} (K={k2_}, H={hid}, Fo={fo}) unmasked {label} "
+                    f"({n_valid} of {e} edges): OK; {ms:.3f} ms, D32 {ms_d:.3f} ms (plain {plain:.3f} ms, "
+                    f"bound {bnd:.4f} ms by {by})")
+    log("fused_relational_bwd timings: " + json.dumps(out))
     return out
 
 
@@ -1947,6 +2045,10 @@ def main(argv=None) -> int:
     p.add_argument("--segment-sum-only", action="store_true",
                    help="build, time row #9 on phase 3's and the masked-tail input "
                    "(segment_sum_timings), print them and stop")
+    p.add_argument("--relational-bwd-only", action="store_true",
+                   help="build, check and time row #2 and D32 at the GraphTCN HC layer's and "
+                   "ec.yml's widths at several unmasked shares (relational_bwd_timings), "
+                   "print them and stop")
     p.add_argument("--package-root", type=Path, default=REPO,
                    help="directory holding the gnn_tracking_tpu_torch package to run "
                    "(default: beside this script), e.g. an older tree to compare on one card")
@@ -1995,6 +2097,11 @@ def main(argv=None) -> int:
     if args.segment_sum_only:
         log(f"package: {root}")
         segment_sum_timings(args.seed)
+        print(smi)
+        return 0
+    if args.relational_bwd_only:
+        log(f"package: {root}")
+        relational_bwd_timings(args.seed)
         print(smi)
         return 0
 

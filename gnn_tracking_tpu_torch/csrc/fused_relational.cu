@@ -28,44 +28,47 @@
 //  * every output is fmaf over k ascending from 0.f, then + b (then ReLU in the hidden layers),
 //    as the backward's recompute does, so the two agree bit for bit;
 //  * with the save flag (row #7 in f32, kernel C32) it also writes the gathered endpoint rows
-//    x[dst], x[src] of every edge for the backward that reads them (row #8, kernel D32).
-// Backward design (tiles of TE = 32 edges, 256 threads). It needs every weight in both
-// orientations (W for the recompute, W^T for the input gradients) and somewhere to sum 33k
-// weight-gradient values, which together exceed one block's 227 KB. So:
-//  * the weights are staged ONCE in PyTorch's [out][in] layout with rows padded to an odd stride
-//    (130 KB at the serving widths). A thread owns outputs strided by a quarter of the width, so
-//    a warp reads consecutive rows (recompute: contraction along a row) or consecutive columns
-//    (input gradients: contraction down a column) without bank conflicts, both with scalar loads;
-//  * per tile of TE = 32 edges, everything lives in shared memory (65 KB): the gathered input,
-//    h1, h2 (then g_h1), g_h2 and g_et = mask * (g_e' + g_agg[dst]). The recompute repeats the
-//    forward's FMA order, so it gives the forward's activations bit for bit. Nothing of the
-//    forward is saved between the passes, as in the TPU kernel;
-//  * weight gradients: each block adds its tiles' sums (each tile's from 0) into its own slice
-//    of a [blocks, P] partial buffer in device memory (L2-resident, 17 MB at 132 blocks). Each
-//    entry belongs to one thread for the whole launch (a 4 x 4 register tile per 32-edge step), so
-//    the read-modify-write needs no atomics and no barrier. A second kernel sums the partials over
-//    blocks in block order: three levels of summation (tile, block, grid), not one long chain;
+//    x[dst], x[src] of every edge for the backward that reads them (row #8, kernel D32);
+//  * wide layers (ec.yml's K = 192, H = 128, Fo = 64: 321.8 KiB with W1 staged, against one
+//    block's 227 KiB) keep W1^T ([K][H], transposed by the wrapper) in device memory; each
+//    output's FMA order is the same in both layouts, so they give the same bits.
+// Backward design (f32 FMA on the CUDA cores, TF32 off; 256 threads, one persistent block an SM):
+//  * the same partition as the forward: the MLP backward runs on tiles of FTE = 64 unmasked
+//    edges only, and the kernel writes the masked edges' zero rows of g_xd, g_xs, g_ea directly
+//    (a masked edge adds exactly 0 to every weight-gradient sum);
+//  * k-major tiles with rows padded to BLD = 68 floats (consecutive rows 4 banks apart); the
+//    recompute of h1 and h2 is the forward's dense_tile, so its activations and ReLU masks are
+//    the forward's bit for bit;
+//  * the three input-gradient products (g_h2 = (g_et W3) * [h2 > 0], g_h1 = (g_h2 W2) * [h1 > 0],
+//    g_m = g_h1 W1) use dense_tile's register tiles (8 x 4 or 4 x 4, 16-byte loads) in their own
+//    loop (grad_product, with a store per product); they read each weight as PyTorch stores it
+//    ([out][in] is their [k][out]), the recompute reads W^T;
+//  * the weight gradients contract along the tile's edges, which are contiguous in both
+//    operands: a warp owns a 32 x 32 (or 16 x 32) block of dW, a thread 8 x 4 (4 x 4) entries fed
+//    by 16-byte loads of 4 edges; each 64-edge tile's sum goes into the block's slice of a
+//    [blocks, P] partial in device memory (L2): the block's first tile stores it, later tiles
+//    add it there with red.global.add.f32 from the entry's only writer, in tile order (one
+//    thread owns an entry for the whole launch, and same-address operations of one thread keep
+//    program order); a second kernel sums the partials of the blocks that took a tile, in block
+//    order. Every sum's order is fixed, so a second launch gives the same bits;
+//  * four big tile buffers rotate roles (m, h1, h2 / g_h1, g_h2): the last phase (g_m and dW1)
+//    reads neither h1 nor g_h2 nor g_et, so the next tile's gather lands in their buffers
+//    (cp.async) while it runs;
+//  * the tiles take 144.5 KiB at the GraphTCN's widths (K = 96, H = 128, Fo = 32), so W2 is staged
+//    there too (209 KiB in all); at ec.yml's (K = 192, H = 128, Fo = 64) the tiles alone take
+//    221 KiB, and every weight is read through L1/L2. W1^T, W1 (rows padded to a multiple of 4),
+//    W2^T and W3 always are, in the orientation each product reads along 16-byte rows;
 //  * node gradients: the kernel writes the per-edge dst and src parts of the input gradient; the
-//    wrapper sums them per node with csr_segment.cu's segment-sum, in target order and in
-//    source order (through src_perm), in a fixed order (see csr_segment.cu);
-//  * so there are no float atomics anywhere: two launches on the same inputs give the same bits.
-// Wide layers. When the weights and tiles exceed one block's shared memory (ec.yml's K = 192,
-// H = 128, Fo = 64: 321.8 KiB forward, 274.9 KiB backward, against 227 KiB), both take a second
-// layout: W1, the [H, K] block and the largest, stays in device memory (forward 225.8 KiB,
-// backward 178.4 KiB of shared memory at those widths; the forward at the GraphTCN's widths
-// needs 225.6 KiB with W1 staged). It is read where a warp's lanes take
-// consecutive addresses: W1^T ([K][H], transposed by the wrapper) for the forward and the
-// backward's recompute, W1 ([H][K]) for the backward's input gradients. Every width that fits
-// keeps the first layout. Each output's FMA order is the same in both layouts, so they give the
-// same bits. The saved-rows backward (D32) reads x[dst], x[src] from the rows C32 wrote.
+//    wrapper sums them per node with csr_segment.cu's segment-sum, in target order and in source
+//    order (through src_perm), in a fixed order (see csr_segment.cu).
+// The saved-rows backward (D32) reads x[dst], x[src] from the rows C32 wrote; every output is
+// then bitwise the recomputing backward's.
 // The TPU's slab windows, one-hot MXU gathers and 8-sublane index tiles are not carried over.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int TE = 32;        // edges per tile of the backward
 constexpr int THREADS = 256;  // threads per block of the backward
 
 // ------------------------------------------------------------------ forward
@@ -92,13 +95,13 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 }
 
 // One dense layer over a tile: y[e][j] = sum_k in[k][e] wt[k][j] for e < FTE, j < m, each a
-// chain of fmaf over k ascending from 0.f (the backward's recompute_layer has the same order).
+// chain of fmaf over k ascending from 0.f (the backward's recompute runs this function too).
 // A thread owns RE edges x RO outputs: edges {4 eg + r} (and {32 + 4 eg + r} when RE = 8),
 // outputs {4 og + c} (and {m/2 + 4 og + c} when RO = 8), so each k costs RE/4 + RO/4 float4
 // loads for RE RO FMAs. wt is [kin][m], in shared memory or (W_GLOBAL) in device memory.
 // HIDDEN: out[j][e] = relu(y + b[j]). Else the output layer: e_out[ids[e]][j] = y + b[j] for
-// the tile's `valid` edges.
-template <int RE, int RO, bool W_GLOBAL, bool HIDDEN>
+// the tile's `valid` edges. LD is the tiles' row stride (the backward pads its rows).
+template <int RE, int RO, bool W_GLOBAL, bool HIDDEN, int LD = FTE>
 __device__ __forceinline__ void dense_tile(const float* __restrict__ in, int kin,
                                            const float* __restrict__ wt,
                                            const float* __restrict__ b, int m,
@@ -121,10 +124,10 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ in, int kin
 #pragma unroll 8
     for (int kk = 0; kk < kin; ++kk) {
       float a[RE], w[RO];
-      const float4 a0 = *reinterpret_cast<const float4*>(arow + kk * FTE);
+      const float4 a0 = *reinterpret_cast<const float4*>(arow + kk * LD);
       a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
       if constexpr (RE == 8) {
-        const float4 a1 = *reinterpret_cast<const float4*>(arow + kk * FTE + 32);
+        const float4 a1 = *reinterpret_cast<const float4*>(arow + kk * LD + 32);
         a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
       }
       const float4 w0 = ld4<W_GLOBAL>(wcol + (long)kk * m);
@@ -146,7 +149,7 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ in, int kin
       if constexpr (HIDDEN) {
 #pragma unroll
         for (int q = 0; q < RE / 4; ++q) {
-          *reinterpret_cast<float4*>(out + j * FTE + 32 * q + 4 * eg) =
+          *reinterpret_cast<float4*>(out + j * LD + 32 * q + 4 * eg) =
               make_float4(fmaxf(acc[4 * q][c] + bj, 0.f), fmaxf(acc[4 * q + 1][c] + bj, 0.f),
                           fmaxf(acc[4 * q + 2][c] + bj, 0.f), fmaxf(acc[4 * q + 3][c] + bj, 0.f));
         }
@@ -172,14 +175,14 @@ __device__ __forceinline__ void dense_tile(const float* __restrict__ in, int kin
 }
 
 // a layer with the widest register tile that still gives every thread work
-template <bool W_GLOBAL, bool HIDDEN>
+template <bool W_GLOBAL, bool HIDDEN, int LD = FTE>
 __device__ __forceinline__ void dense(const float* in, int kin, const float* wt, const float* b,
                                       int m, float* out, const int* ids, int valid,
                                       float* e_out) {
   if (m >= 128) {
-    dense_tile<8, 4, W_GLOBAL, HIDDEN>(in, kin, wt, b, m, out, ids, valid, e_out);
+    dense_tile<8, 4, W_GLOBAL, HIDDEN, LD>(in, kin, wt, b, m, out, ids, valid, e_out);
   } else {
-    dense_tile<4, 4, W_GLOBAL, HIDDEN>(in, kin, wt, b, m, out, ids, valid, e_out);
+    dense_tile<4, 4, W_GLOBAL, HIDDEN, LD>(in, kin, wt, b, m, out, ids, valid, e_out);
   }
 }
 
@@ -190,10 +193,14 @@ __host__ __device__ inline long smem_floats(int k, int h, int fo, bool w1_shared
   return weights + acts + 2L * FTE;                              // + the tiles' edge ids
 }
 
-// Issue the copies of tile t's inputs [x[dst], x[src], ea] into `a` (k-major) and its edge ids
-// into `tid`; rows past the `count` unmasked edges are zeros. Consecutive threads take
-// consecutive edges of one input column, so the shared-memory side is conflict-free.
+// Issue the copies of tile t's inputs [x[dst], x[src], ea] into `a` (k-major, row stride LD) and
+// its edge ids into `tid`; rows past the `count` unmasked edges are zeros. Consecutive threads
+// take consecutive edges of one input column, so the shared-memory side is conflict-free. SAVED
+// (the backward D32) reads the endpoint rows from gd = x[dst], gs = x[src] instead.
+template <int LD = FTE, bool SAVED = false>
 __device__ __forceinline__ void gather_tile(const float* __restrict__ x,
+                                            const float* __restrict__ gd,
+                                            const float* __restrict__ gs,
                                             const float* __restrict__ ea,
                                             const int* __restrict__ src,
                                             const int* __restrict__ dst,
@@ -205,11 +212,11 @@ __device__ __forceinline__ void gather_tile(const float* __restrict__ x,
   const bool live = t0 + e < count;
   const int edge = live ? __ldg(ids + t0 + e) : 0;
   if (threadIdx.x < FTE) tid[e] = edge;
-  const float* xd = x + (long)(live ? __ldg(dst + edge) : 0) * fx;
-  const float* xs = x + (long)(live ? __ldg(src + edge) : 0) * fx;
+  const float* xd = SAVED ? gd + (long)edge * fx : x + (long)(live ? __ldg(dst + edge) : 0) * fx;
+  const float* xs = SAVED ? gs + (long)edge * fx : x + (long)(live ? __ldg(src + edge) : 0) * fx;
   const float* er = ea + (long)edge * fe;
   for (int c = threadIdx.x / FTE; c < k; c += blockDim.x / FTE) {
-    float* slot = a + c * FTE + e;
+    float* slot = a + c * LD + e;
     if (!live) {
       *slot = 0.f;
     } else if (c < fx) {
@@ -257,7 +264,7 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
   const int count = *count_ptr;
   const int n_tiles = (count + FTE - 1) / FTE;
   if ((int)blockIdx.x < n_tiles) {  // the first tile's gather runs under the weights' staging
-    gather_tile(x, ea, src, dst, ids, count, blockIdx.x, fx, fe, abuf, tids);
+    gather_tile(x, nullptr, nullptr, ea, src, dst, ids, count, blockIdx.x, fx, fe, abuf, tids);
   }
   // weights arrive in PyTorch's [out][in] layout; staged as [in][out], consecutive threads
   // writing consecutive words
@@ -297,7 +304,8 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
     const int next = t + gridDim.x;
     if (next < n_tiles) {
       // the other buffer was last read by the previous tile's output layer, before its barrier
-      gather_tile(x, ea, src, dst, ids, count, next, fx, fe, abuf + (buf ^ 1) * kh * FTE,
+      gather_tile(x, nullptr, nullptr, ea, src, dst, ids, count, next, fx, fe,
+                  abuf + (buf ^ 1) * kh * FTE,
                   tids + (buf ^ 1) * FTE);
       cp_async_wait<1>();
     } else {
@@ -345,14 +353,14 @@ edge_mlp_kernel(const float* __restrict__ x, const float* __restrict__ ea,
 }
 
 // ------------------------------------------------------------------ backward
-__host__ __device__ inline int odd_ld(int n) { return n | 1; }
+constexpr int BLD = FTE + 4;  // row stride of the backward's k-major tiles: rows 4 banks apart
 
-// shared memory of the backward; without w1_shared, W1 stays in device memory
-__host__ __device__ inline long bwd_smem_floats(int k, int h, int fo, bool w1_shared) {
-  const long ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
-  const long weights = (w1_shared ? h * ldk : 0L) + h * ldh + fo * ldh + 2L * h;
-  const long tiles = TE * (ldk + 3 * ldh + ldo);
-  return weights + tiles;
+// shared memory of the backward (floats): four [kh][BLD] tiles (kh = max(k, h, fo)) that rotate
+// through the roles m, h1, h2 / g_h1, g_h2 and the next tile's inputs; g_et [fo][BLD]; W2 where
+// w2_shared; the edge ids of two tiles
+__host__ __device__ inline long bwd_smem_floats(int k, int h, int fo, bool w2_shared) {
+  const long kh = k > h ? (k > fo ? k : fo) : (h > fo ? h : fo);
+  return 4L * kh * BLD + (long)fo * BLD + (w2_shared ? (long)h * h : 0L) + 2L * FTE;
 }
 
 // weight-gradient values, packed as w1 [h][k], b1 [h], w2 [h][h], b2 [h], w3 [fo][h], b3 [fo]
@@ -360,169 +368,268 @@ __host__ __device__ inline long grad_floats(int k, int h, int fo) {
   return (long)h * k + h + (long)h * h + h + (long)fo * h + fo;
 }
 
-// out[e][j] = relu(sum_k in[e][k] w(j, k) + b[j]) for j < m (m % 4 == 0), w(j, k) at
-// w[j * so + k * si]: [m][ldw] is (ldw, 1), a transposed [kin][m] is (1, m).
-// Same FMA order as the forward's dense_tile, so the same bits as the forward's activations.
-__device__ __forceinline__ void recompute_layer(const float* __restrict__ in, int ld_in, int kin,
-                                                const float* __restrict__ w, int so, int si,
-                                                const float* __restrict__ b, int m,
-                                                float* __restrict__ out, int ld_out) {
-  const int groups = m / 4;
-  const int units = (TE / 4) * groups;
-  for (int u = threadIdx.x; u < units; u += blockDim.x) {
-    const int jg = u % groups;
-    const int e0 = (u / groups) * 4;
-    float acc[4][4];
+// Issue the copies of tile t's output cotangents g_eout[id] into ge and g_agg[dst[id]] (the
+// wrapper's gathered rows) into ga, both k-major [fo][BLD]; zeros past the `count` unmasked
+// edges. The thread that copies (c, e) of one copies (c, e) of the other, so it can sum the two
+// without a barrier once its copies have landed.
+__device__ __forceinline__ void gather_cotangents(const float* __restrict__ g_eout,
+                                                  const float* __restrict__ g_agg_e,
+                                                  const int* __restrict__ ids, int count, int t,
+                                                  int fo, float* __restrict__ ge,
+                                                  float* __restrict__ ga) {
+  const int t0 = t * FTE;
+  const int e = threadIdx.x % FTE;
+  const bool live = t0 + e < count;
+  const long edge = live ? __ldg(ids + t0 + e) : 0;
+  for (int c = threadIdx.x / FTE; c < fo; c += blockDim.x / FTE) {
+    if (live) {
+      cp_async4(ge + c * BLD + e, g_eout + edge * fo + c);
+      cp_async4(ga + c * BLD + e, g_agg_e + edge * fo + c);
+    } else {
+      ge[c * BLD + e] = 0.f;
+      ga[c * BLD + e] = 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// An input-gradient product over a tile: y[e][j] = sum_kk in[kk][e] wt[kk][j] (kk < kin,
+// j < m, m % 4 == 0; wt [kin][m] in shared or device memory, 16-byte aligned), each a chain of
+// fmaf over kk ascending from 0.f. Threads as in dense_tile: an RE-edge x 4-output register tile
+// fed by RE/4 + 1 float4 loads per kk. epi(eg, og, acc) stores the tile.
+template <int RE, bool W_GLOBAL, typename Epi>
+__device__ __forceinline__ void grad_product(const float* __restrict__ in, int kin,
+                                             const float* __restrict__ wt, int m, Epi epi) {
+  constexpr int n_eg = FTE / RE;
+  const int n_og = m / 4;
+  for (int u = threadIdx.x; u < n_eg * n_og; u += blockDim.x) {
+    const int eg = u % n_eg;
+    const int og = u / n_eg;
+    float acc[RE][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RE; ++r) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
     }
+    const float* arow = in + 4 * eg;
+    const float* wcol = wt + 4 * og;
+#pragma unroll 8
     for (int kk = 0; kk < kin; ++kk) {
-      float a[4], wv[4];
+      float a[RE];
+      const float4 a0 = *reinterpret_cast<const float4*>(arow + kk * BLD);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      if constexpr (RE == 8) {
+        const float4 a1 = *reinterpret_cast<const float4*>(arow + kk * BLD + 32);
+        a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      }
+      const float4 w0 = ld4<W_GLOBAL>(wcol + (long)kk * m);
+      const float w[4] = {w0.x, w0.y, w0.z, w0.w};
 #pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = in[(e0 + r) * ld_in + kk];
+      for (int r = 0; r < RE; ++r) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = w[(long)(jg + groups * c) * so + (long)kk * si];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], wv[c], acc[r][c]);
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
       }
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = jg + groups * c;
-        out[(e0 + r) * ld_out + j] = fmaxf(acc[r][c] + b[j], 0.f);
-      }
-    }
+    epi(eg, og, acc);
   }
 }
 
-// v[e][i] = sum_j g[e][j] w[j][i] for i < kin (contraction down the columns of w [m][ldw]),
-// zeroed where act[e][i] <= 0 when act is given; store(e, i, v) writes it.
-template <typename Store>
-__device__ __forceinline__ void backprop_layer(const float* __restrict__ g, int ld_g, int m,
-                                               const float* __restrict__ w, int ldw, int kin,
-                                               const float* __restrict__ act, int ld_act,
-                                               Store store) {
-  const int groups = (kin + 3) / 4;
-  const int units = (TE / 4) * groups;
-  for (int u = threadIdx.x; u < units; u += blockDim.x) {
-    const int ig = u % groups;
-    const int e0 = (u / groups) * 4;
-    int col[4];
-    bool ok[4];
+// the register tile (8 or 4 edges) that takes the fewest rounds of the block's threads
+template <bool W_GLOBAL, typename Epi>
+__device__ __forceinline__ void grad_product_any(const float* in, int kin, const float* wt, int m,
+                                                 Epi epi) {
+  const int n_og = m / 4;
+  const int rounds8 = (8 * n_og + blockDim.x - 1) / blockDim.x;   // units of 8 x 4
+  const int rounds4 = (16 * n_og + blockDim.x - 1) / blockDim.x;  // units of 4 x 4, half the work
+  if (2 * rounds8 <= rounds4) {
+    grad_product<8, W_GLOBAL>(in, kin, wt, m, epi);
+  } else {
+    grad_product<4, W_GLOBAL>(in, kin, wt, m, epi);
+  }
+}
+
+// edge e of register-tile row r (edges {4 eg + r} and, with 8 rows, {32 + 4 eg + r - 4})
+__device__ __forceinline__ int tile_edge(int eg, int r) { return (r < 4 ? 0 : 32) + 4 * eg + (r & 3); }
+
+// out[j][e] = act[j][e] > 0 ? y : 0 (a ReLU's derivative, 0 at 0), into a k-major tile
+struct MaskedStore {
+  const float* act;
+  float* out;
+  template <int RE>
+  __device__ __forceinline__ void operator()(int eg, int og, const float (&acc)[RE][4]) const {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      col[c] = ig + groups * c;
-      ok[c] = col[c] < kin;
-      if (!ok[c]) col[c] = 0;
-    }
-    float acc[4][4];
+      const int j = 4 * og + c;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    }
-    for (int j = 0; j < m; ++j) {
-      float a[4], wv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = g[(e0 + r) * ld_g + j];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) wv[c] = w[j * ldw + col[c]];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], wv[c], acc[r][c]);
+      for (int q = 0; q < RE / 4; ++q) {
+        const int at = j * BLD + 32 * q + 4 * eg;
+        const float4 h = *reinterpret_cast<const float4*>(act + at);
+        *reinterpret_cast<float4*>(out + at) =
+            make_float4(h.x > 0.f ? acc[4 * q][c] : 0.f, h.y > 0.f ? acc[4 * q + 1][c] : 0.f,
+                        h.z > 0.f ? acc[4 * q + 2][c] : 0.f, h.w > 0.f ? acc[4 * q + 3][c] : 0.f);
       }
     }
+  }
+};
+
+// g_m = g_h1 W1 split into the per-edge rows g_xd [E, fx], g_xs [E, fx] and g_ea [E, fe] of the
+// tile's `valid` edges; with relu_edge, g_ea is cut where the tile's ReLU'd edge feature is 0
+struct InputGradStore {
+  const float* m;
+  const int* tid;
+  int valid, k, fx, fe, relu_edge;
+  float* g_xd;
+  float* g_xs;
+  float* g_ea;
+  template <int RE>
+  __device__ __forceinline__ void operator()(int eg, int og, const float (&acc)[RE][4]) const {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < RE; ++r) {
+      const int e = tile_edge(eg, r);
+      if (e >= valid) continue;
+      const long id = tid[e];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        if (!ok[c]) continue;
+        const int i = 4 * og + c;
         float v = acc[r][c];
-        if (act != nullptr && !(act[(e0 + r) * ld_act + col[c]] > 0.f)) v = 0.f;
-        store(e0 + r, col[c], v);
+        if (i < fx) {
+          g_xd[id * fx + i] = v;
+        } else if (i < 2 * fx) {
+          g_xs[id * fx + (i - fx)] = v;
+        } else if (i < k) {
+          if (relu_edge && !(m[i * BLD + e] > 0.f)) v = 0.f;
+          g_ea[id * fe + (i - 2 * fx)] = v;
+        }
+      }
+    }
+  }
+};
+
+// part[r][c] (+)= sum_{e < FTE} g[r][e] a[c][e] for r < rows, c < cols (g, a: k-major tiles;
+// part [rows][cols], this block's slice of the partials in device memory). A warp takes a block
+// of 4R rows x 32 columns: lane (q = lane / 8, l = lane % 8) the rows r0 + q + 4i (i < R) and
+// the columns c0 + l + 8j (j < 4), and per 4 edges R + 4 float4 loads feed 16 R FMAs; the loads
+// of g are broadcasts, those of a hit 8 consecutive rows 4 banks apart. Each entry's tile sum
+// runs over e ascending from 0.f; the block's first tile writes it to the partial, and every
+// later tile's sum is added there by the L2 (red.global.add.f32, a rounded f32 add). A thread's
+// entries depend on threadIdx and the widths only, so each partial entry has one writer, whose
+// adds keep its program order (tile order): the order of every sum is fixed, and a second
+// launch gives the same bits. (A read-modify-write of the partial through the SM was slower on
+// the H100.)
+template <int R>
+__device__ __forceinline__ void weight_grad(const float* __restrict__ g, int rows,
+                                            const float* __restrict__ a, int cols,
+                                            float* __restrict__ part, bool first) {
+  const int lane = threadIdx.x % 32;
+  const int q = lane / 8, l = lane % 8;
+  const int ncb = (cols + 31) / 32;
+  const int units = (rows + 4 * R - 1) / (4 * R) * ncb;
+  for (int u = threadIdx.x / 32; u < units; u += blockDim.x / 32) {
+    const int r0 = (u / ncb) * 4 * R + q;
+    const int c0 = (u % ncb) * 32 + l;
+    int row[R], col[4];
+    bool rok[R], cok[4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      row[i] = r0 + 4 * i;
+      rok[i] = row[i] < rows;
+      if (!rok[i]) row[i] = 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      col[j] = c0 + 8 * j;
+      cok[j] = col[j] < cols;
+      if (!cok[j]) col[j] = 0;
+    }
+    float acc[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+#pragma unroll 2
+    for (int e = 0; e < FTE; e += 4) {
+      float4 gv[R], av[4];
+#pragma unroll
+      for (int i = 0; i < R; ++i) gv[i] = *reinterpret_cast<const float4*>(g + row[i] * BLD + e);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) av[j] = *reinterpret_cast<const float4*>(a + col[j] * BLD + e);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(gv[i].x, av[j].x, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].y, av[j].y, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].z, av[j].z, acc[i][j]);
+          acc[i][j] = fmaf(gv[i].w, av[j].w, acc[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!(rok[i] && cok[j])) continue;
+        float* entry = part + (long)row[i] * cols + col[j];
+        if (first) {
+          *entry = acc[i][j];
+        } else {
+          atomicAdd(entry, acc[i][j]);  // result unused: compiled to red.global.add.f32
+        }
       }
     }
   }
 }
 
-// part_w[j][i] (+)= sum_e g[e][j] a[e][i] (j < m, i < kin), part_b[j] (+)= sum_e g[e][j], over the
-// tile's TE rows; `first` starts from zero. Each tile's sum starts from 0 and is then added to the
-// partial (two-level summation: a block's ~2000 edges do not run through one accumulator). The
-// entries a thread touches depend on threadIdx only.
-__device__ __forceinline__ void weight_grad(const float* __restrict__ g, int ld_g, int m,
-                                            const float* __restrict__ a, int ld_a, int kin,
-                                            float* __restrict__ part_w,
-                                            float* __restrict__ part_b, bool first) {
-  const int ign = (kin + 3) / 4;
-  const int jgn = m / 4;
-  const int units = ign * jgn;
-  for (int u = threadIdx.x; u < units; u += blockDim.x) {
-    const int ig = u % ign;
-    const int jg = u / ign;
-    int col[4];
-    bool ok[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      col[c] = ig + ign * c;
-      ok[c] = col[c] < kin;
-      if (!ok[c]) col[c] = 0;
-    }
-    // the partial is read before the tile's FMAs, so its latency hides behind them
-    float acc[4][4], prev[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        acc[r][c] = 0.f;
-        prev[r][c] = (first || !ok[c]) ? 0.f : part_w[(long)(jg + jgn * r) * kin + col[c]];
-      }
-    }
-    for (int e = 0; e < TE; ++e) {
-      float gv[4], av[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) gv[r] = g[e * ld_g + jg + jgn * r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) av[c] = a[e * ld_a + col[c]];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(gv[r], av[c], acc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (ok[c]) part_w[(long)(jg + jgn * r) * kin + col[c]] = first ? acc[r][c] : prev[r][c] + acc[r][c];
-      }
-    }
+// dW (+)= g^T a with the row block (32 or 16 rows a warp) that takes the fewest rounds, and
+// db (+)= the row sums of g, each over e ascending from 0.f
+__device__ __forceinline__ void weight_and_bias_grad(const float* g, int rows, const float* a,
+                                                     int cols, float* part_w, float* part_b,
+                                                     bool first) {
+  const int warps = blockDim.x / 32;
+  const int ncb = (cols + 31) / 32;
+  const int rounds8 = ((rows + 31) / 32 * ncb + warps - 1) / warps;
+  const int rounds4 = ((rows + 15) / 16 * ncb + warps - 1) / warps;
+  if (2 * rounds8 <= rounds4) {
+    weight_grad<8>(g, rows, a, cols, part_w, first);
+  } else {
+    weight_grad<4>(g, rows, a, cols, part_w, first);
   }
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     float s = 0.f;
-    for (int e = 0; e < TE; ++e) s += g[e * ld_g + j];
-    part_b[j] = first ? s : part_b[j] + s;
+    for (int e = 0; e < FTE; e += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(g + r * BLD + e);
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    part_b[r] = first ? s : part_b[r] + s;
   }
 }
 
-// SAVED (row #8, kernel D32): the tile's endpoint rows come from gd = x[dst], gs = x[src], which
-// the saving forward wrote, in place of the gather from x; everything else is the same, so every
-// output is bitwise the recomputing backward's.
-template <bool W1_SHARED, bool SAVED>
-__global__ void __launch_bounds__(THREADS)
+// The backward, persistent: blocks take tiles of FTE unmasked edges in turn (ids[:count], as in
+// the forward), and masked edges get zero rows of g_xd, g_xs and g_ea without any MLP work. Per
+// tile: the recompute of h1 and h2 through the forward's dense_tile (the forward's activations
+// bit for bit); g_et = g_e' + g_agg[dst]; then three phases, each an input-gradient product and
+// a weight-gradient product that read the same tiles:
+//   1. g_h2 = (g_et W3) * [h2 > 0];  dW3 (+)= g_et^T h2, db3 (+)= sum g_et
+//   2. g_h1 = (g_h2 W2) * [h1 > 0] over h2;  dW2 (+)= g_h2^T h1, db2 (+)= sum g_h2
+//   3. g_m = g_h1 W1 -> g_xd, g_xs, g_ea;  dW1 (+)= g_h1^T m, db1 (+)= sum g_h1
+// Phase 3 reads neither h1 nor g_h2 nor g_et, so the next tile's gather (cp.async) lands in
+// their buffers while it runs, and the four big buffers rotate roles from tile to tile. W2 is
+// staged where W2_SHARED; W1^T, W1 (rows padded to k4), W2^T and W3 are read through L1/L2.
+// SAVED (row #8, kernel D32) gathers the endpoint rows from gd = x[dst], gs = x[src], which the
+// saving forward wrote; every output is then bitwise the recomputing backward's.
+template <bool W2_SHARED, bool SAVED>
+__global__ void __launch_bounds__(THREADS, 1)
 edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gd,
                     const float* __restrict__ gs, const float* __restrict__ ea,
                     const int* __restrict__ src, const int* __restrict__ dst,
-                    const uint8_t* __restrict__ mask,
-                    const float* __restrict__ w1, const float* __restrict__ w1t_dev,
-                    const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    const int* __restrict__ ids, const int* __restrict__ count_ptr,
+                    const float* __restrict__ w1t, const float* __restrict__ w1p,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ w2t, const float* __restrict__ b2,
                     const float* __restrict__ w3,
                     const float* __restrict__ g_eout, const float* __restrict__ g_agg_e,
                     float* __restrict__ g_xd, float* __restrict__ g_xs,
@@ -531,32 +638,34 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gd,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int k = 2 * fx + fe;
-  const int ldk = odd_ld(k), ldh = odd_ld(h), ldo = odd_ld(fo);
-  float* sw1 = smem;             // [h][ldk]   W1 as [out][in] (W1_SHARED)
-  float* sw2 = sw1 + (W1_SHARED ? h * ldk : 0);  // [h][ldh]
-  float* sw3 = sw2 + h * ldh;    // [fo][ldh]
-  float* sb1 = sw3 + fo * ldh;   // [h]
-  float* sb2 = sb1 + h;          // [h]
-  float* bm = sb2 + h;           // [TE][ldk]  gathered [x_dst, x_src, ea]
-  float* bh1 = bm + TE * ldk;    // [TE][ldh]  h1
-  float* bh2 = bh1 + TE * ldh;   // [TE][ldh]  h2, then g_h1
-  float* bgh2 = bh2 + TE * ldh;  // [TE][ldh]  g_h2
-  float* bget = bgh2 + TE * ldh; // [TE][ldo]  g_et
+  const int k4 = (k + 3) & ~3;
+  const int kh = k > h ? (k > fo ? k : fo) : (h > fo ? h : fo);
+  float* big = smem;                                      // [4][kh][BLD]
+  float* ge = big + 4 * kh * BLD;                         // [fo][BLD]: g_e', then g_et
+  float* sw2 = ge + fo * BLD;                             // [h][h] (W2_SHARED)
+  int* tids = reinterpret_cast<int*>(sw2 + (W2_SHARED ? h * h : 0));  // [2][FTE]
 
-  if (W1_SHARED) {
-    for (int i = threadIdx.x; i < h * k; i += blockDim.x) sw1[(i / k) * ldk + i % k] = w1[i];
+  const int count = *count_ptr;
+  const int n_tiles = (count + FTE - 1) / FTE;
+  // roles of the big buffers: m, h1 (on arrival: g_agg[dst]), h2 then g_h1, g_h2
+  int im = 0, ia = 1, ib = 2, ic = 3, buf = 0;
+  if ((int)blockIdx.x < n_tiles) {  // the first tile's copies run under the staging below
+    gather_tile<BLD, SAVED>(x, gd, gs, ea, src, dst, ids, count, blockIdx.x, fx, fe,
+                            big + im * kh * BLD, tids);
+    gather_cotangents(g_eout, g_agg_e, ids, count, blockIdx.x, fo, ge, big + ia * kh * BLD);
   }
-  // W1 as the layers read it: staged as [h][ldk], or in device memory, where the recompute reads
-  // W1^T [k][h] and the input gradients W1 [h][k] (consecutive lanes, consecutive addresses)
-  const float* w1r = W1_SHARED ? sw1 : w1t_dev;
-  const int so1 = W1_SHARED ? ldk : 1, si1 = W1_SHARED ? 1 : h;
-  const float* w1b = W1_SHARED ? sw1 : w1;
-  const int ldw1 = W1_SHARED ? ldk : k;
-  for (int i = threadIdx.x; i < h * h; i += blockDim.x) sw2[(i / h) * ldh + i % h] = w2[i];
-  for (int i = threadIdx.x; i < fo * h; i += blockDim.x) sw3[(i / h) * ldh + i % h] = w3[i];
-  for (int i = threadIdx.x; i < h; i += blockDim.x) {
-    sb1[i] = b1[i];
-    sb2[i] = b2[i];
+  if (W2_SHARED) {
+    for (int i = threadIdx.x; i < h * h; i += blockDim.x) sw2[i] = w2[i];
+  }
+  // masked edges (ids[count:]): zero rows, a warp a row
+  const int warps = gridDim.x * (blockDim.x / 32);
+  for (int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32; r < n_edges - count; r += warps) {
+    const long edge = __ldg(ids + count + r);
+    for (int c = threadIdx.x % 32; c < fx; c += 32) {
+      g_xd[edge * fx + c] = 0.f;
+      g_xs[edge * fx + c] = 0.f;
+    }
+    for (int c = threadIdx.x % 32; c < fe; c += 32) g_ea[edge * fe + c] = 0.f;
   }
 
   float* pw1 = partial + (long)blockIdx.x * grad_floats(k, h, fo);
@@ -565,89 +674,80 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gd,
   float* pb2 = pw2 + (long)h * h;
   float* pw3 = pb2 + h;
   float* pb3 = pw3 + (long)fo * h;
+  const float* w2r = W2_SHARED ? sw2 : w2;
 
-  const int n_tiles = (n_edges + TE - 1) / TE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long t0 = (long)tile * TE;
-    const bool first = tile == (int)blockIdx.x;
-    __syncthreads();  // weights staged / previous tile's buffers consumed
-    for (int i = threadIdx.x; i < TE * k; i += blockDim.x) {
-      const int e = i / k;
-      const int c = i % k;
-      const long edge = t0 + e;
-      float v = 0.f;
-      if (edge < n_edges) {
-        if (c < fx) {
-          v = SAVED ? gd[edge * fx + c] : x[(long)dst[edge] * fx + c];
-        } else if (c < 2 * fx) {
-          v = SAVED ? gs[edge * fx + (c - fx)] : x[(long)src[edge] * fx + (c - fx)];
-        } else {
-          v = ea[edge * fe + (c - 2 * fx)];
-          if (relu_edge) v = fmaxf(v, 0.f);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const bool first = t == (int)blockIdx.x;
+    float* m = big + im * kh * BLD;
+    float* h1 = big + ia * kh * BLD;
+    float* h2 = big + ib * kh * BLD;
+    float* gh2 = big + ic * kh * BLD;
+    const int* tid = tids + buf * FTE;
+    cp_async_wait<0>();
+    {  // this thread's own copies, visible to it now: g_et = g_e' + g_agg[dst], relu(ea)
+      const int e = threadIdx.x % FTE;
+      for (int c = threadIdx.x / FTE; c < fo; c += blockDim.x / FTE) ge[c * BLD + e] += h1[c * BLD + e];
+      if (relu_edge) {
+        for (int c = threadIdx.x / FTE; c < k; c += blockDim.x / FTE) {
+          if (c >= 2 * fx) m[c * BLD + e] = fmaxf(m[c * BLD + e], 0.f);
         }
       }
-      bm[e * ldk + c] = v;
     }
-    // g_et = mask * (g_e' + g_agg[dst]); zero past the last edge
-    for (int i = threadIdx.x; i < TE * fo; i += blockDim.x) {
-      const int e = i / fo;
-      const int c = i % fo;
-      const long edge = t0 + e;
-      float v = 0.f;
-      if (edge < n_edges && mask[edge]) v = g_eout[edge * fo + c] + g_agg_e[edge * fo + c];
-      bget[e * ldo + c] = v;
+    __syncthreads();  // the tile's inputs and (first tile) W2 are staged
+    const int valid = min(FTE, count - t * FTE);
+    dense<true, true, BLD>(m, k, w1t, b1, h, h1, nullptr, 0, nullptr);
+    __syncthreads();
+    dense<true, true, BLD>(h1, h, w2t, b2, h, h2, nullptr, 0, nullptr);
+    __syncthreads();
+    grad_product_any<true>(ge, fo, w3, h, MaskedStore{h2, gh2});
+    weight_and_bias_grad(ge, fo, h2, h, pw3, pb3, first);
+    __syncthreads();
+    grad_product_any<!W2_SHARED>(gh2, h, w2r, h, MaskedStore{h1, h2});  // g_h1 over h2
+    weight_and_bias_grad(gh2, h, h1, h, pw2, pb2, first);
+    __syncthreads();  // h1, g_h2 and g_et are free for the next tile's copies
+    const int next = t + gridDim.x;
+    if (next < n_tiles) {
+      gather_tile<BLD, SAVED>(x, gd, gs, ea, src, dst, ids, count, next, fx, fe, h1,
+                              tids + (buf ^ 1) * FTE);
+      gather_cotangents(g_eout, g_agg_e, ids, count, next, fo, ge, gh2);
     }
-    __syncthreads();
-    recompute_layer(bm, ldk, k, w1r, so1, si1, sb1, h, bh1, ldh);
-    __syncthreads();
-    recompute_layer(bh1, ldh, h, sw2, ldh, 1, sb2, h, bh2, ldh);
-    __syncthreads();
-    // g_h2 = (g_et W3) * (h2 > 0); dW3 += g_et^T h2
-    backprop_layer(bget, ldo, fo, sw3, ldh, h, bh2, ldh,
-                   [&](int e, int i, float v) { bgh2[e * ldh + i] = v; });
-    weight_grad(bget, ldo, fo, bh2, ldh, h, pw3, pb3, first);
-    __syncthreads();
-    // g_h1 = (g_h2 W2) * (h1 > 0) over h2's buffer; dW2 += g_h2^T h1
-    backprop_layer(bgh2, ldh, h, sw2, ldh, h, bh1, ldh,
-                   [&](int e, int i, float v) { bh2[e * ldh + i] = v; });
-    weight_grad(bgh2, ldh, h, bh1, ldh, h, pw2, pb2, first);
-    __syncthreads();
-    // g_m = g_h1 W1, split into the dst, src and edge blocks; dW1 += g_h1^T m
-    backprop_layer(bh2, ldh, h, w1b, ldw1, k, nullptr, 0, [&](int e, int i, float v) {
-      const long edge = t0 + e;
-      if (edge >= n_edges) return;
-      if (i < fx) {
-        g_xd[edge * fx + i] = v;
-      } else if (i < 2 * fx) {
-        g_xs[edge * fx + (i - fx)] = v;
-      } else {
-        if (relu_edge && !(bm[e * ldk + i] > 0.f)) v = 0.f;
-        g_ea[edge * fe + (i - 2 * fx)] = v;
-      }
-    });
-    weight_grad(bh2, ldh, h, bm, ldk, k, pw1, pb1, first);
+    grad_product_any<true>(h2, h, w1p, k4,
+                           InputGradStore{m, tid, valid, k, fx, fe, relu_edge, g_xd, g_xs, g_ea});
+    weight_and_bias_grad(h2, h, m, k, pw1, pb1, first);
+    // next tile: m in h1's buffer, g_agg[dst] in g_h2's (its h1's); the others are free once
+    // every thread has passed the next tile's first barrier
+    const int old_m = im;
+    im = ia;
+    ia = ic;
+    ic = ib;
+    ib = old_m;
+    buf ^= 1;
   }
 }
 
-// out[i] = sum over b < blocks of partial[b][i], in block order
+// out[i] = sum of partial[b][i] over the blocks b that took a tile, in block order; 0 where none
+// did (no unmasked edge)
 __global__ void __launch_bounds__(THREADS)
-sum_partials_kernel(const float* __restrict__ partial, int blocks, long p,
-                    float* __restrict__ out) {
+sum_partials_kernel(const float* __restrict__ partial, int blocks,
+                    const int* __restrict__ count_ptr, long p, float* __restrict__ out) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p) return;
+  const int tiles = blocks > 0 ? (*count_ptr + FTE - 1) / FTE : 0;
+  const int used = tiles < blocks ? tiles : blocks;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[(long)b * p + i];
+  for (int b = 0; b < used; ++b) s += partial[(long)b * p + i];
   out[i] = s;
 }
 
 // Shared-memory bytes of a kernel whose first layout needs `resident` bytes and second `wide`:
-// the first where it fits one block's opt-in limit, else the second. Sets *w1_shared.
-inline size_t pick_layout(long resident, long wide, bool* w1_shared) {
+// the first where it fits one block's opt-in limit, else the second. Sets *fits to whether the
+// first does (the forward: W1 staged; the backward: W2 staged).
+inline size_t pick_layout(long resident, long wide, bool* fits) {
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *w1_shared = resident * (long)sizeof(float) <= optin;
-  return (size_t)(*w1_shared ? resident : wide) * sizeof(float);
+  *fits = resident * (long)sizeof(float) <= optin;
+  return (size_t)(*fits ? resident : wide) * sizeof(float);
 }
 
 template <bool W1_SHARED, bool SAVE>
@@ -684,15 +784,15 @@ cudaError_t launch_fwd(const float* x, const float* ea, const int* edge_index,
   return cudaGetLastError();
 }
 
-template <bool W1_SHARED, bool SAVED>
+template <bool W2_SHARED, bool SAVED>
 cudaError_t launch_bwd(const float* x, const float* gd, const float* gs, const float* ea,
-                       const int* edge_index, const uint8_t* mask, const float* w1,
-                       const float* w1t, const float* b1, const float* w2, const float* b2,
-                       const float* w3, const float* g_eout, const float* g_agg_e, float* g_xd,
-                       float* g_xs, float* g_ea, float* partial, int n_edges, int fx, int fe,
-                       int h, int fo, int relu_edge, int blocks, size_t smem,
-                       cudaStream_t stream) {
-  auto kernel = edge_mlp_bwd_kernel<W1_SHARED, SAVED>;
+                       const int* edge_index, const int* ids, const int* count, const float* w1t,
+                       const float* w1p, const float* b1, const float* w2, const float* w2t,
+                       const float* b2, const float* w3, const float* g_eout,
+                       const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
+                       float* partial, int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+                       int blocks, size_t smem, cudaStream_t stream) {
+  auto kernel = edge_mlp_bwd_kernel<W2_SHARED, SAVED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
@@ -701,9 +801,9 @@ cudaError_t launch_bwd(const float* x, const float* gd, const float* gs, const f
   }
   if (blocks > 0) {
     kernel<<<blocks, THREADS, smem, stream>>>(x, gd, gs, ea, edge_index, edge_index + n_edges,
-                                              mask, w1, w1t, b1, w2, b2, w3, g_eout, g_agg_e,
-                                              g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo,
-                                              relu_edge);
+                                              ids, count, w1t, w1p, b1, w2, w2t, b2, w3, g_eout,
+                                              g_agg_e, g_xd, g_xs, g_ea, partial, n_edges, fx, fe,
+                                              h, fo, relu_edge);
   }
   return cudaGetLastError();
 }
@@ -727,27 +827,27 @@ int fwd(const float* x, const float* ea, const int* edge_index, const int* ids, 
 
 template <bool SAVED>
 int bwd(const float* x, const float* gd, const float* gs, const float* ea, const int* edge_index,
-        const uint8_t* mask, const float* w1, const float* w1t, const float* b1, const float* w2,
-        const float* b2, const float* w3, const float* g_eout, const float* g_agg_e, float* g_xd,
-        float* g_xs, float* g_ea, float* partial, float* grads, int n_edges, int fx, int fe,
-        int h, int fo, int relu_edge, int max_blocks, void* stream_ptr) {
+        const int* ids, const int* count, const float* w1t, const float* w1p, const float* b1,
+        const float* w2, const float* w2t, const float* b2, const float* w3,
+        const float* g_eout, const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
+        float* partial, float* grads, int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+        int max_blocks, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int k = 2 * fx + fe;
   if (max_blocks < 1) return cudaErrorInvalidValue;
-  const int tiles = (n_edges + TE - 1) / TE;
+  const int tiles = (n_edges + FTE - 1) / FTE;  // at most: the masked edges take no tile
   const int blocks = tiles < max_blocks ? tiles : max_blocks;
-  bool w1_shared = true;
+  bool w2_shared = true;
   const size_t smem = pick_layout(bwd_smem_floats(k, h, fo, true),
-                                  bwd_smem_floats(k, h, fo, false), &w1_shared);
-  if (!w1_shared && w1t == nullptr) return cudaErrorInvalidValue;
-  auto launch = w1_shared ? launch_bwd<true, SAVED> : launch_bwd<false, SAVED>;
-  cudaError_t err = launch(x, gd, gs, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, g_eout,
-                           g_agg_e, g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge,
-                           blocks, smem, stream);
+                                  bwd_smem_floats(k, h, fo, false), &w2_shared);
+  auto launch = w2_shared ? launch_bwd<true, SAVED> : launch_bwd<false, SAVED>;
+  cudaError_t err = launch(x, gd, gs, ea, edge_index, ids, count, w1t, w1p, b1, w2, w2t, b2, w3,
+                           g_eout, g_agg_e, g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo,
+                           relu_edge, blocks, smem, stream);
   if (err != cudaSuccess) return err;
   const long p = grad_floats(k, h, fo);
   sum_partials_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      partial, blocks, p, grads);
+      partial, blocks, count, p, grads);
   return cudaGetLastError();
 }
 
@@ -757,13 +857,11 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// 1 where the forward (backward = 0) or the backward (1) stages W1 in shared memory at these
-// widths, 0 where it reads W1^T from device memory: the wrapper builds W1^T only then.
-int fused_relational_w1_shared(int fx, int fe, int h, int fo, int backward) {
-  const int k = 2 * fx + fe;
+// 1 where the forward stages W1 in shared memory at these widths, 0 where it reads W1^T from
+// device memory: the wrapper builds W1^T only then.
+int fused_relational_w1_shared(int fx, int fe, int h, int fo) {
   bool w1_shared = true;
-  pick_layout(backward ? bwd_smem_floats(k, h, fo, true) : smem_floats(k, h, fo, true), 0,
-              &w1_shared);
+  pick_layout(smem_floats(2 * fx + fe, h, fo, true), 0, &w1_shared);
   return w1_shared ? 1 : 0;
 }
 
@@ -793,36 +891,38 @@ int fused_relational_fwd_save(const float* x, const float* ea, const int* edge_i
                    gs, n_edges, fx, fe, h, fo, relu_edge, stream_ptr);
 }
 
-// Backward. g_eout [E, Fo]; g_agg_e [E, Fo] = g_agg[dst] (sorted_gather); writes g_xd, g_xs
-// [E, Fx] (per-edge gradients of x_dst and x_src), g_ea [E, Fe], and grads [P] packed as
-// w1, b1, w2, b2, w3, b3 ([out][in]); w1t as in the forward; partial is [max_blocks, P] scratch.
-// The edge kernel is persistent with min(tiles, max_blocks) blocks; the wrapper passes the SM
-// count, since the kernel's shared memory leaves room for one block per SM at the model's
-// widths. Returns cudaGetLastError(), or the error of widths whose shared memory does not fit
-// one block even with W1 in device memory.
-int fused_relational_bwd(const float* x, const float* ea, const int* edge_index,
-                         const uint8_t* mask, const float* w1, const float* w1t, const float* b1,
-                         const float* w2, const float* b2, const float* w3, const float* g_eout,
-                         const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
-                         float* partial, float* grads, int n_edges, int fx, int fe, int h, int fo,
-                         int relu_edge, int max_blocks, void* stream_ptr) {
-  return bwd<false>(x, nullptr, nullptr, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, g_eout,
-                    g_agg_e, g_xd, g_xs, g_ea, partial, grads, n_edges, fx, fe, h, fo, relu_edge,
-                    max_blocks, stream_ptr);
+// Backward. ids / count as in the forward; w1t = W1^T [K][H], w1p = W1 [H][K4] (rows padded
+// with zeros to K4 = K rounded up to 4), w2 = W2 [H][H], w2t = W2^T, w3 = W3 [Fo][H], every one
+// 16-byte aligned; g_eout [E, Fo]; g_agg_e [E, Fo] = g_agg[dst] (sorted_gather); writes g_xd,
+// g_xs [E, Fx] (per-edge gradients of x_dst and x_src), g_ea [E, Fe], and grads [P] packed as
+// w1, b1, w2, b2, w3, b3 ([out][in]); partial is [max_blocks, P] scratch. The edge kernel is
+// persistent with min(tiles of E, max_blocks) blocks; the wrapper passes the SM count (one block
+// an SM fits). Returns cudaGetLastError(), or the error of widths whose tiles do not fit one
+// block's shared memory even with W2 in device memory.
+int fused_relational_bwd(const float* x, const float* ea, const int* edge_index, const int* ids,
+                         const int* count, const float* w1t, const float* w1p, const float* b1,
+                         const float* w2, const float* w2t, const float* b2, const float* w3,
+                         const float* g_eout, const float* g_agg_e, float* g_xd, float* g_xs,
+                         float* g_ea, float* partial, float* grads, int n_edges, int fx, int fe,
+                         int h, int fo, int relu_edge, int max_blocks, void* stream_ptr) {
+  return bwd<false>(x, nullptr, nullptr, ea, edge_index, ids, count, w1t, w1p, b1, w2, w2t, b2,
+                    w3, g_eout, g_agg_e, g_xd, g_xs, g_ea, partial, grads, n_edges, fx, fe, h, fo,
+                    relu_edge, max_blocks, stream_ptr);
 }
 
 // The backward from the rows gd = x[dst], gs = x[src] [E, Fx] that fused_relational_fwd_save
 // wrote, in place of x (row #8 in f32, kernel D32); every output is bitwise the backward's.
 int fused_relational_bwd_saved(const float* gd, const float* gs, const float* ea,
-                               const int* edge_index, const uint8_t* mask, const float* w1,
-                               const float* w1t, const float* b1, const float* w2,
-                               const float* b2, const float* w3, const float* g_eout,
-                               const float* g_agg_e, float* g_xd, float* g_xs, float* g_ea,
-                               float* partial, float* grads, int n_edges, int fx, int fe, int h,
-                               int fo, int relu_edge, int max_blocks, void* stream_ptr) {
-  return bwd<true>(nullptr, gd, gs, ea, edge_index, mask, w1, w1t, b1, w2, b2, w3, g_eout,
-                   g_agg_e, g_xd, g_xs, g_ea, partial, grads, n_edges, fx, fe, h, fo, relu_edge,
-                   max_blocks, stream_ptr);
+                               const int* edge_index, const int* ids, const int* count,
+                               const float* w1t, const float* w1p, const float* b1,
+                               const float* w2, const float* w2t, const float* b2,
+                               const float* w3, const float* g_eout, const float* g_agg_e,
+                               float* g_xd, float* g_xs, float* g_ea, float* partial,
+                               float* grads, int n_edges, int fx, int fe, int h, int fo,
+                               int relu_edge, int max_blocks, void* stream_ptr) {
+  return bwd<true>(nullptr, gd, gs, ea, edge_index, ids, count, w1t, w1p, b1, w2, w2t, b2, w3,
+                   g_eout, g_agg_e, g_xd, g_xs, g_ea, partial, grads, n_edges, fx, fe, h, fo,
+                   relu_edge, max_blocks, stream_ptr);
 }
 
 }  // extern "C"

@@ -55,9 +55,9 @@ WEIGHT_KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 _SIGNATURES = {
     "fused_relational_fwd": [_build.P] * 13 + [_build.I] * 6 + [_build.P],
     "fused_relational_fwd_save": [_build.P] * 15 + [_build.I] * 6 + [_build.P],
-    "fused_relational_bwd": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
-    "fused_relational_bwd_saved": [_build.P] * 18 + [_build.I] * 7 + [_build.P],
-    "fused_relational_w1_shared": [_build.I] * 5,
+    "fused_relational_bwd": [_build.P] * 19 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bwd_saved": [_build.P] * 20 + [_build.I] * 7 + [_build.P],
+    "fused_relational_w1_shared": [_build.I] * 4,
 }
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
 # relu_edge (and the backward's block count), then the stream
@@ -207,19 +207,25 @@ def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=(),
     return n, e, fx, fe, h, fo
 
 
-def _w1t(lib, w1, fx, fe, h, fo, *, backward):
-    """``W1^T`` where the kernel reads it from device memory (the wide
+def _w1t(lib, w1, fx, fe, h, fo):
+    """``W1^T`` where the forward reads it from device memory (the wide
     layout), else None: narrower layers stage W1 in shared memory and take
     a null pointer."""
-    if lib.fused_relational_w1_shared(fx, fe, h, fo, int(backward)):
+    if lib.fused_relational_w1_shared(fx, fe, h, fo):
         return None
     return w1.t().contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it does not start on 16 bytes (the
+    backward reads weight rows as float4s)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _compact(edge_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The edge ids partitioned stably, unmasked first (``[E]`` int32), and a
     one-element view of the unmasked count, both on the device: no host
-    sync."""
+    sync. ``E`` must be positive."""
     e, dev = edge_mask.shape[0], edge_mask.device
     pos = torch.cumsum(edge_mask, 0, dtype=torch.int32)
     count = pos[e - 1 :]
@@ -239,7 +245,7 @@ def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_e
     saved = [torch.empty((e, fx), dtype=torch.float32, device=dev) for _ in range(2 if save else 0)]
     lib = _build.library("fused_relational", _SIGNATURES)
     p = _build.ptr
-    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=False)
+    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo)
     if e > 0:
         ids, count = _compact(edge_mask)
         err = getattr(lib, entry)(
@@ -297,7 +303,8 @@ def fused_relational_fwd_save(
 def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
              num_nodes, relu_edge):
     """Launch C entry ``what`` (row #2 from ``x``, or D32 from the saved rows
-    ``gd``, ``gs``), then row #9's per-target and per-source sums."""
+    ``gd``, ``gs``) on the unmasked edges (the forward's partition), then row
+    #9's per-target and per-source sums."""
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.float32, (e, fo)),
@@ -313,29 +320,37 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
         extra.append(("gs", gs, torch.float32, tuple(gd.shape)))
     _, _, fx, fe, h, _ = _check_inputs(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
     dev = edge_attr.device
-    g_agg_e = gather_rows(g_agg, edge_index[1])
-    lib = _build.library("fused_relational", _SIGNATURES)
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
-    # one weight-gradient partial per block of the edge kernel, at most one block per SM
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
-    packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     g_xd = torch.empty((e, fx), dtype=torch.float32, device=dev)
     g_xs = torch.empty((e, fx), dtype=torch.float32, device=dev)
     g_ea = torch.empty((e, fe), dtype=torch.float32, device=dev)
-    p = _build.ptr
-    w1t = _w1t(lib, weights["w1"], fx, fe, h, fo, backward=True)
-    rows = [p(x)] if x is not None else [p(gd), p(gs)]
-    err = getattr(lib, what)(
-        *rows, p(edge_attr), p(edge_index), p(edge_mask), p(weights["w1"]),
-        None if w1t is None else p(w1t),
-        *(p(weights[key]) for key in WEIGHT_KEYS[1:5]),
-        p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
-        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
-    )
-    _build.check(lib, err, what)
+    if e > 0:
+        g_agg_e = gather_rows(g_agg, edge_index[1])
+        lib = _build.library("fused_relational", _SIGNATURES)
+        # one weight-gradient partial per block of the edge kernel, at most one block per SM
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
+        packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        ids, count = _compact(edge_mask)
+        w1 = weights["w1"]
+        # each product reads its weight along 16-byte rows: W1^T and W2^T for the recompute,
+        # W1 (rows padded to a multiple of 4), W2 and W3 for the input gradients
+        w1p = _aligned(w1) if k % 4 == 0 else F.pad(w1, (0, -k % 4))
+        w1t, w2t = w1.t().contiguous(), weights["w2"].t().contiguous()
+        p = _build.ptr
+        rows = [p(x)] if x is not None else [p(gd), p(gs)]
+        err = getattr(lib, what)(
+            *rows, p(edge_attr), p(edge_index), p(ids), p(count), p(w1t), p(w1p),
+            p(weights["b1"]), p(_aligned(weights["w2"])), p(w2t), p(weights["b2"]),
+            p(_aligned(weights["w3"])), p(g_e_out), p(g_agg_e), p(g_xd), p(g_xs), p(g_ea),
+            p(partial), p(packed), e, fx, fe, h, fo, int(relu_edge), blocks,
+            _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, what)
+    else:
+        packed = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
     g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
     grads = {
@@ -359,10 +374,13 @@ def fused_relational_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """``(g_x [N, Fx], g_edge_attr [E, Fe], weight gradients)`` from the
     cotangents of ``(e_tilde, agg)``. CPU tensors take the plain version.
-    CUDA tensors gather ``g_agg[dst]`` (``sorted_gather`` kernel), launch
-    the backward edge kernel, and sum the per-edge node gradients per
-    target and per source (``sorted_segment_sum`` kernel); ``csr`` must
-    hold ``dst_rowptr``, ``src_perm`` and ``src_rowptr``."""
+    CUDA tensors gather ``g_agg[dst]`` (``sorted_gather`` kernel),
+    partition the edge ids as the forward does, launch the backward edge
+    kernel over the unmasked edges (masked edges get zero rows), and sum the
+    per-edge node gradients per target and per source
+    (``sorted_segment_sum`` kernel); ``csr`` must hold ``dst_rowptr``,
+    ``src_perm`` and ``src_rowptr``. Widths whose tiles do not fit one
+    block's shared memory raise ``RuntimeError``."""
     if x.device.type == "cpu":
         return fused_relational_bwd_plain(
             x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg,

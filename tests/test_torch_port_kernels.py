@@ -60,8 +60,11 @@ from gnn_tracking_tpu_torch.ops.fused_relational import (
     fused_relational as port_fused_relational,
 )
 from gnn_tracking_tpu_torch.ops.fused_relational import (
+    _compact,
     fused_relational_bwd,
     fused_relational_bwd_plain,
+    fused_relational_bwd_saved,
+    fused_relational_bwd_saved_plain,
     fused_relational_fwd,
     fused_relational_plain,
 )
@@ -289,6 +292,96 @@ def test_fused_relational_gradcheck(relu_edge):
         return port_fused_relational(x, ea, ei, mask, dict(zip(ws, w)), relu_edge=relu_edge)
 
     assert torch.autograd.gradcheck(f, (t(n, fx), t(e, fe), *ws.values()))
+
+
+def _bwd_skipping_masked(x, ea, ei, mask, w, g_e, g_agg, *, relu_edge):
+    """The backward as the CUDA kernel splits it: the plain backward over the
+    unmasked edges alone (``_compact``'s first ``count`` ids), and zero rows
+    of the per-edge gradients for the masked ones."""
+    ids, count = _compact(mask)
+    live = ids[: int(count)].long()
+    sub = ei[:, live]
+    g_x, g_ea_live, grads = fused_relational_bwd_saved_plain(
+        x[sub[1].long()], x[sub[0].long()], ea[live], sub, torch.ones(len(live), dtype=torch.bool),
+        w, g_e[live], g_agg, x.shape[0], relu_edge=relu_edge,
+    )
+    g_ea = torch.zeros_like(ea)
+    g_ea[live] = g_ea_live
+    return g_x, g_ea, grads
+
+
+def _masked_share_inputs(seed, dtype, masked_share):
+    """``_slab_inputs`` with a further ``masked_share`` of the in-window edges
+    masked: the JAX op sees it through ``inwin``, the port through the mask."""
+    ja, pa, rows, orig, mask = _slab_inputs(seed, dtype)
+    keep = np.random.default_rng(seed + 200).random(mask.shape[0]) >= masked_share
+    mask = pa[3] & torch.from_numpy(keep)
+    inwin = ja["part"]["inwin"].astype(np.float64).copy()
+    inwin[rows] *= keep[orig]
+    pa = (*pa[:3], mask, *pa[4:])
+    return ja, pa, rows, orig, mask, inwin
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+@pytest.mark.parametrize("masked_share", [0.5, 1.0])
+def test_fused_relational_bwd_skipping_masked_matches_reference_vjp_float64(masked_share, relu_edge):
+    ja, pa, rows, orig, mask, inwin = _masked_share_inputs(13, torch.float64, masked_share)
+    part = ja["part"]
+    ea_in = np.maximum(ja["ea_slab"], 0) if relu_edge else ja["ea_slab"]
+
+    def op(x, ea, w):
+        return fused_relational_reference(
+            x, ea, jnp.asarray(part["srcloc"]), jnp.asarray(part["dstloc"]), jnp.asarray(inwin), w,
+            window=W, block_e=EB,
+        )
+
+    _, vjp = jax.vjp(op, jnp.asarray(ja["x"], jnp.float64), jnp.asarray(ea_in, jnp.float64),
+                     {k: jnp.asarray(v, jnp.float64) for k, v in ja["w"].items()})
+    jax_grads = vjp((jnp.asarray(ja["g_e_slab"]), jnp.asarray(ja["g_agg"])))
+    skip = _bwd_skipping_masked(*pa, relu_edge=relu_edge)
+    full = fused_relational_bwd_plain(*pa, relu_edge=relu_edge)
+    assert (int(mask.sum()) == 0) == (masked_share == 1.0)
+    for out in (skip, full):
+        _check_backward(out, jax_grads, rows, orig, pa[1].numpy(), relu_edge, 1e-10, 1e-10)
+    for a, b in zip([skip[0], skip[1], *skip[2].values()], [full[0], full[1], *full[2].values()]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10, atol=1e-10 * max(1.0, b.abs().max().item()))
+    # the masked edges' per-edge gradients are exact zeros
+    assert (skip[1][~mask] == 0).all()
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+@pytest.mark.parametrize("masked_share", [0.5, 1.0])
+def test_fused_relational_bwd_skipping_masked_matches_pallas_vjp(masked_share, relu_edge):
+    ja, pa, rows, orig, mask, inwin = _masked_share_inputs(14, torch.float32, masked_share)
+    part = ja["part"]
+    ea_slab = ja["ea_slab"].astype(np.float32)
+    ea_in = np.maximum(ea_slab, 0) if relu_edge else ea_slab
+
+    def op(x, ea, w):
+        return fused_relational(
+            W, EB, "float32", True, x, ea, jnp.asarray(part["srcloc"]), jnp.asarray(part["dstloc"]),
+            jnp.asarray(inwin.astype(np.float32)), w,
+        )
+
+    _, vjp = jax.vjp(op, jnp.asarray(ja["x"], jnp.float32), jnp.asarray(ea_in),
+                     {k: jnp.asarray(v, jnp.float32) for k, v in ja["w"].items()})
+    jax_grads = vjp((jnp.asarray(ja["g_e_slab"], jnp.float32), jnp.asarray(ja["g_agg"], jnp.float32)))
+    out = _bwd_skipping_masked(*pa, relu_edge=relu_edge)
+    _check_backward(out, jax_grads, rows, orig, pa[1].numpy(), relu_edge, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize(
+    "mask",
+    [np.zeros(50, bool), np.ones(50, bool), np.zeros(1, bool), np.ones(1, bool),
+     np.random.default_rng(15).random(1000) < 0.5],
+    ids=["all-masked", "none-masked", "one-masked", "one-unmasked", "half"],
+)
+def test_compact_is_the_stable_partition(mask):
+    ids, count = _compact(torch.from_numpy(mask))
+    assert ids.dtype == torch.int32 and count.shape == (1,)
+    assert int(count) == int(mask.sum())
+    want = np.concatenate([np.flatnonzero(mask), np.flatnonzero(~mask)])
+    np.testing.assert_array_equal(ids.numpy(), want)
 
 
 # ----------------------------------------------- sorted segment-sum / gather
@@ -527,24 +620,42 @@ def _cuda_graph(cuda, n=500, e=4000, seed=0):
     return g.to(cuda)
 
 
+# (edges, unmasked share, fx, fe, h, fo): unmasked shares 1 / 0.5 / 0, an edge count that is
+# not a multiple of the kernel's 64-edge tiles, and ec.yml's widths (K = 192, W2 not staged)
+_BWD_CASES = {
+    "all-unmasked": (4000, 1.0, 8, 8, 32, 8),
+    "half-unmasked": (4000, 0.5, 8, 8, 32, 8),
+    "none-unmasked": (4000, 0.0, 8, 8, 32, 8),
+    "ragged-1000": (1000, 0.8, 8, 8, 32, 8),
+    "wide": (4000, 0.8, 64, 64, 128, 64),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("relu_edge", [False, True])
-def test_cuda_fused_relational_bwd_matches_plain(cuda, relu_edge):
-    g = _cuda_graph(cuda)
-    n, e, fx, fe, h, fo = g.num_nodes, g.num_edges, 8, 8, 32, 8
+@pytest.mark.parametrize("case", list(_BWD_CASES))
+def test_cuda_fused_relational_bwd_matches_plain(cuda, case, relu_edge):
+    e, share, fx, fe, h, fo = _BWD_CASES[case]
+    g = _cuda_graph(cuda, e=e)
+    n = g.num_nodes
     gen = torch.Generator(device=cuda).manual_seed(0)
     r = lambda *shape, s=1.0: torch.randn(shape, generator=gen, device=cuda) * s
     w = {"w1": r(h, 2 * fx + fe, s=0.2), "b1": r(h), "w2": r(h, h, s=0.2), "b2": r(h),
          "w3": r(fo, h, s=0.2), "b3": r(fo)}
-    mask = g.edge_mask & (torch.rand(e, generator=gen, device=cuda) < 0.8)
+    mask = torch.rand(e, generator=gen, device=cuda) < share
     args = (r(n, fx), r(e, fe), g.edge_index, mask, w, r(e, fo), r(n, fo))
     k = fused_relational_bwd(*args, g.csr(), relu_edge=relu_edge)
     k2 = fused_relational_bwd(*args, g.csr(), relu_edge=relu_edge)
+    src, dst = g.edge_index.long()
+    d = fused_relational_bwd_saved(args[0][dst], args[0][src], *args[1:5], *args[5:], g.csr(), n,
+                                   relu_edge=relu_edge)
     p = fused_relational_bwd_plain(*args, relu_edge=relu_edge)
     torch.cuda.synchronize()
-    for a, a2, b in zip([k[0], k[1], *k[2].values()], [k2[0], k2[1], *k2[2].values()],
-                        [p[0], p[1], *p[2].values()]):
+    assert (k[1][~mask] == 0).all()
+    for a, a2, ad, b in zip([k[0], k[1], *k[2].values()], [k2[0], k2[1], *k2[2].values()],
+                            [d[0], d[1], *d[2].values()], [p[0], p[1], *p[2].values()]):
         assert torch.equal(a, a2)
+        assert torch.equal(a, ad)  # D32 is bitwise row #2
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
