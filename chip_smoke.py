@@ -133,9 +133,12 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
 ``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
 and D32 at both widths and at unmasked shares 1.0, 0.8, 0.5, 0.0 and a
-ragged edge count) and stops. With ``--package-root DIR`` either runs the
-package in DIR (an older tree unpacked beside this one) on the same inputs
-and card.
+ragged edge count) and stops; ``--topk-only`` builds, runs ``topk_timings``
+(row #12 on the ML latent at step 0 and trained, the serving shapes, phase
+10 (a)'s input at k = 8, 64, 256, an adversarial order, duplicates, a
+ragged N and N < k; each against its plain version and repeat bitwise) and
+stops. With ``--package-root DIR`` each runs the package in DIR (an older
+tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
 result and exits with code 2.
@@ -180,7 +183,8 @@ ML_LOSS = {"lw_repulsive": 0.5, "max_num_neighbors": 256}
 ML_HITS, ML_PARTICLES = 32768, 2048
 # graph construction at full-detector scale (bench.py:484-509, extra_knn)
 # steps before phase 7's timed window: the random model's compact latent
-# makes the first steps ~20x dearer, and by then it has spread
+# (full rows in the hinge loss's radius graph) makes the first steps dearer,
+# and by then it has spread
 ML_WARMUP = 30
 GC_HITS, GC_PARTICLES, GC_K, GC_RADIUS = 262144, 16384, 8, 1.0
 LAYER_RADII = np.linspace(0.03, 1.0, 16)
@@ -507,6 +511,24 @@ def compare_topk(kd, ki, pd, pi, boundary2):
     return err, n_boundary, n_tie
 
 
+def assert_key_order(kd, ki, what: str) -> int:
+    """The contract's order on a top-k's own values, row by row: filled slots
+    first, squared distances ascending, exactly equal ones by rising index
+    (ties to the lower index); unfilled slots ``(+inf, 0)``. Holds where
+    ``compare_topk`` lets equal-distance neighbours swap. Returns the number
+    of exactly tied neighbouring slots."""
+    import torch
+
+    fin = torch.isfinite(kd)
+    assert not (~fin[:, :-1] & fin[:, 1:]).any(), f"{what}: a filled slot after an unfilled one"
+    assert not ki[~fin].any(), f"{what}: an unfilled slot with an index"
+    both = fin[:, :-1] & fin[:, 1:]
+    assert not (both & (kd[:, 1:] < kd[:, :-1])).any(), f"{what}: squared distances not ascending"
+    tie = both & (kd[:, 1:] == kd[:, :-1])
+    assert not (tie & (ki[:, 1:] <= ki[:, :-1])).any(), f"{what}: equal distances not by rising index"
+    return int(tie.sum())
+
+
 def profile_run(fn, name: str):
     """``torch.profiler`` over ``fn()``: device time by kernel name, and the
     device's busy and idle share of the wall time. The Chrome trace goes to
@@ -817,6 +839,151 @@ def relational_bwd_timings(seed: int) -> dict:
                     f"({n_valid} of {e} edges): OK; {ms:.3f} ms, D32 {ms_d:.3f} ms (plain {plain:.3f} ms, "
                     f"bound {bnd:.4f} ms by {by})")
     log("fused_relational_bwd timings: " + json.dumps(out))
+    return out
+
+
+TOPK_TRAIN_STEPS = ML_WARMUP + 15  # optimizer steps behind phase 7's trained latent (30 + 10 + 5)
+
+
+def filter_bound(x, k: int, mask, batch) -> tuple[float, str]:
+    """Row #12's bound: 3 flops per dimension for each pair of a query (every
+    point, masked ones too) and a valid candidate of its batch; bytes of the
+    points, mask, batch ids and the [N, k] outputs."""
+    import torch
+
+    ids = batch.long()
+    queries = torch.bincount(ids).double()
+    valid = torch.bincount(ids[mask], minlength=queries.numel()).double()
+    return bound(3.0 * x.shape[1] * float((queries * valid).sum()),
+                 nbytes(x, mask, batch) + 8 * x.shape[0] * k)
+
+
+def topk_inputs(seed: int, condensed) -> tuple[list, float]:
+    """The inputs of ``topk_timings``: ``(name, points, keyword arguments of
+    pairwise_topk_filter)`` each, and the seconds the ML training took."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.models.graph_construction import GraphConstructionFCNN
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+    from gnn_tracking_tpu_torch.training.module import MLModule
+
+    dev = torch.device("cuda")
+    r2_ml = ML_LOSS.get("r_emb", 1.0) ** 2 * (1.0 + 1e-3)
+    r2_serve = EPS * EPS * (1.0 + 1e-3)
+    g = EventGraph.from_arrays(**make_point_cloud(seed + 80, ML_HITS, ML_PARTICLES)).to(dev)
+    model = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 81))
+    module = MLModule(model=model, loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR, device="cuda")
+    module.setup_params(g)
+    with torch.no_grad():
+        h_step0 = model(g)["H"].detach().contiguous()
+    t0 = time.perf_counter()
+    while module.step < TOPK_TRAIN_STEPS:
+        module.training_step(g)
+    train_s = time.perf_counter() - t0
+    with torch.no_grad():
+        h_trained = model(g)["H"].detach().contiguous()
+    tcn = condensed(GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed))).to(dev).eval()
+    ev = EventGraph.from_arrays(**make_event(seed + 10)).to(dev).sort_edges_by_target(with_unsort=True)
+    with torch.no_grad():
+        h_serve = tcn(ev)["H"].float().contiguous()
+    x10 = torch.from_numpy(make_bench_latent(seed + 140, ML_HITS)[0]).to(dev)
+    mask10 = torch.from_numpy(np.random.default_rng(seed + 141).random(ML_HITS) >= 0.1).to(dev)
+    batch10 = torch.from_numpy((np.arange(ML_HITS) >= ML_HITS // 2).astype(np.int32)).to(dev)
+    rng = np.random.default_rng(seed + 150)
+    direction = rng.normal(size=8)
+    line = (1e-3 * np.arange(ML_HITS)[:, None] * direction / np.linalg.norm(direction)).astype(np.float32)
+    dup = np.repeat(rng.normal(size=(1024, 8)).astype(np.float32), ML_HITS // 1024, axis=0)
+    ragged = rng.normal(size=(ML_HITS - 37, 8)).astype(np.float32)
+    small = rng.normal(size=(100, 8)).astype(np.float32)
+    wide = rng.normal(size=(ML_HITS, 20)).astype(np.float32)
+    on = lambda a: torch.from_numpy(a).to(dev)
+    # (name, points, keyword arguments)
+    runs = [
+        ("ml_step0_radius_k256", h_step0, {"k": 256, "radius2": r2_ml}),
+        ("ml_trained_radius_k256", h_trained, {"k": 256, "radius2": r2_ml}),
+        ("serving_radius_k64", h_serve, {"k": CAP, "radius2": r2_serve}),
+        ("serving_knn_k64", h_serve, {"k": CAP}),
+        *[(f"phase10_knn_k{k}", x10, {"k": k, "node_mask": mask10, "batch": batch10}) for k in (8, 64, 256)],
+        ("adversarial_line_knn_k256", on(line), {"k": 256}),
+        ("adversarial_line_radius_k256", on(line), {"k": 256, "radius2": 1.0}),
+        ("duplicates_knn_k64", on(dup), {"k": 64}),
+        ("duplicates_radius_k256", on(dup), {"k": 256, "radius2": 0.5}),
+        ("ragged_n32731_knn_k256", on(ragged), {"k": 256}),
+        ("small_n100_knn_k256", on(small), {"k": 256}),
+        # the other padded widths (D = 3, 14 and 20: 4, 16 and 32 columns) and `loop`
+        ("hits_xyz_d3_knn_k64", g.extras["xyz"].contiguous(), {"k": 64}),
+        ("features_d14_knn_k16_loop", g.x.contiguous(), {"k": 16, "loop": True}),
+        ("random_d20_knn_k32", on(wide), {"k": 32}),
+    ]
+    if getattr(pt, "MAX_K_FILTER", 0) >= 512:
+        runs.append(("k512_radius", h_trained, {"k": 512, "radius2": r2_ml}))
+    return runs, train_s
+
+
+def topk_timings(seed: int, condensed) -> dict:
+    """Row #12 (``pairwise_topk_filter``) on the inputs of ``--topk-only``:
+    radius mode at k = 256 on phase 7's cloud embedded by the random FCNN
+    (step 0: full rows) and by the FCNN after ``TOPK_TRAIN_STEPS``
+    ``MLModule`` steps (as phase 7 trains it); the serving shapes (phase 3's
+    latent of ``condensed``, r = 0.3 with phase 3's inflation, k = 64, and
+    kNN mode); phase 10 (a)'s input (two batches, 10 % masked) in kNN mode at
+    k = 8, 64 and 256, bitwise equal to row #13 on the unmasked queries; an
+    adversarial order (points on a line: each query's candidates below it
+    arrive by decreasing distance, so every one improves the running set);
+    exact duplicates (1,024 points 32 times each: ties); N = 32,731 (a
+    ragged last block and tile) and N = 100 < k; the ML cloud's 3-d hit
+    coordinates, its 14 node features (``loop=True``) and a 20-d normal
+    cloud, the kernel's other padded widths; k = 512 where the package takes
+    it. Each run: ``compare_topk`` against the plain version, a second
+    launch bitwise the first; the kernel (``cuda_ms``) and the plain version
+    timed beside the bound. It calls only the package's public functions, so
+    ``--topk-only --package-root`` times another tree's kernel on the same
+    inputs (the trained latent up to the training's own nondeterminism)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    runs, train_s = topk_inputs(seed, condensed)
+    out = {}
+    for name, x, kw in runs:
+        k, r2, mask, batch = kw["k"], kw.get("radius2"), kw.get("node_mask"), kw.get("batch")
+        kd, ki = pt.pairwise_topk_filter(x, **kw)
+        kd2, ki2 = pt.pairwise_topk_filter(x, **kw)
+        pd, pi = pt.pairwise_topk_filter_plain(x, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"pairwise_topk_filter ({name}): second launch differs"
+        err, nb, nt = compare_topk(kd, ki, pd, pi, r2)
+        ties = assert_key_order(kd, ki, f"pairwise_topk_filter ({name})")
+        extra = ""
+        if batch is not None:
+            sd, si = pt.pairwise_topk(x, k=k, node_mask=mask, batch=batch)
+            torch.cuda.synchronize()
+            assert torch.equal(sd[mask], kd[mask]) and torch.equal(si[mask], ki[mask]), (
+                f"pairwise_topk_filter ({name}): unmasked rows differ from row #13's")
+            extra = ", unmasked rows bitwise row #13's"
+        filled = torch.isfinite(kd).sum(dim=1).float()
+        first = cuda_ms(lambda: pt.pairwise_topk_filter(x, **kw), reps=1, rounds=1)
+        fast = first < 50.0
+        ms = cuda_ms(lambda: pt.pairwise_topk_filter(x, **kw), reps=5 if fast else 1, rounds=5 if fast else 3)
+        plain = cuda_ms(lambda: pt.pairwise_topk_filter_plain(x, **kw), reps=1, rounds=3)
+        n = x.shape[0]
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        bnd, by = filter_bound(x, k, ones if mask is None else mask,
+                               torch.zeros(n, dtype=torch.int32, device=dev) if batch is None else batch)
+        out[name] = {"n": n, "k": k, "radius2": r2, "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by, "max_abs_err": err, "filled_mean": filled.mean().item(),
+                     "full_rows": int((filled == k).sum())}
+        log(f"  pairwise_topk_filter {name} (N={n}, D={x.shape[1]}, k={k}, radius2={r2}): OK max|err| "
+            f"{err:.3e} ({nb} boundary rows, {nt} tie rows), key order ({ties} exact ties by rising "
+            f"index), repeat bitwise{extra}; filled slots per row mean "
+            f"{filled.mean().item():.1f}, {int((filled == k).sum())} full rows; {ms:.3f} ms (plain "
+            f"{plain:.3f} ms, bound {bnd:.4f} ms by {by})")
+    out["ml_training_s"] = train_s
+    log("pairwise_topk_filter timings: " + json.dumps(out))
     return out
 
 
@@ -1165,6 +1332,7 @@ def ml_training_path(seed: int, steps: int, profile: bool):
         pd, pi = pairwise_topk.pairwise_topk_filter_plain(h, k=k, radius2=r2)
         torch.cuda.synchronize()
         err, nb, nt = compare_topk(kd, ki, pd, pi, r2)
+        assert_key_order(kd, ki, f"pairwise_topk_filter (ML latent {when})")
         filled = torch.isfinite(kd).sum(dim=1).float()
         ms = cuda_ms(lambda: topk(h, k=k, radius2=r2), reps=1, rounds=5)
         plain = cuda_ms(lambda: pairwise_topk.pairwise_topk_filter_plain(h, k=k, radius2=r2),
@@ -2049,6 +2217,9 @@ def main(argv=None) -> int:
                    help="build, check and time row #2 and D32 at the GraphTCN HC layer's and "
                    "ec.yml's widths at several unmasked shares (relational_bwd_timings), "
                    "print them and stop")
+    p.add_argument("--topk-only", action="store_true",
+                   help="build, check and time row #12 (pairwise_topk_filter) on the ML, "
+                   "serving, phase 10 and adversarial inputs (topk_timings), print them and stop")
     p.add_argument("--package-root", type=Path, default=REPO,
                    help="directory holding the gnn_tracking_tpu_torch package to run "
                    "(default: beside this script), e.g. an older tree to compare on one card")
@@ -2117,6 +2288,12 @@ def main(argv=None) -> int:
             out = self.tcn(data)
             out["H"] = data.extras["serving_centers"].float() + 0.02 * out["H"]
             return out
+
+    if args.topk_only:
+        log(f"package: {root}")
+        topk_timings(args.seed, CondensedGraphTCN)
+        print(smi)
+        return 0
 
     # ---- 2. small-input reference: plain on the CPU vs kernels on the card
     rng = np.random.default_rng(args.seed + 100)
@@ -2211,6 +2388,8 @@ def main(argv=None) -> int:
         kdn, kin = pairwise_topk.pairwise_topk_filter(H, k=CAP)
         pdn, pin = pairwise_topk.pairwise_topk_filter_plain(H, k=CAP)
         err2n, nb2n, nt2n = compare_topk(kdn, kin, pdn, pin, None)
+        assert_key_order(kd, ki, "pairwise_topk_filter (radius)")
+        assert_key_order(kdn, kin, "pairwise_topk_filter (kNN)")
         filled = int(torch.isfinite(kd).sum())
         assert filled > 0 and int(torch.isfinite(kd).sum(dim=1).max()) < CAP, "cap must exceed eps-neighbourhoods"
         ms2 = cuda_ms(lambda: pairwise_topk.pairwise_topk_filter(H, k=CAP, radius2=r2))

@@ -12,12 +12,10 @@ the live ``x``, so losses differentiate through them.
 resident top-k when the points take at most 8 MiB or a ``batch`` is given,
 the IVF kNN (``ops/ivf_knn.py``) otherwise. Both are exact. The resident
 top-k is ``pairwise_topk`` (the split kernel pair) up to ``SPLIT_MAX_K``
-neighbours, where its candidate splits fill the card that
-``pairwise_topk_filter`` leaves part idle, and ``pairwise_topk_filter``
-above, where each split refilling its own list costs more than that (the
-two give the same graph). Two environment variables, read when the module
-is imported as the JAX module reads them, override the choices (tests set
-the module attributes instead):
+neighbours and ``pairwise_topk_filter`` above (the two give the same graph;
+``chip_smoke.py`` phase 10 (a) times both at k = 8 to 256). Two environment
+variables, read when the module is imported as the JAX module reads them,
+override the choices (tests set the module attributes instead):
 
 * ``GNN_TRACKING_KNN_SMALL_IMPL`` (``_SMALL_TOPK_IMPL``, unset: by ``k``
   as above): ``"filter"`` always ``pairwise_topk_filter``, ``"pallas"``
@@ -41,9 +39,9 @@ from gnn_tracking_tpu_torch.ops.windowed_topk import windowed_knn
 #: largest point array (bytes of float32) for the resident top-k
 RESIDENT_BYTES = 8 * 1024 * 1024
 
-#: largest k for which the resident top-k takes the split kernel pair: on an
-#: H100 it beats the filter kernel up to k = 16 and loses from k = 32 (32,768
-#: points; ``chip_smoke.py`` phase 10 (a) times both at k = 8 to 256)
+#: largest k for which the resident top-k takes the split kernel pair
+#: (``chip_smoke.py`` phase 10 (a) times both kernels at k = 8 to 256 on
+#: 32,768 points)
 SPLIT_MAX_K = 16
 
 _SMALL_TOPK_IMPL = os.environ.get("GNN_TRACKING_KNN_SMALL_IMPL")

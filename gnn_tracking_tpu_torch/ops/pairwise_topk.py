@@ -8,10 +8,11 @@ ascending, ties to the lower index. Candidates must share the query's
 query itself. Unfilled slots are ``(+inf, 0)`` everywhere. The functions
 differ in their masked queries and options:
 
-* ``pairwise_topk_filter`` (CUDA kernel ``csrc/pairwise_topk.cu``): masked
-  queries still report their neighbours (their coordinates are taken as
-  zero, as in the JAX function); with ``radius2``, at most ``k`` nearest
-  with ``d2 <= radius2``;
+* ``pairwise_topk_filter`` (CUDA kernel ``csrc/pairwise_topk.cu``, a
+  warp-cooperative selection in registers): masked queries still report
+  their neighbours (their coordinates are taken as zero, as in the JAX
+  function); with ``radius2``, at most ``k`` nearest with ``d2 <=
+  radius2``. The kernel takes ``k <= MAX_K_FILTER``;
 * ``pairwise_topk`` and ``pairwise_topk_streaming`` (CUDA kernels
   ``csrc/pairwise_topk_split.cu``, one pair for both): masked queries get
   ``(+inf, 0)`` in every slot; ``pairwise_topk_streaming`` takes no
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import struct
 
 import torch
 
@@ -33,8 +35,14 @@ MAX_K_SPLIT = 256
 #: queries per block of the plain version ([BLOCK_Q, N] distances at a time)
 BLOCK_Q = 1024
 
+#: largest k of the filter kernel (a warp queue of at most 16 keys a lane)
+MAX_K_FILTER = 512
+#: the filter kernel's candidate rows are padded with NaN rows to a multiple of
+#: this (whole tiles)
+CAND_ALIGN = 512
+
 _SIGNATURES = {
-    "pairwise_topk_filter": [_build.P] * 5 + [_build.I] * 4 + [_build.F, _build.P],
+    "pairwise_topk_filter": [_build.P] * 5 + [_build.I] * 6 + [ctypes.c_uint64, _build.P],
 }
 _SIGNATURES_SPLIT = {
     "pairwise_topk_split_plan": [_build.I] * 3 + [_build.P] * 2,
@@ -42,15 +50,26 @@ _SIGNATURES_SPLIT = {
 }
 
 
-def _defaults(x, node_mask, batch):
-    n = x.shape[0]
-    if node_mask is None:
-        node_mask = torch.ones(n, dtype=torch.bool, device=x.device)
-    if batch is None:
-        batch = torch.zeros(n, dtype=torch.int32, device=x.device)
-    xe = torch.where(node_mask[:, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-    cbatch = torch.where(node_mask, batch.to(torch.int32), -2)
-    return xe, cbatch, batch.to(torch.int32)
+def _defaults(x, node_mask, batch, rows=None, cols=None):
+    """``(xe, cbatch, qbatch)``: the points with masked queries' coordinates
+    taken as zero, the candidates' batch ids with masked candidates -2, and
+    the queries' batch ids ``[N]``. With ``rows`` / ``cols`` (the filter
+    kernel's padding), ``xe`` is ``[rows, cols]`` and ``cbatch`` ``[rows]``:
+    zero columns (they add nothing to a distance) and NaN rows of batch id 0
+    (never selected)."""
+    n, d = x.shape
+    rows, cols = rows or n, cols or d
+    xe = x.new_zeros((rows, cols))
+    xe[n:] = math.nan
+    xe[:n, :d] = x if node_mask is None else torch.where(node_mask[:, None], x, 0.0)
+    cbatch = torch.zeros(rows, dtype=torch.int32, device=x.device)
+    if batch is not None:
+        cbatch[:n] = batch
+    qbatch = cbatch[:n]
+    if node_mask is not None:
+        qbatch = qbatch.clone()
+        cbatch[:n].masked_fill_(~node_mask, -2)
+    return xe, cbatch, qbatch
 
 
 def pairwise_topk_filter_plain(
@@ -95,6 +114,28 @@ def pairwise_topk_filter_plain(
     return dists, idx
 
 
+def _padded_dim(d: int) -> int:
+    """Columns of the filter kernel's point rows: ``d`` rounded up to 4, 8,
+    16 or 32 (16-byte rows; the zero columns add nothing to a distance)."""
+    return next(p for p in (4, 8, 16, 32) if d <= p)
+
+
+def _radius_sentinel(radius2: float | None) -> int:
+    """The filter kernel's warp-queue sentinel: ``(float_bits(r2) << 32) |
+    0xFFFFFFFF`` with ``r2`` the float32 radius (+inf without one). A
+    candidate's key is ``(float_bits(d2) << 32) | j``, so the kernel's strict
+    ``key < sentinel`` admits exactly ``d2 <= r2``; a negative or NaN radius
+    admits nothing (0)."""
+    r2 = (math.inf if radius2 is None else float(radius2)) + 0.0  # -0 -> +0
+    if not r2 >= 0:
+        return 0
+    try:
+        bits = struct.unpack("<I", struct.pack("<f", r2))[0]  # rounded to nearest
+    except OverflowError:  # beyond float32: +inf
+        bits = 0x7F800000
+    return (bits << 32) | 0xFFFFFFFF
+
+
 def pairwise_topk_filter(
     x: torch.Tensor,
     *,
@@ -105,23 +146,28 @@ def pairwise_topk_filter(
     radius2: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dists_sq [N, k], idx [N, k] int32)``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel, which takes ``k <=
+    MAX_K_FILTER``."""
     if x.device.type == "cpu":
         return pairwise_topk_filter_plain(
             x, k=k, node_mask=node_mask, batch=batch, loop=loop, radius2=radius2
         )
     _check_cuda("pairwise_topk_filter", x, node_mask, batch)
+    if k > MAX_K_FILTER:
+        msg = f"pairwise_topk_filter: the CUDA kernel takes k <= {MAX_K_FILTER}, got {k}"
+        raise ValueError(msg)
     n, d = x.shape
-    xe, cbatch, qbatch = _defaults(x, node_mask, batch)
-    xe, cbatch, qbatch = xe.contiguous(), cbatch.contiguous(), qbatch.contiguous()
     out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    r2 = math.inf if radius2 is None else float(radius2)
+    if n == 0 or k == 0:
+        return out_d, out_i
+    rows = -(-n // CAND_ALIGN) * CAND_ALIGN
+    xp, cbp, qbatch = _defaults(x, node_mask, batch, rows, _padded_dim(d))
     lib = _build.library("pairwise_topk", _SIGNATURES)
     p = _build.ptr
     err = lib.pairwise_topk_filter(
-        p(xe), p(cbatch), p(qbatch), p(out_d), p(out_i), n, d, k, int(loop), r2,
-        _build.stream_ptr(x.device),
+        p(xp), p(cbp), p(qbatch), p(out_d), p(out_i), n, rows, d, xp.shape[1], k, int(loop),
+        _radius_sentinel(radius2), _build.stream_ptr(x.device),
     )
     _build.check(lib, err, "pairwise_topk_filter")
     pairwise_topk_filter.launches += 1
@@ -191,7 +237,7 @@ def _split_topk(what, x, k, node_mask, batch, loop):
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     if n == 0 or k == 0:
         return out_d, out_i, 0
-    xe, cbatch, qbatch = (t.contiguous() for t in _defaults(x, node_mask, batch))
+    xe, cbatch, qbatch = _defaults(x, node_mask, batch)
     qvalid = (
         torch.ones(n, dtype=torch.bool, device=dev) if node_mask is None else node_mask.contiguous()
     )

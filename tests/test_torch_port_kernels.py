@@ -693,14 +693,149 @@ def test_cuda_interaction_network_weights_get_gradients(cuda):
         assert p.grad.abs().max() > 0, name
 
 
-@pytest.mark.cuda
-def test_cuda_pairwise_topk_matches_plain(cuda):
+def _assert_kernel_topk_matches_plain(x, mask, batch, kd, ki, pd, pi, radius2):
+    """Row #12's kernel against its plain version.
+
+    * The kernel's own order holds exactly: filled slots first, d2
+      ascending, exactly equal d2 by rising index; unfilled slots (+inf, 0);
+      every index a valid candidate of its query (same batch, unmasked, not
+      itself), within the radius.
+    * Against the plain version: the same filled slots (rows with a d2 within
+      1e-5 r^2 of r^2 exempt) with d2 within rtol 1e-5 / atol 1e-6, and the
+      same index in every slot but where neighbours change places by
+      rounding. The kernel sums (q - c)^2 with FMAs (D roundings), the plain
+      version squares then adds (2D - 1), each under an ulp of the sum of D
+      non-negative terms: a pair's two d2 differ by less than 3D ulps, so do
+      the two lists' order statistics, and a slot may hold another index only
+      if that index's plain d2 lies within 6D ulps of the plain slot's.
+    """
+    kd, ki, pd, pi = (t.cpu().numpy() for t in (kd, ki, pd, pi))
+    n, d = x.shape
+    fin_k, fin_p = np.isfinite(kd), np.isfinite(pd)
+    assert (ki[~fin_k] == 0).all()
+    assert not (~fin_k[:, :-1] & fin_k[:, 1:]).any()
+    adj = fin_k[:, :-1] & fin_k[:, 1:]
+    assert (kd[:, 1:][adj] >= kd[:, :-1][adj]).all()
+    tie = adj & (kd[:, 1:] == kd[:, :-1])
+    assert (ki[:, 1:][tie] > ki[:, :-1][tie]).all()
+    q = np.broadcast_to(np.arange(n)[:, None], ki.shape)
+    assert (ki[fin_k] != q[fin_k]).all()
+    assert mask[ki[fin_k]].all() and (batch[ki][fin_k] == batch[q[fin_k]]).all()
+    rows = np.ones(n, dtype=bool)
+    if radius2 is not None:
+        assert (kd[fin_k] <= np.float32(radius2)).all()
+        near = lambda v: np.isfinite(v) & (np.abs(v - radius2) <= 1e-5 * radius2)
+        rows = ~(near(kd) | near(pd)).any(axis=1)
+    np.testing.assert_array_equal(fin_k[rows], fin_p[rows])
+    both = fin_k & fin_p
+    np.testing.assert_allclose(kd[both], pd[both], rtol=1e-5, atol=1e-6)
+    xe = np.where(mask[:, None], x, np.float32(0))
+    for r, s in zip(*np.nonzero(rows[:, None] & fin_p & (ki != pi))):
+        assert len(set(ki[r][fin_k[r]].tolist())) == fin_k[r].sum(), r
+        acc = np.float32(0)  # the plain version's arithmetic for the kernel's index
+        for j in range(d):
+            df = xe[r, j] - xe[ki[r, s], j]
+            acc = acc + df * df
+        assert abs(acc - pd[r, s]) <= 6 * d * np.spacing(max(acc, pd[r, s])), (r, s, acc, pd[r, s])
+
+
+def _filter_case(k, case):
+    """Row #12's test inputs: N = 2000 (two batches, 10 % masked), D = 8, in
+    kNN or radius mode (partial or full rows), duplicated points, or N < k."""
     x, mask, batch = _points(6, n=2000, d=8)
-    args = [torch.from_numpy(a).to(cuda) for a in (x, mask, batch)]
-    for radius2 in (None, 2.0):
-        kd, ki = pairwise_topk_filter(args[0], k=32, node_mask=args[1], batch=args[2], radius2=radius2)
-        pd, pi = pairwise_topk_filter_plain(args[0], k=32, node_mask=args[1], batch=args[2], radius2=radius2)
-        _assert_topk_equal(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu(), radius2=radius2)
+    radius2 = {"radius_partial": 2.0, "radius_full": 400.0}.get(case)
+    if case == "duplicates":
+        x = np.repeat(x[:500], 4, axis=0)
+    if case == "n_below_k":
+        x, mask, batch = x[: max(k // 2, 1)], mask[: max(k // 2, 1)], batch[: max(k // 2, 1)]
+    return x, mask, batch, radius2
+
+
+def _fma_order_topk(x, mask, batch, k, radius2):
+    """The filter kernel's result emulated on the host: d2 summed as
+    ``acc = fma(df, df, acc)`` (the product and sum in float64, rounded once
+    to float32), sorted by (d2, index)."""
+    n, d = x.shape
+    xe = np.where(mask[:, None], x, np.float32(0))
+    acc = np.zeros((n, n), dtype=np.float32)
+    for j in range(d):
+        df = (xe[:, None, j] - xe[None, :, j]).astype(np.float64)
+        acc = (df * df + acc).astype(np.float32)
+    invalid = (np.where(mask, batch, -2)[None, :] != batch[:, None]) | np.eye(n, dtype=bool)
+    if radius2 is not None:
+        invalid |= acc > np.float32(radius2)
+    acc[invalid] = np.inf
+    idx = np.argsort(acc, axis=1, kind="stable")[:, :k]
+    dist = np.take_along_axis(acc, idx, axis=1)
+    return torch.from_numpy(dist), torch.from_numpy(np.where(np.isfinite(dist), idx, 0).astype(np.int32))
+
+
+@pytest.mark.parametrize("k", [64, 512])
+@pytest.mark.parametrize("case", ["knn", "radius_partial", "duplicates"])
+def test_kernel_topk_check_accepts_fma_rounding(k, case):
+    """``_assert_kernel_topk_matches_plain`` (the card test's comparison)
+    passes the kernel's arithmetic emulated on the host, whose d2 differ
+    from the plain version's in the last places."""
+    x, mask, batch, radius2 = _filter_case(k, case)
+    kw = {"node_mask": torch.from_numpy(mask), "batch": torch.from_numpy(batch), "radius2": radius2}
+    pd, pi = pairwise_topk_filter_plain(torch.from_numpy(x), k=k, **kw)
+    kd, ki = _fma_order_topk(x, mask, batch, k, radius2)
+    if case == "knn" and k == 512:
+        assert (ki != pi).any()  # neighbours that changed places by rounding
+    _assert_kernel_topk_matches_plain(x, mask, batch, kd, ki, pd, pi, radius2)
+
+
+@pytest.mark.parametrize("fault", ["tie_swapped", "query_itself", "neighbours_swapped"])
+def test_kernel_topk_check_rejects_faults(fault):
+    """... and fails a result with an exactly tied pair higher index first,
+    the query among its own neighbours, or two neighbours of different d2
+    swapped."""
+    case = "knn" if fault == "neighbours_swapped" else "duplicates"
+    x, mask, batch, radius2 = _filter_case(64, case)
+    pd, pi = pairwise_topk_filter_plain(
+        torch.from_numpy(x), k=64, node_mask=torch.from_numpy(mask), batch=torch.from_numpy(batch))
+    kd, ki = _fma_order_topk(x, mask, batch, 64, radius2)
+    kd, ki = kd.numpy(), ki.numpy().copy()
+    if fault == "tie_swapped":
+        tie = (kd[:, 1:] == kd[:, :-1]) & np.isfinite(kd[:, 1:])
+        rows = np.flatnonzero(tie.any(axis=1))
+        cols = tie[rows].argmax(axis=1)
+        ki[rows, cols], ki[rows, cols + 1] = ki[rows, cols + 1], ki[rows, cols].copy()
+    elif fault == "query_itself":  # in its duplicates' run of d2 0, in index order
+        for r in np.flatnonzero(kd[:, 0] == 0):
+            run = int((kd[r] == 0).sum())
+            ki[r, :run] = np.sort([*ki[r, : run - 1], r])
+    else:
+        ki[:, [2, 3]] = ki[:, [3, 2]]
+    with pytest.raises(AssertionError):
+        _assert_kernel_topk_matches_plain(
+            x, mask, batch, torch.from_numpy(kd), torch.from_numpy(ki), pd, pi, radius2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 32, 64, 256, 512])
+@pytest.mark.parametrize("case", ["knn", "radius_partial", "radius_full", "duplicates", "n_below_k"])
+def test_cuda_pairwise_topk_matches_plain(cuda, k, case):
+    """Row #12's kernel against its plain version (``_filter_case``), and a
+    second launch bitwise the first."""
+    x, mask, batch, radius2 = _filter_case(k, case)
+    xt, mt, bt = (torch.from_numpy(a).to(cuda) for a in (x, mask, batch))
+    kw = {"k": k, "node_mask": mt, "batch": bt, "radius2": radius2}
+    kd, ki = pairwise_topk_filter(xt, **kw)
+    kd2, ki2 = pairwise_topk_filter(xt, **kw)
+    pd, pi = pairwise_topk_filter_plain(xt, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    _assert_kernel_topk_matches_plain(x, mask, batch, kd, ki, pd, pi, radius2)
+    if case == "radius_full":
+        assert torch.isfinite(kd).all(dim=1).any()
+
+
+@pytest.mark.cuda
+def test_cuda_pairwise_topk_filter_rejects_k_above_512(cuda):
+    x = torch.randn(600, 8, device=cuda)
+    with pytest.raises(ValueError, match="k <= 512"):
+        pairwise_topk_filter(x, k=513)
 
 
 @pytest.mark.cuda
