@@ -92,9 +92,10 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    layer's shapes (the model's second layer: bf16, 80 % of the edges
    unmasked, ``relu_edge`` off and on): each output within 2e-2 of its
    plain bf16 version's norm, its error against a float64 evaluation at
-   most 2x the plain version's (norms: see ``check``), bitwise equal on a
-   second launch, C/D bitwise equal to A/B; timed beside its bound at the
-   data sheet's 989 TFLOP/s bf16 and 3.35 TB/s. (b) Step 0's parameter gradients
+   most 2x the plain version's (norms: see ``bf16_check``), bitwise equal on a
+   second launch, C/D bitwise equal to A/B, B's masked edges' rows zero;
+   timed beside its bound at the data sheet's 989 TFLOP/s bf16 and 3.35
+   TB/s. (b) Step 0's parameter gradients
    through the kernels against the plain path's (per tensor within 5e-2 of
    its largest magnitude); one step with ``fused_save_acts`` (kernels C/D)
    giving the same loss and gradients bitwise; 2 warm-up steps and
@@ -137,8 +138,15 @@ ragged edge count) and stops; ``--topk-only`` builds, runs ``topk_timings``
 (row #12 on the ML latent at step 0 and trained, the serving shapes, phase
 10 (a)'s input at k = 8, 64, 256, an adversarial order, duplicates, a
 ragged N and N < k; each against its plain version and repeat bitwise) and
-stops. With ``--package-root DIR`` each runs the package in DIR (an older
-tree unpacked beside this one) on the same inputs and card.
+stops; ``--ec-bwd-only`` builds, runs ``ec_bwd_timings`` (kernels B and D
+at phase 9's input, unmasked shares 1.0, 0.8, 0.5, 0.0 and a ragged edge
+count, ``relu_edge`` off and on: phase 9's checks, D bitwise B, the masked
+edges' rows zero; each timed as a Python call and on the device, the call
+by CUDA-graph replay and the edge kernel alone by ``torch.profiler``,
+beside the plain version and the bound of the unmasked share), then
+``ec_bwd_widths`` (B and D at other widths, checked the same way, and a
+width they must refuse) and stops. With ``--package-root DIR`` each runs the package in DIR
+(an older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
 result and exits with code 2.
@@ -839,6 +847,231 @@ def relational_bwd_timings(seed: int) -> dict:
                     f"({n_valid} of {e} edges): OK; {ms:.3f} ms, D32 {ms_d:.3f} ms (plain {plain:.3f} ms, "
                     f"bound {bnd:.4f} ms by {by})")
     log("fused_relational_bwd timings: " + json.dumps(out))
+    return out
+
+
+EC_BWD_SHARES = (1.0, 0.8, 0.5, 0.0)
+
+
+def kernel_device_ms(fn, name: str, *, reps: int = 10, tries: int = 3) -> tuple[float, int]:
+    """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up),
+    each of which launches the kernel whose name holds ``name`` once: the
+    mean device time of one of its launches, over the launches the trace
+    recorded, and their number. The trace can drop records, so up to
+    ``tries`` traces are taken until one holds all ``reps``. The host's work
+    is left out, which ``cuda_ms`` counts wherever it exceeds the device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and name in e.name]
+        if len(mine) == reps:
+            break
+    assert mine, f"profiler: no launch of {name!r} in {reps} calls"
+    return sum(e.time_range.end - e.time_range.start for e in mine) / len(mine) / 1e3, len(mine)
+
+
+def bwd_bound_bytes(rows, edge_attr, edge_index, mask, weights, g_e, g_agg, outs) -> int:
+    """The bytes the fused backward must move at this mask, each input read
+    once and each output written once: the mask; the unmasked edges'
+    endpoints, ``edge_attr`` and ``g_e`` rows; the node rows they read (each
+    node's ``x`` row once, or with ``rows = (x[dst], x[src])`` their own saved
+    rows) and their targets' ``g_agg`` rows; the weights; every output row
+    (``outs``: g_x, g_edge_attr and the weight gradients)."""
+    import torch
+
+    on = mask.nonzero().squeeze(1)
+    src, dst = edge_index[0, on].long(), edge_index[1, on].long()
+    width = lambda t: t.shape[1] * t.element_size()
+    if isinstance(rows, tuple):
+        node_rows = on.numel() * (width(rows[0]) + width(rows[1]))
+    else:
+        node_rows = torch.unique(torch.cat([src, dst])).numel() * width(rows)
+    return (nbytes(mask) + on.numel() * (2 * edge_index.element_size() + width(edge_attr) + width(g_e))
+            + node_rows + torch.unique(dst).numel() * width(g_agg) + nbytes(*weights.values(), *outs))
+
+
+def ec_bwd_inputs(seed: int) -> list[tuple]:
+    """Phase 9's inputs of kernels B and D (``ec.yml``'s model, the EC event,
+    the second layer's weights and inputs, the cotangents) for each case of
+    ``ec_bwd_timings``: ``(label, args, csr, num_nodes, gd, gs)`` with
+    ``args = (x, edge_attr, edge_index, mask, weights, g_e, g_agg)``, bf16 on
+    the card."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    model = ECForGraphTCN(**EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 121)).to(dev)
+    ev = make_ec_event(seed + 120)
+    ragged = {"x": ev["x"], "edge_index": ev["edge_index"][:, :RAGGED_EDGES],
+              "edge_attr": ev["edge_attr"][:RAGGED_EDGES]}
+    runs = [(f"{share}", share, ev) for share in EC_BWD_SHARES]
+    runs.append((f"0.8_E{RAGGED_EDGES}", 0.8, ragged))
+    cases = []
+    with torch.no_grad():
+        for label, share, arrays in runs:
+            g = EventGraph.from_arrays(**{k: arrays[k] for k in ("x", "edge_index", "edge_attr")})
+            g = g.sort_edges_by_target().to(dev)
+            e, n = g.edge_index.shape[1], g.x.shape[0]
+            gen = torch.Generator(device=dev).manual_seed(seed + 9)
+            x = torch.relu(model.ec_node_encoder(g.x)).to(bf).contiguous()
+            ea = model.ec_edge_encoder(g.edge_attr).to(bf).contiguous()
+            weights = {k: v.detach().to(bf).contiguous()
+                       for k, v in model.ec_resin.layers[1].relational_weights().items()}
+            mask = torch.from_numpy(np.random.default_rng(seed + 3).random(e) < share).to(dev)
+            fo = weights["w3"].shape[0]
+            g_e = torch.randn((e, fo), generator=gen, device=dev).to(bf)
+            g_a = torch.randn((n, fo), generator=gen, device=dev).to(bf)
+            src, dst = g.edge_index.long()
+            cases.append((label, (x, ea, g.edge_index, mask, weights, g_e, g_a), g.csr(), n,
+                          x[dst].contiguous(), x[src].contiguous()))
+    return cases
+
+
+def ec_bwd_timings(seed: int) -> dict:
+    """Kernels B and D (rows #4/#6 and #8 in bf16) at phase 9's input at the
+    unmasked shares ``EC_BWD_SHARES`` and at 0.8 on the first
+    ``RAGGED_EDGES`` edges (``ec_bwd_inputs``). Each case, ``relu_edge`` off
+    and on: phase 9's ``bf16_check`` of B and D against the plain bf16
+    version and float64 (repeat bitwise), D bitwise B, the masked edges'
+    ``g_edge_attr`` rows zero. Timed with ``relu_edge`` (as layers 2-6 run
+    it): B and D as Python calls (``cuda_ms``) and on the device (the call
+    by CUDA-graph replay, ``graph_ms``; the edge kernel alone,
+    ``kernel_device_ms``), beside the plain version and the bound of the
+    unmasked share (``bwd_bound_bytes``). It calls only the port's public
+    model and the ``fused_relational_bf16_bwd`` / ``_saved`` wrappers, so
+    ``--ec-bwd-only --package-root`` times another tree's kernels on the
+    same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    bwd = lambda out: {"g_x": out[0], "g_edge_attr": out[1], **out[2]}
+    out = {}
+    with torch.no_grad():
+        for label, args, csr, n, gd, gs in ec_bwd_inputs(seed):
+            mask, weights = args[3], args[4]
+            b_call = lambda **kw: fr.fused_relational_bf16_bwd(*args, csr, **kw)
+            d_call = lambda **kw: fr.fused_relational_bf16_bwd_saved(gd, gs, *args[1:], csr, n, **kw)
+            args64 = (*(t.double() for t in args[:2]), *args[2:4], {k: v.double() for k, v in weights.items()},
+                      *(t.double() for t in args[5:]))
+            worst = 0.0
+            for relu_edge in (False, True):
+                kw = {"relu_edge": relu_edge}
+                where = f"ec bwd (unmasked share {label}, relu_edge={relu_edge})"
+                b, b2 = bwd(b_call(**kw)), bwd(b_call(**kw))
+                d, d2 = bwd(d_call(**kw)), bwd(d_call(**kw))
+                pb = bwd(fr.fused_relational_bf16_bwd_plain(*args, **kw))
+                ref = bwd(fr.fused_relational_bwd_plain(*args64, **kw))
+                torch.cuda.synchronize()
+                errs = bf16_check(f"fused_relational_bf16_bwd, {where}", b, b2, pb, ref)
+                bf16_check(f"fused_relational_bf16_bwd_saved, {where}", d, d2, pb, ref)
+                assert all(torch.equal(b[k], d[k]) for k in b), f"{where}: D differs from B"
+                assert not b["g_edge_attr"][~mask].any(), f"{where}: masked g_edge_attr rows not zero"
+                worst = max(worst, max(err[1] for err in errs))
+            kw = {"relu_edge": True}
+            ms, ms_d = cuda_ms(lambda: b_call(**kw)), cuda_ms(lambda: d_call(**kw))
+            plain = cuda_ms(lambda: fr.fused_relational_bf16_bwd_plain(*args, **kw))
+            call, call_d = graph_ms(lambda: b_call(**kw)), graph_ms(lambda: d_call(**kw))
+            kern, records = kernel_device_ms(lambda: b_call(**kw), "bwd_kernel")
+            kern_d, records_d = kernel_device_ms(lambda: d_call(**kw), "bwd_kernel")
+            x, ea, e = args[0], args[1], args[1].shape[0]
+            fo, hid, n_valid = weights["w3"].shape[0], weights["w2"].shape[0], int(mask.sum())
+            k_ = 2 * x.shape[1] + ea.shape[1]
+            g_x, g_ea, grads = b_call(**kw)
+            bnd, by = bound(2.0 * n_valid * (3 * k_ * hid + 3 * hid * hid + 2 * hid * fo),
+                            bwd_bound_bytes(x, *args[1:], (g_x, g_ea, *grads.values())),
+                            peak=PEAK_BF16_FLOPS)
+            out[label] = {
+                "edges": e, "unmasked": n_valid, "ms": ms, "d_ms": ms_d, "kernel_device_ms": kern,
+                "kernel_records": records, "call_device_ms": call, "d_kernel_device_ms": kern_d,
+                "d_kernel_records": records_d, "d_call_device_ms": call_d,
+                "plain_ms": plain, "bound_ms": bnd, "bound_by": by, "max_abs_err": worst,
+            }
+            log(f"  fused_relational_bf16_bwd unmasked {label} ({n_valid} of {e} edges): OK; B {ms:.4f} ms "
+                f"a call ({call:.4f} on the device, edge kernel {kern:.4f}), D {ms_d:.4f} ({call_d:.4f}, "
+                f"{kern_d:.4f}); plain {plain:.4f} ms, bound {bnd:.4f} ms by {by}")
+    log("fused_relational_bf16_bwd timings: " + json.dumps(out))
+    return out
+
+
+# (Fx, Fe, H, Fo, edges, unmasked share): narrower than ec.yml's (two m buffers), two whose
+# second m buffer does not fit one block's shared memory (one m buffer), one edge, all masked
+EC_BWD_WIDTHS = [(32, 32, 64, 32, 16000, 0.8), (32, 64, 96, 64, 5000, 0.5), (64, 64, 128, 128, 16000, 0.8),
+                 (128, 32, 128, 32, 3000, 0.9), (64, 64, 128, 64, 1, 1.0), (64, 64, 128, 64, 1000, 0.0)]
+EC_BWD_REFUSED = (64, 64, 256, 64)  # weights alone exceed one block's shared memory
+
+
+def ec_bwd_widths(seed: int) -> dict:
+    """Kernels B and D at the widths ``EC_BWD_WIDTHS`` (random graphs of
+    2,000 nodes, weights and cotangents from ``seed``), ``relu_edge`` off and
+    on: ``bf16_check`` against the plain bf16 version and float64, D bitwise
+    B, the masked edges' ``g_edge_attr`` rows zero. Then B at
+    ``EC_BWD_REFUSED`` must raise (the error is reported)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    bwd = lambda o: {"g_x": o[0], "g_edge_attr": o[1], **o[2]}
+
+    def case(fx, fe, h, fo, e, share, n=2000):
+        rng = np.random.default_rng(seed)
+        dst = rng.integers(0, n, size=e)
+        src = np.clip(dst + rng.integers(-200, 200, size=e), 0, n - 1)
+        g = EventGraph.from_arrays(x=rng.normal(size=(n, fx)), edge_index=np.stack([src, dst]),
+                                   edge_attr=rng.normal(size=(e, fe))).sort_edges_by_target().to(dev)
+        mask = torch.from_numpy(rng.random(e) < share).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(bf)
+        w = {"w1": r(h, 2 * fx + fe, scale=0.1), "b1": r(h), "w2": r(h, h, scale=0.1), "b2": r(h),
+             "w3": r(fo, h, scale=0.1), "b3": r(fo)}
+        return g, (g.x.to(bf), g.edge_attr.to(bf), g.edge_index, mask, w, r(e, fo), r(n, fo))
+
+    out = {}
+    with torch.no_grad():
+        for fx, fe, h, fo, e, share in EC_BWD_WIDTHS:
+            g, args = case(fx, fe, h, fo, e, share)
+            csr, (src, dst) = g.csr(), g.edge_index.long()
+            gd, gs = args[0][dst].contiguous(), args[0][src].contiguous()
+            args64 = (*(t.double() for t in args[:2]), *args[2:4], {k: v.double() for k, v in args[4].items()},
+                      *(t.double() for t in args[5:]))
+            label, worst = f"(Fx, Fe, H, Fo) = ({fx}, {fe}, {h}, {fo}), E = {e}, unmasked {share}", 0.0
+            for relu_edge in (False, True):
+                kw = {"relu_edge": relu_edge}
+                b = bwd(fr.fused_relational_bf16_bwd(*args, csr, **kw))
+                b2 = bwd(fr.fused_relational_bf16_bwd(*args, csr, **kw))
+                d = bwd(fr.fused_relational_bf16_bwd_saved(gd, gs, *args[1:], csr, g.num_nodes, **kw))
+                pb = bwd(fr.fused_relational_bf16_bwd_plain(*args, **kw))
+                ref = bwd(fr.fused_relational_bwd_plain(*args64, **kw))
+                torch.cuda.synchronize()
+                where = f"ec bwd {label}, relu_edge={relu_edge}"
+                errs = bf16_check(f"fused_relational_bf16_bwd, {where}", b, b2, pb, ref)
+                assert all(torch.equal(b[k], d[k]) for k in b), f"{where}: D differs from B"
+                assert not b["g_edge_attr"][~args[3]].any(), f"{where}: masked g_edge_attr rows not zero"
+                worst = max(worst, max(err[1] for err in errs))
+            out[label] = worst
+            log(f"  fused_relational_bf16_bwd {label}: OK (max |kernel - plain| {worst:.3e})")
+        g, args = case(*EC_BWD_REFUSED, 500, 0.8, n=100)
+        try:
+            fr.fused_relational_bf16_bwd(*args, g.csr(), relu_edge=True)
+            torch.cuda.synchronize()
+        except (ValueError, RuntimeError) as err:
+            out["refused"] = f"{type(err).__name__}: {err}"
+        else:
+            raise AssertionError(f"fused_relational_bf16_bwd at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: not refused")
+        log(f"  fused_relational_bf16_bwd at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: refused, {out['refused']}")
     return out
 
 
@@ -1624,6 +1857,38 @@ def make_ec_event(seed: int):
     return ev
 
 
+def bf16_check(name, outs, again, plain, ref):
+    """Phase 9's check of a bf16 kernel's outputs (dicts by output name):
+    repeat bitwise; norm-wise within 2e-2 of the plain version (|k - p| <=
+    2e-2 |p|, Frobenius); norm-wise error against float64 at most 2x the
+    plain version's; exactly zero where the plain version is (no unmasked
+    edge). Norms, not the largest element: a pre-activation within f32
+    rounding of 0 falls on the ReLU's other side in another summation order,
+    and then that edge's whole gradient row differs (a dozen of the 262,144
+    edges). Returns per output (name, max |k - p|, |k - p| / |p|, rows with
+    an element off by > 1e-2 of the largest, |k - ref| / |ref|, |p - ref| /
+    |ref|)."""
+    import torch
+
+    errs = []
+    for (key, kt), kt2, pt, rt in zip(outs.items(), again.values(), plain.values(), ref.values()):
+        assert torch.equal(kt, kt2), f"{name} {key}: second launch differs"
+        kd, pd = kt.double(), pt.double()
+        if pd.norm().item() == 0:
+            assert not kd.any(), f"{name} {key}: not zero where the plain version is"
+            errs.append((key, 0.0, 0.0, 0, 0.0, 0.0))
+            continue
+        rel = ((kd - pd).norm() / pd.norm()).item()
+        assert rel <= 2e-2, f"{name} {key}: |kernel - plain| is {rel:.3e} of |plain| (> 2e-2)"
+        ek, ep = (kd - rt).norm().item(), (pd - rt).norm().item()
+        assert math.isfinite(ek) and ek <= 2 * ep, (
+            f"{name} {key}: |kernel - float64| {ek:.3e} > 2 x |plain - float64| {ep:.3e}")
+        rows = int(((kd - pd).abs().reshape(kd.shape[0], -1) > 1e-2 * pd.abs().max()).any(dim=1).sum())
+        errs.append((key, (kd - pd).abs().max().item(), rel, rows, ek / rd if (rd := rt.norm().item()) else 0.0,
+                     ep / rd if rd else 0.0))
+    return errs
+
+
 def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
     """Kernels A-D (table rows #3-#8) at the EC layer's shapes (see the
     module docstring, phase 9 (a)); ``model`` is the EC model, whose second
@@ -1650,27 +1915,6 @@ def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
                   {k: v.double() for k, v in weights.items()})
         rowptr = csr["dst_rowptr"]
 
-        def check(name, outs, again, plain, ref):
-            """Repeat bitwise; norm-wise within 2e-2 of the plain version
-            (|k - p| <= 2e-2 |p|, Frobenius); norm-wise error against float64
-            at most 2x the plain version's. Norms, not the largest element: a
-            pre-activation within f32 rounding of 0 falls on the ReLU's other
-            side in another summation order, and then that edge's whole
-            gradient row differs (a dozen of the 262,144 edges)."""
-            errs = []
-            for (key, kt), kt2, pt, rt in zip(outs.items(), again.values(), plain.values(), ref.values()):
-                assert torch.equal(kt, kt2), f"{name} {key}: second launch differs"
-                kd, pd = kt.double(), pt.double()
-                rel = ((kd - pd).norm() / pd.norm()).item()
-                assert rel <= 2e-2, f"{name} {key}: |kernel - plain| is {rel:.3e} of |plain| (> 2e-2)"
-                ek, ep = (kd - rt).norm().item(), (pd - rt).norm().item()
-                assert math.isfinite(ek) and ek <= 2 * ep, (
-                    f"{name} {key}: |kernel - float64| {ek:.3e} > 2 x |plain - float64| {ep:.3e}")
-                rows = int(((kd - pd).abs().reshape(kd.shape[0], -1) > 1e-2 * pd.abs().max()).any(dim=1).sum())
-                errs.append((key, (kd - pd).abs().max().item(), rel, rows, ek / rd if (rd := rt.norm().item()) else 0.0,
-                             ep / rd if rd else 0.0))
-            return errs
-
         fwd_names = ("e_tilde", "agg")
         bwd = lambda out: {"g_x": out[0], "g_edge_attr": out[1], **out[2]}
         worst = {k: 0.0 for k in ("A", "B", "C", "D")}
@@ -1690,16 +1934,17 @@ def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
             pb = bwd(fr.fused_relational_bf16_bwd_plain(*args, g_e, g_a, **kw))
             torch.cuda.synchronize()
             report = {
-                "A": check("fused_relational_bf16_fwd", a, a2, pa, ref_f),
-                "C": check("fused_relational_bf16_fwd_save", dict(zip(fwd_names, c)),
+                "A": bf16_check("fused_relational_bf16_fwd", a, a2, pa, ref_f),
+                "C": bf16_check("fused_relational_bf16_fwd_save", dict(zip(fwd_names, c)),
                            dict(zip(fwd_names, c2)), pa, ref_f),
-                "B": check("fused_relational_bf16_bwd", b, b2, pb, ref_b),
-                "D": check("fused_relational_bf16_bwd_saved", d, d2, pb, ref_b),
+                "B": bf16_check("fused_relational_bf16_bwd", b, b2, pb, ref_b),
+                "D": bf16_check("fused_relational_bf16_bwd_saved", d, d2, pb, ref_b),
             }
             dst, src = g.edge_index[1].long(), g.edge_index[0].long()
             assert torch.equal(c[2], x[dst]) and torch.equal(c[3], x[src]), "C: saved rows differ from x[dst], x[src]"
             assert all(torch.equal(a[k], v) for k, v in zip(fwd_names, c)), "C differs from A"
             assert all(torch.equal(b[k], d[k]) for k in b), "D differs from B"
+            assert not b["g_edge_attr"][~mask].any(), "B: masked edges' g_edge_attr rows not zero"
             for k, errs in report.items():
                 worst[k] = max(worst[k], max(e[1] for e in errs))
             log(f"  bf16 kernels relu_edge={relu_edge}: C/D bitwise equal to A/B, every launch repeats "
@@ -1731,16 +1976,17 @@ def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
         flops = {"A": 2.0 * n_valid * (k * hid + hid * hid + hid * fo)}
         flops["C"] = flops["A"]
         flops["B"] = flops["D"] = 2.0 * n_valid * (3 * k * hid + 3 * hid * hid + 2 * hid * fo)
-        # each input read once, each output written once
+        # each input read once, each output written once; the backward's
+        # only for the unmasked edges (bwd_bound_bytes)
         common = nbytes(ea, g.edge_index, mask, *weights.values())
         fwd_out = nbytes(*c[:2])
         g_x, g_ea, grads = calls["B"][0]()
-        bwd_io = nbytes(g_e, g_a, *csr.values(), g_x, g_ea, *grads.values())
+        bwd_args = (ea, g.edge_index, mask, weights, g_e, g_a, (g_x, g_ea, *grads.values()))
         sizes = {
             "A": common + nbytes(x, rowptr) + fwd_out,
             "C": common + nbytes(x, rowptr) + fwd_out + nbytes(c[2], c[3]),
-            "B": common + nbytes(x) + bwd_io,
-            "D": common + nbytes(c[2], c[3]) + bwd_io,
+            "B": bwd_bound_bytes(x, *bwd_args),
+            "D": bwd_bound_bytes((c[2], c[3]), *bwd_args),
         }
         names = {"A": "fused_relational_bf16_fwd", "B": "fused_relational_bf16_bwd",
                  "C": "fused_relational_bf16_fwd_save", "D": "fused_relational_bf16_bwd_saved"}
@@ -2217,6 +2463,9 @@ def main(argv=None) -> int:
                    help="build, check and time row #2 and D32 at the GraphTCN HC layer's and "
                    "ec.yml's widths at several unmasked shares (relational_bwd_timings), "
                    "print them and stop")
+    p.add_argument("--ec-bwd-only", action="store_true",
+                   help="build, check and time kernels B and D (the bf16 backward) at phase 9's "
+                   "input at several unmasked shares (ec_bwd_timings), print them and stop")
     p.add_argument("--topk-only", action="store_true",
                    help="build, check and time row #12 (pairwise_topk_filter) on the ML, "
                    "serving, phase 10 and adversarial inputs (topk_timings), print them and stop")
@@ -2273,6 +2522,12 @@ def main(argv=None) -> int:
     if args.relational_bwd_only:
         log(f"package: {root}")
         relational_bwd_timings(args.seed)
+        print(smi)
+        return 0
+    if args.ec_bwd_only:
+        log(f"package: {root}")
+        ec_bwd_timings(args.seed)
+        ec_bwd_widths(args.seed)
         print(smi)
         return 0
 

@@ -64,8 +64,10 @@ _SIGNATURES = {
 _SIGNATURES_BF16 = {
     "fused_relational_bf16_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
     "fused_relational_bf16_fwd_save": [_build.P] * 13 + [_build.I] * 6 + [_build.P],
-    "fused_relational_bf16_bwd": [_build.P] * 16 + [_build.I] * 7 + [_build.P],
-    "fused_relational_bf16_bwd_saved": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bf16_bwd": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bf16_bwd_saved": [_build.P] * 18 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bf16_bwd_smem": [_build.I] * 4,
+    "fused_relational_bf16_smem_optin": [],
 }
 
 
@@ -568,6 +570,11 @@ def fused_relational_bf16_fwd_save(
 
 def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
               num_nodes, relu_edge):
+    """Launch C entry ``what`` (B from ``x``, or D from the saved rows ``gd``,
+    ``gs``) on the unmasked edges (``_compact``'s partition), then row #9's
+    per-target and per-source sums. Returns the outputs and whether the
+    entry was launched (not for ``E = 0``). Widths whose weights and tiles
+    exceed one block's shared memory raise ``ValueError``."""
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.bfloat16, (e, fo)),
@@ -583,34 +590,42 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
         extra.append(("gs", gs, torch.bfloat16, tuple(gd.shape)))
     _, _, fx, fe, h, _ = _check_bf16(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
     dev = edge_attr.device
-    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
-    # one weight-gradient partial per block of the edge kernel, at most one block per SM
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
-    packed = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
     g_xd = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
     g_xs = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
     g_ea = torch.empty((e, fe), dtype=torch.bfloat16, device=dev)
-    p = _build.ptr
-    rows = [p(x)] if x is not None else [p(gd), p(gs)]
-    entry = lib.fused_relational_bf16_bwd if x is not None else lib.fused_relational_bf16_bwd_saved
-    err = entry(
-        *rows, p(edge_attr), p(edge_index), p(edge_mask),
-        *(p(weights[key]) for key in WEIGHT_KEYS[:5]),
-        p(g_e_out), p(g_agg), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
-        e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
-    )
-    _build.check(lib, err, what)
+    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
+    need, limit = lib.fused_relational_bf16_bwd_smem(fx, fe, h, fo), lib.fused_relational_bf16_smem_optin()
+    if need > limit:
+        msg = (f"{what}: widths (Fx, Fe, H, Fo) = {(fx, fe, h, fo)} need {need} bytes of shared "
+               f"memory a block, more than the {limit} one block of this card can take")
+        raise ValueError(msg)
+    if e > 0:
+        # one weight-gradient partial per block of the edge kernel, at most one block per SM
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
+        packed = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
+        ids, count = _compact(edge_mask)
+        p = _build.ptr
+        rows = [p(x)] if x is not None else [p(gd), p(gs)]
+        err = getattr(lib, what)(
+            *rows, p(edge_attr), p(edge_index), p(ids), p(count),
+            *(p(weights[key]) for key in WEIGHT_KEYS[:5]),
+            p(g_e_out), p(g_agg), p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
+            e, fx, fe, h, fo, int(relu_edge), blocks, _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, what)
+    else:
+        packed = torch.zeros(sum(sizes), dtype=torch.bfloat16, device=dev)
     g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
     g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
     grads = {
         name: part.view(shape)
         for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
     }
-    return g_x.to(torch.bfloat16), g_ea, grads
+    return (g_x.to(torch.bfloat16), g_ea, grads), e > 0
 
 
 def fused_relational_bf16_bwd(
@@ -618,16 +633,17 @@ def fused_relational_bf16_bwd(
 ):
     """Kernel B: ``(g_x [N, Fx], g_edge_attr [E, Fe], weight gradients)``,
     bf16, from the cotangents of ``(e_tilde, agg)``. CPU tensors take the
-    plain version. CUDA tensors launch the backward edge kernel (which reads
-    ``g_agg`` by target itself) and the sorted segment-sum of the per-edge
-    node gradients per target and per source; ``csr`` as for
-    :func:`fused_relational_bwd`."""
+    plain version. CUDA tensors partition the edge ids as
+    :func:`fused_relational_bwd` does, launch the backward edge kernel over
+    the unmasked edges (it reads ``g_agg`` by target itself; masked edges
+    get zero rows) and the sorted segment-sum of the per-edge node gradients
+    per target and per source; ``csr`` as for :func:`fused_relational_bwd`."""
     if x.device.type == "cpu":
         return fused_relational_bf16_bwd_plain(
             x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, relu_edge=relu_edge)
-    out = _bwd_bf16("fused_relational_bf16_bwd", x, None, None, edge_attr, edge_index, edge_mask,
-                    weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
-    fused_relational_bf16_bwd.launches += 1
+    out, launched = _bwd_bf16("fused_relational_bf16_bwd", x, None, None, edge_attr, edge_index,
+                              edge_mask, weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
+    fused_relational_bf16_bwd.launches += launched
     return out
 
 
@@ -641,9 +657,10 @@ def fused_relational_bf16_bwd_saved(
         return fused_relational_bf16_bwd_saved_plain(
             gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
             relu_edge=relu_edge)
-    out = _bwd_bf16("fused_relational_bf16_bwd_saved", None, gd, gs, edge_attr, edge_index,
-                    edge_mask, weights, g_e_out, g_agg, csr, num_nodes, relu_edge)
-    fused_relational_bf16_bwd_saved.launches += 1
+    out, launched = _bwd_bf16("fused_relational_bf16_bwd_saved", None, gd, gs, edge_attr,
+                              edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
+                              relu_edge)
+    fused_relational_bf16_bwd_saved.launches += launched
     return out
 
 

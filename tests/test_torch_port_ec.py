@@ -256,6 +256,85 @@ def test_bf16_save_acts_is_bitwise_the_recomputing_pair(relu_edge):
         assert torch.equal(u, v)
 
 
+def _bf16_bwd_skipping_masked(x, ea, ei, mask, w, g_e, g_agg, *, relu_edge):
+    """Kernel B's split of the bf16 backward: the plain bf16 backward over
+    the unmasked edges alone (``_compact``'s first ``count`` ids), and zero
+    rows of the per-edge gradients for the masked ones."""
+    ids, count = fr._compact(mask)
+    live = ids[: int(count)].long()
+    sub = ei[:, live]
+    g_x, g_ea_live, grads = fr.fused_relational_bf16_bwd_saved_plain(
+        x[sub[1].long()], x[sub[0].long()], ea[live], sub, torch.ones(len(live), dtype=torch.bool),
+        w, g_e[live], g_agg, x.shape[0], relu_edge=relu_edge,
+    )
+    g_ea = torch.zeros_like(ea)
+    g_ea[live] = g_ea_live
+    return g_x, g_ea, grads
+
+
+SKIP_CASES = [(share, relu) for share in (0.0, 0.5, 1.0) for relu in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "masked_share,relu_edge", SKIP_CASES, ids=[f"masked{s}-relu{int(r)}" for s, r in SKIP_CASES],
+)
+def test_bf16_bwd_skipping_masked_matches_jax_flat_vjp(masked_share, relu_edge):
+    """Kernel B's split (the unmasked edges' backward, zero rows for the
+    masked) against JAX's bf16 ``fused_relational_flat`` VJP in interpret
+    mode, with a further ``masked_share`` of the in-window edges masked
+    (through ``inwin``): within 1e-2 of each tensor's largest magnitude, the
+    error against float64 at most 2x JAX's; against the full plain B within
+    the same 1e-2; all zeros when every edge is masked. ``relu_edge``: JAX
+    takes relu(ea) and its ``g_edge_attr`` is cut where ea <= 0."""
+    x, ea, src, dst, valid, w, g_e, g_agg = _op_setup(seed=40 + int(4 * masked_share) + relu_edge)
+    n, e = x.shape[0], ea.shape[0]
+    part = flat_slab_partition(src, dst, valid, n, SlabLayoutSpec(window=W, block_e=EB, cmax=0, overflow_cap=e))
+    rows = np.nonzero(part["inwin"])[0]
+    orig = part["perm"][rows]
+    keep = np.random.default_rng(41).random(e) >= masked_share
+    inwin = part["inwin"].astype(np.float32).copy()
+    inwin[rows] *= keep[orig]
+    mask = np.zeros(e, dtype=bool)
+    mask[orig] = keep[orig]
+    take = np.maximum(part["perm"], 0)
+    slab = lambda a: np.where(part["perm"][:, None] >= 0, a[take], 0)
+    g_e_slab = np.zeros((len(part["perm"]), g_e.shape[1]), np.float32)
+    g_e_slab[rows] = g_e[orig]
+
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    sl, dl, bs = (jnp.asarray(part[k]) for k in ("srcloc", "dstloc", "block_slab"))
+    op = lambda xx, eaa, ww: jax_fused_flat(W, EB, "bfloat16", True, xx, eaa, sl, dl, jnp.asarray(inwin), bs, ww)
+    _, vjp = jax.vjp(op, jb(x), jb(slab(np.maximum(ea, 0) if relu_edge else ea)), {k: jb(v) for k, v in w.items()})
+    jgx, jgea_slab, jgw = vjp((jb(g_e_slab), jb(g_agg)))
+    jgea = np.zeros_like(ea, dtype=np.float64)
+    jgea[orig] = f64(jgea_slab)[rows]
+    if relu_edge:
+        jgea *= ea > 0
+    jax_out = {"g_x": f64(jgx), "g_edge_attr": jgea, **_port_weight_grads(jgw)}
+
+    ei, tm = torch.from_numpy(np.stack([src, dst])), torch.from_numpy(mask)
+    args = (torch.tensor(x, dtype=BF16), torch.tensor(ea, dtype=BF16), ei, tm, _port_weights(w, BF16),
+            torch.tensor(g_e, dtype=BF16), torch.tensor(g_agg, dtype=BF16))
+    named = lambda out: {"g_x": f64(out[0]), "g_edge_attr": f64(out[1]), **{k: f64(v) for k, v in out[2].items()}}
+    skip = named(_bf16_bwd_skipping_masked(*args, relu_edge=relu_edge))
+    full = named(fr.fused_relational_bf16_bwd_plain(*args, relu_edge=relu_edge))
+    d = lambda a: torch.tensor(np.asarray(a, np.float64))
+    ref = named(fr.fused_relational_bwd_plain(d(x), d(ea), ei, tm, _port_weights(w, torch.float64), d(g_e),
+                                              d(g_agg), relu_edge=relu_edge))
+    assert (mask.sum() == 0) == (masked_share == 1.0)
+    assert not skip["g_edge_attr"][~mask].any()  # masked edges: exact zeros
+    for k, want in jax_out.items():
+        got, scale = skip[k], np.abs(want).max()
+        if masked_share == 1.0:
+            assert scale == 0 and not got.any() and not full[k].any(), k
+            continue
+        assert scale > 0, k
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-2 * scale, err_msg=k)
+        np.testing.assert_allclose(got, full[k], rtol=0, atol=1e-2 * scale, err_msg=k)
+        err_port, err_jax = np.abs(got - ref[k]).max(), np.abs(want - ref[k]).max()
+        assert err_port <= 2 * err_jax, f"{k}: port error {err_port:.3e} > 2 x JAX's {err_jax:.3e}"
+
+
 def test_fused_relational_dtype_rules():
     x, ea, src, dst, valid, w, _, _ = _op_setup(seed=31, n=40, e=100)
     ei, tm = torch.from_numpy(np.stack([src, dst])), torch.from_numpy(valid)
@@ -641,13 +720,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cuda_case(cuda, n=2000, e=16000, fx=64, fe=64, h=128, fo=64, seed=0):
+def _cuda_case(cuda, n=2000, e=16000, fx=64, fe=64, h=128, fo=64, seed=0, share=0.8):
     rng = np.random.default_rng(seed)
     dst = rng.integers(0, n, size=e)
     src = np.clip(dst + rng.integers(-200, 200, size=e), 0, n - 1)
     g = EventGraph.from_arrays(x=rng.normal(size=(n, fx)), edge_index=np.stack([src, dst]),
                                edge_attr=rng.normal(size=(e, fe)))
-    g = g.replace(edge_mask=torch.from_numpy(rng.random(e) < 0.8)).sort_edges_by_target().to(cuda)
+    g = g.replace(edge_mask=torch.from_numpy(rng.random(e) < share)).sort_edges_by_target().to(cuda)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=cuda) * scale).to(BF16)
     w = {"w1": r(h, 2 * fx + fe, scale=0.1), "b1": r(h), "w2": r(h, h, scale=0.1), "b2": r(h),
@@ -655,10 +734,15 @@ def _cuda_case(cuda, n=2000, e=16000, fx=64, fe=64, h=128, fo=64, seed=0):
     return g, (g.x.to(BF16), g.edge_attr.to(BF16), g.edge_index, g.edge_mask, w), (r(e, fo), r(n, fo))
 
 
+# (edges, unmasked share): the ragged tile counts and the shares kernel B's partition sees
+CUDA_BF16_CASES = [(16000, 0.8), (16000, 1.0), (16000, 0.5), (16000, 0.0), (1000, 0.8), (1, 1.0)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("e,share", CUDA_BF16_CASES, ids=[f"E{e}-unmasked{s}" for e, s in CUDA_BF16_CASES])
 @pytest.mark.parametrize("relu_edge", [False, True])
-def test_cuda_bf16_kernels_match_plain(cuda, relu_edge):
-    g, args, cts = _cuda_case(cuda)
+def test_cuda_bf16_kernels_match_plain(cuda, relu_edge, e, share):
+    g, args, cts = _cuda_case(cuda, e=e, share=share)
     kf = fr.fused_relational_bf16_fwd(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=relu_edge)
     pf = fr.fused_relational_bf16_plain(*args, relu_edge=relu_edge)
     kb = fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=relu_edge)
@@ -671,11 +755,13 @@ def test_cuda_bf16_kernels_match_plain(cuda, relu_edge):
         assert (k.double() - p.double()).norm() <= 2e-2 * p.double().norm()
     for a, b in zip([kb[0], kb[1], *kb[2].values()], [kb2[0], kb2[1], *kb2[2].values()]):
         assert torch.equal(a, b)
+    assert not kb[1][~args[3]].any()  # masked edges' g_edge_attr rows: exact zeros
 
 
 @pytest.mark.cuda
-def test_cuda_bf16_saved_pair_is_bitwise_the_recomputing_pair(cuda):
-    g, args, cts = _cuda_case(cuda, seed=1)
+@pytest.mark.parametrize("e,share", CUDA_BF16_CASES, ids=[f"E{e}-unmasked{s}" for e, s in CUDA_BF16_CASES])
+def test_cuda_bf16_saved_pair_is_bitwise_the_recomputing_pair(cuda, e, share):
+    g, args, cts = _cuda_case(cuda, seed=1, e=e, share=share)
     a = fr.fused_relational_bf16_fwd(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=True)
     c = fr.fused_relational_bf16_fwd_save(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=True)
     b = fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=True)
@@ -685,6 +771,40 @@ def test_cuda_bf16_saved_pair_is_bitwise_the_recomputing_pair(cuda):
     assert torch.equal(c[2], args[0][g.edge_index[1].long()])
     for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
         assert torch.equal(u, v)
+    assert not d[1][~args[3]].any()
+
+
+# (Fx, Fe, H, Fo): narrower than ec.yml's (two m buffers), then two whose second m buffer does
+# not fit one block's shared memory (one m buffer)
+CUDA_BF16_WIDTHS = [(32, 32, 64, 32), (32, 64, 96, 64), (64, 64, 128, 128), (96, 96, 128, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx,fe,h,fo", CUDA_BF16_WIDTHS)
+def test_cuda_bf16_backward_at_other_widths(cuda, fx, fe, h, fo):
+    """Kernels B and D against the plain bf16 backward (the tolerance of
+    ``test_cuda_bf16_kernels_match_plain``), repeat bitwise, D bitwise B and
+    the masked edges' rows zero, at widths other than ``ec.yml``'s."""
+    g, args, cts = _cuda_case(cuda, fx=fx, fe=fe, h=h, fo=fo, seed=3)
+    csr, (src, dst) = g.csr(), g.edge_index.long()
+    gd, gs = args[0][dst].contiguous(), args[0][src].contiguous()
+    kb = fr.fused_relational_bf16_bwd(*args, *cts, csr, relu_edge=True)
+    kb2 = fr.fused_relational_bf16_bwd(*args, *cts, csr, relu_edge=True)
+    kd = fr.fused_relational_bf16_bwd_saved(gd, gs, *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
+    pb = fr.fused_relational_bf16_bwd_plain(*args, *cts, relu_edge=True)
+    torch.cuda.synchronize()
+    flat = lambda out: [out[0], out[1], *out[2].values()]
+    for k, k2, d, p in zip(flat(kb), flat(kb2), flat(kd), flat(pb)):
+        assert (k.double() - p.double()).norm() <= 2e-2 * p.double().norm()
+        assert torch.equal(k, k2) and torch.equal(k, d)
+    assert not kb[1][~args[3]].any()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_refuses_widths_beyond_shared_memory(cuda):
+    g, args, cts = _cuda_case(cuda, n=100, e=500, fx=64, fe=64, h=256, fo=64)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=True)
 
 
 @pytest.mark.cuda
