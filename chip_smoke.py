@@ -93,7 +93,8 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    unmasked, ``relu_edge`` off and on): each output within 2e-2 of its
    plain bf16 version's norm, its error against a float64 evaluation at
    most 2x the plain version's (norms: see ``bf16_check``), bitwise equal on a
-   second launch, C/D bitwise equal to A/B, B's masked edges' rows zero;
+   second launch, C/D bitwise equal to A/B, A's and B's masked edges' rows
+   zero;
    timed beside its bound at the data sheet's 989 TFLOP/s bf16 and 3.35
    TB/s. (b) Step 0's parameter gradients
    through the kernels against the plain path's (per tensor within 5e-2 of
@@ -101,7 +102,7 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    giving the same loss and gradients bitwise; 2 warm-up steps and
    ``--ec-steps`` timed steps (steps/s, edges/s, the forward / loss /
    backward / Adam split, peak memory, launches per step of A, B and rows
-   #9 / #10). (c) ``Trainer.fit`` for one epoch over 4 npz events, with
+   #9 / #10; one partition of the edge ids a layer, 6 a step). (c) ``Trainer.fit`` for one epoch over 4 npz events, with
    finite ROC AUC from ``ECModule.validation_extra``;
 10. metric-learning validation (``examples/configs/ml.yml``'s
    ``gc_scanner``). (a) The split kernel pair of
@@ -113,7 +114,9 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    ``knn.SPLIT_MAX_K``); as row #11
    (``pairwise_topk_streaming``) at 262,144 points, k = 8, on the JAX kNN
    benchmark's cloud, against its plain version on every query; each timed
-   beside its bound; rows #1/#2 and C32 / D32 at ``ec.yml``'s widths (K =
+   beside its bound; row #12 above one pass (k = 1,024 and 2,048) and rows
+   #13 / #11 above the split pair's k (k = 300) on 4,096 of those points
+   against their plain versions; rows #1/#2 and C32 / D32 at ``ec.yml``'s widths (K =
    192, H = 128, Fo = 64, where W1 stays in device memory) against their
    plain versions with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
@@ -145,7 +148,12 @@ edges' rows zero; each timed as a Python call and on the device, the call
 by CUDA-graph replay and the edge kernel alone by ``torch.profiler``,
 beside the plain version and the bound of the unmasked share), then
 ``ec_bwd_widths`` (B and D at other widths, checked the same way, and a
-width they must refuse) and stops. With ``--package-root DIR`` each runs the package in DIR
+width they must refuse) and stops; ``--ec-fwd-only`` does the same for
+kernels A and C (``ec_fwd_timings``: A / C against the plain version and
+float64, C bitwise A, the masked edges' ``e_tilde`` rows zero, C's saved
+rows ``x[dst]`` / ``x[src]`` on every edge; timed as B / D are, beside the
+bound of the unmasked share, ``fwd_bound_bytes``; then ``ec_fwd_widths``,
+which must refuse ``EC_BWD_REFUSED`` with ``ValueError``). With ``--package-root DIR`` each runs the package in DIR
 (an older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -452,19 +460,23 @@ def plain_path():
     from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain, pairwise_topk_plain
 
     sites = [
-        (fr, "fused_relational_fwd", lambda *a, rowptr=None, **kw: fr.fused_relational_plain(*a, **kw)),
-        (fr, "fused_relational_bwd", lambda *a, **kw: fr.fused_relational_bwd_plain(*a[:7], **kw)),
+        # (the op's partition of the edge ids serves only the kernels)
+        (fr, "fused_relational_fwd",
+         lambda *a, rowptr=None, partition=None, **kw: fr.fused_relational_plain(*a, **kw)),
+        (fr, "fused_relational_bwd",
+         lambda *a, partition=None, **kw: fr.fused_relational_bwd_plain(*a[:7], **kw)),
         (fr, "fused_relational_fwd_save",
-         lambda *a, rowptr=None, **kw: fr.fused_relational_fwd_save_plain(*a, **kw)),
+         lambda *a, rowptr=None, partition=None, **kw: fr.fused_relational_fwd_save_plain(*a, **kw)),
         (fr, "fused_relational_bwd_saved",
-         lambda *a, **kw: fr.fused_relational_bwd_saved_plain(*a[:8], a[9], **kw)),
+         lambda *a, partition=None, **kw: fr.fused_relational_bwd_saved_plain(*a[:8], a[9], **kw)),
         (fr, "fused_relational_bf16_fwd",
-         lambda *a, rowptr=None, **kw: fr.fused_relational_bf16_plain(*a, **kw)),
+         lambda *a, rowptr=None, partition=None, **kw: fr.fused_relational_bf16_plain(*a, **kw)),
         (fr, "fused_relational_bf16_fwd_save",
-         lambda *a, rowptr=None, **kw: fr.fused_relational_bf16_fwd_save_plain(*a, **kw)),
-        (fr, "fused_relational_bf16_bwd", lambda *a, **kw: fr.fused_relational_bf16_bwd_plain(*a[:7], **kw)),
+         lambda *a, rowptr=None, partition=None, **kw: fr.fused_relational_bf16_fwd_save_plain(*a, **kw)),
+        (fr, "fused_relational_bf16_bwd",
+         lambda *a, partition=None, **kw: fr.fused_relational_bf16_bwd_plain(*a[:7], **kw)),
         (fr, "fused_relational_bf16_bwd_saved",
-         lambda *a, **kw: fr.fused_relational_bf16_bwd_saved_plain(*a[:8], a[9], **kw)),
+         lambda *a, partition=None, **kw: fr.fused_relational_bf16_bwd_saved_plain(*a[:8], a[9], **kw)),
         (knn, "pairwise_topk_filter", pairwise_topk_filter_plain),
         (knn, "pairwise_topk", pairwise_topk_plain),
         (cc, "cc_neighbors", cc_neighbors_plain),
@@ -768,7 +780,8 @@ def relational_bwd_timings(seed: int) -> dict:
     version's error against float64, ``relu_edge`` off and on; a second
     launch bitwise equal; D32 bitwise row #2; the masked edges'
     ``g_edge_attr`` rows exact zeros; then row #2, D32 and the plain version
-    timed (``cuda_ms``) beside the bound. It calls only the port's public
+    timed (``cuda_ms``) beside the bound of the unmasked share
+    (``bwd_bound_bytes``). It calls only the port's public
     models and ``fused_relational_bwd`` / ``_saved``, so
     ``--relational-bwd-only --package-root`` times another tree's kernel on
     the same inputs."""
@@ -837,15 +850,18 @@ def relational_bwd_timings(seed: int) -> dict:
                 k2_ = 2 * x.shape[1] + ea.shape[1]
                 hid, n_valid = weights["w2"].shape[0], int(mask.sum())
                 outs = named(fr.fused_relational_bwd(*args, csr))
-                bnd, by = bound(2.0 * n_valid * (3 * k2_ * hid + 3 * hid * hid + 2 * hid * fo),
-                                nbytes(*args[:4], *weights.values(), g_e, g_a, *csr.values(), *outs))
+                # only what the unmasked edges need, as for B / D
+                flops = 2.0 * n_valid * (3 * k2_ * hid + 3 * hid * hid + 2 * hid * fo)
+                bnd, by = bound(flops, bwd_bound_bytes(x, *args[1:], outs))
+                bnd_d, by_d = bound(flops, bwd_bound_bytes((gd, gs), *args[1:], outs))
                 out[f"{name}/{label}"] = {
                     "edges": e, "unmasked": n_valid, "ms": ms, "d32_ms": ms_d, "plain_ms": plain,
-                    "bound_ms": bnd, "bound_by": by, "max_abs_err_vs_float64": worst,
+                    "bound_ms": bnd, "bound_by": by, "d32_bound_ms": bnd_d, "d32_bound_by": by_d,
+                    "max_abs_err_vs_float64": worst,
                 }
                 log(f"  fused_relational_bwd {name} (K={k2_}, H={hid}, Fo={fo}) unmasked {label} "
                     f"({n_valid} of {e} edges): OK; {ms:.3f} ms, D32 {ms_d:.3f} ms (plain {plain:.3f} ms, "
-                    f"bound {bnd:.4f} ms by {by})")
+                    f"bound {bnd:.4f} ms by {by}, D32's {bnd_d:.4f} ms by {by_d})")
     log("fused_relational_bwd timings: " + json.dumps(out))
     return out
 
@@ -897,6 +913,23 @@ def bwd_bound_bytes(rows, edge_attr, edge_index, mask, weights, g_e, g_agg, outs
         node_rows = torch.unique(torch.cat([src, dst])).numel() * width(rows)
     return (nbytes(mask) + on.numel() * (2 * edge_index.element_size() + width(edge_attr) + width(g_e))
             + node_rows + torch.unique(dst).numel() * width(g_agg) + nbytes(*weights.values(), *outs))
+
+
+def fwd_bound_bytes(x, edge_attr, edge_index, mask, weights, rowptr, outs, *, save=False) -> int:
+    """The bytes the fused forward must move at this mask, each input read
+    once and each output written once: the mask; the unmasked edges'
+    endpoints and ``edge_attr`` rows; each node's ``x`` row that they touch,
+    once; the weights; ``rowptr``; every output row (``outs``: all E rows of
+    e_tilde, agg and, with ``save``, the saved endpoint rows, whose copies
+    read every edge's endpoints and touch every endpoint's ``x`` row)."""
+    import torch
+
+    on = mask.nonzero().squeeze(1)
+    ends = edge_index if save else edge_index[:, on]
+    nodes = torch.unique(ends.reshape(-1)).numel()
+    return (nbytes(mask, rowptr, *weights.values(), *outs) + ends.numel() * edge_index.element_size()
+            + on.numel() * edge_attr.shape[1] * edge_attr.element_size()
+            + nodes * x.shape[1] * x.element_size())
 
 
 def ec_bwd_inputs(seed: int) -> list[tuple]:
@@ -1005,6 +1038,77 @@ def ec_bwd_timings(seed: int) -> dict:
     return out
 
 
+def ec_fwd_timings(seed: int) -> dict:
+    """Kernels A and C (rows #3/#5 and #7 in bf16) at phase 9's input at the
+    unmasked shares ``EC_BWD_SHARES`` and at 0.8 on the first
+    ``RAGGED_EDGES`` edges (``ec_bwd_inputs``). Each case, ``relu_edge`` off
+    and on: phase 9's ``bf16_check`` of A and C against the plain bf16
+    version and float64 (repeat bitwise), C bitwise A, the masked edges'
+    ``e_tilde`` rows exactly zero, C's saved rows equal to ``x[dst]`` /
+    ``x[src]`` on every edge. Timed with ``relu_edge`` (as layers 2-6 run
+    it): A and C as Python calls (``cuda_ms``) and on the device (the call by
+    CUDA-graph replay, ``graph_ms``; the edge kernel alone,
+    ``kernel_device_ms``), beside the plain version and the bound of the
+    unmasked share (``fwd_bound_bytes``). It calls only the port's public
+    model and the ``fused_relational_bf16_fwd`` / ``_save`` wrappers, so
+    ``--ec-fwd-only --package-root`` times another tree's kernels on the
+    same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    names = ("e_tilde", "agg")
+    fwd = lambda out: dict(zip(names, out))
+    out = {}
+    with torch.no_grad():
+        for label, args, csr, _, gd, gs in ec_bwd_inputs(seed):
+            x, ea, ei, mask, weights = fa = args[:5]
+            rowptr = csr["dst_rowptr"]
+            a_call = lambda **kw: fr.fused_relational_bf16_fwd(*fa, rowptr=rowptr, **kw)
+            c_call = lambda **kw: fr.fused_relational_bf16_fwd_save(*fa, rowptr=rowptr, **kw)
+            args64 = (x.double(), ea.double(), ei, mask, {k: v.double() for k, v in weights.items()})
+            worst = 0.0
+            for relu_edge in (False, True):
+                kw = {"relu_edge": relu_edge}
+                where = f"ec fwd (unmasked share {label}, relu_edge={relu_edge})"
+                a, a2 = fwd(a_call(**kw)), fwd(a_call(**kw))
+                c, c2 = c_call(**kw), c_call(**kw)
+                pa = fwd(fr.fused_relational_bf16_plain(*fa, **kw))
+                ref = fwd(fr.fused_relational_plain(*args64, **kw))
+                torch.cuda.synchronize()
+                errs = bf16_check(f"fused_relational_bf16_fwd, {where}", a, a2, pa, ref)
+                bf16_check(f"fused_relational_bf16_fwd_save, {where}", fwd(c), fwd(c2), pa, ref)
+                assert all(torch.equal(a[k], t) for k, t in zip(names, c)), f"{where}: C differs from A"
+                assert torch.equal(c[2], gd) and torch.equal(c[3], gs), f"{where}: C's saved rows differ"
+                assert torch.equal(c2[2], gd) and torch.equal(c2[3], gs), f"{where}: C's saved rows differ"
+                assert not a["e_tilde"][~mask].any(), f"{where}: masked e_tilde rows not zero"
+                worst = max(worst, max(err[1] for err in errs))
+            kw = {"relu_edge": True}
+            ms, ms_c = cuda_ms(lambda: a_call(**kw)), cuda_ms(lambda: c_call(**kw))
+            plain = cuda_ms(lambda: fr.fused_relational_bf16_plain(*fa, **kw))
+            call, call_c = graph_ms(lambda: a_call(**kw)), graph_ms(lambda: c_call(**kw))
+            kern, records = kernel_device_ms(lambda: a_call(**kw), "fwd_kernel")
+            kern_c, records_c = kernel_device_ms(lambda: c_call(**kw), "fwd_kernel")
+            e, fo, hid, n_valid = ea.shape[0], weights["w3"].shape[0], weights["w2"].shape[0], int(mask.sum())
+            k_ = 2 * x.shape[1] + ea.shape[1]
+            flops = 2.0 * n_valid * (k_ * hid + hid * hid + hid * fo)
+            c = c_call(**kw)
+            bnd, by = bound(flops, fwd_bound_bytes(*fa, rowptr, c[:2]), peak=PEAK_BF16_FLOPS)
+            bnd_c, by_c = bound(flops, fwd_bound_bytes(*fa, rowptr, c, save=True), peak=PEAK_BF16_FLOPS)
+            out[label] = {
+                "edges": e, "unmasked": n_valid, "ms": ms, "c_ms": ms_c, "kernel_device_ms": kern,
+                "kernel_records": records, "call_device_ms": call, "c_kernel_device_ms": kern_c,
+                "c_kernel_records": records_c, "c_call_device_ms": call_c, "plain_ms": plain,
+                "bound_ms": bnd, "bound_by": by, "c_bound_ms": bnd_c, "c_bound_by": by_c,
+                "max_abs_err": worst,
+            }
+            log(f"  fused_relational_bf16_fwd unmasked {label} ({n_valid} of {e} edges): OK; A {ms:.4f} ms "
+                f"a call ({call:.4f} on the device, edge kernel {kern:.4f}), C {ms_c:.4f} ({call_c:.4f}, "
+                f"{kern_c:.4f}); plain {plain:.4f} ms, bound {bnd:.4f} ms by {by} (C {bnd_c:.4f})")
+    log("fused_relational_bf16_fwd timings: " + json.dumps(out))
+    return out
+
+
 # (Fx, Fe, H, Fo, edges, unmasked share): narrower than ec.yml's (two m buffers), two whose
 # second m buffer does not fit one block's shared memory (one m buffer), one edge, all masked
 EC_BWD_WIDTHS = [(32, 32, 64, 32, 16000, 0.8), (32, 64, 96, 64, 5000, 0.5), (64, 64, 128, 128, 16000, 0.8),
@@ -1012,33 +1116,88 @@ EC_BWD_WIDTHS = [(32, 32, 64, 32, 16000, 0.8), (32, 64, 96, 64, 5000, 0.5), (64,
 EC_BWD_REFUSED = (64, 64, 256, 64)  # weights alone exceed one block's shared memory
 
 
-def ec_bwd_widths(seed: int) -> dict:
-    """Kernels B and D at the widths ``EC_BWD_WIDTHS`` (random graphs of
-    2,000 nodes, weights and cotangents from ``seed``), ``relu_edge`` off and
-    on: ``bf16_check`` against the plain bf16 version and float64, D bitwise
-    B, the masked edges' ``g_edge_attr`` rows zero. Then B at
-    ``EC_BWD_REFUSED`` must raise (the error is reported)."""
+def ec_width_case(seed, fx, fe, h, fo, e, share, n=2000):
+    """A random target-sorted graph of ``n`` nodes and ``e`` edges on the card
+    and the bf16 inputs of kernels A-D at widths (Fx, Fe, H, Fo): ``(graph,
+    (x, edge_attr, edge_index, mask, weights, g_e, g_agg))``."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
-    from gnn_tracking_tpu_torch.ops import fused_relational as fr
 
     dev, bf = torch.device("cuda"), torch.bfloat16
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n, size=e)
+    src = np.clip(dst + rng.integers(-200, 200, size=e), 0, n - 1)
+    g = EventGraph.from_arrays(x=rng.normal(size=(n, fx)), edge_index=np.stack([src, dst]),
+                               edge_attr=rng.normal(size=(e, fe))).sort_edges_by_target().to(dev)
+    mask = torch.from_numpy(rng.random(e) < share).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(bf)
+    w = {"w1": r(h, 2 * fx + fe, scale=0.1), "b1": r(h), "w2": r(h, h, scale=0.1), "b2": r(h),
+         "w3": r(fo, h, scale=0.1), "b3": r(fo)}
+    return g, (g.x.to(bf), g.edge_attr.to(bf), g.edge_index, mask, w, r(e, fo), r(n, fo))
+
+
+def ec_fwd_widths(seed: int) -> dict:
+    """Kernels A and C at the widths ``EC_BWD_WIDTHS`` (``ec_width_case``),
+    ``relu_edge`` off and on: ``bf16_check`` against the plain bf16 version
+    and float64 (repeat bitwise), C bitwise A, the masked edges' ``e_tilde``
+    rows zero, C's saved rows ``x[dst]`` / ``x[src]``. Then A and C at
+    ``EC_BWD_REFUSED`` must raise ``ValueError`` (the error is reported)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    names = ("e_tilde", "agg")
+    fwd = lambda o: dict(zip(names, o))
+    out = {}
+    with torch.no_grad():
+        for fx, fe, h, fo, e, share in EC_BWD_WIDTHS:
+            g, args = ec_width_case(seed, fx, fe, h, fo, e, share)
+            fa, rowptr, (src, dst) = args[:5], g.csr()["dst_rowptr"], g.edge_index.long()
+            args64 = (args[0].double(), args[1].double(), *args[2:4], {k: v.double() for k, v in args[4].items()})
+            label, worst = f"(Fx, Fe, H, Fo) = ({fx}, {fe}, {h}, {fo}), E = {e}, unmasked {share}", 0.0
+            for relu_edge in (False, True):
+                kw = {"relu_edge": relu_edge}
+                a = fwd(fr.fused_relational_bf16_fwd(*fa, rowptr=rowptr, **kw))
+                a2 = fwd(fr.fused_relational_bf16_fwd(*fa, rowptr=rowptr, **kw))
+                c = fr.fused_relational_bf16_fwd_save(*fa, rowptr=rowptr, **kw)
+                pa = fwd(fr.fused_relational_bf16_plain(*fa, **kw))
+                ref = fwd(fr.fused_relational_plain(*args64, **kw))
+                torch.cuda.synchronize()
+                where = f"ec fwd {label}, relu_edge={relu_edge}"
+                errs = bf16_check(f"fused_relational_bf16_fwd, {where}", a, a2, pa, ref)
+                assert all(torch.equal(a[k], t) for k, t in zip(names, c)), f"{where}: C differs from A"
+                assert torch.equal(c[2], args[0][dst]) and torch.equal(c[3], args[0][src]), (
+                    f"{where}: C's saved rows differ from x[dst], x[src]")
+                assert not a["e_tilde"][~args[3]].any(), f"{where}: masked e_tilde rows not zero"
+                worst = max(worst, max(err[1] for err in errs))
+            out[label] = worst
+            log(f"  fused_relational_bf16_fwd {label}: OK (max |kernel - plain| {worst:.3e})")
+        g, args = ec_width_case(seed, *EC_BWD_REFUSED, 500, 0.8, n=100)
+        for fn in (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save):
+            try:
+                fn(*args[:5], rowptr=g.csr()["dst_rowptr"], relu_edge=True)
+                torch.cuda.synchronize()
+            except ValueError as err:
+                out[f"refused/{fn.__name__}"] = f"ValueError: {err}"
+            else:
+                raise AssertionError(f"{fn.__name__} at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: not refused")
+            log(f"  {fn.__name__} at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: refused, {out[f'refused/{fn.__name__}']}")
+    return out
+
+
+def ec_bwd_widths(seed: int) -> dict:
+    """Kernels B and D at the widths ``EC_BWD_WIDTHS`` (``ec_width_case``),
+    ``relu_edge`` off and on: ``bf16_check`` against the plain bf16 version
+    and float64, D bitwise B, the masked edges' ``g_edge_attr`` rows zero.
+    Then B at ``EC_BWD_REFUSED`` must raise (the error is reported)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
     bwd = lambda o: {"g_x": o[0], "g_edge_attr": o[1], **o[2]}
-
-    def case(fx, fe, h, fo, e, share, n=2000):
-        rng = np.random.default_rng(seed)
-        dst = rng.integers(0, n, size=e)
-        src = np.clip(dst + rng.integers(-200, 200, size=e), 0, n - 1)
-        g = EventGraph.from_arrays(x=rng.normal(size=(n, fx)), edge_index=np.stack([src, dst]),
-                                   edge_attr=rng.normal(size=(e, fe))).sort_edges_by_target().to(dev)
-        mask = torch.from_numpy(rng.random(e) < share).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        r = lambda *s, scale=1.0: (torch.randn(s, generator=gen, device=dev) * scale).to(bf)
-        w = {"w1": r(h, 2 * fx + fe, scale=0.1), "b1": r(h), "w2": r(h, h, scale=0.1), "b2": r(h),
-             "w3": r(fo, h, scale=0.1), "b3": r(fo)}
-        return g, (g.x.to(bf), g.edge_attr.to(bf), g.edge_index, mask, w, r(e, fo), r(n, fo))
-
+    case = lambda *a, **kw: ec_width_case(seed, *a, **kw)
     out = {}
     with torch.no_grad():
         for fx, fe, h, fo, e, share in EC_BWD_WIDTHS:
@@ -1153,6 +1312,8 @@ def topk_inputs(seed: int, condensed) -> tuple[list, float]:
     ]
     if getattr(pt, "MAX_K_FILTER", 0) >= 512:
         runs.append(("k512_radius", h_trained, {"k": 512, "radius2": r2_ml}))
+    if hasattr(pt, "_topk_passes"):  # k above one pass of the kernel
+        runs.append(("k1024_radius", h_trained, {"k": 1024, "radius2": r2_ml}))
     return runs, train_s
 
 
@@ -1169,8 +1330,8 @@ def topk_timings(seed: int, condensed) -> dict:
     exact duplicates (1,024 points 32 times each: ties); N = 32,731 (a
     ragged last block and tile) and N = 100 < k; the ML cloud's 3-d hit
     coordinates, its 14 node features (``loop=True``) and a 20-d normal
-    cloud, the kernel's other padded widths; k = 512 where the package takes
-    it. Each run: ``compare_topk`` against the plain version, a second
+    cloud, the kernel's other padded widths; k = 512 and k = 1,024 (passes
+    above a key floor) where the package takes them. Each run: ``compare_topk`` against the plain version, a second
     launch bitwise the first; the kernel (``cuda_ms``) and the plain version
     timed beside the bound. It calls only the package's public functions, so
     ``--topk-only --package-root`` times another tree's kernel on the same
@@ -1343,15 +1504,19 @@ def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
         p10 = csr_segment.sorted_gather_plain(vals, dst)
         torch.cuda.synchronize()
         assert torch.equal(k10, p10), "sorted_gather differs from index_select"
-        ms10 = cuda_ms(lambda: csr_segment.sorted_gather(vals, dst, rowptr=rowptr))
-        plain10 = cuda_ms(lambda: csr_segment.sorted_gather_plain(vals, dst))
-        lib10 = cuda_ms(lambda: torch.index_select(vals, 0, dst))
+        # device times (CUDA graph), as row #9's; the Python calls beside them
+        ms10 = graph_ms(lambda: csr_segment.sorted_gather(vals, dst, rowptr=rowptr))
+        call10 = cuda_ms(lambda: csr_segment.sorted_gather(vals, dst, rowptr=rowptr))
+        plain10 = graph_ms(lambda: csr_segment.sorted_gather_plain(vals, dst))
+        lib10 = graph_ms(lambda: torch.index_select(vals, 0, dst))
+        call_lib10 = cuda_ms(lambda: torch.index_select(vals, 0, dst))
         bound10, by10 = bound(0.0, nbytes(vals, dst, p10))
         results.append({"name": "sorted_gather", "max_abs_err": 0.0, "ms": ms10,
                         "plain_ms": plain10, "bound_ms": bound10, "bound_by": by10,
                         "library_ms": lib10})
-        log(f"kernel sorted_gather: OK bitwise equal to index_select; {ms10:.4f} ms (plain "
-            f"{plain10:.4f} ms, torch.index_select {lib10:.4f} ms, bound {bound10:.4f} ms)")
+        log(f"kernel sorted_gather: OK bitwise equal to index_select; device time {ms10:.4f} ms "
+            f"(plain {plain10:.4f} ms, torch.index_select {lib10:.4f} ms, bound {bound10:.4f} ms); "
+            f"a call from Python {call10:.4f} ms (torch.index_select {call_lib10:.4f} ms)")
     return results
 
 
@@ -1944,6 +2109,7 @@ def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
             assert torch.equal(c[2], x[dst]) and torch.equal(c[3], x[src]), "C: saved rows differ from x[dst], x[src]"
             assert all(torch.equal(a[k], v) for k, v in zip(fwd_names, c)), "C differs from A"
             assert all(torch.equal(b[k], d[k]) for k in b), "D differs from B"
+            assert not a["e_tilde"][~mask].any(), "A: masked edges' e_tilde rows not zero"
             assert not b["g_edge_attr"][~mask].any(), "B: masked edges' g_edge_attr rows not zero"
             for k, errs in report.items():
                 worst[k] = max(worst[k], max(e[1] for e in errs))
@@ -1976,15 +2142,13 @@ def bf16_kernel_phases(model, g, seed: int) -> list[dict]:
         flops = {"A": 2.0 * n_valid * (k * hid + hid * hid + hid * fo)}
         flops["C"] = flops["A"]
         flops["B"] = flops["D"] = 2.0 * n_valid * (3 * k * hid + 3 * hid * hid + 2 * hid * fo)
-        # each input read once, each output written once; the backward's
-        # only for the unmasked edges (bwd_bound_bytes)
-        common = nbytes(ea, g.edge_index, mask, *weights.values())
-        fwd_out = nbytes(*c[:2])
+        # each input read once, each output written once, only for the
+        # unmasked edges (fwd_bound_bytes, bwd_bound_bytes)
         g_x, g_ea, grads = calls["B"][0]()
         bwd_args = (ea, g.edge_index, mask, weights, g_e, g_a, (g_x, g_ea, *grads.values()))
         sizes = {
-            "A": common + nbytes(x, rowptr) + fwd_out,
-            "C": common + nbytes(x, rowptr) + fwd_out + nbytes(c[2], c[3]),
+            "A": fwd_bound_bytes(*args, rowptr, c[:2]),
+            "C": fwd_bound_bytes(*args, rowptr, c, save=True),
             "B": bwd_bound_bytes(x, *bwd_args),
             "D": bwd_bound_bytes((c[2], c[3]), *bwd_args),
         }
@@ -2037,6 +2201,7 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
     def reset():
         for fn in counters.values():
             fn.launches = 0
+        fr._compact.calls = 0
 
     def step0():
         model.train()
@@ -2051,6 +2216,7 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
     reset()
     gk, lk = step0()
     launches0 = {k: fn.launches for k, fn in counters.items()}
+    partitions0 = fr._compact.calls
     with plain_path():
         gp, lp = step0()
     worst_name, worst = None, 0.0
@@ -2062,6 +2228,8 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
             worst_name, worst = name, ratio
     L = EC_MODEL["L_ec"]
     assert launches0["fused_relational_bf16_fwd"] == L and launches0["fused_relational_bf16_bwd"] == L, launches0
+    # one partition of the edge ids a layer call, shared by its forward and backward
+    assert partitions0 == L, f"step 0: {partitions0} partitions of the edge ids for {L} layers"
     log(f"EC step 0: loss {lk.item():.6f} (plain {lp.item():.6f}); {len(gk)} parameter gradients agree "
         f"with the plain path, the worst max|g_kernel - g_plain| {worst:.3e} of its largest magnitude "
         f"({worst_name}; bound 5e-2); launches {launches0}")
@@ -2075,6 +2243,7 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
     for layer in model.ec_resin.layers:
         layer.fused_save_acts = False
     assert all(n == L for n in saved_launches.values()), saved_launches
+    assert fr._compact.calls == L, f"fused_save_acts step: {fr._compact.calls} partitions for {L} layers"
     assert counters["fused_relational_bf16_fwd"].launches == 0 == counters["fused_relational_bf16_bwd"].launches
     assert torch.equal(ls, lk), f"fused_save_acts: loss {ls.item()} != {lk.item()}"
     differ = [n for n in gk if not torch.equal(gk[n], gs[n])]
@@ -2093,6 +2262,8 @@ def ec_training_path(seed: int, steps: int, profile: bool, tmp: Path) -> tuple[l
     launches = {k: fn.launches for k, fn in counters.items()}
     per_step = {k: v / steps for k, v in launches.items()}
     assert per_step["fused_relational_bf16_fwd"] == L and per_step["fused_relational_bf16_bwd"] == L, per_step
+    assert fr._compact.calls == L * steps, f"{fr._compact.calls} partitions in {steps} steps of {L} layers"
+    per_step["_compact"] = fr._compact.calls / steps
     assert per_step["sorted_segment_sum"] > 0, per_step
     assert math.isfinite(metrics["total"]), metrics
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2188,6 +2359,33 @@ def validation_kernel_phases(seed: int) -> list[dict]:
     faster = [k for k in SPLIT_SWEEP_KS if row13[k]["ms"] < row13[k]["filter_ms"]]
     log(f"row #13 against row #12 on this input: faster at k in {faster} of {list(SPLIT_SWEEP_KS)}; "
         f"knn_graph takes row #13 at k <= knn.SPLIT_MAX_K = {knn.SPLIT_MAX_K}")
+    # ---- above one pass of row #12 (k > 512) and above the split pair's k (rows #13 / #11 at k =
+    # 300): row #12's passes, on 4,096 of those points (k = 2,048 leaves rows unfilled)
+    xs, ms_ = x[:4096], mask[:4096]
+    bs_ = (torch.arange(4096, device=dev) >= 2048).to(torch.int32)
+    calls = [(f"pairwise_topk_filter k={k}", pt.pairwise_topk_filter, pt.pairwise_topk_filter_plain,
+              {"k": k, "node_mask": ms_, "batch": bs_}) for k in (1024, 2048)]
+    calls += [("pairwise_topk k=300", pt.pairwise_topk, pt.pairwise_topk_plain,
+               {"k": 300, "node_mask": ms_, "batch": bs_}),
+              ("pairwise_topk_streaming k=300", pt.pairwise_topk_streaming, pt.pairwise_topk_streaming_plain,
+               {"k": 300, "node_mask": ms_})]
+    for what, fn, plain_fn, kw in calls:
+        before = pt.pairwise_topk_filter.launches
+        kd, ki = fn(xs, **kw)
+        passes = pt.pairwise_topk_filter.launches - before
+        kd2, ki2 = fn(xs, **kw)
+        pd, pi = plain_fn(xs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"{what}: second call differs"
+        err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+        assert_key_order(kd, ki, what)
+        if fn is not pt.pairwise_topk_filter:
+            assert torch.isinf(kd[~ms_]).all() and (ki[~ms_] == 0).all(), f"{what}: masked queries not (+inf, 0)"
+        ms = cuda_ms(lambda: fn(xs, **kw), reps=1, rounds=3)
+        filled = torch.isfinite(kd).sum(dim=1).float().mean().item()
+        log(f"kernel {what} on 4,096 points: OK in {passes} launches of row #12, max|err| {err:.3e} ({nb} "
+            f"k-th boundary rows, {nt} tie-order rows), key order, repeat bitwise; {filled:.1f} filled slots "
+            f"a row; {ms:.3f} ms")
     # the line's entry is the scanner's k (at most 8)
     results.append({"name": "pairwise_topk", **{k: row13[8][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
@@ -2399,10 +2597,12 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
         model.zero_grad(set_to_none=True)
         return grads, loss.item()
 
-    fr.fused_relational_fwd.launches = fr.fused_relational_bwd.launches = 0
+    fr.fused_relational_fwd.launches = fr.fused_relational_bwd.launches = fr._compact.calls = 0
     gk, lk = step0()
     f32_launches = {"fused_relational_fwd": fr.fused_relational_fwd.launches,
                     "fused_relational_bwd": fr.fused_relational_bwd.launches}
+    # one partition of the edge ids a layer call, shared by its forward and backward
+    assert fr._compact.calls == EC_MODEL["L_ec"], f"f32 EC step: {fr._compact.calls} partitions"
     with plain_path():
         gp, lp = step0()
     worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
@@ -2466,6 +2666,10 @@ def main(argv=None) -> int:
     p.add_argument("--ec-bwd-only", action="store_true",
                    help="build, check and time kernels B and D (the bf16 backward) at phase 9's "
                    "input at several unmasked shares (ec_bwd_timings), print them and stop")
+    p.add_argument("--ec-fwd-only", action="store_true",
+                   help="build, check and time kernels A and C (the bf16 forward) at phase 9's "
+                   "input at several unmasked shares (ec_fwd_timings), check them at other widths "
+                   "(ec_fwd_widths, for the package beside this script), print them and stop")
     p.add_argument("--topk-only", action="store_true",
                    help="build, check and time row #12 (pairwise_topk_filter) on the ML, "
                    "serving, phase 10 and adversarial inputs (topk_timings), print them and stop")
@@ -2528,6 +2732,13 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         ec_bwd_timings(args.seed)
         ec_bwd_widths(args.seed)
+        print(smi)
+        return 0
+    if args.ec_fwd_only:
+        log(f"package: {root}")
+        ec_fwd_timings(args.seed)
+        if root == REPO:  # another tree's refusals are not this script's contract
+            ec_fwd_widths(args.seed)
         print(smi)
         return 0
 

@@ -35,19 +35,30 @@
 // close behind (~0.026 ms at 989 TFLOP/s). The backward does 2 (3 K H + 3 H H + 2 H Fo) flops per
 // edge, ~0.074 ms of tensor-core time at 262,144 edges: arithmetic.
 //
-// Forward design (A, C; simple and right first; no wgmma or TMA yet):
-//  * persistent blocks of 8 warps, one per SM (the weights and tiles take 145 KB). Each block
-//    stages W1, W2, W3 once, in PyTorch's [out][in] layout, rows padded by 8 bf16 (16 bytes) so
-//    that ldmatrix reads hit 8 different bank groups;
-//  * a tile is TE = 64 edges. Its gathered input and activations live in shared memory only,
-//    rounded to bf16 exactly where the JAX kernels round them;
-//  * every product is mma.sync.m16n8k16 bf16 -> f32. A warp computes 16 x 32 output chunks;
-//    operands come through ldmatrix, W's rows as B (m W^T).
+// Forward design (A, C; 16 warps, one block an SM, 180 KiB of shared memory at ec.yml's widths).
+// The forward's floor is bytes (above), and a tile's three products are ~3 M multiply-adds, ~1,500
+// cycles of an SM's tensor cores; what bounds a straightforward kernel is everything around them:
+// gathers that the products wait for, work on masked edges, and narrow stores. So:
+//  * only unmasked edges are computed: the wrapper's stable partition of the edge ids (unmasked
+//    first, count on the device; the layer's backward takes the same partition) gives blocks
+//    tiles of TE unmasked edges, and the masked edges get their zero e' rows (and, in C, their
+//    endpoint rows as plain row copies) without any MLP work;
+//  * one layout with the backward: weights and tiles are 8 x 8 core matrices (cm below), and the
+//    three products run on wgmma through the backward's product<0> (W read K-major for m W^T), so
+//    h1 and h2 are the backward's recompute, bit for bit;
+//  * no load waits in front of the tensor cores: the next tile's m rows go by cp.async into a
+//    second m buffer before this tile's products (one buffer where two do not fit, refilled once
+//    this tile's m is read), and the edge ids and endpoints come two tiles ahead through the
+//    backward's ring of three index slots;
+//  * e' is staged as bf16 in h1's buffer once h1 is read and written out as whole 16-byte pieces
+//    of rows, lane pairs on a row's 32-byte sector; C writes its saved endpoint rows from the
+//    landed m tile the same way. Every launch gives the same bits, and C's e' are A's.
 // Backward design (B, D; 16 warps, one block an SM, 203 KiB of shared memory at ec.yml's
 // widths):
-//  * the wrapper partitions the edge ids stably, unmasked first (count on the device); blocks
-//    take tiles of TE unmasked edges only, and the masked edges get their zero rows of g_xd,
-//    g_xs, g_ea directly (a masked edge adds exactly 0 to every weight-gradient sum);
+//  * the edge ids come partitioned stably, unmasked first (count on the device; the forward's
+//    partition); blocks take tiles of TE unmasked edges only, and the masked edges get their
+//    zero rows of g_xd, g_xs, g_ea directly (a masked edge adds exactly 0 to every
+//    weight-gradient sum);
 //  * weights and tiles are stored as 8 x 8 core matrices (cm below), the layout wgmma reads
 //    without a swizzle and ldmatrix reads without bank conflicts;
 //  * the recompute and input-gradient products run on wgmma (m64n32k16 or m64n48k16, both
@@ -80,22 +91,14 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int TE = 64;       // edges per tile
-constexpr int WARPS = 8;
+constexpr int TE = 64;  // edges per tile
+// 16 warps a block (4 warpgroups): 4 a scheduler, to hide the latencies of ldmatrix and mma.sync
+// at 128 registers a thread
+constexpr int WARPS = 16;
 constexpr int THREADS = 32 * WARPS;
-constexpr int PAD = 8;       // bf16 padding of every shared-memory row
-
-__host__ __device__ inline int ld(int width) { return width + PAD; }
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(saddr(p))
-               : "memory");
 }
 
 __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
@@ -115,47 +118,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp: acc[j] (+)= A[m0:m0+16, :kdim] B[:kdim, n0+8j : n0+8j+8] for j < 4, A stored as
-// [m][k] and B as [n][k] (the [out][in] layout of a weight); lda / ldb are the stored rows'
-// strides.
-__device__ __forceinline__ void warp_gemm(float (&acc)[4][4], const bf16* A, int lda, int m0,
-                                          const bf16* B, int ldb, int n0, int kdim) {
-  const int lane = threadIdx.x & 31;
-  for (int k0 = 0; k0 < kdim; k0 += 16) {
-    uint32_t a[4];
-    ldsm4(a, A + (m0 + (lane & 15)) * lda + k0 + ((lane >> 4) << 3));
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int nb = n0 + 16 * half;
-      uint32_t b[4];
-      ldsm4(b, B + (nb + (lane & 7) + ((lane >> 4) << 3)) * ldb + k0 + (((lane >> 3) & 1) << 3));
-      mma16816(acc[2 * half], a, b[0], b[1]);
-      mma16816(acc[2 * half + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// out[TE, n] = A[TE, kdim] B (as in warp_gemm); epi(row, col, v0, v1) receives the f32 values
-// of (row, col) and (row, col + 1). n % 32 == 0, kdim % 16 == 0.
-template <typename Epi>
-__device__ __forceinline__ void tile_gemm(const bf16* A, int lda, int kdim, const bf16* B, int ldb,
-                                          int n, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int chunks = (TE / 16) * (n / 32);
-  for (int c = warp; c < chunks; c += WARPS) {
-    const int m0 = (c % (TE / 16)) * 16;
-    const int n0 = (c / (TE / 16)) * 32;
-    float acc[4][4] = {};
-    warp_gemm(acc, A, lda, m0, B, ldb, n0, kdim);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      epi(m0 + g, n0 + 8 * j + 2 * t, acc[j][0], acc[j][1]);
-      epi(m0 + g + 8, n0 + 8 * j + 2 * t, acc[j][2], acc[j][3]);
-    }
-  }
-}
-
 // cp.async of 16 bytes, global -> shared, through L2 only; src_bytes = 0 fills the 16 bytes with
 // zeros and reads nothing
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -170,7 +132,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The backward's shared-memory tiles use the core-matrix layout that wgmma reads without a
+// The shared-memory tiles use the core-matrix layout that wgmma reads without a
 // swizzle: an R x C bf16 tile is stored as (R/8) x (C/8) core matrices of 8 x 8 elements, each
 // 128 contiguous bytes (8 rows of 16 bytes), along C first. Element (r, c) sits at cm(r, c, C).
 // Any 16-byte row of a core matrix is also an ldmatrix row, and the 8 rows of one ldmatrix
@@ -279,128 +241,10 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// Shared-memory layout shared by all four kernels: the weights, then the tile buffers.
-struct Layout {
-  int k, h, fo;
-  __host__ __device__ Layout(int k_, int h_, int fo_) : k(k_), h(h_), fo(fo_) {}
-  __host__ __device__ long weights_bytes() const {
-    return 2L * (h * ld(k) + h * ld(h) + fo * ld(h)) + 4L * (2 * h + fo);
-  }
-  __host__ __device__ int wide() const { return ld(k > h ? k : h); }
-  __host__ __device__ long fwd_bytes() const {
-    return weights_bytes() + 2L * TE * (wide() + ld(h));
-  }
-};
-
-// Stage W1, W2, W3 ([out][in], padded rows) and the biases (as f32) into shared memory.
-__device__ __forceinline__ void stage_weights(const Layout& L, unsigned char* smem,
-                                              const bf16* w1, const bf16* b1, const bf16* w2,
-                                              const bf16* b2, const bf16* w3, const bf16* b3,
-                                              bf16*& sw1, bf16*& sw2, bf16*& sw3, float*& sb) {
-  const int k = L.k, h = L.h, fo = L.fo;
-  sw1 = reinterpret_cast<bf16*>(smem);
-  sw2 = sw1 + h * ld(k);
-  sw3 = sw2 + h * ld(h);
-  sb = reinterpret_cast<float*>(sw3 + fo * ld(h));
-  const struct { const bf16* src; bf16* dst; int rows, cols; } mats[3] = {
-      {w1, sw1, h, k}, {w2, sw2, h, h}, {w3, sw3, fo, h}};
-  for (const auto& m : mats) {
-    const int vecs = m.cols / 8;
-    for (int i = threadIdx.x; i < m.rows * vecs; i += THREADS) {
-      const int r = i / vecs, c = (i % vecs) * 8;
-      *reinterpret_cast<uint4*>(m.dst + r * ld(m.cols) + c) = ld16(m.src + (long)r * m.cols + c);
-    }
-  }
-  for (int i = threadIdx.x; i < h; i += THREADS) {
-    sb[i] = __bfloat162float(b1[i]);
-    sb[h + i] = __bfloat162float(b2[i]);
-  }
-  if (b3 != nullptr) {
-    for (int i = threadIdx.x; i < fo; i += THREADS) sb[2 * h + i] = __bfloat162float(b3[i]);
-  }
-}
-
-// The tile's m = [x_dst, x_src, ea] rows (zero past the last edge) into bm [TE][ld(k)].
-// save_d / save_s (optional): where to write the gathered endpoint rows.
-__device__ __forceinline__ void gather_tile(bf16* bm, int k, long t0, int n_edges, int fx, int fe,
-                                            const bf16* x, const bf16* ea, const int* src,
-                                            const int* dst, int relu_edge, bf16* save_d,
-                                            bf16* save_s) {
-  const int kv = k / 8;
-  for (int i = threadIdx.x; i < TE * kv; i += THREADS) {
-    const int e = i / kv, c = (i % kv) * 8;
-    const long edge = t0 + e;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (edge < n_edges) {
-      if (c < fx) {
-        v = ld16(x + (long)dst[edge] * fx + c);
-        if (save_d != nullptr) *reinterpret_cast<uint4*>(save_d + edge * fx + c) = v;
-      } else if (c < 2 * fx) {
-        v = ld16(x + (long)src[edge] * fx + (c - fx));
-        if (save_s != nullptr) *reinterpret_cast<uint4*>(save_s + edge * fx + (c - fx)) = v;
-      } else {
-        v = ld16(ea + edge * fe + (c - 2 * fx));
-        if (relu_edge) v = relu8(v);
-      }
-    }
-    *reinterpret_cast<uint4*>(bm + e * ld(k) + c) = v;
-  }
-}
-
-// ------------------------------------------------------------------------------- forward (A, C)
-template <bool SAVE>
-__global__ void __launch_bounds__(THREADS, 1)
-fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ea, const int* __restrict__ src,
-           const int* __restrict__ dst, const uint8_t* __restrict__ mask,
-           const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-           const bf16* __restrict__ b2, const bf16* __restrict__ w3, const bf16* __restrict__ b3,
-           bf16* __restrict__ e_out, bf16* __restrict__ save_d, bf16* __restrict__ save_s,
-           int n_edges, int fx, int fe, int h, int fo, int relu_edge) {
-  extern __shared__ uint4 smem4[];
-  const int k = 2 * fx + fe;
-  const Layout L(k, h, fo);
-  bf16 *sw1, *sw2, *sw3;
-  float* sb;
-  stage_weights(L, reinterpret_cast<unsigned char*>(smem4), w1, b1, w2, b2, w3, b3, sw1, sw2, sw3,
-                sb);
-  bf16* bm = reinterpret_cast<bf16*>(sb + 2 * h + fo);  // [TE][ld(k)] m, then [TE][ld(h)] h2
-  bf16* bh1 = bm + TE * L.wide();                       // [TE][ld(h)] h1
-  const float* sb1 = sb;
-  const float* sb2 = sb + h;
-  const float* sb3 = sb + 2 * h;
-
-  const int n_tiles = (n_edges + TE - 1) / TE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long t0 = (long)tile * TE;
-    __syncthreads();  // weights staged / the previous tile's buffers consumed
-    gather_tile(bm, k, t0, n_edges, fx, fe, x, ea, src, dst, relu_edge, SAVE ? save_d : nullptr,
-                SAVE ? save_s : nullptr);
-    __syncthreads();
-    tile_gemm(bm, ld(k), k, sw1, ld(k), h, [&](int r, int c, float v0, float v1) {
-      store2(bh1 + r * ld(h) + c, fmaxf(v0 + sb1[c], 0.f), fmaxf(v1 + sb1[c + 1], 0.f));
-    });
-    __syncthreads();
-    tile_gemm(bh1, ld(h), h, sw2, ld(h), h, [&](int r, int c, float v0, float v1) {
-      store2(bm + r * ld(h) + c, fmaxf(v0 + sb2[c], 0.f), fmaxf(v1 + sb2[c + 1], 0.f));
-    });
-    __syncthreads();
-    tile_gemm(bm, ld(h), h, sw3, ld(h), fo, [&](int r, int c, float v0, float v1) {
-      const long edge = t0 + r;
-      if (edge >= n_edges) return;
-      const bool on = mask[edge] != 0;
-      store2(e_out + edge * fo + c, on ? v0 + sb3[c] : 0.f, on ? v1 + sb3[c + 1] : 0.f);
-    });
-  }
-}
-
-// ------------------------------------------------------------------------------ backward (B, D)
-// 16 warps a block (4 warpgroups): 4 a scheduler, to hide the latencies of ldmatrix and mma.sync
-// at 128 registers a thread
-constexpr int BWD_WARPS = 16;
-constexpr int BWD_THREADS = 32 * BWD_WARPS;
-// Weight-gradient chunks a warp keeps in registers for the whole launch: chunk warp + BWD_WARPS s
+// ---------------------------------------------------------------- layouts, slots and products
+// Weight-gradient chunks a warp keeps in registers for the whole launch: chunk warp + WARPS s
 // (s < REG_SLOTS) of dW3's chunks followed by dW2's (48 chunks at ec.yml's widths: all of them).
-constexpr int REG_SLOTS = 48 / BWD_WARPS;
+constexpr int REG_SLOTS = 48 / WARPS;
 
 // The backward's shared memory: W1, W2, W3 ([out][in]) and the tiles, all in the core-matrix
 // layout (cm), then b1, b2 as f32 and the edge slots. `buffers` m tiles: 2 where they fit (the
@@ -418,6 +262,19 @@ struct BwdLayout {
   }
   __host__ __device__ long bytes() const {
     return 2L * (weights() + tiles()) + 4L * 2 * h + 4L * 3 * 3 * TE;
+  }
+};
+
+// The forward's shared memory: the same weights and m tiles, then h1 (which also takes the tile's
+// e' rows once h1 is read) and h2, b1, b2, b3 as f32 and the edge slots.
+struct FwdLayout {
+  int k, h, fo, buffers;
+  __host__ __device__ FwdLayout(int k_, int h_, int fo_, int buffers_)
+      : k(k_), h(h_), fo(fo_), buffers(buffers_) {}
+  __host__ __device__ int act() const { return h > fo ? h : fo; }
+  __host__ __device__ long bytes() const {
+    return 2L * ((long)h * k + (long)h * h + (long)fo * h + (long)TE * (buffers * k + act() + h)) +
+           4L * (2 * h + fo) + 4L * 3 * 3 * TE;
   }
 };
 
@@ -495,6 +352,10 @@ __device__ __forceinline__ void gmma_product(const bf16* A, int kdim, const bf16
     float d[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) d[i] = 0.f;
+    // the zeros are defined before the fence: no move of an accumulator may fall between the
+    // wgmmas (ptxas would serialize them)
+#pragma unroll
+    for (int i = 0; i < R; ++i) reg_fence(d[i]);
     gmma_fence();
     for (int k0 = 0; k0 < kdim; k0 += 16) {
       // A: core matrices adjacent in K are 128 B apart, in M kdim * 16 B
@@ -529,24 +390,26 @@ __device__ __forceinline__ void product(const bf16* A, int kdim, const bf16* B, 
   }
 }
 
-// Stage W1, W2, W3 ([out][in]) in the core-matrix layout and b1, b2 as f32.
-__device__ __forceinline__ void stage_weights_cm(const BwdLayout& L, bf16* sw1, bf16* sw2,
+// Stage W1, W2, W3 ([out][in]) in the core-matrix layout and b1, b2 (and b3 where given) as f32.
+__device__ __forceinline__ void stage_weights_cm(int k, int h, int fo, bf16* sw1, bf16* sw2,
                                                  bf16* sw3, float* sb, const bf16* w1,
                                                  const bf16* b1, const bf16* w2, const bf16* b2,
-                                                 const bf16* w3) {
-  const int k = L.k, h = L.h, fo = L.fo;
+                                                 const bf16* w3, const bf16* b3) {
   const struct { const bf16* src; bf16* dst; int rows, cols; } mats[3] = {
       {w1, sw1, h, k}, {w2, sw2, h, h}, {w3, sw3, fo, h}};
   for (const auto& m : mats) {
     const int vecs = m.cols / 8;
-    for (int i = threadIdx.x; i < m.rows * vecs; i += BWD_THREADS) {
+    for (int i = threadIdx.x; i < m.rows * vecs; i += THREADS) {
       const int r = i / vecs, c = (i % vecs) * 8;
       *reinterpret_cast<uint4*>(m.dst + cm(r, c, m.cols)) = ld16(m.src + (long)r * m.cols + c);
     }
   }
-  for (int i = threadIdx.x; i < h; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < h; i += THREADS) {
     sb[i] = __bfloat162float(b1[i]);
     sb[h + i] = __bfloat162float(b2[i]);
+  }
+  if (b3 != nullptr) {
+    for (int i = threadIdx.x; i < fo; i += THREADS) sb[2 * h + i] = __bfloat162float(b3[i]);
   }
 }
 
@@ -587,7 +450,7 @@ __device__ __forceinline__ void issue_m(bf16* bm, const Slots& S, int s, int k, 
   const int* sid = S.id(s);
   const int* sd = S.dst(s);
   const int* ss = S.src(s);
-  for (int i = threadIdx.x; i < TE * kv; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < TE * kv; i += THREADS) {
     int e, c;
     chunk_of(i, e, c);
     const int id = sid[e];
@@ -610,7 +473,7 @@ __device__ __forceinline__ void issue_m(bf16* bm, const Slots& S, int s, int k, 
 // After the copies landed: the ReLU on this thread's own ea copies in bm (issue_m's mapping)
 __device__ __forceinline__ void relu_own(bf16* bm, int k, int fx) {
   const int kv = k / 8;
-  for (int i = threadIdx.x; i < TE * kv; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < TE * kv; i += THREADS) {
     int e, c;
     chunk_of(i, e, c);
     if (c >= 2 * fx) {
@@ -627,7 +490,7 @@ __device__ __forceinline__ void issue_g(bf16* ra, bf16* rb, const Slots& S, int 
   const int fov = fo / 8;
   const int* sid = S.id(s);
   const int* sd = S.dst(s);
-  for (int i = threadIdx.x; i < TE * fov; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < TE * fov; i += THREADS) {
     int e, c;
     chunk_of(i, e, c);
     const int id = sid[e];
@@ -641,7 +504,7 @@ __device__ __forceinline__ void issue_g(bf16* ra, bf16* rb, const Slots& S, int 
 // (issue_g's mapping) into bget [TE][fo]; empty slots give zero rows
 __device__ __forceinline__ void combine_own(bf16* bget, const bf16* ra, const bf16* rb, int fo) {
   const int fov = fo / 8;
-  for (int i = threadIdx.x; i < TE * fov; i += BWD_THREADS) {
+  for (int i = threadIdx.x; i < TE * fov; i += THREADS) {
     int e, c;
     chunk_of(i, e, c);
     const uint4 a = *reinterpret_cast<const uint4*>(ra + cm(e, c, fo));
@@ -660,6 +523,170 @@ __device__ __forceinline__ void combine_own(bf16* bget, const bf16* ra, const bf
   }
 }
 
+// ------------------------------------------------------------------------------- forward (A, C)
+// C: the endpoint rows of the tile in slot s (m's first 2 fx columns, landed in bm) out to
+// save_d / save_s, 16 bytes a copy, lane pairs on a row's 32-byte sector
+__device__ __forceinline__ void save_rows(const bf16* bm, const int* sid, int k, int fx,
+                                          bf16* save_d, bf16* save_s) {
+  for (int i = threadIdx.x; i < TE * (2 * fx / 8); i += THREADS) {
+    int e, c;
+    chunk_of(i, e, c);
+    const long id = sid[e];
+    if (id < 0) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(bm + cm(e, c, k));
+    *reinterpret_cast<uint4*>(c < fx ? save_d + id * fx + c : save_s + id * fx + (c - fx)) = v;
+  }
+}
+
+// The forward, persistent: blocks take tiles of TE unmasked edges in turn (ids[:count], as in
+// the backward), and the masked edges get zero e' rows (and, SAVE, their endpoint rows) without
+// any MLP work. Per tile, on wgmma (a warpgroup a column slice):
+//   h1 = bf16(relu(m W1^T + b1)),  h2 = bf16(relu(h1 W2^T + b2)),  e' = bf16(h2 W3^T + b3)
+// staged in h1's buffer and written out as whole rows. The next tile's m rows are issued
+// (cp.async) into the second m buffer before this tile's products (BUFFERS = 1: into the one m
+// buffer once product 1 has read it); the edge ids and endpoints come two tiles ahead. SAVE (C)
+// also writes the gathered rows x[dst], x[src] of every edge: the unmasked ones from the landed
+// m tile, the masked ones as row copies.
+template <bool SAVE, int BUFFERS>
+__global__ void __launch_bounds__(THREADS, 1)
+fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ea, const int* __restrict__ src,
+           const int* __restrict__ dst, const int* __restrict__ ids,
+           const int* __restrict__ count_ptr, const bf16* __restrict__ w1,
+           const bf16* __restrict__ b1, const bf16* __restrict__ w2, const bf16* __restrict__ b2,
+           const bf16* __restrict__ w3, const bf16* __restrict__ b3, bf16* __restrict__ e_out,
+           bf16* __restrict__ save_d, bf16* __restrict__ save_s, int n_edges, int fx, int fe, int h,
+           int fo, int relu_edge) {
+  extern __shared__ uint4 smem4[];
+  const int k = 2 * fx + fe;
+  const int count = *count_ptr;
+  const int n_tiles = (count + TE - 1) / TE;
+  const int G = gridDim.x;
+  bf16* sw1 = reinterpret_cast<bf16*>(smem4);
+  bf16* sw2 = sw1 + h * k;
+  bf16* sw3 = sw2 + h * h;
+  bf16* bms[2];
+  bms[0] = sw3 + fo * h;
+  bms[1] = bms[0] + (BUFFERS - 1) * TE * k;
+  bf16* bh1 = bms[1] + TE * k;             // h1, then the tile's e' rows
+  bf16* bh2 = bh1 + TE * (h > fo ? h : fo);  // h2
+  float* sb = reinterpret_cast<float*>(bh2 + TE * h);
+  const float* sb1 = sb;
+  const float* sb2 = sb + h;
+  const float* sb3 = sb + 2 * h;
+  const Slots S{reinterpret_cast<int*>(sb + 2 * h + fo)};
+
+  // prologue: the first two tiles' slots, the first tile's copies under the weights' staging
+  const int t_first = blockIdx.x;
+  load_slot<false>(S, 0, t_first, n_tiles, count, ids, src, dst);
+  load_slot<false>(S, 1, t_first + G, n_tiles, count, ids, src, dst);
+  __syncthreads();
+  if (t_first < n_tiles) {
+    issue_m<false>(bms[0], S, 0, k, fx, fe, x, nullptr, nullptr, ea);
+    cp_async_commit();
+  }
+  stage_weights_cm(k, h, fo, sw1, sw2, sw3, sb, w1, b1, w2, b2, w3, b3);
+  // masked edges (ids[count:]), 32 a warp: their ids (and, SAVE, endpoints) in one load a lane,
+  // then the warp's lanes take consecutive 16-byte pieces of the edges' rows: the zero e' row and
+  // (SAVE) the copies of x[dst], x[src]
+  {
+    const int lane = threadIdx.x & 31;
+    const int fov = fo / 8;
+    const int per = fov + (SAVE ? fx / 4 : 0);  // pieces an edge
+    const long n_masked = n_edges - count;
+    for (long base = ((long)blockIdx.x * WARPS + (threadIdx.x >> 5)) * 32; base < n_masked;
+         base += (long)G * WARPS * 32) {
+      int id = 0, nd = 0, ns = 0;
+      if (base + lane < n_masked) {
+        id = __ldg(ids + count + base + lane);
+        if (SAVE) {
+          nd = __ldg(dst + id);
+          ns = __ldg(src + id);
+        }
+      }
+      const int pieces = (int)min(32L, n_masked - base) * per;
+#pragma unroll 4
+      for (int t0 = 0; t0 < pieces; t0 += 32) {
+        const int t = t0 + lane;
+        const int j = t < pieces ? t / per : 0;
+        const long edge = __shfl_sync(0xffffffffu, id, j);
+        const int q = t - j * per;
+        if (SAVE) {
+          const int c = 8 * (q - fov);
+          const bool to_dst = c < fx;
+          const int node_d = __shfl_sync(0xffffffffu, nd, j);
+          const int node_s = __shfl_sync(0xffffffffu, ns, j);
+          const long node = to_dst ? node_d : node_s;
+          if (t < pieces && q >= fov) {
+            const int col = to_dst ? c : c - fx;
+            *reinterpret_cast<uint4*>((to_dst ? save_d : save_s) + edge * fx + col) =
+                ld16(x + node * fx + col);
+          }
+        }
+        if (t < pieces && q < fov) {
+          *reinterpret_cast<uint4*>(e_out + edge * fo + 8 * q) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+  }
+  if (t_first >= n_tiles) return;
+
+  int j = 0;
+  for (int tile = t_first; tile < n_tiles; tile += G, ++j) {
+    const int cur = j % 3, nxt = (j + 1) % 3, after = (j + 2) % 3;
+    bf16* bm = bms[j & 1];
+    const bool has_next = tile + G < n_tiles;
+    cp_async_wait_all();
+    if (relu_edge) relu_own(bm, k, fx);
+    fence_async_smem();
+    __syncthreads();  // the tile's m (and, first, the weights) in place; the last e' rows out
+    if (BUFFERS == 2 && has_next) {
+      issue_m<false>(bms[(j + 1) & 1], S, nxt, k, fx, fe, x, nullptr, nullptr, ea);
+      cp_async_commit();
+    }
+    // the slots of tile + 2G: the id now, the endpoints after the next barrier
+    const long e2 = (long)(tile + 2 * G) * TE + threadIdx.x;
+    const bool live2 = threadIdx.x < TE && e2 < count;
+    const int id2 = live2 ? __ldg(ids + e2) : -1;
+    const int* sid = S.id(cur);
+    if (SAVE) save_rows(bm, sid, k, fx, save_d, save_s);
+    product<0>(bm, k, sw1, h, [&](int r, int c, float v0, float v1) {
+      store2(bh1 + cm(r, c, h), fmaxf(v0 + sb1[c], 0.f), fmaxf(v1 + sb1[c + 1], 0.f));
+    });
+    fence_async_smem();
+    __syncthreads();  // h1 in place, m read
+    if (BUFFERS == 1 && has_next) {
+      issue_m<false>(bm, S, nxt, k, fx, fe, x, nullptr, nullptr, ea);
+      cp_async_commit();
+    }
+    const int d2 = live2 ? __ldg(dst + id2) : 0;
+    const int s2 = live2 ? __ldg(src + id2) : 0;
+    product<0>(bh1, h, sw2, h, [&](int r, int c, float v0, float v1) {
+      store2(bh2 + cm(r, c, h), fmaxf(v0 + sb2[c], 0.f), fmaxf(v1 + sb2[c + 1], 0.f));
+    });
+    fence_async_smem();
+    __syncthreads();  // h2 in place, h1 read
+    if (threadIdx.x < TE) {
+      S.id(after)[threadIdx.x] = id2;
+      S.dst(after)[threadIdx.x] = d2;
+      S.src(after)[threadIdx.x] = s2;
+    }
+    product<0>(bh2, h, sw3, fo, [&](int r, int c, float v0, float v1) {
+      store2(bh1 + cm(r, c, fo), v0 + sb3[c], v1 + sb3[c + 1]);
+    });
+    __syncthreads();  // e' in place
+    for (int i = threadIdx.x; i < TE * (fo / 8); i += THREADS) {
+      int e, c;
+      chunk_of(i, e, c);
+      const long id = sid[e];
+      if (id >= 0) {
+        *reinterpret_cast<uint4*>(e_out + id * fo + c) =
+            *reinterpret_cast<const uint4*>(bh1 + cm(e, c, fo));
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------------------ backward (B, D)
 // The backward, persistent: blocks take tiles of TE unmasked edges in turn (ids[:count], the
 // wrapper's stable partition of the edge ids, unmasked first; count on the device), and the
 // masked edges get zero rows of g_xd, g_xs and g_ea without any MLP work. Per tile: the recompute
@@ -680,7 +707,7 @@ __device__ __forceinline__ void combine_own(bf16* bget, const bf16* ra, const bf
 // (flush_chunk). SAVED (D) reads the endpoint rows from gd = x[dst], gs = x[src]: the same
 // values, so D's outputs are bitwise B's.
 template <bool SAVED, int BUFFERS>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* __restrict__ gs,
            const bf16* __restrict__ ea, const int* __restrict__ src, const int* __restrict__ dst,
            const int* __restrict__ ids, const int* __restrict__ count_ptr,
@@ -721,13 +748,13 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
     issue_g(bh1, bgh2, S, 0, fo, g_eout, g_agg);
     cp_async_commit();
   }
-  stage_weights_cm(L, sw1, sw2, sw3, sb, w1, b1, w2, b2, w3);
+  stage_weights_cm(k, h, fo, sw1, sw2, sw3, sb, w1, b1, w2, b2, w3, nullptr);
   // masked edges (ids[count:]): zero rows, a thread a row (a warp's id loads are one
   // coalesced load, and no thread waits on more than a few of them)
   {
     const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-    for (long r = (long)blockIdx.x * BWD_THREADS + threadIdx.x; r < n_edges - count;
-         r += (long)G * BWD_THREADS) {
+    for (long r = (long)blockIdx.x * THREADS + threadIdx.x; r < n_edges - count;
+         r += (long)G * THREADS) {
       const long edge = __ldg(ids + count + r);
       for (int c = 0; c < fx; c += 8) {
         *reinterpret_cast<uint4*>(g_xd + edge * fx + c) = z;
@@ -799,13 +826,13 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
     });
 #pragma unroll
     for (int s = 0; s < REG_SLOTS; ++s) {
-      const int c = warp + BWD_WARPS * s;
+      const int c = warp + WARPS * s;
       if (c < n3) {
         const int m0 = (c % mt3) * 16, n0 = (c / mt3) * 32;
         wgrad_chunk(acc[s], bacc[s], n0 == 0, bget, fo, m0, bh2, h, n0);
       }
     }
-    for (int c = warp + BWD_WARPS * REG_SLOTS; c < n3; c += BWD_WARPS) {
+    for (int c = warp + WARPS * REG_SLOTS; c < n3; c += WARPS) {
       wgrad_chunk_flush(c, bget, fo, bh2, h, pw3, pb3, first);
     }
     fence_async_smem();
@@ -817,14 +844,14 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
     });
 #pragma unroll
     for (int s = 0; s < REG_SLOTS; ++s) {
-      const int c = warp + BWD_WARPS * s;
+      const int c = warp + WARPS * s;
       if (c >= n3 && c < n23) {
         const int c2 = c - n3;
         const int m0 = (c2 % mt2) * 16, n0 = (c2 / mt2) * 32;
         wgrad_chunk(acc[s], bacc[s], n0 == 0, bgh2, h, m0, bh1, h, n0);
       }
     }
-    for (int c = warp + BWD_WARPS * REG_SLOTS; c < n23; c += BWD_WARPS) {
+    for (int c = warp + WARPS * REG_SLOTS; c < n23; c += WARPS) {
       if (c >= n3) wgrad_chunk_flush(c - n3, bgh2, h, bh1, h, pw2, pb2, first);
     }
     fence_async_smem();
@@ -858,7 +885,7 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
         store2(g_ea + edge * fe + (c - 2 * fx), v0, v1);
       }
     });
-    for (int c = warp; c < n1; c += BWD_WARPS) {
+    for (int c = warp; c < n1; c += WARPS) {
       wgrad_chunk_flush(c, bh2, h, bm, k, pw1, pb1, first);
     }
     if (BUFFERS == 1 && has_next) {
@@ -870,7 +897,7 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
   // the register-resident chunks of dW3 and dW2, stored once
 #pragma unroll
   for (int s = 0; s < REG_SLOTS; ++s) {
-    const int c = warp + BWD_WARPS * s;
+    const int c = warp + WARPS * s;
     if (c < n3) {
       const int m0 = (c % mt3) * 16, n0 = (c / mt3) * 32;
       flush_chunk(acc[s], bacc[s], n0 == 0, m0, n0, pw3, h, pb3, true);
@@ -910,6 +937,12 @@ BwdLayout bwd_layout(int k, int h, int fo) {
   return two.bytes() <= smem_optin() ? two : BwdLayout(k, h, fo, 1);
 }
 
+// The forward's layout at these widths on the current device, chosen as the backward's
+FwdLayout fwd_layout(int k, int h, int fo) {
+  const FwdLayout two(k, h, fo, 2);
+  return two.bytes() <= smem_optin() ? two : FwdLayout(k, h, fo, 1);
+}
+
 // Set the kernel's shared-memory size and find its persistent grid: min(tiles, SMs x blocks per
 // SM), or 0 for no edges. Errors are returned and cleared, so that they do not resurface in a
 // later call's cudaGetLastError().
@@ -940,17 +973,19 @@ cudaError_t prepare(Kernel kernel, int threads, size_t smem, int n_edges, int ma
 }
 
 template <bool SAVE>
-int launch_fwd(const bf16* x, const bf16* ea, const int* edge_index, const uint8_t* mask,
-               const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2, const bf16* w3,
-               const bf16* b3, bf16* e_out, bf16* save_d, bf16* save_s, int n_edges, int fx,
-               int fe, int h, int fo, int relu_edge, void* stream_ptr) {
-  const size_t smem = Layout(2 * fx + fe, h, fo).fwd_bytes();
+int launch_fwd(const bf16* x, const bf16* ea, const int* edge_index, const int* ids,
+               const int* count, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
+               const bf16* w3, const bf16* b3, bf16* e_out, bf16* save_d, bf16* save_s,
+               int n_edges, int fx, int fe, int h, int fo, int relu_edge, void* stream_ptr) {
+  const FwdLayout L = fwd_layout(2 * fx + fe, h, fo);
+  const size_t smem = L.bytes();
+  auto kernel = L.buffers == 2 ? fwd_kernel<SAVE, 2> : fwd_kernel<SAVE, 1>;
   int grid = 0;
-  cudaError_t err = prepare(fwd_kernel<SAVE>, THREADS, smem, n_edges, 0, &grid);
+  cudaError_t err = prepare(kernel, THREADS, smem, n_edges, 0, &grid);
   if (err != cudaSuccess) return err;
   if (grid > 0) {
-    fwd_kernel<SAVE><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
-        x, ea, edge_index, edge_index + n_edges, mask, w1, b1, w2, b2, w3, b3, e_out, save_d,
+    kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream_ptr)>>>(
+        x, ea, edge_index, edge_index + n_edges, ids, count, w1, b1, w2, b2, w3, b3, e_out, save_d,
         save_s, n_edges, fx, fe, h, fo, relu_edge);
   }
   return cudaGetLastError();
@@ -970,10 +1005,10 @@ int launch_bwd(const bf16* x, const bf16* gd, const bf16* gs, const bf16* ea,
   if (max_blocks < 1) return cudaErrorInvalidValue;
   auto kernel = L.buffers == 2 ? bwd_kernel<SAVED, 2> : bwd_kernel<SAVED, 1>;
   int grid = 0;
-  cudaError_t err = prepare(kernel, BWD_THREADS, smem, n_edges, max_blocks, &grid);
+  cudaError_t err = prepare(kernel, THREADS, smem, n_edges, max_blocks, &grid);
   if (err != cudaSuccess) return err;
   if (grid > 0) {
-    kernel<<<grid, BWD_THREADS, smem, stream>>>(
+    kernel<<<grid, THREADS, smem, stream>>>(
         x, gd, gs, ea, edge_index, edge_index + n_edges, ids, count, w1, b1, w2, b2, w3, g_eout,
         g_agg, g_xd, g_xs, g_ea, partial, n_edges, fx, fe, h, fo, relu_edge);
     err = cudaGetLastError();
@@ -991,35 +1026,43 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// The shared memory a block of B or D takes at these widths (one m buffer where two do not fit),
-// and the most that a block of the current device can take: the wrapper refuses widths where the
-// first exceeds the second.
+// The shared memory a block of A or C (B or D) takes at these widths (one m buffer where two do not
+// fit), and the most that a block of the current device can take: the wrapper refuses widths
+// where the first exceeds the second.
+int fused_relational_bf16_fwd_smem(int fx, int fe, int h, int fo) {
+  return (int)fwd_layout(2 * fx + fe, h, fo).bytes();
+}
 int fused_relational_bf16_bwd_smem(int fx, int fe, int h, int fo) {
   return (int)bwd_layout(2 * fx + fe, h, fo).bytes();
 }
 int fused_relational_bf16_smem_optin() { return smem_optin(); }
 
-// A. edge_index [2, E] int32 (row 0 source, row 1 target, targets sorted); mask [E] uint8;
-// x [N, Fx], ea [E, Fe], weights [out][in] and biases, all bf16 with 16-byte aligned rows.
-// Writes e_out [E, Fo] bf16. Fx, Fe, H and Fo are multiples of 32. Returns cudaGetLastError(), or
-// the error of widths whose weights and tiles exceed one block's shared memory.
+// A. edge_index [2, E] int32 (row 0 source, row 1 target, targets sorted); ids [E] int32, the
+// edge ids partitioned stably with the unmasked first, and count [1] int32, their number (both in
+// device memory: the kernel tiles ids[:count] and writes zero rows for the rest); x [N, Fx],
+// ea [E, Fe], weights [out][in] and biases, all bf16 with 16-byte aligned rows. Writes e_out
+// [E, Fo] bf16. Fx, Fe, H and Fo are multiples of 32. Returns cudaGetLastError(), or the error of
+// widths whose weights and tiles exceed one block's shared memory (which the wrapper refuses
+// first).
 int fused_relational_bf16_fwd(const bf16* x, const bf16* ea, const int* edge_index,
-                              const uint8_t* mask, const bf16* w1, const bf16* b1, const bf16* w2,
-                              const bf16* b2, const bf16* w3, const bf16* b3, bf16* e_out,
-                              int n_edges, int fx, int fe, int h, int fo, int relu_edge,
-                              void* stream_ptr) {
-  return launch_fwd<false>(x, ea, edge_index, mask, w1, b1, w2, b2, w3, b3, e_out, nullptr,
+                              const int* ids, const int* count, const bf16* w1, const bf16* b1,
+                              const bf16* w2, const bf16* b2, const bf16* w3, const bf16* b3,
+                              bf16* e_out, int n_edges, int fx, int fe, int h, int fo,
+                              int relu_edge, void* stream_ptr) {
+  return launch_fwd<false>(x, ea, edge_index, ids, count, w1, b1, w2, b2, w3, b3, e_out, nullptr,
                            nullptr, n_edges, fx, fe, h, fo, relu_edge, stream_ptr);
 }
 
-// C. As A, and writes the gathered endpoint rows: save_d [E, Fx] = x[dst], save_s = x[src].
+// C. As A, and writes the gathered endpoint rows of every edge: save_d [E, Fx] = x[dst],
+// save_s = x[src].
 int fused_relational_bf16_fwd_save(const bf16* x, const bf16* ea, const int* edge_index,
-                                   const uint8_t* mask, const bf16* w1, const bf16* b1,
-                                   const bf16* w2, const bf16* b2, const bf16* w3, const bf16* b3,
-                                   bf16* e_out, bf16* save_d, bf16* save_s, int n_edges, int fx,
-                                   int fe, int h, int fo, int relu_edge, void* stream_ptr) {
-  return launch_fwd<true>(x, ea, edge_index, mask, w1, b1, w2, b2, w3, b3, e_out, save_d, save_s,
-                          n_edges, fx, fe, h, fo, relu_edge, stream_ptr);
+                                   const int* ids, const int* count, const bf16* w1,
+                                   const bf16* b1, const bf16* w2, const bf16* b2, const bf16* w3,
+                                   const bf16* b3, bf16* e_out, bf16* save_d, bf16* save_s,
+                                   int n_edges, int fx, int fe, int h, int fo, int relu_edge,
+                                   void* stream_ptr) {
+  return launch_fwd<true>(x, ea, edge_index, ids, count, w1, b1, w2, b2, w3, b3, e_out, save_d,
+                          save_s, n_edges, fx, fe, h, fo, relu_edge, stream_ptr);
 }
 
 // B. g_eout [E, Fo] and g_agg [N, Fo] bf16 (read by target in the kernel); ids [E] int32, the

@@ -45,6 +45,10 @@
 //    bounds check.
 // No per-query state lives in shared memory: registers set the occupancy (one block of 16 warps an
 // SM, 8 at D > 16; 16-64 queries a block read the candidates from L2).
+//  * k > MAX_K (the warp queue's 512 keys): the wrapper runs ceil(k / 512) passes. A pass after
+//    the first takes a key floor a query (the last key of the pass before; FLOOR below) and keeps
+//    only the candidates whose key is above it. Keys are unique, so the passes' outputs, one after
+//    the other, are exactly the top k in key order. Without FLOOR the kernel is the k <= 512 one.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -260,11 +264,12 @@ __device__ __forceinline__ void load_step(const float4* planes, const int* tb, i
   }
 }
 
-template <int DP, int K>
+template <int DP, int K, bool FLOOR>
 __global__ void __launch_bounds__(Cfg<DP, K>::WARPS * 32, 1)
 topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch,
-                   const int* __restrict__ qbatch, int n, int k, int loop, uint64_t sentinel,
-                   float* __restrict__ out_d, int* __restrict__ out_i) {
+                   const int* __restrict__ qbatch, const uint64_t* __restrict__ floor, int n,
+                   int k, int loop, uint64_t sentinel, float* __restrict__ out_d,
+                   int* __restrict__ out_i) {
   using C = Cfg<DP, K>;
   constexpr int T = C::T, U = C::U, Q = C::Q, TC = C::TC, P = DP / 4;
   extern __shared__ float4 smem[];
@@ -275,7 +280,7 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
 
   float qv[Q][DP];
   int qb[Q], qi[Q], qx[Q], cnt[Q];
-  uint64_t w[Q][K], b[Q][T], tau[Q];
+  uint64_t w[Q][K], b[Q][T], tau[Q], fl[Q];  // fl: the key floor (FLOOR), else unused
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     qi[q] = min(q0 + q, n - 1);  // a warp's queries past n repeat query n - 1 and write nothing
@@ -289,6 +294,7 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
     }
     qb[q] = qbatch[qi[q]];
     qx[q] = loop ? -1 : qi[q];  // the candidate index a query excludes (none with `loop`)
+    fl[q] = FLOOR ? floor[qi[q]] : 0ull;
     cnt[q] = 0;
     tau[q] = sentinel;
 #pragma unroll
@@ -358,7 +364,8 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
           for (int u = 0; u < U; ++u) {
             key[q][u] = (static_cast<uint64_t>(__float_as_uint(d2[q][u])) << 32) |
                         static_cast<unsigned>(cc[u]);
-            take[q][u] = cb[u] == qb[q] && cc[u] != qx[q] && key[q][u] < tau[q];
+            take[q][u] = cb[u] == qb[q] && cc[u] != qx[q] && key[q][u] < tau[q] &&
+                         (!FLOOR || key[q][u] > fl[q]);
             takes += take[q][u];
           }
         }
@@ -419,30 +426,38 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
   }
 }
 
-template <int DP, int K>
-cudaError_t launch(const float* xp, const int* cbatch, const int* qbatch, int n, int k, int loop,
-                   uint64_t sentinel, float* out_d, int* out_i, cudaStream_t stream) {
+template <int DP, int K, bool FLOOR = false>
+cudaError_t launch(const float* xp, const int* cbatch, const int* qbatch, const uint64_t* floor,
+                   int n, int k, int loop, uint64_t sentinel, float* out_d, int* out_i,
+                   cudaStream_t stream) {
   using C = Cfg<DP, K>;
   static_assert(CAND_ALIGN % C::TC == 0, "tiles must divide the candidate padding");
   const size_t smem = (size_t)STAGES * C::STAGE_F4 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(topk_select_kernel<DP, K>,
+  cudaError_t err = cudaFuncSetAttribute(topk_select_kernel<DP, K, FLOOR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int per_block = C::WARPS * C::Q;
   const int grid = (n + per_block - 1) / per_block;
-  topk_select_kernel<DP, K><<<grid, C::WARPS * 32, smem, stream>>>(
-      reinterpret_cast<const float4*>(xp), cbatch, qbatch, n, k, loop, sentinel, out_d, out_i);
+  topk_select_kernel<DP, K, FLOOR><<<grid, C::WARPS * 32, smem, stream>>>(
+      reinterpret_cast<const float4*>(xp), cbatch, qbatch, floor, n, k, loop, sentinel, out_d,
+      out_i);
   return cudaGetLastError();
 }
 
+// A pass with a key floor takes the widest queue (passes after the first are for k > MAX_K)
 template <int DP>
-cudaError_t launch_k(const float* xp, const int* cbatch, const int* qbatch, int n, int k, int loop,
-                     uint64_t sentinel, float* out_d, int* out_i, cudaStream_t stream) {
+cudaError_t launch_k(const float* xp, const int* cbatch, const int* qbatch, const uint64_t* floor,
+                     int n, int k, int loop, uint64_t sentinel, float* out_d, int* out_i,
+                     cudaStream_t stream) {
+  if (floor != nullptr) {
+    return launch<DP, 16, true>(xp, cbatch, qbatch, floor, n, k, loop, sentinel, out_d, out_i,
+                                stream);
+  }
   const int per_lane = (k + 31) / 32;  // K = 2 at the least: thread queues of 2 merge half as often
-  if (per_lane <= 2) return launch<DP, 2>(xp, cbatch, qbatch, n, k, loop, sentinel, out_d, out_i, stream);
-  if (per_lane <= 4) return launch<DP, 4>(xp, cbatch, qbatch, n, k, loop, sentinel, out_d, out_i, stream);
-  if (per_lane <= 8) return launch<DP, 8>(xp, cbatch, qbatch, n, k, loop, sentinel, out_d, out_i, stream);
-  return launch<DP, 16>(xp, cbatch, qbatch, n, k, loop, sentinel, out_d, out_i, stream);
+  if (per_lane <= 2) return launch<DP, 2>(xp, cbatch, qbatch, floor, n, k, loop, sentinel, out_d, out_i, stream);
+  if (per_lane <= 4) return launch<DP, 4>(xp, cbatch, qbatch, floor, n, k, loop, sentinel, out_d, out_i, stream);
+  if (per_lane <= 8) return launch<DP, 8>(xp, cbatch, qbatch, floor, n, k, loop, sentinel, out_d, out_i, stream);
+  return launch<DP, 16>(xp, cbatch, qbatch, floor, n, k, loop, sentinel, out_d, out_i, stream);
 }
 
 }  // namespace
@@ -455,19 +470,22 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 // columns, then NaN rows to rows, a multiple of CAND_ALIGN (whole tiles: the scan reads every row
 // of a tile); cbatch [rows] i32 (-2 = masked); qbatch [n] i32; outputs [n, k].
 // sentinel = (float_bits(radius2) << 32) | 0xFFFFFFFF, radius2 = +inf for plain k-nearest, 0 to
-// admit nothing.
-int pairwise_topk_filter(const float* xp, const int* cbatch, const int* qbatch, float* out_d,
-                         int* out_i, int n, int rows, int d, int dp, int k, int loop,
-                         unsigned long long sentinel, void* stream_ptr) {
+// admit nothing. floor: null, or [n] keys (as int64, all below 2^63) that each query's candidates
+// must exceed (a pass after the first for k > MAX_K).
+int pairwise_topk_filter(const float* xp, const int* cbatch, const int* qbatch,
+                         const unsigned long long* floor, float* out_d, int* out_i, int n,
+                         int rows, int d, int dp, int k, int loop, unsigned long long sentinel,
+                         void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n == 0 || k == 0) return cudaSuccess;
   if (n < 0 || k < 0 || k > MAX_K || d < 0 || d > dp) return cudaErrorInvalidValue;
   if (rows < n || rows % CAND_ALIGN != 0) return cudaErrorInvalidValue;  // padding too short
   const uint64_t s = sentinel;
-  if (dp == 4) return launch_k<4>(xp, cbatch, qbatch, n, k, loop, s, out_d, out_i, stream);
-  if (dp == 8) return launch_k<8>(xp, cbatch, qbatch, n, k, loop, s, out_d, out_i, stream);
-  if (dp == 16) return launch_k<16>(xp, cbatch, qbatch, n, k, loop, s, out_d, out_i, stream);
-  if (dp == 32) return launch_k<32>(xp, cbatch, qbatch, n, k, loop, s, out_d, out_i, stream);
+  const uint64_t* f = reinterpret_cast<const uint64_t*>(floor);
+  if (dp == 4) return launch_k<4>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
+  if (dp == 8) return launch_k<8>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
+  if (dp == 16) return launch_k<16>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
+  if (dp == 32) return launch_k<32>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
   return cudaErrorInvalidValue;
 }
 

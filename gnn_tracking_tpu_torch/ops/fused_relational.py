@@ -44,6 +44,8 @@ gradients are bitwise those of the recomputing pair.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.nn import functional as F
 
@@ -62,10 +64,11 @@ _SIGNATURES = {
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
 # relu_edge (and the backward's block count), then the stream
 _SIGNATURES_BF16 = {
-    "fused_relational_bf16_fwd": [_build.P] * 11 + [_build.I] * 6 + [_build.P],
-    "fused_relational_bf16_fwd_save": [_build.P] * 13 + [_build.I] * 6 + [_build.P],
+    "fused_relational_bf16_fwd": [_build.P] * 12 + [_build.I] * 6 + [_build.P],
+    "fused_relational_bf16_fwd_save": [_build.P] * 14 + [_build.I] * 6 + [_build.P],
     "fused_relational_bf16_bwd": [_build.P] * 17 + [_build.I] * 7 + [_build.P],
     "fused_relational_bf16_bwd_saved": [_build.P] * 18 + [_build.I] * 7 + [_build.P],
+    "fused_relational_bf16_fwd_smem": [_build.I] * 4,
     "fused_relational_bf16_bwd_smem": [_build.I] * 4,
     "fused_relational_bf16_smem_optin": [],
 }
@@ -227,7 +230,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _compact(edge_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The edge ids partitioned stably, unmasked first (``[E]`` int32), and a
     one-element view of the unmasked count, both on the device: no host
-    sync. ``E`` must be positive."""
+    sync. ``E`` must be positive. The kernels' wrappers take it as
+    ``partition``; ``FusedRelational`` computes it once per layer call, for
+    its forward and backward (``_compact.calls`` counts the calls)."""
+    _compact.calls += 1
     e, dev = edge_mask.shape[0], edge_mask.device
     pos = torch.cumsum(edge_mask, 0, dtype=torch.int32)
     count = pos[e - 1 :]
@@ -236,8 +242,13 @@ def _compact(edge_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.empty_like(order).scatter_(0, slot, order), count
 
 
-def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save):
-    """Launch C entry ``entry`` (row #1, or C32 with ``save``), then row #9's sum."""
+_compact.calls = 0
+
+
+def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save,
+             partition):
+    """Launch C entry ``entry`` (row #1, or C32 with ``save``) on ``partition``
+    (``_compact``'s, computed here when None), then row #9's sum."""
     n, e, fx, fe, h, fo = _check_inputs(
         entry, x, edge_attr, edge_index, edge_mask, weights,
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
@@ -249,7 +260,7 @@ def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_e
     p = _build.ptr
     w1t = _w1t(lib, weights["w1"], fx, fe, h, fo)
     if e > 0:
-        ids, count = _compact(edge_mask)
+        ids, count = _compact(edge_mask) if partition is None else partition
         err = getattr(lib, entry)(
             p(x), p(edge_attr), p(edge_index), p(ids), p(count), p(weights["w1"]),
             None if w1t is None else p(w1t), *(p(weights[key]) for key in WEIGHT_KEYS[1:]),
@@ -269,11 +280,13 @@ def fused_relational_fwd(
     *,
     rowptr: torch.Tensor | None = None,
     relu_edge: bool = False,
+    partition: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(e_tilde [E, Fo], agg [N, Fo])``, not differentiable (see
     :func:`fused_relational`). CPU tensors take the plain version; CUDA
-    tensors compact the unmasked edges, launch the edge kernel and then the
-    sorted segment-sum (``rowptr`` required). Widths whose weights do not
+    tensors compact the unmasked edges (or take ``partition``, ``_compact``'s
+    result for this mask), launch the edge kernel and then the sorted
+    segment-sum (``rowptr`` required). Widths whose weights do not
     fit one block's shared memory keep ``W1`` in device memory and read it
     transposed (``ec.yml``'s K = 192, H = 128, Fo = 64); those whose tiles
     and other weights do not fit even so raise ``RuntimeError``."""
@@ -282,13 +295,13 @@ def fused_relational_fwd(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge
         )
     out = _fwd_f32("fused_relational_fwd", x, edge_attr, edge_index, edge_mask, weights, rowptr,
-                   relu_edge, save=False)
+                   relu_edge, False, partition)
     fused_relational_fwd.launches += 1
     return out
 
 
 def fused_relational_fwd_save(
-    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False, partition=None,
 ):
     """Kernel C32: the forward's outputs and the gathered endpoint rows
     ``(e_tilde, agg, x[dst], x[src])``, for :func:`fused_relational_bwd_saved`;
@@ -297,16 +310,17 @@ def fused_relational_fwd_save(
         return fused_relational_fwd_save_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
     out = _fwd_f32("fused_relational_fwd_save", x, edge_attr, edge_index, edge_mask, weights,
-                   rowptr, relu_edge, save=True)
+                   rowptr, relu_edge, True, partition)
     fused_relational_fwd_save.launches += 1
     return out
 
 
 def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
-             num_nodes, relu_edge):
+             num_nodes, relu_edge, partition):
     """Launch C entry ``what`` (row #2 from ``x``, or D32 from the saved rows
-    ``gd``, ``gs``) on the unmasked edges (the forward's partition), then row
-    #9's per-target and per-source sums."""
+    ``gd``, ``gs``) on the unmasked edges (the forward's ``partition``, or
+    ``_compact``'s computed here when None), then row #9's per-target and
+    per-source sums."""
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.float32, (e, fo)),
@@ -335,7 +349,7 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
         blocks = torch.cuda.get_device_properties(dev).multi_processor_count
         partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
         packed = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
-        ids, count = _compact(edge_mask)
+        ids, count = _compact(edge_mask) if partition is None else partition
         w1 = weights["w1"]
         # each product reads its weight along 16-byte rows: W1^T and W2^T for the recompute,
         # W1 (rows padded to a multiple of 4), W2 and W3 for the input gradients
@@ -373,11 +387,13 @@ def fused_relational_bwd(
     csr: dict[str, torch.Tensor],
     *,
     relu_edge: bool = False,
+    partition: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
     """``(g_x [N, Fx], g_edge_attr [E, Fe], weight gradients)`` from the
     cotangents of ``(e_tilde, agg)``. CPU tensors take the plain version.
     CUDA tensors gather ``g_agg[dst]`` (``sorted_gather`` kernel),
-    partition the edge ids as the forward does, launch the backward edge
+    partition the edge ids as the forward does (or take the forward's
+    ``partition``), launch the backward edge
     kernel over the unmasked edges (masked edges get zero rows), and sum the
     per-edge node gradients per target and per source
     (``sorted_segment_sum`` kernel); ``csr`` must hold ``dst_rowptr``,
@@ -389,14 +405,14 @@ def fused_relational_bwd(
             relu_edge=relu_edge,
         )
     out = _bwd_f32("fused_relational_bwd", x, None, None, edge_attr, edge_index, edge_mask,
-                   weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
+                   weights, g_e_out, g_agg, csr, x.shape[0], relu_edge, partition)
     fused_relational_bwd.launches += 1
     return out
 
 
 def fused_relational_bwd_saved(
     gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
-    *, relu_edge=False,
+    *, relu_edge=False, partition=None,
 ):
     """Kernel D32: :func:`fused_relational_bwd` from the rows ``gd = x[dst]``,
     ``gs = x[src]`` that kernel C32 saved; bitwise its outputs."""
@@ -405,7 +421,7 @@ def fused_relational_bwd_saved(
             gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
             relu_edge=relu_edge)
     out = _bwd_f32("fused_relational_bwd_saved", None, gd, gs, edge_attr, edge_index, edge_mask,
-                   weights, g_e_out, g_agg, csr, num_nodes, relu_edge)
+                   weights, g_e_out, g_agg, csr, num_nodes, relu_edge, partition)
     fused_relational_bwd_saved.launches += 1
     return out
 
@@ -517,61 +533,92 @@ def _check_bf16(what, x, edge_attr, edge_index, edge_mask, weights, extra=()):
     return widths
 
 
-def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save):
-    """Launch C entry ``entry`` (A, or C with ``save``), then row #9's sum."""
+@functools.lru_cache(maxsize=None)
+def _smem_need(entry: str, widths: tuple[int, int, int, int], device: int) -> tuple[int, int]:
+    """The shared memory a block of a bf16 kernel takes at ``widths`` (C entry
+    ``entry``: ``fused_relational_bf16_fwd_smem`` or ``_bwd_smem``) and the
+    most that a block of the card can take (``device``: the cache key)."""
+    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
+    return getattr(lib, entry)(*widths), lib.fused_relational_bf16_smem_optin()
+
+
+def _check_smem(what, entry, widths, dev):
+    """Refuse widths whose weights and tiles exceed one block's shared memory."""
+    need, limit = _smem_need(entry, widths, dev.index if dev.index is not None else 0)
+    if need > limit:
+        msg = (f"{what}: widths (Fx, Fe, H, Fo) = {widths} need {need} bytes of shared "
+               f"memory a block, more than the {limit} one block of this card can take")
+        raise ValueError(msg)
+
+
+def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save,
+              partition):
+    """Launch C entry ``entry`` (A, or C with ``save``) on the unmasked edges
+    (``partition``, or ``_compact``'s computed here when None), then row #9's
+    sum. Returns the outputs and whether the entry was launched (not for
+    ``E = 0``). Widths whose weights and tiles exceed one block's shared
+    memory raise ``ValueError``."""
     n, e, fx, fe, h, fo = _check_bf16(
         entry, x, edge_attr, edge_index, edge_mask, weights,
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
     )
     dev = x.device
+    _check_smem(entry, "fused_relational_bf16_fwd_smem", (fx, fe, h, fo), dev)
     e_out = torch.empty((e, fo), dtype=torch.bfloat16, device=dev)
     saved = [torch.empty((e, fx), dtype=torch.bfloat16, device=dev) for _ in range(2 if save else 0)]
-    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
-    p = _build.ptr
-    err = getattr(lib, entry)(
-        p(x), p(edge_attr), p(edge_index), p(edge_mask),
-        *(p(weights[key]) for key in WEIGHT_KEYS), p(e_out), *(p(t) for t in saved),
-        e, fx, fe, h, fo, int(relu_edge), _build.stream_ptr(dev),
-    )
-    _build.check(lib, err, entry)
+    if e > 0:
+        ids, count = _compact(edge_mask) if partition is None else partition
+        lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
+        p = _build.ptr
+        err = getattr(lib, entry)(
+            p(x), p(edge_attr), p(edge_index), p(ids), p(count),
+            *(p(weights[key]) for key in WEIGHT_KEYS), p(e_out), *(p(t) for t in saved),
+            e, fx, fe, h, fo, int(relu_edge), _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, entry)
     agg = segment_sum_csr(e_out, rowptr).to(torch.bfloat16)
-    return e_out, agg, *saved
+    return (e_out, agg, *saved), e > 0
 
 
 def fused_relational_bf16_fwd(
-    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False, partition=None,
 ):
     """Kernel A: ``(e_tilde [E, Fo], agg [N, Fo])``, bf16, not differentiable
     (see :func:`fused_relational`). CPU tensors take the plain version; CUDA
-    tensors launch the edge kernel, then the sorted segment-sum over its bf16
+    tensors partition the edge ids as :func:`fused_relational_fwd` does (or
+    take ``partition``), launch the edge kernel over the unmasked edges
+    (masked edges get zero rows), then the sorted segment-sum over its bf16
     rows (``rowptr`` required)."""
     if x.device.type == "cpu":
         return fused_relational_bf16_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
-    out = _fwd_bf16("fused_relational_bf16_fwd", x, edge_attr, edge_index, edge_mask, weights,
-                    rowptr, relu_edge, save=False)
-    fused_relational_bf16_fwd.launches += 1
+    out, launched = _fwd_bf16("fused_relational_bf16_fwd", x, edge_attr, edge_index, edge_mask,
+                              weights, rowptr, relu_edge, False, partition)
+    fused_relational_bf16_fwd.launches += launched
     return out
 
 
 def fused_relational_bf16_fwd_save(
-    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False,
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False, partition=None,
 ):
     """Kernel C: kernel A's outputs and the gathered endpoint rows
-    ``(e_tilde, agg, x[dst], x[src])``, for :func:`fused_relational_bf16_bwd_saved`."""
+    ``(e_tilde, agg, x[dst], x[src])`` of every edge, for
+    :func:`fused_relational_bf16_bwd_saved`; ``e_tilde`` and ``agg`` are
+    bitwise :func:`fused_relational_bf16_fwd`'s."""
     if x.device.type == "cpu":
         return fused_relational_bf16_fwd_save_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
-    out = _fwd_bf16("fused_relational_bf16_fwd_save", x, edge_attr, edge_index, edge_mask,
-                    weights, rowptr, relu_edge, save=True)
-    fused_relational_bf16_fwd_save.launches += 1
+    out, launched = _fwd_bf16("fused_relational_bf16_fwd_save", x, edge_attr, edge_index,
+                              edge_mask, weights, rowptr, relu_edge, True, partition)
+    fused_relational_bf16_fwd_save.launches += launched
     return out
 
 
 def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr,
-              num_nodes, relu_edge):
+              num_nodes, relu_edge, partition):
     """Launch C entry ``what`` (B from ``x``, or D from the saved rows ``gd``,
-    ``gs``) on the unmasked edges (``_compact``'s partition), then row #9's
+    ``gs``) on the unmasked edges (``partition``, the forward's, or
+    ``_compact``'s computed here when None), then row #9's
     per-target and per-source sums. Returns the outputs and whether the
     entry was launched (not for ``E = 0``). Widths whose weights and tiles
     exceed one block's shared memory raise ``ValueError``."""
@@ -590,24 +637,20 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
         extra.append(("gs", gs, torch.bfloat16, tuple(gd.shape)))
     _, _, fx, fe, h, _ = _check_bf16(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
     dev = edge_attr.device
+    _check_smem(what, "fused_relational_bf16_bwd_smem", (fx, fe, h, fo), dev)
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
     g_xd = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
     g_xs = torch.empty((e, fx), dtype=torch.bfloat16, device=dev)
     g_ea = torch.empty((e, fe), dtype=torch.bfloat16, device=dev)
-    lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
-    need, limit = lib.fused_relational_bf16_bwd_smem(fx, fe, h, fo), lib.fused_relational_bf16_smem_optin()
-    if need > limit:
-        msg = (f"{what}: widths (Fx, Fe, H, Fo) = {(fx, fe, h, fo)} need {need} bytes of shared "
-               f"memory a block, more than the {limit} one block of this card can take")
-        raise ValueError(msg)
     if e > 0:
+        lib = _build.library("fused_relational_bf16", _SIGNATURES_BF16)
         # one weight-gradient partial per block of the edge kernel, at most one block per SM
         blocks = torch.cuda.get_device_properties(dev).multi_processor_count
         partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
         packed = torch.empty(sum(sizes), dtype=torch.bfloat16, device=dev)
-        ids, count = _compact(edge_mask)
+        ids, count = _compact(edge_mask) if partition is None else partition
         p = _build.ptr
         rows = [p(x)] if x is not None else [p(gd), p(gs)]
         err = getattr(lib, what)(
@@ -630,26 +673,29 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
 
 def fused_relational_bf16_bwd(
     x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, *, relu_edge=False,
+    partition=None,
 ):
     """Kernel B: ``(g_x [N, Fx], g_edge_attr [E, Fe], weight gradients)``,
     bf16, from the cotangents of ``(e_tilde, agg)``. CPU tensors take the
     plain version. CUDA tensors partition the edge ids as
-    :func:`fused_relational_bwd` does, launch the backward edge kernel over
-    the unmasked edges (it reads ``g_agg`` by target itself; masked edges
-    get zero rows) and the sorted segment-sum of the per-edge node gradients
-    per target and per source; ``csr`` as for :func:`fused_relational_bwd`."""
+    :func:`fused_relational_bwd` does (or take the forward's
+    ``partition``), launch the backward edge kernel over the unmasked edges
+    (it reads ``g_agg`` by target itself; masked edges get zero rows) and
+    the sorted segment-sum of the per-edge node gradients per target and per
+    source; ``csr`` as for :func:`fused_relational_bwd`."""
     if x.device.type == "cpu":
         return fused_relational_bf16_bwd_plain(
             x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, relu_edge=relu_edge)
     out, launched = _bwd_bf16("fused_relational_bf16_bwd", x, None, None, edge_attr, edge_index,
-                              edge_mask, weights, g_e_out, g_agg, csr, x.shape[0], relu_edge)
+                              edge_mask, weights, g_e_out, g_agg, csr, x.shape[0], relu_edge,
+                              partition)
     fused_relational_bf16_bwd.launches += launched
     return out
 
 
 def fused_relational_bf16_bwd_saved(
     gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
-    *, relu_edge=False,
+    *, relu_edge=False, partition=None,
 ):
     """Kernel D: kernel B from the rows ``gd = x[dst]``, ``gs = x[src]``
     that kernel C saved; bitwise B's outputs."""
@@ -659,7 +705,7 @@ def fused_relational_bf16_bwd_saved(
             relu_edge=relu_edge)
     out, launched = _bwd_bf16("fused_relational_bf16_bwd_saved", None, gd, gs, edge_attr,
                               edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes,
-                              relu_edge)
+                              relu_edge, partition)
     fused_relational_bf16_bwd_saved.launches += launched
     return out
 
@@ -691,17 +737,19 @@ class FusedRelational(torch.autograd.Function):
             msg = f"fused_relational: bf16 x needs bf16 edge_attr and weights, got {sorted(map(str, dtypes))}"
             raise ValueError(msg)
         rowptr = csr.get("dst_rowptr")
+        # one partition of the edge ids for the layer call's forward and backward kernels
+        partition = _compact(edge_mask) if x.is_cuda and edge_mask.shape[0] > 0 else None
+        kw = {"rowptr": rowptr, "relu_edge": relu_edge, "partition": partition}
         if save_acts:
             fwd_save = fused_relational_bf16_fwd_save if bf16 else fused_relational_fwd_save
-            e_out, agg, gd, gs = fwd_save(
-                x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr, relu_edge=relu_edge)
+            e_out, agg, gd, gs = fwd_save(x, edge_attr, edge_index, edge_mask, weights, **kw)
             ctx.save_for_backward(gd, gs, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
         else:
             fwd = fused_relational_bf16_fwd if bf16 else fused_relational_fwd
-            e_out, agg = fwd(x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr,
-                             relu_edge=relu_edge)
+            e_out, agg = fwd(x, edge_attr, edge_index, edge_mask, weights, **kw)
             ctx.save_for_backward(x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
         ctx.csr, ctx.relu_edge, ctx.save_acts, ctx.bf16 = csr, relu_edge, save_acts, bf16
+        ctx.partition = partition
         ctx.num_nodes = x.shape[0]
         return e_out, agg
 
@@ -713,14 +761,14 @@ class FusedRelational(torch.autograd.Function):
             bwd_saved = fused_relational_bf16_bwd_saved if ctx.bf16 else fused_relational_bwd_saved
             g_x, g_ea, grads = bwd_saved(
                 gd, gs, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts,
-                ctx.csr, ctx.num_nodes, relu_edge=ctx.relu_edge,
+                ctx.csr, ctx.num_nodes, relu_edge=ctx.relu_edge, partition=ctx.partition,
             )
         else:
             x, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
             bwd = fused_relational_bf16_bwd if ctx.bf16 else fused_relational_bwd
             g_x, g_ea, grads = bwd(
                 x, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts, ctx.csr,
-                relu_edge=ctx.relu_edge,
+                relu_edge=ctx.relu_edge, partition=ctx.partition,
             )
         return (g_x, g_ea, *(grads[k] for k in WEIGHT_KEYS), None, None, None, None, None)
 

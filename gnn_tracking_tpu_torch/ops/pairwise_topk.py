@@ -12,11 +12,14 @@ differ in their masked queries and options:
   warp-cooperative selection in registers): masked queries still report
   their neighbours (their coordinates are taken as zero, as in the JAX
   function); with ``radius2``, at most ``k`` nearest with ``d2 <=
-  radius2``. The kernel takes ``k <= MAX_K_FILTER``;
+  radius2``. The kernel takes ``k <= MAX_K_FILTER`` a pass; a larger ``k``
+  runs ``ceil(k / MAX_K_FILTER)`` passes, each above the key of the last
+  slot of the pass before (``_topk_passes``);
 * ``pairwise_topk`` and ``pairwise_topk_streaming`` (CUDA kernels
   ``csrc/pairwise_topk_split.cu``, one pair for both): masked queries get
   ``(+inf, 0)`` in every slot; ``pairwise_topk_streaming`` takes no
-  ``batch``. The split kernel takes ``k <= MAX_K_SPLIT``.
+  ``batch``. The split kernel takes ``k <= MAX_K_SPLIT``; a larger ``k``
+  takes the filter kernel's passes.
 """
 
 from __future__ import annotations
@@ -35,14 +38,16 @@ MAX_K_SPLIT = 256
 #: queries per block of the plain version ([BLOCK_Q, N] distances at a time)
 BLOCK_Q = 1024
 
-#: largest k of the filter kernel (a warp queue of at most 16 keys a lane)
+#: largest k of one pass of the filter kernel (a warp queue of at most 16 keys a lane)
 MAX_K_FILTER = 512
+#: a key floor above every key: the query has nothing left for the next pass
+NO_KEY_LEFT = 2**63 - 1
 #: the filter kernel's candidate rows are padded with NaN rows to a multiple of
 #: this (whole tiles)
 CAND_ALIGN = 512
 
 _SIGNATURES = {
-    "pairwise_topk_filter": [_build.P] * 5 + [_build.I] * 6 + [ctypes.c_uint64, _build.P],
+    "pairwise_topk_filter": [_build.P] * 6 + [_build.I] * 6 + [ctypes.c_uint64, _build.P],
 }
 _SIGNATURES_SPLIT = {
     "pairwise_topk_split_plan": [_build.I] * 3 + [_build.P] * 2,
@@ -80,10 +85,14 @@ def pairwise_topk_filter_plain(
     batch: torch.Tensor | None = None,
     loop: bool = False,
     radius2: float | None = None,
+    key_floor: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: per block of ``BLOCK_Q`` queries, the
     ``[BLOCK_Q, N]`` squared distances (dimension by dimension), masking,
-    then a stable sort (ties to the lower index) cut to ``k`` columns."""
+    then a stable sort (ties to the lower index) cut to ``k`` columns. With
+    ``key_floor`` ([N] int64, float32 ``x``), a candidate is kept only if its
+    key ``(float_bits(d2) << 32) | j`` is above its query's floor (a pass of
+    :func:`_topk_passes`)."""
     n, d = x.shape
     xe, cbatch, qbatch = _defaults(x, node_mask, batch)
     cols = torch.arange(n, device=x.device)
@@ -99,6 +108,8 @@ def pairwise_topk_filter_plain(
             invalid |= cols[None, :] == cols[s : s + BLOCK_Q, None]
         if radius2 is not None:
             invalid |= dist > radius2
+        if key_floor is not None:
+            invalid |= _keys(dist, cols[None, :]) <= key_floor[s : s + BLOCK_Q, None]
         dist = torch.where(invalid, inf, dist)
         sd, si = torch.sort(dist, dim=1, stable=True)
         # copies: a view would keep the block's whole [BLOCK_Q, N] sort alive
@@ -112,6 +123,61 @@ def pairwise_topk_filter_plain(
         idx = torch.nn.functional.pad(idx, (0, pad))
     idx = torch.where(torch.isfinite(dists), idx, 0).to(torch.int32)
     return dists, idx
+
+
+def _keys(dists: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The selection keys ``(float_bits(d2) << 32) | j`` (int64; float32
+    ``dists`` >= 0, so the keys order like ``(d2, j)``)."""
+    bits = dists.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return (bits << 32) | idx.to(torch.int64)
+
+
+def _topk_passes(one_pass, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` above ``MAX_K_FILTER`` in passes: ``one_pass(kp,
+    floor)`` returns the ``kp`` nearest of every query whose keys are above
+    its ``floor`` ([N] int64; None for the first pass). A pass takes the
+    last slot's key of the pass before as its floor (``NO_KEY_LEFT`` where
+    that slot is unfilled). Keys are unique, so the passes' outputs side by
+    side are exactly the top ``k`` in key order, ties included. A pass whose
+    last slot is unfilled in every row ends the loop (one host sync a pass);
+    the slots left are ``(+inf, 0)``."""
+    dists, idx, floor, done = [], [], None, 0
+    while done < k:
+        kp = min(MAX_K_FILTER, k - done)
+        d, i = one_pass(kp, floor)
+        dists.append(d)
+        idx.append(i)
+        done += kp
+        if done < k:
+            filled = torch.isfinite(d[:, -1])
+            if not filled.any():
+                break
+            floor = torch.where(filled, _keys(d[:, -1], i[:, -1]), NO_KEY_LEFT)
+    d = torch.cat(dists, dim=1)
+    i = torch.cat(idx, dim=1)
+    if done < k:
+        d = torch.nn.functional.pad(d, (0, k - done), value=math.inf)
+        i = torch.nn.functional.pad(i, (0, k - done))
+    return d, i
+
+
+def pairwise_topk_filter_passes_plain(
+    x: torch.Tensor,
+    *,
+    k: int,
+    node_mask: torch.Tensor | None = None,
+    batch: torch.Tensor | None = None,
+    loop: bool = False,
+    radius2: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`pairwise_topk_filter_plain` at ``k`` in the CUDA wrapper's
+    passes of at most ``MAX_K_FILTER`` (``_topk_passes``): the same result
+    as one call."""
+    return _topk_passes(
+        lambda kp, floor: pairwise_topk_filter_plain(
+            x, k=kp, node_mask=node_mask, batch=batch, loop=loop, radius2=radius2, key_floor=floor),
+        k,
+    )
 
 
 def _padded_dim(d: int) -> int:
@@ -146,32 +212,35 @@ def pairwise_topk_filter(
     radius2: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(dists_sq [N, k], idx [N, k] int32)``. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, which takes ``k <=
-    MAX_K_FILTER``."""
+    version; CUDA tensors launch the kernel, once for ``k <=
+    MAX_K_FILTER`` and in passes above it (``_topk_passes``)."""
     if x.device.type == "cpu":
         return pairwise_topk_filter_plain(
             x, k=k, node_mask=node_mask, batch=batch, loop=loop, radius2=radius2
         )
     _check_cuda("pairwise_topk_filter", x, node_mask, batch)
-    if k > MAX_K_FILTER:
-        msg = f"pairwise_topk_filter: the CUDA kernel takes k <= {MAX_K_FILTER}, got {k}"
-        raise ValueError(msg)
     n, d = x.shape
-    out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
     if n == 0 or k == 0:
-        return out_d, out_i
+        return (torch.empty((n, k), dtype=torch.float32, device=x.device),
+                torch.empty((n, k), dtype=torch.int32, device=x.device))
     rows = -(-n // CAND_ALIGN) * CAND_ALIGN
     xp, cbp, qbatch = _defaults(x, node_mask, batch, rows, _padded_dim(d))
     lib = _build.library("pairwise_topk", _SIGNATURES)
     p = _build.ptr
-    err = lib.pairwise_topk_filter(
-        p(xp), p(cbp), p(qbatch), p(out_d), p(out_i), n, rows, d, xp.shape[1], k, int(loop),
-        _radius_sentinel(radius2), _build.stream_ptr(x.device),
-    )
-    _build.check(lib, err, "pairwise_topk_filter")
-    pairwise_topk_filter.launches += 1
-    return out_d, out_i
+
+    def one_pass(kp, floor):
+        out_d = torch.empty((n, kp), dtype=torch.float32, device=x.device)
+        out_i = torch.empty((n, kp), dtype=torch.int32, device=x.device)
+        err = lib.pairwise_topk_filter(
+            p(xp), p(cbp), p(qbatch), None if floor is None else p(floor), p(out_d), p(out_i),
+            n, rows, d, xp.shape[1], kp, int(loop), _radius_sentinel(radius2),
+            _build.stream_ptr(x.device),
+        )
+        _build.check(lib, err, "pairwise_topk_filter")
+        pairwise_topk_filter.launches += 1
+        return out_d, out_i
+
+    return one_pass(k, None) if k <= MAX_K_FILTER else _topk_passes(one_pass, k)
 
 
 pairwise_topk_filter.launches = 0
@@ -211,10 +280,16 @@ def pairwise_topk_plain(
     version (blocked direct distances, stable sort), with the rows of masked
     queries set to ``(+inf, 0)``."""
     dists, idx = pairwise_topk_filter_plain(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
-    if node_mask is not None:
-        dists = torch.where(node_mask[:, None], dists, math.inf)
-        idx = torch.where(node_mask[:, None], idx, 0)
-    return dists, idx
+    return _unfill_masked_queries(dists, idx, node_mask)
+
+
+def _unfill_masked_queries(dists, idx, node_mask):
+    """``(dists, idx)`` with the rows of masked queries set to ``(+inf, 0)``,
+    as :func:`pairwise_topk` gives them."""
+    if node_mask is None:
+        return dists, idx
+    return (torch.where(node_mask[:, None], dists, math.inf),
+            torch.where(node_mask[:, None], idx, 0))
 
 
 def pairwise_topk_streaming_plain(
@@ -226,11 +301,14 @@ def pairwise_topk_streaming_plain(
 
 def _split_topk(what, x, k, node_mask, batch, loop):
     """Launch the split kernel pair (partial top-k over S candidate ranges,
-    then the S-way merge) on CUDA tensors. Returns ``(dists, idx, S)``."""
+    then the S-way merge) on CUDA tensors. Returns ``(dists, idx, S)``; S =
+    0 where the pair was not launched: no query or slot, or ``k >
+    MAX_K_SPLIT``, which takes the filter kernel's passes with the masked
+    queries' rows set to ``(+inf, 0)``."""
     _check_cuda(what, x, node_mask, batch)
     if k > MAX_K_SPLIT:
-        msg = f"{what}: the CUDA kernel takes k <= {MAX_K_SPLIT}, got {k}"
-        raise ValueError(msg)
+        dists, idx = pairwise_topk_filter(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
+        return *_unfill_masked_queries(dists, idx, node_mask), 0
     n, d = x.shape
     dev = x.device
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
@@ -268,11 +346,12 @@ def pairwise_topk(
     neighbours of every valid query among the points of its ``batch``;
     masked queries get ``(+inf, 0)``. CPU tensors take the plain version;
     CUDA tensors launch the split kernel pair (``pairwise_topk.last_splits``
-    holds the last launch's number of candidate splits)."""
+    holds the last launch's number of candidate splits), or for ``k >
+    MAX_K_SPLIT`` the filter kernel."""
     if x.device.type == "cpu":
         return pairwise_topk_plain(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
     dists, idx, pairwise_topk.last_splits = _split_topk("pairwise_topk", x, k, node_mask, batch, loop)
-    pairwise_topk.launches += 1
+    pairwise_topk.launches += pairwise_topk.last_splits > 0
     return dists, idx
 
 
@@ -286,7 +365,7 @@ def pairwise_topk_streaming(
         return pairwise_topk_streaming_plain(x, k=k, node_mask=node_mask, loop=loop)
     dists, idx, pairwise_topk_streaming.last_splits = _split_topk(
         "pairwise_topk_streaming", x, k, node_mask, None, loop)
-    pairwise_topk_streaming.launches += 1
+    pairwise_topk_streaming.launches += pairwise_topk_streaming.last_splits > 0
     return dists, idx
 
 

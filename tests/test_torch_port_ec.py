@@ -335,6 +335,73 @@ def test_bf16_bwd_skipping_masked_matches_jax_flat_vjp(masked_share, relu_edge):
         assert err_port <= 2 * err_jax, f"{k}: port error {err_port:.3e} > 2 x JAX's {err_jax:.3e}"
 
 
+def _bf16_fwd_skipping_masked(x, ea, ei, mask, w, *, relu_edge):
+    """Kernel A's split of the bf16 forward: the plain bf16 forward over the
+    unmasked edges alone (``_compact``'s first ``count`` ids), zero
+    ``e_tilde`` rows for the masked ones, and ``agg`` summed over the
+    unmasked edges."""
+    ids, count = fr._compact(mask)
+    live = ids[: int(count)].long()
+    et_live, agg = fr.fused_relational_bf16_plain(
+        x, ea[live], ei[:, live], torch.ones(len(live), dtype=torch.bool), w, relu_edge=relu_edge)
+    et = torch.zeros((ea.shape[0], et_live.shape[1]), dtype=et_live.dtype)
+    et[live] = et_live
+    return et, agg
+
+
+@pytest.mark.parametrize(
+    "masked_share,relu_edge", SKIP_CASES, ids=[f"masked{s}-relu{int(r)}" for s, r in SKIP_CASES],
+)
+def test_bf16_fwd_skipping_masked_matches_jax_flat(masked_share, relu_edge):
+    """Kernel A's split (the unmasked edges' forward, zero rows for the
+    masked) against JAX's bf16 ``fused_relational_flat`` forward in interpret
+    mode, with a further ``masked_share`` of the in-window edges masked
+    (through ``inwin``), and against the full plain A: ``e_tilde`` and
+    ``agg`` within 1e-2 of each tensor's largest magnitude, the error against
+    float64 at most 2x JAX's; exact zeros when every edge is masked."""
+    x, ea, src, dst, valid, w, _, _ = _op_setup(seed=50 + int(4 * masked_share) + relu_edge)
+    n, e = x.shape[0], ea.shape[0]
+    part = flat_slab_partition(src, dst, valid, n, SlabLayoutSpec(window=W, block_e=EB, cmax=0, overflow_cap=e))
+    rows = np.nonzero(part["inwin"])[0]
+    orig = part["perm"][rows]
+    keep = np.random.default_rng(51).random(e) >= masked_share
+    inwin = part["inwin"].astype(np.float32).copy()
+    inwin[rows] *= keep[orig]
+    mask = np.zeros(e, dtype=bool)
+    mask[orig] = keep[orig]
+    take = np.maximum(part["perm"], 0)
+    slab = lambda a: np.where(part["perm"][:, None] >= 0, a[take], 0)
+
+    jb = lambda a: jnp.asarray(a, jnp.bfloat16)
+    sl, dl, bs = (jnp.asarray(part[k]) for k in ("srcloc", "dstloc", "block_slab"))
+    jet_slab, jagg = jax_fused_flat(W, EB, "bfloat16", True, jb(x), jb(slab(np.maximum(ea, 0) if relu_edge else ea)),
+                                    sl, dl, jnp.asarray(inwin), bs, {k: jb(v) for k, v in w.items()})
+    jet = np.zeros((e, jet_slab.shape[1]), dtype=np.float64)
+    jet[orig] = f64(jet_slab)[rows]
+    jax_out = {"e_tilde": jet, "agg": f64(jagg)}
+
+    ei, tm = torch.from_numpy(np.stack([src, dst])), torch.from_numpy(mask)
+    args = (torch.tensor(x, dtype=BF16), torch.tensor(ea, dtype=BF16), ei, tm, _port_weights(w, BF16))
+    named = lambda out: {"e_tilde": f64(out[0]), "agg": f64(out[1])}
+    skip = named(_bf16_fwd_skipping_masked(*args, relu_edge=relu_edge))
+    full = named(fr.fused_relational_bf16_plain(*args, relu_edge=relu_edge))
+    d = lambda a: torch.tensor(np.asarray(a, np.float64))
+    ref = named(fr.fused_relational_plain(d(x), d(ea), ei, tm, _port_weights(w, torch.float64),
+                                          relu_edge=relu_edge))
+    assert (mask.sum() == 0) == (masked_share == 1.0)
+    assert not skip["e_tilde"][~mask].any() and not full["e_tilde"][~mask].any()  # exact zeros
+    for k, want in jax_out.items():
+        got, scale = skip[k], np.abs(want).max()
+        if masked_share == 1.0:
+            assert scale == 0 and not got.any() and not full[k].any(), k
+            continue
+        assert scale > 0, k
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-2 * scale, err_msg=k)
+        np.testing.assert_allclose(got, full[k], rtol=0, atol=1e-2 * scale, err_msg=k)
+        err_port, err_jax = np.abs(got - ref[k]).max(), np.abs(want - ref[k]).max()
+        assert err_port <= 2 * err_jax, f"{k}: port error {err_port:.3e} > 2 x JAX's {err_jax:.3e}"
+
+
 def test_fused_relational_dtype_rules():
     x, ea, src, dst, valid, w, _, _ = _op_setup(seed=31, n=40, e=100)
     ei, tm = torch.from_numpy(np.stack([src, dst])), torch.from_numpy(valid)
@@ -744,6 +811,8 @@ CUDA_BF16_CASES = [(16000, 0.8), (16000, 1.0), (16000, 0.5), (16000, 0.0), (1000
 def test_cuda_bf16_kernels_match_plain(cuda, relu_edge, e, share):
     g, args, cts = _cuda_case(cuda, e=e, share=share)
     kf = fr.fused_relational_bf16_fwd(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=relu_edge)
+    kf2 = fr.fused_relational_bf16_fwd(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=relu_edge)
+    kc = fr.fused_relational_bf16_fwd_save(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=relu_edge)
     pf = fr.fused_relational_bf16_plain(*args, relu_edge=relu_edge)
     kb = fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=relu_edge)
     kb2 = fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=relu_edge)
@@ -753,9 +822,11 @@ def test_cuda_bf16_kernels_match_plain(cuda, relu_edge, e, share):
     # may take the ReLU's other side in the other summation order
     for k, p in zip([*kf, kb[0], kb[1], *kb[2].values()], [*pf, pb[0], pb[1], *pb[2].values()]):
         assert (k.double() - p.double()).norm() <= 2e-2 * p.double().norm()
-    for a, b in zip([kb[0], kb[1], *kb[2].values()], [kb2[0], kb2[1], *kb2[2].values()]):
+    for a, b in zip([*kf, kb[0], kb[1], *kb[2].values()], [*kf2, kb2[0], kb2[1], *kb2[2].values()]):
         assert torch.equal(a, b)
+    assert torch.equal(kc[0], kf[0]) and torch.equal(kc[1], kf[1])  # C bitwise A
     assert not kb[1][~args[3]].any()  # masked edges' g_edge_attr rows: exact zeros
+    assert not kf[0][~args[3]].any()  # ... and e_tilde rows
 
 
 @pytest.mark.cuda
@@ -768,10 +839,12 @@ def test_cuda_bf16_saved_pair_is_bitwise_the_recomputing_pair(cuda, e, share):
     d = fr.fused_relational_bf16_bwd_saved(c[2], c[3], *args[1:], *cts, g.csr(), g.num_nodes, relu_edge=True)
     torch.cuda.synchronize()
     assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+    # the saved rows of every edge, masked ones included
     assert torch.equal(c[2], args[0][g.edge_index[1].long()])
+    assert torch.equal(c[3], args[0][g.edge_index[0].long()])
     for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
         assert torch.equal(u, v)
-    assert not d[1][~args[3]].any()
+    assert not d[1][~args[3]].any() and not c[0][~args[3]].any()
 
 
 # (Fx, Fe, H, Fo): narrower than ec.yml's (two m buffers), then two whose second m buffer does
@@ -805,6 +878,35 @@ def test_cuda_bf16_backward_refuses_widths_beyond_shared_memory(cuda):
     g, args, cts = _cuda_case(cuda, n=100, e=500, fx=64, fe=64, h=256, fo=64)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         fr.fused_relational_bf16_bwd(*args, *cts, g.csr(), relu_edge=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fx,fe,h,fo", CUDA_BF16_WIDTHS)
+def test_cuda_bf16_forward_at_other_widths(cuda, fx, fe, h, fo):
+    """Kernels A and C against the plain bf16 forward (the tolerance of
+    ``test_cuda_bf16_kernels_match_plain``), repeat bitwise, C bitwise A,
+    C's saved rows ``x[dst]`` / ``x[src]`` and the masked edges' rows zero,
+    at the backward's other widths."""
+    g, args, _ = _cuda_case(cuda, fx=fx, fe=fe, h=h, fo=fo, seed=3)
+    rowptr, (src, dst) = g.csr()["dst_rowptr"], g.edge_index.long()
+    ka = fr.fused_relational_bf16_fwd(*args, rowptr=rowptr, relu_edge=True)
+    ka2 = fr.fused_relational_bf16_fwd(*args, rowptr=rowptr, relu_edge=True)
+    kc = fr.fused_relational_bf16_fwd_save(*args, rowptr=rowptr, relu_edge=True)
+    pa = fr.fused_relational_bf16_plain(*args, relu_edge=True)
+    torch.cuda.synchronize()
+    for k, k2, c, p in zip(ka, ka2, kc, pa):
+        assert (k.double() - p.double()).norm() <= 2e-2 * p.double().norm()
+        assert torch.equal(k, k2) and torch.equal(k, c)
+    assert torch.equal(kc[2], args[0][dst]) and torch.equal(kc[3], args[0][src])
+    assert not ka[0][~args[3]].any()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_forward_refuses_widths_beyond_shared_memory(cuda):
+    g, args, _ = _cuda_case(cuda, n=100, e=500, fx=64, fe=64, h=256, fo=64)
+    for fwd in (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save):
+        with pytest.raises(ValueError, match="bytes of shared memory"):
+            fwd(*args, rowptr=g.csr()["dst_rowptr"], relu_edge=True)
 
 
 @pytest.mark.cuda

@@ -832,10 +832,20 @@ def test_cuda_pairwise_topk_matches_plain(cuda, k, case):
 
 
 @pytest.mark.cuda
-def test_cuda_pairwise_topk_filter_rejects_k_above_512(cuda):
-    x = torch.randn(600, 8, device=cuda)
-    with pytest.raises(ValueError, match="k <= 512"):
-        pairwise_topk_filter(x, k=513)
+@pytest.mark.parametrize("k", [1024, 2048])
+@pytest.mark.parametrize("case", ["knn", "radius_partial", "duplicates"])
+def test_cuda_pairwise_topk_filter_above_512(cuda, k, case):
+    """Row #12 above one pass (k > 512: passes above a key floor) against its
+    plain version, a second call bitwise the first."""
+    x, mask, batch, radius2 = _filter_case(k, case)
+    xt, mt, bt = (torch.from_numpy(a).to(cuda) for a in (x, mask, batch))
+    kw = {"k": k, "node_mask": mt, "batch": bt, "radius2": radius2}
+    kd, ki = pairwise_topk_filter(xt, **kw)
+    kd2, ki2 = pairwise_topk_filter(xt, **kw)
+    pd, pi = pairwise_topk_filter_plain(xt, **kw)
+    torch.cuda.synchronize()
+    assert kd.shape == (len(x), k) and torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    _assert_kernel_topk_matches_plain(x, mask, batch, kd, ki, pd, pi, radius2)
 
 
 @pytest.mark.cuda

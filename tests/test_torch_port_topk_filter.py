@@ -1,5 +1,5 @@
 """Row #12 of ``PERF.md``'s table, ``pairwise_topk_filter``, at the hinge
-loss's k = 256, on the CPU.
+loss's k = 256 and, in the CUDA wrapper's passes, at k = 1,200, on the CPU.
 
 On the CPU the wrapper takes its plain version (blocked direct distances,
 stable sort); these tests hold it against the JAX function
@@ -23,11 +23,16 @@ against this plain version on the card.
 
 from __future__ import annotations
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from gnn_tracking_tpu.ops.pallas.pairwise_topk import (
+    pairwise_topk as jax_pairwise_topk,
+)
 from gnn_tracking_tpu.ops.pallas.pairwise_topk import (
     pairwise_topk_filter as jax_topk_filter,
 )
@@ -162,3 +167,114 @@ def test_plain_radius_boundary_is_the_sentinels():
     assert pi.numpy()[0].tolist() == [2, 0] and np.isinf(pd_.numpy()[0, 1])
     assert _key(d2, 1) < pt._radius_sentinel(float(d2)) and _key(d2, 1) > pt._radius_sentinel(below)
 
+
+
+# ------------------------------------------- k above one pass (MAX_K_FILTER)
+K_PASSES = 1200  # three passes of at most 512: 512 + 512 + 176
+
+
+def _cloud_passes(case: str, seed: int = 1):
+    """``(x, node_mask, batch, radius2, loop)`` at n = 1,500, D = 8, for k =
+    ``K_PASSES``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(1500, 8)).astype(np.float32)
+    mask = batch = radius2 = None
+    loop = False
+    if case == "knn":
+        loop = True
+    elif case == "radius_partial_rows":
+        x[:1300] *= 0.05  # full rows in a tight cluster, partial ones around it
+        radius2 = 1.0
+    elif case == "radius_sparse":  # no row fills its first pass: the loop ends there
+        radius2 = 0.5
+    elif case == "duplicates":
+        x = np.repeat(x[:375], 4, axis=0)
+    elif case == "masked_two_batches":
+        mask = rng.random(1500) >= 0.1
+        batch = (np.arange(1500) >= 200).astype(np.int32)
+    return x, mask, batch, radius2, loop
+
+
+def _torch_kw(mask, batch):
+    return {"node_mask": None if mask is None else torch.from_numpy(mask),
+            "batch": None if batch is None else torch.from_numpy(batch)}
+
+
+@pytest.mark.parametrize("case", ["knn", "radius_partial_rows", "duplicates"])
+def test_filter_passes_match_pallas_above_512(case):
+    """The CUDA wrapper's pass loop (``_topk_passes``, each pass above the
+    last key of the pass before), run over the plain version, against the
+    JAX filter at k = 1,200 (tolerances as at k = 256)."""
+    x, mask, batch, radius2, loop = _cloud_passes(case)
+    jd, ji = jax_topk_filter(jnp.asarray(x), k=K_PASSES, radius2=radius2, loop=loop, block_q=512,
+                             block_c=512, interpret=True)
+    pd_, pi = pt.pairwise_topk_filter_passes_plain(torch.from_numpy(x), k=K_PASSES, radius2=radius2,
+                                                   loop=loop)
+    assert pd_.shape == pi.shape == (len(x), K_PASSES)
+    _assert_filter_equal(pd_, pi, jd, ji, radius2)
+    filled = np.isfinite(pd_.numpy()).sum(axis=1)
+    if case == "radius_partial_rows":  # rows past the first pass, and rows that end in it
+        assert (filled == K_PASSES).any() and (filled < pt.MAX_K_FILTER).any()
+    else:
+        assert (filled == K_PASSES).all()
+
+
+@pytest.mark.parametrize(
+    "case", ["knn", "radius_partial_rows", "radius_sparse", "duplicates", "masked_two_batches"])
+@pytest.mark.parametrize("k", [513, K_PASSES])
+def test_filter_passes_equal_one_call(case, k):
+    """The passes side by side are bitwise the one-shot plain version, ties
+    included (keys are unique)."""
+    x, mask, batch, radius2, loop = _cloud_passes(case)
+    kw = {"radius2": radius2, "loop": loop, **_torch_kw(mask, batch)}
+    one = pt.pairwise_topk_filter_plain(torch.from_numpy(x), k=k, **kw)
+    passes = pt.pairwise_topk_filter_passes_plain(torch.from_numpy(x), k=k, **kw)
+    assert torch.equal(one[0], passes[0]) and torch.equal(one[1], passes[1])
+
+
+def test_topk_passes_stop_at_an_unfilled_pass():
+    """A pass whose last slot is unfilled in every row ends the loop; the
+    slots left are (+inf, 0)."""
+    calls = []
+
+    def one_pass(kp, floor):
+        calls.append(floor)
+        d = torch.full((3, kp), math.inf)
+        d[:, :5] = torch.arange(5.0)
+        return d, torch.where(torch.isfinite(d), 7, 0).int()
+
+    d, i = pt._topk_passes(one_pass, 1500)
+    assert len(calls) == 1 and calls[0] is None
+    assert d.shape == i.shape == (3, 1500) and torch.isinf(d[:, 5:]).all() and (i[:, 5:] == 0).all()
+
+
+def test_topk_passes_floor_is_the_last_key():
+    """Each pass after the first gets the last slot's key of the pass before,
+    ``NO_KEY_LEFT`` where that slot is unfilled."""
+    floors = []
+
+    def one_pass(kp, floor):
+        floors.append(floor)
+        d = torch.tensor([[0.5] * kp, [math.inf] * kp])
+        i = torch.tensor([[3] * kp, [0] * kp], dtype=torch.int32)
+        return d, i
+
+    pt._topk_passes(one_pass, 600)
+    assert floors[0] is None and len(floors) == 2
+    assert floors[1].tolist() == [_key(0.5, 3), pt.NO_KEY_LEFT]
+
+
+def test_pairwise_topk_above_split_k_matches_pallas():
+    """Rows #11/#13 above ``MAX_K_SPLIT`` on the card: row #12's passes with
+    the masked queries' rows set to (+inf, 0), run here over the plain
+    version, against the JAX ``pairwise_topk`` at k = 1,200."""
+    x, mask, batch, _, _ = _cloud_passes("masked_two_batches")
+    jd, ji = jax_pairwise_topk(jnp.asarray(x), k=K_PASSES, node_mask=jnp.asarray(mask),
+                               batch=jnp.asarray(batch), block_q=512, block_c=512, interpret=True)
+    kw = _torch_kw(mask, batch)
+    pd_, pi = pt._unfill_masked_queries(
+        *pt.pairwise_topk_filter_passes_plain(torch.from_numpy(x), k=K_PASSES, **kw), kw["node_mask"])
+    _assert_filter_equal(pd_, pi, jd, ji, None)
+    assert torch.isinf(pd_[~kw["node_mask"]]).all() and (pi[~kw["node_mask"]] == 0).all()
+    one = pt.pairwise_topk_plain(torch.from_numpy(x), k=K_PASSES, **kw)
+    assert torch.equal(one[0], pd_) and torch.equal(one[1], pi)

@@ -476,7 +476,7 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [8, 64, 256])
+@pytest.mark.parametrize("k", [8, 64, 256, 300])
 def test_cuda_split_topk_matches_plain_and_filter(cuda, k):
     x, mask, batch = (torch.as_tensor(a).to(cuda) for a in topk_inputs(4096, seed=7))
     kd, ki = pt.pairwise_topk(x, k=k, node_mask=mask, batch=batch)
