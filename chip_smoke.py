@@ -5,6 +5,7 @@ Run from the repository root with no arguments::
 
     python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10]
                           [--ec-steps 10] [--val-epochs 75] [--profile]
+    python3 chip_smoke.py --split-only [--package-root DIR]   # (or another *-only mode)
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -71,7 +72,9 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    beside its bound; the queries each certification leaves before its
    fallback. (c) Builds with ``MLGraphConstruction(max_num_neighbors=8,
    max_radius=1.0)`` over the trained latent (the resident top-k, which at
-   k = 8 is the split pair of row #13; its graph must equal row #12's),
+   k = 8 is row #13 where ``knn.SPLIT_MAX_K >= 8`` and row #12 otherwise;
+   its graph must equal both kernels' graphs, and the route taken is logged
+   beside both kernels' times on that latent),
    ``knn_graph_ivf(k=8)`` over the benchmark cloud (certified: it widens
    the probe until ``n_uncert == 0``, and raises after 3 attempts) and
    ``knn_graph_windowed(k=8)`` over the spatial coordinates (where the
@@ -108,23 +111,24 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    ``gc_scanner``). (a) The split kernel pair of
    ``csrc/pairwise_topk_split.cu``: as row #13 (``pairwise_topk``) on a
    32,768-point clustered 8-d cloud with two batch ids and 10 % masked
-   nodes at k = 8, 16, 32, 64 and 256, against its plain version
+   nodes at k = 1, 2, 4, 8, 16, 32, 64 and 256 (row #12's kernel above
+   32), against its plain version
    (``compare_topk``) and bitwise equal to row #12's kernel on the unmasked
-   queries, each k timed beside row #12 (the times behind
-   ``knn.SPLIT_MAX_K``); as row #11
+   queries, each k timed beside row #12; as row #11
    (``pairwise_topk_streaming``) at 262,144 points, k = 8, on the JAX kNN
    benchmark's cloud, against its plain version on every query; each timed
    beside its bound; row #12 above one pass (k = 1,024 and 2,048) and rows
-   #13 / #11 above the split pair's k (k = 300) on 4,096 of those points
+   #13 / #11 above the split kernels' k (k = 300) on 4,096 of those points
    against their plain versions; rows #1/#2 and C32 / D32 at ``ec.yml``'s widths (K =
    192, H = 128, Fo = 64, where W1 stays in device memory) against their
    plain versions with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
-   (row #13 at these k): ``Trainer.fit`` trains ``--val-epochs`` epochs over two
+   (row #13 at k <= ``knn.SPLIT_MAX_K``, row #12 above): ``Trainer.fit`` trains
+   ``--val-epochs`` epochs over two
    32,768-hit point clouds (the briefly trained latent of phase 7 does not
    yet gather any particle's hits) and validates 2 more at the end (true
-   edges: every intra-particle pair); row #13 must launch 8 times per
-   validation event; the figures
+   edges: every intra-particle pair); row #13 must launch once per
+   validation event for each of those k; the figures
    of merit must be finite where the JAX rules give a number and equal to
    validations under ``knn._SMALL_TOPK_IMPL = "pallas"`` (row #13) and
    ``"filter"`` (row #12); both validations timed. Then one f32 ``ECModule`` step at ``ec.yml``'s widths: step 0's
@@ -153,7 +157,15 @@ kernels A and C (``ec_fwd_timings``: A / C against the plain version and
 float64, C bitwise A, the masked edges' ``e_tilde`` rows zero, C's saved
 rows ``x[dst]`` / ``x[src]`` on every edge; timed as B / D are, beside the
 bound of the unmasked share, ``fwd_bound_bytes``; then ``ec_fwd_widths``,
-which must refuse ``EC_BWD_REFUSED`` with ``ValueError``). With ``--package-root DIR`` each runs the package in DIR
+which must refuse ``EC_BWD_REFUSED`` with ``ValueError``); ``--split-only``
+builds, runs ``split_checks`` (rows #13 / #11 at k = 1 to 300, batched and
+not, ``loop`` both ways, duplicates, N < k, a masked block: bitwise row #12
+on the unmasked rows, the plain version, repeat bitwise) and
+``split_timings`` (rows #13 / #11 beside row #12 on phase 10 (a)'s input at
+k = 1, 2, 4, 8, 16, 32 and on phase 8's two 262,144-point inputs at k = 8:
+the Python call, the call on the device and the two kernels alone, with the
+plan (R, S), the bound and the instruction floor; then other plans on two of
+them) and stops; these times set ``knn.SPLIT_MAX_K``. With ``--package-root DIR`` each runs the package in DIR
 (an older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -249,8 +261,9 @@ SOURCES = {
 # metric-learning validation (examples/configs/ml.yml's gc_scanner)
 VAL_KS = list(range(1, 9))
 # k at which phase 10 (a) holds row #13 against its plain version and times it beside row #12
-# (256: the hinge loss's cap, which GNN_TRACKING_RADIUS_IMPL=topk sends through knn_graph)
-SPLIT_SWEEP_KS = (8, 16, 32, 64, 256)
+# (1-8: the scanner's; 256: the hinge loss's cap, which GNN_TRACKING_RADIUS_IMPL=topk sends
+# through knn_graph; above 32, row #12's kernel serves row #13)
+SPLIT_SWEEP_KS = (1, 2, 4, 8, 16, 32, 64, 256)
 
 
 def log(*parts):
@@ -1250,22 +1263,18 @@ def filter_bound(x, k: int, mask, batch) -> tuple[float, str]:
                  nbytes(x, mask, batch) + 8 * x.shape[0] * k)
 
 
-def topk_inputs(seed: int, condensed) -> tuple[list, float]:
-    """The inputs of ``topk_timings``: ``(name, points, keyword arguments of
-    pairwise_topk_filter)`` each, and the seconds the ML training took."""
+def trained_ml(seed: int):
+    """Phase 7's model trained as phase 7 trains it (``TOPK_TRAIN_STEPS``
+    ``MLModule`` steps on its cloud): ``(cloud, model, latent at step 0,
+    trained latent, seconds of training)``."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
     from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
     from gnn_tracking_tpu_torch.models.graph_construction import GraphConstructionFCNN
-    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
-    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
     from gnn_tracking_tpu_torch.training.module import MLModule
 
-    dev = torch.device("cuda")
-    r2_ml = ML_LOSS.get("r_emb", 1.0) ** 2 * (1.0 + 1e-3)
-    r2_serve = EPS * EPS * (1.0 + 1e-3)
-    g = EventGraph.from_arrays(**make_point_cloud(seed + 80, ML_HITS, ML_PARTICLES)).to(dev)
+    g = EventGraph.from_arrays(**make_point_cloud(seed + 80, ML_HITS, ML_PARTICLES)).to("cuda")
     model = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 81))
     module = MLModule(model=model, loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR, device="cuda")
     module.setup_params(g)
@@ -1277,13 +1286,27 @@ def topk_inputs(seed: int, condensed) -> tuple[list, float]:
     train_s = time.perf_counter() - t0
     with torch.no_grad():
         h_trained = model(g)["H"].detach().contiguous()
+    return g, model, h_step0, h_trained, train_s
+
+
+def topk_inputs(seed: int, condensed) -> tuple[list, float]:
+    """The inputs of ``topk_timings``: ``(name, points, keyword arguments of
+    pairwise_topk_filter)`` each, and the seconds the ML training took."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    r2_ml = ML_LOSS.get("r_emb", 1.0) ** 2 * (1.0 + 1e-3)
+    r2_serve = EPS * EPS * (1.0 + 1e-3)
+    g, _, h_step0, h_trained, train_s = trained_ml(seed)
     tcn = condensed(GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed))).to(dev).eval()
     ev = EventGraph.from_arrays(**make_event(seed + 10)).to(dev).sort_edges_by_target(with_unsort=True)
     with torch.no_grad():
         h_serve = tcn(ev)["H"].float().contiguous()
-    x10 = torch.from_numpy(make_bench_latent(seed + 140, ML_HITS)[0]).to(dev)
-    mask10 = torch.from_numpy(np.random.default_rng(seed + 141).random(ML_HITS) >= 0.1).to(dev)
-    batch10 = torch.from_numpy((np.arange(ML_HITS) >= ML_HITS // 2).astype(np.int32)).to(dev)
+    x10, mask10, batch10 = phase10_input(seed)
     rng = np.random.default_rng(seed + 150)
     direction = rng.normal(size=8)
     line = (1e-3 * np.arange(ML_HITS)[:, None] * direction / np.linalg.norm(direction)).astype(np.float32)
@@ -1378,6 +1401,197 @@ def topk_timings(seed: int, condensed) -> dict:
             f"{plain:.3f} ms, bound {bnd:.4f} ms by {by})")
     out["ml_training_s"] = train_s
     log("pairwise_topk_filter timings: " + json.dumps(out))
+    return out
+
+
+def phase10_input(seed: int):
+    """Phase 10 (a)'s input: 32,768 points of the JAX kNN benchmark's
+    clustered 8-d cloud, 10 % masked, two batch ids (first half 0)."""
+    import torch
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(make_bench_latent(seed + 140, ML_HITS)[0]).to(dev)
+    mask = torch.from_numpy(np.random.default_rng(seed + 141).random(ML_HITS) >= 0.1).to(dev)
+    batch = torch.from_numpy((np.arange(ML_HITS) >= ML_HITS // 2).astype(np.int32)).to(dev)
+    return x, mask, batch
+
+
+def check_split(what, fn, x, kw, *, plain=True) -> dict:
+    """Rows #13 / #11 (``fn``: ``pairwise_topk`` or ``pairwise_topk_streaming``)
+    against row #12 on the same input: the unmasked rows bitwise equal,
+    masked queries ``(+inf, 0)``, a second call bitwise the first, the
+    contract's order; with ``plain``, ``compare_topk`` against the plain
+    version too. Returns the error and tie counts."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    kd, ki = fn(x, **kw)
+    kd2, ki2 = fn(x, **kw)
+    fd, fi = pt.pairwise_topk_filter(x, **kw)
+    torch.cuda.synchronize()
+    mask = kw.get("node_mask")
+    keep = torch.ones(x.shape[0], dtype=torch.bool, device=x.device) if mask is None else mask
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"{what}: second call differs"
+    assert torch.equal(kd[keep], fd[keep]) and torch.equal(ki[keep], fi[keep]), (
+        f"{what}: unmasked rows differ from row #12's")
+    assert torch.isinf(kd[~keep]).all() and (ki[~keep] == 0).all(), f"{what}: masked queries not (+inf, 0)"
+    out = {"exact_ties": assert_key_order(kd, ki, what)}
+    if plain:
+        ref = pt.pairwise_topk_plain if fn is pt.pairwise_topk else pt.pairwise_topk_streaming_plain
+        pd, pi = ref(x, **kw)
+        out["max_abs_err"], out["boundary_rows"], out["tie_rows"] = compare_topk(kd, ki, pd, pi, None)
+    return out
+
+
+def split_checks(seed: int) -> dict:
+    """The cases of ``test_cuda_split_topk_matches_plain_and_filter`` (whose
+    module imports JAX, absent on the card's machine): rows #13 / #11 at k =
+    1, 2, 8, 16, 32, 33, 64 and 300 on 4,096 points (15 % masked, two batch
+    ids and 3 points of a third), batched and not, ``loop`` both ways; 512
+    points each repeated 8 times (ties by index); 20 points (fewer than k);
+    a block of 1,024 fully masked candidates. Each through ``check_split``."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    n = 4096
+    x = torch.from_numpy(rng.normal(size=(n, 8)).astype(np.float32)).to(dev)
+    mask = rng.random(n) > 0.15
+    batch = (np.arange(n) >= n // 2).astype(np.int32)
+    batch[:3] = 2
+    dup = x[:512].repeat_interleave(8, dim=0).contiguous()
+    blocked = mask.copy()
+    blocked[1024:2048] = False
+    on = lambda a: torch.from_numpy(a).to(dev)
+    cases = []
+    for k in (1, 2, 8, 16, 32, 33, 64, 300):
+        for loop in (False, True):
+            cases.append((f"k{k}_batched_loop{int(loop)}", pt.pairwise_topk, x,
+                          {"k": k, "node_mask": on(mask), "batch": on(batch), "loop": loop}))
+            cases.append((f"k{k}_streaming_loop{int(loop)}", pt.pairwise_topk_streaming, x,
+                          {"k": k, "node_mask": on(mask), "loop": loop}))
+    for k in (1, 8, 32):
+        cases.append((f"k{k}_duplicates", pt.pairwise_topk, dup, {"k": k, "batch": on(batch)}))
+        cases.append((f"k{k}_masked_block", pt.pairwise_topk, x, {"k": k, "node_mask": on(blocked), "batch": on(batch)}))
+    for k in (21, 32, 64):
+        cases.append((f"k{k}_n20", pt.pairwise_topk_streaming, x[:20].contiguous(), {"k": k}))
+    out = {}
+    for name, fn, xs, kw in cases:
+        out[name] = check_split(f"{fn.__name__} {name}", fn, xs, kw)
+    log(f"split top-k checks: {len(out)} cases OK (bitwise row #12 on unmasked rows, masked (+inf, 0), "
+        f"repeat bitwise, key order, plain version): " + json.dumps(out))
+    return out
+
+
+SPLIT_TIMING_KS = (1, 2, 4, 8, 16, 32)
+
+
+def instruction_floor_ms(x, mask, batch) -> float:
+    """The direct difference's instruction floor: 2 D + 1 FP32-pipe
+    instructions (D subtractions, D FMAs, one compare) for each pair of a
+    valid query and a valid candidate of its batch, issued by every lane of
+    the card (SMs x 128) at its largest SM clock (``nvidia-smi``)."""
+    import torch
+
+    counts = torch.bincount(batch[mask].long()).double()
+    pairs = float((counts * counts).sum())
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               check=True, capture_output=True, text=True).stdout.split()[0])
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    return pairs * (2 * x.shape[1] + 1) / (lanes * mhz * 1e6) * 1e3
+
+
+def split_timings(seed: int) -> dict:
+    """Rows #13 / #11 beside row #12 on the inputs of ``--split-only``:
+    phase 10 (a)'s input and phase 8's 262,144-point latent (the FCNN
+    trained as phase 7 trains it, on phase 8's cloud; as ``knn_graph`` calls
+    it) at k = 1, 2, 4, 8, 16, 32 (row #13: the crossover that sets
+    ``knn.SPLIT_MAX_K``), and the JAX kNN benchmark's cloud at k = 8 (row
+    #11). Each: ``check_split`` (the plain
+    version at 32,768 points only), then the Python call (``cuda_ms``), the
+    call on the device (``graph_ms``) and P / M alone (``kernel_device_ms``)
+    beside row #12's, with the plan (R, S) and the bound and instruction
+    floor. Then, for the package beside this script, other plans (R, S) on
+    two inputs, each bitwise the default's. ``--split-only --package-root``
+    times another tree's kernels on the same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.ops import knn
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    x10, mask10, batch10 = phase10_input(seed)
+    _, model, _, _, _ = trained_ml(seed)
+    cloud = make_point_cloud(seed + 90, GC_HITS, GC_PARTICLES)
+    with torch.no_grad():
+        latent = model.eval()(EventGraph.from_arrays(**cloud).to(dev))["H"].contiguous()
+    bench = torch.from_numpy(make_bench_latent(seed + 92, GC_HITS)[0]).to(dev)
+    runs = [(f"phase10_k{k}", pt.pairwise_topk, x10, {"k": k, "node_mask": mask10, "batch": batch10})
+            for k in SPLIT_TIMING_KS]
+    runs += [(f"trained_262k_k{k}", pt.pairwise_topk, latent, {"k": k}) for k in SPLIT_TIMING_KS]
+    runs += [("bench_262k_k8", pt.pairwise_topk_streaming, bench, {"k": GC_K})]
+    out = {}
+    for name, fn, x, kw in runs:
+        big = x.shape[0] > ML_HITS
+        checked = check_split(f"{fn.__name__} {name}", fn, x, kw, plain=not big)
+        call = lambda: fn(x, **kw)
+        filt = lambda: pt.pairwise_topk_filter(x, **kw)
+        plan = getattr(fn, "last_plan", None) or getattr(fn, "last_splits", None)
+        reps, rounds = (1, 3) if big else (5, 5)
+        n = x.shape[0]
+        mask = kw.get("node_mask", torch.ones(n, dtype=torch.bool, device=dev))
+        batch = kw.get("batch", torch.zeros(n, dtype=torch.int32, device=dev))
+        bnd, by = topk_bound(x, kw["k"], mask, batch)
+        r = {
+            "n": n, "k": kw["k"], "plan": plan, **checked,
+            "ms": cuda_ms(call, reps=reps, rounds=rounds),
+            "graph_ms": graph_ms(call, reps=2 if big else 20, rounds=3 if big else 5),
+            "p_ms": kernel_device_ms(call, "topk_partial_kernel", reps=3 if big else 10),
+            "m_ms": kernel_device_ms(call, "topk_merge_kernel", reps=3 if big else 10),
+            "filter_ms": cuda_ms(filt, reps=reps, rounds=rounds),
+            "filter_graph_ms": graph_ms(filt, reps=2 if big else 20, rounds=3 if big else 5),
+            "filter_kernel_ms": kernel_device_ms(filt, "topk_select_kernel", reps=3 if big else 10),
+            "bound_ms": bnd, "bound_by": by, "instruction_floor_ms": instruction_floor_ms(x, mask, batch),
+        }
+        out[name] = r
+        log(f"  {fn.__name__} {name} (N={n}, k={kw['k']}, plan {plan}): {r['ms']:.3f} ms a call, "
+            f"{r['graph_ms']:.3f} on the device, P {r['p_ms'][0]:.3f} + M {r['m_ms'][0]:.4f}; row #12 "
+            f"{r['filter_ms']:.3f} / {r['filter_graph_ms']:.3f} / kernel {r['filter_kernel_ms'][0]:.3f} ms; "
+            f"bound {bnd:.4f} ms by {by}, instruction floor {r['instruction_floor_ms']:.3f} ms")
+    wins = [k for k in SPLIT_TIMING_KS
+            if all(out[f"{w}_k{k}"]["ms"] < out[f"{w}_k{k}"]["filter_ms"] for w in ("phase10", "trained_262k"))]
+    out["split_max_k"] = max(wins, default=0)
+    log(f"row #13 beats row #12 (Python call) on phase 10 (a)'s input and the trained 262k latent at k in "
+        f"{wins}: knn.SPLIT_MAX_K should be {out['split_max_k']} (it is "
+        f"{knn.SPLIT_MAX_K})")
+    if hasattr(pt, "_split_plan"):
+        out["plans"] = {}
+        for name, fn, x, kw in (runs[3], runs[9]):  # phase 10 (a) and the trained latent at k = 8
+            what = fn.__name__
+            ref = fn(x, **kw)
+            default = fn.last_plan
+            tiles = -(-x.shape[0] // pt.CAND_ALIGN) * pt.CAND_ALIGN // pt.SPLIT_TILE
+            for r_ in (1, 2):
+                for s_ in (1, 2, 4, 8, 16):
+                    span = -(-tiles // s_)
+                    plan = (r_, -(-tiles // span), span)
+                    call = lambda: pt._split_topk(what, x, kw["k"], kw.get("node_mask"), kw.get("batch"), False, plan)
+                    try:
+                        got = call()
+                    except RuntimeError as err:  # R not built for this k and width
+                        log(f"  plan {plan} for {name}: {err}")
+                        continue
+                    torch.cuda.synchronize()
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"{name}: plan {plan} differs"
+                    big = x.shape[0] > ML_HITS
+                    ms = cuda_ms(call, reps=1, rounds=3) if big else graph_ms(call, reps=10, rounds=3)
+                    out["plans"][f"{name} R{plan[0]} S{plan[1]}"] = ms
+                    log(f"  plan {plan} for {name}: {ms:.3f} ms{' (default)' if plan == default else ''}, bitwise the default's")
+    log("split top-k timings: " + json.dumps(out))
     return out
 
 
@@ -1850,11 +2064,12 @@ def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) ->
     return int((got_i != torch.sort(want_i, dim=1).values).any(dim=1).sum())
 
 
-def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
+def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     """Kernel phases of rows #14 and #15 at the inputs a full-detector build
     gives them, then the three builders at 262,144 points, each held against
     row #11 (see the module docstring); ``fcnn`` is phase 7's trained model.
-    Returns the two kernels' results, the summary and row #11's launches."""
+    Returns the two kernels' results, the summary and the builds' launches
+    (the resident top-k's route, rows #14 / #15, row #11's checks)."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -1948,8 +2163,9 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
         "max_abs_err": max(b["max_abs_err"] for b in band.values())})
 
     # ---- (c) the builders, at their defaults ----------------------------------
-    # (the resident top-k at k = 8 is the split pair, row #13)
-    counters = {"pairwise_topk": pairwise_topk.pairwise_topk,
+    # (the resident top-k at k = 8 is row #13 up to knn.SPLIT_MAX_K, row #12 above)
+    route = "pairwise_topk" if GC_K <= knn.SPLIT_MAX_K else "pairwise_topk_filter"
+    counters = {route: getattr(pairwise_topk, route),
                 "banded_topk_sorted": windowed_topk.banded_topk_sorted,
                 "ivf_probe": ivf_probe.ivf_probe}
     for fn in counters.values():
@@ -1970,8 +2186,12 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
     assert torch.equal(built.edge_mask, resident[1] & (resident[2] <= GC_RADIUS))
     with torch.no_grad():
         filtered = knn._edges_from_neighbor_topk(latent, *pairwise_topk.pairwise_topk_filter(latent, k=GC_K), None)
+    with torch.no_grad():
+        split = knn._edges_from_neighbor_topk(latent, *pairwise_topk.pairwise_topk(latent, k=GC_K), None)
     assert all(torch.equal(a, b) for a, b in zip(resident, filtered)), (
-        "the resident build (row #13) differs from row #12's graph on the same latent")
+        f"the resident build ({route}) differs from row #12's graph on the same latent")
+    assert all(torch.equal(a, b) for a, b in zip(resident, split)), (
+        f"the resident build ({route}) differs from row #13's graph on the same latent")
     ties = {
         "ivf_vs_resident": compare_neighbours("IVF vs resident top-k (bench)", ivf, resident_bench, GC_K),
         "windowed_vs_resident": compare_neighbours(
@@ -2002,8 +2222,12 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
             "split_topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk(latent, k=GC_K),
                                           reps=1, rounds=3),
         }
+    log(f"graph construction: the resident top-k at k = {GC_K} took {route} (knn.SPLIT_MAX_K = "
+        f"{knn.SPLIT_MAX_K}): knn_graph {times['knn_resident_ms']:.2f} ms a build on the trained latent; "
+        f"row #13 {times['split_topk_262k_ms']:.2f} ms, row #12 {times['topk_262k_ms']:.2f} ms on it")
     summary = {
-        "hits": GC_HITS, "k": GC_K, **times, **eff, "launches": launches, "attempts": attempts,
+        "hits": GC_HITS, "k": GC_K, "resident_route": route, **times, **eff, "launches": launches,
+        "attempts": attempts,
         "uncertified_before_fallback": uncertified, "clusters": geometry,
         "banded_topk_sorted": band, "edges_kept_by_radius": int(built.edge_mask.sum()),
         "tie_rows": ties, "ivf_stats": stats,
@@ -2011,7 +2235,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, int]:
     log("graph construction: " + json.dumps(summary))
     for r in results:
         r["launches"] = launches[r["name"]]
-    return results, summary, launches["pairwise_topk_streaming"]
+    return results, summary, launches
 
 
 def make_ec_event(seed: int):
@@ -2329,36 +2553,27 @@ def validation_kernel_phases(seed: int) -> list[dict]:
     dev = torch.device("cuda")
     results = []
     # ---- row #13 at 32,768 points: two batch ids, 10 % masked
-    x = torch.from_numpy(make_bench_latent(seed + 140, ML_HITS)[0]).to(dev)
-    rng = np.random.default_rng(seed + 141)
-    mask = torch.from_numpy(rng.random(ML_HITS) >= 0.1).to(dev)
-    batch = torch.from_numpy((np.arange(ML_HITS) >= ML_HITS // 2).astype(np.int32)).to(dev)
+    x, mask, batch = phase10_input(seed)
     row13 = {}
     for k in SPLIT_SWEEP_KS:
         kw = {"k": k, "node_mask": mask, "batch": batch}
-        kd, ki = pt.pairwise_topk(x, **kw)
-        pd, pi = pt.pairwise_topk_plain(x, **kw)
-        fd, fi = pt.pairwise_topk_filter(x, **kw)
-        torch.cuda.synchronize()
-        err, nb, nt = compare_topk(kd, ki, pd, pi, None)
-        assert torch.isinf(kd[~mask]).all() and (ki[~mask] == 0).all(), "masked queries must be (+inf, 0)"
-        assert torch.equal(kd[mask], fd[mask]) and torch.equal(ki[mask], fi[mask]), (
-            "pairwise_topk differs from pairwise_topk_filter's kernel on the unmasked queries")
-        reps = 5 if k <= 64 else 1  # ~0.4 s a launch at k = 256
+        checked = check_split(f"pairwise_topk k={k}", pt.pairwise_topk, x, kw)
+        err, nb, nt = checked["max_abs_err"], checked["boundary_rows"], checked["tie_rows"]
+        reps = 5 if k <= 64 else 1
         ms = cuda_ms(lambda: pt.pairwise_topk(x, **kw), reps=reps, rounds=5 if k <= 64 else 3)
         plain = cuda_ms(lambda: pt.pairwise_topk_plain(x, **kw), reps=1, rounds=3)
         filt = cuda_ms(lambda: pt.pairwise_topk_filter(x, **kw), reps=reps, rounds=5 if k <= 64 else 3)
         bnd, by = topk_bound(x, k, mask, batch)
         row13[k] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "filter_ms": filt, "bound_ms": bnd,
                     "bound_by": by}
-        log(f"kernel pairwise_topk (row #13) k={k}, {pt.pairwise_topk.last_splits} candidate splits: OK "
+        log(f"kernel pairwise_topk (row #13) k={k}, plan {pt.pairwise_topk.last_plan} (R, S): OK "
             f"max|err| {err:.3e} ({nb} k-th boundary rows, {nt} tie-order rows), masked queries (+inf, 0), "
-            f"unmasked rows bitwise equal to row #12's kernel; "
+            f"unmasked rows bitwise equal to row #12's kernel, repeat bitwise, key order; "
             f"{ms:.3f} ms (row #12 on the same input {filt:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} "
             f"ms by {by})")
     faster = [k for k in SPLIT_SWEEP_KS if row13[k]["ms"] < row13[k]["filter_ms"]]
     log(f"row #13 against row #12 on this input: faster at k in {faster} of {list(SPLIT_SWEEP_KS)}; "
-        f"knn_graph takes row #13 at k <= knn.SPLIT_MAX_K = {knn.SPLIT_MAX_K}")
+        f"knn_graph takes row #13 at k <= knn.SPLIT_MAX_K = {knn.SPLIT_MAX_K} (set from --split-only)")
     # ---- above one pass of row #12 (k > 512) and above the split pair's k (rows #13 / #11 at k =
     # 300): row #12's passes, on 4,096 of those points (k = 2,048 leaves rows unfilled)
     xs, ms_ = x[:4096], mask[:4096]
@@ -2386,8 +2601,8 @@ def validation_kernel_phases(seed: int) -> list[dict]:
         log(f"kernel {what} on 4,096 points: OK in {passes} launches of row #12, max|err| {err:.3e} ({nb} "
             f"k-th boundary rows, {nt} tie-order rows), key order, repeat bitwise; {filled:.1f} filled slots "
             f"a row; {ms:.3f} ms")
-    # the line's entry is the scanner's k (at most 8)
-    results.append({"name": "pairwise_topk", **{k: row13[8][k] for k in (
+    # the line's entry is the scanner's largest k
+    results.append({"name": "pairwise_topk", **{k: row13[max(VAL_KS)][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
         "max_abs_err": max(r["max_abs_err"] for r in row13.values())})
 
@@ -2409,7 +2624,7 @@ def validation_kernel_phases(seed: int) -> list[dict]:
     results.append({"name": "pairwise_topk_streaming", "max_abs_err": err11, "ms": ms11,
                     "plain_ms": plain11, "bound_ms": bnd11, "bound_by": by11, "library_ms": None})
     log(f"kernel pairwise_topk_streaming (row #11) at {GC_HITS} points, k={GC_K}, "
-        f"{pt.pairwise_topk_streaming.last_splits} candidate splits: OK on every query, max|err| "
+        f"plan {pt.pairwise_topk_streaming.last_plan} (R, S): OK on every query, max|err| "
         f"{err11:.3e} ({nb11} k-th boundary rows, {nt11} tie-order rows); {ms11:.3f} ms (plain {plain11:.1f} "
         f"ms, one call; bound {bnd11:.4f} ms by {by11})")
 
@@ -2495,10 +2710,10 @@ def foms_equal(a: dict, b: dict) -> bool:
 
 def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, int]:
     """Phase 10 (b): ``MLModule`` with the k-scanner through
-    ``Trainer.fit`` under the default choice (row #13 at k <= 8),
+    ``Trainer.fit`` under the default choice (row #13 at k <= ``knn.SPLIT_MAX_K``),
     validations under ``"pallas"`` and ``"filter"``, and one f32 EC step at ``ec.yml``'s widths, recomputing
     and with ``fused_save_acts`` (bitwise equal). Returns the summary and row #13's launches in
-    ``Trainer.fit``."""
+    ``Trainer.fit`` (in the ``"pallas"`` validation where the route takes none)."""
     import torch
 
     from gnn_tracking_tpu_torch.graph_construction.k_scanner import GraphConstructionKNNScanner
@@ -2521,18 +2736,19 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
     trainer = Trainer(max_epochs=epochs, val_every_n_epochs=epochs, log_dir=tmp / "runs", name="ml_val",
                       checkpoint_every_epoch=False, print_validation_results=False)
     split, resident = pairwise_topk.pairwise_topk, pairwise_topk.pairwise_topk_filter
+    # the default route: row #13 at the scanner's k <= knn.SPLIT_MAX_K, row #12 above
+    split_ks = sum(k <= knn.SPLIT_MAX_K for k in VAL_KS)
     saved_impl = knn._SMALL_TOPK_IMPL
     try:
-        knn._SMALL_TOPK_IMPL = None  # the default: row #13 at the scanner's k <= knn.SPLIT_MAX_K
+        knn._SMALL_TOPK_IMPL = None
         split.launches = resident.launches = 0
         t0 = time.perf_counter()
         fit_val = trainer.fit(module, dm)
         fit_s = time.perf_counter() - t0
         launches = split.launches
-        fit_resident = resident.launches  # the hinge loss's radius graphs (radius mode)
+        fit_resident = resident.launches  # the hinge loss's radius graphs, and the scanner's k above the route
         assert module.step == 2 * epochs, module.step
-        assert max(VAL_KS) <= knn.SPLIT_MAX_K
-        assert launches == len(VAL_KS) * 2, f"row #13 launched {launches} times in 2 validation events"
+        assert launches == split_ks * 2, f"row #13 launched {launches} times in 2 validation events"
         records, results = scanner.results_raw, scanner.get_results()
         foms = module.on_validation_epoch_end()
         assert foms_equal(foms, {k: fit_val[k] for k in foms}), "figures of merit differ from Trainer.fit's"
@@ -2554,8 +2770,9 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
         "validation under 'filter' (row #12) differs from 'pallas' (row #13)")
     # row #12 serves the hinge loss's radius graph of each event, and under
     # 'filter' the scanner's kNN graphs too
-    assert timed["pallas"]["row13"] == launches and timed["pallas"]["row12"] == 2, timed
-    assert timed["filter"]["row13"] == 0 and timed["filter"]["row12"] == launches + 2, timed
+    n_val = len(VAL_KS) * 2
+    assert timed["pallas"]["row13"] == n_val and timed["pallas"]["row12"] == 2, timed
+    assert timed["filter"]["row13"] == 0 and timed["filter"]["row12"] == n_val + 2, timed
     # finite where the JAX rules give a number: an at-target figure is NaN
     # when the target lies above the largest mean frac50, or when its column
     # has a NaN at some k
@@ -2572,7 +2789,8 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
             assert math.isfinite(r[key]), (r["k"], key, r[key])
     by_k = {r["k"]: r for r in records[: len(VAL_KS)]}
     log(f"ML validation: Trainer.fit ({2 * epochs} steps, 2 validation events of {ML_HITS} hits, ks {VAL_KS}) in "
-        f"{fit_s:.2f} s; row #13 launches {launches} (row #12 {fit_resident}, the hinge loss's radius graphs); "
+        f"{fit_s:.2f} s; row #13 launches {launches} at k <= knn.SPLIT_MAX_K = {knn.SPLIT_MAX_K} (row #12 "
+        f"{fit_resident}: the hinge loss's radius graphs and the scanner's k above); "
         f"validation epoch {timed['pallas']['val_s']:.2f} s under 'pallas', {timed['filter']['val_s']:.2f} s "
         f"under 'filter' (row #12 in place of row #13), figures of merit equal; "
         f"max_frac_segment50 {foms['max_frac_segment50']:.4f} at k {foms['k_at_max_frac_segment50']:.0f}; "
@@ -2636,7 +2854,29 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
     summary = {"fit_s": fit_s, "steps": 2 * epochs, "validations": timed, "row13_launches_fit": launches,
                "foms": foms, "ec_f32_step_ms": ec_step_ms, "ec_f32_launches": f32_launches,
                "ec_f32_saved_launches": saved_launches}
-    return summary, launches
+    # row #13's launches on the main path: the default route's, or the 'pallas' validation's where
+    # knn.SPLIT_MAX_K sends every k of the scanner to row #12
+    return summary, launches or timed["pallas"]["row13"]
+
+
+def ptxas_by_kernel(text: str) -> list[str]:
+    """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
+    kernel it belongs to (names demangled with the toolkit's ``cu++filt``
+    where it is found)."""
+    from gnn_tracking_tpu_torch import _build
+
+    lines, names, kernel = [], {}, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif "registers" in line or "spill" in line:
+            lines.append((kernel, line.split(":", 1)[-1].strip() if "ptxas info" in line else line.strip()))
+    filt = Path(_build.nvcc()).parent / "cu++filt"
+    if filt.exists() and lines:
+        mangled = sorted({k for k, _ in lines})
+        out = subprocess.run([str(filt)], input="\n".join(mangled), capture_output=True, text=True).stdout
+        names = dict(zip(mangled, out.splitlines()))
+    return [f"{names.get(k, k)}: {line}" for k, line in lines]
 
 
 def main(argv=None) -> int:
@@ -2673,6 +2913,10 @@ def main(argv=None) -> int:
     p.add_argument("--topk-only", action="store_true",
                    help="build, check and time row #12 (pairwise_topk_filter) on the ML, "
                    "serving, phase 10 and adversarial inputs (topk_timings), print them and stop")
+    p.add_argument("--split-only", action="store_true",
+                   help="build, check rows #13 / #11 (split_checks) and time them beside row #12 on "
+                   "phase 10 (a)'s input and phase 8's 262,144-point inputs (split_timings), "
+                   "print them and stop")
     p.add_argument("--package-root", type=Path, default=REPO,
                    help="directory holding the gnn_tracking_tpu_torch package to run "
                    "(default: beside this script), e.g. an older tree to compare on one card")
@@ -2710,9 +2954,8 @@ def main(argv=None) -> int:
     logs = _build.build(ptxas_verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for line in ptxas_by_kernel(text):
+            log(f"  ptxas[{name}]: {line}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
@@ -2758,6 +3001,12 @@ def main(argv=None) -> int:
     if args.topk_only:
         log(f"package: {root}")
         topk_timings(args.seed, CondensedGraphTCN)
+        print(smi)
+        return 0
+    if args.split_only:
+        log(f"package: {root}")
+        split_checks(args.seed)
+        split_timings(args.seed)
         print(smi)
         return 0
 
@@ -2995,7 +3244,8 @@ def main(argv=None) -> int:
     _, ml_model = ml_training_path(args.seed, args.ml_steps, args.profile)
 
     # ---- 8. graph construction ---------------------------------------------
-    gc_results, _, row11_launches = graph_construction_phase(args.seed, ml_model)
+    gc_results, _, gc_launches = graph_construction_phase(args.seed, ml_model)
+    row11_launches = gc_launches["pairwise_topk_streaming"]
     results += gc_results
 
     # ---- 9. bf16 EC training: kernels A-D, then the training path -------------

@@ -8,12 +8,14 @@ Layout: query-major fixed degree, ``[2, N*k]``; edge ``i*k + s`` has target
 on the detached points; the returned Euclidean distances are recomputed from
 the live ``x``, so losses differentiate through them.
 
-``knn_graph`` picks its algorithm as the JAX package does on its chip: the
-resident top-k when the points take at most 8 MiB or a ``batch`` is given,
-the IVF kNN (``ops/ivf_knn.py``) otherwise. Both are exact. The resident
-top-k is ``pairwise_topk`` (the split kernel pair) up to ``SPLIT_MAX_K``
-neighbours and ``pairwise_topk_filter`` above (the two give the same graph;
-``chip_smoke.py`` phase 10 (a) times both at k = 8 to 256). Two environment
+``knn_graph`` takes the resident top-k when the points take at most 8 MiB
+or a ``batch`` is given, the IVF kNN (``ops/ivf_knn.py``) otherwise, as the
+JAX package does; both are exact. Which resident top-k is the card's
+measurement, where the JAX package takes ``filter`` at every k: the split
+kernels (``pairwise_topk``) up to ``SPLIT_MAX_K`` neighbours and
+``pairwise_topk_filter`` above. The two give the same graph
+(bitwise equal distances on unmasked queries), so the route is a free
+choice; ``chip_smoke.py --split-only`` times both. Two environment
 variables, read when the module is imported as the JAX module reads them,
 override the choices (tests set the module attributes instead):
 
@@ -39,9 +41,10 @@ from gnn_tracking_tpu_torch.ops.windowed_topk import windowed_knn
 #: largest point array (bytes of float32) for the resident top-k
 RESIDENT_BYTES = 8 * 1024 * 1024
 
-#: largest k for which the resident top-k takes the split kernel pair
-#: (``chip_smoke.py`` phase 10 (a) times both kernels at k = 8 to 256 on
-#: 32,768 points)
+#: largest k for which the resident top-k takes the split kernels: the
+#: card's crossover, the largest k of 1, 2, 4, 8, 16, 32 at which they beat
+#: ``pairwise_topk_filter`` on both inputs of ``chip_smoke.py --split-only``
+#: (32,768 points in two batches; 262,144 points of a trained latent)
 SPLIT_MAX_K = 16
 
 _SMALL_TOPK_IMPL = os.environ.get("GNN_TRACKING_KNN_SMALL_IMPL")

@@ -16,10 +16,11 @@ differ in their masked queries and options:
   runs ``ceil(k / MAX_K_FILTER)`` passes, each above the key of the last
   slot of the pass before (``_topk_passes``);
 * ``pairwise_topk`` and ``pairwise_topk_streaming`` (CUDA kernels
-  ``csrc/pairwise_topk_split.cu``, one pair for both): masked queries get
-  ``(+inf, 0)`` in every slot; ``pairwise_topk_streaming`` takes no
-  ``batch``. The split kernel takes ``k <= MAX_K_SPLIT``; a larger ``k``
-  takes the filter kernel's passes.
+  ``csrc/pairwise_topk_split.cu``, one pair for both: each thread keeps the
+  running top-k of its queries in registers): masked queries get ``(+inf,
+  0)`` in every slot; ``pairwise_topk_streaming`` takes no ``batch``. The
+  split kernels take ``k <= MAX_K_SPLIT``; a larger ``k`` takes the filter
+  kernel's passes.
 """
 
 from __future__ import annotations
@@ -33,8 +34,10 @@ import torch
 from gnn_tracking_tpu_torch import _build
 
 MAX_DIM = 32
-#: largest k of the split kernel (its running top-k takes 128 KB of shared memory there)
-MAX_K_SPLIT = 256
+#: largest k of the split kernels (KS: a list of at most 32 slots a query in registers)
+MAX_K_SPLIT = 32
+#: candidates a tile of the split kernels (one batch range a tile)
+SPLIT_TILE = 256
 #: queries per block of the plain version ([BLOCK_Q, N] distances at a time)
 BLOCK_Q = 1024
 
@@ -50,8 +53,8 @@ _SIGNATURES = {
     "pairwise_topk_filter": [_build.P] * 6 + [_build.I] * 6 + [ctypes.c_uint64, _build.P],
 }
 _SIGNATURES_SPLIT = {
-    "pairwise_topk_split_plan": [_build.I] * 3 + [_build.P] * 2,
-    "pairwise_topk_split": [_build.P] * 8 + [_build.I] * 6 + [_build.P],
+    "pairwise_topk_split_plan": [_build.I] * 3 + [_build.P],
+    "pairwise_topk_split": [_build.P] * 10 + [_build.I] * 9 + [_build.P],
 }
 
 
@@ -299,39 +302,59 @@ def pairwise_topk_streaming_plain(
     return pairwise_topk_plain(x, k=k, node_mask=node_mask, loop=loop)
 
 
-def _split_topk(what, x, k, node_mask, batch, loop):
-    """Launch the split kernel pair (partial top-k over S candidate ranges,
-    then the S-way merge) on CUDA tensors. Returns ``(dists, idx, S)``; S =
-    0 where the pair was not launched: no query or slot, or ``k >
+_split_plans: dict[tuple, tuple[int, int, int]] = {}
+
+
+def _split_plan(lib, n, dp, k, device, what) -> tuple[int, int, int]:
+    """``(R, S, tiles a split)`` of the split kernels for this shape (the C
+    plan: queries a thread, candidate splits), cached by shape and card."""
+    key = (n, dp, k, device.index)
+    plan = _split_plans.get(key)
+    if plan is None:
+        buf = (ctypes.c_int * 3)()
+        _build.check(lib, lib.pairwise_topk_split_plan(n, dp, k, ctypes.addressof(buf)), what)
+        plan = _split_plans[key] = tuple(buf)
+    return plan
+
+
+def _split_topk(what, x, k, node_mask, batch, loop, plan=None):
+    """Launch the split kernels (the padded layout with the tiles' batch
+    ranges, the partial top-k of R queries a thread over S candidate splits,
+    then the S-way merge) on CUDA tensors. ``plan`` (R, S, tiles a split)
+    replaces the C plan's. Returns ``(dists, idx, plan)``; plan None where
+    the kernels were not launched: no query or slot, or ``k >
     MAX_K_SPLIT``, which takes the filter kernel's passes with the masked
     queries' rows set to ``(+inf, 0)``."""
     _check_cuda(what, x, node_mask, batch)
     if k > MAX_K_SPLIT:
         dists, idx = pairwise_topk_filter(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
-        return *_unfill_masked_queries(dists, idx, node_mask), 0
+        return *_unfill_masked_queries(dists, idx, node_mask), None
     n, d = x.shape
     dev = x.device
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((n, k), dtype=torch.int32, device=dev)
     if n == 0 or k == 0:
-        return out_d, out_i, 0
-    xe, cbatch, qbatch = _defaults(x, node_mask, batch)
-    qvalid = (
-        torch.ones(n, dtype=torch.bool, device=dev) if node_mask is None else node_mask.contiguous()
-    )
+        return out_d, out_i, None
+    rows, dp = -(-n // CAND_ALIGN) * CAND_ALIGN, _padded_dim(d)
     lib = _build.library("pairwise_topk_split", _SIGNATURES_SPLIT)
-    splits, span = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(lib, lib.pairwise_topk_split_plan(
-        n, d, k, ctypes.addressof(splits), ctypes.addressof(span)), what)
-    part_d = torch.empty((splits.value, k, n), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits.value, k, n), dtype=torch.int32, device=dev)
+    r, splits, span = plan or _split_plan(lib, n, dp, k, dev, what)
+    xc = x.contiguous()
+    mask = None if node_mask is None else node_mask.contiguous()
+    ids = None if batch is None else batch.to(torch.int32).contiguous()
+    xp = torch.empty((rows, dp), dtype=torch.float32, device=dev)
+    bp = torch.empty(rows, dtype=torch.int32, device=dev)
+    # the tiles' batch ranges, then a bound a row
+    scratch = torch.empty(2 * (rows // SPLIT_TILE) + rows, dtype=torch.int32, device=dev)
+    part_d = torch.empty((splits, k, n), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits, k, n), dtype=torch.int32, device=dev)
     p = _build.ptr
     err = lib.pairwise_topk_split(
-        p(xe), p(cbatch), p(qbatch), p(qvalid), p(part_d), p(part_i), p(out_d), p(out_i),
-        n, d, k, int(loop), splits.value, span.value, _build.stream_ptr(dev),
+        p(xc), None if mask is None else p(mask), None if ids is None else p(ids), p(xp), p(bp),
+        p(scratch), p(part_d), p(part_i), p(out_d), p(out_i),
+        n, d, rows, dp, k, int(loop), r, splits, span, _build.stream_ptr(dev),
     )
     _build.check(lib, err, what)
-    return out_d, out_i, splits.value
+    return out_d, out_i, (r, splits, span)
 
 
 def pairwise_topk(
@@ -345,13 +368,13 @@ def pairwise_topk(
     """``(dists_sq [N, k], idx [N, k] int32)``: the k nearest valid
     neighbours of every valid query among the points of its ``batch``;
     masked queries get ``(+inf, 0)``. CPU tensors take the plain version;
-    CUDA tensors launch the split kernel pair (``pairwise_topk.last_splits``
-    holds the last launch's number of candidate splits), or for ``k >
-    MAX_K_SPLIT`` the filter kernel."""
+    CUDA tensors launch the split kernels (``pairwise_topk.last_plan`` holds
+    the last launch's (R, S, tiles a split)), or for ``k > MAX_K_SPLIT`` the
+    filter kernel."""
     if x.device.type == "cpu":
         return pairwise_topk_plain(x, k=k, node_mask=node_mask, batch=batch, loop=loop)
-    dists, idx, pairwise_topk.last_splits = _split_topk("pairwise_topk", x, k, node_mask, batch, loop)
-    pairwise_topk.launches += pairwise_topk.last_splits > 0
+    dists, idx, pairwise_topk.last_plan = _split_topk("pairwise_topk", x, k, node_mask, batch, loop)
+    pairwise_topk.launches += pairwise_topk.last_plan is not None
     return dists, idx
 
 
@@ -360,14 +383,14 @@ def pairwise_topk_streaming(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`pairwise_topk` without ``batch``, the JAX function for
     full-detector point sets. CPU tensors take the plain version; CUDA
-    tensors launch the split kernel pair."""
+    tensors launch the split kernels."""
     if x.device.type == "cpu":
         return pairwise_topk_streaming_plain(x, k=k, node_mask=node_mask, loop=loop)
-    dists, idx, pairwise_topk_streaming.last_splits = _split_topk(
+    dists, idx, pairwise_topk_streaming.last_plan = _split_topk(
         "pairwise_topk_streaming", x, k, node_mask, None, loop)
-    pairwise_topk_streaming.launches += pairwise_topk_streaming.last_splits > 0
+    pairwise_topk_streaming.launches += pairwise_topk_streaming.last_plan is not None
     return dists, idx
 
 
 pairwise_topk.launches = pairwise_topk_streaming.launches = 0
-pairwise_topk.last_splits = pairwise_topk_streaming.last_splits = 0
+pairwise_topk.last_plan = pairwise_topk_streaming.last_plan = None

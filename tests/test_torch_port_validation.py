@@ -124,8 +124,12 @@ def assert_topk_equal(pd_, pi, jd, ji, mask):
             assert all(abs(d - kth) <= 1e-5 * max(kth, 1.0) for d in diff), r
 
 
+# k = 1 to 33: the split kernels' lists of K = 1 to 32 slots a query, and the first k above them
+SPLIT_CASES = [(100, 4), (300, 8), (300, 1), (300, 2), (300, 16), (300, 32), (300, 33)]
+
+
 @pytest.mark.parametrize("loop", [False, True])
-@pytest.mark.parametrize("n,k", [(100, 4), (300, 8)])
+@pytest.mark.parametrize("n,k", SPLIT_CASES)
 def test_pairwise_topk_plain_matches_pallas_interpret(n, k, loop):
     x, mask, batch = topk_inputs(n)
     jd, ji = jax_pt.pairwise_topk(jnp.asarray(x), k=k, node_mask=jnp.asarray(mask),
@@ -137,7 +141,7 @@ def test_pairwise_topk_plain_matches_pallas_interpret(n, k, loop):
 
 
 @pytest.mark.parametrize("loop", [False, True])
-@pytest.mark.parametrize("n,k", [(100, 4), (300, 8)])
+@pytest.mark.parametrize("n,k", SPLIT_CASES)
 def test_pairwise_topk_streaming_plain_matches_pallas_interpret(n, k, loop):
     x, mask, _ = topk_inputs(n, seed=1)
     if n == 100:  # k - 1 valid points: no valid query fills its k slots
@@ -149,6 +153,20 @@ def test_pairwise_topk_streaming_plain_matches_pallas_interpret(n, k, loop):
     assert_topk_equal(pd_, pi, jd, ji, mask)
     full = pt.pairwise_topk_streaming(torch.as_tensor(x), k=k, loop=loop)[0]
     assert torch.isfinite(full).all()
+
+
+@pytest.mark.parametrize("entry", sorted(pt._SIGNATURES_SPLIT))
+def test_split_kernel_ctypes_signatures_match_the_c_entries(entry):
+    """The wrapper's ctypes argument list has one entry per parameter of the
+    C entry in ``csrc/pairwise_topk_split.cu``: a pointer for each pointer,
+    an int for each int (ctypes would pass a short list without complaint
+    only on the card)."""
+    import re
+
+    src = (REPO / "gnn_tracking_tpu_torch" / "csrc" / "pairwise_topk_split.cu").read_text()
+    params = re.search(rf"\bint {entry}\(([^)]*)\)", src).group(1).split(",")
+    want = [pt._build.P if "*" in q else pt._build.I for q in params]
+    assert pt._SIGNATURES_SPLIT[entry] == want
 
 
 def test_split_kernel_wrappers_raise_off_the_cpu_and_card():
@@ -184,14 +202,24 @@ def test_knn_graph_under_each_small_impl_matches_jax(monkeypatch, impl, use_batc
     np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-6)
 
 
+def _by_k(k):
+    return "pairwise_topk" if k <= knn.SPLIT_MAX_K else "pairwise_topk_filter"
+
+
+# every k of the scanner and of the split kernels' lists, the first above them, the route's
+# boundary (whatever SPLIT_MAX_K is, 0 included) and the hinge loss's 64
+_CHOICE_KS = sorted({1, 2, 4, 8, 16, 17, 32, 33, 64, max(knn.SPLIT_MAX_K, 1), knn.SPLIT_MAX_K + 1})
+
+
 @pytest.mark.parametrize(("impl", "k", "want"), [
-    (None, 1, "pairwise_topk"), (None, knn.SPLIT_MAX_K, "pairwise_topk"),
-    (None, knn.SPLIT_MAX_K + 1, "pairwise_topk_filter"), ("pallas", 64, "pairwise_topk"),
-    ("filter", 1, "pairwise_topk_filter"),
+    *[(None, k, _by_k(k)) for k in _CHOICE_KS],
+    *[("pallas", k, "pairwise_topk") for k in (1, 8, 64)],
+    *[("filter", k, "pairwise_topk_filter") for k in (1, 8, 64)],
 ])
 def test_resident_topk_choice(monkeypatch, impl, k, want):
-    """Unset, the split pair serves k <= SPLIT_MAX_K and the filter kernel
-    larger k; an override takes one of them at every k."""
+    """Unset, the split kernels serve k <= SPLIT_MAX_K (none where it is 0)
+    and the filter kernel larger k; an override takes one of them at every
+    k."""
     monkeypatch.setattr(knn, "_SMALL_TOPK_IMPL", impl)
     called = []
     for name in ("pairwise_topk", "pairwise_topk_filter"):
@@ -476,22 +504,40 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [8, 64, 256, 300])
-def test_cuda_split_topk_matches_plain_and_filter(cuda, k):
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("case", ["batched", "unbatched", "duplicates", "n_below_k", "masked_block"])
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 32, pt.MAX_K_SPLIT + 1, 64, 256, 300])
+def test_cuda_split_topk_matches_plain_and_filter(cuda, k, case, loop):
+    """Rows #13 / #11 on the card: bitwise row #12 on the unmasked rows,
+    ``(+inf, 0)`` on the masked ones, a second launch bitwise the first, and
+    the plain version's distances (indices up to ties). ``duplicates``: 512
+    points each 8 times (ties by index); ``n_below_k``: 20 points;
+    ``masked_block``: 1,024 consecutive candidates masked."""
     x, mask, batch = (torch.as_tensor(a).to(cuda) for a in topk_inputs(4096, seed=7))
-    kd, ki = pt.pairwise_topk(x, k=k, node_mask=mask, batch=batch)
-    pd_, pi = pt.pairwise_topk_plain(x, k=k, node_mask=mask, batch=batch)
-    fd, fi = pt.pairwise_topk_filter(x, k=k, node_mask=mask, batch=batch)
-    sd, si = pt.pairwise_topk_streaming(x, k=k, node_mask=mask)
-    sd2, si2 = pt.pairwise_topk_streaming_plain(x, k=k, node_mask=mask)
+    if case == "duplicates":
+        x = x[:512].repeat_interleave(8, dim=0).contiguous()
+    elif case == "n_below_k":
+        x, mask, batch = x[:20].contiguous(), mask[:20], batch[:20]
+    elif case == "masked_block":
+        mask = mask.clone()
+        mask[1024:2048] = False
+    kw = {"k": k, "node_mask": mask, "loop": loop}
+    if case != "unbatched":
+        kw["batch"] = batch
+    fn, plain = ((pt.pairwise_topk_streaming, pt.pairwise_topk_streaming_plain) if case == "unbatched"
+                 else (pt.pairwise_topk, pt.pairwise_topk_plain))
+    kd, ki = fn(x, **kw)
+    kd2, ki2 = fn(x, **kw)
+    pd_, pi = plain(x, **kw)
+    fd, fi = pt.pairwise_topk_filter(x, **kw)
     torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
     assert torch.equal(kd[mask], fd[mask]) and torch.equal(ki[mask], fi[mask])  # bitwise row #12
-    for a, b in ((kd, pd_), (sd, sd2)):
-        fin = torch.isfinite(b)
-        assert torch.equal(torch.isfinite(a), fin)
-        assert (a - b)[fin].abs().max() <= 1e-5 * b[fin].max()
-    assert (ki == pi).float().mean() > 0.999 and (si == si2).float().mean() > 0.999
     assert torch.isinf(kd[~mask]).all() and (ki[~mask] == 0).all()
+    fin = torch.isfinite(pd_)
+    assert torch.equal(torch.isfinite(kd), fin)
+    assert (kd - pd_)[fin].abs().max() <= 1e-5 * pd_[fin].max()
+    assert (ki == pi).float().mean() > (0.99 if case == "duplicates" else 0.999)
 
 
 @pytest.mark.cuda
