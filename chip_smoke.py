@@ -6,6 +6,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py [--seed 0] [--events 32] [--train-steps 10] [--ml-steps 10]
                           [--ec-steps 10] [--val-epochs 75] [--profile]
     python3 chip_smoke.py --split-only [--package-root DIR]   # (or another *-only mode)
+    python3 chip_smoke.py --band-only [--package-root DIR] [--band-digests FILE]
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -66,11 +67,17 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    so of uniform 8-d clouds), so the IVF builds over the benchmark's cloud. Each
    cloud's cluster RMS radius and nearest-centroid distance are printed.
    (a) The kernels of the two exact full-detector builders, the IVF probe
-   (benchmark cloud) and the banded top-k (spatial coordinates, d = 3, and
-   the trained latent, d = 8), at the inputs that a build gives them: each
-   against its plain version, bitwise equal on a second launch, timed
-   beside its bound; the queries each certification leaves before its
-   fallback. (c) Builds with ``MLGraphConstruction(max_num_neighbors=8,
+   (benchmark cloud) and the banded top-k (spatial coordinates, d = 3, at
+   radius 4 and at the retry's radius 8, and the trained latent, d = 8), at
+   the inputs that a build gives them, and above 32 dimensions and at
+   large k: the band at k = 256 and on a 65,536-point 40-d cloud,
+   the probe on that cloud and at k = 128 (kw = 136, the probe of
+   ``knn_graph_ivf(k=128)`` over 32,768 benchmark points, whose graph must
+   equal the plain build's and row #11's up to ties) and k = 256 on those
+   points: each against its
+   plain version, bitwise equal on a second launch, timed beside its bound
+   (and the band beside its instruction floor); the queries each
+   certification leaves before its fallback. (c) Builds with ``MLGraphConstruction(max_num_neighbors=8,
    max_radius=1.0)`` over the trained latent (the resident top-k, which at
    k = 8 is row #13 where ``knn.SPLIT_MAX_K >= 8`` and row #12 otherwise;
    its graph must equal both kernels' graphs, and the route taken is logged
@@ -86,7 +93,10 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    relative, neighbour sets equal up to ties), and 4,096 seeded queries of
    each with a plain brute force on the card (direct distances, stable
    sort); it prints ms per build (the resident top-k on the benchmark cloud
-   too) and the built graph's edge efficiency and purity;
+   too), the windowed build split into its band launches, the violators'
+   brute force (``_fallback_brute``) and the rest (principal axis, sort,
+   certification), with each attempt's radius and violator count, and the
+   built graph's edge efficiency and purity;
 9. bf16 edge-classifier training at ``examples/configs/ec.yml``'s width
    (``ECForGraphTCN(14, 4, 64, 64, hidden 128, L_ec 6)``, focal loss alpha
    0.25 / gamma 2, Adam 1e-3, ``ECModule(precision="bf16")``) on a
@@ -121,7 +131,10 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    #13 / #11 above the split kernels' k (k = 300) on 4,096 of those points
    against their plain versions; rows #1/#2 and C32 / D32 at ``ec.yml``'s widths (K =
    192, H = 128, Fo = 64, where W1 stays in device memory) against their
-   plain versions with phase 3's tolerances. (b) ``MLModule`` with phase 7's model and
+   plain versions with phase 3's tolerances; A-D and rows #1/#2 with C32 /
+   D32 at widths they take only zero-padded, (40, 8, 72, 20) in bf16 and
+   (14, 3, 50, 18) in f32, through the wrappers and the differentiable op
+   (``odd_width_checks``). (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
    (row #13 at k <= ``knn.SPLIT_MAX_K``, row #12 above): ``Trainer.fit`` trains
    ``--val-epochs`` epochs over two
@@ -165,7 +178,13 @@ on the unmasked rows, the plain version, repeat bitwise) and
 k = 1, 2, 4, 8, 16, 32 and on phase 8's two 262,144-point inputs at k = 8:
 the Python call, the call on the device and the two kernels alone, with the
 plan (R, S), the bound and the instruction floor; then other plans on two of
-them) and stops; these times set ``knn.SPLIT_MAX_K``. With ``--package-root DIR`` each runs the package in DIR
+them) and stops; these times set ``knn.SPLIT_MAX_K``. ``--band-only``
+builds, runs ``band_timings`` (row #14 on phase 8's band inputs, spatial
+and trained at radius 4 and spatial at radius 8, at k = 1, 8, 16, 32, 64,
+256 and with ``loop`` at k = 8, 64: repeat bitwise, against its plain version, in the contract's order;
+the Python call, the call on the device and the kernel alone, beside the
+bound and the instruction floor; with ``--band-digests FILE`` bitwise equal
+to another tree's run that wrote FILE) and stops. With ``--package-root DIR`` each runs the package in DIR
 (an older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -177,6 +196,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import statistics
@@ -908,6 +928,25 @@ def kernel_device_ms(fn, name: str, *, reps: int = 10, tries: int = 3) -> tuple[
     return sum(e.time_range.end - e.time_range.start for e in mine) / len(mine) / 1e3, len(mine)
 
 
+def device_ms_per_call(fn, names, *, reps: int = 5) -> float:
+    """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up):
+    the device time of every kernel whose name holds one of ``names``, per
+    call (a call that launches several kernels, or one several times)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    assert mine, f"profiler: no launch of {names} in {reps} calls"
+    return sum(e.time_range.end - e.time_range.start for e in mine) / reps / 1e3
+
+
 def bwd_bound_bytes(rows, edge_attr, edge_index, mask, weights, g_e, g_agg, outs) -> int:
     """The bytes the fused backward must move at this mask, each input read
     once and each output written once: the mask; the unmasked edges'
@@ -1497,11 +1536,19 @@ def instruction_floor_ms(x, mask, batch) -> float:
     import torch
 
     counts = torch.bincount(batch[mask].long()).double()
-    pairs = float((counts * counts).sum())
+    return pairs_floor_ms(float((counts * counts).sum()), x.shape[1])
+
+
+def pairs_floor_ms(pairs: float, d: int) -> float:
+    """The direct difference's instruction floor of ``pairs`` pairs at ``d``
+    dimensions: 2 d + 1 FP32-pipe instructions a pair on every lane of the
+    card (SMs x 128) at its largest SM clock (``nvidia-smi``)."""
+    import torch
+
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                                check=True, capture_output=True, text=True).stdout.split()[0])
     lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
-    return pairs * (2 * x.shape[1] + 1) / (lanes * mhz * 1e6) * 1e3
+    return pairs * (2 * d + 1) / (lanes * mhz * 1e6) * 1e3
 
 
 def split_timings(seed: int) -> dict:
@@ -1593,6 +1640,130 @@ def split_timings(seed: int) -> dict:
                     log(f"  plan {plan} for {name}: {ms:.3f} ms{' (default)' if plan == default else ''}, bitwise the default's")
     log("split top-k timings: " + json.dumps(out))
     return out
+
+
+# k at which --band-only checks and times row #14 (8: the windowed build's; 256: the
+# hinge loss's cap, above the register path's 32), and those it also runs with `loop`
+BAND_KS = (1, 8, 16, 32, 64, 256)
+BAND_LOOP_KS = (8, 64)
+
+
+def band_inputs(seed: int) -> list[tuple]:
+    """The inputs a 262,144-point windowed build gives row #14 in phase 8:
+    the hits' spatial coordinates (d = 3) and the latent of the FCNN
+    trained as phase 7 trains it (d = 8), each sorted along its principal
+    axis by ``windowed_knn``, at radius 4, and the spatial input at radius
+    8 (the build's retry). ``(name, args, kwargs)`` of
+    ``banded_topk_sorted``."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.ops import windowed_topk
+
+    g = EventGraph.from_arrays(**make_point_cloud(seed + 90, GC_HITS, GC_PARTICLES)).to("cuda")
+    _, model, _, _, _ = trained_ml(seed)
+    with torch.no_grad():
+        latent = model.eval()(g)["H"].contiguous()
+    calls, undo = capture(windowed_topk, "banded_topk_sorted")
+    try:
+        for x in (g.extras["xyz"].contiguous(), latent):
+            windowed_topk.windowed_knn(x, k=GC_K, fallback_cap=0)
+    finally:
+        undo()
+    (sa, skw), (ta, tkw) = calls
+    return [("spatial_r4", sa, skw), ("trained_r4", ta, tkw), ("spatial_r8", sa, {**skw, "radius": 8})]
+
+
+def band_pairs(args, kw) -> float:
+    """The pairs of valid queries and their band's candidates that row #14
+    scans on this input."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import windowed_topk
+
+    xs, valid = args[0], kw["valid"]
+    lo, hi = windowed_topk._band(xs.shape[0], kw["block_q"], kw["block_c"], kw["radius"],
+                                 torch.arange(xs.shape[0], device=xs.device))
+    return float(((hi - lo) * valid).sum())
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def band_timings(seed: int, digests: Path | None) -> dict:
+    """Row #14 on ``band_inputs`` at k in ``BAND_KS`` (and ``BAND_LOOP_KS``
+    with ``loop``): each case repeat
+    bitwise, against its plain version (``compare_topk``) and in the
+    contract's order; timed as a Python call (``cuda_ms``), on the device
+    (``graph_ms``) and the kernel alone (``kernel_device_ms``), beside the
+    bound and the instruction floor. A package that refuses a case (an older
+    tree above its shared memory) is logged as refusing it. With
+    ``digests``: a file of the outputs' digests from another tree's run is
+    compared case by case (bitwise equal), or written where there is none."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import windowed_topk as wt
+
+    out, sums = {}, {}
+    inputs = band_inputs(seed)
+    for name, args, kw in inputs:
+        pairs = band_pairs(args, kw)
+        xs = args[0]
+        for k, loop in [(k, False) for k in BAND_KS] + [(k, True) for k in BAND_LOOP_KS]:
+            kwk = {**kw, "k": k, "loop": loop}
+            case = f"{name}_k{k}" + ("_loop" if loop else "")
+            call = lambda: wt.banded_topk_sorted(*args, **kwk)
+            try:
+                kd, ki = call()
+                torch.cuda.synchronize()
+            except (RuntimeError, ValueError) as err:
+                out[case] = {"refused": str(err)}
+                log(f"  banded_topk_sorted {case}: refused ({err})")
+                continue
+            kd2, ki2 = call()
+            pd, pi = wt.banded_topk_sorted_plain(*args, **kwk)
+            torch.cuda.synchronize()
+            assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"{case}: second call differs"
+            err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+            ties = assert_key_order(kd, ki, case)
+            sums[case] = [digest(xs, kw["valid"]), digest(kd, ki)]  # the input's, the output's
+            bnd, by = bound(3.0 * xs.shape[1] * pairs, nbytes(xs, kw["valid"], kd, ki))
+            reps = 1 if cuda_ms(call, reps=1, rounds=1) > 20.0 else 3  # calls of 0.1 s and more: fewer
+            r = {
+                "n": xs.shape[0], "d": xs.shape[1], "k": k, "radius": kw["radius"], "loop": loop,
+                "plan": getattr(wt.banded_topk_sorted, "last_plan", None), "max_abs_err": err,
+                "boundary_rows": nb, "tie_rows": nt, "exact_ties": ties,
+                "ms": cuda_ms(call, reps=reps, rounds=3), "graph_ms": graph_ms(call, reps=reps, rounds=3),
+                "kernel_ms": kernel_device_ms(call, "band", reps=reps),
+                "bound_ms": bnd, "bound_by": by, "pairs": pairs,
+                "instruction_floor_ms": pairs_floor_ms(pairs, xs.shape[1]),
+            }
+            out[case] = r
+            log(f"  banded_topk_sorted {case} (d={r['d']}, plan {r['plan']}): {r['ms']:.3f} ms a call, "
+                f"{r['graph_ms']:.3f} on the device, kernel {r['kernel_ms'][0]:.3f} ms; bound "
+                f"{bnd:.4f} ms by {by}, instruction floor {r['instruction_floor_ms']:.3f} ms; max|err| "
+                f"{err:.3e} vs plain, repeat bitwise")
+    if digests is not None:
+        if digests.exists():
+            ref = json.loads(digests.read_text())
+            # cases both trees ran on bitwise the same input (a trained latent may differ)
+            both = sorted(c for c in set(ref) & set(sums) if ref[c][0] == sums[c][0])
+            differ = [c for c in both if ref[c][1] != sums[c][1]]
+            assert not differ, f"banded_topk_sorted differs bitwise from the other tree's on {differ}"
+            out["bitwise_other_tree"] = both
+            log(f"  banded_topk_sorted: bitwise equal to the digests in {digests} on {len(both)} cases "
+                f"(of {len(sums)}; the rest ran on other inputs or were refused there): {both}")
+        else:
+            digests.parent.mkdir(parents=True, exist_ok=True)
+            digests.write_text(json.dumps(sums))
+            log(f"  banded_topk_sorted: digests of {len(sums)} cases written to {digests}")
+    log("band top-k timings: " + json.dumps(out))
+    return out
+
 
 
 def training_kernel_phases(tcn, g, seed: int) -> list[dict]:
@@ -2064,6 +2235,81 @@ def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) ->
     return int((got_i != torch.sort(want_i, dim=1).values).any(dim=1).sum())
 
 
+# phase 8 (a)'s cases above 32 dimensions and at large k
+WIDE_HITS, WIDE_DIM, IVF_WIDE_K, BAND_WIDE_K = 65536, 40, 128, 256
+# (Fx, Fe, H, Fo) that the fused relational kernels take only zero-padded (phase 10 (a))
+ODD_WIDTHS = {"bf16": (40, 8, 72, 20), "f32": (14, 3, 50, 18)}
+
+
+def make_wide_cloud(seed: int, n: int, d: int) -> np.ndarray:
+    """The benchmark cloud's recipe in ``d`` dimensions: ``n / 64``
+    unit-normal centres, each point a random centre plus 0.05 of unit-normal
+    noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n // 64, d)).astype(np.float32)
+    return centers[rng.integers(0, n // 64, size=n)] + 0.05 * rng.normal(size=(n, d)).astype(np.float32)
+
+
+def windowed_build_split(x, k: int, rounds: int = 3) -> dict:
+    """``knn_graph_windowed(x, k)`` in three parts, each closed by a
+    synchronisation: the band launches (row #14), ``_fallback_brute`` (the
+    violators' brute force, plain tensor code) and the rest (principal axis,
+    sort, certification, gathers); medians of ``rounds`` builds after one
+    warm-up, and each attempt's radius, violators and fallback rows."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import knn, windowed_topk
+
+    band_fn, fallback_fn, knn_fn = windowed_topk.banded_topk_sorted, windowed_topk._fallback_brute, knn.windowed_knn
+    runs = []
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            runs[-1][key] += (time.perf_counter() - t0) * 1e3
+            if key == "fallback_ms":
+                runs[-1]["attempts"][-1]["fallback_rows"] = a[0].shape[0]
+            return out
+        # the kernel's wrapper counts its launch (and records its plan) on whatever its
+        # module's name holds, which is this wrapper while it is in place
+        wrapper.launches, wrapper.last_plan = 0, None
+        return wrapper
+
+    def attempt(*a, **kw):
+        runs[-1]["attempts"].append({"radius": kw["radius"], "fallback_cap": kw["fallback_cap"], "fallback_rows": 0})
+        out = knn_fn(*a, **kw)
+        runs[-1]["attempts"][-1]["uncertified_after"] = int(out[2])
+        return out
+
+    windowed_topk.banded_topk_sorted = timed("band_ms", band_fn)
+    windowed_topk._fallback_brute = timed("fallback_ms", fallback_fn)
+    knn.windowed_knn = attempt
+    try:
+        for _ in range(rounds + 1):
+            runs.append({"band_ms": 0.0, "fallback_ms": 0.0, "attempts": []})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                knn.knn_graph_windowed(x, k)
+            torch.cuda.synchronize()
+            runs[-1]["total_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        windowed_topk.banded_topk_sorted, windowed_topk._fallback_brute, knn.windowed_knn = band_fn, fallback_fn, knn_fn
+    runs = runs[1:]
+    for r in runs:
+        r["rest_ms"] = r["total_ms"] - r["band_ms"] - r["fallback_ms"]
+        for a in r["attempts"]:
+            a["violators"] = a["fallback_rows"] + a["uncertified_after"]
+    out = {key: statistics.median(r[key] for r in runs) for key in ("total_ms", "band_ms", "fallback_ms", "rest_ms")}
+    out["attempts"] = runs[0]["attempts"]
+    log(f"windowed build split (medians of {rounds}, synchronised parts): {json.dumps(out)}")
+    return out
+
+
+
 def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     """Kernel phases of rows #14 and #15 at the inputs a full-detector build
     gives them, then the three builders at 262,144 points, each held against
@@ -2096,67 +2342,106 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     # ---- (a) rows #15 and #14 at the inputs of one build each ---------------
     # (first attempts at the default widths, without their fallbacks: the
     # kernel checks need no certification; the counts are the queries each
-    # certification would leave to its fallback)
+    # certification would leave to its fallback). Beside them, cases above 32
+    # dimensions and at large k: a 40-d cloud, k = 128 (row #15, on 32,768
+    # benchmark points) and k = 256 (row #14), and the band's radius 8
+    wide = torch.from_numpy(make_wide_cloud(seed + 94, WIDE_HITS, WIDE_DIM)).to("cuda")
+    bench_small = bench[:ML_HITS].contiguous()
     probe_calls, undo = capture(ivf_knn, "ivf_probe")
     _, _, n_unc_ivf, stats = ivf_knn.ivf_knn(bench, k=GC_K, fallback=False, return_stats=True)
+    n_unc_wide_ivf = int(ivf_knn.ivf_knn(wide, k=GC_K, fallback=False)[2])
     undo()
     band_calls, undo = capture(windowed_topk, "banded_topk_sorted")
     uncertified = {
         "ivf_probe8_bench": int(n_unc_ivf),
         "ivf_probe8_trained": int(ivf_knn.ivf_knn(latent, k=GC_K, fallback=False)[2]),
+        f"ivf_probe8_d{WIDE_DIM}": n_unc_wide_ivf,
         "band_radius4_spatial": int(windowed_topk.windowed_knn(xyz, k=GC_K, fallback_cap=0)[2]),
         "band_radius4_trained": int(windowed_topk.windowed_knn(latent, k=GC_K, fallback_cap=0)[2]),
+        "band_radius8_spatial": int(windowed_topk.windowed_knn(xyz, k=GC_K, radius=8, fallback_cap=0)[2]),
+        f"band_radius4_d{WIDE_DIM}": int(windowed_topk.windowed_knn(wide, k=GC_K, fallback_cap=0)[2]),
     }
     undo()
-    assert len(probe_calls) == 1 and len(band_calls) == 2
+    assert len(probe_calls) == 2 and len(band_calls) == 4
+    # the IVF graph at k = 128 (kw = 136) through its kernels and through the plain versions,
+    # each held against row #11's exact graph; its probe is the k = 128 case of row #15
+    ivf128_calls, undo = capture(ivf_knn, "ivf_probe")
+    with torch.no_grad():
+        ivf128 = knn.knn_graph_ivf(bench_small, IVF_WIDE_K)
+    undo()
+    probe256_calls, undo = capture(ivf_knn, "ivf_probe")  # the probe alone at k = 256 (kw = 264)
+    ivf_knn.ivf_knn(bench_small, k=BAND_WIDE_K, fallback=False)
+    undo()
+    with torch.no_grad(), plain_path():
+        ivf128_plain = knn.knn_graph_ivf(bench_small, IVF_WIDE_K)
+        exact128 = knn._edges_from_exact(*pairwise_topk.pairwise_topk_streaming(bench_small, k=IVF_WIDE_K), None)
+    ivf128_ties = {
+        "kernels_vs_plain": compare_neighbours("knn_graph_ivf k=128: kernels vs plain", ivf128, ivf128_plain, IVF_WIDE_K),
+        "kernels_vs_row11": compare_neighbours("knn_graph_ivf k=128 vs row #11", ivf128, exact128, IVF_WIDE_K),
+    }
+    log(f"knn_graph_ivf at k = {IVF_WIDE_K} on {ML_HITS} benchmark points: {len(ivf128_calls)} attempt(s), "
+        f"equal to the plain build's and row #11's graphs up to ties {ivf128_ties}")
     results = []
 
-    pa, pkw = probe_calls[0]
-    xb, ib, xc, ic, nbr = pa
-    kd, ki = ivf_probe.ivf_probe(*pa, **pkw)
-    kd2, ki2 = ivf_probe.ivf_probe(*pa, **pkw)
-    pd, pi = ivf_probe.ivf_probe_plain(*pa, **pkw)
-    torch.cuda.synchronize()
-    assert torch.equal(kd, kd2) and torch.equal(ki, ki2), "ivf_probe: second launch differs"
-    err15, nb15, nt15 = compare_topk(kd, ki, pd, pi, None)
-    ms15 = cuda_ms(lambda: ivf_probe.ivf_probe(*pa, **pkw))
-    plain15 = cuda_ms(lambda: ivf_probe.ivf_probe_plain(*pa, **pkw), reps=1, rounds=3)
-    # the pairs this table needs: valid query slots x valid candidate slots
-    # of the probed cells, at 3 flops per dimension
-    nq = (xb[..., 0].abs() < 1e29).sum(dim=1).double()
-    nc = (xc[..., 0].abs() < 1e29).sum(dim=1).double()
-    pairs15 = float((nq * nc[nbr.long()].sum(dim=1)).sum())
-    d = xb.shape[2]
-    bound15, by15 = bound(3.0 * d * pairs15, nbytes(*pa, kd, ki))
-    results.append({"name": "ivf_probe", "max_abs_err": err15, "ms": ms15, "plain_ms": plain15,
-                    "bound_ms": bound15, "bound_by": by15, "library_ms": None})
-    log(f"kernel ivf_probe: OK max|err| {err15:.3e} ({nb15} k-th boundary rows, {nt15} tie-order "
-        f"rows), repeat bitwise; C={xb.shape[0]} cap={xb.shape[1]} capc={xc.shape[1]} T={nbr.shape[1]} "
-        f"kw={pkw['kw']}; {ms15:.3f} ms (plain {plain15:.3f} ms, bound {bound15:.4f} ms by {by15}, "
-        f"{pairs15:.3e} valid pairs of {float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1]):.3e} "
-        f"in the table); IVF stats {stats}")
+    probe_cases = [("bench_k8", *probe_calls[0]), (f"bench32k_k{IVF_WIDE_K}", *ivf128_calls[0]),
+                   (f"bench32k_k{BAND_WIDE_K}", *probe256_calls[0]), (f"d{WIDE_DIM}_k8", *probe_calls[1])]
+    probe = {}
+    for what, pa, pkw in probe_cases:
+        xb, ib, xc, ic, nbr = pa
+        kd, ki = ivf_probe.ivf_probe(*pa, **pkw)
+        kd2, ki2 = ivf_probe.ivf_probe(*pa, **pkw)
+        pd, pi = ivf_probe.ivf_probe_plain(*pa, **pkw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"ivf_probe ({what}): second launch differs"
+        err15, nb15, nt15 = compare_topk(kd, ki, pd, pi, None)
+        ms15 = cuda_ms(lambda: ivf_probe.ivf_probe(*pa, **pkw))
+        plain15 = cuda_ms(lambda: ivf_probe.ivf_probe_plain(*pa, **pkw), reps=1, rounds=3)
+        # the pairs this table needs: valid query slots x valid candidate slots
+        # of the probed cells, at 3 flops per dimension
+        nq = (xb[..., 0].abs() < 1e29).sum(dim=1).double()
+        nc = (xc[..., 0].abs() < 1e29).sum(dim=1).double()
+        pairs15 = float((nq * nc[nbr.long()].sum(dim=1)).sum())
+        d = xb.shape[2]
+        bound15, by15 = bound(3.0 * d * pairs15, nbytes(*pa, kd, ki))
+        probe[what] = {"max_abs_err": err15, "ms": ms15, "plain_ms": plain15, "bound_ms": bound15,
+                       "bound_by": by15, "d": d, "kw": pkw["kw"]}
+        log(f"kernel ivf_probe ({what}): OK max|err| {err15:.3e} ({nb15} k-th boundary rows, {nt15} tie-order "
+            f"rows), repeat bitwise; C={xb.shape[0]} cap={xb.shape[1]} capc={xc.shape[1]} T={nbr.shape[1]} "
+            f"d={d} kw={pkw['kw']}; {ms15:.3f} ms (plain {plain15:.3f} ms, bound {bound15:.4f} ms by {by15}, "
+            f"{pairs15:.3e} valid pairs of {float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1]):.3e} "
+            f"in the table)")
+    log(f"IVF stats (benchmark cloud, k = {GC_K}): {stats}")
+    # the line's entry is the shape the IVF build runs (the benchmark cloud, k = 8)
+    results.append({"name": "ivf_probe", **{k: probe["bench_k8"][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "max_abs_err": max(b["max_abs_err"] for b in probe.values())})
 
+    (sa, skw), (ta, tkw), (ra, rkw), (wa, wkw) = band_calls
+    band_cases = [("spatial", sa, skw), ("trained", ta, tkw), ("spatial_radius8", ra, rkw),
+                  (f"spatial_k{BAND_WIDE_K}", sa, {**skw, "k": BAND_WIDE_K}), (f"d{WIDE_DIM}", wa, wkw)]
     band = {}
-    for what, (ba, bkw) in zip(("spatial", "trained"), band_calls):
+    for what, ba, bkw in band_cases:
         kd, ki = windowed_topk.banded_topk_sorted(*ba, **bkw)
         kd2, ki2 = windowed_topk.banded_topk_sorted(*ba, **bkw)
         pd, pi = windowed_topk.banded_topk_sorted_plain(*ba, **bkw)
         torch.cuda.synchronize()
         assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"banded_topk_sorted ({what}): second launch differs"
         err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+        assert_key_order(kd, ki, f"banded_topk_sorted ({what})")
         ms = cuda_ms(lambda: windowed_topk.banded_topk_sorted(*ba, **bkw))
         plain = cuda_ms(lambda: windowed_topk.banded_topk_sorted_plain(*ba, **bkw), reps=1, rounds=3)
         xs, valid = ba[0], bkw["valid"]
-        lo, hi = windowed_topk._band(xs.shape[0], bkw["block_q"], bkw["block_c"], bkw["radius"],
-                                     torch.arange(xs.shape[0], device=xs.device))
-        pairs = float(((hi - lo) * valid).sum())
+        pairs = band_pairs(ba, bkw)
         bnd, by = bound(3.0 * xs.shape[1] * pairs, nbytes(xs, valid, kd, ki))
         band[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                      "d": xs.shape[1], "pairs": pairs}
+                      "d": xs.shape[1], "k": bkw["k"], "radius": bkw["radius"], "pairs": pairs,
+                      "instruction_floor_ms": pairs_floor_ms(pairs, xs.shape[1]),
+                      "plan": windowed_topk.banded_topk_sorted.last_plan}
         log(f"kernel banded_topk_sorted ({what}): OK max|err| {err:.3e} ({nb} k-th boundary rows, "
-            f"{nt} tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} "
-            f"radius={bkw['radius']} block_q={bkw['block_q']} block_c={bkw['block_c']}; {ms:.3f} ms "
-            f"(plain {plain:.3f} ms, bound {bnd:.4f} ms by {by}, {pairs:.3e} pairs)")
+            f"{nt} tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} k={bkw['k']} "
+            f"radius={bkw['radius']} block_q={bkw['block_q']} block_c={bkw['block_c']} plan "
+            f"{band[what]['plan']}; {ms:.3f} ms (plain {plain:.3f} ms, bound {bnd:.4f} ms by {by}, "
+            f"instruction floor {band[what]['instruction_floor_ms']:.3f} ms, {pairs:.3e} pairs)")
     # the line's entry is the shape the windowed build runs (spatial, d = 3)
     results.append({"name": "banded_topk_sorted", **{k: band["spatial"][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
@@ -2222,6 +2507,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
             "split_topk_262k_ms": cuda_ms(lambda: pairwise_topk.pairwise_topk(latent, k=GC_K),
                                           reps=1, rounds=3),
         }
+    windowed_split = windowed_build_split(xyz, GC_K)
     log(f"graph construction: the resident top-k at k = {GC_K} took {route} (knn.SPLIT_MAX_K = "
         f"{knn.SPLIT_MAX_K}): knn_graph {times['knn_resident_ms']:.2f} ms a build on the trained latent; "
         f"row #13 {times['split_topk_262k_ms']:.2f} ms, row #12 {times['topk_262k_ms']:.2f} ms on it")
@@ -2229,7 +2515,8 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
         "hits": GC_HITS, "k": GC_K, "resident_route": route, **times, **eff, "launches": launches,
         "attempts": attempts,
         "uncertified_before_fallback": uncertified, "clusters": geometry,
-        "banded_topk_sorted": band, "edges_kept_by_radius": int(built.edge_mask.sum()),
+        "banded_topk_sorted": band, "ivf_probe": probe, "ivf_k128_tie_rows": ivf128_ties,
+        "windowed_split": windowed_split, "edges_kept_by_radius": int(built.edge_mask.sum()),
         "tie_rows": ties, "ivf_stats": stats,
     }
     log("graph construction: " + json.dumps(summary))
@@ -2538,10 +2825,79 @@ def topk_bound(x, k: int, mask, batch) -> tuple[float, str]:
     return bound(3.0 * x.shape[1] * pairs, nbytes(x, mask, batch) + 8 * x.shape[0] * k)
 
 
+def odd_width_checks(seed: int) -> None:
+    """A-D (bf16) and rows #1 / #2 with C32 / D32 (f32) at ``ODD_WIDTHS``,
+    which the kernels take only zero-padded (``_Padding``), through the
+    wrappers and through the differentiable op ``fused_relational``: each
+    output and gradient at the layer's own widths and against its plain
+    version (bf16 within 2e-2 of the plain one's norm, as phase 9 (a); f32
+    within 1e-4 of its largest magnitude, as phase 3's row #1), repeat
+    bitwise, C / D (C32 / D32) bitwise A / B (rows #1 / #2)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    for route, (fx, fe, h, fo) in ODD_WIDTHS.items():
+        bf16 = route == "bf16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 150, fx, fe, h, fo, 16000, 0.8)
+        x, ea, g_e, g_a = (t.to(dtype) for t in (x, ea, g_e, g_a))
+        w = {k: v.to(dtype) for k, v in w.items()}
+        csr = g.csr()
+        fwd, fwd_save, bwd, bwd_saved, plain_f, plain_b = (
+            (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save, fr.fused_relational_bf16_bwd,
+             fr.fused_relational_bf16_bwd_saved, fr.fused_relational_bf16_plain, fr.fused_relational_bf16_bwd_plain)
+            if bf16 else
+            (fr.fused_relational_fwd, fr.fused_relational_fwd_save, fr.fused_relational_bwd,
+             fr.fused_relational_bwd_saved, fr.fused_relational_plain, fr.fused_relational_bwd_plain))
+        flat = lambda out: [out[0], out[1], *out[2].values()]
+        a = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
+        a2 = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
+        c = fwd_save(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
+        b = flat(bwd(x, ea, ei, mask, w, g_e, g_a, csr, relu_edge=True))
+        b2 = flat(bwd(x, ea, ei, mask, w, g_e, g_a, csr, relu_edge=True))
+        d = flat(bwd_saved(c[2], c[3], ea, ei, mask, w, g_e, g_a, csr, g.num_nodes, relu_edge=True))
+        pa, pb = plain_f(x, ea, ei, mask, w, relu_edge=True), flat(plain_b(x, ea, ei, mask, w, g_e, g_a, relu_edge=True))
+
+        def op(inputs, graph):
+            leaves = [t.detach().clone().requires_grad_() for t in inputs]
+            ws = dict(zip(fr.WEIGHT_KEYS, leaves[2:]))
+            if graph is None:  # the plain path
+                out = plain_f(leaves[0], leaves[1], ei, mask, ws, relu_edge=True)
+            else:
+                out = fr.fused_relational(leaves[0], leaves[1], ei, mask, ws, csr=graph, relu_edge=True)
+            loss = (out[0].float() * g_e.float()).sum() + (out[1].float() * g_a.float()).sum()
+            loss.backward()
+            return [out[0].detach(), out[1].detach(), *(t.grad for t in leaves)]
+
+        inputs = [x, ea, *(w[k] for k in fr.WEIGHT_KEYS)]
+        ko, po = op(inputs, csr), op(inputs, None)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k_t, p_t in zip([*a, *b, *ko], [*pa, *pb, *po]):
+            assert k_t.shape == p_t.shape, f"{route} at {ODD_WIDTHS[route]}: shape {k_t.shape} != {p_t.shape}"
+            if bf16:
+                rel = ((k_t.double() - p_t.double()).norm() / p_t.double().norm().clamp(min=1e-30)).item()
+                assert rel <= 2e-2, f"bf16 kernels at {ODD_WIDTHS[route]}: {rel:.3e} of the plain norm"
+            else:
+                rel = ((k_t - p_t).abs().max() / p_t.abs().max().clamp(min=1e-30)).item()
+                assert rel <= 1e-4, f"f32 kernels at {ODD_WIDTHS[route]}: {rel:.3e} of the largest"
+            worst = max(worst, rel)
+        for u, v in zip([*a, *b], [*a2, *b2]):
+            assert torch.equal(u, v), f"{route} at {ODD_WIDTHS[route]}: second launch differs"
+        assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1]), f"{route}: the saving forward differs"
+        assert all(torch.equal(u, v) for u, v in zip(b, d)), f"{route}: the saved-rows backward differs"
+        log(f"kernels at odd widths ({route}, (Fx, Fe, H, Fo) = {ODD_WIDTHS[route]}, padded to "
+            f"{fr._Padding.of(x, ea, w).padded}): OK, forward, backward and the op's gradients within "
+            f"{worst:.3e} of the plain version ({'norm' if bf16 else 'largest magnitude'}), repeat bitwise, "
+            f"{'C / D bitwise A / B' if bf16 else 'C32 / D32 bitwise rows #1 / #2'}")
+
+
 def validation_kernel_phases(seed: int) -> list[dict]:
     """Phase 10 (a): the split kernel pair as rows #13 and #11 against their
     plain versions, and rows #1/#2 at ``ec.yml``'s widths (see the module
-    docstring). Returns rows #13 and #11's results."""
+    docstring) and at odd widths (``odd_width_checks``). Returns rows #13 and
+    #11's results."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -2677,6 +3033,7 @@ def validation_kernel_phases(seed: int) -> list[dict]:
         f"OK forward max|err| {err1:.3e} (<= 1e-4 of the largest), backward max|err| vs float64 {err2:.3e} "
         f"(<= 4x the plain f32 version's), repeat bitwise; forward {ms1:.3f} ms (plain {plain1:.3f} ms, bound "
         f"{bnd1:.4f} ms by {by1}), backward {ms2:.3f} ms (plain {plain2:.3f} ms, bound {bnd2:.4f} ms by {by2})")
+    odd_width_checks(seed)
     return results
 
 
@@ -2917,6 +3274,12 @@ def main(argv=None) -> int:
                    help="build, check rows #13 / #11 (split_checks) and time them beside row #12 on "
                    "phase 10 (a)'s input and phase 8's 262,144-point inputs (split_timings), "
                    "print them and stop")
+    p.add_argument("--band-only", action="store_true",
+                   help="build, check and time row #14 (banded_topk_sorted) on phase 8's band inputs "
+                   "at several k (band_timings), print them and stop")
+    p.add_argument("--band-digests", type=Path, default=None,
+                   help="with --band-only: a file of row #14's output digests to compare with "
+                   "(another tree's run), or to write where there is none")
     p.add_argument("--package-root", type=Path, default=REPO,
                    help="directory holding the gnn_tracking_tpu_torch package to run "
                    "(default: beside this script), e.g. an older tree to compare on one card")
@@ -3007,6 +3370,11 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         split_checks(args.seed)
         split_timings(args.seed)
+        print(smi)
+        return 0
+    if args.band_only:
+        log(f"package: {root}")
+        band_timings(args.seed, args.band_digests)
         print(smi)
         return 0
 
@@ -3136,6 +3504,8 @@ def main(argv=None) -> int:
         n_diff = int((k_lab != p_lab).sum())
         assert n_diff == 0, f"cc_neighbors: {n_diff} labels differ from the plain version"
         ms3 = cuda_ms(lambda: cc_kernel.cc_neighbors(src2d, core_edges))
+        # the call's kernels alone (its bounds check and the flag read after each sweep are host syncs)
+        dev3 = device_ms_per_call(lambda: cc_kernel.cc_neighbors(src2d, core_edges), ("sweep_kernel", "iota_kernel"))
         plain3 = cuda_ms(lambda: cc_kernel.cc_neighbors_plain(src2d, core_edges), reps=1, rounds=3)
         bytes3 = N_NODES * CAP * (4 + 1) + 4 * N_NODES
         bound3 = bytes3 / PEAK_BYTES_PER_S * 1e3
@@ -3144,7 +3514,8 @@ def main(argv=None) -> int:
             "bound_ms": bound3, "bound_by": "bytes", "library_ms": None,
         })
         log(f"kernel cc_neighbors: OK labels identical ({len(torch.unique(k_lab))} components, "
-            f"{sweeps} sweeps); {ms3:.3f} ms (plain {plain3:.3f} ms, bound {bound3:.4f} ms)")
+            f"{sweeps} sweeps); {ms3:.3f} ms a call, its kernels {dev3:.4f} ms on the device "
+            f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms)")
     results += training_kernel_phases(model.tcn, g0, args.seed)
 
     # ---- 4. main path -------------------------------------------------------

@@ -19,6 +19,10 @@ aggregation's cotangent). They need the edges sorted by target and the CSR
 arrays that ``EventGraph.sort_edges_by_target`` stores (``EventGraph.csr``):
 ``dst_rowptr`` for the forward, plus ``src_perm`` and ``src_rowptr`` for the
 backward. Weights use PyTorch's ``[out, in]`` layout.
+The kernels take widths ``(Fx, Fe, H, Fo)`` that are multiples of 32 in
+bf16 and H and Fo that are multiples of 4 in f32; other widths are
+zero-padded to those (``_Padding``, exact) and the outputs and gradients cut
+back.
 
 **bf16.** When ``x``, ``edge_attr`` and the weights are bfloat16 the op
 takes the bf16 route, the JAX kernels' ``compute_dtype="bfloat16"``
@@ -164,6 +168,60 @@ def fused_relational_bwd_saved_plain(
     return g_x, g_ea.contiguous(), grads
 
 
+class _Padding:
+    """Zero padding of a layer's widths ``(Fx, Fe, H, Fo)`` to what the
+    kernels take: multiples of 32 for bf16 (A-D), H and Fo multiples of 4
+    for f32 (rows #1 / #2, C32 / D32). Exact: the padded weight rows and
+    columns and biases are zero, so the padded hidden units are ReLU(0) = 0
+    (and their gradient 0), the padded outputs 0, and every padded term of
+    a sum a zero. :meth:`of` gives None where the widths are aligned, and
+    the caller then takes the unpadded path unchanged. ``FusedRelational``
+    pads once per layer call (the weights and the inputs, saved padded for
+    the backward); each kernel wrapper pads what it is handed (nothing once
+    ``FusedRelational`` has)."""
+
+    def __init__(self, widths: tuple[int, int, int, int], align: tuple[int, int, int, int]):
+        self.widths = widths
+        self.padded = tuple(-(-w // a) * a for w, a in zip(widths, align))
+
+    @classmethod
+    def of(cls, rows: torch.Tensor, edge_attr: torch.Tensor, weights: dict) -> "_Padding | None":
+        """The padding for the node rows ``rows`` (``x`` or a saved ``x[dst]``),
+        ``edge_attr`` and ``weights``, or None where the widths are aligned."""
+        align = (32, 32, 32, 32) if rows.dtype == torch.bfloat16 else (1, 1, 4, 4)
+        pad = cls((rows.shape[1], edge_attr.shape[1], weights["w2"].shape[0],
+                   weights["w3"].shape[0]), align)
+        return None if pad.padded == pad.widths else pad
+
+    def cols(self, t: torch.Tensor | None, i: int) -> torch.Tensor | None:
+        """``t``'s last dimension, of width ``widths[i]``, zero-padded."""
+        extra = self.padded[i] - self.widths[i]
+        return t if t is None or extra == 0 else F.pad(t, (0, extra))
+
+    def weights(self, w: dict) -> dict:
+        (fx, fe, h, fo), (fx_p, fe_p, h_p, fo_p) = self.widths, self.padded
+        w1 = w["w1"]
+        w1 = torch.cat([F.pad(w1[:, :fx], (0, fx_p - fx)), F.pad(w1[:, fx : 2 * fx], (0, fx_p - fx)),
+                        F.pad(w1[:, 2 * fx :], (0, fe_p - fe))], dim=1)
+        return {
+            "w1": F.pad(w1, (0, 0, 0, h_p - h)), "b1": F.pad(w["b1"], (0, h_p - h)),
+            "w2": F.pad(w["w2"], (0, h_p - h, 0, h_p - h)), "b2": F.pad(w["b2"], (0, h_p - h)),
+            "w3": F.pad(w["w3"], (0, h_p - h, 0, fo_p - fo)), "b3": F.pad(w["b3"], (0, fo_p - fo)),
+        }
+
+    def unpad(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """``t``'s last dimension cut back to ``widths[i]``."""
+        return t if self.padded[i] == self.widths[i] else t[..., : self.widths[i]].contiguous()
+
+    def grads(self, g: dict) -> dict:
+        """Weight gradients at the padded widths, cut back to the layer's."""
+        (fx, fe, h, fo), (fx_p, _, _, _) = self.widths, self.padded
+        w1 = g["w1"][:h]
+        w1 = torch.cat([w1[:, :fx], w1[:, fx_p : fx_p + fx], w1[:, 2 * fx_p : 2 * fx_p + fe]], dim=1)
+        return {"w1": w1, "b1": g["b1"][:h], "w2": g["w2"][:h, :h].contiguous(), "b2": g["b2"][:h],
+                "w3": g["w3"][:fo, :h].contiguous(), "b3": g["b3"][:fo]}
+
+
 def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=(),
                   dtype=torch.float32):
     """Device, dtype, shape and contiguity of the kernel's inputs: ``x``,
@@ -206,9 +264,6 @@ def _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra=(),
         if not t.is_contiguous():
             msg = f"{what}: {name} must be contiguous"
             raise ValueError(msg)
-    if h % 4 or fo % 4:
-        msg = f"{what}: hidden ({h}) and output ({fo}) widths must be multiples of 4"
-        raise ValueError(msg)
     return n, e, fx, fe, h, fo
 
 
@@ -249,6 +304,11 @@ def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_e
              partition):
     """Launch C entry ``entry`` (row #1, or C32 with ``save``) on ``partition``
     (``_compact``'s, computed here when None), then row #9's sum."""
+    pad = _Padding.of(x, edge_attr, weights)
+    if pad is not None:
+        out = _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, pad.weights(weights), rowptr,
+                       relu_edge, save, partition)
+        return pad.unpad(out[0], 3), pad.unpad(out[1], 3), *out[2:]
     n, e, fx, fe, h, fo = _check_inputs(
         entry, x, edge_attr, edge_index, edge_mask, weights,
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
@@ -321,6 +381,12 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
     ``gd``, ``gs``) on the unmasked edges (the forward's ``partition``, or
     ``_compact``'s computed here when None), then row #9's per-target and
     per-source sums."""
+    pad = _Padding.of(gd if x is None else x, edge_attr, weights)
+    if pad is not None:
+        g_x, g_ea, grads = _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask,
+                                    pad.weights(weights), pad.cols(g_e_out, 3),
+                                    pad.cols(g_agg, 3), csr, num_nodes, relu_edge, partition)
+        return g_x, g_ea, pad.grads(grads)
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.float32, (e, fo)),
@@ -522,9 +588,6 @@ def fused_relational_bf16_bwd_plain(
 def _check_bf16(what, x, edge_attr, edge_index, edge_mask, weights, extra=()):
     widths = _check_inputs(what, x, edge_attr, edge_index, edge_mask, weights, extra,
                            dtype=torch.bfloat16)
-    if any(w % 32 for w in widths[2:]):
-        msg = f"{what}: the bf16 kernels take widths (Fx, Fe, H, Fo) that are multiples of 32, got {widths[2:]}"
-        raise ValueError(msg)
     # bf16 rows are read 16 bytes at a time
     tensors = [x, edge_attr, *weights.values(), *(t for _, t, _, _ in extra)]
     if any(t.dtype == torch.bfloat16 and t.data_ptr() % 16 for t in tensors):
@@ -558,6 +621,12 @@ def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_
     sum. Returns the outputs and whether the entry was launched (not for
     ``E = 0``). Widths whose weights and tiles exceed one block's shared
     memory raise ``ValueError``."""
+    pad = _Padding.of(x, edge_attr, weights)
+    if pad is not None:
+        (e_out, agg, *saved), launched = _fwd_bf16(
+            entry, pad.cols(x, 0), pad.cols(edge_attr, 1), edge_index, edge_mask,
+            pad.weights(weights), rowptr, relu_edge, save, partition)
+        return (pad.unpad(e_out, 3), pad.unpad(agg, 3), *(pad.unpad(t, 0) for t in saved)), launched
     n, e, fx, fe, h, fo = _check_bf16(
         entry, x, edge_attr, edge_index, edge_mask, weights,
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
@@ -622,6 +691,13 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
     per-target and per-source sums. Returns the outputs and whether the
     entry was launched (not for ``E = 0``). Widths whose weights and tiles
     exceed one block's shared memory raise ``ValueError``."""
+    pad = _Padding.of(gd if x is None else x, edge_attr, weights)
+    if pad is not None:
+        (g_x, g_ea, grads), launched = _bwd_bf16(
+            what, pad.cols(x, 0), pad.cols(gd, 0), pad.cols(gs, 0), pad.cols(edge_attr, 1),
+            edge_index, edge_mask, pad.weights(weights), pad.cols(g_e_out, 3), pad.cols(g_agg, 3),
+            csr, num_nodes, relu_edge, partition)
+        return (pad.unpad(g_x, 0), pad.unpad(g_ea, 1), pad.grads(grads)), launched
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.bfloat16, (e, fo)),
@@ -739,23 +815,33 @@ class FusedRelational(torch.autograd.Function):
         rowptr = csr.get("dst_rowptr")
         # one partition of the edge ids for the layer call's forward and backward kernels
         partition = _compact(edge_mask) if x.is_cuda and edge_mask.shape[0] > 0 else None
+        # widths the kernels do not take: padded once for the layer call's two kernels
+        pad = _Padding.of(x, edge_attr, weights) if x.is_cuda else None
+        if pad is not None:
+            x, edge_attr, weights = pad.cols(x, 0), pad.cols(edge_attr, 1), pad.weights(weights)
+        ws = [weights[k] for k in WEIGHT_KEYS]
         kw = {"rowptr": rowptr, "relu_edge": relu_edge, "partition": partition}
         if save_acts:
             fwd_save = fused_relational_bf16_fwd_save if bf16 else fused_relational_fwd_save
             e_out, agg, gd, gs = fwd_save(x, edge_attr, edge_index, edge_mask, weights, **kw)
-            ctx.save_for_backward(gd, gs, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
+            ctx.save_for_backward(gd, gs, edge_attr, *ws, edge_index, edge_mask)
         else:
             fwd = fused_relational_bf16_fwd if bf16 else fused_relational_fwd
             e_out, agg = fwd(x, edge_attr, edge_index, edge_mask, weights, **kw)
-            ctx.save_for_backward(x, edge_attr, w1, b1, w2, b2, w3, b3, edge_index, edge_mask)
+            ctx.save_for_backward(x, edge_attr, *ws, edge_index, edge_mask)
         ctx.csr, ctx.relu_edge, ctx.save_acts, ctx.bf16 = csr, relu_edge, save_acts, bf16
-        ctx.partition = partition
+        ctx.partition, ctx.pad = partition, pad
         ctx.num_nodes = x.shape[0]
+        if pad is not None:
+            return pad.unpad(e_out, 3), pad.unpad(agg, 3)
         return e_out, agg
 
     @staticmethod
     def backward(ctx, g_e_out, g_agg):
         cts = (g_e_out.contiguous(), g_agg.contiguous())
+        pad = ctx.pad
+        if pad is not None:
+            cts = (pad.cols(cts[0], 3), pad.cols(cts[1], 3))
         if ctx.save_acts:
             gd, gs, edge_attr, *ws, edge_index, edge_mask = ctx.saved_tensors
             bwd_saved = fused_relational_bf16_bwd_saved if ctx.bf16 else fused_relational_bwd_saved
@@ -770,6 +856,8 @@ class FusedRelational(torch.autograd.Function):
                 x, edge_attr, edge_index, edge_mask, dict(zip(WEIGHT_KEYS, ws)), *cts, ctx.csr,
                 relu_edge=ctx.relu_edge, partition=ctx.partition,
             )
+        if pad is not None:
+            g_x, g_ea, grads = pad.unpad(g_x, 0), pad.unpad(g_ea, 1), pad.grads(grads)
         return (g_x, g_ea, *(grads[k] for k in WEIGHT_KEYS), None, None, None, None, None)
 
 

@@ -19,7 +19,6 @@ import torch
 
 from gnn_tracking_tpu_torch import _build
 
-MAX_DIM = 32
 #: query-candidate pairs per chunk of cells in the plain version
 CHUNK_PAIRS = 1 << 25
 
@@ -84,7 +83,7 @@ def ivf_probe(
     capc, d]`` candidate slabs and ``ic [C, capc]`` their ids, ``nbr [C, T]``
     the cells each cell probes. Returns ``(dists [C*cap, kw] float32, idx
     [C*cap, kw] int32)`` in slot order. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel, at any ``d`` and ``kw``."""
     if xb.device.type == "cpu":
         return ivf_probe_plain(xb, ib, xc, ic, nbr, kw=kw, loop=loop)
     if xb.device.type != "cuda":
@@ -100,9 +99,6 @@ def ivf_probe(
             msg = (f"ivf_probe: {name} must be {dtype} {list(shape)} on {xb.device}, "
                    f"got {tensor.dtype} {list(tensor.shape)} on {tensor.device}")
             raise ValueError(msg)
-    if d > MAX_DIM:
-        msg = f"ivf_probe: at most {MAX_DIM} dimensions, got {d}"
-        raise ValueError(msg)
     xb, ib, xc, ic, nbr = (v.contiguous() for v in (xb, ib, xc, ic, nbr))
     out_d = torch.empty((c * cap, kw), dtype=torch.float32, device=xb.device)
     out_i = torch.empty((c * cap, kw), dtype=torch.int32, device=xb.device)

@@ -18,18 +18,25 @@ plain version and the fallback (the JAX kernel uses the norm expansion).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from gnn_tracking_tpu_torch import _build
 
-MAX_DIM = 32
 _FAR = 1e30
+_INVALID_VALUE = 1  # cudaErrorInvalidValue
 #: queries x candidates per step of the brute-force fallback
 FALLBACK_PAIRS = 1 << 23
 
-_SIGNATURES = {"banded_topk_sorted": [_build.P] * 4 + [_build.I] * 8 + [_build.P]}
+_SIGNATURES = {
+    "banded_topk_sorted": [_build.P] * 4 + [_build.I] * 12 + [_build.P],
+    "banded_topk_plan": [_build.I] * 2 + [_build.P],
+}
+#: the kernel's launch plan by (d, k, device): (path, queries a block, tile rows, flags,
+#: shared memory a block), as ``banded_topk_plan`` in ``csrc/banded_topk.cu`` describes it
+_plans: dict[tuple, tuple] = {}
 
 
 def principal_axis(x: torch.Tensor, iters: int = 12) -> torch.Tensor:
@@ -97,6 +104,23 @@ def banded_topk_sorted_plain(
     return torch.where(ok, dists, math.inf), torch.where(ok, idx, 0)
 
 
+def _plan(lib, d: int, k: int, device) -> tuple:
+    """``banded_topk_plan``'s launch plan for ``d`` and ``k`` on ``device``
+    (cached); ``ValueError`` where not even a tile of 4 candidates fits a
+    block's shared memory."""
+    key = (d, k, device)
+    if key not in _plans:
+        out = (ctypes.c_int * 5)()
+        err = lib.banded_topk_plan(d, k, ctypes.cast(out, ctypes.c_void_p))
+        if err == _INVALID_VALUE:
+            msg = (f"banded_topk_sorted: d = {d}: a tile of 4 candidates needs {16 * d} bytes "
+                   "of shared memory, more than a block of this card can take")
+            raise ValueError(msg)
+        _build.check(lib, err, "banded_topk_plan")
+        _plans[key] = tuple(out)
+    return _plans[key]
+
+
 def banded_topk_sorted(
     x_sorted: torch.Tensor,
     *,
@@ -113,7 +137,8 @@ def banded_topk_sorted(
     (``block_c`` rows each). Returns ``(dists_sq [N, k] float32 ascending,
     idx [N, k] int32)`` in sorted indexing; invalid queries and unfilled
     slots are ``(+inf, 0)``, ties go to the lower index. CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel, at any ``k`` and
+    ``d`` (``last_plan`` records the launch plan)."""
     if x_sorted.device.type == "cpu":
         return banded_topk_sorted_plain(
             x_sorted, k=k, radius=radius, valid=valid, block_q=block_q,
@@ -126,30 +151,36 @@ def banded_topk_sorted(
     if x_sorted.dtype != torch.float32:
         msg = f"banded_topk_sorted: x_sorted must be float32 on CUDA, got {x_sorted.dtype}"
         raise ValueError(msg)
-    if d > MAX_DIM:
-        msg = f"banded_topk_sorted: at most {MAX_DIM} dimensions, got {d}"
-        raise ValueError(msg)
     if valid.device != x_sorted.device or valid.dtype != torch.bool or tuple(valid.shape) != (n,):
         msg = f"banded_topk_sorted: valid must be bool [{n}] on {x_sorted.device}"
         raise ValueError(msg)
+    if d == 0:
+        msg = "banded_topk_sorted: the points need at least one dimension on CUDA"
+        raise ValueError(msg)
+    # a fresh tensor: its rows start on 16 bytes, as the kernel's tile copies need
     x = torch.where(valid[:, None], x_sorted, _FAR).contiguous()
     valid = valid.contiguous()
     n_pad = -(-n // block_q) * block_q
     n_cblocks = -(-n_pad // block_c)
     out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
+    if n == 0 or k == 0:
+        return out_d, out_i
     lib = _build.library("banded_topk", _SIGNATURES)
+    plan = _plan(lib, d, k, x.device)
+    banded_topk_sorted.last_plan = plan[:4]
     p = _build.ptr
     err = lib.banded_topk_sorted(
         p(x), p(valid), p(out_d), p(out_i), n, d, k, radius, block_q, block_c,
-        n_cblocks, int(loop), _build.stream_ptr(x.device),
+        n_cblocks, int(loop), *plan[:4], _build.stream_ptr(x.device),
     )
-    _build.check(lib, err, "banded_topk_sorted")
+    _build.check(lib, err, f"banded_topk_sorted (plan {plan[:4]})")
     banded_topk_sorted.launches += 1
     return out_d, out_i
 
 
 banded_topk_sorted.launches = 0
+banded_topk_sorted.last_plan = None
 
 
 def _fallback_brute(

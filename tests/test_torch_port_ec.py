@@ -779,6 +779,52 @@ def test_trainer_fit_ec_module_on_jax_npz(tmp_path):
         assert torch.equal(back.state_dict()[k], v), k
 
 
+# ------------------------------------------- the kernels' width padding (C1)
+# (Fx, Fe, H, Fo) that the kernels do not take as they are: bf16 widths not multiples of 32, f32
+# H and Fo not multiples of 4
+ODD_WIDTHS = {"bf16": (40, 8, 72, 20), "f32": (14, 3, 50, 18)}
+
+
+def _odd_case(dtype, fx, fe, h, fo, seed=0, n=300, e=2000):
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n, size=e)
+    src = np.clip(dst + rng.integers(-40, 40, size=e), 0, n - 1)
+    ei = torch.from_numpy(np.stack([src, dst]))
+    mask = torch.from_numpy(rng.random(e) < 0.8)
+    t = lambda *shape, scale=1.0: torch.tensor(scale * rng.normal(size=shape), dtype=dtype)
+    w = {"w1": t(h, 2 * fx + fe, scale=0.3), "b1": t(h), "w2": t(h, h, scale=0.3), "b2": t(h),
+         "w3": t(fo, h, scale=0.3), "b3": t(fo)}
+    return t(n, fx), t(e, fe), ei, mask, w, t(e, fo), t(n, fo)
+
+
+@pytest.mark.parametrize("relu_edge", [False, True])
+@pytest.mark.parametrize("route", ["bf16", "f32"])
+def test_padded_widths_are_bitwise_the_unpadded_plain_path(route, relu_edge):
+    """The zero padding that takes odd widths to the kernels' (``_Padding``)
+    changes no bit: the plain forward (with the saved rows) and backward at
+    the padded widths, cut back, equal the plain path at the layer's own
+    widths; aligned widths are not padded at all."""
+    dtype = BF16 if route == "bf16" else torch.float32
+    x, ea, ei, mask, w, g_e, g_agg = _odd_case(dtype, *ODD_WIDTHS[route])
+    pad = fr._Padding.of(x, ea, w)
+    assert pad is not None and pad.padded == ((64, 32, 96, 32) if route == "bf16" else (14, 3, 52, 20))
+    fwd, bwd = ((fr.fused_relational_bf16_fwd_save_plain, fr.fused_relational_bf16_bwd_plain)
+                if route == "bf16" else (fr.fused_relational_fwd_save_plain, fr.fused_relational_bwd_plain))
+    want = fwd(x, ea, ei, mask, w, relu_edge=relu_edge)
+    got = fwd(pad.cols(x, 0), pad.cols(ea, 1), ei, mask, pad.weights(w), relu_edge=relu_edge)
+    got = [pad.unpad(got[0], 3), pad.unpad(got[1], 3), pad.unpad(got[2], 0), pad.unpad(got[3], 0)]
+    for a, b in zip(want, got):
+        assert a.shape == b.shape and torch.equal(a, b)
+    want = bwd(x, ea, ei, mask, w, g_e, g_agg, relu_edge=relu_edge)
+    got = bwd(pad.cols(x, 0), pad.cols(ea, 1), ei, mask, pad.weights(w), pad.cols(g_e, 3),
+              pad.cols(g_agg, 3), relu_edge=relu_edge)
+    got = (pad.unpad(got[0], 0), pad.unpad(got[1], 1), pad.grads(got[2]))
+    for a, b in zip([want[0], want[1], *want[2].values()], [got[0], got[1], *got[2].values()]):
+        assert a.shape == b.shape and torch.equal(a, b)
+    aligned = _odd_case(dtype, *((64, 32, 96, 32) if route == "bf16" else (14, 3, 52, 20)))
+    assert fr._Padding.of(aligned[0], aligned[1], aligned[4]) is None
+
+
 # ------------------------------------------------------- CUDA: kernels A-D
 @pytest.fixture
 def cuda():
@@ -931,3 +977,43 @@ def test_cuda_f32_saved_pair_is_bitwise_the_recomputing_pair(cuda, fx, fe, h, fo
         assert (k - q).abs().max() <= 1e-4 * q.abs().max()
     for u, v in zip([b[0], b[1], *b[2].values()], [d[0], d[1], *d[2].values()]):
         assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["bf16", "f32"])
+def test_cuda_kernels_at_odd_widths_match_plain(cuda, route):
+    """A-D (bf16) and rows #1 / #2 with C32 / D32 (f32) at widths they take
+    only padded, through the wrappers and the op: against the plain
+    versions (the tolerances of ``test_cuda_bf16_kernels_match_plain`` and
+    of ``chip_smoke.py``'s rows #1 / #2), C / D bitwise A / B."""
+    dtype = BF16 if route == "bf16" else torch.float32
+    fx, fe, h, fo = ODD_WIDTHS[route]
+    g, args, cts = _cuda_case(cuda, fx=fx, fe=fe, h=h, fo=fo, seed=4)
+    args = (args[0].to(dtype), args[1].to(dtype), *args[2:4], {k: v.to(dtype) for k, v in args[4].items()})
+    cts = tuple(c.to(dtype) for c in cts)
+    csr = g.csr()
+    if route == "bf16":
+        fwd, fwd_save, bwd, bwd_saved = (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save,
+                                         fr.fused_relational_bf16_bwd, fr.fused_relational_bf16_bwd_saved)
+        plain_f, plain_b = fr.fused_relational_bf16_plain, fr.fused_relational_bf16_bwd_plain
+    else:
+        fwd, fwd_save, bwd, bwd_saved = (fr.fused_relational_fwd, fr.fused_relational_fwd_save,
+                                         fr.fused_relational_bwd, fr.fused_relational_bwd_saved)
+        plain_f, plain_b = fr.fused_relational_plain, fr.fused_relational_bwd_plain
+    a = fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
+    c = fwd_save(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
+    b = bwd(*args, *cts, csr, relu_edge=True)
+    d = bwd_saved(c[2], c[3], *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
+    pa, pb = plain_f(*args, relu_edge=True), plain_b(*args, *cts, relu_edge=True)
+    torch.cuda.synchronize()
+    flat = lambda out: [out[0], out[1], *out[2].values()]
+    for k, p in zip([*a, *flat(b)], [*pa, *flat(pb)]):
+        assert k.shape == p.shape
+        if route == "bf16":
+            assert (k.double() - p.double()).norm() <= 2e-2 * p.double().norm()
+        else:
+            assert (k - p).abs().max() <= 1e-4 * p.abs().max()
+    assert torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
+    for u, v in zip(flat(b), flat(d)):
+        assert torch.equal(u, v)
+

@@ -62,6 +62,7 @@ from gnn_tracking_tpu_torch.models.graph_construction import (
 )
 from gnn_tracking_tpu_torch.ops import ivf_knn as port_ivf
 from gnn_tracking_tpu_torch.ops import knn
+from gnn_tracking_tpu_torch.ops import ivf_probe as port_ivf_probe
 from gnn_tracking_tpu_torch.ops import windowed_topk as port_win
 from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe, ivf_probe_plain
 from gnn_tracking_tpu_torch.training.module import MLModule
@@ -475,6 +476,100 @@ def test_banded_topk_plain_matches_pallas_interpret(loop):
     assert (pi == ji)[fin].mean() > 0.99
 
 
+def _band_case(case):
+    """Key-sorted points, their validity and the band's arguments: k = 40,
+    k above the band's 128 candidates (unfilled slots), d = 40, and a cloud
+    of points each repeated 6 times (exact ties of every distance)."""
+    rng = np.random.default_rng(14)
+    if case == "duplicates":
+        x = np.repeat(_clustered(14, 250, d=3, n_clusters=8), 6, axis=0)
+    else:
+        x = _clustered(14, 1200, d=40 if case == "d40" else 6, n_clusters=24)
+    valid = rng.random(len(x)) > 0.1
+    key = np.where(valid, x @ rng.normal(size=x.shape[1]), np.inf)
+    order = np.argsort(key, kind="stable")
+    kw = {"k": 40, "radius": 1, "block_q": 128, "block_c": 256}
+    if case == "k_over_band":
+        kw = {"k": 150, "radius": 0, "block_q": 128, "block_c": 128}
+    elif case == "duplicates":
+        kw = {"k": 16, "radius": 1, "block_q": 128, "block_c": 128}
+    return x[order], valid[order], kw
+
+
+def _band_reference(xs, vs, *, k, radius, block_q, block_c, loop):
+    """The band's top-k by the port's direct formula (float32, dimension by
+    dimension), exclusions, a stable sort: ``(+inf, 0)`` where unfilled."""
+    n = len(xs)
+    out_d = np.full((n, k), np.inf, np.float32)
+    out_i = np.zeros((n, k), np.int32)
+    x = np.where(vs[:, None], xs, np.float32(1e30)).astype(np.float32)
+    for q in np.flatnonzero(vs):
+        lo, hi = port_win._band(n, block_q, block_c, radius, int(q))
+        dist = np.zeros(hi - lo, np.float32)
+        with np.errstate(over="ignore"):  # invalid candidates: +inf
+            for j in range(x.shape[1]):
+                dist += (x[q, j] - x[lo:hi, j]) ** 2
+        if not loop and lo <= q < hi:
+            dist[q - lo] = np.inf
+        o = np.argsort(dist, kind="stable")[:k]
+        fin = np.isfinite(dist[o])
+        out_d[q, : fin.sum()] = dist[o][fin]
+        out_i[q, : fin.sum()] = (o + lo)[fin]
+    return out_d, out_i
+
+
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("case", ["k40", "k_over_band", "d40", "duplicates"])
+def test_banded_topk_matches_pallas_interpret_at_any_k_and_d(case, loop):
+    """Row #14 beyond the widths and k the CUDA kernel took before: the
+    port against JAX's kernel (interpret mode; its norm expansion rounds, so
+    distances within its error and ids equal on untied rows) and against the
+    direct-formula reference (bitwise: the port's contract, ties to the
+    lower index, unfilled slots ``(+inf, 0)``)."""
+    xs, vs, kw = _band_case(case)
+    jd, ji = jax_win.banded_topk_sorted(jnp.asarray(xs), valid=jnp.asarray(vs), loop=loop,
+                                        interpret=True, **kw)
+    pd, pi = port_win.banded_topk_sorted(torch.from_numpy(xs), valid=torch.from_numpy(vs), loop=loop, **kw)
+    jd, ji, pd, pi = np.asarray(jd), np.asarray(ji), pd.numpy(), pi.numpy()
+    rd, ri = _band_reference(xs, vs, loop=loop, **kw)
+    np.testing.assert_array_equal(pd, rd)
+    np.testing.assert_array_equal(pi, ri)
+    fin = np.isfinite(jd) & vs[:, None]
+    np.testing.assert_array_equal(np.isfinite(pd), fin)
+    if case == "k_over_band":
+        assert (~fin[vs]).any() and (pi[~np.isfinite(pd)] == 0).all()
+    atol = 16 * np.finfo(np.float32).eps * float((xs[vs].astype(np.float64) ** 2).sum(-1).max())
+    np.testing.assert_allclose(pd[fin], jd[fin], rtol=1e-5, atol=atol)
+    if case != "duplicates":  # every distance there is tied six ways
+        assert (pi == ji)[fin].mean() > 0.99
+
+
+@pytest.mark.parametrize("builder", ["windowed", "ivf"])
+def test_exact_builders_match_jax_at_d40(builder):
+    """``windowed_knn`` / ``ivf_knn`` on a 40-d cloud (above the 32
+    dimensions the CUDA kernels of rows #14 / #15 once took): certified
+    exact, against a float64 brute force and the JAX function."""
+    x = _clustered(15, 1536, d=40, n_clusters=24)
+    k = 8
+    if builder == "windowed":
+        kw = {"k": k, "radius": 2, "block_q": 128, "block_c": 256, "fallback_cap": 1536}
+        jd, ji, ju = jax_win.windowed_knn(jnp.asarray(x), interpret=True, **kw)
+        pd, pi, pu = port_win.windowed_knn(torch.from_numpy(x), **kw)
+    else:
+        kw = {"k": k, "n_cells": 24, "cell_cap": 128, "n_probe": 6, "fallback_cap": 1536}
+        jd, ji, ju = jax_ivf.ivf_knn(jnp.asarray(x), probe_impl="pallas", **kw)
+        pd, pi, pu = port_ivf.ivf_knn(torch.from_numpy(x), **kw)
+    assert int(ju) == 0 and int(pu) == 0
+    ref = brute_knn(x, k)
+    np.testing.assert_allclose(pd.numpy(), ref, rtol=1e-5, atol=1e-6)
+    atol = 64 * np.finfo(np.float32).eps * float((x.astype(np.float64) ** 2).sum(-1).max())
+    np.testing.assert_allclose(pd.numpy(), np.sort(np.asarray(jd), 1), rtol=1e-5, atol=atol)
+    x64 = x.astype(np.float64)
+    ids = pi.numpy()
+    np.testing.assert_allclose(((x64[:, None, :] - x64[ids]) ** 2).sum(-1), ref, rtol=1e-5, atol=1e-6)
+    assert (ids == np.asarray(ji)).mean() > 0.99
+
+
 @pytest.mark.parametrize(
     "case,kw",
     [("clusters", {"k": 8, "radius": 2, "block_q": 128, "block_c": 256, "fallback_cap": 512}),
@@ -573,6 +668,33 @@ def test_new_modules_import_no_jax():
                    for n in ast.walk(tree))
 
 
+@pytest.mark.parametrize("module,source,entry", [
+    (port_win, "banded_topk", "banded_topk_sorted"), (port_win, "banded_topk", "banded_topk_plan"),
+    (port_ivf_probe, "ivf_probe", "ivf_probe")])
+def test_band_and_probe_ctypes_signatures_match_the_c_entries(module, source, entry):
+    """Rows #14 / #15: the wrapper's ctypes argument list has one entry per
+    parameter of the C entry, a pointer for each pointer and an int for each
+    int (a short list would pass unnoticed until the card)."""
+    import re
+
+    src = (REPO / "gnn_tracking_tpu_torch" / "csrc" / f"{source}.cu").read_text()
+    params = re.search(rf"\bint {entry}\(([^)]*)\)", src).group(1).split(",")
+    want = [module._build.P if "*" in q else module._build.I for q in params]
+    assert module._SIGNATURES[entry] == want
+
+
+@pytest.mark.parametrize("row", ["band", "probe"])
+def test_band_and_probe_raise_off_the_cpu_and_card(row):
+    """No fallback: a tensor on neither the CPU nor a card raises."""
+    meta = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        if row == "band":
+            port_win.banded_topk_sorted(meta(64, 3), k=4, radius=1, valid=meta(64, dtype=torch.bool))
+        else:
+            ivf_probe(meta(2, 8, 3), meta(2, 8, dtype=torch.int32), meta(2, 8, 3),
+                      meta(2, 8, dtype=torch.int32), meta(2, 2, dtype=torch.int32), kw=4)
+
+
 # ------------------------------------------------------- CUDA: kernel vs plain
 @pytest.fixture
 def cuda():
@@ -591,6 +713,41 @@ def test_cuda_ivf_probe_matches_plain(cuda, loop):
     torch.cuda.synchronize()
     assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
     assert_probe_equal(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,kw", [(8, 256), (40, 16), (40, 136)])
+def test_cuda_ivf_probe_at_large_k_and_d(cuda, d, kw):
+    """Row #15 where its lists or the query no longer fit the old layout:
+    kw = 256 and d = 40, against the plain version, repeat bitwise."""
+    tables = [torch.from_numpy(a).to(cuda) for a in probe_tables(16, c=64, cap=300, capc=384, t=8, d=d)]
+    kd, ki = ivf_probe(*tables, kw=kw)
+    kd2, ki2 = ivf_probe(*tables, kw=kw)
+    pd, pi = ivf_probe_plain(*tables, kw=kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    assert_probe_equal(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("d,k", [(3, 256), (8, 256), (40, 8), (40, 256), (5, 1000)])
+def test_cuda_banded_topk_at_large_k_and_d(cuda, d, k, loop):
+    """Row #14's three paths (registers at a specialised d, registers at a
+    run-time d, lists for k > 32, in device memory above what shared memory
+    holds) against the plain version, repeat bitwise."""
+    x = torch.from_numpy(_clustered(17, 20000, d=d)).to(cuda)
+    valid = torch.rand(20000, device=cuda) > 0.05
+    kw = {"k": k, "radius": 2, "valid": valid, "block_q": 256, "block_c": 1024, "loop": loop}
+    kd, ki = port_win.banded_topk_sorted(x, **kw)
+    kd2, ki2 = port_win.banded_topk_sorted(x, **kw)
+    pd, pi = port_win.banded_topk_sorted_plain(x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    fin = torch.isfinite(pd)
+    assert torch.equal(torch.isfinite(kd), fin)
+    assert (kd - pd)[fin].abs().max() <= 1e-5 * pd[fin].max()
+    assert (ki == pi)[fin].float().mean() > 0.999
 
 
 @pytest.mark.cuda
