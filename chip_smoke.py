@@ -70,8 +70,10 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    (benchmark cloud) and the banded top-k (spatial coordinates, d = 3, at
    radius 4 and at the retry's radius 8, and the trained latent, d = 8), at
    the inputs that a build gives them, and above 32 dimensions and at
-   large k: the band at k = 256 and on a 65,536-point 40-d cloud,
-   the probe on that cloud and at k = 128 (kw = 136, the probe of
+   large k: the band at k = 256 and on a 65,536-point 40-d cloud, and on
+   the spatial input with each point repeated 6 times (every distance
+   tied) at k = 8, 32, 64 with ``loop`` both ways, each bitwise its own
+   arithmetic (``banded_topk_fma_plain``); the probe on that cloud and at k = 128 (kw = 136, the probe of
    ``knn_graph_ivf(k=128)`` over 32,768 benchmark points, whose graph must
    equal the plain build's and row #11's up to ties) and k = 256 on those
    points: each against its
@@ -181,10 +183,13 @@ plan (R, S), the bound and the instruction floor; then other plans on two of
 them) and stops; these times set ``knn.SPLIT_MAX_K``. ``--band-only``
 builds, runs ``band_timings`` (row #14 on phase 8's band inputs, spatial
 and trained at radius 4 and spatial at radius 8, at k = 1, 8, 16, 32, 64,
-256 and with ``loop`` at k = 8, 64: repeat bitwise, against its plain version, in the contract's order;
-the Python call, the call on the device and the kernel alone, beside the
-bound and the instruction floor; with ``--band-digests FILE`` bitwise equal
-to another tree's run that wrote FILE) and stops. With ``--package-root DIR`` each runs the package in DIR
+256 and with ``loop`` at k = 8, 64, and on the two radius-4 inputs with
+each point repeated 6 times at k = 8, 32, 64 with ``loop`` both ways: repeat
+bitwise, bitwise its own arithmetic (``banded_topk_fma_plain``), against its
+plain version, in the contract's order; the Python call, the call on the
+device and the kernel alone, beside the bound and the instruction floor;
+with ``--band-digests FILE`` bitwise equal to another tree's run that wrote
+FILE) and stops. With ``--package-root DIR`` each runs the package in DIR
 (an older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -1643,18 +1648,35 @@ def split_timings(seed: int) -> dict:
 
 
 # k at which --band-only checks and times row #14 (8: the windowed build's; 256: the
-# hinge loss's cap, above the register path's 32), and those it also runs with `loop`
+# hinge loss's cap, above the register path's 32), and those it also runs with `loop`;
+# on the inputs of repeated points, DUP_KS both ways
 BAND_KS = (1, 8, 16, 32, 64, 256)
 BAND_LOOP_KS = (8, 64)
+DUP_KS = (8, 32, 64)
+# the copies of each point in row #14's tie-heavy inputs
+DUP_COPIES = 6
+
+
+def duplicated(args, kw) -> tuple:
+    """Row #14's input with every distance tied ``DUP_COPIES`` ways: the
+    first ``n / DUP_COPIES`` of the key-sorted points of ``args``, each
+    repeated ``DUP_COPIES`` times (still in key order), cut to ``n``."""
+    n = args[0].shape[0]
+    m = -(-n // DUP_COPIES)
+
+    def rep(t):
+        return t[:m].repeat_interleave(DUP_COPIES, dim=0)[:n].contiguous()
+
+    return (rep(args[0]), *args[1:]), {**kw, "valid": rep(kw["valid"])}
 
 
 def band_inputs(seed: int) -> list[tuple]:
     """The inputs a 262,144-point windowed build gives row #14 in phase 8:
     the hits' spatial coordinates (d = 3) and the latent of the FCNN
     trained as phase 7 trains it (d = 8), each sorted along its principal
-    axis by ``windowed_knn``, at radius 4, and the spatial input at radius
-    8 (the build's retry). ``(name, args, kwargs)`` of
-    ``banded_topk_sorted``."""
+    axis by ``windowed_knn``, at radius 4, the spatial input at radius 8
+    (the build's retry), and the two radius-4 inputs ``duplicated``.
+    ``(name, args, kwargs)`` of ``banded_topk_sorted``."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -1671,7 +1693,62 @@ def band_inputs(seed: int) -> list[tuple]:
     finally:
         undo()
     (sa, skw), (ta, tkw) = calls
-    return [("spatial_r4", sa, skw), ("trained_r4", ta, tkw), ("spatial_r8", sa, {**skw, "radius": 8})]
+    return [("spatial_r4", sa, skw), ("trained_r4", ta, tkw), ("spatial_r8", sa, {**skw, "radius": 8}),
+            (f"spatial_dup{DUP_COPIES}_r4", *duplicated(sa, skw)),
+            (f"trained_dup{DUP_COPIES}_r4", *duplicated(ta, tkw))]
+
+
+def banded_topk_fma_plain(x, *, k, radius, valid, block_q=256, block_c=1024, loop=False):
+    """Row #14's output by the kernel's own arithmetic: per query block, the
+    squared distances to its band as ``fmaf`` chains in dimension order
+    (each step in float64, where ``df * df`` is exact, rounded once to
+    float32), the exclusions, a stable sort. The kernel equals it bit for
+    bit; the plain version (a square, then an add) may differ from it in
+    the last bit of a distance, and so in the order of two near-equal
+    ones."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import windowed_topk
+
+    n, d = x.shape
+    xf = torch.where(valid[:, None], x, 1e30)
+    out_d = torch.full((n, k), torch.inf, device=x.device)
+    out_i = torch.zeros((n, k), dtype=torch.int32, device=x.device)
+    for s in range(0, n, block_q):
+        e = min(s + block_q, n)
+        c0, c1 = windowed_topk._band(n, block_q, block_c, radius, s)
+        acc = torch.zeros((e - s, c1 - c0), device=x.device)
+        for j in range(d):
+            df = (xf[s:e, j, None] - xf[None, c0:c1, j]).double()
+            acc = (acc.double() + df * df).float()
+        if not loop:
+            acc[torch.arange(s, e, device=x.device)[:, None] == torch.arange(c0, c1, device=x.device)] = torch.inf
+        sd, si = torch.sort(acc, dim=1, stable=True)
+        w = min(k, c1 - c0)
+        out_d[s:e, :w], out_i[s:e, :w] = sd[:, :w], (si[:, :w] + c0).int()
+    ok = torch.isfinite(out_d) & valid[:, None]
+    return torch.where(ok, out_d, torch.inf), torch.where(ok, out_i, 0)
+
+
+def band_plan(x, k: int):
+    """Row #14's launch plan for ``x`` and ``k`` (path, queries a block, tile
+    rows, flags), as its wrapper cached it; None for a package that keeps
+    none."""
+    from gnn_tracking_tpu_torch.ops import windowed_topk
+
+    plan = getattr(windowed_topk, "_plans", {}).get((x.shape[1], k, x.device))
+    return None if plan is None else list(plan[:4])
+
+
+def refused_before_redesign(d: int, k: int) -> bool:
+    """Whether row #14 as it was before its Hopper redesign fails to launch
+    at ``(d, k)``, d <= 32: a block held a tile of 256 candidates padded to
+    4, 8, 16 or 32 columns beside 128 lists of k slots, and the launch
+    failed where they exceed a block's shared memory."""
+    import torch
+
+    dp = next(p for p in (4, 8, 16, 32) if d <= p)
+    return 256 * dp * 4 + k * 128 * 8 > torch.cuda.get_device_properties(0).shared_memory_per_block_optin
 
 
 def band_pairs(args, kw) -> float:
@@ -1694,16 +1771,19 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def band_timings(seed: int, digests: Path | None) -> dict:
+def band_timings(seed: int, digests: Path | None, this_tree: bool) -> dict:
     """Row #14 on ``band_inputs`` at k in ``BAND_KS`` (and ``BAND_LOOP_KS``
-    with ``loop``): each case repeat
-    bitwise, against its plain version (``compare_topk``) and in the
-    contract's order; timed as a Python call (``cuda_ms``), on the device
-    (``graph_ms``) and the kernel alone (``kernel_device_ms``), beside the
-    bound and the instruction floor. A package that refuses a case (an older
-    tree above its shared memory) is logged as refusing it. With
-    ``digests``: a file of the outputs' digests from another tree's run is
-    compared case by case (bitwise equal), or written where there is none."""
+    with ``loop``; on the duplicated inputs ``DUP_KS`` both ways): each case
+    repeat bitwise, against its plain version (``compare_topk``) and in the
+    contract's order, and bitwise ``banded_topk_fma_plain`` (a mismatch
+    fails the run for this tree's package, and is logged for another's);
+    timed as a Python call (``cuda_ms``), on the device (``graph_ms``) and
+    the kernel alone (``kernel_device_ms``), beside the bound and the
+    instruction floor. Another tree's package may refuse only a case that
+    ``refused_before_redesign`` names; every other failure fails the run.
+    With ``digests``: a file of the outputs' digests from another tree's
+    run is compared case by case (bitwise equal), or written where there is
+    none."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import windowed_topk as wt
@@ -1713,21 +1793,30 @@ def band_timings(seed: int, digests: Path | None) -> dict:
     for name, args, kw in inputs:
         pairs = band_pairs(args, kw)
         xs = args[0]
-        for k, loop in [(k, False) for k in BAND_KS] + [(k, True) for k in BAND_LOOP_KS]:
+        if "_dup" in name:
+            cases = [(k, loop) for k in DUP_KS for loop in (False, True)]
+        else:
+            cases = [(k, False) for k in BAND_KS] + [(k, True) for k in BAND_LOOP_KS]
+        for k, loop in cases:
             kwk = {**kw, "k": k, "loop": loop}
             case = f"{name}_k{k}" + ("_loop" if loop else "")
             call = lambda: wt.banded_topk_sorted(*args, **kwk)
             try:
                 kd, ki = call()
                 torch.cuda.synchronize()
-            except (RuntimeError, ValueError) as err:
+            except RuntimeError as err:
+                if this_tree or not refused_before_redesign(xs.shape[1], k):
+                    raise
                 out[case] = {"refused": str(err)}
-                log(f"  banded_topk_sorted {case}: refused ({err})")
+                log(f"  banded_topk_sorted {case}: refused ({err}), as the kernel before the redesign does")
                 continue
             kd2, ki2 = call()
             pd, pi = wt.banded_topk_sorted_plain(*args, **kwk)
+            fd, fi = banded_topk_fma_plain(*args, **kwk)
             torch.cuda.synchronize()
             assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"{case}: second call differs"
+            fma_bitwise = torch.equal(kd, fd) and torch.equal(ki, fi)
+            assert fma_bitwise or not this_tree, f"{case}: differs from banded_topk_fma_plain"
             err, nb, nt = compare_topk(kd, ki, pd, pi, None)
             ties = assert_key_order(kd, ki, case)
             sums[case] = [digest(xs, kw["valid"]), digest(kd, ki)]  # the input's, the output's
@@ -1735,8 +1824,10 @@ def band_timings(seed: int, digests: Path | None) -> dict:
             reps = 1 if cuda_ms(call, reps=1, rounds=1) > 20.0 else 3  # calls of 0.1 s and more: fewer
             r = {
                 "n": xs.shape[0], "d": xs.shape[1], "k": k, "radius": kw["radius"], "loop": loop,
-                "plan": getattr(wt.banded_topk_sorted, "last_plan", None), "max_abs_err": err,
-                "boundary_rows": nb, "tie_rows": nt, "exact_ties": ties,
+                "plan": band_plan(xs, k), "max_abs_err": err,
+                "boundary_rows": nb, "tie_rows": nt, "exact_ties": ties, "fma_bitwise": fma_bitwise,
+                # rows where the plain version's bits differ (its square-then-add rounding)
+                "plain_rows_differ": int(((kd != pd) | (ki != pi)).any(dim=1).sum()),
                 "ms": cuda_ms(call, reps=reps, rounds=3), "graph_ms": graph_ms(call, reps=reps, rounds=3),
                 "kernel_ms": kernel_device_ms(call, "band", reps=reps),
                 "bound_ms": bnd, "bound_by": by, "pairs": pairs,
@@ -1746,7 +1837,8 @@ def band_timings(seed: int, digests: Path | None) -> dict:
             log(f"  banded_topk_sorted {case} (d={r['d']}, plan {r['plan']}): {r['ms']:.3f} ms a call, "
                 f"{r['graph_ms']:.3f} on the device, kernel {r['kernel_ms'][0]:.3f} ms; bound "
                 f"{bnd:.4f} ms by {by}, instruction floor {r['instruction_floor_ms']:.3f} ms; max|err| "
-                f"{err:.3e} vs plain, repeat bitwise")
+                f"{err:.3e} vs plain ({r['plain_rows_differ']} rows differ in bits), repeat bitwise, "
+                f"bitwise banded_topk_fma_plain: {fma_bitwise}")
     if digests is not None:
         if digests.exists():
             ref = json.loads(digests.read_text())
@@ -2251,63 +2343,37 @@ def make_wide_cloud(seed: int, n: int, d: int) -> np.ndarray:
 
 
 def windowed_build_split(x, k: int, rounds: int = 3) -> dict:
-    """``knn_graph_windowed(x, k)`` in three parts, each closed by a
-    synchronisation: the band launches (row #14), ``_fallback_brute`` (the
-    violators' brute force, plain tensor code) and the rest (principal axis,
-    sort, certification, gathers); medians of ``rounds`` builds after one
-    warm-up, and each attempt's radius, violators and fallback rows."""
+    """``knn_graph_windowed(x, k)`` in three parts, as ``windowed_topk.record_parts``
+    records each attempt: the band launches (row #14), ``_fallback_brute``
+    (the violators' brute force, plain tensor code), each between two
+    synchronisations, and the rest (principal axis, sort, certification,
+    gathers); medians of ``rounds`` builds after one warm-up, and each
+    attempt's radius, violators and fallback rows."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import knn, windowed_topk
 
-    band_fn, fallback_fn, knn_fn = windowed_topk.banded_topk_sorted, windowed_topk._fallback_brute, knn.windowed_knn
     runs = []
-
-    def timed(key, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            runs[-1][key] += (time.perf_counter() - t0) * 1e3
-            if key == "fallback_ms":
-                runs[-1]["attempts"][-1]["fallback_rows"] = a[0].shape[0]
-            return out
-        # the kernel's wrapper counts its launch (and records its plan) on whatever its
-        # module's name holds, which is this wrapper while it is in place
-        wrapper.launches, wrapper.last_plan = 0, None
-        return wrapper
-
-    def attempt(*a, **kw):
-        runs[-1]["attempts"].append({"radius": kw["radius"], "fallback_cap": kw["fallback_cap"], "fallback_rows": 0})
-        out = knn_fn(*a, **kw)
-        runs[-1]["attempts"][-1]["uncertified_after"] = int(out[2])
-        return out
-
-    windowed_topk.banded_topk_sorted = timed("band_ms", band_fn)
-    windowed_topk._fallback_brute = timed("fallback_ms", fallback_fn)
-    knn.windowed_knn = attempt
-    try:
+    with windowed_topk.record_parts() as parts, torch.no_grad():
         for _ in range(rounds + 1):
-            runs.append({"band_ms": 0.0, "fallback_ms": 0.0, "attempts": []})
+            first = len(parts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with torch.no_grad():
-                knn.knn_graph_windowed(x, k)
+            knn.knn_graph_windowed(x, k)
             torch.cuda.synchronize()
-            runs[-1]["total_ms"] = (time.perf_counter() - t0) * 1e3
-    finally:
-        windowed_topk.banded_topk_sorted, windowed_topk._fallback_brute, knn.windowed_knn = band_fn, fallback_fn, knn_fn
+            total = (time.perf_counter() - t0) * 1e3
+            attempts = parts[first:]
+            runs.append({"total_ms": total, "attempts": attempts,
+                         "band_ms": sum(a["band_ms"] for a in attempts),
+                         "fallback_ms": sum(a["fallback_ms"] for a in attempts)})
     runs = runs[1:]
     for r in runs:
         r["rest_ms"] = r["total_ms"] - r["band_ms"] - r["fallback_ms"]
-        for a in r["attempts"]:
-            a["violators"] = a["fallback_rows"] + a["uncertified_after"]
     out = {key: statistics.median(r[key] for r in runs) for key in ("total_ms", "band_ms", "fallback_ms", "rest_ms")}
-    out["attempts"] = runs[0]["attempts"]
+    out["attempts"] = [{key: a[key] for key in ("radius", "fallback_cap", "fallback_rows", "uncertified_after",
+                                                "violators")} for a in runs[0]["attempts"]]
     log(f"windowed build split (medians of {rounds}, synchronised parts): {json.dumps(out)}")
     return out
-
 
 
 def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
@@ -2419,13 +2485,19 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     (sa, skw), (ta, tkw), (ra, rkw), (wa, wkw) = band_calls
     band_cases = [("spatial", sa, skw), ("trained", ta, tkw), ("spatial_radius8", ra, rkw),
                   (f"spatial_k{BAND_WIDE_K}", sa, {**skw, "k": BAND_WIDE_K}), (f"d{WIDE_DIM}", wa, wkw)]
+    # the spatial input with every distance tied DUP_COPIES ways, at k = 8, 32, 64, `loop` both ways
+    da, dkw = duplicated(sa, skw)
+    band_cases += [(f"spatial_dup{DUP_COPIES}_k{k}" + ("_loop" if loop else ""), da, {**dkw, "k": k, "loop": loop})
+                   for k in DUP_KS for loop in (False, True)]
     band = {}
     for what, ba, bkw in band_cases:
         kd, ki = windowed_topk.banded_topk_sorted(*ba, **bkw)
         kd2, ki2 = windowed_topk.banded_topk_sorted(*ba, **bkw)
         pd, pi = windowed_topk.banded_topk_sorted_plain(*ba, **bkw)
+        fd, fi = banded_topk_fma_plain(*ba, **bkw)
         torch.cuda.synchronize()
         assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"banded_topk_sorted ({what}): second launch differs"
+        assert torch.equal(kd, fd) and torch.equal(ki, fi), f"banded_topk_sorted ({what}): not its own arithmetic's bits"
         err, nb, nt = compare_topk(kd, ki, pd, pi, None)
         assert_key_order(kd, ki, f"banded_topk_sorted ({what})")
         ms = cuda_ms(lambda: windowed_topk.banded_topk_sorted(*ba, **bkw))
@@ -2436,9 +2508,9 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
         band[what] = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                       "d": xs.shape[1], "k": bkw["k"], "radius": bkw["radius"], "pairs": pairs,
                       "instruction_floor_ms": pairs_floor_ms(pairs, xs.shape[1]),
-                      "plan": windowed_topk.banded_topk_sorted.last_plan}
+                      "plan": band_plan(xs, bkw["k"])}
         log(f"kernel banded_topk_sorted ({what}): OK max|err| {err:.3e} ({nb} k-th boundary rows, "
-            f"{nt} tie-order rows), repeat bitwise; N={xs.shape[0]} d={xs.shape[1]} k={bkw['k']} "
+            f"{nt} tie-order rows), repeat bitwise, bitwise banded_topk_fma_plain; N={xs.shape[0]} d={xs.shape[1]} k={bkw['k']} "
             f"radius={bkw['radius']} block_q={bkw['block_q']} block_c={bkw['block_c']} plan "
             f"{band[what]['plan']}; {ms:.3f} ms (plain {plain:.3f} ms, bound {bnd:.4f} ms by {by}, "
             f"instruction floor {band[what]['instruction_floor_ms']:.3f} ms, {pairs:.3e} pairs)")
@@ -3374,7 +3446,7 @@ def main(argv=None) -> int:
         return 0
     if args.band_only:
         log(f"package: {root}")
-        band_timings(args.seed, args.band_digests)
+        band_timings(args.seed, args.band_digests, this_tree=root == REPO)
         print(smi)
         return 0
 

@@ -20,9 +20,9 @@
 // subtractions, d FMAs, one compare): 0.50 ms at d = 3 and 1.22 ms at d = 8 on 132 SMs x 128
 // lanes at 1,980 MHz. chip_smoke.py computes both from the band of each input.
 //
-// Design, three paths (banded_topk_plan picks one):
-//  * k <= 32, d in {2, 3, 4, 8, 16} (band_reg_kernel<D, K>, the resident design of rows #13 /
-//    #11 in csrc/pairwise_topk_split.cu): 128 threads a block, one query each, with its D
+// Design, two paths (banded_topk_plan picks one):
+//  * k <= 32 at d = 3 and d = 8, the spatial and latent builds' (band_reg_kernel<D, K>, the
+//    resident design of rows #13 / #11 in csrc/pairwise_topk_split.cu): 128 threads a block, one query each, with its D
 //    coordinates in registers (two queries a thread, R = 2 there, ran no faster here:
 //    PERF.md); the block's band union streams through a cp.async ring of three 256-candidate
 //    tiles (one __syncthreads a tile, two tiles in flight), and every thread reads the same
@@ -47,11 +47,8 @@
 //    band bounds are tested once a tile: a tile inside the query's band takes the unmasked
 //    loop, a band edge the masked one (one candidate at a time). No padding beyond d. An
 //    invalid query gets -inf as its bound, so it inserts nothing.
-//  * k <= 32, any other d (band_reg_any_d<K>): the same with d at run time, the query's
-//    coordinates in shared memory ([d][128]; in device memory where that does not fit) and tiles
-//    of as many rows as keep a block's shared memory near a quarter of the SM's.
-//  * k > 32 (band_list_kernel<DP, LIST_SMEM>): one thread a query, QB = 128, 64 or 32 queries a
-//    block, whichever keeps the most queries resident an SM beside their lists; the query
+//  * every other (d, k) (band_list_kernel<DP, LIST_SMEM>): one thread a query, QB = 128, 64
+//    or 32 queries a block, whichever keeps the most queries resident an SM beside their lists; the query
 //    zero-padded to DP = 4, 8, 16 or 32 in registers (DP = 0: d at run time, the query in shared
 //    or device memory); tiles of 256 candidates staged synchronously, in the same outward order;
 //    the running top-k sorted by (distance, index) in shared memory, laid out [slot][thread].
@@ -67,10 +64,10 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // threads a block of the register paths
+constexpr int THREADS = 128;  // threads a block of the register path
 constexpr int TC = 256;       // candidates a tile
-constexpr int STAGES = 3;     // cp.async ring of the register paths
-constexpr int KS = 32;        // largest k of the register paths
+constexpr int STAGES = 3;     // cp.async ring of the register path
+constexpr int KS = 32;        // largest k of the register path
 constexpr int PB = 16;        // pending candidates a query (band_reg_kernel, band_list_kernel)
 
 __device__ __forceinline__ void band_of(int q, int n_cblocks, int block_q, int block_c,
@@ -183,8 +180,6 @@ struct Reg {
   static constexpr int D = D_, K = K_;
   static constexpr int U0 = D_ <= 8 ? 4 : 32 / D_;
   static constexpr int U = (U0 * D_) % 4 == 0 ? U0 : 4;
-  static constexpr size_t SMEM =
-      (size_t)STAGES * TC * D_ * sizeof(float) + (size_t)PB * THREADS * (sizeof(float) + sizeof(int));
 };
 
 // Insert a thread's pending candidates ([PB][THREADS] in shared memory, np of them) that still
@@ -320,85 +315,6 @@ __device__ __forceinline__ QueryRows query_rows(float* qsm, const float* __restr
   return {qsm + t, nq};
 }
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
-band_reg_any_d(const float* __restrict__ x, const uint8_t* __restrict__ valid, int n, int d, int k,
-               int radius, int block_q, int block_c, int n_cblocks, int loop, int rows,
-               int q_smem, float* __restrict__ out_d, int* __restrict__ out_i) {
-  constexpr int U = 4;
-  extern __shared__ float4 smem[];
-  float* ring = reinterpret_cast<float*>(smem);
-  const int stage = rows * d;  // floats of one ring buffer
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * THREADS;
-  const int q = q0 + t;
-  const QueryRows qr = query_rows(q_smem ? ring + STAGES * stage : nullptr, x, q, n, d, t, THREADS);
-  float dl[K], thr = q < n && valid[q] ? INFINITY : -INFINITY;
-  int ix[K];
-  init_list<K>(dl, ix, k);
-  const int qs = loop ? -1 : q;
-  int lo = 0, hi = 0, u_lo = 0, u_hi = 0, tmp = 0;
-  band_of(min(q, n - 1), n_cblocks, block_q, block_c, radius, n, &lo, &hi);
-  band_of(q0, n_cblocks, block_q, block_c, radius, n, &u_lo, &tmp);
-  band_of(min(q0 + THREADS - 1, n - 1), n_cblocks, block_q, block_c, radius, n, &tmp, &u_hi);
-  const int t_first = u_lo / rows, t_end = (u_hi + rows - 1) / rows, tiles = t_end - t_first;
-  const int own = own_tile(q0, THREADS, n, rows, t_first, t_end);
-
-  if (tiles > 0) load_rows(ring, x, scan_tile(0, own, t_first, t_end), rows, n, d);
-  cp_async_commit();
-  if (tiles > 1) load_rows(ring + stage, x, scan_tile(1, own, t_first, t_end), rows, n, d);
-  cp_async_commit();
-  for (int i = 0; i < tiles; ++i) {
-    cp_async_wait<1>();
-    __syncthreads();  // also orders the query's shared-memory copy before its first read
-    if (i + 2 < tiles) {
-      load_rows(ring + ((i + 2) % STAGES) * stage, x, scan_tile(i + 2, own, t_first, t_end), rows, n, d);
-    }
-    cp_async_commit();
-    const float* tile = ring + (i % STAGES) * stage;
-    const int c0 = scan_tile(i, own, t_first, t_end) * rows;
-    const int from = max(lo, c0) - c0, to = min(hi, c0 + rows) - c0;
-    int ci = from;
-    for (; ci + U <= to; ci += U) {
-      float acc[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) acc[u] = 0.f;
-      for (int j = 0; j < d; ++j) {
-        const float qj = qr.p[j * qr.stride];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float df = qj - tile[(ci + u) * d + j];
-          acc[u] = fmaf(df, df, acc[u]);
-        }
-      }
-      bool any = false;
-#pragma unroll
-      for (int u = 0; u < U; ++u) any |= acc[u] <= thr;
-      if (any) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (acc[u] <= thr && c0 + ci + u != qs && admits<K>(dl, ix, acc[u], c0 + ci + u)) {
-            insert<K>(dl, ix, acc[u], c0 + ci + u);
-            thr = dl[K - 1];
-          }
-        }
-      }
-    }
-    for (; ci < to; ++ci) {
-      float acc = 0.f;
-      for (int j = 0; j < d; ++j) {
-        const float df = qr.p[j * qr.stride] - tile[ci * d + j];
-        acc = fmaf(df, df, acc);
-      }
-      if (acc <= thr && c0 + ci != qs && admits<K>(dl, ix, acc, c0 + ci)) {
-        insert<K>(dl, ix, acc, c0 + ci);
-        thr = dl[K - 1];
-      }
-    }
-  }
-  if (q < n) write_list<K>(dl, ix, k, q, out_d, out_i);
-}
-
 // Merge a thread's np pending candidates (stride ps) into its sorted list of cnt entries (stride
 // ls), keeping the first k in (distance, index) order: the pending ones sorted by insertion, then
 // merged from the tail, which moves only the list entries above the smallest pending one.
@@ -436,7 +352,7 @@ __device__ __forceinline__ int merge_pending(float* bd, int* bi, int ls, int cnt
   return total;
 }
 
-// k > 32: one thread a query, QB = blockDim.x queries a block; the query zero-padded to DP
+// Every (d, k) but band_reg_kernel's: one thread a query, QB = blockDim.x queries a block; the query zero-padded to DP
 // columns in registers (DP = 0: d at run time, the query in shared memory with q_smem, else read
 // from x); tiles of `rows` candidates ([rows][DP or d]); the lists in shared memory ([k][QB],
 // LIST_SMEM) or in the output rows (the pointers' space is known at compile time, so their
@@ -575,30 +491,15 @@ int pow2_at_least(int k) {
   return kk;
 }
 
-bool specialised(int d) { return d == 2 || d == 3 || d == 4 || d == 8 || d == 16; }
+// The dimensions band_reg_kernel is built for: the spatial (3) and latent (8) builds'.
+bool specialised(int d) { return d == 3 || d == 8; }
 
 template <typename F>
 cudaError_t with_reg(int d, int k, F&& f) {
   const int kk = pow2_at_least(k);
   switch (d) {
-    case 2: return with_k<2>(kk, f);
     case 3: return with_k<3>(kk, f);
-    case 4: return with_k<4>(kk, f);
     case 8: return with_k<8>(kk, f);
-    case 16: return with_k<16>(kk, f);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename F>
-cudaError_t with_any_d(int k, F&& f) {
-  switch (pow2_at_least(k)) {
-    case 1: return f(band_reg_any_d<1>);
-    case 2: return f(band_reg_any_d<2>);
-    case 4: return f(band_reg_any_d<4>);
-    case 8: return f(band_reg_any_d<8>);
-    case 16: return f(band_reg_any_d<16>);
-    case 32: return f(band_reg_any_d<32>);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -627,9 +528,6 @@ size_t plan_smem(int path, int d, int k, int qb, int rows, int flags) {
   if (path == 0) {
     return (size_t)STAGES * rows * d * f + (size_t)PB * THREADS * (f + sizeof(int));
   }
-  if (path == 1) {
-    return (size_t)STAGES * rows * d * f + (flags & 2 ? (size_t)THREADS * d * f : 0);
-  }
   const int dp = list_dp(d) > 0 ? list_dp(d) : d;
   return (size_t)rows * dp * f + (list_dp(d) == 0 && (flags & 2) ? (size_t)qb * d * f : 0) +
          (flags & 1 ? (size_t)k * qb * (f + sizeof(int)) : 0) + (size_t)PB * qb * (f + sizeof(int));
@@ -641,9 +539,9 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// The launch plan for (d, k): out[0] the path (0: registers at a specialised d, 1: registers
-// at any d, 2: lists for k > 32), out[1] the queries a block, out[2] the tile's rows, out[3] flags
-// (1: lists in shared memory, path 2; 2: the query in shared memory, paths 1 and 2 at a run-time
+// The launch plan for (d, k): out[0] the path (0: band_reg_kernel, k <= 32 at a specialised d;
+// 1: band_list_kernel, every other (d, k)), out[1] the queries a block, out[2] the tile's rows,
+// out[3] flags (path 1; 1: lists in shared memory, 2: the query in shared memory at a run-time
 // d), out[4] the shared memory of a block. cudaErrorInvalidValue where even a tile of 4 rows
 // exceeds a block's shared memory.
 int banded_topk_plan(int d, int k, void* out) {
@@ -651,27 +549,13 @@ int banded_topk_plan(int d, int k, void* out) {
   if (d <= 0 || k <= 0) return cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin <= 0) return cudaErrorInvalidDevice;
-  cudaError_t err = cudaSuccess;
   if (k <= KS && specialised(d)) {
     plan[0] = 0, plan[1] = THREADS, plan[2] = TC, plan[3] = 0;
     plan[4] = (int)plan_smem(0, d, k, THREADS, TC, 0);
     return cudaSuccess;
   }
-  if (k <= KS) {
-    // path 1: a quarter of the SM's shared memory a block where the tile fits it, else all of it
-    for (int budget : {optin / 4, optin}) {
-      for (int flags_q : {2, 0}) {
-        for (int rows = TC; rows >= 4; rows /= 2) {
-          const size_t need = plan_smem(1, d, k, THREADS, rows, flags_q);
-          if (need > (size_t)budget) continue;
-          plan[0] = 1, plan[1] = THREADS, plan[2] = rows, plan[3] = flags_q, plan[4] = (int)need;
-          return cudaSuccess;
-        }
-      }
-    }
-  }
-  // path 2 (and path 1's fallback): the lists in shared memory, with the queries a block that
-  // keep the most queries resident an SM, at the largest tile that fits
+  // the lists in shared memory, with the queries a block that keep the most queries resident an
+  // SM, at the largest tile that fits
   const bool padded = list_dp(d) > 0;
   long best = 0;
   for (int flags_q : {2, 0}) {
@@ -679,10 +563,10 @@ int banded_topk_plan(int d, int k, void* out) {
     for (int rows = TC; rows >= 4 && best == 0; rows /= 2) {
       if (padded && rows != TC) break;
       for (int qb : {128, 64, 32}) {
-        const size_t need = plan_smem(2, d, k, qb, rows, 1 | flags_q);
+        const size_t need = plan_smem(1, d, k, qb, rows, 1 | flags_q);
         if (need > (size_t)optin) continue;
         int per_sm = 0;
-        err = with_list(d, true, [&](auto kern) {
+        const cudaError_t err = with_list(d, true, [&](auto kern) {
           cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)need);
           if (e != cudaSuccess) return e;
@@ -691,19 +575,19 @@ int banded_topk_plan(int d, int k, void* out) {
         if (err != cudaSuccess) return err;
         if ((long)qb * per_sm > best) {
           best = (long)qb * per_sm;
-          plan[0] = 2, plan[1] = qb, plan[2] = rows, plan[3] = 1 | flags_q, plan[4] = (int)need;
+          plan[0] = 1, plan[1] = qb, plan[2] = rows, plan[3] = 1 | flags_q, plan[4] = (int)need;
         }
       }
     }
     if (best > 0) return cudaSuccess;
   }
-  // path 2 with the lists in the output rows
+  // the lists in the output rows
   for (int flags_q : {2, 0}) {
     if (padded && flags_q) continue;
     for (int rows = TC; rows >= 4; rows /= 2) {
-      const size_t need = plan_smem(2, d, k, THREADS, rows, flags_q);
+      const size_t need = plan_smem(1, d, k, THREADS, rows, flags_q);
       if (need > (size_t)optin) continue;
-      plan[0] = 2, plan[1] = THREADS, plan[2] = rows, plan[3] = flags_q, plan[4] = (int)need;
+      plan[0] = 1, plan[1] = THREADS, plan[2] = rows, plan[3] = flags_q, plan[4] = (int)need;
       return cudaSuccess;
     }
   }
@@ -738,18 +622,6 @@ int banded_topk_sorted(const float* x, const uint8_t* valid, float* out_d, int* 
     });
   }
   if (path == 1) {
-    if (k > KS || qb != THREADS) return cudaErrorInvalidValue;
-    return with_any_d(k, [&](auto kern) {
-      cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-      if (e != cudaSuccess) return e;
-      kern<<<(n + THREADS - 1) / THREADS, THREADS, smem, stream>>>(
-          x, valid, n, d, k, radius, block_q, block_c, n_cblocks, loop, rows, (flags & 2) != 0,
-          out_d, out_i);
-      return cudaGetLastError();
-    });
-  }
-  if (path == 2) {
     if (qb != 32 && qb != 64 && qb != 128) return cudaErrorInvalidValue;
     if (list_dp(d) > 0 && rows != TC) return cudaErrorInvalidValue;
     return with_list(d, (flags & 1) != 0, [&](auto kern) {

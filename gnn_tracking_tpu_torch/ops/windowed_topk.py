@@ -18,8 +18,10 @@ plain version and the fallback (the JAX kernel uses the norm expansion).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import time
 
 import torch
 
@@ -37,6 +39,8 @@ _SIGNATURES = {
 #: the kernel's launch plan by (d, k, device): (path, queries a block, tile rows, flags,
 #: shared memory a block), as ``banded_topk_plan`` in ``csrc/banded_topk.cu`` describes it
 _plans: dict[tuple, tuple] = {}
+#: while ``record_parts`` is open, the list each ``windowed_knn`` call appends its record to
+_parts: list | None = None
 
 
 def principal_axis(x: torch.Tensor, iters: int = 12) -> torch.Tensor:
@@ -138,7 +142,7 @@ def banded_topk_sorted(
     idx [N, k] int32)`` in sorted indexing; invalid queries and unfilled
     slots are ``(+inf, 0)``, ties go to the lower index. CPU tensors take
     the plain version; CUDA tensors launch the kernel, at any ``k`` and
-    ``d`` (``last_plan`` records the launch plan)."""
+    ``d`` (``_plans`` holds the launch plan of each ``(d, k, device)``)."""
     if x_sorted.device.type == "cpu":
         return banded_topk_sorted_plain(
             x_sorted, k=k, radius=radius, valid=valid, block_q=block_q,
@@ -168,7 +172,6 @@ def banded_topk_sorted(
         return out_d, out_i
     lib = _build.library("banded_topk", _SIGNATURES)
     plan = _plan(lib, d, k, x.device)
-    banded_topk_sorted.last_plan = plan[:4]
     p = _build.ptr
     err = lib.banded_topk_sorted(
         p(x), p(valid), p(out_d), p(out_i), n, d, k, radius, block_q, block_c,
@@ -180,7 +183,37 @@ def banded_topk_sorted(
 
 
 banded_topk_sorted.launches = 0
-banded_topk_sorted.last_plan = None
+
+
+@contextlib.contextmanager
+def record_parts():
+    """Within the block, each ``windowed_knn`` call appends a record to the
+    yielded list: its ``radius`` and ``fallback_cap``, its ``violators``,
+    ``fallback_rows`` and ``uncertified_after``, and the host time in ms of
+    its band launch (``band_ms``, ``banded_topk_sorted``) and of its
+    fallback (``fallback_ms``, ``_fallback_brute``), each part between two
+    device synchronisations. Outside it nothing is synchronised or
+    recorded."""
+    global _parts
+    outer, _parts = _parts, []
+    try:
+        yield _parts
+    finally:
+        _parts = outer
+
+
+def _timed(rec: dict | None, part: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with a record, its time between two device
+    synchronisations is added to ``rec[part]``."""
+    if rec is None:
+        return fn(*args, **kwargs)
+    sync = torch.cuda.synchronize if args[0].is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    sync()
+    rec[part] += (time.perf_counter() - t0) * 1e3
+    return out
 
 
 def _fallback_brute(
@@ -237,6 +270,7 @@ def windowed_knn(
     after the fallback pass (callers that need the guarantee assert 0 and
     re-run wider: :func:`gnn_tracking_tpu_torch.ops.knn.knn_graph_windowed`).
     One count is read to the host per call (the number of violators).
+    :func:`record_parts` times its parts.
     """
     n, _ = x.shape
     dev = x.device
@@ -250,9 +284,13 @@ def windowed_knn(
     inv_order = torch.argsort(order)
     xs, keys_s, valid_s = xf[order], key[order], node_mask[order]
 
-    dists, idx = banded_topk_sorted(
-        xs.contiguous(), k=k, radius=radius, valid=valid_s, block_q=block_q,
-        block_c=block_c, loop=loop,
+    rec = None
+    if _parts is not None:
+        rec = {"radius": radius, "fallback_cap": fallback_cap, "band_ms": 0.0, "fallback_ms": 0.0}
+        _parts.append(rec)
+    dists, idx = _timed(
+        rec, "band_ms", banded_topk_sorted, xs.contiguous(), k=k, radius=radius,
+        valid=valid_s, block_q=block_q, block_c=block_c, loop=loop,
     )
     idx = idx.long()
 
@@ -270,10 +308,13 @@ def windowed_knn(
     # fallback_cap rows every call, the port only the violators)
     n_viol = int((~certified).sum())
     n_fixed = min(n_viol, fallback_cap)
+    if rec is not None:
+        rec.update(violators=n_viol, fallback_rows=n_fixed, uncertified_after=n_viol - n_fixed)
     if n_fixed:
         viol_idx = torch.argsort(certified.to(torch.uint8), stable=True)[:n_fixed]
-        dists[viol_idx], idx[viol_idx] = _fallback_brute(
-            xs[viol_idx], xs, valid_s, k=k, loop=loop, self_ids=viol_idx,
+        dists[viol_idx], idx[viol_idx] = _timed(
+            rec, "fallback_ms", _fallback_brute, xs[viol_idx], xs, valid_s, k=k,
+            loop=loop, self_ids=viol_idx,
         )
     n_uncert = torch.tensor(n_viol - n_fixed, device=dev)
 

@@ -614,6 +614,23 @@ def test_windowed_knn_reports_uncertified_queries():
         knn.knn_graph_windowed(torch.from_numpy(x), 6, radius=0, block_c=128, fallback_cap=8, max_retries=1)
 
 
+def test_windowed_knn_records_its_parts():
+    """``record_parts``: one record a ``windowed_knn`` call, with its
+    attempt's radius, violators and fallback rows; nothing recorded outside
+    the block."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(1024, 8)).astype(np.float32))
+    kw = {"k": 6, "block_q": 128, "block_c": 128, "fallback_cap": 128}
+    with port_win.record_parts() as parts:
+        _, _, unc = port_win.windowed_knn(x, radius=0, **kw)
+        port_win.windowed_knn(x, radius=3, **kw)
+    port_win.windowed_knn(x, radius=0, **kw)
+    assert port_win._parts is None
+    assert [p["radius"] for p in parts] == [0, 3]
+    assert parts[0]["violators"] > parts[0]["fallback_rows"] == 128
+    assert parts[0]["uncertified_after"] == int(unc) == parts[0]["violators"] - 128
+    assert all(p["band_ms"] >= 0 and p["fallback_ms"] >= 0 and p["fallback_cap"] == 128 for p in parts)
+
+
 @pytest.mark.parametrize("builder", ["windowed", "ivf"])
 def test_exact_builders_match_knn_graph(builder):
     x = _clustered(11, 2048, d=4, n_clusters=32)
@@ -731,23 +748,39 @@ def test_cuda_ivf_probe_at_large_k_and_d(cuda, d, kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("loop", [False, True])
-@pytest.mark.parametrize("d,k", [(3, 256), (8, 256), (40, 8), (40, 256), (5, 1000)])
-def test_cuda_banded_topk_at_large_k_and_d(cuda, d, k, loop):
-    """Row #14's three paths (registers at a specialised d, registers at a
-    run-time d, lists for k > 32, in device memory above what shared memory
-    holds) against the plain version, repeat bitwise."""
-    x = torch.from_numpy(_clustered(17, 20000, d=d)).to(cuda)
+@pytest.mark.parametrize("cloud,d,k", [
+    ("clustered", 3, 256), ("clustered", 8, 256), ("clustered", 40, 8), ("clustered", 40, 256),
+    ("clustered", 5, 1000), ("duplicates", 3, 8), ("duplicates", 3, 32), ("duplicates", 3, 64),
+    ("duplicates", 8, 8), ("duplicates", 8, 32), ("duplicates", 8, 64),
+])
+def test_cuda_banded_topk_at_large_k_and_d(cuda, cloud, d, k, loop):
+    """Row #14's two paths (registers for k <= 32 at d = 3 and 8; lists for
+    every other (d, k), in device memory above what shared memory holds),
+    on clustered points and on points each repeated 6 times (every distance
+    tied six ways): repeat bitwise, bitwise its own arithmetic
+    (``chip_smoke.banded_topk_fma_plain``: the ties to the lower index), and
+    against the plain version."""
+    from chip_smoke import banded_topk_fma_plain
+
+    if cloud == "duplicates":
+        x = np.repeat(_clustered(17, 20000 // 6 + 1, d=d), 6, axis=0)[:20000]
+    else:
+        x = _clustered(17, 20000, d=d)
+    x = torch.from_numpy(x).to(cuda)
     valid = torch.rand(20000, device=cuda) > 0.05
     kw = {"k": k, "radius": 2, "valid": valid, "block_q": 256, "block_c": 1024, "loop": loop}
     kd, ki = port_win.banded_topk_sorted(x, **kw)
     kd2, ki2 = port_win.banded_topk_sorted(x, **kw)
+    rd, ri = banded_topk_fma_plain(x, **kw)
     pd, pi = port_win.banded_topk_sorted_plain(x, **kw)
     torch.cuda.synchronize()
     assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    assert torch.equal(kd, rd) and torch.equal(ki, ri)
     fin = torch.isfinite(pd)
     assert torch.equal(torch.isfinite(kd), fin)
     assert (kd - pd)[fin].abs().max() <= 1e-5 * pd[fin].max()
-    assert (ki == pi)[fin].float().mean() > 0.999
+    if cloud == "clustered":
+        assert (ki == pi)[fin].float().mean() > 0.999
 
 
 @pytest.mark.cuda
