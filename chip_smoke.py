@@ -27,7 +27,12 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    (``f32_saved_pair``: bitwise rows #1 / #2); the sorted segment-sum is
    timed on the device (``graph_ms``) beside ``torch.segment_reduce``, at
    that input and on a masked tail (``segment_sum_timings``: 20 % of the
-   training event's edges masked, ~52k rows at the last node);
+   training event's edges masked, ~52k rows at the last node); connected
+   components (row #16) on DBSCAN's core-core table of event 0 and on
+   ``cc_tables`` (a permuted chain of 32,768 nodes, k = 6, k = 0, a fully
+   masked table, N = 1), labels bitwise the plain version's, a bad index
+   refused, one launch and one copy a call, timed as a call and on the
+   device, with its sweeps and bound (``cc_checks``);
 4. the main path: ``TrackingPredictor(device="cuda").predict_dir`` over
    synthetic full-width events (locality-structured graphs; GraphTCN with
    seeded random weights plus a particle-structured latent offset, so that
@@ -73,7 +78,9 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    large k: the band at k = 256 and on a 65,536-point 40-d cloud, and on
    the spatial input with each point repeated 6 times (every distance
    tied) at k = 8, 32, 64 with ``loop`` both ways, each bitwise its own
-   arithmetic (``banded_topk_fma_plain``); the probe on that cloud and at k = 128 (kw = 136, the probe of
+   arithmetic (``banded_topk_fma_plain``); rows #13 / #11 at k = 8 on
+   65,536 points in 40 and 64 dimensions (``resident_wide_checks``: bitwise
+   row #12 on unmasked rows, the plain version, timed); the probe on that cloud and at k = 128 (kw = 136, the probe of
    ``knn_graph_ivf(k=128)`` over 32,768 benchmark points, whose graph must
    equal the plain build's and row #11's up to ties) and k = 256 on those
    points: each against its
@@ -136,7 +143,14 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    plain versions with phase 3's tolerances; A-D and rows #1/#2 with C32 /
    D32 at widths they take only zero-padded, (40, 8, 72, 20) in bf16 and
    (14, 3, 50, 18) in f32, through the wrappers and the differentiable op
-   (``odd_width_checks``). (b) ``MLModule`` with phase 7's model and
+   (``odd_width_checks``); rows #11-#13 at d = 33, 40 and 64
+   (``wide_dim_checks``); the wide layout of ``csrc/fused_relational_wide.cu``
+   at (64, 64, 256, 64) in bf16 and f32 (with and without the save flag)
+   and at widths whose backward tiles live in device memory
+   (``width_checks``), timed on 262,144 edges (``wide_timings``), and its
+   own path: an ``ECModule`` step at hidden width 256 in f32 and bf16,
+   gradients against the plain path (``wide_ec_steps``, whose f32 step's launches the
+   result line reports). (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
    (row #13 at k <= ``knn.SPLIT_MAX_K``, row #12 above): ``Trainer.fit`` trains
    ``--val-epochs`` epochs over two
@@ -166,13 +180,14 @@ count, ``relu_edge`` off and on: phase 9's checks, D bitwise B, the masked
 edges' rows zero; each timed as a Python call and on the device, the call
 by CUDA-graph replay and the edge kernel alone by ``torch.profiler``,
 beside the plain version and the bound of the unmasked share), then
-``ec_bwd_widths`` (B and D at other widths, checked the same way, and a
-width they must refuse) and stops; ``--ec-fwd-only`` does the same for
+``ec_bwd_widths`` (B and D at other widths, checked the same way, and at
+a width whose weights exceed shared memory, which takes the wide layout; a
+tree from before it may refuse that width) and stops; ``--ec-fwd-only`` does the same for
 kernels A and C (``ec_fwd_timings``: A / C against the plain version and
 float64, C bitwise A, the masked edges' ``e_tilde`` rows zero, C's saved
 rows ``x[dst]`` / ``x[src]`` on every edge; timed as B / D are, beside the
 bound of the unmasked share, ``fwd_bound_bytes``; then ``ec_fwd_widths``,
-which must refuse ``EC_BWD_REFUSED`` with ``ValueError``); ``--split-only``
+with A and C at ``EC_BWD_BEYOND`` through the wide layout); ``--split-only``
 builds, runs ``split_checks`` (rows #13 / #11 at k = 1 to 300, batched and
 not, ``loop`` both ways, duplicates, N < k, a masked block: bitwise row #12
 on the unmasked rows, the plain version, repeat bitwise) and
@@ -189,8 +204,19 @@ bitwise, bitwise its own arithmetic (``banded_topk_fma_plain``), against its
 plain version, in the contract's order; the Python call, the call on the
 device and the kernel alone, beside the bound and the instruction floor;
 with ``--band-digests FILE`` bitwise equal to another tree's run that wrote
-FILE) and stops. With ``--package-root DIR`` each runs the package in DIR
-(an older tree unpacked beside this one) on the same inputs and card.
+FILE) and stops. ``--cc-only`` builds, runs ``cc_checks`` (row #16 on
+phase 3's table and on ``cc_tables``: a permuted chain, a table with k = 6,
+k = 0, a fully masked table, N = 1; labels bitwise the plain version's, a
+bad index refused; the call, its kernels on the device, the launches and
+copies a call, sweeps) and stops. ``--digests
+FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
+#2 with C32 / D32 and A-D at widths their resident kernels take: each
+output's digest) and writes FILE, or holds the digests bitwise against
+FILE where another tree's run wrote it, and stops. ``--wide-only``
+(this tree only) builds, runs ``wide_dim_checks``, ``resident_wide_checks``,
+``width_checks`` at ``WIDE_CHECKS``, ``wide_timings`` and ``wide_ec_steps``
+and stops. With ``--package-root DIR`` each runs the package in DIR (an
+older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
 result and exits with code 2.
@@ -266,6 +292,10 @@ TPU_KERNELS = {
     "pairwise_topk_streaming": "gnn_tracking_tpu/ops/pallas/pairwise_topk.py:230",
     "fused_relational_fwd_save": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:610",
     "fused_relational_bwd_saved": "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:680",
+    "fused_relational_wide_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:373 and :721, "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:308 and :610, beyond shared memory",
+    "fused_relational_wide_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:415 and :781, "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377 and :680, beyond shared memory",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -282,6 +312,8 @@ SOURCES = {
        for k in ("fwd", "bwd", "fwd_save", "bwd_saved")},
     "pairwise_topk": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
     "pairwise_topk_streaming": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
+    "fused_relational_wide_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu",
+    "fused_relational_wide_bwd": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu",
 }
 # metric-learning validation (examples/configs/ml.yml's gc_scanner)
 VAL_KS = list(range(1, 9))
@@ -753,6 +785,132 @@ def f32_saved_pair(x, ea, ei, mask, weights, csr, g_e, g_a, where: str) -> list[
              "bound_ms": bnd_d, "bound_by": by_d, "library_ms": None}]
 
 
+def core_table(h):
+    """DBSCAN's core-core neighbour table of the latent ``h`` as serving
+    builds it (radius ``EPS``, ``CAP`` neighbours, ``MIN_SAMPLES``): ``(idx
+    [N, CAP] int32, mask [N, CAP] bool)``, row #16's input."""
+    from gnn_tracking_tpu_torch.ops.knn import radius_graph
+
+    n = h.shape[0]
+    ei, em, dists = radius_graph(h, EPS, max_num_neighbors=CAP)
+    src2d = ei[0].reshape(n, CAP).contiguous()
+    within = (em & (dists <= EPS)).reshape(n, CAP)
+    core = (within.sum(dim=1) + 1) >= MIN_SAMPLES
+    return src2d, (within & core[src2d.long()] & core[:, None]).contiguous()
+
+
+def cc_tables(seed: int, n: int = N_NODES) -> list[tuple]:
+    """Row #16's tables beside phase 3's: ``(name, idx, mask)`` on the card. A
+    randomly permuted chain of ``n`` nodes (each lists its two chain
+    neighbours, k = 4 with two masked slots of garbage: the most sweeps a
+    table of that size needs), a 6-wide random table of ~n / 16 components
+    (k % 4 != 0: the kernel's scalar row reads), k = 0, a fully masked table
+    and N = 1."""
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 160)
+    order = rng.permutation(n)
+    idx = rng.integers(0, n, size=(n, 4))
+    mask = np.zeros((n, 4), dtype=bool)
+    idx[order[1:], 0], mask[order[1:], 0] = order[:-1], True
+    idx[order[:-1], 1], mask[order[:-1], 1] = order[1:], True
+    comp = rng.integers(0, n // 16, size=n)
+    members = np.argsort(comp, kind="stable")
+    same = comp[members[1:]] == comp[members[:-1]]
+    idx6 = rng.integers(0, n, size=(n, 6))
+    mask6 = np.zeros((n, 6), dtype=bool)
+    a, b = members[:-1][same], members[1:][same]
+    idx6[a, 0], mask6[a, 0] = b, True
+    idx6[b, 1], mask6[b, 1] = a, True
+    on = lambda t: torch.from_numpy(np.ascontiguousarray(t)).to(dev)
+    return [
+        ("chain", on(idx.astype(np.int32)), on(mask)),
+        ("k6_components", on(idx6.astype(np.int32)), on(mask6)),
+        ("k0", on(np.zeros((n, 0), dtype=np.int32)), on(np.zeros((n, 0), dtype=bool))),
+        ("all_masked", on(rng.integers(0, 1000, size=(1000, 16)).astype(np.int32)), on(np.zeros((1000, 16), dtype=bool))),
+        ("n1", on(np.zeros((1, 4), dtype=np.int32)), on(np.array([[True, False, True, False]]))),
+    ]
+
+
+def cc_calls(fn, *, reps: int = 5) -> dict:
+    """``torch.profiler`` over ``reps`` calls of ``fn``: the kernels it launches
+    on the device and the copies between device and host, per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the trace can come back without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if gpu:
+            break
+    copies = [e for e in gpu if "Memcpy" in e.name or "memcpy" in e.name]
+    return {"kernels_per_call": (len(gpu) - len(copies)) / reps, "copies_per_call": len(copies) / reps}
+
+
+def cc_checks(idx, mask, seed: int, this_tree: bool) -> dict:
+    """Row #16 (``cc_neighbors``) on phase 3's table (event 0's core-core
+    radius graph, ``idx``, ``mask``) and on ``cc_tables``: labels bitwise the
+    plain version's, sweeps; an unmasked index outside [0, N) raises
+    ``ValueError``; the call (``cuda_ms``), its kernels on the device
+    (``device_ms_per_call``), the kernels launched and the copies a call
+    (``cc_calls``: one launch and one read back for this tree), beside the
+    plain version and the bound (the table's bytes once). Returns the kernel
+    line's entry."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import cc_kernel
+
+    names = ("cc_kernel", "sweep_kernel", "iota_kernel")
+    out, tables = {}, [("event0", idx, mask), *cc_tables(seed)]
+    for name, ti, tm in tables:
+        k_lab = cc_kernel.cc_neighbors(ti, tm)
+        sweeps = cc_kernel.cc_neighbors.last_sweeps
+        p_lab = cc_kernel.cc_neighbors_plain(ti, tm)
+        torch.cuda.synchronize()
+        n_diff = int((k_lab != p_lab).sum())
+        assert n_diff == 0, f"cc_neighbors ({name}): {n_diff} labels differ from the plain version"
+        row = {"n": ti.shape[0], "k": ti.shape[1], "sweeps": sweeps, "components": len(torch.unique(k_lab))}
+        if name in ("event0", "chain"):
+            row["ms"] = cuda_ms(lambda: cc_kernel.cc_neighbors(ti, tm))
+            row["device_ms"] = device_ms_per_call(lambda: cc_kernel.cc_neighbors(ti, tm), names)
+            row.update(cc_calls(lambda: cc_kernel.cc_neighbors(ti, tm)))
+            row["bound_ms"] = nbytes(ti, tm) / PEAK_BYTES_PER_S * 1e3
+            if this_tree:
+                assert row["kernels_per_call"] == 1 and row["copies_per_call"] <= 1, row
+        out[name] = row
+    # just past the end, and far outside the buffer (a gather there would fault the context)
+    for j in (-1, idx.shape[0], idx.shape[0] + 5, 1 << 30, 2**31 - 1, -(2**31) + 1):
+        bad = idx.clone()
+        bad[7, 0] = j
+        bad_mask = mask.clone()
+        bad_mask[7, 0] = True
+        try:
+            cc_kernel.cc_neighbors(bad, bad_mask)
+            torch.cuda.synchronize()
+        except ValueError as err:
+            out["bad_index"] = f"ValueError: {err}"
+        else:
+            raise AssertionError(f"cc_neighbors: the unmasked index {j} outside [0, N) was not refused")
+    # the context survived: the next call still agrees with the plain version
+    assert torch.equal(cc_kernel.cc_neighbors(idx, mask), cc_kernel.cc_neighbors_plain(idx, mask))
+    ev = out["event0"]
+    plain = cuda_ms(lambda: cc_kernel.cc_neighbors_plain(idx, mask), reps=1, rounds=3)
+    log(f"kernel cc_neighbors: OK labels identical on every table, the bad indices refused; event 0 "
+        f"({ev['components']} components, {ev['sweeps']} sweeps): {ev['ms']:.4f} ms a call, its kernels "
+        f"{ev['device_ms']:.4f} ms on the device, {ev['kernels_per_call']:g} launch(es) and "
+        f"{ev['copies_per_call']:g} copy(ies) a call (plain {plain:.3f} ms, bound {ev['bound_ms']:.4f} ms); "
+        "cc timings: " + json.dumps(out))
+    return {"name": "cc_neighbors", "max_abs_err": 0.0, "ms": ev["ms"], "plain_ms": plain,
+            "bound_ms": ev["bound_ms"], "bound_by": "bytes", "library_ms": None}
+
+
 def segment_sum_timings(seed: int) -> dict:
     """Row #9 on two target-sorted graphs, F = 32 seeded messages: phase 3's
     (the serving event ev00) and the masked tail (the training event with 20 %
@@ -933,21 +1091,25 @@ def kernel_device_ms(fn, name: str, *, reps: int = 10, tries: int = 3) -> tuple[
     return sum(e.time_range.end - e.time_range.start for e in mine) / len(mine) / 1e3, len(mine)
 
 
-def device_ms_per_call(fn, names, *, reps: int = 5) -> float:
+def device_ms_per_call(fn, names, *, reps: int = 5, tries: int = 3) -> float:
     """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up):
     the device time of every kernel whose name holds one of ``names``, per
-    call (a call that launches several kernels, or one several times)."""
+    call (a call that launches several kernels, or one several times). The
+    trace can come back without device records: up to ``tries`` traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
+        if mine:
+            break
     assert mine, f"profiler: no launch of {names} in {reps} calls"
     return sum(e.time_range.end - e.time_range.start for e in mine) / reps / 1e3
 
@@ -1170,7 +1332,7 @@ def ec_fwd_timings(seed: int) -> dict:
 # second m buffer does not fit one block's shared memory (one m buffer), one edge, all masked
 EC_BWD_WIDTHS = [(32, 32, 64, 32, 16000, 0.8), (32, 64, 96, 64, 5000, 0.5), (64, 64, 128, 128, 16000, 0.8),
                  (128, 32, 128, 32, 3000, 0.9), (64, 64, 128, 64, 1, 1.0), (64, 64, 128, 64, 1000, 0.0)]
-EC_BWD_REFUSED = (64, 64, 256, 64)  # weights alone exceed one block's shared memory
+EC_BWD_BEYOND = (64, 64, 256, 64)  # weights alone exceed one block's shared memory: the wide layout
 
 
 def ec_width_case(seed, fx, fe, h, fo, e, share, n=2000):
@@ -1200,7 +1362,7 @@ def ec_fwd_widths(seed: int) -> dict:
     ``relu_edge`` off and on: ``bf16_check`` against the plain bf16 version
     and float64 (repeat bitwise), C bitwise A, the masked edges' ``e_tilde``
     rows zero, C's saved rows ``x[dst]`` / ``x[src]``. Then A and C at
-    ``EC_BWD_REFUSED`` must raise ``ValueError`` (the error is reported)."""
+    ``EC_BWD_BEYOND``, through the wide layout (``beyond_shared_memory``)."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
@@ -1231,24 +1393,16 @@ def ec_fwd_widths(seed: int) -> dict:
                 worst = max(worst, max(err[1] for err in errs))
             out[label] = worst
             log(f"  fused_relational_bf16_fwd {label}: OK (max |kernel - plain| {worst:.3e})")
-        g, args = ec_width_case(seed, *EC_BWD_REFUSED, 500, 0.8, n=100)
-        for fn in (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save):
-            try:
-                fn(*args[:5], rowptr=g.csr()["dst_rowptr"], relu_edge=True)
-                torch.cuda.synchronize()
-            except ValueError as err:
-                out[f"refused/{fn.__name__}"] = f"ValueError: {err}"
-            else:
-                raise AssertionError(f"{fn.__name__} at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: not refused")
-            log(f"  {fn.__name__} at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: refused, {out[f'refused/{fn.__name__}']}")
+        out["beyond"] = beyond_shared_memory(seed, forward=True, this_tree=True)
     return out
 
 
-def ec_bwd_widths(seed: int) -> dict:
+def ec_bwd_widths(seed: int, this_tree: bool = True) -> dict:
     """Kernels B and D at the widths ``EC_BWD_WIDTHS`` (``ec_width_case``),
     ``relu_edge`` off and on: ``bf16_check`` against the plain bf16 version
     and float64, D bitwise B, the masked edges' ``g_edge_attr`` rows zero.
-    Then B at ``EC_BWD_REFUSED`` must raise (the error is reported)."""
+    Then B and D at ``EC_BWD_BEYOND`` (``beyond_shared_memory``; a tree
+    from before the wide layout may refuse them)."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
@@ -1279,16 +1433,50 @@ def ec_bwd_widths(seed: int) -> dict:
                 worst = max(worst, max(err[1] for err in errs))
             out[label] = worst
             log(f"  fused_relational_bf16_bwd {label}: OK (max |kernel - plain| {worst:.3e})")
-        g, args = case(*EC_BWD_REFUSED, 500, 0.8, n=100)
-        try:
-            fr.fused_relational_bf16_bwd(*args, g.csr(), relu_edge=True)
-            torch.cuda.synchronize()
-        except (ValueError, RuntimeError) as err:
-            out["refused"] = f"{type(err).__name__}: {err}"
-        else:
-            raise AssertionError(f"fused_relational_bf16_bwd at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: not refused")
-        log(f"  fused_relational_bf16_bwd at (Fx, Fe, H, Fo) = {EC_BWD_REFUSED}: refused, {out['refused']}")
+        out["beyond"] = beyond_shared_memory(seed, forward=False, this_tree=this_tree)
     return out
+
+
+def beyond_shared_memory(seed: int, *, forward: bool, this_tree: bool) -> str:
+    """A and C (``forward``) or B and D at ``EC_BWD_BEYOND``, whose weights
+    exceed one block's shared memory: since the wide layout they run there,
+    within 2e-2 of the plain version's norm (C / D bitwise A / B); a tree
+    from before it (``this_tree`` False) may refuse them, and the refusal is
+    reported. Any other failure fails the run."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    g, args = ec_width_case(seed, *EC_BWD_BEYOND, 500, 0.8, n=100)
+    csr = g.csr()
+    try:
+        if forward:
+            k = fr.fused_relational_bf16_fwd(*args[:5], rowptr=csr["dst_rowptr"], relu_edge=True)
+            kc = fr.fused_relational_bf16_fwd_save(*args[:5], rowptr=csr["dst_rowptr"], relu_edge=True)[:2]
+            p = fr.fused_relational_bf16_plain(*args[:5], relu_edge=True)
+        else:
+            src, dst = g.edge_index.long()
+            gd, gs = args[0][dst].contiguous(), args[0][src].contiguous()
+            flat = lambda o: [o[0], o[1], *o[2].values()]
+            k = flat(fr.fused_relational_bf16_bwd(*args, csr, relu_edge=True))
+            kc = flat(fr.fused_relational_bf16_bwd_saved(gd, gs, *args[1:], csr, g.num_nodes, relu_edge=True))
+            p = flat(fr.fused_relational_bf16_bwd_plain(*args, relu_edge=True))
+        torch.cuda.synchronize()
+    except (ValueError, RuntimeError) as err:
+        if this_tree:
+            raise
+        said = f"refused ({type(err).__name__}: {err})"
+    else:
+        worst = 0.0
+        for k_t, c_t, p_t in zip(k, kc, p):
+            assert torch.equal(k_t, c_t), f"bf16 at {EC_BWD_BEYOND}: the saving / saved-rows kernel differs"
+            rel = ((k_t.double() - p_t.double()).norm() / p_t.double().norm().clamp(min=1e-30)).item()
+            assert rel <= 2e-2, f"bf16 at {EC_BWD_BEYOND}: {rel:.3e} of the plain norm"
+            worst = max(worst, rel)
+        said = f"ran, within {worst:.3e} of the plain norm"
+    which = "A / C" if forward else "B / D"
+    log(f"  {which} at (Fx, Fe, H, Fo) = {EC_BWD_BEYOND}: {said}")
+    return said
 
 
 TOPK_TRAIN_STEPS = ML_WARMUP + 15  # optimizer steps behind phase 7's trained latent (30 + 10 + 5)
@@ -1765,9 +1953,14 @@ def band_pairs(args, kw) -> float:
 
 
 def digest(*tensors) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach().contiguous()
+        if t.dtype == torch.bfloat16:  # numpy has no bfloat16: the same bytes as int16
+            t = t.view(torch.int16)
+        h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -1840,21 +2033,97 @@ def band_timings(seed: int, digests: Path | None, this_tree: bool) -> dict:
                 f"{err:.3e} vs plain ({r['plain_rows_differ']} rows differ in bits), repeat bitwise, "
                 f"bitwise banded_topk_fma_plain: {fma_bitwise}")
     if digests is not None:
-        if digests.exists():
-            ref = json.loads(digests.read_text())
-            # cases both trees ran on bitwise the same input (a trained latent may differ)
-            both = sorted(c for c in set(ref) & set(sums) if ref[c][0] == sums[c][0])
-            differ = [c for c in both if ref[c][1] != sums[c][1]]
-            assert not differ, f"banded_topk_sorted differs bitwise from the other tree's on {differ}"
-            out["bitwise_other_tree"] = both
-            log(f"  banded_topk_sorted: bitwise equal to the digests in {digests} on {len(both)} cases "
-                f"(of {len(sums)}; the rest ran on other inputs or were refused there): {both}")
-        else:
-            digests.parent.mkdir(parents=True, exist_ok=True)
-            digests.write_text(json.dumps(sums))
-            log(f"  banded_topk_sorted: digests of {len(sums)} cases written to {digests}")
+        out["bitwise_other_tree"] = compare_digests("banded_topk_sorted", sums, digests)
     log("band top-k timings: " + json.dumps(out))
     return out
+
+
+def compare_digests(what: str, sums: dict, path: Path) -> list[str] | None:
+    """``sums`` (case -> [input digest, output digest]) against the file
+    ``path`` that another tree's run wrote: every case both ran on bitwise the
+    same input must give bitwise the same output (returns those cases); where
+    there is no file yet, write one (returns None)."""
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(sums))
+        log(f"  {what}: digests of {len(sums)} cases written to {path}")
+        return None
+    ref = json.loads(path.read_text())
+    # cases both trees ran on bitwise the same input (a trained latent may differ)
+    both = sorted(c for c in set(ref) & set(sums) if ref[c][0] == sums[c][0])
+    differ = [c for c in both if ref[c][1] != sums[c][1]]
+    assert not differ, f"{what} differs bitwise from the other tree's on {differ}"
+    log(f"  {what}: bitwise equal to the digests in {path} on {len(both)} cases (of {len(sums)}; the "
+        f"rest ran on other inputs or were refused there): {both}")
+    return both
+
+
+def bitwise_digests(seed: int, path: Path) -> None:
+    """The outputs of the kernels this tree left in place, on fixed inputs,
+    as digests held against another tree's (``compare_digests``): rows #12
+    and #13 / #11 at d <= 32 (phase 10 (a)'s input at k = 1, 8, 16, 32, 64,
+    256, 300 and 1,024, radius mode, and 3-, 14- and 20-d clouds: the
+    kernels' 4, 16 and 32 padded columns), and rows #1 / #2 with C32 / D32
+    (f32) and A-D (bf16) at widths they took before the wide layout (the
+    GraphTCN's, ``ec.yml``'s, odd ones), each output of a second launch
+    equal to the first's."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    sums = {}
+
+    def record(case, inputs, fn):
+        out = fn()
+        again = fn()
+        torch.cuda.synchronize()
+        flat = lambda o: [t for t in (o if isinstance(o, (tuple, list)) else [o]) for t in
+                          (t.values() if isinstance(t, dict) else [t])]
+        assert all(torch.equal(a, b) for a, b in zip(flat(out), flat(again))), f"{case}: second launch differs"
+        sums[case] = [digest(*inputs), digest(*flat(out))]
+
+    x, mask, batch = phase10_input(seed)
+    for k in (1, 8, 16, 32, 64, 256, 300):
+        kw = {"k": k, "node_mask": mask, "batch": batch}
+        record(f"row13_k{k}", (x, mask, batch), lambda: pt.pairwise_topk(x, **kw))
+        record(f"row12_k{k}", (x, mask, batch), lambda: pt.pairwise_topk_filter(x, **kw))
+        record(f"row11_k{k}", (x, mask), lambda: pt.pairwise_topk_streaming(x, k=k, node_mask=mask))
+    record("row12_radius_k64", (x,), lambda: pt.pairwise_topk_filter(x, k=64, radius2=0.5))
+    small = x[:4096].contiguous()
+    record("row12_k1024", (small,), lambda: pt.pairwise_topk_filter(small, k=1024))
+    rng = np.random.default_rng(seed + 185)
+    for d in (3, 14, 20):
+        xd = torch.from_numpy(rng.normal(size=(8192, d)).astype(np.float32)).to(dev)
+        for k in (8, 32):
+            record(f"row13_d{d}_k{k}", (xd,), lambda: pt.pairwise_topk(xd, k=k))
+            record(f"row12_d{d}_k{k}", (xd,), lambda: pt.pairwise_topk_filter(xd, k=k))
+    widths = {"f32": [(32, 32, 128, 32), (64, 64, 128, 64), (14, 3, 50, 18)],
+              "bf16": [(64, 64, 128, 64), (32, 32, 64, 32), (40, 8, 72, 20)]}
+    for route, cases in widths.items():
+        bf16 = route == "bf16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        fwd, fwd_save, bwd, bwd_saved = (
+            (fr.fused_relational_bf16_fwd, fr.fused_relational_bf16_fwd_save, fr.fused_relational_bf16_bwd,
+             fr.fused_relational_bf16_bwd_saved) if bf16 else
+            (fr.fused_relational_fwd, fr.fused_relational_fwd_save, fr.fused_relational_bwd,
+             fr.fused_relational_bwd_saved))
+        for fx, fe, h, fo in cases:
+            g, (xe, ea, ei, em, w, g_e, g_a) = ec_width_case(seed + 186, fx, fe, h, fo, 16000, 0.8)
+            xe, ea, g_e, g_a = (t.to(dtype) for t in (xe, ea, g_e, g_a))
+            w = {k: v.to(dtype) for k, v in w.items()}
+            csr, args = g.csr(), (xe, ea, ei, em, w)
+            inputs = (xe, ea, ei, em, *w.values(), g_e, g_a)
+            name = f"{route}_{fx}_{fe}_{h}_{fo}"
+            record(f"{name}_fwd", inputs, lambda: fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True))
+            record(f"{name}_fwd_save", inputs, lambda: fwd_save(*args, rowptr=csr["dst_rowptr"], relu_edge=True))
+            record(f"{name}_bwd", inputs, lambda: bwd(*args, g_e, g_a, csr, relu_edge=True))
+            src, dst = ei.long()
+            gd, gs = xe[dst].contiguous(), xe[src].contiguous()
+            record(f"{name}_bwd_saved", inputs,
+                   lambda: bwd_saved(gd, gs, *args[1:], g_e, g_a, csr, g.num_nodes, relu_edge=True))
+    compare_digests("rows #11-#13 (d <= 32), rows #1 / #2, C32 / D32 and A-D (resident widths)", sums, path)
 
 
 
@@ -2331,6 +2600,14 @@ def brute_sample(x, ei, mask, dists, k: int, seed: int, n_sample: int = 4096) ->
 WIDE_HITS, WIDE_DIM, IVF_WIDE_K, BAND_WIDE_K = 65536, 40, 128, 256
 # (Fx, Fe, H, Fo) that the fused relational kernels take only zero-padded (phase 10 (a))
 ODD_WIDTHS = {"bf16": (40, 8, 72, 20), "f32": (14, 3, 50, 18)}
+# the wide layout (csrc/fused_relational_wide.cu): weights beyond one block's shared memory in the
+# resident kernels' layouts (A / C 356,864 bytes, B / D 397,568; rows #1 / #2: W2 alone 256 KiB)
+WIDE_WIDTHS = (64, 64, 256, 64)
+WIDE_EC_MODEL = {**EC_MODEL, "hidden_dim": 256, "L_ec": 2}
+# (route, widths, edges): the wide layout in both dtypes, and widths whose backward tiles exceed
+# shared memory even at 4 edges a tile (its tiles in device memory)
+WIDE_CHECKS = {"wide bf16": ("bf16", WIDE_WIDTHS, 16000), "wide f32": ("f32", WIDE_WIDTHS, 16000),
+               "wide f32 (backward tiles in device memory)": ("f32", (8, 8, 2432, 8), 600)}
 
 
 def make_wide_cloud(seed: int, n: int, d: int) -> np.ndarray:
@@ -2447,6 +2724,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     }
     log(f"knn_graph_ivf at k = {IVF_WIDE_K} on {ML_HITS} benchmark points: {len(ivf128_calls)} attempt(s), "
         f"equal to the plain build's and row #11's graphs up to ties {ivf128_ties}")
+    resident_wide_checks(seed)
     results = []
 
     probe_cases = [("bench_k8", *probe_calls[0]), (f"bench32k_k{IVF_WIDE_K}", *ivf128_calls[0]),
@@ -2897,22 +3175,27 @@ def topk_bound(x, k: int, mask, batch) -> tuple[float, str]:
     return bound(3.0 * x.shape[1] * pairs, nbytes(x, mask, batch) + 8 * x.shape[0] * k)
 
 
-def odd_width_checks(seed: int) -> None:
-    """A-D (bf16) and rows #1 / #2 with C32 / D32 (f32) at ``ODD_WIDTHS``,
-    which the kernels take only zero-padded (``_Padding``), through the
-    wrappers and through the differentiable op ``fused_relational``: each
-    output and gradient at the layer's own widths and against its plain
-    version (bf16 within 2e-2 of the plain one's norm, as phase 9 (a); f32
-    within 1e-4 of its largest magnitude, as phase 3's row #1), repeat
-    bitwise, C / D (C32 / D32) bitwise A / B (rows #1 / #2)."""
+def width_checks(seed: int, table: dict, *, wide: bool = False) -> None:
+    """A-D (bf16) and rows #1 / #2 with C32 / D32 (f32) at the widths of
+    ``table`` (name -> (dtype, (Fx, Fe, H, Fo), edges)) through the wrappers
+    and through the differentiable op ``fused_relational``: each output and
+    gradient at the layer's own widths and against its plain version (bf16
+    within 2e-2 of the plain one's norm, as phase 9 (a); f32 within 1e-4 of
+    its largest magnitude, as phase 3's row #1), repeat bitwise, C / D (C32 /
+    D32) bitwise A / B (rows #1 / #2). ``ODD_WIDTHS`` take the resident
+    kernels only zero-padded (``_Padding``); with ``wide`` every launch must
+    be the wide layout's (``csrc/fused_relational_wide.cu``), none the
+    resident kernels'."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
 
-    for route, (fx, fe, h, fo) in ODD_WIDTHS.items():
+    wide_fns = (fr.fused_relational_wide_fwd, fr.fused_relational_wide_bwd)
+    for name, (route, (fx, fe, h, fo), n_edges) in table.items():
         bf16 = route == "bf16"
         dtype = torch.bfloat16 if bf16 else torch.float32
-        g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 150, fx, fe, h, fo, 16000, 0.8)
+        g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 150, fx, fe, h, fo, n_edges, 0.8,
+                                                          n=min(2000, n_edges))
         x, ea, g_e, g_a = (t.to(dtype) for t in (x, ea, g_e, g_a))
         w = {k: v.to(dtype) for k, v in w.items()}
         csr = g.csr()
@@ -2922,6 +3205,8 @@ def odd_width_checks(seed: int) -> None:
             if bf16 else
             (fr.fused_relational_fwd, fr.fused_relational_fwd_save, fr.fused_relational_bwd,
              fr.fused_relational_bwd_saved, fr.fused_relational_plain, fr.fused_relational_bwd_plain))
+        resident = (fwd, fwd_save, bwd, bwd_saved)
+        before = [fn.launches for fn in (*resident, *wide_fns)]
         flat = lambda out: [out[0], out[1], *out[2].values()]
         a = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
         a2 = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
@@ -2945,24 +3230,252 @@ def odd_width_checks(seed: int) -> None:
         inputs = [x, ea, *(w[k] for k in fr.WEIGHT_KEYS)]
         ko, po = op(inputs, csr), op(inputs, None)
         torch.cuda.synchronize()
+        launched = [fn.launches - n0 for fn, n0 in zip((*resident, *wide_fns), before)]
+        widths = (fx, fe, h, fo)
+        if wide:
+            assert not any(launched[:4]) and all(launched[4:]), f"{name}: launches {launched} (resident, wide)"
+        else:
+            assert all(launched[:4]) and not any(launched[4:]), f"{name}: launches {launched} (resident, wide)"
         worst = 0.0
         for k_t, p_t in zip([*a, *b, *ko], [*pa, *pb, *po]):
-            assert k_t.shape == p_t.shape, f"{route} at {ODD_WIDTHS[route]}: shape {k_t.shape} != {p_t.shape}"
+            assert k_t.shape == p_t.shape, f"{name} at {widths}: shape {k_t.shape} != {p_t.shape}"
             if bf16:
                 rel = ((k_t.double() - p_t.double()).norm() / p_t.double().norm().clamp(min=1e-30)).item()
-                assert rel <= 2e-2, f"bf16 kernels at {ODD_WIDTHS[route]}: {rel:.3e} of the plain norm"
+                assert rel <= 2e-2, f"bf16 kernels at {widths}: {rel:.3e} of the plain norm"
             else:
                 rel = ((k_t - p_t).abs().max() / p_t.abs().max().clamp(min=1e-30)).item()
-                assert rel <= 1e-4, f"f32 kernels at {ODD_WIDTHS[route]}: {rel:.3e} of the largest"
+                assert rel <= 1e-4, f"f32 kernels at {widths}: {rel:.3e} of the largest"
             worst = max(worst, rel)
         for u, v in zip([*a, *b], [*a2, *b2]):
-            assert torch.equal(u, v), f"{route} at {ODD_WIDTHS[route]}: second launch differs"
-        assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1]), f"{route}: the saving forward differs"
-        assert all(torch.equal(u, v) for u, v in zip(b, d)), f"{route}: the saved-rows backward differs"
-        log(f"kernels at odd widths ({route}, (Fx, Fe, H, Fo) = {ODD_WIDTHS[route]}, padded to "
-            f"{fr._Padding.of(x, ea, w).padded}): OK, forward, backward and the op's gradients within "
-            f"{worst:.3e} of the plain version ({'norm' if bf16 else 'largest magnitude'}), repeat bitwise, "
+            assert torch.equal(u, v), f"{name} at {widths}: second launch differs"
+        assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1]), f"{name}: the saving forward differs"
+        assert all(torch.equal(u, v) for u, v in zip(b, d)), f"{name}: the saved-rows backward differs"
+        pad = fr._Padding.of(x, ea, w)
+        log(f"kernels at {name} widths ((Fx, Fe, H, Fo) = {widths}, E = {n_edges}"
+            f"{', padded to ' + str(pad.padded) if pad else ''}): OK through "
+            f"{'the wide layout' if wide else 'the resident kernels'} (launches {launched}), forward, "
+            f"backward and the op's gradients within {worst:.3e} of the plain version "
+            f"({'norm' if bf16 else 'largest magnitude'}), repeat bitwise, "
             f"{'C / D bitwise A / B' if bf16 else 'C32 / D32 bitwise rows #1 / #2'}")
+
+
+def odd_width_checks(seed: int) -> None:
+    """``width_checks`` at ``ODD_WIDTHS`` (the resident kernels, zero-padded)."""
+    width_checks(seed, {route: (route, widths, 16000) for route, widths in ODD_WIDTHS.items()})
+
+
+def wide_timings(seed: int) -> list[dict]:
+    """The wide layout (``fused_relational_wide_fwd`` / ``_bwd``) at
+    ``WIDE_WIDTHS`` on 262,144 edges, 80 % unmasked, in f32 and bf16: the
+    call beside the plain version and the bound (the unmasked edges' MLP
+    flops at the card's peak for the operands' type: the f32 CUDA-core peak
+    in f32, the bf16 tensor-core peak in bf16, though the wide kernel does
+    its bf16 products on the CUDA cores too), each checked against the plain
+    version as ``width_checks`` does. Returns the kernel line's two entries
+    (f32)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    fx, fe, h, fo = WIDE_WIDTHS
+    out, entries = {}, []
+    with torch.no_grad():
+        for route in ("f32", "bf16"):
+            dtype = torch.bfloat16 if route == "bf16" else torch.float32
+            g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 180, fx, fe, h, fo, N_EDGES, 0.8,
+                                                              n=N_NODES)
+            x, ea, g_e, g_a = (t.to(dtype).contiguous() for t in (x, ea, g_e, g_a))
+            w = {k: v.to(dtype) for k, v in w.items()}
+            csr = g.csr()
+            fargs = (x, ea, ei, mask, w)
+            kf = fr.fused_relational_wide_fwd(*fargs, rowptr=csr["dst_rowptr"])
+            kb = fr.fused_relational_wide_bwd(x, None, None, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes)
+            plain_f = fr.fused_relational_bf16_plain if route == "bf16" else fr.fused_relational_plain
+            plain_b = fr.fused_relational_bf16_bwd_plain if route == "bf16" else fr.fused_relational_bwd_plain
+            pf, pb = plain_f(*fargs), plain_b(*fargs, g_e, g_a)
+            torch.cuda.synchronize()
+            errs, abs_errs = [], []
+            for k_t, p_t in zip([*kf, kb[0], kb[1], *kb[2].values()], [*pf, pb[0], pb[1], *pb[2].values()]):
+                if route == "bf16":
+                    rel = ((k_t.double() - p_t.double()).norm() / p_t.double().norm().clamp(min=1e-30)).item()
+                    assert rel <= 2e-2, f"wide bf16 at {WIDE_WIDTHS}: {rel:.3e} of the plain norm"
+                else:
+                    rel = ((k_t - p_t).abs().max() / p_t.abs().max().clamp(min=1e-30)).item()
+                    assert rel <= 1e-4, f"wide f32 at {WIDE_WIDTHS}: {rel:.3e} of the largest"
+                errs.append(rel)
+                abs_errs.append((k_t.double() - p_t.double()).abs().max().item())
+            n_valid = int(mask.sum())
+            k = 2 * fx + fe
+            peak = PEAK_BF16_FLOPS if route == "bf16" else PEAK_F32_FLOPS
+            row = {
+                "fwd_ms": cuda_ms(lambda: fr.fused_relational_wide_fwd(*fargs, rowptr=csr["dst_rowptr"]), reps=2, rounds=3),
+                "fwd_plain_ms": cuda_ms(lambda: plain_f(*fargs), reps=1, rounds=3),
+                "bwd_ms": cuda_ms(lambda: fr.fused_relational_wide_bwd(
+                    x, None, None, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes), reps=1, rounds=3),
+                "bwd_plain_ms": cuda_ms(lambda: plain_b(*fargs, g_e, g_a), reps=1, rounds=3),
+                "max_rel_err": max(errs), "max_abs_err": max(abs_errs),
+            }
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
+                2.0 * n_valid * (k * h + h * h + h * fo), nbytes(x, ea, ei, mask, *w.values(), kf[0], kf[1]), peak=peak)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
+                2.0 * n_valid * (3 * k * h + 3 * h * h + 2 * h * fo),
+                nbytes(x, ea, ei, mask, *w.values(), g_e, g_a, kb[0], kb[1]) + 4 * sum(t.numel() for t in kb[2].values()),
+                peak=peak)
+            out[route] = row
+            if route == "f32":
+                entries = [
+                    {"name": "fused_relational_wide_fwd", "max_abs_err": max(abs_errs[:2]), "ms": row["fwd_ms"],
+                     "plain_ms": row["fwd_plain_ms"], "bound_ms": row["fwd_bound_ms"],
+                     "bound_by": row["fwd_bound_by"], "library_ms": None},
+                    {"name": "fused_relational_wide_bwd", "max_abs_err": max(abs_errs[2:]), "ms": row["bwd_ms"],
+                     "plain_ms": row["bwd_plain_ms"], "bound_ms": row["bwd_bound_ms"],
+                     "bound_by": row["bwd_bound_by"], "library_ms": None},
+                ]
+    log(f"wide layout at (Fx, Fe, H, Fo) = {WIDE_WIDTHS}, {N_EDGES} edges, 80 % unmasked: OK against the plain "
+        "version; wide timings: " + json.dumps(out))
+    return entries
+
+
+def wide_ec_steps(seed: int) -> dict:
+    """The wide layout's own path: one ``ECModule`` step of ``ECForGraphTCN``
+    at ``WIDE_EC_MODEL`` (every layer at ``WIDE_WIDTHS``), f32 and bf16, on
+    phase 9's event: step 0's gradients through the kernels against the
+    plain path's (f32 by ``compare_grads``; bf16 each tensor within 5e-2 of
+    its largest magnitude, as phase 9), the wide kernels launched once a
+    layer each way and the resident ones never (counts set to 0 just
+    before). Returns the wide kernels' launches, by precision."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.training.module import ECModule
+
+    g = EventGraph.from_arrays(**make_ec_event(seed + 190)).sort_edges_by_target().to("cuda")
+    wide = {"fused_relational_wide_fwd": fr.fused_relational_wide_fwd,
+            "fused_relational_wide_bwd": fr.fused_relational_wide_bwd}
+    resident = (fr.fused_relational_fwd, fr.fused_relational_bwd, fr.fused_relational_bf16_fwd,
+                fr.fused_relational_bf16_bwd)
+    by_precision = {}
+    for precision in ("f32", "bf16"):
+        model = ECForGraphTCN(**WIDE_EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 191))
+        ec = ECModule(model=model, loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR, precision=precision,
+                      device="cuda")
+        ec.setup_params(g)
+
+        def step0():
+            model.train()
+            model.zero_grad(set_to_none=True)
+            out, pdata = ec.apply_model(g)
+            loss, _ = ec.get_losses(out, pdata)
+            loss.backward()
+            grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            return grads, loss.item()
+
+        for fn in (*wide.values(), *resident):
+            fn.launches = 0
+        gk, lk = step0()
+        launches = {name: fn.launches for name, fn in wide.items()}
+        assert not any(fn.launches for fn in resident), [fn.launches for fn in resident]
+        assert all(n == WIDE_EC_MODEL["L_ec"] for n in launches.values()), launches
+        with plain_path():
+            gp, lp = step0()
+        if precision == "f32":
+            worst_name, worst, _, no_grad, _ = compare_grads(gk, gp)
+            assert not no_grad, no_grad
+        else:
+            worst_name, worst = None, 0.0
+            for name, gpt in gp.items():
+                if gpt is None:
+                    continue
+                assert torch.isfinite(gk[name]).all(), f"{name}: non-finite gradient"
+                ratio = (gk[name] - gpt).abs().max().item() / gpt.abs().max().item()
+                assert ratio <= 5e-2, f"wide bf16 step: {name} {ratio:.3e} of its largest magnitude"
+                if ratio >= worst:
+                    worst_name, worst = name, ratio
+        by_precision[precision] = launches
+        log(f"wide EC step ({precision}, {WIDE_EC_MODEL}): loss {lk:.6f} (plain {lp:.6f}); gradients agree "
+            f"with the plain path (worst {worst_name}: {worst:.3e}); launches {launches}")
+    return by_precision
+
+
+WIDE_DIMS = (33, 40, 64)
+
+
+def wide_dim_checks(seed: int) -> None:
+    """Rows #11-#13 above 32 dimensions (the kernels' run-time-d paths) at d
+    in ``WIDE_DIMS``, on 4,096 points of the benchmark cloud's recipe (15 %
+    masked, two batch ids): rows #13 / #11 at k = 1, 8, 32, 64 and 300 (row
+    #12's kernel above 32) and with ``loop`` at k = 8, through
+    ``check_split`` (bitwise row #12 on unmasked rows, masked (+inf, 0),
+    repeat bitwise, key order, the plain version); row #12 in kNN and radius
+    mode at k = 8 and 64 and at k = 1,024 (passes), against its plain
+    version, repeat bitwise, key order."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 175)
+    n = 4096
+    on = lambda a: torch.from_numpy(a).to(dev)
+    mask, batch = on(rng.random(n) > 0.15), on((np.arange(n) >= n // 2).astype(np.int32))
+    out = {}
+    for d in WIDE_DIMS:
+        x = on(make_wide_cloud(seed + 176 + d, n, d))
+        for k in (1, 8, 32, 64, 300):
+            out[f"d{d}_k{k}_batched"] = check_split(
+                f"pairwise_topk d={d} k={k}", pt.pairwise_topk, x, {"k": k, "node_mask": mask, "batch": batch})
+            out[f"d{d}_k{k}_streaming"] = check_split(
+                f"pairwise_topk_streaming d={d} k={k}", pt.pairwise_topk_streaming, x, {"k": k, "node_mask": mask})
+        out[f"d{d}_k8_loop"] = check_split(
+            f"pairwise_topk d={d} k=8 loop", pt.pairwise_topk, x, {"k": 8, "node_mask": mask, "batch": batch, "loop": True})
+        r2 = 0.01 * d  # inside a cluster (0.005 d a pair on average), far below the centres' spacing
+        for kw in ({"k": 8}, {"k": 64, "radius2": r2}, {"k": 64, "node_mask": mask, "batch": batch},
+                   {"k": 1024, "node_mask": mask, "batch": batch}):
+            what = f"pairwise_topk_filter d={d} " + ",".join(f"{a}={v}" for a, v in kw.items() if a in ("k", "radius2"))
+            kd, ki = pt.pairwise_topk_filter(x, **kw)
+            kd2, ki2 = pt.pairwise_topk_filter(x, **kw)
+            pd, pi = pt.pairwise_topk_filter_plain(x, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"{what}: second call differs"
+            err, nb, nt = compare_topk(kd, ki, pd, pi, kw.get("radius2"))
+            assert_key_order(kd, ki, what)
+            out[what] = {"max_abs_err": err, "boundary_rows": nb, "tie_rows": nt,
+                         "filled": float(torch.isfinite(kd).sum(dim=1).float().mean())}
+    log(f"rows #11-#13 above 32 dimensions (d = {WIDE_DIMS}, 4,096 points): {len(out)} cases OK: " + json.dumps(out))
+
+
+def resident_wide_checks(seed: int) -> dict:
+    """Phase 8 (a)'s resident top-k above 32 dimensions: rows #13 (batched,
+    two batch ids) and #11 at k = 8 on ``WIDE_HITS`` points of the benchmark
+    cloud's recipe in 40 and 64 dimensions, each bitwise row #12 on unmasked
+    rows and against its plain version (``check_split``), timed beside row
+    #12 and the bound."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import pairwise_topk as pt
+
+    dev = torch.device("cuda")
+    out = {}
+    for d in (40, 64):
+        x = torch.from_numpy(make_wide_cloud(seed + 94 + d, WIDE_HITS, d)).to(dev)
+        mask = torch.ones(WIDE_HITS, dtype=torch.bool, device=dev)
+        batch = (torch.arange(WIDE_HITS, device=dev) >= WIDE_HITS // 2).to(torch.int32)
+        for what, fn, kw in (("row13", pt.pairwise_topk, {"k": GC_K, "node_mask": mask, "batch": batch}),
+                             ("row11", pt.pairwise_topk_streaming, {"k": GC_K})):
+            row = check_split(f"{fn.__name__} d={d} k={GC_K} on {WIDE_HITS} points", fn, x, kw)
+            row["plan"] = fn.last_plan
+            row["ms"] = cuda_ms(lambda: fn(x, **kw), reps=1, rounds=3)
+            row["row12_ms"] = cuda_ms(lambda: pt.pairwise_topk_filter(x, **kw), reps=1, rounds=3)
+            row["bound_ms"], row["bound_by"] = topk_bound(x, GC_K, mask, batch if fn is pt.pairwise_topk else
+                                                          torch.zeros_like(batch))
+            out[f"{what}_d{d}"] = row
+    log(f"rows #13 / #11 above 32 dimensions on {WIDE_HITS} points at k = {GC_K}: OK (bitwise row #12 on "
+        "unmasked rows, the plain version, repeat bitwise): " + json.dumps(out))
+    return out
 
 
 def validation_kernel_phases(seed: int) -> list[dict]:
@@ -3106,7 +3619,9 @@ def validation_kernel_phases(seed: int) -> list[dict]:
         f"(<= 4x the plain f32 version's), repeat bitwise; forward {ms1:.3f} ms (plain {plain1:.3f} ms, bound "
         f"{bnd1:.4f} ms by {by1}), backward {ms2:.3f} ms (plain {plain2:.3f} ms, bound {bnd2:.4f} ms by {by2})")
     odd_width_checks(seed)
-    return results
+    wide_dim_checks(seed)
+    width_checks(seed, WIDE_CHECKS, wide=True)
+    return results + wide_timings(seed)
 
 
 def save_clouds(directory: Path, seeds, *, all_pair_truth: bool) -> None:
@@ -3349,6 +3864,17 @@ def main(argv=None) -> int:
     p.add_argument("--band-only", action="store_true",
                    help="build, check and time row #14 (banded_topk_sorted) on phase 8's band inputs "
                    "at several k (band_timings), print them and stop")
+    p.add_argument("--digests", type=Path, default=None,
+                   help="build, run the kernels this tree left in place on fixed inputs "
+                   "(bitwise_digests) and write their output digests to the file, or compare "
+                   "them with it where it exists (another tree's run), then stop")
+    p.add_argument("--cc-only", action="store_true",
+                   help="build, check and time row #16 (cc_neighbors) on phase 3's table and the "
+                   "chain and edge-case tables (cc_checks), print them and stop")
+    p.add_argument("--wide-only", action="store_true",
+                   help="build, check rows #11-#13 above 32 dimensions and the fused relational "
+                   "wide layout, time the latter and run its EC steps, print them and stop "
+                   "(this tree only)")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -3409,7 +3935,7 @@ def main(argv=None) -> int:
     if args.ec_bwd_only:
         log(f"package: {root}")
         ec_bwd_timings(args.seed)
-        ec_bwd_widths(args.seed)
+        ec_bwd_widths(args.seed, this_tree=root == REPO)
         print(smi)
         return 0
     if args.ec_fwd_only:
@@ -3447,6 +3973,30 @@ def main(argv=None) -> int:
     if args.band_only:
         log(f"package: {root}")
         band_timings(args.seed, args.band_digests, this_tree=root == REPO)
+        print(smi)
+        return 0
+    if args.digests is not None:
+        log(f"package: {root}")
+        bitwise_digests(args.seed, args.digests)
+        print(smi)
+        return 0
+    if args.cc_only:
+        log(f"package: {root}")
+        model = CondensedGraphTCN(GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(
+            args.seed))).to(dev).eval()
+        ev = EventGraph.from_arrays(**make_event(args.seed + 10)).to(dev).sort_edges_by_target(with_unsort=True)
+        with torch.no_grad():
+            cc_checks(*core_table(model(ev)["H"].float().contiguous()), args.seed, this_tree=root == REPO)
+        print(smi)
+        return 0
+    if args.wide_only:
+        if root != REPO:
+            p.error("--wide-only runs the tree beside this script only")
+        wide_dim_checks(args.seed)
+        resident_wide_checks(args.seed)
+        width_checks(args.seed, WIDE_CHECKS, wide=True)
+        wide_timings(args.seed)
+        wide_ec_steps(args.seed)
         print(smi)
         return 0
 
@@ -3564,30 +4114,7 @@ def main(argv=None) -> int:
             f"bound {bound2:.4f} ms)")
 
         # DBSCAN's core-core table of event 0 -> kernel 3
-        ei, em, dists = radius_graph(H, EPS, max_num_neighbors=CAP)
-        src2d = ei[0].reshape(N_NODES, CAP).contiguous()
-        within = (em & (dists <= EPS)).reshape(N_NODES, CAP)
-        core = (within.sum(dim=1) + 1) >= MIN_SAMPLES
-        core_edges = (within & core[src2d.long()] & core[:, None]).contiguous()
-        k_lab = cc_kernel.cc_neighbors(src2d, core_edges)
-        sweeps = cc_kernel.cc_neighbors.last_sweeps
-        p_lab = cc_kernel.cc_neighbors_plain(src2d, core_edges)
-        torch.cuda.synchronize()
-        n_diff = int((k_lab != p_lab).sum())
-        assert n_diff == 0, f"cc_neighbors: {n_diff} labels differ from the plain version"
-        ms3 = cuda_ms(lambda: cc_kernel.cc_neighbors(src2d, core_edges))
-        # the call's kernels alone (its bounds check and the flag read after each sweep are host syncs)
-        dev3 = device_ms_per_call(lambda: cc_kernel.cc_neighbors(src2d, core_edges), ("sweep_kernel", "iota_kernel"))
-        plain3 = cuda_ms(lambda: cc_kernel.cc_neighbors_plain(src2d, core_edges), reps=1, rounds=3)
-        bytes3 = N_NODES * CAP * (4 + 1) + 4 * N_NODES
-        bound3 = bytes3 / PEAK_BYTES_PER_S * 1e3
-        results.append({
-            "name": "cc_neighbors", "max_abs_err": float(n_diff), "ms": ms3, "plain_ms": plain3,
-            "bound_ms": bound3, "bound_by": "bytes", "library_ms": None,
-        })
-        log(f"kernel cc_neighbors: OK labels identical ({len(torch.unique(k_lab))} components, "
-            f"{sweeps} sweeps); {ms3:.3f} ms a call, its kernels {dev3:.4f} ms on the device "
-            f"(plain {plain3:.3f} ms, bound {bound3:.4f} ms)")
+        results.append(cc_checks(*core_table(H), args.seed, this_tree=True))
     results += training_kernel_phases(model.tcn, g0, args.seed)
 
     # ---- 4. main path -------------------------------------------------------
@@ -3698,8 +4225,12 @@ def main(argv=None) -> int:
     # ---- 10. metric-learning validation: rows #13 / #11, wide f32 rows #1 / #2 --
     val_results = validation_kernel_phases(args.seed)
     val_summary, row13_launches = ml_validation_path(args.seed, args.val_epochs, ml_model, tmp)
+    # the wide layout's own path: EC steps at hidden width 256 (its counts set to 0 just before);
+    # the kernel line's entries are wide_timings' f32 run, so they take the f32 step's launches
+    wide_launches = wide_ec_steps(args.seed)["f32"]
     for r in val_results:
-        r["launches"] = row13_launches if r["name"] == "pairwise_topk" else row11_launches
+        r["launches"] = wide_launches.get(r["name"], row13_launches if r["name"] == "pairwise_topk"
+                                          else row11_launches)
     results += val_results
     # C32 / D32: launches of the f32 EC step with fused_save_acts
     for r in results:

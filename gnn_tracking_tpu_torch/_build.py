@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process (all sources at once, in parallel) into
-``build/lib<name>-<hash>.so``, where the hash covers the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused. The
+``build/lib<name>-<hash>.so``, where the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. The
 libraries are loaded with :mod:`ctypes`: every pointer and the stream are
 ``ctypes.c_void_p``, every size a ``ctypes.c_int``, and every C entry
 returns ``cudaGetLastError()``, which :func:`check` turns into an
@@ -24,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "fused_relational", "fused_relational_bf16", "csr_segment", "pairwise_topk",
-    "cc_neighbors", "banded_topk", "ivf_probe", "pairwise_topk_split",
+    "cc_neighbors", "banded_topk", "ivf_probe", "pairwise_topk_split", "fused_relational_wide",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -53,6 +54,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 

@@ -31,7 +31,9 @@
 //    x[dst], x[src] of every edge for the backward that reads them (row #8, kernel D32);
 //  * wide layers (ec.yml's K = 192, H = 128, Fo = 64: 321.8 KiB with W1 staged, against one
 //    block's 227 KiB) keep W1^T ([K][H], transposed by the wrapper) in device memory; each
-//    output's FMA order is the same in both layouts, so they give the same bits.
+//    output's FMA order is the same in both layouts, so they give the same bits. Widths whose
+//    tiles and W2, W3 do not fit even so (fused_relational_fits) take
+//    csrc/fused_relational_wide.cu, whose f32 arithmetic is this file's.
 // Backward design (f32 FMA on the CUDA cores, TF32 off; 256 threads, one persistent block an SM):
 //  * the same partition as the forward: the MLP backward runs on tiles of FTE = 64 unmasked
 //    edges only, and the kernel writes the masked edges' zero rows of g_xd, g_xs, g_ea directly
@@ -66,6 +68,8 @@
 // The TPU's slab windows, one-hot MXU gathers and 8-sublane index tiles are not carried over.
 
 #include <cuda_runtime.h>
+
+#include "fixed_order_sum.cuh"
 
 namespace {
 
@@ -725,20 +729,6 @@ edge_mlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gd,
   }
 }
 
-// out[i] = sum of partial[b][i] over the blocks b that took a tile, in block order; 0 where none
-// did (no unmasked edge)
-__global__ void __launch_bounds__(THREADS)
-sum_partials_kernel(const float* __restrict__ partial, int blocks,
-                    const int* __restrict__ count_ptr, long p, float* __restrict__ out) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  const int tiles = blocks > 0 ? (*count_ptr + FTE - 1) / FTE : 0;
-  const int used = tiles < blocks ? tiles : blocks;
-  float s = 0.f;
-  for (int b = 0; b < used; ++b) s += partial[(long)b * p + i];
-  out[i] = s;
-}
-
 // Shared-memory bytes of a kernel whose first layout needs `resident` bytes and second `wide`:
 // the first where it fits one block's opt-in limit, else the second. Sets *fits to whether the
 // first does (the forward: W1 staged; the backward: W2 staged).
@@ -846,8 +836,8 @@ int bwd(const float* x, const float* gd, const float* gs, const float* ea, const
                            relu_edge, blocks, smem, stream);
   if (err != cudaSuccess) return err;
   const long p = grad_floats(k, h, fo);
-  sum_partials_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      partial, blocks, count, p, grads);
+  fixed_order_sum::sum_partials_kernel<<<(unsigned)((p + THREADS - 1) / THREADS), THREADS, 0,
+                                          stream>>>(partial, blocks, FTE, count, p, grads);
   return cudaGetLastError();
 }
 
@@ -863,6 +853,22 @@ int fused_relational_w1_shared(int fx, int fe, int h, int fo) {
   bool w1_shared = true;
   pick_layout(smem_floats(2 * fx + fe, h, fo, true), 0, &w1_shared);
   return w1_shared ? 1 : 0;
+}
+
+// 1 where the forward (backward = 0) or the backward (1) fits one block's shared memory at these
+// widths in the layout pick_layout chooses, 0 where neither of its layouts does: the wrapper then
+// takes csrc/fused_relational_wide.cu.
+int fused_relational_fits(int fx, int fe, int h, int fo, int backward) {
+  const int k = 2 * fx + fe;
+  bool first = true;
+  const size_t bytes = backward ? pick_layout(bwd_smem_floats(k, h, fo, true),
+                                              bwd_smem_floats(k, h, fo, false), &first)
+                                : pick_layout(smem_floats(k, h, fo, true),
+                                              smem_floats(k, h, fo, false), &first);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return bytes <= (size_t)optin ? 1 : 0;
 }
 
 // edge_index is [2, E] int32 (row 0 source, row 1 target); ids [E] int32 the edge ids,

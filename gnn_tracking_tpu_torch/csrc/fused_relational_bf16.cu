@@ -87,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fixed_order_sum.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -909,20 +911,6 @@ bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gd, const bf16* 
   }
 }
 
-// out[i] = bf16(sum of partial[b][i] over the blocks b that took a tile, in block order); 0
-// where none did (no unmasked edge)
-__global__ void __launch_bounds__(256)
-sum_partials_kernel(const float* __restrict__ partial, int blocks,
-                    const int* __restrict__ count_ptr, long p, bf16* __restrict__ out) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p) return;
-  const int tiles = blocks > 0 ? (*count_ptr + TE - 1) / TE : 0;
-  const int used = tiles < blocks ? tiles : blocks;
-  float s = 0.f;
-  for (int b = 0; b < used; ++b) s += partial[(long)b * p + i];
-  out[i] = __float2bfloat16_rn(s);
-}
-
 // The largest dynamic shared memory a block of the current device can opt into
 int smem_optin() {
   int dev = 0, optin = 0;
@@ -1015,8 +1003,8 @@ int launch_bwd(const bf16* x, const bf16* gd, const bf16* gs, const bf16* ea,
     if (err != cudaSuccess) return err;
   }
   const long p = (long)h * k + h + (long)h * h + h + (long)fo * h + fo;
-  sum_partials_kernel<<<(unsigned)((p + 255) / 256), 256, 0, stream>>>(partial, grid, count, p,
-                                                                        grads);
+  fixed_order_sum::sum_partials_kernel<<<(unsigned)((p + 255) / 256), 256, 0, stream>>>(
+      partial, grid, TE, count, p, grads);
   return cudaGetLastError();
 }
 

@@ -45,6 +45,11 @@
 //    bounds check.
 // No per-query state lives in shared memory: registers set the occupancy (one block of 16 warps an
 // SM, 8 at D > 16; 16-64 queries a block read the candidates from L2).
+//  * Above DP = 32 (d > 32, padded to a multiple of 4 and known at run time): tiles stream
+//    through the ring in slabs of up to 32 dimensions, and a lane's 8 candidates of a tile carry
+//    their sums across the slabs (topk_select_wide_kernel; one query a warp), so shared memory holds no
+//    more than at DP = 32 whatever d is. The sums run over the dimensions ascending as above, and
+//    the selection is the same code (take_step).
 //  * k > MAX_K (the warp queue's 512 keys): the wrapper runs ceil(k / 512) passes. A pass after
 //    the first takes a key floor a query (the last key of the pass before; FLOOR below) and keeps
 //    only the candidates whose key is above it. Keys are unique, so the passes' outputs, one after
@@ -53,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -232,6 +239,70 @@ __device__ __forceinline__ void insert_key(uint64_t (&w)[K], uint64_t x, uint64_
   tau = kth_key<K>(w, k);
 }
 
+// One step's selection for Q queries and U candidates a lane (d2: their distances; `any`: the
+// lane holds a candidate that may pass its query's tau). Behind one vote, the self, batch, floor
+// and exact key compares; a step that takes at most INSERT keys inserts them one by one into the
+// warp queues (no thread-queue round trip), a denser step pushes them into the thread queues and
+// merges those that may not take the next step's U keys.
+template <int K, int T, int Q, int U, unsigned INSERT, bool FLOOR>
+__device__ __forceinline__ void take_step(const float (&d2)[Q][U], const int (&cb)[U],
+                                          const int (&cc)[U], bool any, const int (&qb)[Q],
+                                          const int (&qx)[Q], const uint64_t (&fl)[Q],
+                                          uint64_t (&w)[Q][K], uint64_t (&b)[Q][T],
+                                          int (&cnt)[Q], uint64_t (&tau)[Q], int lane, int k) {
+  if (!__any_sync(FULL, any)) return;
+  uint64_t key[Q][U];
+  bool take[Q][U];
+  unsigned takes = 0;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      key[q][u] = (static_cast<uint64_t>(__float_as_uint(d2[q][u])) << 32) |
+                  static_cast<unsigned>(cc[u]);
+      take[q][u] = cb[u] == qb[q] && cc[u] != qx[q] && key[q][u] < tau[q] &&
+                   (!FLOOR || key[q][u] > fl[q]);
+      takes += take[q][u];
+    }
+  }
+  if (__reduce_add_sync(FULL, takes) <= INSERT) {
+    // a few keys: each goes straight into its warp queue (no thread-queue round trip)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        for (unsigned m = __ballot_sync(FULL, take[q][u]); m != 0; m &= m - 1) {
+          const uint64_t x = shfl64(key[q][u], __ffs(m) - 1);
+          if (x < tau[q]) insert_key<K>(w[q], x, tau[q], lane, k);
+        }
+      }
+    }
+  } else {
+    bool full = false;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (take[q][u]) {
+#pragma unroll
+          for (int r = T - 1; r > 0; --r) b[q][r] = b[q][r - 1];
+          b[q][0] = key[q][u];
+          ++cnt[q];
+        }
+      }
+      full |= cnt[q] > T - U;  // the next step may push U keys
+    }
+    if (__any_sync(FULL, full)) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (__any_sync(FULL, cnt[q] > T - U)) {
+          merge_queues<K, T>(w[q], b[q], cnt[q], tau[q], lane, k);
+        }
+      }
+    }
+  }
+}
+
 template <int DP, int K>
 __device__ __forceinline__ void load_tile(float4* stage, const float4* __restrict__ xp,
                                           const int* __restrict__ cbatch, int c0) {
@@ -354,58 +425,7 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
           any |= near[u] && __float_as_uint(acc) <= static_cast<unsigned>(tau[q] >> 32);
         }
       }
-      if (__any_sync(FULL, any)) {
-        uint64_t key[Q][U];
-        bool take[Q][U];
-        unsigned takes = 0;
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            key[q][u] = (static_cast<uint64_t>(__float_as_uint(d2[q][u])) << 32) |
-                        static_cast<unsigned>(cc[u]);
-            take[q][u] = cb[u] == qb[q] && cc[u] != qx[q] && key[q][u] < tau[q] &&
-                         (!FLOOR || key[q][u] > fl[q]);
-            takes += take[q][u];
-          }
-        }
-        if (__reduce_add_sync(FULL, takes) <= C::INSERT) {
-          // a few keys: each goes straight into its warp queue (no thread-queue round trip)
-#pragma unroll
-          for (int q = 0; q < Q; ++q) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-              for (unsigned m = __ballot_sync(FULL, take[q][u]); m != 0; m &= m - 1) {
-                const uint64_t x = shfl64(key[q][u], __ffs(m) - 1);
-                if (x < tau[q]) insert_key<K>(w[q], x, tau[q], lane, k);
-              }
-            }
-          }
-        } else {
-          bool full = false;
-#pragma unroll
-          for (int q = 0; q < Q; ++q) {
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-              if (take[q][u]) {
-#pragma unroll
-                for (int r = T - 1; r > 0; --r) b[q][r] = b[q][r - 1];
-                b[q][0] = key[q][u];
-                ++cnt[q];
-              }
-            }
-            full |= cnt[q] > T - U;  // the next step may push U keys
-          }
-          if (__any_sync(FULL, full)) {
-#pragma unroll
-            for (int q = 0; q < Q; ++q) {
-              if (__any_sync(FULL, cnt[q] > T - U)) {
-                merge_queues<K, T>(w[q], b[q], cnt[q], tau[q], lane, k);
-              }
-            }
-          }
-        }
-      }
+      take_step<K, T, Q, U, C::INSERT, FLOOR>(d2, cb, cc, any, qb, qx, fl, w, b, cnt, tau, lane, k);
     }
   }
   if (!active) return;
@@ -424,6 +444,175 @@ topk_select_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch
       out_i[base + i] = filled ? static_cast<int>(static_cast<unsigned>(key)) : 0;
     }
   }
+}
+
+// The kernel for DP > 32 padded dimensions (a multiple of 4, known at run time), any k of the warp
+// queue: one query a warp; tiles of TC candidates, each streamed through the same ring in slabs of
+// DC dimensions, the last slab of a tile narrower where DC does not divide DP (plane p of a slab:
+// dimensions 4p..4p+3 of the slab's, as above);
+// a lane sums the distances of its TC / 32 candidates of the tile over the slabs, fmaf over the
+// dimensions ascending, exactly as the kernel above (so every d2 has the same bits), the query's
+// DC coordinates of a slab coming from device memory (the same address in every lane); after
+// the tile's last slab it runs the same selection over them, U a step.
+// f(std::integral_constant<int, W>{}) for the run-time w in 1 .. N: a slab's width as a constant,
+// so that its loops unroll fully
+template <int N, typename F>
+__device__ __forceinline__ void with_width(int w, F f) {
+  if constexpr (N > 1) {
+    if (w < N) return with_width<N - 1>(w, f);
+  }
+  f(std::integral_constant<int, N>{});
+}
+
+struct Wide {
+  static constexpr int TC = 256, DC = 32, PC = DC / 4, WARPS = 8, U = 2;
+  static constexpr int SLAB_F4 = TC * PC + TC / 4;  // float4s of one ring buffer
+};
+
+template <int K, bool FLOOR>
+__global__ void __launch_bounds__(Wide::WARPS * 32, 1)
+topk_select_wide_kernel(const float4* __restrict__ xp, const int* __restrict__ cbatch,
+                        const int* __restrict__ qbatch, const uint64_t* __restrict__ floor,
+                        int n, int dp, int k, int loop, uint64_t sentinel,
+                        float* __restrict__ out_d, int* __restrict__ out_i) {
+  constexpr int T = K < 8 ? K : 8, U = Wide::U, TC = Wide::TC, PC = Wide::PC;
+  constexpr int CPL = TC / 32;  // candidates of a tile a lane
+  constexpr unsigned INSERT = K <= 4 ? 16 : 6;
+  constexpr int THREADS = Wide::WARPS * 32;
+  extern __shared__ float4 smem[];
+
+  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * Wide::WARPS + (threadIdx.x >> 5);
+  const bool active = q0 < n;  // warp-uniform
+  const int qi = min(q0, n - 1);
+  const int P = dp / 4, nc = (P + PC - 1) / PC;  // slabs a tile; the last may be narrower
+  const float4* qrow = xp + (long)qi * P;
+  int qb[1] = {qbatch[qi]}, qx[1] = {loop ? -1 : qi}, cnt[1] = {0};
+  uint64_t w[1][K], b[1][T], tau[1] = {sentinel}, fl[1] = {FLOOR ? floor[qi] : 0ull};
+#pragma unroll
+  for (int r = 0; r < K; ++r) w[0][r] = sentinel;
+#pragma unroll
+  for (int r = 0; r < T; ++r) b[0][r] = EMPTY;
+
+  // slab s: tile s / nc, its float4 columns PC (s % nc) .. (at most PC, fewer in a tile's last
+  // slab where PC does not divide P); the tile's batch ids with its last slab
+  auto load_slab = [&](float4* stage, int s) {
+    const int c0 = (s / nc) * TC, c = s % nc, pc = min(PC, P - c * PC);
+    for (int e = threadIdx.x; e < TC * pc; e += THREADS) {
+      const int ci = e / pc, p = e % pc;
+      cp_async16(stage + p * TC + ci, xp + (long)(c0 + ci) * P + c * PC + p);
+    }
+    if (c == nc - 1) {
+      int* tb = reinterpret_cast<int*>(stage + TC * PC);
+      for (int e = threadIdx.x; e < TC / 4; e += THREADS) cp_async16(tb + 4 * e, cbatch + c0 + 4 * e);
+    }
+  };
+  const int slabs = (n + TC - 1) / TC * nc;
+  load_slab(smem, 0);
+  cp_async_commit();
+  if (slabs > 1) load_slab(smem + Wide::SLAB_F4, 1);
+  cp_async_commit();
+  float acc[CPL];
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<1>();  // slab s has landed (slab s + 1 may be in flight)
+    __syncthreads();     // ... for every thread's copies, and every warp is done with slab s - 1
+    if (s + 2 < slabs) load_slab(smem + ((s + 2) % STAGES) * Wide::SLAB_F4, s + 2);
+    cp_async_commit();
+    if (!active) continue;
+    const float4* planes = smem + (s % STAGES) * Wide::SLAB_F4;
+    const int c = s % nc, pc = min(PC, P - c * PC);
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
+    }
+    with_width<PC>(pc, [&](auto width) {  // the slab's float4 columns, known at compile time
+      constexpr int W = decltype(width)::value;
+      float qv[4 * W];
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        const float4 v = __ldg(qrow + c * PC + p);
+        qv[4 * p] = v.x;
+        qv[4 * p + 1] = v.y;
+        qv[4 * p + 2] = v.z;
+        qv[4 * p + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+#pragma unroll
+        for (int p = 0; p < W; ++p) {
+          const float4 v = planes[p * TC + i * 32 + lane];
+          const float cv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float df = qv[4 * p + j] - cv[j];
+            acc[i] = fmaf(df, df, acc[i]);
+          }
+        }
+      }
+    });
+    if (c != nc - 1) continue;
+    // whole tiles: the rows past n are NaN, whose keys are never below tau
+    const int* tb = reinterpret_cast<const int*>(planes + TC * PC);
+    const int c0 = (s / nc) * TC;
+#pragma unroll
+    for (int rr = 0; rr < CPL; rr += U) {
+      float d2[1][U];
+      int cb[U], cc[U];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int ci = (rr + u) * 32 + lane;
+        cb[u] = tb[ci];
+        cc[u] = c0 + ci;
+        d2[0][u] = acc[rr + u];
+        any |= cb[u] == qb[0] && __float_as_uint(acc[rr + u]) <= static_cast<unsigned>(tau[0] >> 32);
+      }
+      take_step<K, T, 1, U, INSERT, FLOOR>(d2, cb, cc, any, qb, qx, fl, w, b, cnt, tau, lane, k);
+    }
+  }
+  if (!active) return;
+  if (__any_sync(FULL, cnt[0] > 0)) merge_queues<K, T>(w[0], b[0], cnt[0], tau[0], lane, k);
+  const long base = (long)q0 * k;
+#pragma unroll
+  for (int r = 0; r < K; ++r) {
+    const int i = lane * K + r;
+    if (i >= k) continue;
+    const uint64_t key = w[0][r];
+    const bool filled = key < sentinel;
+    out_d[base + i] = filled ? __uint_as_float(static_cast<unsigned>(key >> 32)) : INFINITY;
+    out_i[base + i] = filled ? static_cast<int>(static_cast<unsigned>(key)) : 0;
+  }
+}
+
+template <int K, bool FLOOR = false>
+cudaError_t launch_wide(const float* xp, const int* cbatch, const int* qbatch,
+                        const uint64_t* floor, int n, int dp, int k, int loop, uint64_t sentinel,
+                        float* out_d, int* out_i, cudaStream_t stream) {
+  static_assert(CAND_ALIGN % Wide::TC == 0, "tiles must divide the candidate padding");
+  const size_t smem = (size_t)STAGES * Wide::SLAB_F4 * sizeof(float4);
+  cudaError_t err = cudaFuncSetAttribute(topk_select_wide_kernel<K, FLOOR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (n + Wide::WARPS - 1) / Wide::WARPS;
+  topk_select_wide_kernel<K, FLOOR><<<grid, Wide::WARPS * 32, smem, stream>>>(
+      reinterpret_cast<const float4*>(xp), cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d,
+      out_i);
+  return cudaGetLastError();
+}
+
+// The queue for k as in launch_k; dp > 32 at run time
+cudaError_t launch_wide_k(const float* xp, const int* cbatch, const int* qbatch,
+                          const uint64_t* floor, int n, int dp, int k, int loop,
+                          uint64_t sentinel, float* out_d, int* out_i, cudaStream_t stream) {
+  if (floor != nullptr) {
+    return launch_wide<16, true>(xp, cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d, out_i,
+                                 stream);
+  }
+  const int per_lane = (k + 31) / 32;
+  if (per_lane <= 2) return launch_wide<2>(xp, cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d, out_i, stream);
+  if (per_lane <= 4) return launch_wide<4>(xp, cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d, out_i, stream);
+  if (per_lane <= 8) return launch_wide<8>(xp, cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d, out_i, stream);
+  return launch_wide<16>(xp, cbatch, qbatch, floor, n, dp, k, loop, sentinel, out_d, out_i, stream);
 }
 
 template <int DP, int K, bool FLOOR = false>
@@ -467,8 +656,9 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // xp [rows, dp] f32: the points (masked queries already zero-substituted), zero-padded to dp
-// columns, then NaN rows to rows, a multiple of CAND_ALIGN (whole tiles: the scan reads every row
-// of a tile); cbatch [rows] i32 (-2 = masked); qbatch [n] i32; outputs [n, k].
+// columns (4, 8, 16 or 32, or above 32 a multiple of 4: the run-time-d kernel), then NaN rows to
+// rows, a multiple of CAND_ALIGN (whole tiles: the scan reads every row of a tile); cbatch [rows]
+// i32 (-2 = masked); qbatch [n] i32; outputs [n, k].
 // sentinel = (float_bits(radius2) << 32) | 0xFFFFFFFF, radius2 = +inf for plain k-nearest, 0 to
 // admit nothing. floor: null, or [n] keys (as int64, all below 2^63) that each query's candidates
 // must exceed (a pass after the first for k > MAX_K).
@@ -486,6 +676,9 @@ int pairwise_topk_filter(const float* xp, const int* cbatch, const int* qbatch,
   if (dp == 8) return launch_k<8>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
   if (dp == 16) return launch_k<16>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
   if (dp == 32) return launch_k<32>(xp, cbatch, qbatch, f, n, k, loop, s, out_d, out_i, stream);
+  if (dp > 32 && dp % 4 == 0) {
+    return launch_wide_k(xp, cbatch, qbatch, f, n, dp, k, loop, s, out_d, out_i, stream);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -48,6 +48,9 @@
 //  M (merge): one thread a query. The S sorted lists, in split (= index) order, each from its head
 //    while below the k-th distance so far, go through P's insertion, so ties stay at the lower
 //    index. Writes k slots, (+inf, 0) where unfilled.
+// Above DP = 32 (d > 32, padded to a multiple of 4 and known at run time) P streams slabs of 32
+// candidates x up to 32 dimensions and a thread carries its query's 32 sums across a group's slabs
+// (topk_partial_wide_kernel, R = 1): shared memory stays at 12.4 KiB whatever d is. M is the same.
 // R and S (pairwise_topk_split_plan): R = 2 where its query blocks fill the card's resident blocks
 // once, else 1; then S splits so that the grid fills them about twice.
 
@@ -57,6 +60,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -350,6 +354,184 @@ topk_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part
   }
 }
 
+// P for DP > 32 padded dimensions (a multiple of 4, known at run time): R = 1, the list in
+// registers as above. The live tiles come through the ring in slabs of WG = 32 candidates x up to
+// WDC dimensions ([candidate][dimension], read as broadcasts); a thread sums the distances of a
+// group's WG candidates to its query over the group's slabs, fmaf over the dimensions ascending
+// (the query's WDC coordinates of a slab from device memory), exactly as P and row #12 sum them,
+// then tests and inserts them in index order. Tiles are skipped and bounds shared as in P.
+constexpr int WG = 32, WDC = 32, WPC = WDC / 4;
+
+// f(std::integral_constant<int, W>{}) for the run-time w in 1 .. N: a slab's width as a constant,
+// so that its loops unroll fully
+template <int N, typename F>
+__device__ __forceinline__ void with_width(int w, F f) {
+  if constexpr (N > 1) {
+    if (w < N) return with_width<N - 1>(w, f);
+  }
+  f(std::integral_constant<int, N>{});
+}
+constexpr int WSLAB_F4 = WG * WPC + WG / 4;  // float4s of one ring buffer: points, batch ids
+constexpr size_t WSMEM = (size_t)STAGES * WSLAB_F4 * sizeof(float4);
+
+template <int K>
+__global__ void __launch_bounds__(THREADS)
+topk_partial_wide_kernel(const float4* __restrict__ xp, const int* __restrict__ batch,
+                         const int2* __restrict__ trange, unsigned* __restrict__ bound, int n,
+                         int tiles, int dp, int k, int loop, int span_tiles,
+                         float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ float4 smem[];
+  __shared__ int qrange[2];
+
+  const int t = threadIdx.x;
+  const int q = blockIdx.x * THREADS + t;  // < rows: the query blocks fit the padding
+  const int s = blockIdx.y;
+  const int t_begin = s * span_tiles;
+  const int t_end = min(tiles, t_begin + span_tiles);
+  // slabs a tile: a group's nc slabs of at most WPC float4 columns each (fewer in the last where
+  // WPC does not divide P)
+  const int P = dp / 4, nc = (P + WPC - 1) / WPC, spt = TC / WG * nc;
+  const float4* qrow = xp + (long)q * P;
+
+  float d[K], thr = INFINITY;
+  int ix[K];
+  const int qb = batch[q];
+  const int qs = loop ? -1 : q;  // the candidate a query excludes (none with `loop`)
+  const bool qvalid = !isnan(qrow[0].x);
+  init_list<K>(d, ix, k);
+  if (t == 0) {
+    qrange[0] = INT_MAX;
+    qrange[1] = INT_MIN;
+  }
+  __syncthreads();
+  const int lo = __reduce_min_sync(FULL, qvalid ? qb : INT_MAX);
+  const int hi = __reduce_max_sync(FULL, qvalid ? qb : INT_MIN);
+  if ((t & 31) == 0) {
+    atomicMin(&qrange[0], lo);
+    atomicMax(&qrange[1], hi);
+  }
+  __syncthreads();
+  const int qlo = qrange[0], qhi = qrange[1];
+  auto next_live = [&](int tt) {
+    for (; tt < t_end; ++tt) {
+      const int2 b = trange[tt];
+      if (b.x <= qhi && b.y >= qlo) break;
+    }
+    return tt;
+  };
+  // a slab is (tile, j): group j / nc of the tile, dimensions WDC (j % nc) ..; tile t_end: none
+  auto advance = [&](int2 c) {
+    return c.y + 1 < spt ? make_int2(c.x, c.y + 1) : make_int2(next_live(c.x + 1), 0);
+  };
+  auto load_slab = [&](float4* stage, int2 c) {
+    const long r0 = (long)c.x * TC + c.y / nc * WG;
+    const int dim4 = c.y % nc * WPC, pc = min(WPC, P - dim4);
+    for (int e = t; e < WG * pc; e += THREADS) {
+      cp_async16(stage + e / pc * WPC + e % pc, xp + (r0 + e / pc) * P + dim4 + e % pc);
+    }
+    int* tb = reinterpret_cast<int*>(stage + WG * WPC);
+    if (t < WG / 4) cp_async16(tb + 4 * t, batch + r0 + 4 * t);
+  };
+
+  int2 cur = make_int2(next_live(t_begin), 0);
+  int2 nxt = cur.x < t_end ? advance(cur) : cur;
+  if (cur.x < t_end) load_slab(smem, cur);
+  cp_async_commit();
+  if (nxt.x < t_end) load_slab(smem + WSLAB_F4, nxt);
+  cp_async_commit();
+  float acc[WG];
+  for (int i = 0; cur.x < t_end; ++i) {
+    cp_async_wait<1>();  // slab i has landed (slab i + 1 may be in flight)
+    __syncthreads();     // ... for every thread's copies, and every thread is done with slab i - 1
+    const int2 after = nxt.x < t_end ? advance(nxt) : nxt;
+    if (after.x < t_end) load_slab(smem + ((i + 2) % STAGES) * WSLAB_F4, after);
+    cp_async_commit();
+    const float4* slab = smem + (i % STAGES) * WSLAB_F4;
+    const int c = cur.y % nc, pc = min(WPC, P - c * WPC);
+    if (c == 0) {
+#pragma unroll
+      for (int g = 0; g < WG; ++g) acc[g] = 0.f;
+    }
+    with_width<WPC>(pc, [&](auto width) {  // the slab's float4 columns, known at compile time
+      constexpr int W = decltype(width)::value;
+      float qv[4 * W];
+#pragma unroll
+      for (int p = 0; p < W; ++p) {
+        const float4 v = __ldg(qrow + c * WPC + p);
+        qv[4 * p] = v.x;
+        qv[4 * p + 1] = v.y;
+        qv[4 * p + 2] = v.z;
+        qv[4 * p + 3] = v.w;
+      }
+#pragma unroll
+      for (int g = 0; g < WG; ++g) {
+#pragma unroll
+        for (int p = 0; p < W; ++p) {
+          const float4 v = slab[g * WPC + p];  // the same address in every lane: a broadcast
+          const float cv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float df = qv[4 * p + j] - cv[j];
+            acc[g] = fmaf(df, df, acc[g]);
+          }
+        }
+      }
+    });
+    if (c == nc - 1) {
+      const int* tb = reinterpret_cast<const int*>(slab + WG * WPC);
+      const int c0 = cur.x * TC + cur.y / nc * WG;
+#pragma unroll
+      for (int g = 0; g < WG; ++g) {  // in index order
+        if (acc[g] < thr && tb[g] == qb && c0 + g != qs) {
+          insert<K>(d, ix, acc[g], c0 + g);
+          thr = fminf(thr, d[K - 1]);
+        }
+      }
+      if (cur.y == spt - 1) {  // the tile's last slab: share the k-th distance, as P does
+        const unsigned mine = __float_as_uint(d[K - 1]);
+        const unsigned b = min(atomicMin(bound + q, mine), mine);
+        thr = fminf(d[K - 1], b < 0x7f800000u ? __uint_as_float(b + 1) : INFINITY);
+      }
+    }
+    cur = nxt;
+    nxt = after;
+  }
+  if (q >= n) return;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (j < K - k) continue;  // the -inf slots
+    const long off = ((long)s * k + j - (K - k)) * n + q;
+    part_d[off] = d[j];
+    part_i[off] = ix[j];
+  }
+}
+
+// Call f(std::integral_constant<int, K>{}) for the list length K (a power of two, 1 .. KS).
+template <typename F>
+cudaError_t with_list(int kk, F&& f) {
+  switch (kk) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline int list_len(int k) {
+  int kk = 1;
+  while (kk < k) kk *= 2;
+  return kk;
+}
+
+template <int K>
+cudaError_t set_wide_smem() {
+  return cudaFuncSetAttribute(topk_partial_wide_kernel<K>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM);
+}
+
 // Call f(Cfg<DP, K, R>{}) for the run-time (dp, K, r); cudaErrorInvalidValue where not built.
 template <int DP, int K, typename F>
 cudaError_t with_r(int r, F& f) {
@@ -411,22 +593,38 @@ int pairwise_topk_split_plan(int n, int dp, int k, void* out) {
   const long tiles = ((long)n + CAND_ALIGN - 1) / CAND_ALIGN * (CAND_ALIGN / TC);
   long qblocks = 0, slots = 0;
   int r = 0;
-  for (int want : {2, 1}) {
+  if (dp > 32) {  // the run-time-d P: R = 1
     int per_sm = 0;
-    err = with_cfg(dp, k, want, [&](auto c) {
-      using C = decltype(c);
-      cudaError_t e = set_smem<C>();
+    err = with_list(list_len(k), [&](auto kc) {
+      constexpr int K = decltype(kc)::value;
+      cudaError_t e = set_wide_smem<K>();
       if (e != cudaSuccess) return e;
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, topk_partial_kernel<C::DP, C::K, C::R>, THREADS, C::SMEM);
+          &per_sm, topk_partial_wide_kernel<K>, THREADS, WSMEM);
     });
-    if (err == cudaErrorInvalidValue && want > 1) continue;  // not built for this (dp, k)
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    r = want;
-    qblocks = ((long)n + THREADS * r - 1) / (THREADS * r);
+    r = 1;
+    qblocks = ((long)n + THREADS - 1) / THREADS;
     slots = (long)sms * per_sm;
-    if (qblocks >= slots) break;  // one full wave of resident blocks without splitting
+  } else {
+    for (int want : {2, 1}) {
+      int per_sm = 0;
+      err = with_cfg(dp, k, want, [&](auto c) {
+        using C = decltype(c);
+        cudaError_t e = set_smem<C>();
+        if (e != cudaSuccess) return e;
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, topk_partial_kernel<C::DP, C::K, C::R>, THREADS, C::SMEM);
+      });
+      if (err == cudaErrorInvalidValue && want > 1) continue;  // not built for this (dp, k)
+      if (err != cudaSuccess) return err;
+      if (per_sm < 1) return cudaErrorInvalidConfiguration;
+      r = want;
+      qblocks = ((long)n + THREADS * r - 1) / (THREADS * r);
+      slots = (long)sms * per_sm;
+      if (qblocks >= slots) break;  // one full wave of resident blocks without splitting
+    }
   }
   long s = (2 * slots + qblocks - 1) / qblocks;  // about two waves
   if (s > tiles) s = tiles;
@@ -441,9 +639,10 @@ int pairwise_topk_split_plan(int n, int dp, int k, void* out) {
 
 // x [n, d] f32; mask [n] u8 or null (all valid); batch [n] i32 or null (all 0). Scratch: xp
 // [rows, dp] f32, bp [rows] i32 (rows: n rounded up to CAND_ALIGN; dp: d rounded up to 4, 8, 16
-// or 32), `scratch` rows / TC int2 then rows u32, partials [splits, k, n] (f32, i32). Outputs
-// [n, k]. r, splits and span_tiles as pairwise_topk_split_plan gives them (or another R built
-// for this k and dp). The layout pass, P and M on `stream`.
+// or 32, or above 32 to a multiple of 4: the run-time-d P, R = 1), `scratch` rows / TC int2
+// then rows u32, partials [splits, k, n] (f32, i32). Outputs [n, k]. r, splits and span_tiles as
+// pairwise_topk_split_plan gives them (or another R built for this k and dp). The layout pass, P
+// and M on `stream`.
 int pairwise_topk_split(const float* x, const uint8_t* mask, const int* batch, float* xp, int* bp,
                         void* scratch, float* part_d, int* part_i, float* out_d, int* out_i,
                         int n, int d, int rows, int dp, int k, int loop, int r, int splits,
@@ -464,6 +663,23 @@ int pairwise_topk_split(const float* x, const uint8_t* mask, const int* batch, f
                                                       bound);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (dp > 32) {
+    if (dp % 4 != 0 || r != 1) return cudaErrorInvalidValue;
+    return with_list(list_len(k), [&](auto kc) {
+      constexpr int K = decltype(kc)::value;
+      cudaError_t e = set_wide_smem<K>();
+      if (e != cudaSuccess) return e;
+      const dim3 grid((n + THREADS - 1) / THREADS, splits);
+      topk_partial_wide_kernel<K><<<grid, THREADS, WSMEM, stream>>>(
+          reinterpret_cast<const float4*>(xp), bp, tr, bound, n, tiles, dp, k, loop, span_tiles,
+          part_d, part_i);
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      topk_merge_kernel<K><<<(n + MB - 1) / MB, MB, 0, stream>>>(part_d, part_i, n, k, splits,
+                                                                 out_d, out_i);
+      return cudaGetLastError();
+    });
+  }
   return with_cfg(dp, k, r, [&](auto c) {
     using C = decltype(c);
     cudaError_t e = set_smem<C>();

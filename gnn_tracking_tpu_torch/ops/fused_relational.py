@@ -22,7 +22,12 @@ backward. Weights use PyTorch's ``[out, in]`` layout.
 The kernels take widths ``(Fx, Fe, H, Fo)`` that are multiples of 32 in
 bf16 and H and Fo that are multiples of 4 in f32; other widths are
 zero-padded to those (``_Padding``, exact) and the outputs and gradients cut
-back.
+back. Widths whose weights and tiles do not fit one block's shared memory
+in those kernels' layouts take the wide layout, ``csrc/fused_relational_wide.cu``
+(:func:`fused_relational_wide_fwd` / :func:`fused_relational_wide_bwd`: the
+weights read from device memory, both dtypes, the save flag and the saved
+rows), chosen by each wrapper before it launches anything: no width is
+refused.
 
 **bf16.** When ``x``, ``edge_attr`` and the weights are bfloat16 the op
 takes the bf16 route, the JAX kernels' ``compute_dtype="bfloat16"``
@@ -48,6 +53,7 @@ gradients are bitwise those of the recomputing pair.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -64,6 +70,13 @@ _SIGNATURES = {
     "fused_relational_bwd": [_build.P] * 19 + [_build.I] * 7 + [_build.P],
     "fused_relational_bwd_saved": [_build.P] * 20 + [_build.I] * 7 + [_build.P],
     "fused_relational_w1_shared": [_build.I] * 4,
+    "fused_relational_fits": [_build.I] * 5,
+}
+# the wide layout's C entries (csrc/fused_relational_wide.cu): both dtypes, every width
+_SIGNATURES_WIDE = {
+    "fused_relational_wide_plan": [_build.I] * 5 + [_build.P],
+    "fused_relational_wide_fwd": [_build.P] * 15 + [_build.I] * 9 + [_build.P],
+    "fused_relational_wide_bwd": [_build.P] * 22 + [_build.I] * 8 + [_build.P],
 }
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
 # relu_edge (and the backward's block count), then the stream
@@ -303,17 +316,22 @@ _compact.calls = 0
 def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save,
              partition):
     """Launch C entry ``entry`` (row #1, or C32 with ``save``) on ``partition``
-    (``_compact``'s, computed here when None), then row #9's sum."""
+    (``_compact``'s, computed here when None), then row #9's sum; or, where
+    neither of the entry's layouts fits one block's shared memory, the wide
+    layout. Returns the outputs and whether ``entry`` was the one launched."""
     pad = _Padding.of(x, edge_attr, weights)
     if pad is not None:
-        out = _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, pad.weights(weights), rowptr,
-                       relu_edge, save, partition)
-        return pad.unpad(out[0], 3), pad.unpad(out[1], 3), *out[2:]
+        out, resident = _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, pad.weights(weights),
+                                 rowptr, relu_edge, save, partition)
+        return (pad.unpad(out[0], 3), pad.unpad(out[1], 3), *out[2:]), resident
     n, e, fx, fe, h, fo = _check_inputs(
         entry, x, edge_attr, edge_index, edge_mask, weights,
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
     )
     dev = x.device
+    if not _resident_fits(torch.float32, False, (fx, fe, h, fo), dev):
+        return fused_relational_wide_fwd(x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr,
+                                         relu_edge=relu_edge, save=save, partition=partition), False
     e_out = torch.empty((e, fo), dtype=torch.float32, device=dev)
     saved = [torch.empty((e, fx), dtype=torch.float32, device=dev) for _ in range(2 if save else 0)]
     lib = _build.library("fused_relational", _SIGNATURES)
@@ -328,7 +346,7 @@ def _fwd_f32(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_e
             _build.stream_ptr(dev),
         )
         _build.check(lib, err, entry)
-    return e_out, segment_sum_csr(e_out, rowptr), *saved
+    return (e_out, segment_sum_csr(e_out, rowptr), *saved), True
 
 
 def fused_relational_fwd(
@@ -349,14 +367,15 @@ def fused_relational_fwd(
     segment-sum (``rowptr`` required). Widths whose weights do not
     fit one block's shared memory keep ``W1`` in device memory and read it
     transposed (``ec.yml``'s K = 192, H = 128, Fo = 64); those whose tiles
-    and other weights do not fit even so raise ``RuntimeError``."""
+    and other weights do not fit even so take the wide layout
+    (:func:`fused_relational_wide_fwd`)."""
     if x.device.type == "cpu":
         return fused_relational_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge
         )
-    out = _fwd_f32("fused_relational_fwd", x, edge_attr, edge_index, edge_mask, weights, rowptr,
-                   relu_edge, False, partition)
-    fused_relational_fwd.launches += 1
+    out, resident = _fwd_f32("fused_relational_fwd", x, edge_attr, edge_index, edge_mask, weights,
+                             rowptr, relu_edge, False, partition)
+    fused_relational_fwd.launches += resident
     return out
 
 
@@ -369,9 +388,9 @@ def fused_relational_fwd_save(
     if x.device.type == "cpu":
         return fused_relational_fwd_save_plain(
             x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
-    out = _fwd_f32("fused_relational_fwd_save", x, edge_attr, edge_index, edge_mask, weights,
-                   rowptr, relu_edge, True, partition)
-    fused_relational_fwd_save.launches += 1
+    out, resident = _fwd_f32("fused_relational_fwd_save", x, edge_attr, edge_index, edge_mask,
+                             weights, rowptr, relu_edge, True, partition)
+    fused_relational_fwd_save.launches += resident
     return out
 
 
@@ -380,13 +399,15 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
     """Launch C entry ``what`` (row #2 from ``x``, or D32 from the saved rows
     ``gd``, ``gs``) on the unmasked edges (the forward's ``partition``, or
     ``_compact``'s computed here when None), then row #9's per-target and
-    per-source sums."""
+    per-source sums; or, where neither of the entry's layouts fits one
+    block's shared memory, the wide layout. Returns the outputs and whether
+    ``what`` was the one launched."""
     pad = _Padding.of(gd if x is None else x, edge_attr, weights)
     if pad is not None:
-        g_x, g_ea, grads = _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask,
-                                    pad.weights(weights), pad.cols(g_e_out, 3),
-                                    pad.cols(g_agg, 3), csr, num_nodes, relu_edge, partition)
-        return g_x, g_ea, pad.grads(grads)
+        (g_x, g_ea, grads), resident = _bwd_f32(
+            what, x, gd, gs, edge_attr, edge_index, edge_mask, pad.weights(weights),
+            pad.cols(g_e_out, 3), pad.cols(g_agg, 3), csr, num_nodes, relu_edge, partition)
+        return (g_x, g_ea, pad.grads(grads)), resident
     e, fo, n = edge_attr.shape[0], weights["w3"].shape[0], num_nodes
     extra = [
         ("g_e_out", g_e_out, torch.float32, (e, fo)),
@@ -402,6 +423,10 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
         extra.append(("gs", gs, torch.float32, tuple(gd.shape)))
     _, _, fx, fe, h, _ = _check_inputs(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
     dev = edge_attr.device
+    if not _resident_fits(torch.float32, True, (fx, fe, h, fo), dev):
+        return fused_relational_wide_bwd(x, gd, gs, edge_attr, edge_index, edge_mask, weights,
+                                         g_e_out, g_agg, csr, num_nodes, relu_edge=relu_edge,
+                                         partition=partition), False
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
@@ -439,7 +464,7 @@ def _bwd_f32(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out
         name: part.view(shape)
         for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
     }
-    return g_x, g_ea, grads
+    return (g_x, g_ea, grads), True
 
 
 def fused_relational_bwd(
@@ -464,15 +489,17 @@ def fused_relational_bwd(
     per-edge node gradients per target and per source
     (``sorted_segment_sum`` kernel); ``csr`` must hold ``dst_rowptr``,
     ``src_perm`` and ``src_rowptr``. Widths whose tiles do not fit one
-    block's shared memory raise ``RuntimeError``."""
+    block's shared memory take the wide layout
+    (:func:`fused_relational_wide_bwd`)."""
     if x.device.type == "cpu":
         return fused_relational_bwd_plain(
             x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg,
             relu_edge=relu_edge,
         )
-    out = _bwd_f32("fused_relational_bwd", x, None, None, edge_attr, edge_index, edge_mask,
-                   weights, g_e_out, g_agg, csr, x.shape[0], relu_edge, partition)
-    fused_relational_bwd.launches += 1
+    out, resident = _bwd_f32("fused_relational_bwd", x, None, None, edge_attr, edge_index,
+                             edge_mask, weights, g_e_out, g_agg, csr, x.shape[0], relu_edge,
+                             partition)
+    fused_relational_bwd.launches += resident
     return out
 
 
@@ -486,9 +513,10 @@ def fused_relational_bwd_saved(
         return fused_relational_bwd_saved_plain(
             gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
             relu_edge=relu_edge)
-    out = _bwd_f32("fused_relational_bwd_saved", None, gd, gs, edge_attr, edge_index, edge_mask,
-                   weights, g_e_out, g_agg, csr, num_nodes, relu_edge, partition)
-    fused_relational_bwd_saved.launches += 1
+    out, resident = _bwd_f32("fused_relational_bwd_saved", None, gd, gs, edge_attr, edge_index,
+                             edge_mask, weights, g_e_out, g_agg, csr, num_nodes, relu_edge,
+                             partition)
+    fused_relational_bwd_saved.launches += resident
     return out
 
 
@@ -605,13 +633,24 @@ def _smem_need(entry: str, widths: tuple[int, int, int, int], device: int) -> tu
     return getattr(lib, entry)(*widths), lib.fused_relational_bf16_smem_optin()
 
 
-def _check_smem(what, entry, widths, dev):
-    """Refuse widths whose weights and tiles exceed one block's shared memory."""
-    need, limit = _smem_need(entry, widths, dev.index if dev.index is not None else 0)
-    if need > limit:
-        msg = (f"{what}: widths (Fx, Fe, H, Fo) = {widths} need {need} bytes of shared "
-               f"memory a block, more than the {limit} one block of this card can take")
-        raise ValueError(msg)
+@functools.lru_cache(maxsize=None)
+def _f32_fits(backward: bool, widths: tuple[int, int, int, int], device: int) -> bool:
+    """Whether rows #1 / #2 (C32 / D32) fit one block's shared memory at
+    ``widths`` in one of their two layouts (``device``: the cache key)."""
+    lib = _build.library("fused_relational", _SIGNATURES)
+    return bool(lib.fused_relational_fits(*widths, int(backward)))
+
+
+def _resident_fits(dtype, backward: bool, widths, dev) -> bool:
+    """Whether the resident kernels (rows #1 / #2 and C32 / D32 in f32, A-D
+    in bf16) take ``widths``, from the figures their C entries report; where
+    not, the wrappers take the wide layout."""
+    index = dev.index if dev.index is not None else 0
+    if dtype == torch.float32:
+        return _f32_fits(backward, widths, index)
+    entry = "fused_relational_bf16_bwd_smem" if backward else "fused_relational_bf16_fwd_smem"
+    need, limit = _smem_need(entry, widths, index)
+    return need <= limit
 
 
 def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_edge, save,
@@ -620,7 +659,7 @@ def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_
     (``partition``, or ``_compact``'s computed here when None), then row #9's
     sum. Returns the outputs and whether the entry was launched (not for
     ``E = 0``). Widths whose weights and tiles exceed one block's shared
-    memory raise ``ValueError``."""
+    memory take the wide layout (:func:`fused_relational_wide_fwd`)."""
     pad = _Padding.of(x, edge_attr, weights)
     if pad is not None:
         (e_out, agg, *saved), launched = _fwd_bf16(
@@ -632,7 +671,9 @@ def _fwd_bf16(entry, x, edge_attr, edge_index, edge_mask, weights, rowptr, relu_
         [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))],
     )
     dev = x.device
-    _check_smem(entry, "fused_relational_bf16_fwd_smem", (fx, fe, h, fo), dev)
+    if not _resident_fits(torch.bfloat16, False, (fx, fe, h, fo), dev):
+        return fused_relational_wide_fwd(x, edge_attr, edge_index, edge_mask, weights, rowptr=rowptr,
+                                         relu_edge=relu_edge, save=save, partition=partition), False
     e_out = torch.empty((e, fo), dtype=torch.bfloat16, device=dev)
     saved = [torch.empty((e, fx), dtype=torch.bfloat16, device=dev) for _ in range(2 if save else 0)]
     if e > 0:
@@ -690,7 +731,8 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
     ``_compact``'s computed here when None), then row #9's
     per-target and per-source sums. Returns the outputs and whether the
     entry was launched (not for ``E = 0``). Widths whose weights and tiles
-    exceed one block's shared memory raise ``ValueError``."""
+    exceed one block's shared memory take the wide layout
+    (:func:`fused_relational_wide_bwd`)."""
     pad = _Padding.of(gd if x is None else x, edge_attr, weights)
     if pad is not None:
         (g_x, g_ea, grads), launched = _bwd_bf16(
@@ -713,7 +755,10 @@ def _bwd_bf16(what, x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_ou
         extra.append(("gs", gs, torch.bfloat16, tuple(gd.shape)))
     _, _, fx, fe, h, _ = _check_bf16(what, rows_in, edge_attr, edge_index, edge_mask, weights, extra)
     dev = edge_attr.device
-    _check_smem(what, "fused_relational_bf16_bwd_smem", (fx, fe, h, fo), dev)
+    if not _resident_fits(torch.bfloat16, True, (fx, fe, h, fo), dev):
+        return fused_relational_wide_bwd(x, gd, gs, edge_attr, edge_index, edge_mask, weights,
+                                         g_e_out, g_agg, csr, num_nodes, relu_edge=relu_edge,
+                                         partition=partition), False
     k = 2 * fx + fe
     shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
     sizes = [torch.Size(s).numel() for s in shapes.values()]
@@ -791,6 +836,160 @@ fused_relational_bf16_fwd.launches = 0
 fused_relational_bf16_fwd_save.launches = 0
 fused_relational_bf16_bwd.launches = 0
 fused_relational_bf16_bwd_saved.launches = 0
+
+
+# ------------------------------------------------------------------- wide layout
+def _wide_plan(lib, widths, backward: bool, dev) -> tuple[torch.Tensor | None, int]:
+    """``(scratch, blocks)`` of the wide kernel at ``widths``: its tiles' slice
+    of device memory a block (None where they fit shared memory; the C plan
+    says) and the most blocks it serves, one an SM."""
+    buf = (ctypes.c_long * 2)()
+    _build.check(lib, lib.fused_relational_wide_plan(*widths, int(backward), ctypes.addressof(buf)),
+                 "fused_relational_wide_plan")
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = (torch.empty(blocks * buf[1], dtype=torch.float32, device=dev) if buf[1] else None)
+    return scratch, blocks
+
+
+def _wide_inputs(what, rows, edge_attr, edge_index, edge_mask, weights, extra):
+    """The wide kernel's input checks (``rows``: ``x`` or the saved ``x[dst]``;
+    f32 or bf16 throughout) and its widths ``(fx, fe, h, fo)``."""
+    dtype = rows.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        msg = f"{what}: float32 or bfloat16 inputs, got {dtype}"
+        raise ValueError(msg)
+    _, _, fx, fe, h, fo = _check_inputs(what, rows, edge_attr, edge_index, edge_mask, weights,
+                                        extra, dtype=dtype)
+    return fx, fe, h, fo
+
+
+def fused_relational_wide_fwd(
+    x, edge_attr, edge_index, edge_mask, weights, *, rowptr=None, relu_edge=False, save=False,
+    partition=None,
+):
+    """The forward in the wide layout (``csrc/fused_relational_wide.cu``), f32
+    or bf16 as ``x``: ``(e_tilde [E, Fo], agg [N, Fo])``, and with ``save``
+    the gathered endpoint rows ``x[dst]``, ``x[src]`` after them. The
+    wrappers of rows #1 / C32 and A / C take it where their layouts do not
+    fit; any width runs (H and Fo are zero-padded to multiples of 4 in f32,
+    all widths to 32 in bf16, as there). CPU tensors take the plain
+    version."""
+    bf16 = x.dtype == torch.bfloat16
+    if x.device.type == "cpu":
+        fn = ((fused_relational_bf16_fwd_save_plain if save else fused_relational_bf16_plain) if bf16
+              else (fused_relational_fwd_save_plain if save else fused_relational_plain))
+        return fn(x, edge_attr, edge_index, edge_mask, weights, relu_edge=relu_edge)
+    pad = _Padding.of(x, edge_attr, weights)
+    if pad is not None:
+        e_out, agg, *saved = fused_relational_wide_fwd(
+            pad.cols(x, 0), pad.cols(edge_attr, 1), edge_index, edge_mask, pad.weights(weights),
+            rowptr=rowptr, relu_edge=relu_edge, save=save, partition=partition)
+        return pad.unpad(e_out, 3), pad.unpad(agg, 3), *(pad.unpad(t, 0) for t in saved)
+    fx, fe, h, fo = _wide_inputs("fused_relational_wide_fwd", x, edge_attr, edge_index, edge_mask,
+                                 weights, [("rowptr", rowptr, torch.int32, (x.shape[0] + 1,))])
+    dev, e = x.device, edge_attr.shape[0]
+    e_out = torch.empty((e, fo), dtype=x.dtype, device=dev)
+    saved = [torch.empty((e, fx), dtype=x.dtype, device=dev) for _ in range(2 if save else 0)]
+    if e > 0:
+        lib = _build.library("fused_relational_wide", _SIGNATURES_WIDE)
+        scratch, blocks = _wide_plan(lib, (fx, fe, h, fo), False, dev)
+        ids, count = _compact(edge_mask) if partition is None else partition
+        w = {key: v.float() for key, v in weights.items()}
+        # each product reads its weight along 16-byte rows: W1^T, W2^T, W3^T
+        wts = [w["w1"].t().contiguous(), w["w2"].t().contiguous(), w["w3"].t().contiguous()]
+        p = _build.ptr
+        err = lib.fused_relational_wide_fwd(
+            p(x), p(edge_attr), p(edge_index), p(ids), p(count), p(wts[0]), p(w["b1"]), p(wts[1]),
+            p(w["b2"]), p(wts[2]), p(w["b3"]), p(e_out), *(p(t) for t in saved),
+            *([None, None] if not save else []), None if scratch is None else p(scratch),
+            e, fx, fe, h, fo, int(relu_edge), int(bf16), int(save), blocks,
+            _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, "fused_relational_wide_fwd")
+        fused_relational_wide_fwd.launches += 1
+    agg = segment_sum_csr(e_out, rowptr)
+    return (e_out, agg.to(x.dtype), *saved)
+
+
+def fused_relational_wide_bwd(
+    x, gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, csr, num_nodes, *,
+    relu_edge=False, partition=None,
+):
+    """The backward in the wide layout (``csrc/fused_relational_wide.cu``), f32
+    or bf16 as its inputs, from ``x`` or (``x`` None) from the saved rows
+    ``gd = x[dst]``, ``gs = x[src]``: ``(g_x [N, Fx], g_edge_attr [E, Fe],
+    weight gradients)``, then row #9's per-target and per-source sums, as
+    :func:`fused_relational_bwd` and :func:`fused_relational_bf16_bwd` give
+    them. The weight gradients' sums have a fixed order: a second launch
+    gives the same bits. CPU tensors take the plain version."""
+    rows = gd if x is None else x
+    bf16 = rows.dtype == torch.bfloat16
+    if rows.device.type == "cpu":
+        if x is not None:
+            fn = fused_relational_bf16_bwd_plain if bf16 else fused_relational_bwd_plain
+            return fn(x, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg,
+                      relu_edge=relu_edge)
+        fn = fused_relational_bf16_bwd_saved_plain if bf16 else fused_relational_bwd_saved_plain
+        return fn(gd, gs, edge_attr, edge_index, edge_mask, weights, g_e_out, g_agg, num_nodes,
+                  relu_edge=relu_edge)
+    pad = _Padding.of(rows, edge_attr, weights)
+    if pad is not None:
+        g_x, g_ea, grads = fused_relational_wide_bwd(
+            pad.cols(x, 0), pad.cols(gd, 0), pad.cols(gs, 0), pad.cols(edge_attr, 1), edge_index,
+            edge_mask, pad.weights(weights), pad.cols(g_e_out, 3), pad.cols(g_agg, 3), csr,
+            num_nodes, relu_edge=relu_edge, partition=partition)
+        return pad.unpad(g_x, 0), pad.unpad(g_ea, 1), pad.grads(grads)
+    e, fo, n, dtype = edge_attr.shape[0], weights["w3"].shape[0], num_nodes, rows.dtype
+    extra = [
+        ("g_e_out", g_e_out, dtype, (e, fo)),
+        ("g_agg", g_agg, dtype, (n, fo)),
+        ("dst_rowptr", csr.get("dst_rowptr"), torch.int32, (n + 1,)),
+        ("src_perm", csr.get("src_perm"), torch.int32, (e,)),
+        ("src_rowptr", csr.get("src_rowptr"), torch.int32, (n + 1,)),
+    ]
+    if x is None:  # the saved x[dst] stands in for x in the checks, x[src] beside it
+        extra.append(("gs", gs, dtype, tuple(gd.shape)))
+    fx, fe, h, fo = _wide_inputs("fused_relational_wide_bwd", rows, edge_attr, edge_index,
+                                 edge_mask, weights, extra)
+    dev, k = edge_attr.device, 2 * fx + fe
+    shapes = {"w1": (h, k), "b1": (h,), "w2": (h, h), "b2": (h,), "w3": (fo, h), "b3": (fo,)}
+    sizes = [torch.Size(s).numel() for s in shapes.values()]
+    g_xd = torch.empty((e, fx), dtype=dtype, device=dev)
+    g_xs = torch.empty((e, fx), dtype=dtype, device=dev)
+    g_ea = torch.empty((e, fe), dtype=dtype, device=dev)
+    packed = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    if e > 0:
+        lib = _build.library("fused_relational_wide", _SIGNATURES_WIDE)
+        scratch, blocks = _wide_plan(lib, (fx, fe, h, fo), True, dev)
+        partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
+        ids, count = _compact(edge_mask) if partition is None else partition
+        w = {key: v.float().contiguous() for key, v in weights.items()}
+        # W1^T and W2^T for the recompute, W1 (rows padded to a multiple of 4), W2 and W3 for the
+        # input gradients: each read along 16-byte rows
+        wts = [w["w1"].t().contiguous(), w["w2"].t().contiguous(), F.pad(w["w1"], (0, -k % 4))]
+        p = _build.ptr
+        rows_p = [p(x), None, None] if x is not None else [None, p(gd), p(gs)]
+        err = lib.fused_relational_wide_bwd(
+            *rows_p, p(edge_attr), p(edge_index), p(ids), p(count), p(wts[0]), p(w["b1"]),
+            p(wts[1]), p(w["b2"]), p(wts[2]), p(w["w2"]), p(w["w3"]), p(g_e_out), p(g_agg),
+            p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
+            None if scratch is None else p(scratch), e, fx, fe, h, fo, int(relu_edge), int(bf16),
+            blocks, _build.stream_ptr(dev),
+        )
+        _build.check(lib, err, "fused_relational_wide_bwd")
+        fused_relational_wide_bwd.launches += 1
+    g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
+    g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
+    grads = {
+        name: part.view(shape).to(dtype)
+        for (name, shape), part in zip(shapes.items(), torch.split(packed, sizes))
+    }
+    return g_x.to(dtype), g_ea, grads
+
+
+#: kernel launches (csrc/fused_relational_wide.cu, both dtypes), counted where each launches
+fused_relational_wide_fwd.launches = 0
+fused_relational_wide_bwd.launches = 0
 
 
 class FusedRelational(torch.autograd.Function):

@@ -21,6 +21,13 @@ differ in their masked queries and options:
   0)`` in every slot; ``pairwise_topk_streaming`` takes no ``batch``. The
   split kernels take ``k <= MAX_K_SPLIT``; a larger ``k`` takes the filter
   kernel's passes.
+
+Every kernel takes any dimension ``d``: up to 32 the coordinates sit in
+registers at a width fixed when the kernel is built (4, 8, 16 or 32), above
+32 they stream in slabs of up to 32 dimensions whose partial sums a thread carries
+(``_padded_dim``). Each ``d2`` is the same chain of ``fmaf`` over the
+dimensions ascending in all three, so rows #13 / #11 are bitwise row #12 on
+unmasked rows at every ``d``.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ import torch
 
 from gnn_tracking_tpu_torch import _build
 
-MAX_DIM = 32
 #: largest k of the split kernels (KS: a list of at most 32 slots a query in registers)
 MAX_K_SPLIT = 32
 #: candidates a tile of the split kernels (one batch range a tile)
@@ -184,9 +190,11 @@ def pairwise_topk_filter_passes_plain(
 
 
 def _padded_dim(d: int) -> int:
-    """Columns of the filter kernel's point rows: ``d`` rounded up to 4, 8,
-    16 or 32 (16-byte rows; the zero columns add nothing to a distance)."""
-    return next(p for p in (4, 8, 16, 32) if d <= p)
+    """Columns of the kernels' point rows: ``d`` rounded up to 4, 8, 16 or
+    32 (16-byte rows; the zero columns add nothing to a distance), and
+    above 32 to a multiple of 4 (the kernels' run-time-d paths, which sum
+    the distances over slabs of up to 32 dimensions)."""
+    return next((p for p in (4, 8, 16, 32) if d <= p), -(-d // 4) * 4)
 
 
 def _radius_sentinel(radius2: float | None) -> int:
@@ -250,17 +258,14 @@ pairwise_topk_filter.launches = 0
 
 
 def _check_cuda(what, x, node_mask, batch) -> None:
-    """The CUDA kernels' input checks: device, dtype, width, mask and batch
+    """The CUDA kernels' input checks: device, dtype, mask and batch
     shapes."""
     if x.device.type != "cuda":
         msg = f"{what}: unsupported device {x.device}"
         raise ValueError(msg)
-    n, d = x.shape
+    n = x.shape[0]
     if x.dtype != torch.float32:
         msg = f"{what}: x must be float32 on CUDA, got {x.dtype}"
-        raise ValueError(msg)
-    if d > MAX_DIM:
-        msg = f"{what}: at most {MAX_DIM} dimensions, got {d}"
         raise ValueError(msg)
     for name, t in (("node_mask", node_mask), ("batch", batch)):
         if t is not None and (t.device != x.device or tuple(t.shape) != (n,)):

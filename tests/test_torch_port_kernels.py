@@ -67,6 +67,7 @@ from gnn_tracking_tpu_torch.ops.fused_relational import (
     fused_relational_bwd_saved_plain,
     fused_relational_fwd,
     fused_relational_plain,
+    fused_relational_wide_fwd,
 )
 from gnn_tracking_tpu_torch.ops.pairwise_topk import (
     pairwise_topk_filter,
@@ -588,6 +589,11 @@ def test_cuda_fused_relational_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_fused_relational_rejects_widths_beyond_shared_memory(cuda):
+    """(Named when these widths were refused; it now checks that they run.)
+    Widths whose tiles and weights exceed one block's shared memory in
+    both of row #1's layouts are no longer refused: the wrapper takes the
+    wide layout (``csrc/fused_relational_wide.cu``), which matches the plain
+    version; the next launch at narrow widths is row #1's, unaffected."""
     n, e = 64, 256
     dst = torch.sort(torch.randint(0, n, (e,), device=cuda)).values.int()
     ei = torch.stack([torch.randint(0, n, (e,), device=cuda).int(), dst])
@@ -599,11 +605,17 @@ def test_cuda_fused_relational_rejects_widths_beyond_shared_memory(cuda):
                 "w2": torch.randn(h, h, device=cuda), "b2": torch.randn(h, device=cuda),
                 "w3": torch.randn(fo, h, device=cuda), "b3": torch.randn(fo, device=cuda)}
 
-    # W1 alone is 384 x 256 f32 = 384 KiB, beyond one block's shared memory
+    # W1 alone is 384 x 256 f32 = 384 KiB, beyond one block's shared memory, and W2 256 KiB
     x, ea = torch.randn(n, 128, device=cuda), torch.randn(e, 128, device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        fused_relational_fwd(x, ea, ei, mask, weights(384, 256, 8), rowptr=rowptr)
-    # the error does not leak into the next launch
+    w = {k: v * 0.05 for k, v in weights(384, 256, 8).items()}
+    wide, resident = fused_relational_wide_fwd.launches, fused_relational_fwd.launches
+    et, agg = fused_relational_fwd(x, ea, ei, mask, w, rowptr=rowptr)
+    pet, pagg = fused_relational_plain(x, ea, ei, mask, w)
+    torch.cuda.synchronize()
+    assert fused_relational_wide_fwd.launches == wide + 1 and fused_relational_fwd.launches == resident
+    assert (et - pet).abs().max() <= 1e-4 * pet.abs().max()
+    assert (agg - pagg).abs().max() <= 1e-4 * pagg.abs().max()
+    # the next launch, at widths row #1 takes
     x, ea = torch.randn(n, 8, device=cuda), torch.randn(e, 8, device=cuda)
     w = weights(24, 32, 8)
     et, agg = fused_relational_fwd(x, ea, ei, mask, w, rowptr=rowptr)
