@@ -235,6 +235,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -2058,9 +2059,169 @@ def compare_digests(what: str, sums: dict, path: Path) -> list[str] | None:
     return both
 
 
+def probe_pairs(xb, xc, nbr) -> tuple[float, float]:
+    """Row #15's pairs on a table: real query slots x real candidate slots
+    of the probed cells (real: every coordinate below 2^62 in magnitude, the
+    kernel's class; an empty slot holds 1e30), and every query slot x every
+    candidate slot of the probed cells (the table's)."""
+    real = lambda x: (x.abs() < 2.0**62).all(dim=-1)
+    nq, nc = real(xb).sum(dim=1).double(), real(xc).sum(dim=1).double()
+    table = float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1])
+    return float((nq * nc[nbr.long()].sum(dim=1)).sum()), table
+
+
+def probe_inputs(seed: int) -> list[tuple]:
+    """Row #15's cases as ``(name, args, kwargs)``: the probes of phase 8
+    (a)'s four first attempts (the benchmark cloud at k = 8, its first 32,768
+    points at k = 128 and 256, the 40-d cloud at k = 8), the benchmark
+    cloud's build with 10 % of the points masked (holes inside the filled
+    prefixes), and the k = 8 tables with ``loop``, with every slab's slots
+    shuffled (empty slots anywhere), and with "other" slots (huge and NaN
+    coordinates: their cells take every slot) and empty slots whose ids
+    differ (the slab's ids scanned for an empty query's row), ``loop`` both
+    ways. The k-means sums run deterministically, so every run builds the
+    same tables; only ``ivf_knn`` and ``ivf_probe``'s signature are used, so
+    ``--probe-only --package-root`` runs another tree on the same inputs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import ivf_knn
+
+    dev = torch.device("cuda")
+    bench = torch.from_numpy(make_bench_latent(seed + 92, GC_HITS)[0]).to(dev)
+    small = bench[:ML_HITS].contiguous()
+    wide = torch.from_numpy(make_wide_cloud(seed + 94, WIDE_HITS, WIDE_DIM)).to(dev)
+    mask = torch.from_numpy(np.random.default_rng(seed + 95).random(GC_HITS) > 0.1).to(dev)
+    calls, undo = capture(ivf_knn, "ivf_probe")
+    # deterministic k-means sums (index_add_), so that two runs build the same tables
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for x, k, m in ((bench, GC_K, None), (small, IVF_WIDE_K, None), (small, BAND_WIDE_K, None),
+                            (wide, GC_K, None), (bench, GC_K, mask)):
+                ivf_knn.ivf_knn(x, k=k, node_mask=m, fallback=False)
+    finally:
+        torch.use_deterministic_algorithms(was)
+        undo()
+    names = ["bench_k8", f"bench32k_k{IVF_WIDE_K}", f"bench32k_k{BAND_WIDE_K}", f"d{WIDE_DIM}_k8", "bench_k8_holes"]
+    cases = [(name, a, kw) for name, (a, kw) in zip(names, calls)]
+    (xb, ib, xc, ic, nbr), kw8 = calls[0]
+    cases.append(("bench_k8_loop", calls[0][0], {**kw8, "loop": True}))
+    gen = torch.Generator(device=dev).manual_seed(seed + 96)
+    pb = torch.argsort(torch.rand(xb.shape[:2], generator=gen, device=dev), dim=1)
+    pc = torch.argsort(torch.rand(xc.shape[:2], generator=gen, device=dev), dim=1)
+    take = lambda t, perm: torch.gather(t, 1, perm if t.dim() == 2 else perm[..., None].expand(-1, -1, t.shape[2]))
+    shuffled = (take(xb, pb).contiguous(), take(ib, pb).contiguous(), take(xc, pc).contiguous(),
+                take(ic, pc).contiguous(), nbr)
+    xc2, ic2, xb2 = xc.clone(), ic.clone(), xb.clone()
+    cells = torch.arange(0, xc.shape[0], 97, device=dev)
+    xc2[cells, -1, 0] = 1e25
+    xc2[cells + 1, -2, 1] = math.nan
+    xb2[cells + 2, -1, 0] = -1e21
+    empty = xc2[..., 0] == 1e30
+    ic2[empty] = (torch.cumsum(empty.reshape(-1), 0).reshape(empty.shape)[empty] % 3).to(torch.int32)
+    other = (xb2, ib, xc2, ic2, nbr)
+    for loop in (False, True):
+        suffix = "_loop" if loop else ""
+        cases.append(("bench_k8_shuffled" + suffix, shuffled, {**kw8, "loop": loop}))
+        cases.append(("bench_k8_other_ids" + suffix, other, {**kw8, "loop": loop}))
+    return cases
+
+
+def probe_timings(seed: int) -> dict:
+    """Row #15 on ``probe_inputs``: each case repeat bitwise and against its
+    plain version (``compare_topk``), timed as a Python call (``cuda_ms``) and
+    on the device (``graph_ms``: the whole call, every kernel it launches),
+    beside the bound (the tables once, the outputs once, 3 flops a dimension
+    for every real pair) and the instruction floor (``pairs_floor_ms``) of the
+    real pairs and of the table's pairs."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import ivf_probe
+
+    out = {}
+    for name, args, kw in probe_inputs(seed):
+        call = lambda: ivf_probe.ivf_probe(*args, **kw)
+        kd, ki = call()
+        kd2, ki2 = call()
+        pd, pi = ivf_probe.ivf_probe_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"ivf_probe ({name}): second call differs"
+        err, nb, nt = compare_topk(kd, ki, pd, pi, None)
+        xb, _, xc, _, nbr = args
+        d = xb.shape[2]
+        pairs, table = probe_pairs(xb, xc, nbr)
+        bnd, by = bound(3.0 * d * pairs, nbytes(*args, kd, ki))
+        reps = 5 if cuda_ms(call, reps=1, rounds=1) > 2.0 else 20  # calls of 2 ms and more: fewer
+        r = {"C": xb.shape[0], "cap": xb.shape[1], "capc": xc.shape[1], "T": nbr.shape[1], "d": d,
+             "kw": kw["kw"], "loop": kw.get("loop", False), "max_abs_err": err, "boundary_rows": nb,
+             "tie_rows": nt, "ms": cuda_ms(call, reps=reps), "graph_ms": graph_ms(call, reps=reps),
+             "plain_ms": cuda_ms(lambda: ivf_probe.ivf_probe_plain(*args, **kw), reps=1, rounds=3),
+             "bound_ms": bnd, "bound_by": by, "pairs": pairs, "table_pairs": table,
+             "pairs_floor_ms": pairs_floor_ms(pairs, d), "table_floor_ms": pairs_floor_ms(table, d)}
+        out[name] = r
+        log(f"  ivf_probe {name} (C={r['C']} cap={r['cap']} capc={r['capc']} T={r['T']} d={d} kw={r['kw']} "
+            f"loop={r['loop']}): {r['ms']:.4f} ms a call, {r['graph_ms']:.4f} on the device (plain "
+            f"{r['plain_ms']:.3f}); bound {bnd:.4f} ms by {by}, floor {r['pairs_floor_ms']:.4f} ms on "
+            f"{pairs:.3e} real pairs ({r['table_floor_ms']:.4f} on the table's {table:.3e}); max|err| "
+            f"{err:.3e} vs plain ({nb} boundary, {nt} tie rows), repeat bitwise")
+    log("ivf_probe timings: " + json.dumps(out))
+    return out
+
+
+def gather_inputs(seed: int) -> list[tuple]:
+    """Row #10's cases as ``(name, values, index)`` on phase 3's graph (the
+    serving event ev00, target-sorted: 262,144 edges, 32,768 nodes): F = 32
+    in f32 (phase 3's shape), F = 3 and 33 (rows that are not whole 16-byte
+    vectors), bf16 at F = 64 (the EC step's node width) and 32, and F = 32
+    through the source ids (not sorted: the other endpoint's gather)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+
+    dev = torch.device("cuda")
+    g = EventGraph.from_arrays(**make_event(seed + 10)).sort_edges_by_target().to(dev)
+    src, dst = g.edge_index[0].contiguous(), g.edge_index[1].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed + 97)
+    vals = lambda f, dtype: torch.randn((N_NODES, f), generator=gen, device=dev).to(dtype)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [("f32_F32", vals(32, f32), dst), ("f32_F3", vals(3, f32), dst), ("f32_F33", vals(33, f32), dst),
+            ("bf16_F64", vals(64, bf16), dst), ("bf16_F32", vals(32, bf16), dst),
+            ("f32_F32_src", vals(32, f32), src)]
+
+
+def gather_timings(seed: int) -> dict:
+    """Row #10 on ``gather_inputs``: bitwise ``index_select`` and repeat
+    bitwise; on the device (``graph_ms``) beside ``index_select`` and the
+    bytes bound (values, index and output once each), and as a Python call
+    (``cuda_ms``)."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import csr_segment
+
+    out = {}
+    for name, v, idx in gather_inputs(seed):
+        call = lambda: csr_segment.gather_rows(v, idx)
+        got, again = call(), call()
+        want = torch.index_select(v, 0, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, want), f"sorted_gather ({name}): not index_select"
+        bnd, by = bound(0.0, nbytes(v, idx, got))
+        r = {"E": idx.shape[0], "F": v.shape[1], "dtype": str(v.dtype).split(".")[-1],
+             "ms": graph_ms(call), "call_ms": cuda_ms(call),
+             "index_select_ms": graph_ms(lambda: torch.index_select(v, 0, idx)), "bound_ms": bnd, "bound_by": by}
+        out[name] = r
+        log(f"  sorted_gather {name}: {r['ms']:.4f} ms on the device, {r['call_ms']:.4f} a call; "
+            f"index_select {r['index_select_ms']:.4f} ms; bound {bnd:.4f} ms by {by}; bitwise index_select")
+    log("sorted_gather timings: " + json.dumps(out))
+    return out
+
+
 def bitwise_digests(seed: int, path: Path) -> None:
-    """The outputs of the kernels this tree left in place, on fixed inputs,
-    as digests held against another tree's (``compare_digests``): rows #12
+    """Kernel outputs on fixed inputs, as digests held against another
+    tree's (``compare_digests``): row #15 on ``probe_inputs`` and row #10 on
+    ``gather_inputs`` (redesigned to the parent's bits), and rows #12
     and #13 / #11 at d <= 32 (phase 10 (a)'s input at k = 1, 8, 16, 32, 64,
     256, 300 and 1,024, radius mode, and 3-, 14- and 20-d clouds: the
     kernels' 4, 16 and 32 padded columns), and rows #1 / #2 with C32 / D32
@@ -2123,7 +2284,14 @@ def bitwise_digests(seed: int, path: Path) -> None:
             gd, gs = xe[dst].contiguous(), xe[src].contiguous()
             record(f"{name}_bwd_saved", inputs,
                    lambda: bwd_saved(gd, gs, *args[1:], g_e, g_a, csr, g.num_nodes, relu_edge=True))
-    compare_digests("rows #11-#13 (d <= 32), rows #1 / #2, C32 / D32 and A-D (resident widths)", sums, path)
+    from gnn_tracking_tpu_torch.ops import csr_segment, ivf_probe
+
+    for name, args, kw in probe_inputs(seed):
+        record(f"row15_{name}", args, lambda: ivf_probe.ivf_probe(*args, **kw))
+    for name, v, idx in gather_inputs(seed):
+        record(f"row10_{name}", (v, idx), lambda: csr_segment.gather_rows(v, idx))
+    compare_digests("rows #11-#13 (d <= 32), rows #1 / #2, C32 / D32, A-D (resident widths), row #15 and "
+                    "row #10", sums, path)
 
 
 
@@ -2653,6 +2821,38 @@ def windowed_build_split(x, k: int, rounds: int = 3) -> dict:
     return out
 
 
+def ivf_build_split(x, k: int, rounds: int = 3) -> dict:
+    """``knn_graph_ivf(x, k)`` in the parts ``ivf_knn.record_parts`` records
+    for each attempt (``ivf_knn.PARTS``: the coarse quantization, the
+    bucketing, the probe launch (row #15), the extra pass, the spill probe,
+    the rerank, the certification, the fallback), each between two
+    synchronisations, and the rest (the graph's edges, the retry loop);
+    medians of ``rounds`` builds after one warm-up, and the attempts."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import ivf_knn, knn
+
+    runs = []
+    with ivf_knn.record_parts() as parts, torch.no_grad():
+        for _ in range(rounds + 1):
+            first = len(parts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            knn.knn_graph_ivf(x, k)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            attempts = parts[first:]
+            runs.append({"total_ms": total, "attempts": len(attempts),
+                         **{q: sum(a[q] for a in attempts) for q in ivf_knn.PARTS}})
+    runs = runs[1:]
+    for r in runs:
+        r["rest_ms"] = r["total_ms"] - sum(r[q] for q in ivf_knn.PARTS)
+    out = {key: statistics.median(r[key] for r in runs) for key in ("total_ms", *ivf_knn.PARTS, "rest_ms")}
+    out["attempts"] = runs[0]["attempts"]
+    log(f"IVF build split (medians of {rounds}, synchronised parts): {json.dumps(out)}")
+    return out
+
+
 def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
     """Kernel phases of rows #14 and #15 at the inputs a full-detector build
     gives them, then the three builders at 262,144 points, each held against
@@ -2739,21 +2939,21 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
         assert torch.equal(kd, kd2) and torch.equal(ki, ki2), f"ivf_probe ({what}): second launch differs"
         err15, nb15, nt15 = compare_topk(kd, ki, pd, pi, None)
         ms15 = cuda_ms(lambda: ivf_probe.ivf_probe(*pa, **pkw))
+        dev15 = graph_ms(lambda: ivf_probe.ivf_probe(*pa, **pkw), reps=5, rounds=3)
         plain15 = cuda_ms(lambda: ivf_probe.ivf_probe_plain(*pa, **pkw), reps=1, rounds=3)
-        # the pairs this table needs: valid query slots x valid candidate slots
-        # of the probed cells, at 3 flops per dimension
-        nq = (xb[..., 0].abs() < 1e29).sum(dim=1).double()
-        nc = (xc[..., 0].abs() < 1e29).sum(dim=1).double()
-        pairs15 = float((nq * nc[nbr.long()].sum(dim=1)).sum())
+        # the pairs this table needs (real query slots x real candidate slots of the probed
+        # cells, at 3 flops per dimension) and the table's
+        pairs15, table15 = probe_pairs(xb, xc, nbr)
         d = xb.shape[2]
         bound15, by15 = bound(3.0 * d * pairs15, nbytes(*pa, kd, ki))
-        probe[what] = {"max_abs_err": err15, "ms": ms15, "plain_ms": plain15, "bound_ms": bound15,
-                       "bound_by": by15, "d": d, "kw": pkw["kw"]}
+        probe[what] = {"max_abs_err": err15, "ms": ms15, "graph_ms": dev15, "plain_ms": plain15,
+                       "bound_ms": bound15, "bound_by": by15, "d": d, "kw": pkw["kw"],
+                       "pairs_floor_ms": pairs_floor_ms(pairs15, d), "table_floor_ms": pairs_floor_ms(table15, d)}
         log(f"kernel ivf_probe ({what}): OK max|err| {err15:.3e} ({nb15} k-th boundary rows, {nt15} tie-order "
             f"rows), repeat bitwise; C={xb.shape[0]} cap={xb.shape[1]} capc={xc.shape[1]} T={nbr.shape[1]} "
-            f"d={d} kw={pkw['kw']}; {ms15:.3f} ms (plain {plain15:.3f} ms, bound {bound15:.4f} ms by {by15}, "
-            f"{pairs15:.3e} valid pairs of {float(xb.shape[0] * xb.shape[1] * nbr.shape[1] * xc.shape[1]):.3e} "
-            f"in the table)")
+            f"d={d} kw={pkw['kw']}; {ms15:.3f} ms a call, {dev15:.3f} on the device (plain {plain15:.3f} ms, "
+            f"bound {bound15:.4f} ms by {by15}, instruction floor {probe[what]['pairs_floor_ms']:.4f} ms on "
+            f"{pairs15:.3e} real pairs, {probe[what]['table_floor_ms']:.4f} on the table's {table15:.3e})")
     log(f"IVF stats (benchmark cloud, k = {GC_K}): {stats}")
     # the line's entry is the shape the IVF build runs (the benchmark cloud, k = 8)
     results.append({"name": "ivf_probe", **{k: probe["bench_k8"][k] for k in (
@@ -2858,6 +3058,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
                                           reps=1, rounds=3),
         }
     windowed_split = windowed_build_split(xyz, GC_K)
+    ivf_split = ivf_build_split(bench, GC_K)
     log(f"graph construction: the resident top-k at k = {GC_K} took {route} (knn.SPLIT_MAX_K = "
         f"{knn.SPLIT_MAX_K}): knn_graph {times['knn_resident_ms']:.2f} ms a build on the trained latent; "
         f"row #13 {times['split_topk_262k_ms']:.2f} ms, row #12 {times['topk_262k_ms']:.2f} ms on it")
@@ -2866,7 +3067,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
         "attempts": attempts,
         "uncertified_before_fallback": uncertified, "clusters": geometry,
         "banded_topk_sorted": band, "ivf_probe": probe, "ivf_k128_tie_rows": ivf128_ties,
-        "windowed_split": windowed_split, "edges_kept_by_radius": int(built.edge_mask.sum()),
+        "windowed_split": windowed_split, "ivf_split": ivf_split, "edges_kept_by_radius": int(built.edge_mask.sum()),
         "tie_rows": ties, "ivf_stats": stats,
     }
     log("graph construction: " + json.dumps(summary))
@@ -3864,6 +4065,13 @@ def main(argv=None) -> int:
     p.add_argument("--band-only", action="store_true",
                    help="build, check and time row #14 (banded_topk_sorted) on phase 8's band inputs "
                    "at several k (band_timings), print them and stop")
+    p.add_argument("--probe-only", action="store_true",
+                   help="build, check and time row #15 (ivf_probe) on phase 8 (a)'s tables and the "
+                   "hole, loop, shuffled and other-slot cases (probe_timings), time the IVF build "
+                   "(split into its parts where the package records them), print them and stop")
+    p.add_argument("--gather-only", action="store_true",
+                   help="build, check and time row #10 (sorted_gather) at phase 3's shape, at F = 3 "
+                   "and 33, in bf16 and through the source ids (gather_timings), print them and stop")
     p.add_argument("--digests", type=Path, default=None,
                    help="build, run the kernels this tree left in place on fixed inputs "
                    "(bitwise_digests) and write their output digests to the file, or compare "
@@ -3973,6 +4181,25 @@ def main(argv=None) -> int:
     if args.band_only:
         log(f"package: {root}")
         band_timings(args.seed, args.band_digests, this_tree=root == REPO)
+        print(smi)
+        return 0
+    if args.probe_only:
+        from gnn_tracking_tpu_torch.ops import ivf_knn, knn
+
+        log(f"package: {root}")
+        probe_timings(args.seed)
+        bench = torch.from_numpy(make_bench_latent(args.seed + 92, GC_HITS)[0]).to(dev)
+        if hasattr(ivf_knn, "record_parts"):
+            ivf_build_split(bench, GC_K)
+        else:  # a tree from before the split: the whole build
+            with torch.no_grad():
+                ms = host_ms(lambda: knn.knn_graph_ivf(bench, GC_K), rounds=3)
+            log(f"knn_graph_ivf at k = {GC_K} on the benchmark cloud: {ms:.2f} ms a build (median of 3)")
+        print(smi)
+        return 0
+    if args.gather_only:
+        log(f"package: {root}")
+        gather_timings(args.seed)
         print(smi)
         return 0
     if args.digests is not None:

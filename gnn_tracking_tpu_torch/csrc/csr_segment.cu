@@ -39,12 +39,20 @@
 //    src_rowptr); those reads are random rows.
 //  * bf16 rows (the bf16 fused relational op's e' and per-edge node gradients): each value is
 //    widened to f32; the sums and out stay f32.
-// Gather design: one thread per output element, coalesced writes; exact (f32 or bf16 rows).
+// Gather design (a copy of bits, so one kernel serves f32 and bf16 rows): a group of G lanes a
+// row (G = the row's 16-byte vectors rounded up to a power of 2, at most 32), each lane moving
+// whole 16-byte vectors (4 f32 or 8 bf16 values; elements one at a time where the row's bytes or
+// an address are not a multiple of 16), so a warp reads and writes 32 / G whole rows an
+// instruction. Each thread holds GATHER_ROWS rows in flight: their indices loaded once a row,
+// then every row's loads, then its stores. No division by F. The sorted index is not used: a
+// run of equal rows is read from L2 again, which the bound's bytes do not count.
 // Requires rowptr[0] = 0 and rowptr[n] = rows, as the CSR arrays of a sorted graph have.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -347,16 +355,37 @@ segment_blocks_kernel(const int* __restrict__ rowptr, int n, int f, const void* 
   }
 }
 
-// out[e][c] = values[idx[e]][c]
-template <typename T>
+// out[e] = values[idx[e]], rows of nvec words of type V (uint4: 16-byte vectors; unsigned or
+// unsigned short: single elements); G lanes a row, GATHER_ROWS rows a thread: a warp's rows are
+// [row0, row0 + GATHER_ROWS * 32 / G), instruction k taking rows row0 + k * 32 / G + lane / G.
+constexpr int GATHER_ROWS = 4;
+
+template <typename V>
 __global__ void __launch_bounds__(THREADS)
-gather_rows_kernel(const T* __restrict__ values, const int* __restrict__ idx, long total, int f,
-                   T* __restrict__ out) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const long e = i / f;
-  const int c = (int)(i % f);
-  out[i] = values[(long)idx[e] * f + c];
+gather_rows_kernel(const V* __restrict__ values, const int* __restrict__ idx, int n_edges,
+                   int nvec, int g_lanes, V* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int per_warp = 32 / g_lanes;  // rows a warp instruction
+  const long warp = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long row0 = warp * GATHER_ROWS * per_warp + lane / g_lanes;
+  long e[GATHER_ROWS];
+  long src[GATHER_ROWS];
+#pragma unroll
+  for (int k = 0; k < GATHER_ROWS; ++k) {
+    e[k] = row0 + (long)k * per_warp;
+    src[k] = e[k] < n_edges ? (long)__ldg(idx + e[k]) * nvec : -1;
+  }
+  for (int c = lane % g_lanes; c < nvec; c += g_lanes) {
+    V v[GATHER_ROWS];
+#pragma unroll
+    for (int k = 0; k < GATHER_ROWS; ++k) {
+      if (src[k] >= 0) v[k] = __ldg(values + src[k] + c);
+    }
+#pragma unroll
+    for (int k = 0; k < GATHER_ROWS; ++k) {
+      if (src[k] >= 0) out[e[k] * nvec + c] = v[k];
+    }
+  }
 }
 
 constexpr int MAX_NV = 8;
@@ -443,14 +472,31 @@ int launch_sum(const T* msgs, const int* rowptr, const int* perm, float* out, in
   return cudaGetLastError();
 }
 
+template <typename V>
+cudaError_t launch_gather_words(const V* values, const int* idx, V* out, int n_edges, int nvec,
+                                cudaStream_t stream) {
+  const int g_lanes = group_lanes(nvec);
+  const long rows_per_block = (long)GATHER_ROWS * (32 / g_lanes) * (THREADS / 32);
+  const long blocks = (n_edges + rows_per_block - 1) / rows_per_block;
+  gather_rows_kernel<V><<<(unsigned)blocks, THREADS, 0, stream>>>(values, idx, n_edges, nvec,
+                                                                  g_lanes, out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_gather(const T* values, const int* idx, T* out, int n_edges, int f, void* stream_ptr) {
-  const long total = (long)n_edges * f;
-  if (total > 0) {
-    gather_rows_kernel<T><<<(unsigned)((total + THREADS - 1) / THREADS), THREADS, 0,
-                            static_cast<cudaStream_t>(stream_ptr)>>>(values, idx, total, f, out);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_edges <= 0 || f <= 0) return cudaGetLastError();
+  const long bytes = (long)f * sizeof(T);
+  const bool vec = bytes % 16 == 0 && reinterpret_cast<uintptr_t>(values) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    return launch_gather_words(reinterpret_cast<const uint4*>(values), idx,
+                               reinterpret_cast<uint4*>(out), n_edges, (int)(bytes / 16), stream);
   }
-  return cudaGetLastError();
+  using W = typename std::conditional<sizeof(T) == 4, unsigned, unsigned short>::type;
+  return launch_gather_words(reinterpret_cast<const W*>(values), idx, reinterpret_cast<W*>(out),
+                             n_edges, f, stream);
 }
 
 }  // namespace

@@ -27,11 +27,15 @@ function's ``fast_assign``, ``lloyd_iters`` and ``block_n`` are not
 arguments: cell assignment runs in float32 with TF32 off (the JAX package's
 chip assigns at its default matmul precision; assignment moves cells, never
 the exact result), with the JAX defaults ``LLOYD_ITERS`` and ``BLOCK_N``.
+
+:func:`record_parts` times each call's steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 
 import torch
 
@@ -43,6 +47,49 @@ _FAR = 1e30
 LLOYD_ITERS = 2
 #: points per block of the assignment, extra-pass and certification sweeps
 BLOCK_N = 4096
+#: the steps of an ``ivf_knn`` call that :func:`record_parts` times, in order
+PARTS = ("quantize_ms", "bucket_ms", "probe_ms", "extra_ms", "spill_ms", "rerank_ms", "certify_ms",
+         "fallback_ms")
+#: while ``record_parts`` is open, the list each ``ivf_knn`` call appends its record to
+_parts: list | None = None
+
+
+@contextlib.contextmanager
+def record_parts():
+    """Within the block, each ``ivf_knn`` call appends a record to the
+    yielded list: the host time in ms of each of its steps (``PARTS``: the
+    coarse quantization, the bucketing with its host read, the probe launch
+    (``ivf_probe``), the extra pass, the spill probe, the rerank, the
+    certification with its host read, the fallback), each between two
+    device synchronisations (0 for a step the call skips), and its
+    ``n_probe``. Outside it nothing is synchronised or recorded."""
+    global _parts
+    outer, _parts = _parts, []
+    try:
+        yield _parts
+    finally:
+        _parts = outer
+
+
+class _Laps:
+    """With a record: each ``lap(part)`` adds the time since the last lap
+    (both after a device synchronisation) to ``rec[part]``; without one,
+    nothing."""
+
+    def __init__(self, rec: dict | None, dev: torch.device):
+        self.rec = rec
+        self.sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        if rec is not None:
+            self.sync()
+            self.t = time.perf_counter()
+
+    def lap(self, part: str) -> None:
+        if self.rec is None:
+            return
+        self.sync()
+        now = time.perf_counter()
+        self.rec[part] += (now - self.t) * 1e3
+        self.t = now
 
 
 def _merge_sorted_pairs(da, ia, db, ib, k_out):
@@ -158,6 +205,11 @@ def ivf_knn(
         raise NotImplementedError(msg)
     n, d = x.shape
     dev = x.device
+    rec = None
+    if _parts is not None:
+        rec = {"n_probe": n_probe, **dict.fromkeys(PARTS, 0.0)}
+        _parts.append(rec)
+    laps = _Laps(rec, dev)
     if node_mask is None:
         node_mask = torch.ones(n, dtype=torch.bool, device=dev)
     xf = torch.where(node_mask[:, None], x.float(), 0.0)
@@ -196,6 +248,7 @@ def ivf_knn(
     rad = torch.full((n_cells,), -math.inf, device=dev).scatter_reduce_(
         0, assign, torch.where(node_mask, dist_own, 0.0), "amax"
     )
+    laps.lap("quantize_ms")
 
     # --- 2. bucketing ------------------------------------------------------
     order = torch.argsort(assign, stable=True)
@@ -237,6 +290,7 @@ def ivf_knn(
 
     # --- 3. probe ----------------------------------------------------------
     nbr = _topk_stable(_pdist2(centroids, centroids), n_probe)[1]  # [C, T], self first
+    laps.lap("bucket_ms")
     xc3 = xcb.reshape(n_cells, cand_cap, d)
     ic2 = icb.reshape(n_cells, cand_cap)
     vc2 = vcb.reshape(n_cells, cand_cap)
@@ -255,6 +309,7 @@ def ivf_knn(
     dists = torch.where(has_slot[:, None], pd[take], math.inf)
     idx = torch.where(has_slot[:, None], pi[take], 0)
     rungs = [c for c in (256, 2048) if c < extra_cap] + [extra_cap]
+    laps.lap("probe_ms")
 
     if n_resid > 0:
         # extra pass: every query merges the residual set's top-kw (ids
@@ -271,6 +326,7 @@ def ivf_knn(
             de.append(sd)
             ie.append(ids_r[si])
         dists, idx = _merge_sorted_pairs(dists, idx, torch.cat(de), torch.cat(ie), kw)
+        laps.lap("extra_ms")
 
     if n_spill > 0:
         # spill probe: the spilled queries scan their own cell's probe list
@@ -300,6 +356,7 @@ def ivf_knn(
         keep = valid_c[:, None]
         dists[ids_c] = torch.where(keep, dm, dists[ids_c])
         idx[ids_c] = torch.where(keep, im, idx[ids_c])
+        laps.lap("spill_ms")
 
     # --- 3b. exact distances -------------------------------------------------
     # The probe's distances are already direct and sorted, so its rows are
@@ -322,6 +379,7 @@ def ivf_knn(
             dk[spill_ids] = torch.where(keep, dm, dk[spill_ids])
             ik[spill_ids] = torch.where(keep, im, ik[spill_ids])
         dists, idx = dk, ik
+    laps.lap("rerank_ms")
 
     def ret(unc):
         unc = torch.tensor(unc, device=dev)
@@ -347,6 +405,7 @@ def ivf_knn(
 
     # --- 5. fallback ----------------------------------------------------------
     n_viol = int((~certified).sum())  # host read
+    laps.lap("certify_ms")
     if not fallback:
         return ret(n_viol)
     for cap in [c for c in (256, 1024) if c < fallback_cap] + [fallback_cap]:
@@ -363,4 +422,5 @@ def ivf_knn(
         idx[viol_idx] = torch.where(take_fb, fb_i, idx[viol_idx])
         certified[viol_idx] = True
         n_viol = int((~certified).sum())  # host read
+    laps.lap("fallback_ms")
     return ret(n_viol)

@@ -8,7 +8,13 @@ float32; a candidate with the query's id is excluded unless ``loop``; ties go
 to the first position in the concatenation. Empty slots carry coordinates of
 ``1e30``, whose squared distance overflows to +inf in float32, so they never
 fill a slot. Unfilled slots are ``(+inf, 0)``. The CUDA kernel is
-``csrc/ivf_probe.cu``.
+``csrc/ivf_probe.cu``: at ``d <= 32`` and ``kw <= 32`` (``probe_plan``) it
+first sorts every slot into a class (real: every coordinate below 2^62 in
+magnitude; empty: every coordinate exactly 1e30; other), so that empty slots
+cost no distance, then probes with a warp for each 32 query slots of a cell,
+the lists in registers, skipping each slab whose bounding box lies beyond
+every lane's kw-th distance; its scratch is ``scratch_bytes``. Larger ``d`` or ``kw`` take the kernels that
+walk every slot.
 """
 
 from __future__ import annotations
@@ -22,7 +28,35 @@ from gnn_tracking_tpu_torch import _build
 #: query-candidate pairs per chunk of cells in the plain version
 CHUNK_PAIRS = 1 << 25
 
-_SIGNATURES = {"ivf_probe": [_build.P] * 7 + [_build.I] * 7 + [_build.P]}
+_SIGNATURES = {"ivf_probe": [_build.P] * 8 + [_build.I] * 7 + [_build.P]}
+
+#: the register path's largest ``d`` and ``kw``
+REGISTER_MAX_D = 32
+REGISTER_MAX_KW = 32
+
+
+def probe_plan(d: int, kw: int) -> str:
+    """The kernel's path: ``"register"`` (empty slots skipped, a warp for
+    each 32 query slots, the top-kw in registers) at ``d <= 32`` and ``kw <= 32``,
+    otherwise ``"list"`` (every slot; the lists in shared or device
+    memory, and ``d`` at run time above 32)."""
+    return "register" if d <= REGISTER_MAX_D and kw <= REGISTER_MAX_KW else "list"
+
+
+def padded_dim(d: int) -> int:
+    """The register path's columns: ``d`` rounded up to 4, 8, 16 or 32."""
+    return next(p for p in (4, 8, 16, 32) if d <= p)
+
+
+def scratch_bytes(c: int, cap: int, capc: int, d: int, kw: int) -> int:
+    """The register path's scratch (0 on the list path): per cell 4 + 2
+    ints of slab and query-slab summaries, the slab's box (2 x DP floats,
+    DP = ``padded_dim(d)``), its real rows compacted (``capc`` x (DP floats
+    + an id)) and the query slots in order (``cap`` ints)."""
+    if probe_plan(d, kw) != "register":
+        return 0
+    dp = padded_dim(d)
+    return c * (24 + 8 * dp + 4 * capc * (dp + 1) + 4 * cap)
 
 
 def ivf_probe_plain(
@@ -102,10 +136,13 @@ def ivf_probe(
     xb, ib, xc, ic, nbr = (v.contiguous() for v in (xb, ib, xc, ic, nbr))
     out_d = torch.empty((c * cap, kw), dtype=torch.float32, device=xb.device)
     out_i = torch.empty((c * cap, kw), dtype=torch.int32, device=xb.device)
+    n_scratch = scratch_bytes(c, cap, capc, d, kw)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=xb.device) if n_scratch else None
     lib = _build.library("ivf_probe", _SIGNATURES)
     p = _build.ptr
     err = lib.ivf_probe(
         p(xb), p(ib), p(xc), p(ic), p(nbr), p(out_d), p(out_i),
+        None if scratch is None else p(scratch),
         c, cap, capc, d, t, kw, int(loop), _build.stream_ptr(xb.device),
     )
     _build.check(lib, err, "ivf_probe")

@@ -348,6 +348,94 @@ def test_ivf_probe_plain_matches_pallas_interpret(loop):
         assert (~fin).all(axis=1).any()
 
 
+PROBE_CASES = ["prefix-holes", "empty-cell", "kw-above-valid", "duplicates"]
+
+
+def build_tables(seed, case, c=8, cap=24, capc=48, t=3, d=4):
+    """Slab tables as ``ivf_knn``'s ``build_table`` lays them out: cell i's
+    points sorted by cell, its query slab the first ``cap`` of them and its
+    candidate slab the first ``capc`` (so a query meets itself), each slot
+    valid below the cell's count and unmasked, else empty (1e30, id 0);
+    with duplicate coordinates (exact ties) in every case. ``empty-cell``:
+    cells 0 and 1 hold no point (and every cell probes cell 0);
+    ``kw-above-valid``: at most 3 points a cell, fewer than kw = 12 over 3
+    slabs; ``duplicates``: each point repeated 4 times."""
+    rng = np.random.default_rng(seed)
+    hi = 4 if case == "kw-above-valid" else capc + 1
+    count = rng.integers(0, hi, size=c)
+    if case == "empty-cell":
+        count[:2] = 0
+    pts = rng.normal(size=(c, capc, d)).astype(np.float32)
+    pts[:, 1] = pts[:, 0]
+    if case == "duplicates":
+        pts = np.repeat(pts[:, ::4], 4, axis=1)
+    ids = (rng.permutation(c * capc).reshape(c, capc) + 1).astype(np.int32)
+    valid = (np.arange(capc)[None, :] < count[:, None]) & (rng.random((c, capc)) > 0.1)
+    xc = np.where(valid[..., None], pts, np.float32(1e30)).astype(np.float32)
+    ic = np.where(valid, ids, 0).astype(np.int32)
+    xb, ib = xc[:, :cap].copy(), ic[:, :cap].copy()
+    nbr = np.stack([np.concatenate([[i], rng.choice(np.delete(np.arange(c), i), t - 1, replace=False)])
+                    for i in range(c)]).astype(np.int32)
+    if case == "empty-cell":
+        nbr[2:, -1] = 0
+    return xb, ib, xc, ic, nbr
+
+
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_ivf_probe_plain_matches_pallas_interpret_on_build_tables(case, loop):
+    """The plain version against the Pallas kernel on ``build_tables``: the
+    rows of empty query slots hold (0, 0) entries with ``loop`` (an empty
+    query and an empty candidate lie at distance 0) and nothing without."""
+    xb, ib, xc, ic, nbr = build_tables(31, case)
+    jd, ji = jax_ivf_probe(*(jnp.asarray(a) for a in (xb, ib, xc, ic, nbr)), kw=12, loop=loop,
+                           interpret=True)
+    pd, pi = ivf_probe(*(torch.from_numpy(a) for a in (xb, ib, xc, ic, nbr)), kw=12, loop=loop)
+    assert_probe_equal(pd, pi, jd, ji)
+    pd, pi = pd.numpy(), pi.numpy()
+    empty_q = (xb[..., 0] == np.float32(1e30)).reshape(-1)
+    n_empty_c = (xc[..., 0] == np.float32(1e30)).sum(axis=1)[nbr].sum(axis=1)  # [C]
+    want = np.minimum(np.repeat(n_empty_c, xb.shape[1])[empty_q], 12) if loop else 0
+    assert ((pd[empty_q] == 0).sum(axis=1) == want).all() and (pi[empty_q] == 0).all()
+    assert (~np.isfinite(pd[empty_q]) | (pd[empty_q] == 0)).all()
+    if case == "kw-above-valid":
+        assert (~np.isfinite(pd[~empty_q])).any(axis=1).all()  # every real row has unfilled slots
+
+
+@pytest.mark.parametrize("d,kw,plan,dp", [(1, 1, "register", 4), (3, 16, "register", 4), (8, 16, "register", 8),
+                                          (9, 32, "register", 16), (32, 8, "register", 32), (33, 16, "list", None),
+                                          (8, 33, "list", None), (40, 136, "list", None)])
+def test_probe_plan_and_scratch(d, kw, plan, dp):
+    """The wrapper's plan and scratch size agree with the C entry's layout:
+    per cell 16 + 8 bytes of summaries, a box of 2 x DP floats, capc x (DP
+    + 1) words of compacted candidates and ids, cap words of query slots;
+    none on the list path."""
+    assert port_ivf_probe.probe_plan(d, kw) == plan
+    c, cap, capc = 7, 24, 48
+    want = 0 if dp is None else c * 16 + c * 2 * dp * 4 + c * capc * dp * 4 + c * capc * 4 + c * 8 + c * cap * 4
+    assert port_ivf_probe.scratch_bytes(c, cap, capc, d, kw) == want
+    if dp is not None:
+        assert port_ivf_probe.padded_dim(d) == dp
+
+
+def test_ivf_knn_records_its_parts():
+    """``record_parts``: one record an ``ivf_knn`` call with every step's
+    time (the spill and extra passes where the call runs them); outputs as
+    outside the block; nothing recorded outside it."""
+    x, mask, k, kw = _ivf_case("spill-overflow")
+    xt = torch.from_numpy(x)
+    with port_ivf.record_parts() as parts:
+        got = port_ivf.ivf_knn(xt, k=k, **kw)
+        port_ivf.ivf_knn(xt, k=k, certify=False, **kw)
+    want = port_ivf.ivf_knn(xt, k=k, **kw)
+    assert port_ivf._parts is None and len(parts) == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(set(p) == {"n_probe", *port_ivf.PARTS} for p in parts)
+    assert all(p[q] >= 0 for p in parts for q in port_ivf.PARTS)
+    assert parts[0]["n_probe"] == kw["n_probe"]
+    assert parts[1]["certify_ms"] == parts[1]["fallback_ms"] == 0.0
+
+
 # --------------------------------------------------------- IVF kNN
 def _clustered(seed, n, d=8, n_clusters=None, spread=0.05):
     rng = np.random.default_rng(seed)
@@ -727,6 +815,32 @@ def test_cuda_ivf_probe_matches_plain(cuda, loop):
     kd, ki = ivf_probe(*tables, kw=16, loop=loop)
     kd2, ki2 = ivf_probe(*tables, kw=16, loop=loop)
     pd, pi = ivf_probe_plain(*tables, kw=16, loop=loop)
+    torch.cuda.synchronize()
+    assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
+    assert_probe_equal(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loop", [False, True])
+@pytest.mark.parametrize("case", [*PROBE_CASES, "other-slots", "mixed-empty-ids"])
+def test_cuda_ivf_probe_register_path_matches_plain(cuda, case, loop):
+    """The register path (d = 4, kw = 12) on ``build_tables`` against the
+    plain version, repeat bitwise; ``other-slots`` puts huge and NaN
+    coordinates in some slots (their cells take every slot), and
+    ``mixed-empty-ids`` empty slots with ids other than 0 (the slab's ids
+    scanned for an empty query's row)."""
+    xb, ib, xc, ic, nbr = build_tables(33, "prefix-holes" if case in ("other-slots", "mixed-empty-ids") else case,
+                                       c=64, cap=96, capc=256, t=8)
+    if case == "other-slots":
+        xc[3, 200, 1], xc[5, 201, 0], xb[7, 90, 2] = 1e25, np.nan, -1e21
+    if case == "mixed-empty-ids":
+        empty = xc[..., 0] == np.float32(1e30)
+        ic[empty] = np.arange(empty.sum(), dtype=np.int32) % 3
+        ib[:] = ic[:, :96]
+    tables = [torch.from_numpy(a).to(cuda) for a in (xb, ib, xc, ic, nbr)]
+    kd, ki = ivf_probe(*tables, kw=12, loop=loop)
+    kd2, ki2 = ivf_probe(*tables, kw=12, loop=loop)
+    pd, pi = ivf_probe_plain(*tables, kw=12, loop=loop)
     torch.cuda.synchronize()
     assert torch.equal(kd, kd2) and torch.equal(ki, ki2)
     assert_probe_equal(kd.cpu(), ki.cpu(), pd.cpu(), pi.cpu())

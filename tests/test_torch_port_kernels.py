@@ -49,6 +49,7 @@ from gnn_tracking_tpu.ops.segment import masked_segment_sum
 from gnn_tracking_tpu_torch.graphs import EventGraph
 from gnn_tracking_tpu_torch.models.interaction_network import InteractionNetwork
 from gnn_tracking_tpu_torch.ops.cc_kernel import cc_neighbors, cc_neighbors_plain
+from gnn_tracking_tpu_torch.ops import csr_segment
 from gnn_tracking_tpu_torch.ops.csr_segment import (
     segment_sum_csr,
     sorted_gather,
@@ -413,18 +414,49 @@ def test_sorted_segment_sum_matches_pallas():
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-6)
 
 
-def test_sorted_gather_matches_pallas():
-    rng, dst, _, vals = _sorted_edges(21)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 3, 32, 33])
+def test_sorted_gather_matches_pallas(f, dtype):
+    """Row #10 at widths whose rows are and are not whole 16-byte vectors
+    (the kernel's two routes), in both dtypes: the forward bitwise
+    ``values[dst]`` and the Pallas kernel's; the VJP (a segment-sum) at 1e-6
+    of the Pallas kernel's in float32, and in bfloat16 (the plain version's
+    ``index_add_`` rounds each add, the Pallas kernel once) within each
+    node's bound of the float64 sum: n - 1 adds, each off by at most 2^-8 of
+    the sum of |terms|, and the final 2^-8."""
+    rng, dst, _, vals = _sorted_edges(21, f=f)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     jf = lambda v: jax_csr.sorted_gather(v, jnp.asarray(dst), SEG["block_e"], SEG["window"], True)
-    want, vjp = jax.vjp(jf, jnp.asarray(vals))
+    want, vjp = jax.vjp(jf, jnp.asarray(vals).astype(jdt))
     ct = rng.normal(size=(dst.shape[0], vals.shape[1])).astype(np.float32)
-    (want_g,) = vjp(jnp.asarray(ct))
-    v = torch.from_numpy(vals).requires_grad_()
+    (want_g,) = vjp(jnp.asarray(ct).astype(jdt))
+    v = torch.from_numpy(vals).to(tdt).requires_grad_()
     got = sorted_gather(v, torch.from_numpy(dst))
-    (got_g,) = torch.autograd.grad(got, v, torch.from_numpy(ct))
-    np.testing.assert_array_equal(got.detach().numpy(), vals[dst])
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-6, atol=1e-6)
+    (got_g,) = torch.autograd.grad(got, v, torch.from_numpy(ct).to(tdt))
+    assert got.dtype == tdt and got_g.dtype == tdt
+    got, got_g = got.detach().float().numpy(), got_g.float().numpy()
+    want, want_g = np.asarray(want.astype(jnp.float32)), np.asarray(want_g.astype(jnp.float32))
+    np.testing.assert_array_equal(got, v.detach().float().numpy()[dst])
+    np.testing.assert_array_equal(got, want)
+    if dtype == "float32":
+        np.testing.assert_allclose(got_g, want_g, rtol=1e-6, atol=1e-6)
+    else:
+        terms = torch.from_numpy(ct).to(tdt).double().numpy()
+        ref, mag = np.zeros(vals.shape), np.zeros(vals.shape)
+        np.add.at(ref, dst, terms)
+        np.add.at(mag, dst, np.abs(terms))
+        n = np.bincount(dst, minlength=vals.shape[0])[:, None]
+        assert (np.abs(got_g - ref) <= 2.0**-8 * (np.maximum(n - 1, 0) * mag + np.abs(ref))).all()
+
+
+def test_sorted_gather_of_no_edges():
+    """E = 0 (the Pallas kernel cannot tile an empty edge list): an empty
+    ``[0, F]`` result of the values' dtype, and a zero gradient."""
+    v = torch.randn(10, 5, requires_grad=True)
+    got = sorted_gather(v, torch.zeros(0, dtype=torch.int32))
+    assert got.shape == (0, 5) and got.dtype == v.dtype
+    (g,) = torch.autograd.grad(got.sum(), v)
+    assert torch.equal(g, torch.zeros_like(v))
 
 
 def test_sort_edges_by_target_csr_arrays():
@@ -687,6 +719,24 @@ def test_cuda_sorted_segment_sum_and_gather_match_plain(cuda):
     assert torch.equal(sorted_gather(vals, dst, rowptr=csr["dst_rowptr"]), sorted_gather_plain(vals, dst))
     with pytest.raises(ValueError, match="row pointer"):
         sorted_segment_sum(msgs, dst, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 3, 8, 32, 33, 64])
+@pytest.mark.parametrize("e", [0, 1, 4001])
+def test_cuda_sorted_gather_is_index_select(cuda, e, f, dtype):
+    """Row #10 bitwise ``index_select`` on both routes (16-byte vectors and
+    single elements), also from a values view that starts off 16 bytes and
+    for a row index that is not sorted (the source side's gather)."""
+    gen = torch.Generator(device=cuda).manual_seed(e + f)
+    vals = torch.randn((301, f + 1), generator=gen, device=cuda).to(dtype)
+    for v in (vals[:, :f].contiguous(), vals.reshape(-1)[1 : 1 + 300 * f].reshape(300, f)):
+        idx = torch.randint(0, 300, (e,), generator=gen, device=cuda, dtype=torch.int32)
+        for dst in (torch.sort(idx).values, idx):
+            got = csr_segment.gather_rows(v, dst)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.equal(got, sorted_gather_plain(v, dst))
 
 
 @pytest.mark.cuda
