@@ -146,11 +146,14 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    (``odd_width_checks``); rows #11-#13 at d = 33, 40 and 64
    (``wide_dim_checks``); the wide layout of ``csrc/fused_relational_wide.cu``
    at (64, 64, 256, 64) in bf16 and f32 (with and without the save flag)
-   and at widths whose backward tiles live in device memory
-   (``width_checks``), timed on 262,144 edges (``wide_timings``), and its
-   own path: an ``ECModule`` step at hidden width 256 in f32 and bf16,
-   gradients against the plain path (``wide_ec_steps``, whose f32 step's launches the
-   result line reports). (b) ``MLModule`` with phase 7's model and
+   and at widths whose backward tiles live in device memory, bf16 also where
+   its tensor-core tiles do not fit (the CUDA-core kernels; ``width_checks``),
+   and its edge cases (``wide_edge_checks``: a tail tile, one unmasked edge,
+   none, H not a multiple of the weight chunk, each bf16 route),
+   timed on 262,144 edges (``wide_timings``), and its own path: an
+   ``ECModule`` step at hidden width 256 in f32 and bf16, gradients against
+   the plain path, steps/s beside it (``wide_ec_steps``, whose launches,
+   counted by route, the result line reports). (b) ``MLModule`` with phase 7's model and
    ``GraphConstructionKNNScanner(ks=[1..8])`` at the default top-k choice
    (row #13 at k <= ``knn.SPLIT_MAX_K``, row #12 above): ``Trainer.fit`` trains
    ``--val-epochs`` epochs over two
@@ -213,9 +216,13 @@ FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
 #2 with C32 / D32 and A-D at widths their resident kernels take: each
 output's digest) and writes FILE, or holds the digests bitwise against
 FILE where another tree's run wrote it, and stops. ``--wide-only``
-(this tree only) builds, runs ``wide_dim_checks``, ``resident_wide_checks``,
-``width_checks`` at ``WIDE_CHECKS``, ``wide_timings`` and ``wide_ec_steps``
-and stops. With ``--package-root DIR`` each runs the package in DIR (an
+builds, runs (for the tree beside this script) ``wide_dim_checks``,
+``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
+``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
+and its kernels apart on the device), with ``--wide-phases``
+``wide_phases`` (the edge kernels' cycles by phase, from a
+``-DWIDE_PHASES`` build of that tree) and ``wide_ec_steps`` (with steps/s
+beside the plain path), and stops. With ``--package-root DIR`` each runs the package in DIR (an
 older tree unpacked beside this one) on the same inputs and card.
 
 Without CUDA, or without the package beside this script, it prints no
@@ -297,6 +304,10 @@ TPU_KERNELS = {
     "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:308 and :610, beyond shared memory",
     "fused_relational_wide_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:415 and :781, "
     "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377 and :680, beyond shared memory",
+    "fused_relational_wide_tc_fwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:721, "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:308 and :610 (bf16), beyond shared memory",
+    "fused_relational_wide_tc_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:781, "
+    "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377 and :680 (bf16), beyond shared memory",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -313,8 +324,8 @@ SOURCES = {
        for k in ("fwd", "bwd", "fwd_save", "bwd_saved")},
     "pairwise_topk": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
     "pairwise_topk_streaming": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
-    "fused_relational_wide_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu",
-    "fused_relational_wide_bwd": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu",
+    **{f"fused_relational_wide_{k}": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu"
+       for k in ("fwd", "bwd", "tc_fwd", "tc_bwd")},
 }
 # metric-learning validation (examples/configs/ml.yml's gc_scanner)
 VAL_KS = list(range(1, 9))
@@ -834,25 +845,29 @@ def cc_tables(seed: int, n: int = N_NODES) -> list[tuple]:
     ]
 
 
-def cc_calls(fn, *, reps: int = 5) -> dict:
+def cc_calls(fn, *, reps: int = 5, traces: int = 4) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``fn``: the kernels it launches
-    on the device and the copies between device and host, per call."""
+    on the device and the copies between device and host, per call. A trace
+    can lose device records (one came back with 4 kernel records for 5 calls
+    that each launch one), never add them, so each count is the largest of
+    ``traces`` traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the trace can come back without device records
+    kernels = copies = 0
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if gpu:
-            break
-    copies = [e for e in gpu if "Memcpy" in e.name or "memcpy" in e.name]
-    return {"kernels_per_call": (len(gpu) - len(copies)) / reps, "copies_per_call": len(copies) / reps}
+        n_copies = sum("Memcpy" in e.name or "memcpy" in e.name for e in gpu)
+        kernels, copies = max(kernels, len(gpu) - n_copies), max(copies, n_copies)
+    assert kernels, f"profiler: no device records in {traces} traces of {reps} calls"
+    return {"kernels_per_call": kernels / reps, "copies_per_call": copies / reps}
 
 
 def cc_checks(idx, mask, seed: int, this_tree: bool) -> dict:
@@ -860,7 +875,7 @@ def cc_checks(idx, mask, seed: int, this_tree: bool) -> dict:
     radius graph, ``idx``, ``mask``) and on ``cc_tables``: labels bitwise the
     plain version's, sweeps; an unmasked index outside [0, N) raises
     ``ValueError``; the call (``cuda_ms``), its kernels on the device
-    (``device_ms_per_call``), the kernels launched and the copies a call
+    (``device_split``), the kernels launched and the copies a call
     (``cc_calls``: one launch and one read back for this tree), beside the
     plain version and the bound (the table's bytes once). Returns the kernel
     line's entry."""
@@ -880,7 +895,7 @@ def cc_checks(idx, mask, seed: int, this_tree: bool) -> dict:
         row = {"n": ti.shape[0], "k": ti.shape[1], "sweeps": sweeps, "components": len(torch.unique(k_lab))}
         if name in ("event0", "chain"):
             row["ms"] = cuda_ms(lambda: cc_kernel.cc_neighbors(ti, tm))
-            row["device_ms"] = device_ms_per_call(lambda: cc_kernel.cc_neighbors(ti, tm), names)
+            row["device_ms"] = device_split(lambda: cc_kernel.cc_neighbors(ti, tm), names, reps=5)["any"]
             row.update(cc_calls(lambda: cc_kernel.cc_neighbors(ti, tm)))
             row["bound_ms"] = nbytes(ti, tm) / PEAK_BYTES_PER_S * 1e3
             if this_tree:
@@ -1092,11 +1107,13 @@ def kernel_device_ms(fn, name: str, *, reps: int = 10, tries: int = 3) -> tuple[
     return sum(e.time_range.end - e.time_range.start for e in mine) / len(mine) / 1e3, len(mine)
 
 
-def device_ms_per_call(fn, names, *, reps: int = 5, tries: int = 3) -> float:
+def device_split(fn, names, *, reps: int = 3, tries: int = 3) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up):
-    the device time of every kernel whose name holds one of ``names``, per
-    call (a call that launches several kernels, or one several times). The
-    trace can come back without device records: up to ``tries`` traces."""
+    the device time a call of the kernels whose names hold each of
+    ``names`` (a name no kernel holds has no entry), of those that hold any
+    of them (``"any"``, asserted to exist) and of every kernel of the call
+    (``"all"``). The trace can come back without device records: up to
+    ``tries`` traces."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1108,11 +1125,16 @@ def device_ms_per_call(fn, names, *, reps: int = 5, tries: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        mine = [e for e in prof.events() if e.device_type == DeviceType.CUDA and any(n in e.name for n in names)]
-        if mine:
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
             break
+    assert events, f"profiler: no device records in {reps} calls"
+    ms = lambda evs: sum(e.time_range.end - e.time_range.start for e in evs) / reps / 1e3
+    out = {n: ms([e for e in events if n in e.name]) for n in names if any(n in e.name for e in events)}
+    mine = [e for e in events if any(n in e.name for n in names)]
     assert mine, f"profiler: no launch of {names} in {reps} calls"
-    return sum(e.time_range.end - e.time_range.start for e in mine) / reps / 1e3
+    out["any"], out["all"] = ms(mine), ms(events)
+    return out
 
 
 def bwd_bound_bytes(rows, edge_attr, edge_index, mask, weights, g_e, g_agg, outs) -> int:
@@ -2226,8 +2248,10 @@ def bitwise_digests(seed: int, path: Path) -> None:
     256, 300 and 1,024, radius mode, and 3-, 14- and 20-d clouds: the
     kernels' 4, 16 and 32 padded columns), and rows #1 / #2 with C32 / D32
     (f32) and A-D (bf16) at widths they took before the wide layout (the
-    GraphTCN's, ``ec.yml``'s, odd ones), each output of a second launch
-    equal to the first's."""
+    GraphTCN's, ``ec.yml``'s, odd ones), the wide layout's f32 per-edge
+    outputs at ``WIDE_WIDTHS`` (with and without the save flag and the saved
+    rows; not its weight gradients), each output of a second launch equal
+    to the first's."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
@@ -2284,14 +2308,44 @@ def bitwise_digests(seed: int, path: Path) -> None:
             gd, gs = xe[dst].contiguous(), xe[src].contiguous()
             record(f"{name}_bwd_saved", inputs,
                    lambda: bwd_saved(gd, gs, *args[1:], g_e, g_a, csr, g.num_nodes, relu_edge=True))
+    # the wide layout at WIDE_WIDTHS in f32 (rows #1 / #2 and C32 / D32 take it there): the per-edge
+    # outputs e_tilde, agg, the saved rows, g_x, g_edge_attr and the per-edge g_xd / g_xs that the
+    # backward hands to row #9's sums (recorded at fr.segment_sum_csr). The weight gradients are
+    # left out: their summation order is the kernel's plan (products over slices of edges, then
+    # the slices in order), not part of the contract.
+    fx, fe, h, fo = WIDE_WIDTHS
+    g, (xe, ea, ei, em, w, g_e, g_a) = ec_width_case(seed + 187, fx, fe, h, fo, 16000, 0.8)
+    xe, ea, g_e, g_a = (t.float() for t in (xe, ea, g_e, g_a))
+    w = {k: v.float() for k, v in w.items()}
+    csr, args = g.csr(), (xe, ea, ei, em, w)
+    inputs = (xe, ea, ei, em, *w.values(), g_e, g_a)
+    src, dst = ei.long()
+    gd, gs = xe[dst].contiguous(), xe[src].contiguous()
+    name = "wide_f32_" + "_".join(map(str, WIDE_WIDTHS))
+    record(f"{name}_fwd", inputs, lambda: fr.fused_relational_fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True))
+    record(f"{name}_fwd_save", inputs,
+           lambda: fr.fused_relational_fwd_save(*args, rowptr=csr["dst_rowptr"], relu_edge=True))
+
+    def with_edge_rows(bwd):
+        calls, undo = capture(fr, "segment_sum_csr")
+        try:
+            g_x, g_ea, _ = bwd()
+        finally:
+            undo()
+        return (g_x, g_ea, *(a[0] for a, _ in calls))  # g_xd, g_xs
+
+    record(f"{name}_bwd", inputs, lambda: with_edge_rows(
+        lambda: fr.fused_relational_bwd(*args, g_e, g_a, csr, relu_edge=True)))
+    record(f"{name}_bwd_saved", inputs, lambda: with_edge_rows(lambda: fr.fused_relational_bwd_saved(
+        gd, gs, *args[1:], g_e, g_a, csr, g.num_nodes, relu_edge=True)))
     from gnn_tracking_tpu_torch.ops import csr_segment, ivf_probe
 
     for name, args, kw in probe_inputs(seed):
         record(f"row15_{name}", args, lambda: ivf_probe.ivf_probe(*args, **kw))
     for name, v, idx in gather_inputs(seed):
         record(f"row10_{name}", (v, idx), lambda: csr_segment.gather_rows(v, idx))
-    compare_digests("rows #11-#13 (d <= 32), rows #1 / #2, C32 / D32, A-D (resident widths), row #15 and "
-                    "row #10", sums, path)
+    compare_digests("rows #11-#13 (d <= 32), rows #1 / #2, C32 / D32, A-D (resident widths), the wide "
+                    "layout's per-edge outputs (f32), row #15 and row #10", sums, path)
 
 
 
@@ -2772,10 +2826,32 @@ ODD_WIDTHS = {"bf16": (40, 8, 72, 20), "f32": (14, 3, 50, 18)}
 # resident kernels' layouts (A / C 356,864 bytes, B / D 397,568; rows #1 / #2: W2 alone 256 KiB)
 WIDE_WIDTHS = (64, 64, 256, 64)
 WIDE_EC_MODEL = {**EC_MODEL, "hidden_dim": 256, "L_ec": 2}
-# (route, widths, edges): the wide layout in both dtypes, and widths whose backward tiles exceed
-# shared memory even at 4 edges a tile (its tiles in device memory)
+# (route, widths, edges): the wide layout in both dtypes; bf16 where its tensor-core tiles exceed
+# shared memory (the CUDA-core kernels, tiles in shared memory); and widths whose tiles exceed
+# shared memory even at 32 edges a tile (in device memory; bf16 padded to (32, 32, 2432, 32))
 WIDE_CHECKS = {"wide bf16": ("bf16", WIDE_WIDTHS, 16000), "wide f32": ("f32", WIDE_WIDTHS, 16000),
-               "wide f32 (backward tiles in device memory)": ("f32", (8, 8, 2432, 8), 600)}
+               "wide bf16 (CUDA cores)": ("bf16", (64, 64, 512, 64), 16000),
+               "wide f32 (backward tiles in device memory)": ("f32", (8, 8, 2432, 8), 600),
+               "wide bf16 (CUDA cores, tiles in device memory)": ("bf16", (8, 8, 2432, 8), 600)}
+# the wide layout's edge cases, through fused_relational_wide_fwd / _bwd (which take any width):
+# (route, widths, edges, unmasked: a share, or an exact count where an int)
+WIDE_EDGE_CASES = {
+    "tail tile": ("f32", WIDE_WIDTHS, 1000, 0.8),  # an unmasked count not a multiple of the tile
+    "one unmasked edge": ("f32", WIDE_WIDTHS, 500, 1),
+    "all masked": ("f32", WIDE_WIDTHS, 500, 0),
+    "H 52, K 31": ("f32", (14, 3, 52, 20), 3000, 0.8),  # H not a multiple of the weight chunk (32)
+    "bf16 tail tile": ("bf16", WIDE_WIDTHS, 1000, 0.8),
+    "bf16 H 96": ("bf16", (32, 32, 96, 32), 3000, 0.8),
+    "bf16 H 52, K 31": ("bf16", (14, 3, 52, 20), 3000, 0.8),  # padded to (32, 32, 64, 32) by the wrapper
+    "bf16 CUDA cores, tail tile": ("bf16", (64, 64, 512, 64), 1000, 0.8),
+    "bf16 CUDA cores, tiles in device memory": ("bf16", (32, 32, 2432, 32), 600, 0.8),
+}
+# the checks above that take the bf16 tensor-core route; every other one takes the CUDA cores (bf16
+# there only where its tensor-core tiles do not fit: the wrappers pad bf16 widths to multiples of 32)
+WIDE_TC_CASES = {"wide bf16", "bf16 tail tile", "bf16 H 96", "bf16 H 52, K 31"}
+# the wide layout's kernels, timed apart on the device (a tree without one has no entry)
+WIDE_KERNELS = ("wide_fwd_kernel", "wide_bwd_kernel", "wgrad_kernel", "tc_fwd_kernel", "tc_bwd_kernel",
+                "wgrad_tc_kernel", "masked_rows_kernel", "sum_partials_kernel")
 
 
 def make_wide_cloud(seed: int, n: int, d: int) -> np.ndarray:
@@ -3386,7 +3462,8 @@ def width_checks(seed: int, table: dict, *, wide: bool = False) -> None:
     D32) bitwise A / B (rows #1 / #2). ``ODD_WIDTHS`` take the resident
     kernels only zero-padded (``_Padding``); with ``wide`` every launch must
     be the wide layout's (``csrc/fused_relational_wide.cu``), none the
-    resident kernels'."""
+    resident kernels', on the bf16 tensor cores for the checks in
+    ``WIDE_TC_CASES`` and on the CUDA cores for every other."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
@@ -3408,6 +3485,7 @@ def width_checks(seed: int, table: dict, *, wide: bool = False) -> None:
              fr.fused_relational_bwd_saved, fr.fused_relational_plain, fr.fused_relational_bwd_plain))
         resident = (fwd, fwd_save, bwd, bwd_saved)
         before = [fn.launches for fn in (*resident, *wide_fns)]
+        tc_before = [fn.tc_launches for fn in wide_fns]
         flat = lambda out: [out[0], out[1], *out[2].values()]
         a = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
         a2 = fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"], relu_edge=True)
@@ -3435,6 +3513,9 @@ def width_checks(seed: int, table: dict, *, wide: bool = False) -> None:
         widths = (fx, fe, h, fo)
         if wide:
             assert not any(launched[:4]) and all(launched[4:]), f"{name}: launches {launched} (resident, wide)"
+            tc = [fn.tc_launches - n0 for fn, n0 in zip(wide_fns, tc_before)]
+            want = launched[4:] if name in WIDE_TC_CASES else [0, 0]
+            assert tc == want, f"{name}: tensor-core launches {tc}, want {want}"
         else:
             assert all(launched[:4]) and not any(launched[4:]), f"{name}: launches {launched} (resident, wide)"
         worst = 0.0
@@ -3454,7 +3535,8 @@ def width_checks(seed: int, table: dict, *, wide: bool = False) -> None:
         pad = fr._Padding.of(x, ea, w)
         log(f"kernels at {name} widths ((Fx, Fe, H, Fo) = {widths}, E = {n_edges}"
             f"{', padded to ' + str(pad.padded) if pad else ''}): OK through "
-            f"{'the wide layout' if wide else 'the resident kernels'} (launches {launched}), forward, "
+            f"{'the wide layout' if wide else 'the resident kernels'} (launches {launched}"
+            f"{', tensor cores' if wide and name in WIDE_TC_CASES else ', CUDA cores' if wide else ''}), forward, "
             f"backward and the op's gradients within {worst:.3e} of the plain version "
             f"({'norm' if bf16 else 'largest magnitude'}), repeat bitwise, "
             f"{'C / D bitwise A / B' if bf16 else 'C32 / D32 bitwise rows #1 / #2'}")
@@ -3470,10 +3552,13 @@ def wide_timings(seed: int) -> list[dict]:
     ``WIDE_WIDTHS`` on 262,144 edges, 80 % unmasked, in f32 and bf16: the
     call beside the plain version and the bound (the unmasked edges' MLP
     flops at the card's peak for the operands' type: the f32 CUDA-core peak
-    in f32, the bf16 tensor-core peak in bf16, though the wide kernel does
-    its bf16 products on the CUDA cores too), each checked against the plain
-    version as ``width_checks`` does. Returns the kernel line's two entries
-    (f32)."""
+    in f32, the bf16 tensor-core peak in bf16), each checked against the
+    plain version as ``width_checks`` does, and on the device by kernel
+    (``device_split``: the edge kernels, the weight-gradient products
+    ``wgrad_kernel`` / ``wgrad_tc_kernel``, the masked rows and the slices'
+    sum apart). Returns the kernel line's entries: the f32 pair and, where
+    the bf16 calls took the tensor cores (their wrappers' ``tc_launches``),
+    the bf16 pair (``*_tc_*``)."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import fused_relational as fr
@@ -3489,8 +3574,12 @@ def wide_timings(seed: int) -> list[dict]:
             w = {k: v.to(dtype) for k, v in w.items()}
             csr = g.csr()
             fargs = (x, ea, ei, mask, w)
+            wide_fns = (fr.fused_relational_wide_fwd, fr.fused_relational_wide_bwd)
+            tc0 = [getattr(fn, "tc_launches", 0) for fn in wide_fns]  # a tree without the route: 0
             kf = fr.fused_relational_wide_fwd(*fargs, rowptr=csr["dst_rowptr"])
             kb = fr.fused_relational_wide_bwd(x, None, None, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes)
+            tc = [getattr(fn, "tc_launches", 0) - n0 for fn, n0 in zip(wide_fns, tc0)]
+            assert tc[0] == tc[1] and (route == "bf16" or not tc[0]), f"wide {route}: tensor-core launches {tc}"
             plain_f = fr.fused_relational_bf16_plain if route == "bf16" else fr.fused_relational_plain
             plain_b = fr.fused_relational_bf16_bwd_plain if route == "bf16" else fr.fused_relational_bwd_plain
             pf, pb = plain_f(*fargs), plain_b(*fargs, g_e, g_a)
@@ -3515,6 +3604,11 @@ def wide_timings(seed: int) -> list[dict]:
                     x, None, None, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes), reps=1, rounds=3),
                 "bwd_plain_ms": cuda_ms(lambda: plain_b(*fargs, g_e, g_a), reps=1, rounds=3),
                 "max_rel_err": max(errs), "max_abs_err": max(abs_errs),
+                # on the device, by kernel: the edge kernels and the weight gradients apart
+                "fwd_device_ms": device_split(lambda: fr.fused_relational_wide_fwd(
+                    *fargs, rowptr=csr["dst_rowptr"]), WIDE_KERNELS),
+                "bwd_device_ms": device_split(lambda: fr.fused_relational_wide_bwd(
+                    x, None, None, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes), WIDE_KERNELS),
             }
             row["fwd_bound_ms"], row["fwd_bound_by"] = bound(
                 2.0 * n_valid * (k * h + h * h + h * fo), nbytes(x, ea, ei, mask, *w.values(), kf[0], kf[1]), peak=peak)
@@ -3522,19 +3616,93 @@ def wide_timings(seed: int) -> list[dict]:
                 2.0 * n_valid * (3 * k * h + 3 * h * h + 2 * h * fo),
                 nbytes(x, ea, ei, mask, *w.values(), g_e, g_a, kb[0], kb[1]) + 4 * sum(t.numel() for t in kb[2].values()),
                 peak=peak)
+            row["tensor_cores"] = bool(tc[0])
             out[route] = row
-            if route == "f32":
-                entries = [
-                    {"name": "fused_relational_wide_fwd", "max_abs_err": max(abs_errs[:2]), "ms": row["fwd_ms"],
+            if route == "f32" or tc[0]:
+                name = "fused_relational_wide_tc" if tc[0] else "fused_relational_wide"
+                entries += [
+                    {"name": f"{name}_fwd", "max_abs_err": max(abs_errs[:2]), "ms": row["fwd_ms"],
                      "plain_ms": row["fwd_plain_ms"], "bound_ms": row["fwd_bound_ms"],
                      "bound_by": row["fwd_bound_by"], "library_ms": None},
-                    {"name": "fused_relational_wide_bwd", "max_abs_err": max(abs_errs[2:]), "ms": row["bwd_ms"],
+                    {"name": f"{name}_bwd", "max_abs_err": max(abs_errs[2:]), "ms": row["bwd_ms"],
                      "plain_ms": row["bwd_plain_ms"], "bound_ms": row["bwd_bound_ms"],
                      "bound_by": row["bwd_bound_by"], "library_ms": None},
                 ]
     log(f"wide layout at (Fx, Fe, H, Fo) = {WIDE_WIDTHS}, {N_EDGES} edges, 80 % unmasked: OK against the plain "
         "version; wide timings: " + json.dumps(out))
     return entries
+
+
+# the phases the wide kernels count in a -DWIDE_PHASES build (their counters' first index)
+WIDE_PHASES = {
+    "wide_fwd_kernel": (0, ("gather", "m W1^T", "h1 W2^T", "h2 W3^T")),
+    "wide_bwd_kernel": (4, ("gather", "recompute h1", "recompute h2", "g_h2", "g_h1", "g_m")),
+    "tc_fwd_kernel": (10, ("gather", "m W1^T", "h1 W2^T", "h2 W3^T")),
+    "tc_bwd_kernel": (14, ("gather", "recompute h1", "recompute h2", "g_h2", "g_h1", "g_m")),
+}
+
+
+def wide_phases(seed: int) -> dict:
+    """Where the wide edge kernels' time goes: ``csrc/fused_relational_wide.cu``
+    built again with ``-DWIDE_PHASES`` (each block's thread 0 sums the
+    cycles between its barriers: the gather and each product of a tile), put
+    in the place of the library for 3 forward and 3 backward calls at
+    ``wide_timings``' f32 and bf16 inputs, then put back. Returns each edge
+    kernel's share of its cycles by phase."""
+    import ctypes
+
+    import torch
+
+    from gnn_tracking_tpu_torch import _build
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    out = _build.build_dir() / "libfused_relational_wide-phases.so"
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-DWIDE_PHASES", "-o", str(out),
+                           str(_build.CSRC / "fused_relational_wide.cu")], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in {**fr._SIGNATURES_WIDE, "fused_relational_wide_phases": [_build.P]}.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    counts = (ctypes.c_ulonglong * 24)()
+
+    def read():
+        torch.cuda.synchronize()
+        _build.check(lib, lib.fused_relational_wide_phases(ctypes.addressof(counts)), "fused_relational_wide_phases")
+        return list(counts)
+
+    fx, fe, h, fo = WIDE_WIDTHS
+    shares = {}
+    kept = _build.library("fused_relational_wide", fr._SIGNATURES_WIDE)
+    _build._LIBS["fused_relational_wide"] = lib
+    try:
+        with torch.no_grad():
+            for route in ("f32", "bf16"):
+                dtype = torch.bfloat16 if route == "bf16" else torch.float32
+                g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 180, fx, fe, h, fo, N_EDGES, 0.8,
+                                                                  n=N_NODES)
+                x, ea, g_e, g_a = (t.to(dtype).contiguous() for t in (x, ea, g_e, g_a))
+                w = {k: v.to(dtype) for k, v in w.items()}
+                csr = g.csr()
+                calls = (lambda: fr.fused_relational_wide_fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"]),
+                         lambda: fr.fused_relational_wide_bwd(x, None, None, ea, ei, mask, w, g_e, g_a, csr,
+                                                              g.num_nodes))
+                for fn in calls:
+                    read()  # zeroes the counters
+                    for _ in range(3):
+                        fn()
+                    cycles = read()
+                    for kernel, (first, names) in WIDE_PHASES.items():
+                        part = cycles[first:first + len(names)]
+                        if sum(part):
+                            shares[f"{route} {kernel}"] = {n: c / sum(part) for n, c in zip(names, part)}
+    finally:
+        _build._LIBS["fused_relational_wide"] = kept
+    log(f"wide layout phases at {WIDE_WIDTHS}, {N_EDGES} edges (shares of each edge kernel's cycles, "
+        "-DWIDE_PHASES build): " + json.dumps(shares))
+    return shares
 
 
 def wide_ec_steps(seed: int) -> dict:
@@ -3544,7 +3712,14 @@ def wide_ec_steps(seed: int) -> dict:
     plain path's (f32 by ``compare_grads``; bf16 each tensor within 5e-2 of
     its largest magnitude, as phase 9), the wide kernels launched once a
     layer each way and the resident ones never (counts set to 0 just
-    before). Returns the wide kernels' launches, by precision."""
+    before); then steps/s through the kernels and through the plain path
+    (the median of 7 synchronised ``training_step`` calls after 2 warm-up
+    steps each). Returns the wide kernels' launches in step 0, by precision
+    and by route, as the kernels line names them: ``fused_relational_wide_*``
+    on the CUDA cores, ``fused_relational_wide_tc_*`` on the tensor cores
+    (the wrappers' ``tc_launches``). In this tree the f32 step takes the
+    CUDA cores and the bf16 step the tensor cores; a tree without that
+    route (``--package-root``) counts every launch as the CUDA cores'."""
     import torch
 
     from gnn_tracking_tpu_torch.graphs import EventGraph
@@ -3558,6 +3733,7 @@ def wide_ec_steps(seed: int) -> dict:
             "fused_relational_wide_bwd": fr.fused_relational_wide_bwd}
     resident = (fr.fused_relational_fwd, fr.fused_relational_bwd, fr.fused_relational_bf16_fwd,
                 fr.fused_relational_bf16_bwd)
+    has_tc = all(hasattr(fn, "tc_launches") for fn in wide.values())
     by_precision = {}
     for precision in ("f32", "bf16"):
         model = ECForGraphTCN(**WIDE_EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 191))
@@ -3577,10 +3753,17 @@ def wide_ec_steps(seed: int) -> dict:
 
         for fn in (*wide.values(), *resident):
             fn.launches = 0
+        for fn in wide.values():
+            fn.tc_launches = 0
         gk, lk = step0()
-        launches = {name: fn.launches for name, fn in wide.items()}
         assert not any(fn.launches for fn in resident), [fn.launches for fn in resident]
-        assert all(n == WIDE_EC_MODEL["L_ec"] for n in launches.values()), launches
+        assert all(fn.launches == WIDE_EC_MODEL["L_ec"] for fn in wide.values()), [fn.launches for fn in wide.values()]
+        launches = {}
+        for name, fn in wide.items():
+            launches[name] = fn.launches - fn.tc_launches
+            launches[name.replace("wide_", "wide_tc_")] = fn.tc_launches
+            want = WIDE_EC_MODEL["L_ec"] if precision == "bf16" and has_tc else 0
+            assert fn.tc_launches == want, f"{precision} step: {name} {fn.tc_launches} tensor-core launches"
         with plain_path():
             gp, lp = step0()
         if precision == "f32":
@@ -3597,9 +3780,94 @@ def wide_ec_steps(seed: int) -> dict:
                 if ratio >= worst:
                     worst_name, worst = name, ratio
         by_precision[precision] = launches
+
+        def steps_per_s(n: int = 7) -> float:
+            """1 / the median of n synchronised training steps, after 2 warm-up steps."""
+            for _ in range(2):
+                ec.training_step(g)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                ec.training_step(g)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return 1.0 / statistics.median(times)
+
+        rate = steps_per_s()
+        with plain_path():
+            rate_plain = steps_per_s()
         log(f"wide EC step ({precision}, {WIDE_EC_MODEL}): loss {lk:.6f} (plain {lp:.6f}); gradients agree "
-            f"with the plain path (worst {worst_name}: {worst:.3e}); launches {launches}")
+            f"with the plain path (worst {worst_name}: {worst:.3e}); launches {launches}; "
+            f"{rate:.2f} steps/s (plain path {rate_plain:.2f}; median of 7 after 2 warm-up)")
     return by_precision
+
+
+def wide_edge_checks(seed: int) -> None:
+    """The wide layout through ``fused_relational_wide_fwd`` / ``_bwd`` at
+    ``WIDE_EDGE_CASES``: the forward (with and without the save flag) and
+    the backward (from x and from the saved rows) against the plain
+    versions (f32 within 1e-4 of the largest magnitude, bf16 within 2e-2
+    of the norm), every output repeat bitwise (the weight gradients too),
+    the saving forward and the saved-rows backward bitwise the others, the
+    saved rows equal to ``x[dst]`` / ``x[src]``, the masked edges' rows
+    zero, and with no unmasked edge zero weight gradients; every launch on
+    the bf16 tensor cores for the cases in ``WIDE_TC_CASES``, on the CUDA
+    cores for every other."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    flat = lambda out: [out[0], out[1], *out[2].values()]
+    for name, (route, (fx, fe, h, fo), e, unmasked) in WIDE_EDGE_CASES.items():
+        bf16 = route == "bf16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        g, (x, ea, ei, mask, w, g_e, g_a) = ec_width_case(seed + 195, fx, fe, h, fo, e, 0.8, n=min(2000, e))
+        x, ea, g_e, g_a = (t.to(dtype) for t in (x, ea, g_e, g_a))
+        w = {k: v.to(dtype) for k, v in w.items()}
+        if isinstance(unmasked, int):  # an exact count of unmasked edges
+            mask = torch.zeros_like(mask)
+            mask[torch.from_numpy(np.random.default_rng(seed + 196).permutation(e)[:unmasked]).to(mask.device)] = True
+        n_valid = int(mask.sum())
+        if name.endswith("tail tile"):
+            assert n_valid % 64 and n_valid % 32, f"{name}: {n_valid} unmasked edges fill whole tiles"
+        csr = g.csr()
+        wide_fns = (fr.fused_relational_wide_fwd, fr.fused_relational_wide_bwd)
+        before = [(fn.launches, fn.tc_launches) for fn in wide_fns]
+        fwd = lambda save: fr.fused_relational_wide_fwd(x, ea, ei, mask, w, rowptr=csr["dst_rowptr"],
+                                                       relu_edge=True, save=save)
+        bwd = lambda rows: flat(fr.fused_relational_wide_bwd(*rows, ea, ei, mask, w, g_e, g_a, csr, g.num_nodes,
+                                                             relu_edge=True))
+        a, a2, c = fwd(False), fwd(False), fwd(True)
+        b, b2, d = bwd((x, None, None)), bwd((x, None, None)), bwd((None, c[2], c[3]))
+        plain_f = fr.fused_relational_bf16_plain if bf16 else fr.fused_relational_plain
+        plain_b = fr.fused_relational_bf16_bwd_plain if bf16 else fr.fused_relational_bwd_plain
+        pa, pb = plain_f(x, ea, ei, mask, w, relu_edge=True), flat(plain_b(x, ea, ei, mask, w, g_e, g_a,
+                                                                           relu_edge=True))
+        torch.cuda.synchronize()
+        launched = [(fn.launches - n0, fn.tc_launches - t0) for fn, (n0, t0) in zip(wide_fns, before)]
+        tc = name in WIDE_TC_CASES
+        assert launched == [(3, 3 if tc else 0)] * 2, f"{name}: launches {launched}"
+        worst = 0.0
+        for k_t, p_t in zip([*a, *b], [*pa, *pb]):
+            assert k_t.shape == p_t.shape and k_t.dtype == dtype, f"{name}: {k_t.shape} {k_t.dtype}"
+            if bf16:
+                err = (k_t.double() - p_t.double()).norm().item()
+                lim = 2e-2 * p_t.double().norm().item()
+            else:
+                err, lim = (k_t - p_t).abs().max().item(), 1e-4 * p_t.abs().max().item()
+            assert err <= lim, f"wide layout, {name}: {err:.3e} > {lim:.3e}"
+            worst = max(worst, err / lim if lim else 0.0)
+        assert all(torch.equal(u, v) for u, v in zip([*a, *b], [*a2, *b2])), f"{name}: second launch differs"
+        assert torch.equal(c[0], a[0]) and torch.equal(c[1], a[1]), f"{name}: the saving forward differs"
+        src, dst = ei.long()
+        assert torch.equal(c[2], x[dst]) and torch.equal(c[3], x[src]), f"{name}: saved rows"
+        assert all(torch.equal(u, v) for u, v in zip(b, d)), f"{name}: the saved-rows backward differs"
+        assert not a[0][~mask].any() and not b[1][~mask].any(), f"{name}: masked rows not zero"
+        if n_valid == 0:
+            assert not any(t.any() for t in b[2:]), f"{name}: weight gradients without an unmasked edge"
+        log(f"wide layout, {name} ({route} on the {'tensor' if tc else 'CUDA'} cores, (Fx, Fe, H, Fo) = "
+            f"{(fx, fe, h, fo)}, {n_valid} of {e} edges unmasked): OK, within {worst:.3f} of each bound, repeat bitwise, save flag and saved rows bitwise")
 
 
 WIDE_DIMS = (33, 40, 64)
@@ -3822,6 +4090,7 @@ def validation_kernel_phases(seed: int) -> list[dict]:
     odd_width_checks(seed)
     wide_dim_checks(seed)
     width_checks(seed, WIDE_CHECKS, wide=True)
+    wide_edge_checks(seed)
     return results + wide_timings(seed)
 
 
@@ -4081,8 +4350,11 @@ def main(argv=None) -> int:
                    "chain and edge-case tables (cc_checks), print them and stop")
     p.add_argument("--wide-only", action="store_true",
                    help="build, check rows #11-#13 above 32 dimensions and the fused relational "
-                   "wide layout, time the latter and run its EC steps, print them and stop "
-                   "(this tree only)")
+                   "wide layout (this tree), time the latter and time its EC steps (this tree or "
+                   "--package-root's), print them and stop")
+    p.add_argument("--wide-phases", action="store_true",
+                   help="with --wide-only: also count the wide edge kernels' cycles by phase "
+                   "(wide_phases: a second build of the wide layout with -DWIDE_PHASES)")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -4217,12 +4489,15 @@ def main(argv=None) -> int:
         print(smi)
         return 0
     if args.wide_only:
-        if root != REPO:
-            p.error("--wide-only runs the tree beside this script only")
-        wide_dim_checks(args.seed)
-        resident_wide_checks(args.seed)
-        width_checks(args.seed, WIDE_CHECKS, wide=True)
+        log(f"package: {root}")
+        if root == REPO:  # the checks of this tree; another tree is timed beside it
+            wide_dim_checks(args.seed)
+            resident_wide_checks(args.seed)
+            width_checks(args.seed, WIDE_CHECKS, wide=True)
+            wide_edge_checks(args.seed)
         wide_timings(args.seed)
+        if args.wide_phases:
+            wide_phases(args.seed)
         wide_ec_steps(args.seed)
         print(smi)
         return 0
@@ -4453,8 +4728,9 @@ def main(argv=None) -> int:
     val_results = validation_kernel_phases(args.seed)
     val_summary, row13_launches = ml_validation_path(args.seed, args.val_epochs, ml_model, tmp)
     # the wide layout's own path: EC steps at hidden width 256 (its counts set to 0 just before);
-    # the kernel line's entries are wide_timings' f32 run, so they take the f32 step's launches
-    wide_launches = wide_ec_steps(args.seed)["f32"]
+    # each entry of the kernels line takes its route's launches in both steps
+    steps = wide_ec_steps(args.seed)
+    wide_launches = {name: steps["f32"][name] + steps["bf16"][name] for name in steps["f32"]}
     for r in val_results:
         r["launches"] = wide_launches.get(r["name"], row13_launches if r["name"] == "pairwise_topk"
                                           else row11_launches)

@@ -1,7 +1,8 @@
-// The fixed-order sum of per-block weight-gradient partials, shared by the fused relational
-// backwards (fused_relational.cu, fused_relational_bf16.cu, fused_relational_wide.cu): each
-// block that took a tile of `te` unmasked edges left its partial sums in partial[b][0 .. p);
-// out[i] is their sum in block order, so a second launch gives the same bits.
+// The fixed-order sum of weight-gradient partials, shared by the fused relational backwards
+// (fused_relational.cu, fused_relational_bf16.cu: one partial a block; fused_relational_wide.cu:
+// one a slice of edges): partial b covers the unmasked edges [b te, (b + 1) te) and holds its sums
+// in partial[b][0 .. p); out[i] is their sum in partial order, so a second launch gives the same
+// bits.
 
 #pragma once
 

@@ -25,9 +25,10 @@ zero-padded to those (``_Padding``, exact) and the outputs and gradients cut
 back. Widths whose weights and tiles do not fit one block's shared memory
 in those kernels' layouts take the wide layout, ``csrc/fused_relational_wide.cu``
 (:func:`fused_relational_wide_fwd` / :func:`fused_relational_wide_bwd`: the
-weights read from device memory, both dtypes, the save flag and the saved
-rows), chosen by each wrapper before it launches anything: no width is
-refused.
+weights streamed through shared memory a chunk at a time, the backward's
+weight gradients a second product over factor rows it writes, both dtypes,
+the save flag and the saved rows; :func:`wide_plan` sizes it), chosen by
+each wrapper before it launches anything: no width is refused.
 
 **bf16.** When ``x``, ``edge_attr`` and the weights are bfloat16 the op
 takes the bf16 route, the JAX kernels' ``compute_dtype="bfloat16"``
@@ -74,9 +75,9 @@ _SIGNATURES = {
 }
 # the wide layout's C entries (csrc/fused_relational_wide.cu): both dtypes, every width
 _SIGNATURES_WIDE = {
-    "fused_relational_wide_plan": [_build.I] * 5 + [_build.P],
-    "fused_relational_wide_fwd": [_build.P] * 15 + [_build.I] * 9 + [_build.P],
-    "fused_relational_wide_bwd": [_build.P] * 22 + [_build.I] * 8 + [_build.P],
+    "fused_relational_wide_plan": [_build.I] * 9 + [_build.P],
+    "fused_relational_wide_fwd": [_build.P] * 15 + [_build.I] * 11 + [_build.P],
+    "fused_relational_wide_bwd": [_build.P] * 23 + [_build.I] * 14 + [_build.P],
 }
 # the bf16 kernels' C entries (A, C, B, D): pointers, then the sizes and
 # relu_edge (and the backward's block count), then the stream
@@ -839,16 +840,33 @@ fused_relational_bf16_bwd_saved.launches = 0
 
 
 # ------------------------------------------------------------------- wide layout
-def _wide_plan(lib, widths, backward: bool, dev) -> tuple[torch.Tensor | None, int]:
-    """``(scratch, blocks)`` of the wide kernel at ``widths``: its tiles' slice
-    of device memory a block (None where they fit shared memory; the C plan
-    says) and the most blocks it serves, one an SM."""
-    buf = (ctypes.c_long * 2)()
-    _build.check(lib, lib.fused_relational_wide_plan(*widths, int(backward), ctypes.addressof(buf)),
-                 "fused_relational_wide_plan")
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    scratch = (torch.empty(blocks * buf[1], dtype=torch.float32, device=dev) if buf[1] else None)
-    return scratch, blocks
+#: the plan's values, in the order ``fused_relational_wide_plan`` writes them
+#: (``csrc/fused_relational_wide_plan.cuh``, ``Plan``)
+WIDE_PLAN_KEYS = ("te", "tc", "smem", "device_tile_floats", "blocks", "waves", "chunk_tiles",
+                  "n_chunks", "slices", "slice_tiles", "factor_elems", "grad_floats",
+                  "partial_floats")
+
+
+def wide_plan(lib, widths, backward: bool, bf16: bool, n_edges: int, *, optin: int, sms: int) -> dict:
+    """The wide kernels' plan at ``widths`` ``(Fx, Fe, H, Fo)`` for ``n_edges``
+    edges on a card with ``optin`` bytes of shared memory a block and ``sms``
+    SMs, from ``lib``'s C entry ``fused_relational_wide_plan`` (the plan is
+    computed only there; ``WIDE_PLAN_KEYS`` names its values): the route
+    (``tc``: bf16 on the tensor cores), edges a tile, shared memory, blocks,
+    the tiles' device memory where they do not fit, and the backward's
+    chunks, slices and scratch sizes."""
+    out = (ctypes.c_long * len(WIDE_PLAN_KEYS))()
+    _build.check(lib, lib.fused_relational_wide_plan(*widths, int(backward), int(bf16), n_edges, optin,
+                                                     sms, ctypes.addressof(out)), "fused_relational_wide_plan")
+    plan = dict(zip(WIDE_PLAN_KEYS, out))
+    plan["tc"] = bool(plan["tc"])
+    return plan
+
+
+def _device_plan(lib, widths, backward: bool, bf16: bool, n_edges: int, dev) -> dict:
+    props = torch.cuda.get_device_properties(dev)
+    return wide_plan(lib, widths, backward, bf16, n_edges, optin=props.shared_memory_per_block_optin,
+                     sms=props.multi_processor_count)
 
 
 def _wide_inputs(what, rows, edge_attr, edge_index, edge_mask, weights, extra):
@@ -861,6 +879,43 @@ def _wide_inputs(what, rows, edge_attr, edge_index, edge_mask, weights, extra):
     _, _, fx, fe, h, fo = _check_inputs(what, rows, edge_attr, edge_index, edge_mask, weights,
                                         extra, dtype=dtype)
     return fx, fe, h, fo
+
+
+def _wide_weights(weights: dict, tc: bool) -> dict:
+    """The weights as the route reads them, 16-byte aligned (the kernels read
+    their rows by ``cp.async``): f32, or on the tensor-core route bf16 with
+    f32 biases."""
+    return {key: _aligned((v.float() if not tc or key[0] == "b" else v).contiguous())
+            for key, v in weights.items()}
+
+
+def _wide_tiles(plan: dict, dev) -> torch.Tensor | None:
+    """The tiles' device memory where they do not fit shared memory, else None."""
+    n = plan["blocks"] * plan["device_tile_floats"]
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
+
+
+def _wide_fwd_launch(lib, x, edge_attr, edge_index, partition, weights, e_out, saved, plan,
+                     relu_edge, stream):
+    """The forward's C entry on ``partition`` (ids, count) at ``plan``."""
+    (e, fe), fx = edge_attr.shape, x.shape[1]
+    tc = plan["tc"]
+    w = _wide_weights(weights, tc)
+    h, fo = w["w2"].shape[0], w["w3"].shape[0]
+    # each product reads its weight along 16-byte rows of its contraction (the tensor cores) or of
+    # its outputs (the CUDA cores: W1^T, W2^T, W3^T)
+    wts = ([w["w1"], w["w2"], w["w3"]] if tc else
+           [w["w1"].t().contiguous(), w["w2"].t().contiguous(), w["w3"].t().contiguous()])
+    tiles = _wide_tiles(plan, x.device)
+    p = _build.ptr
+    err = lib.fused_relational_wide_fwd(
+        p(x), p(edge_attr), p(edge_index), *(p(t) for t in partition), p(wts[0]), p(w["b1"]),
+        p(wts[1]), p(w["b2"]), p(wts[2]), p(w["b3"]), p(e_out), *(p(t) for t in saved),
+        *([None, None] if not saved else []), None if tiles is None else p(tiles),
+        e, fx, fe, h, fo, int(relu_edge), int(x.dtype == torch.bfloat16), int(bool(saved)),
+        plan["te"], int(tc), plan["blocks"], stream,
+    )
+    _build.check(lib, err, "fused_relational_wide_fwd")
 
 
 def fused_relational_wide_fwd(
@@ -892,23 +947,47 @@ def fused_relational_wide_fwd(
     saved = [torch.empty((e, fx), dtype=x.dtype, device=dev) for _ in range(2 if save else 0)]
     if e > 0:
         lib = _build.library("fused_relational_wide", _SIGNATURES_WIDE)
-        scratch, blocks = _wide_plan(lib, (fx, fe, h, fo), False, dev)
-        ids, count = _compact(edge_mask) if partition is None else partition
-        w = {key: v.float() for key, v in weights.items()}
-        # each product reads its weight along 16-byte rows: W1^T, W2^T, W3^T
-        wts = [w["w1"].t().contiguous(), w["w2"].t().contiguous(), w["w3"].t().contiguous()]
-        p = _build.ptr
-        err = lib.fused_relational_wide_fwd(
-            p(x), p(edge_attr), p(edge_index), p(ids), p(count), p(wts[0]), p(w["b1"]), p(wts[1]),
-            p(w["b2"]), p(wts[2]), p(w["b3"]), p(e_out), *(p(t) for t in saved),
-            *([None, None] if not save else []), None if scratch is None else p(scratch),
-            e, fx, fe, h, fo, int(relu_edge), int(bf16), int(save), blocks,
-            _build.stream_ptr(dev),
-        )
-        _build.check(lib, err, "fused_relational_wide_fwd")
+        plan = _device_plan(lib, (fx, fe, h, fo), False, bf16, e, dev)
+        _wide_fwd_launch(lib, x, edge_attr, edge_index, partition or _compact(edge_mask), weights,
+                         e_out, saved, plan, relu_edge, _build.stream_ptr(dev))
         fused_relational_wide_fwd.launches += 1
+        fused_relational_wide_fwd.tc_launches += plan["tc"]
     agg = segment_sum_csr(e_out, rowptr)
     return (e_out, agg.to(x.dtype), *saved)
+
+
+def _wide_bwd_launch(lib, x, gd, gs, edge_attr, edge_index, partition, weights, g_e_out, g_agg,
+                     g_xd, g_xs, g_ea, plan, relu_edge, stream) -> torch.Tensor:
+    """The backward's C entry on ``partition`` (ids, count) at ``plan``;
+    returns the packed f32 weight gradients."""
+    rows = gd if x is None else x
+    (e, fe), fx, dtype = edge_attr.shape, rows.shape[1], rows.dtype
+    tc = plan["tc"]
+    w = _wide_weights(weights, tc)
+    h, fo, k = w["w2"].shape[0], w["w3"].shape[0], 2 * fx + fe
+    dev = edge_attr.device
+    # the recompute's W1, W2 and the gradient products' W1, W2, W3, each read along 16-byte rows:
+    # on the tensor cores W1, W2 and W1^T, W2^T, W3^T; on the CUDA cores W1^T, W2^T and W1 (rows
+    # padded to a multiple of 4), W2, W3
+    t = lambda v: v.t().contiguous()
+    wts = ([w["w1"], w["w2"], t(w["w1"]), t(w["w2"]), t(w["w3"])] if tc else
+           [t(w["w1"]), t(w["w2"]), _aligned(F.pad(w["w1"], (0, -k % 4))), w["w2"], w["w3"]])
+    factors = torch.empty(plan["factor_elems"], dtype=dtype, device=dev)
+    partial = torch.empty(plan["partial_floats"], dtype=torch.float32, device=dev)
+    packed = torch.empty(plan["grad_floats"], dtype=torch.float32, device=dev)
+    tiles = _wide_tiles(plan, dev)
+    p = _build.ptr
+    rows_p = [p(x), None, None] if x is not None else [None, p(gd), p(gs)]
+    err = lib.fused_relational_wide_bwd(
+        *rows_p, p(edge_attr), p(edge_index), *(p(v) for v in partition), p(wts[0]), p(w["b1"]),
+        p(wts[1]), p(w["b2"]), *(p(v) for v in wts[2:]), p(g_e_out), p(g_agg),
+        p(g_xd), p(g_xs), p(g_ea), p(factors), p(partial), p(packed),
+        None if tiles is None else p(tiles), e, fx, fe, h, fo, int(relu_edge),
+        int(dtype == torch.bfloat16), plan["te"], int(tc), plan["blocks"], plan["chunk_tiles"],
+        plan["n_chunks"], plan["slices"], plan["slice_tiles"], stream,
+    )
+    _build.check(lib, err, "fused_relational_wide_bwd")
+    return packed
 
 
 def fused_relational_wide_bwd(
@@ -920,8 +999,9 @@ def fused_relational_wide_bwd(
     ``gd = x[dst]``, ``gs = x[src]``: ``(g_x [N, Fx], g_edge_attr [E, Fe],
     weight gradients)``, then row #9's per-target and per-source sums, as
     :func:`fused_relational_bwd` and :func:`fused_relational_bf16_bwd` give
-    them. The weight gradients' sums have a fixed order: a second launch
-    gives the same bits. CPU tensors take the plain version."""
+    them. The weight gradients' sums have a fixed order (the plan's chunks
+    and slices): a second launch gives the same bits. CPU tensors take the
+    plain version."""
     rows = gd if x is None else x
     bf16 = rows.dtype == torch.bfloat16
     if rows.device.type == "cpu":
@@ -957,27 +1037,16 @@ def fused_relational_wide_bwd(
     g_xd = torch.empty((e, fx), dtype=dtype, device=dev)
     g_xs = torch.empty((e, fx), dtype=dtype, device=dev)
     g_ea = torch.empty((e, fe), dtype=dtype, device=dev)
-    packed = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     if e > 0:
         lib = _build.library("fused_relational_wide", _SIGNATURES_WIDE)
-        scratch, blocks = _wide_plan(lib, (fx, fe, h, fo), True, dev)
-        partial = torch.empty((blocks, sum(sizes)), dtype=torch.float32, device=dev)
-        ids, count = _compact(edge_mask) if partition is None else partition
-        w = {key: v.float().contiguous() for key, v in weights.items()}
-        # W1^T and W2^T for the recompute, W1 (rows padded to a multiple of 4), W2 and W3 for the
-        # input gradients: each read along 16-byte rows
-        wts = [w["w1"].t().contiguous(), w["w2"].t().contiguous(), F.pad(w["w1"], (0, -k % 4))]
-        p = _build.ptr
-        rows_p = [p(x), None, None] if x is not None else [None, p(gd), p(gs)]
-        err = lib.fused_relational_wide_bwd(
-            *rows_p, p(edge_attr), p(edge_index), p(ids), p(count), p(wts[0]), p(w["b1"]),
-            p(wts[1]), p(w["b2"]), p(wts[2]), p(w["w2"]), p(w["w3"]), p(g_e_out), p(g_agg),
-            p(g_xd), p(g_xs), p(g_ea), p(partial), p(packed),
-            None if scratch is None else p(scratch), e, fx, fe, h, fo, int(relu_edge), int(bf16),
-            blocks, _build.stream_ptr(dev),
-        )
-        _build.check(lib, err, "fused_relational_wide_bwd")
+        plan = _device_plan(lib, (fx, fe, h, fo), True, bf16, e, dev)
+        packed = _wide_bwd_launch(lib, x, gd, gs, edge_attr, edge_index, partition or _compact(edge_mask),
+                                  weights, g_e_out, g_agg, g_xd, g_xs, g_ea, plan, relu_edge,
+                                  _build.stream_ptr(dev))
         fused_relational_wide_bwd.launches += 1
+        fused_relational_wide_bwd.tc_launches += plan["tc"]
+    else:
+        packed = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
     g_x = segment_sum_csr(g_xd, csr["dst_rowptr"])
     g_x += segment_sum_csr(g_xs, csr["src_rowptr"], perm=csr["src_perm"])
     grads = {
@@ -987,9 +1056,10 @@ def fused_relational_wide_bwd(
     return g_x.to(dtype), g_ea, grads
 
 
-#: kernel launches (csrc/fused_relational_wide.cu, both dtypes), counted where each launches
-fused_relational_wide_fwd.launches = 0
-fused_relational_wide_bwd.launches = 0
+#: kernel launches (csrc/fused_relational_wide.cu, both dtypes), counted where each launches;
+#: ``tc_launches`` counts those of them that took the bf16 tensor-core route
+fused_relational_wide_fwd.launches = fused_relational_wide_fwd.tc_launches = 0
+fused_relational_wide_bwd.launches = fused_relational_wide_bwd.tc_launches = 0
 
 
 class FusedRelational(torch.autograd.Function):

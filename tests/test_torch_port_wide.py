@@ -13,6 +13,12 @@ connected components, on the CPU against the JAX package.
   forward and VJP against JAX's ``fused_relational`` (f32, the tolerances of
   ``test_torch_port_kernels.py``) and ``fused_relational_flat`` (bf16, those
   of ``test_torch_port_ec.py``).
+* The wide layout's plan (``csrc/fused_relational_wide_plan.cuh``, plain
+  C++ built here by the host's compiler, read through ``wide_plan``: edges
+  a tile, shared or device memory, the backward's chunks and
+  weight-gradient slices) over a sweep of widths: every plan fits one
+  block's 232,448 bytes of shared memory or takes the device-memory route,
+  and its chunks cover the edges.
 * Row #16: ``cc_neighbors_plain`` against JAX's
   ``connected_components_neighbors`` and networkx on a randomly permuted
   chain, k = 0, a fully masked table and N = 1.
@@ -22,7 +28,10 @@ connected components, on the CPU against the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import re
+import shutil
+import subprocess
 from pathlib import Path
 
 import jax
@@ -285,6 +294,109 @@ def test_wide_wrappers_take_the_plain_versions_on_the_cpu(dtype):
     assert fr.fused_relational_wide_fwd.launches + fr.fused_relational_wide_bwd.launches == before
 
 
+# (Fx, Fe, H, Fo) of the plan sweep: the timed case, backward tiles beyond shared memory, odd
+# widths as the f32 / bf16 wrappers pad them ((14, 3, 50, 18) -> H, Fo to 4; (40, 8, 72, 20) -> all
+# to 32), wider and narrower ones
+PLAN_WIDTHS = [WIDE, (8, 8, 2432, 8), (14, 3, 52, 20), (64, 32, 96, 32), (64, 64, 512, 64),
+               (128, 128, 256, 8), (3, 1, 4, 4)]
+OPTIN, SMS = 232448, 132  # an H100's opt-in shared memory a block and its SMs
+UNLIMITED = 1 << 30  # shared memory that every tile fits
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """``csrc/fused_relational_wide_plan.cuh`` (plain C++, no CUDA header)
+    built by the host's C++ compiler, as the wide library's plan entry."""
+    out = tmp_path_factory.mktemp("wide_plan") / "libwide_plan.so"
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "no C++ compiler on PATH"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++", "-o", str(out), "-"],
+                   input=f'#include "{CSRC / "fused_relational_wide_plan.cuh"}"\n', text=True, check=True)
+    lib = ctypes.CDLL(str(out))
+    lib.fused_relational_wide_plan.argtypes = fr._SIGNATURES_WIDE["fused_relational_wide_plan"]
+    lib.fused_relational_wide_plan.restype = ctypes.c_int
+    return lib
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("widths", PLAN_WIDTHS, ids=lambda w: "x".join(map(str, w)))
+def test_wide_plan_fits_shared_memory_or_takes_device_tiles(plan_lib, widths, backward, bf16):
+    """The plan at 262,144, 1,000 and 1 edges: bf16 at widths that are
+    multiples of 32 on the tensor cores where their tiles and ring fit one
+    block's shared memory (as the plan with unlimited shared memory sizes
+    them); else tiles of 64 or 32 edges whose tiles and weight ring fit it,
+    32 only where 64 do not, or (only where even 32 do not fit) tiles of 32
+    in device memory beside the ring; at most one block a tile and an SM;
+    the backward's chunks cover the edges in whole slices of whole tiles,
+    a wave of tiles each at least, under the factor cap where a wave fits
+    it, with one partial a slice."""
+    fx, fe, h, fo = widths
+    k = 2 * fx + fe
+    plan_of = lambda optin, n, bf=bf16: fr.wide_plan(plan_lib, widths, backward, bf, n, optin=optin, sms=SMS)
+    for n_edges in (262144, 1000, 1):
+        plan = plan_of(OPTIN, n_edges)
+        te = plan["te"]
+        n_tiles = -(-n_edges // te)
+        assert plan["smem"] <= OPTIN and 1 <= plan["blocks"] <= min(SMS, n_tiles)
+        tc_free = plan_of(UNLIMITED, n_edges)  # the tensor-core route wherever it may be taken
+        assert tc_free["tc"] == (bf16 and all(w % 32 == 0 for w in widths))
+        assert plan["tc"] == (tc_free["tc"] and tc_free["smem"] <= OPTIN)  # wherever its tiles fit
+        if plan["tc"]:
+            assert te == 64 and plan == tc_free
+            continue
+        free = plan_of(UNLIMITED, n_edges, bf=False)  # the CUDA cores' 64-edge tiles in shared memory
+        assert free["te"] == 64 and not free["device_tile_floats"]
+        if plan["device_tile_floats"]:  # the ring alone in shared memory; 32-edge tiles do not fit
+            assert te == 32 and plan["smem"] + 4 * plan["device_tile_floats"] > OPTIN
+        else:
+            assert te in (64, 32) and (te == 64) == (free["smem"] <= OPTIN)
+        if not backward:
+            assert plan["chunk_tiles"] == plan["n_chunks"] == plan["partial_floats"] == 0
+            continue
+        assert te % 16 == 0  # whole ring stages of the weight-gradient product
+        chunk, slices, slice_tiles = plan["chunk_tiles"], plan["slices"], plan["slice_tiles"]
+        assert slices * slice_tiles == chunk and plan["n_chunks"] * chunk >= n_tiles
+        dw_tiles = sum(-(-r // 128) * -(-c // 128) for r, c in ((h, k), (h, h), (fo, h)))
+        want = max(1, 2 * SMS // dw_tiles)  # slices for one wave of weight-gradient blocks, two an SM
+        assert slices <= want and slices * dw_tiles <= max(dw_tiles, 2 * SMS)
+        if plan["n_chunks"] > 1:  # chunks of about `waves` waves of tiles
+            assert slices == want and chunk <= plan["waves"] * SMS < chunk + slices
+        else:  # one chunk: as many slices as its tiles allow, up to want
+            assert slice_tiles == -(-n_tiles // min(n_tiles, want))
+        assert (plan["n_chunks"] - 1) * chunk < n_tiles
+        row = -(-k // 8) * 8 + 4 * h + fo
+        assert plan["factor_elems"] == chunk * te * row
+        if plan["n_chunks"] > 1:  # under the cap where one wave of tiles is
+            assert plan["factor_elems"] * (2 if bf16 else 4) <= 256 << 20 or plan["waves"] == 1
+        p = h * k + h + h * h + h + fo * h + fo
+        assert plan["grad_floats"] == p and plan["partial_floats"] == plan["n_chunks"] * slices * p
+
+
+def test_wide_plan_of_the_timed_case(plan_lib):
+    """(64, 64, 256, 64) at 262,144 edges on an H100: 64-edge tiles in shared
+    memory both ways, on the CUDA cores in f32 and the tensor cores in bf16;
+    the f32 backward in 6 chunks of ~6 waves, 26 slices a chunk (260
+    weight-gradient blocks: one wave at two an SM), its factor rows under
+    256 MB."""
+    plan = lambda b, bf: fr.wide_plan(plan_lib, WIDE, b, bf, 262144, optin=OPTIN, sms=SMS)
+    fwd, bwd = plan(False, False), plan(True, False)
+    assert not fwd["tc"] and not bwd["tc"]
+    assert all(plan(b, True)["tc"] for b in (False, True))
+    assert (fwd["te"], fwd["device_tile_floats"], bwd["te"], bwd["device_tile_floats"]) == (64, 0, 64, 0)
+    assert (bwd["chunk_tiles"], bwd["n_chunks"], bwd["slices"], bwd["slice_tiles"]) == (780, 6, 26, 30)
+    assert bwd["factor_elems"] * 4 <= 256 << 20
+
+
+@pytest.mark.parametrize("widths", [(8, 8, 30, 8), (8, 8, 32, 6)], ids=["h30", "fo6"])
+def test_wide_plan_refuses_widths_the_wrappers_pad(plan_lib, widths):
+    """H and Fo reach the wide layout as multiples of 4 (the wrappers pad
+    them); the plan refuses others with cudaErrorInvalidValue (1)."""
+    out = (ctypes.c_long * len(fr.WIDE_PLAN_KEYS))()
+    assert plan_lib.fused_relational_wide_plan(*widths, 1, 0, 1000, OPTIN, SMS, ctypes.addressof(out)) == 1
+    assert plan_lib.fused_relational_wide_plan(8, 8, 32, 8, 1, 0, 1000, OPTIN, SMS, ctypes.addressof(out)) == 0
+
+
 # ------------------------------------------------------------------ row #16
 def _chain(n, seed=0, k=4):
     """A randomly permuted chain: node ``order[i]`` lists ``order[i - 1]`` and
@@ -344,7 +456,8 @@ def test_cc_wrapper_raises_off_the_cpu_and_card():
 
 # --------------------------------------------------------- ctypes argument lists
 def _c_params(source, entry):
-    src = (CSRC / f"{source}.cu").read_text()
+    # the entry's source and the headers it includes (the wide layout's plan)
+    src = (CSRC / f"{source}.cu").read_text() + "".join(h.read_text() for h in sorted(CSRC.glob("*.cuh")))
     return [p for p in re.search(rf"\bint {entry}\(([^)]*)\)", src).group(1).split(",") if p.strip()]
 
 
@@ -420,44 +533,95 @@ def _wide_case(cuda, dtype, widths=WIDE, n=300, e=3000, seed=0):
 def _close(got, want, dtype):
     if dtype == BF16:  # norm-wise, as the bf16 kernel checks
         return (got.double() - want.double()).norm() <= 2e-2 * want.double().norm()
-    return (got - want).abs().max() <= 1e-4 * want.abs().max()
+    return (got - want).abs().max() <= 1e-4 * want.abs().max()  # all zeros: both zero
+
+
+# the wide layout's edge cases: (widths in f32, widths in bf16, edges, unmasked edges: None for
+# 80 %, or a count, whether bf16 takes the tensor cores)
+WIDE_CASES = {
+    "default": (WIDE, WIDE, 3000, None, True),
+    "tail_tile": (WIDE, WIDE, 1000, 777, True),  # not a multiple of the tile (64 or 32 edges)
+    "one_unmasked": (WIDE, WIDE, 500, 1, True),
+    "all_masked": (WIDE, WIDE, 500, 0, True),
+    # H = 52, K = 31 (bf16 widths are multiples of 32 on the tensor cores: H = 96): partial chunks
+    "h_not_chunk_multiple": ((14, 3, 52, 20), (32, 32, 96, 32), 3000, None, True),
+    # bf16's tensor-core tiles exceed shared memory: the CUDA-core kernels, tiles in shared memory
+    "cuda_cores": ((64, 64, 512, 64), (64, 64, 512, 64), 3000, None, False),
+    # tiles beyond shared memory even at 32 edges: in device memory (bf16 padded to 32 by A-D's wrappers)
+    "device_tiles": ((8, 8, 2432, 8), (8, 8, 2432, 8), 400, None, False),
+}
+# widths that the resident kernels take: there the test calls the wide layout itself
+RESIDENT_WIDTHS = {(14, 3, 52, 20), (32, 32, 96, 32)}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WIDE_CASES))
 @pytest.mark.parametrize("save", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
-def test_cuda_wide_layout_matches_plain(cuda, dtype, save):
-    """At ``WIDE`` the wrappers of rows #1 / #2 (C32 / D32) and A-D take the
-    wide layout: forward (with and without the save flag) and backward (from
-    x or the saved rows) against the plain versions, repeat bitwise, the
-    saving pair bitwise the recomputing one."""
-    g, args, cts = _wide_case(cuda, dtype)
-    csr = g.csr()
+def test_cuda_wide_layout_matches_plain(cuda, dtype, save, case):
+    """The wrappers of rows #1 / #2 (C32 / D32) and A-D take the wide layout
+    at widths beyond the resident kernels; at every case the forward (with
+    and without the save flag) and the backward (from x or the saved rows)
+    match the plain versions, every output repeats bitwise (the weight
+    gradients too), the saving pair is bitwise the recomputing one, the
+    masked rows are zero, with no unmasked edge the weight gradients are
+    zero, and every launch takes the case's route (bf16 on the tensor cores
+    or the CUDA cores; f32 on the CUDA cores)."""
+    f32_widths, bf16_widths, e, unmasked, bf16_tc = WIDE_CASES[case]
     bf = dtype == BF16
-    fwd = (fr.fused_relational_bf16_fwd_save if save else fr.fused_relational_bf16_fwd) if bf else (
-        fr.fused_relational_fwd_save if save else fr.fused_relational_fwd)
-    before = fr.fused_relational_wide_fwd.launches, fr.fused_relational_wide_bwd.launches
+    widths = bf16_widths if bf else f32_widths
+    g, args, cts = _wide_case(cuda, dtype, widths=widths, n=100 if e < 500 else 300, e=e)
+    if unmasked is not None:
+        mask = torch.zeros_like(args[3])
+        mask[torch.from_numpy(np.random.default_rng(9).permutation(e)[:unmasked]).to(cuda)] = True
+        args = (*args[:3], mask, args[4])
+    csr = g.csr()
+    wide_fns = (fr.fused_relational_wide_fwd, fr.fused_relational_wide_bwd)
+    before = [(fn.launches, fn.tc_launches) for fn in wide_fns]
+    if widths in RESIDENT_WIDTHS:  # call the wide layout itself
+        fwd = lambda *a, **kw: fr.fused_relational_wide_fwd(*a, save=save, **kw)
+    else:
+        fwd = (fr.fused_relational_bf16_fwd_save if save else fr.fused_relational_bf16_fwd) if bf else (
+            fr.fused_relational_fwd_save if save else fr.fused_relational_fwd)
     out = fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
     out2 = fwd(*args, rowptr=csr["dst_rowptr"], relu_edge=True)
-    plain = (fr.fused_relational_bf16_plain if bf else fr.fused_relational_plain)(*args, relu_edge=True)
-    if save:
-        src, dst = g.edge_index.long()
-        gd, gs = out[2], out[3]
-        assert torch.equal(gd, args[0][dst]) and torch.equal(gs, args[0][src])
-        bwd = fr.fused_relational_bf16_bwd_saved if bf else fr.fused_relational_bwd_saved
-        back = bwd(gd, gs, *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
+    if widths in RESIDENT_WIDTHS:
+        rows = (None, out[2], out[3]) if save else (args[0], None, None)
+        bwd = lambda: fr.fused_relational_wide_bwd(*rows, *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
+    elif save:
+        saved = fr.fused_relational_bf16_bwd_saved if bf else fr.fused_relational_bwd_saved
+        bwd = lambda: saved(out[2], out[3], *args[1:], *cts, csr, g.num_nodes, relu_edge=True)
     else:
-        bwd = fr.fused_relational_bf16_bwd if bf else fr.fused_relational_bwd
-        back = bwd(*args, *cts, csr, relu_edge=True)
+        recompute = fr.fused_relational_bf16_bwd if bf else fr.fused_relational_bwd
+        bwd = lambda: recompute(*args, *cts, csr, relu_edge=True)
+    back, back2 = bwd(), bwd()
+    torch.cuda.synchronize()
+    tc = 2 if bf and bf16_tc else 0
+    assert [(fn.launches - n, fn.tc_launches - t) for fn, (n, t) in zip(wide_fns, before)] == [(2, tc)] * 2
+    _check_wide(args, cts, out, out2, back, back2, dtype, save)
+
+
+def _check_wide(args, cts, out, out2, back, back2, dtype, save):
+    """The wide layout's outputs against the plain versions (``_close``),
+    repeat bitwise, the saved rows, the masked rows zero, and zero weight
+    gradients where no edge is unmasked."""
+    bf = dtype == BF16
+    plain = (fr.fused_relational_bf16_plain if bf else fr.fused_relational_plain)(*args, relu_edge=True)
     pback = (fr.fused_relational_bf16_bwd_plain if bf else fr.fused_relational_bwd_plain)(
         *args, *cts, relu_edge=True)
     torch.cuda.synchronize()
-    assert fr.fused_relational_wide_fwd.launches == before[0] + 2
-    assert fr.fused_relational_wide_bwd.launches == before[1] + 1
+    flat = lambda b: [b[0], b[1], *b[2].values()]
     for a, b, p in zip(out[:2], out2[:2], plain):
         assert torch.equal(a, b) and _close(a, p, dtype)
-    for a, p in zip([back[0], back[1], *back[2].values()], [pback[0], pback[1], *pback[2].values()]):
-        assert a.dtype == dtype and _close(a, p, dtype)
+    for a, b, p in zip(flat(back), flat(back2), flat(pback)):
+        assert a.dtype == dtype and torch.equal(a, b) and _close(a, p, dtype)
+    mask = args[3]
+    assert not out[0][~mask].any() and not back[1][~mask].any()
+    if save:
+        src, dst = args[2].long()
+        assert torch.equal(out[2], args[0][dst]) and torch.equal(out[3], args[0][src])
+    if not mask.any():
+        assert not any(t.any() for t in back[2].values())
 
 
 @pytest.mark.cuda
