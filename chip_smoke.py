@@ -167,8 +167,33 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    gradients through rows #1/#2 against the plain path (``compare_grads``),
    and the same step with ``fused_save_acts`` (C32 / D32, 6 launches each)
    giving the same loss and gradients bitwise;
-11. a JSON line of per-kernel results, the ``nvidia-smi`` name/power line,
-   and last the device JSON line.
+11. ``examples/configs/tc.yml``'s recipe at its full widths through the
+   port's CLI (``tc_cli_phase``): ``PerfectECGraphTCN(64, 64, 8, 128,
+   L_hc 3)``, ``CondensationLossTiger(2048, 256)``,
+   ``DBSCANHyperParamScanner(n_trials 12, keep_best 4)``, EMA 0.998 and
+   the ``Compose`` of ``ZReflection`` / ``PhiRotation`` / ``HitDropout``;
+   the config is a dict (``tc_cli_config``: the YAML file's tree with the
+   data directories, ``max_epochs`` 2, ``log_dir`` and ``monitor`` =
+   the scanner's guide figure of merit set; the card's machine has no
+   PyYAML) handed to ``training.run.build_from_config`` and
+   ``run_command``. 4 training and 2 validation events of 32,768 hits and
+   262,144 edges (``make_tc_event``: tracks of ~16 hits, each hit linked to
+   the next two of its track, ~23 % true edges). Step 0's gradients of the
+   CLI's module through the kernels against the plain path
+   (``compare_grads``); ``fit`` for 2 epochs (finite losses, steps/s and
+   wall time); on every scanned validation event row #12 launches once and
+   row #16 once per trial (counted at their launches), the scan's time split
+   into radius graph, trials and metrics, and its labels bitwise equal to
+   the same scan under ``plain_path()`` for every trial;
+   ``checkpoint_best.pt`` restored by ``run_command("validate", ...,
+   ckpt_path=...)`` (with the selected epoch's trials,
+   ``DBSCANHyperParamScannerFixed``) gives the monitor value that ``fit``
+   recorded; ``TrackingPredictor(checkpoint_best.pt).predict_dir(...,
+   evaluate=True)`` over the validation events gives finite ``trk.*``
+   values and labels equal to the plain path's;
+12. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+   also with ``cli_launches``, their launches in phase 11's ``fit``), the
+   ``nvidia-smi`` name/power line, and last the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
 ``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
@@ -215,7 +240,7 @@ copies a call, sweeps) and stops. ``--digests
 FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
 #2 with C32 / D32 and A-D at widths their resident kernels take: each
 output's digest) and writes FILE, or holds the digests bitwise against
-FILE where another tree's run wrote it, and stops. ``--wide-only``
+FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -1107,13 +1132,14 @@ def kernel_device_ms(fn, name: str, *, reps: int = 10, tries: int = 3) -> tuple[
     return sum(e.time_range.end - e.time_range.start for e in mine) / len(mine) / 1e3, len(mine)
 
 
-def device_split(fn, names, *, reps: int = 3, tries: int = 3) -> dict:
+def device_split(fn, names, *, reps: int = 3, tries: int = 4) -> dict:
     """``torch.profiler`` over ``reps`` calls of ``fn`` (after one warm-up):
     the device time a call of the kernels whose names hold each of
     ``names`` (a name no kernel holds has no entry), of those that hold any
     of them (``"any"``, asserted to exist) and of every kernel of the call
-    (``"all"``). The trace can come back without device records: up to
-    ``tries`` traces."""
+    (``"all"``). A trace can come back without device records, or without
+    those of ``names`` (records are lost, never added): up to ``tries``
+    traces, until one holds a kernel of ``names``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1126,13 +1152,13 @@ def device_split(fn, names, *, reps: int = 3, tries: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        mine = [e for e in events if any(n in e.name for n in names)]
+        if mine:
             break
     assert events, f"profiler: no device records in {reps} calls"
+    assert mine, f"profiler: no launch of {names} in {reps} calls, {tries} traces"
     ms = lambda evs: sum(e.time_range.end - e.time_range.start for e in evs) / reps / 1e3
     out = {n: ms([e for e in events if n in e.name]) for n in names if any(n in e.name for e in events)}
-    mine = [e for e in events if any(n in e.name for n in names)]
-    assert mine, f"profiler: no launch of {names} in {reps} calls"
     out["any"], out["all"] = ms(mine), ms(events)
     return out
 
@@ -4273,6 +4299,339 @@ def ml_validation_path(seed: int, epochs: int, fcnn, tmp: Path) -> tuple[dict, i
     return summary, launches or timed["pallas"]["row13"]
 
 
+# tc.yml through the port's CLI (phase 11)
+TC_TRAIN_EVENTS, TC_VAL_EVENTS, TC_EPOCHS = 4, 2, 2
+TC_MONITOR = "trk.double_majority_pt0.9"  # the scanner's guide figure of merit
+#: the kernels of phase 11's path, by the module attribute that launches each
+TC_CLI_KERNELS = {
+    "fused_relational_fwd": ("fused_relational", "fused_relational_fwd"),
+    "fused_relational_bwd": ("fused_relational", "fused_relational_bwd"),
+    "sorted_segment_sum": ("csr_segment", "sorted_segment_sum"),
+    "sorted_gather": ("csr_segment", "sorted_gather"),
+    "pairwise_topk_filter": ("pairwise_topk", "pairwise_topk_filter"),
+    "cc_neighbors": ("cc_kernel", "cc_neighbors"),
+}
+
+
+def tc_cli_config(train_dir: Path, val_dir: Path, log_dir: Path) -> dict:
+    """``examples/configs/tc.yml`` as a dict (the card's machine has no
+    PyYAML), with phase 11's overrides: the data directories, ``max_epochs``,
+    ``log_dir`` and ``monitor``. A CPU test holds it against the file."""
+    aug = "gnn_tracking_tpu.utils.augmentation."
+    return {
+        "model": {
+            "class_path": "gnn_tracking_tpu.training.module.TCModule",
+            "init_args": {
+                "model": {
+                    "class_path": "gnn_tracking_tpu.models.track_condensation_networks.PerfectECGraphTCN",
+                    "init_args": {"h_dim": 64, "e_dim": 64, "h_outdim": 8, "hidden_dim": 128, "L_hc": 3},
+                },
+                "loss_fct": {
+                    "class_path": "gnn_tracking_tpu.losses.oc.CondensationLossTiger",
+                    "init_args": {"lw_repulsive": 1.0, "lw_noise": 1.0, "lw_coward": 0.1,
+                                  "max_n_objects": 2048, "object_block_size": 256},
+                },
+                "cluster_scanner": {
+                    "class_path": "gnn_tracking_tpu.postprocessing.dbscanscanner.DBSCANHyperParamScanner",
+                    "init_args": {"n_trials": 12, "keep_best": 4},
+                },
+                "lr": 0.001,
+            },
+        },
+        "data": {
+            "class_path": "gnn_tracking_tpu.utils.loading.TrackingDataModule",
+            "init_args": {"train": {"dirs": [str(train_dir)]}, "val": {"dirs": [str(val_dir)]}},
+        },
+        "trainer": {
+            "max_epochs": TC_EPOCHS,
+            "log_dir": str(log_dir),
+            "ema_decay": 0.998,
+            "train_transform": {
+                "class_path": aug + "Compose",
+                "init_args": {"transforms": [
+                    {"class_path": aug + "ZReflection", "init_args": {"p": 0.5, "seed": 0}},
+                    {"class_path": aug + "PhiRotation", "init_args": {"seed": 0}},
+                    {"class_path": aug + "HitDropout", "init_args": {"p": 0.08, "seed": 0}},
+                ]},
+            },
+            "monitor": TC_MONITOR,
+        },
+    }
+
+
+def make_tc_event(seed: int):
+    """A training event for ``tc.yml``'s recipe at ``make_train_event``'s
+    size (32,768 hits, 262,144 edges): particle ids in [0, 2048) (0 = noise),
+    each particle's hits in a random order, every hit linked to the next two
+    hits of its particle (true edges, ~23 % of all), the rest local fakes as
+    in ``make_event``; per-particle pt and eta; 14 node features with phi / pi
+    in column 1 and gphi in column 13, and each hit's mirror-module (geta,
+    gphi) in ``extras["cell_refl"]`` (``ZReflection``'s exact path)."""
+    rng = np.random.default_rng(seed)
+    pid = rng.integers(0, N_TRACKS, size=N_NODES)
+    order = np.lexsort((rng.random(N_NODES), pid))
+    ps = pid[order]
+    true = []
+    for hop in (1, 2):
+        same = (ps[hop:] == ps[:-hop]) & (ps[hop:] > 0)
+        true.append(np.stack([order[:-hop][same], order[hop:][same]]))
+    true = np.concatenate(true, axis=1)
+    n_fake = N_EDGES - true.shape[1]
+    dst = rng.integers(0, N_NODES, size=n_fake)
+    src = np.clip(dst + rng.integers(-LOCALITY, LOCALITY, size=n_fake), 0, N_NODES - 1)
+    edge_index = np.concatenate([true, np.stack([src, dst])], axis=1)[:, rng.permutation(N_EDGES)]
+    edge_index = edge_index.astype(np.int32)
+    x = rng.normal(size=(N_NODES, NODE_DIM)).astype(np.float32)
+    x[:, 1] = rng.uniform(-1, 1, N_NODES)
+    x[:, 13] = rng.uniform(-np.pi, np.pi, N_NODES)
+    refl = np.stack([rng.normal(size=N_NODES), rng.uniform(-np.pi, np.pi, N_NODES)], axis=1)
+    s, d = edge_index
+    return {
+        "x": x, "edge_index": edge_index,
+        "edge_attr": rng.normal(size=(N_EDGES, EDGE_DIM)).astype(np.float32),
+        "y": (pid[s] == pid[d]) & (pid[s] > 0), "particle_id": pid,
+        "pt": (2 * rng.random(N_TRACKS))[pid], "eta": (8 * (rng.random(N_TRACKS) - 0.5))[pid],
+        "reconstructable": np.ones(N_NODES), "extras": {"cell_refl": refl.astype(np.float32)},
+    }
+
+
+def tc_cli_phase(seed: int, tmp: Path) -> dict:
+    """Phase 11 (see the module docstring). Returns the launches of
+    ``TC_CLI_KERNELS`` in the CLI's ``fit`` (counts set to 0 just before it,
+    read just after) and the phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.inference import TrackingPredictor
+    from gnn_tracking_tpu_torch.postprocessing import dbscanscanner
+    from gnn_tracking_tpu_torch.training import run as tc_run
+    from gnn_tracking_tpu_torch.utils.loading import load_graph, save_graph
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in TC_CLI_KERNELS.values()}}
+
+    def counts() -> dict:
+        return {k: getattr(ops[m], f).launches for k, (m, f) in TC_CLI_KERNELS.items()}
+
+    def zero_counts() -> None:
+        for m, f in TC_CLI_KERNELS.values():
+            getattr(ops[m], f).launches = 0
+
+    def sync() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    dirs = {"train": tmp / "tc_train", "val": tmp / "tc_val"}
+    for split, n, base in (("train", TC_TRAIN_EVENTS, 300), ("val", TC_VAL_EVENTS, 400)):
+        dirs[split].mkdir()
+        for i in range(n):
+            save_graph(EventGraph.from_arrays(**make_tc_event(seed + base + i)), dirs[split] / f"ev{i:02d}.npz")
+    config = tc_cli_config(dirs["train"], dirs["val"], tmp / "tc_runs")
+
+    # ---- step 0 of the CLI's module: gradients through the kernels against the plain path
+    module, dm, trainer = tc_run.build_from_config(copy.deepcopy(config), device="cuda")
+    dm.setup("fit")
+    batch = trainer.train_transform(next(iter(dm.train_dataloader())).to("cuda"), 0)
+    model = module.model
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out, data = module.apply_model(batch)
+        loss, _ = module.get_losses(out, data)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    zero_counts()
+    gk, lk = step0()
+    step0_launches = counts()
+    with plain_path():
+        gp, lp = step0()
+    worst_name, worst, at_floor, no_grad, total = compare_grads(gk, gp)
+    assert not no_grad, no_grad
+    train_kernels = [k for k in TC_CLI_KERNELS if k not in ("pairwise_topk_filter", "cc_neighbors")]
+    for name in train_kernels:
+        assert step0_launches[name] > 0, f"step 0 never launched {name}"
+    log(f"tc.yml CLI step 0: loss {lk:.6f} (plain {lp:.6f}); {len(gk)} parameter gradients agree with "
+        f"the plain path (worst {worst_name}: {worst:.3e} relative; within the floor of 1e-7 x "
+        f"{total:.3e} only: {at_floor or 'none'}); {int(batch.edge_mask.sum())} unmasked edges after "
+        f"the augmentations, {int((batch.y & batch.edge_mask).sum())} true")
+    del module, dm, trainer, model, batch, gk, gp
+
+    # ---- fit through the command dispatch, instrumented
+    rec = {"steps": [], "step_ms": [], "step_launches": [], "scans": [], "epochs": []}
+    build = tc_run.build_from_config
+    rescan_cls, metrics_fn = dbscanscanner.DBSCANFastRescan, dbscanscanner.tracking_metrics
+
+    def instrumented_build(cfg, **kw):
+        module, dm, trainer = build(cfg, **kw)
+        step, epoch_end = module.training_step, module.on_validation_epoch_end
+
+        def training_step(b):
+            before, t0 = counts(), sync()
+            out = step(b)
+            rec["step_ms"].append((sync() - t0) * 1e3)
+            after = counts()
+            rec["step_launches"].append({k: after[k] - before[k] for k in after})
+            rec["steps"].append(out)
+            return out
+
+        def on_validation_epoch_end():
+            foms = epoch_end()
+            rec["epochs"].append({"trials": module.cluster_scanner.trials, "foms": foms})
+            return foms
+
+        module.training_step, module.on_validation_epoch_end = training_step, on_validation_epoch_end
+        rec["module"], rec["trainer"] = module, trainer
+        return module, dm, trainer
+
+    class TimedRescan(rescan_cls):
+        """The scanner's rescanner, timed by part, with its inputs and labels
+        kept for the plain path's scan after the fit."""
+
+        def __init__(self, x, max_eps=1.0, **kw):
+            before, t0 = counts(), sync()
+            super().__init__(x, max_eps, **kw)
+            self.scan = {"radius_ms": (sync() - t0) * 1e3, "metrics_ms": 0.0, "x": x.detach().clone(),
+                         "max_eps": max_eps, "kw": kw,
+                         "row12": counts()["pairwise_topk_filter"] - before["pairwise_topk_filter"]}
+            rec["scans"].append(self.scan)
+
+        def cluster_many(self, trials):
+            before, t0 = counts(), sync()
+            labels = super().cluster_many(trials)
+            self.scan.update(trials_ms=(sync() - t0) * 1e3, trials=list(trials), labels=labels.clone(),
+                             row16=counts()["cc_neighbors"] - before["cc_neighbors"])
+            return labels
+
+    def timed_metrics(**kw):
+        t0 = sync()
+        out = metrics_fn(**kw)
+        rec["scans"][-1]["metrics_ms"] += (sync() - t0) * 1e3
+        return out
+
+    tc_run.build_from_config = instrumented_build
+    dbscanscanner.DBSCANFastRescan, dbscanscanner.tracking_metrics = TimedRescan, timed_metrics
+    try:
+        zero_counts()
+        t0 = sync()
+        result = tc_run.run_command("fit", config, device="cuda")
+        fit_s = sync() - t0
+        fit_launches = counts()
+    finally:
+        tc_run.build_from_config = build
+        dbscanscanner.DBSCANFastRescan, dbscanscanner.tracking_metrics = rescan_cls, metrics_fn
+    trainer, n_steps = rec["trainer"], len(rec["steps"])
+    assert n_steps == TC_EPOCHS * TC_TRAIN_EVENTS, n_steps
+    assert all(math.isfinite(v) for m in rec["steps"] for v in m.values()), "non-finite training loss"
+    for name, n in fit_launches.items():
+        assert n > 0, f"the CLI fit never launched {name}"
+    per_step = {k: statistics.mean(s[k] for s in rec["step_launches"]) for k in fit_launches}
+    for name in train_kernels:
+        assert per_step[name] > 0, f"a CLI training step never launched {name}"
+
+    # ---- the scans: launches counted at their launches, labels against the plain path
+    def check_scans(scans, what: str) -> dict:
+        for i, scan in enumerate(scans):
+            n_trials = len(scan["trials"])
+            assert scan["row12"] == 1, f"{what} scan {i}: row #12 launched {scan['row12']} times, not once"
+            assert scan["row16"] == n_trials == 12, (
+                f"{what} scan {i}: row #16 launched {scan['row16']} times for {n_trials} trials")
+            with plain_path():
+                plain = rescan_cls(scan["x"], scan["max_eps"], **scan["kw"]).cluster_many(scan["trials"])
+            for t, (a, b) in enumerate(zip(scan["labels"], plain)):
+                assert torch.equal(a, b), f"{what} scan {i}, trial {scan['trials'][t]}: labels differ from plain"
+            scan["clusters"] = [int(row.max()) + 1 for row in scan["labels"]]
+        return {k: statistics.mean(s[k] for s in scans) for k in ("radius_ms", "trials_ms", "metrics_ms")}
+
+    assert len(rec["scans"]) == TC_EPOCHS * TC_VAL_EVENTS, len(rec["scans"])
+    fit_scans = rec["scans"]
+    split = check_scans(fit_scans, "fit")
+    best_value = result[f"best_{TC_MONITOR}"]
+    assert math.isfinite(best_value), result
+    best = trainer.best_checkpoint
+    assert best is not None and best.exists(), "no checkpoint_best"
+    chosen = next(e for e in rec["epochs"] if e["foms"][TC_MONITOR] == best_value)
+
+    # The briefly trained latent spreads ~0.005 (the initial weights'), so every
+    # trial eps joins each event into one cluster. The selected trials again,
+    # through the scanner, on a particle-structured latent (make_event's:
+    # unit-normal 8-d centres, 0.02 noise; noise hits unit-normal) plus the
+    # trained latent, give the kernels real clusters at the same shapes.
+    rec["scans"] = []
+    structured = dbscanscanner.DBSCANHyperParamScannerFixed(chosen["trials"])
+    ckpt_model = TrackingPredictor(best, device="cuda").model
+    dbscanscanner.DBSCANFastRescan, dbscanscanner.tracking_metrics = TimedRescan, timed_metrics
+    try:
+        for i in range(TC_VAL_EVENTS):
+            g = load_graph(dirs["val"] / f"ev{i:02d}.npz", device="cuda").sort_edges_by_target()
+            with torch.no_grad():
+                h = ckpt_model(g)["H"].float()
+            rng = np.random.default_rng(seed + 500 + i)
+            pid = g.particle_id.cpu().numpy()
+            latent = rng.normal(size=(N_TRACKS, 8))[pid] + 0.02 * rng.normal(size=(N_NODES, 8))
+            latent[pid == 0] = rng.normal(size=(int((pid == 0).sum()), 8))
+            structured(g, {"H": torch.from_numpy(latent.astype(np.float32)).to(g.device) + h}, i)
+    finally:
+        dbscanscanner.DBSCANFastRescan, dbscanscanner.tracking_metrics = rescan_cls, metrics_fn
+    structured_scans = rec["scans"]
+    structured_split = check_scans(structured_scans, "particle-structured")
+    structured_foms = structured.get_foms()
+    assert all(max(s["clusters"]) > N_TRACKS // 2 for s in structured_scans), [s["clusters"] for s in structured_scans]
+
+    # ---- checkpoint_best: validate with the selected epoch's trials, then serve it
+    config_v = copy.deepcopy(config)
+    config_v["model"]["init_args"]["cluster_scanner"] = {
+        "class_path": "gnn_tracking_tpu.postprocessing.dbscanscanner.DBSCANHyperParamScannerFixed",
+        "init_args": {"trials": chosen["trials"]},
+    }
+    val = tc_run.run_command("validate", config_v, ckpt_path=best, device="cuda")
+    assert val[TC_MONITOR] == best_value, f"validate --ckpt_path: {val[TC_MONITOR]} != fit's {best_value}"
+    chosen_total = trainer.metrics_history[rec["epochs"].index(chosen)]["total"]
+    assert val["total"] == chosen_total, f"validate --ckpt_path: total {val['total']} != fit's {chosen_total}"
+    predictor = TrackingPredictor(best, eps=chosen["foms"]["best_dbscan_eps"],
+                                  min_samples=int(chosen["foms"]["best_dbscan_min_samples"]), device="cuda")
+    stats = predictor.predict_dir(dirs["val"], tmp / "tc_labels", evaluate=True)
+    trk = {k: v for k, v in stats.items() if k.startswith("trk.")}
+    assert trk and TC_MONITOR in trk and all(math.isfinite(v) for v in trk.values()), trk
+    with plain_path():
+        for i in range(TC_VAL_EVENTS):
+            want = predictor.predict(load_graph(dirs["val"] / f"ev{i:02d}.npz", device="cuda"))
+            got = np.load(tmp / "tc_labels" / f"ev{i:02d}_labels.npz")
+            assert np.array_equal(got["labels"], want["labels"]), f"served event {i}: labels differ from plain"
+
+    steps_per_s = n_steps / (sum(rec["step_ms"]) / 1e3)
+    warm_steps_per_s = (n_steps - 1) / (sum(rec["step_ms"][1:]) / 1e3)
+    summary = {
+        "steps": n_steps, "steps_per_s": steps_per_s, "warm_steps_per_s": warm_steps_per_s,
+        "step_ms": rec["step_ms"], "step_ms_median": statistics.median(rec["step_ms"]),
+        "fit_s": fit_s, "launches_per_step": per_step, "fit_launches": fit_launches,
+        "scan_ms_per_event": split, "structured_scan_ms_per_event": structured_split,
+        "scans": [{k: s[k] for k in ("row12", "row16", "radius_ms", "trials_ms", "metrics_ms", "clusters")}
+                  for s in fit_scans + structured_scans],
+        f"structured_{TC_MONITOR}": structured_foms[TC_MONITOR],
+        f"best_{TC_MONITOR}": best_value, "validate_ckpt": val[TC_MONITOR],
+        "best_dbscan": [chosen["foms"]["best_dbscan_eps"], chosen["foms"]["best_dbscan_min_samples"]],
+        "served_trk": trk, "last_total_train": rec["steps"][-1]["total"],
+    }
+    log(f"tc.yml CLI fit: {n_steps} steps, {steps_per_s:.2f} steps/s ({warm_steps_per_s:.2f} after the first "
+        f"step's {rec['step_ms'][0]:.1f} ms; median step {summary['step_ms_median']:.2f} ms), fit wall time {fit_s:.2f} s incl. {len(fit_scans)} scanned "
+        f"validation events; scan per event: radius graph {split['radius_ms']:.2f} ms, 12 trials "
+        f"{split['trials_ms']:.2f} ms, metrics {split['metrics_ms']:.2f} ms (on the particle-structured "
+        f"latent {structured_split['radius_ms']:.2f} / {structured_split['trials_ms']:.2f} / "
+        f"{structured_split['metrics_ms']:.2f} ms, {TC_MONITOR} {structured_foms[TC_MONITOR]:.4f}); rows "
+        f"#12 / #16 once / 12 times a scanned event, labels bitwise the plain path's for every trial; checkpoint_best: "
+        f"{TC_MONITOR} {best_value} and validation total {chosen_total:.6f} from fit and from validate "
+        f"--ckpt_path; served with evaluate=True: "
+        f"{TC_MONITOR} {trk[TC_MONITOR]}, labels equal to the plain path's")
+    log("tc_cli: " + json.dumps(summary))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -4355,6 +4714,9 @@ def main(argv=None) -> int:
     p.add_argument("--wide-phases", action="store_true",
                    help="with --wide-only: also count the wide edge kernels' cycles by phase "
                    "(wide_phases: a second build of the wide layout with -DWIDE_PHASES)")
+    p.add_argument("--tc-cli-only", action="store_true",
+                   help="build, run phase 11 (tc.yml's recipe through the port's CLI: tc_cli_phase), "
+                   "print its summary and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -4486,6 +4848,12 @@ def main(argv=None) -> int:
         ev = EventGraph.from_arrays(**make_event(args.seed + 10)).to(dev).sort_edges_by_target(with_unsort=True)
         with torch.no_grad():
             cc_checks(*core_table(model(ev)["H"].float().contiguous()), args.seed, this_tree=root == REPO)
+        print(smi)
+        return 0
+    if args.tc_cli_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tc_tmp:
+            tc_cli_phase(args.seed, Path(tc_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -4741,13 +5109,18 @@ def main(argv=None) -> int:
             r["launches"] = val_summary["ec_f32_saved_launches"][r["name"]]
     assert all("launches" in r for r in results), [r["name"] for r in results if "launches" not in r]
 
-    # ---- 11. results ------------------------------------------------------
+    # ---- 11. tc.yml's recipe through the port's CLI ---------------------------
+    cli = tc_cli_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(cli["fit_launches"]), sorted(cli["fit_launches"])
+
+    # ---- 12. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": TPU_KERNELS[r["name"]], "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **({"cli_launches": cli["fit_launches"][r["name"]]} if r["name"] in cli["fit_launches"] else {}),
         }
         for r in results
     ]

@@ -90,15 +90,14 @@ def tracking_metrics(
 ) -> dict[float, TrackingMetrics]:
     """Tracking metrics per pt threshold: ``{pt: {metric: value}}`` with
     ``n_*`` as ints and the rest as floats. Tensors stay on their device;
-    arrays become CPU tensors. The float dtype is that of ``pts`` (float64
-    for integer ``pts``)."""
+    arrays become CPU tensors. The floats are computed in float64, as the
+    JAX wrapper computes them (``np.asarray(pts, dtype=float)``)."""
     pt_thlds = tuple(pt_thlds)
     if len(truth) == 0:
         return {pt: dict(_tracking_metrics_nan_results) for pt in pt_thlds}
     dev = truth.device if torch.is_tensor(truth) else torch.device("cpu")
-    pts = _tensor(pts, dev)
-    fdt = pts.dtype if pts.is_floating_point() else torch.float64
-    pts = pts.to(fdt)
+    fdt = torch.float64
+    pts = _tensor(pts, dev, fdt)
     truth = _tensor(truth, dev, torch.int64)
     predicted = _tensor(predicted, dev, torch.int64)
     reconstructable = _tensor(reconstructable, dev, fdt)

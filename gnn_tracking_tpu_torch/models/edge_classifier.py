@@ -1,8 +1,11 @@
-"""Edge classifier for the Graph TCN (counterpart of the JAX
-``models/edge_classifier.py:ECForGraphTCN``), the model of ``ECModule`` and
-the first stage of ``GraphTCN``."""
+"""Edge classifiers for the Graph TCN (counterpart of the JAX
+``models/edge_classifier.py``): ``ECForGraphTCN``, the model of
+``ECModule`` and the first stage of ``GraphTCN``, and the truth-based
+``PerfectEdgeClassification``, the first stage of ``PerfectECGraphTCN``."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -97,3 +100,37 @@ class ECForGraphTCN(nn.Module):
             "node_embedding": h_ec,
             "edge_embedding": edge_attr_ec,
         }
+
+
+class PerfectEdgeClassification(nn.Module):
+    """Truth-based edge classifier: ``W`` is the edge truth ``y`` as float32,
+    with true edges kept with probability ``tpr``, false edges rejected with
+    probability ``tnr``, and every edge whose source has ``pt`` below
+    ``false_below_pt`` set false (JAX ``edge_classifier.py:133-165``). No
+    parameters. Below 1, ``tpr`` / ``tnr`` draw uniforms on the host from
+    the module's ``torch.Generator`` (seeded with ``seed``), the ``tpr`` flips
+    first and the ``tnr`` draw then acts on every edge that is false after
+    them, as in JAX; the JAX module draws from its ``perfect_ec`` stream, so
+    only the flip rates agree."""
+
+    def __init__(self, tpr: float = 1.0, tnr: float = 1.0, false_below_pt: float = 0.0,
+                 *, seed: int = 0):
+        super().__init__()
+        if not (0.0 <= tpr <= 1.0 and 0.0 <= tnr <= 1.0):
+            msg = f"tpr={tpr}, tnr={tnr}: both must lie in [0, 1]"
+            raise ValueError(msg)
+        self.tpr, self.tnr, self.false_below_pt = tpr, tnr, false_below_pt
+        self.generator = torch.Generator().manual_seed(seed)
+
+    def _uniform(self, n: int, device: torch.device) -> torch.Tensor:
+        return torch.rand(n, generator=self.generator).to(device)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+        r = data.y.to(torch.bool)
+        if not math.isclose(self.tpr, 1.0):
+            r = torch.where(r, self._uniform(r.shape[0], r.device) <= self.tpr, r)
+        if not math.isclose(self.tnr, 1.0):
+            r = torch.where(~r, ~(self._uniform(r.shape[0], r.device) <= self.tnr), r)
+        if self.false_below_pt > 0.0:
+            r = r & ~(data.pt[data.edge_index[0].long()] < self.false_below_pt)
+        return {"W": r.to(torch.float32)}

@@ -1,6 +1,6 @@
 """Track-condensation networks (counterpart of the JAX
 ``models/track_condensation_networks.py``: ``ModularGraphTCN`` with an edge
-classifier, and ``GraphTCN``).
+classifier, ``GraphTCN`` and ``PerfectECGraphTCN``).
 
 As in the JAX package, the EC cut is an edge mask that the condensation
 interaction networks run under; outputs keep the full (masked) length.
@@ -12,15 +12,19 @@ import torch
 from torch import nn
 
 from gnn_tracking_tpu_torch.graphs import EventGraph
-from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+from gnn_tracking_tpu_torch.models.edge_classifier import (
+    ECForGraphTCN,
+    PerfectEdgeClassification,
+)
 from gnn_tracking_tpu_torch.models.mlp import MLP, ResFCNN
 from gnn_tracking_tpu_torch.models.resin import ResIN
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 
 
 class ModularGraphTCN(nn.Module):
-    """Edge classifier + HC encoders + condensation ResIN + beta /
-    cluster-coordinate heads. (The JAX module's EC-less form and its
+    """Edge classifier (``ECForGraphTCN`` or the truth-based
+    ``PerfectEdgeClassification``) + HC encoders + condensation ResIN +
+    beta / cluster-coordinate heads. (The JAX module's EC-less form and its
     metric-learning options, ``alpha_latent`` and the heterogeneous node
     encoder, are not ported.)
 
@@ -31,7 +35,7 @@ class ModularGraphTCN(nn.Module):
     def __init__(
         self,
         hc_in: ResIN,
-        ec: ECForGraphTCN,
+        ec: ECForGraphTCN | PerfectEdgeClassification,
         node_indim: int,
         edge_indim: int,
         h_dim: int = 5,
@@ -166,5 +170,52 @@ class GraphTCN(ModularGraphTCN):
             mask_orphan_nodes=mask_orphan_nodes,
             use_ec_embeddings_for_hc=use_ec_embeddings_for_hc,
             device=device, generator=generator,
+        )
+        self.model_config = config
+
+
+class PerfectECGraphTCN(ModularGraphTCN):
+    """``ModularGraphTCN`` with the truth-based ``PerfectEdgeClassification``
+    (JAX ``track_condensation_networks.py:334-396``). As for ``GraphTCN``,
+    ``utils.param_convert`` drops the JAX tree's ``gtcn`` level; the EC has
+    no parameters. ``model_config`` holds the constructor arguments."""
+
+    def __init__(
+        self,
+        node_indim: int,
+        edge_indim: int,
+        h_dim: int = 5,
+        e_dim: int = 4,
+        h_outdim: int = 2,
+        hidden_dim: int = 40,
+        L_hc: int = 3,
+        alpha_hc: float = 0.5,
+        ec_tpr: float = 1.0,
+        ec_tnr: float = 1.0,
+        ec_threshold: float = 0.5,
+        mask_orphan_nodes: bool = False,
+        feed_edge_weights: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        resolve_device(device)
+        config = {
+            "node_indim": node_indim, "edge_indim": edge_indim, "h_dim": h_dim,
+            "e_dim": e_dim, "h_outdim": h_outdim, "hidden_dim": hidden_dim, "L_hc": L_hc,
+            "alpha_hc": alpha_hc, "ec_tpr": ec_tpr, "ec_tnr": ec_tnr,
+            "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
+            "feed_edge_weights": feed_edge_weights,
+        }
+        hc_in = ResIN(
+            h_dim, e_dim, object_hidden_dim=hidden_dim,
+            relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
+            generator=generator,
+        )
+        super().__init__(
+            hc_in, PerfectEdgeClassification(tpr=ec_tpr, tnr=ec_tnr), node_indim, edge_indim,
+            h_dim=h_dim, e_dim=e_dim, h_outdim=h_outdim, hidden_dim=hidden_dim,
+            feed_edge_weights=feed_edge_weights, ec_threshold=ec_threshold,
+            mask_orphan_nodes=mask_orphan_nodes, device=device, generator=generator,
         )
         self.model_config = config

@@ -1,6 +1,7 @@
 """DBSCAN via the fixed-degree radius graph + connected components
-(counterpart of the JAX ``ops/dbscan.py``: ``dbscan`` and
-``dbscan_from_graph`` on the ``neighbor_cap`` path).
+(counterpart of the JAX ``ops/dbscan.py``: ``dbscan``, and
+``dbscan_from_graph`` and ``dbscan_from_graph_many`` on the
+``neighbor_cap`` path).
 
 Label semantics match sklearn, given a neighbour cap above the densest
 eps-neighbourhood: a point is core iff its eps-neighbourhood (itself
@@ -18,19 +19,7 @@ from gnn_tracking_tpu_torch.ops.cc import compact_labels, connected_components_n
 from gnn_tracking_tpu_torch.ops.knn import radius_graph
 
 
-def dbscan_from_graph(
-    edge_index: torch.Tensor,
-    dists: torch.Tensor,
-    num_nodes: int,
-    *,
-    eps: float,
-    min_samples: int,
-    neighbor_cap: int,
-    edge_mask: torch.Tensor | None = None,
-    node_mask: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """DBSCAN labels from a query-major fixed-degree neighbour graph (edge
-    ``i*cap + s`` targets node ``i``), as :func:`radius_graph` emits."""
+def _check_layout(edge_index, num_nodes, neighbor_cap, edge_mask, node_mask):
     n, cap = num_nodes, neighbor_cap
     e = edge_index.shape[1]
     if e != n * cap:
@@ -41,8 +30,15 @@ def dbscan_from_graph(
         edge_mask = torch.ones(e, dtype=torch.bool, device=dev)
     if node_mask is None:
         node_mask = torch.ones(n, dtype=torch.bool, device=dev)
-    src2d = edge_index[0].reshape(n, cap)
-    within2d = (edge_mask & (dists <= eps)).reshape(n, cap)
+    return edge_index[0].reshape(n, cap), edge_mask.reshape(n, cap), node_mask
+
+
+def _labels(src2d, within2d, node_mask, min_samples) -> torch.Tensor:
+    """DBSCAN labels from the ``[N, cap]`` neighbour table and its
+    within-eps mask: one connected-components call on the core-core
+    table."""
+    n, cap = src2d.shape
+    dev = src2d.device
     deg = within2d.sum(dim=1)
     core = node_mask & (deg + 1 >= min_samples)
     src_long = src2d.long()
@@ -56,6 +52,60 @@ def dbscan_from_graph(
     in_cluster = node_mask & (rep < n)
     rep = torch.where(in_cluster, rep, 0)
     return compact_labels(rep, valid=in_cluster, noise_value=-1)
+
+
+def dbscan_from_graph(
+    edge_index: torch.Tensor,
+    dists: torch.Tensor,
+    num_nodes: int,
+    *,
+    eps: float,
+    min_samples: int,
+    neighbor_cap: int,
+    edge_mask: torch.Tensor | None = None,
+    node_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """DBSCAN labels from a query-major fixed-degree neighbour graph (edge
+    ``i*cap + s`` targets node ``i``), as :func:`radius_graph` emits."""
+    src2d, mask2d, node_mask = _check_layout(
+        edge_index, num_nodes, neighbor_cap, edge_mask, node_mask
+    )
+    within2d = mask2d & (dists.reshape(src2d.shape) <= eps)
+    return _labels(src2d, within2d, node_mask, min_samples)
+
+
+def dbscan_from_graph_many(
+    edge_index: torch.Tensor,
+    dists: torch.Tensor,
+    num_nodes: int,
+    *,
+    eps,
+    min_samples,
+    neighbor_cap: int,
+    edge_mask: torch.Tensor | None = None,
+    node_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Labels ``[B, N]`` int32 for ``B`` ``(eps[b], min_samples[b])`` trials
+    on one shared neighbour graph; row ``b`` equals
+    :func:`dbscan_from_graph` at that trial. ``eps`` is taken in
+    ``dists``' dtype. The within-eps masks of all trials are one tensor
+    op; each trial then makes one connected-components call (row #16 on
+    the card, one launch a trial)."""
+    src2d, mask2d, node_mask = _check_layout(
+        edge_index, num_nodes, neighbor_cap, edge_mask, node_mask
+    )
+    dev = edge_index.device
+    eps = torch.as_tensor(eps, dtype=dists.dtype, device=dev).reshape(-1)
+    min_samples = torch.as_tensor(min_samples, dtype=torch.int64).reshape(-1).tolist()
+    if len(min_samples) != eps.shape[0]:
+        msg = f"{eps.shape[0]} eps values but {len(min_samples)} min_samples"
+        raise ValueError(msg)
+    within = mask2d[None] & (dists.reshape(src2d.shape)[None] <= eps[:, None, None])
+    if not min_samples:
+        return torch.empty((0, num_nodes), dtype=torch.int32, device=dev)
+    return torch.stack([
+        _labels(src2d, within[b], node_mask, m) for b, m in enumerate(min_samples)
+    ])
 
 
 def dbscan(

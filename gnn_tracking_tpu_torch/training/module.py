@@ -17,11 +17,13 @@ output dtype before the loss. ``forward`` runs the model as it is, as the
 JAX module's does.
 
 ``MLModule(gc_scanner=...)`` runs the graph-construction k-scanner
-(``graph_construction/k_scanner.py``) on every validation event and returns
-its figures of merit at the end of the validation epoch.
+(``graph_construction/k_scanner.py``) on every validation event, and
+``TCModule(cluster_scanner=...)`` a cluster scanner
+(``postprocessing/dbscanscanner.py``); each returns its figures of merit at
+the end of the validation epoch.
 
 Not ported yet (raise ``NotImplementedError``): a custom optimizer,
-``preproc``, ``frozen_prefixes`` and the cluster scanner of ``TCModule``.
+``preproc`` and ``frozen_prefixes``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ from gnn_tracking_tpu_torch.utils.dictionaries import add_key_suffix
 from gnn_tracking_tpu_torch.utils.nomenclature import denote_pt
 
 
+#: the default seed of a module's random streams and of its model's initial
+#: weights (``training/run.build_from_config``), as in the JAX module
+DEFAULT_RNG_SEED = 42
+
+
 def to_floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
     """Scalar tensors on one device -> floats, with one device-to-host
     transfer (one round trip per step, as the JAX module's ``device_get``)."""
@@ -61,7 +68,7 @@ class TrackingModule:
         lr: float = 1e-3,
         preproc: nn.Module | None = None,
         frozen_prefixes: tuple[str, ...] = (),
-        rng_seed: int = 42,
+        rng_seed: int = DEFAULT_RNG_SEED,
         precision: str = "f32",
         device: str | torch.device = "cuda",
     ):
@@ -147,11 +154,9 @@ class TCModule(TrackingModule):
     """Object-condensation training (reference ``training/tc.py``)."""
 
     def __init__(self, *, loss_fct, cluster_scanner=None, **kwargs):
-        if cluster_scanner is not None:
-            msg = "the cluster scanner is not ported"
-            raise NotImplementedError(msg)
         super().__init__(**kwargs)
         self.loss_fct = loss_fct
+        self.cluster_scanner = cluster_scanner
 
     def get_losses(self, out, data: EventGraph):
         losses = self.loss_fct(
@@ -169,6 +174,16 @@ class TCModule(TrackingModule):
         metrics |= add_key_suffix(losses.weighted_losses, "_weighted")
         metrics |= dict(losses.extra_metrics)
         return losses.loss, metrics
+
+    def validation_extra(self, out, data: EventGraph, batch_idx: int) -> dict[str, float]:
+        if self.cluster_scanner is not None:
+            self.cluster_scanner(data, out, batch_idx)
+        return {}
+
+    def on_validation_epoch_end(self) -> dict[str, float]:
+        if self.cluster_scanner is None:
+            return {}
+        return {k: float(v) for k, v in self.cluster_scanner.get_foms().items()}
 
     def highlight_metric(self, metric: str) -> bool:
         return metric in [

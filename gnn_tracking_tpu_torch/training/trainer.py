@@ -1,23 +1,34 @@
-"""Training loop with an EMA of the parameters and epoch checkpoints
-(counterpart of the JAX ``training/trainer.py``: ``Trainer.fit`` and
-``Trainer.validate``).
+"""Training loop with an EMA of the parameters, epoch checkpoints and
+model selection (counterpart of the JAX ``training/trainer.py``:
+``Trainer.fit``, ``.validate`` and ``.test``).
 
-Per epoch: one ``training_step`` per event, an exponential moving average of
-the parameters after each step when ``ema_decay`` is set (first copied after
-step 1, then ``ema * d + p * (1 - d)``, as in JAX), validation every
+Per epoch: one ``training_step`` per event, each batch first passed through
+``train_transform(batch, module.step)`` when one is set (a
+``{class_path, init_args}`` dict is built with ``training.config``), an
+exponential moving average of the parameters after each step when
+``ema_decay`` is set (first copied after step 1, then
+``ema * d + p * (1 - d)``, as in JAX), validation every
 ``val_every_n_epochs`` epochs and always after the last, on the EMA weights
 when they exist, and a checkpoint of the raw weights in the serving format
 (``inference.save_checkpoint``), so ``TrackingPredictor(<checkpoint>)``
-serves it. Epoch metrics are means with standard errors (``*_std``).
+serves it; ``checkpoint_<step>_meta.json`` beside it holds the step and the
+config that ``fit`` was given. With ``monitor``, each validation whose
+metric improves (``monitor_mode`` "max" or "min") writes
+``checkpoint_best.pt`` with the weights that were evaluated (the EMA
+weights when ``ema_decay`` is set), and ``fit`` returns
+``best_<monitor>`` beside the last validation's metrics. Epoch metrics are
+means with standard errors (``*_std``).
 
-Not ported yet (raise ``NotImplementedError``): ``resume``, async
-checkpoints, ``monitor`` / ``checkpoint_best``, ``train_transform``. The
-JAX trainer's run loggers and out-of-memory guard have no counterpart here.
+Not ported yet (raise ``NotImplementedError``): ``resume`` and async
+checkpoints (they wait for the optimizer state in the checkpoint). The JAX
+trainer's run loggers and out-of-memory guard have no counterpart here.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import json
 import logging
 import math
 import os
@@ -28,6 +39,7 @@ import numpy as np
 import torch
 
 from gnn_tracking_tpu_torch.inference import save_checkpoint
+from gnn_tracking_tpu_torch.training.config import obj_from_config
 
 logger = logging.getLogger(__name__)
 
@@ -80,14 +92,18 @@ class Trainer:
         log_every_n_steps: int = 50,
         print_validation_results: bool = True,
         monitor: str | None = None,
+        monitor_mode: str = "max",
         val_every_n_epochs: int = 1,
         async_checkpoints: bool = False,
         train_transform=None,
         ema_decay: float | None = None,
     ):
-        if monitor is not None or async_checkpoints or train_transform is not None:
-            msg = "monitor / checkpoint_best, async checkpoints and train_transform are not ported"
+        if async_checkpoints:
+            msg = "async checkpoints are not ported"
             raise NotImplementedError(msg)
+        if monitor_mode not in ("max", "min"):
+            msg = f"monitor_mode must be 'max' or 'min', got {monitor_mode!r}"
+            raise ValueError(msg)
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.name = name or f"run-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
@@ -95,12 +111,23 @@ class Trainer:
         self.checkpoint_every_epoch = checkpoint_every_epoch
         self.log_every_n_steps = log_every_n_steps
         self.print_validation_results = print_validation_results
+        self.monitor = monitor
+        self.monitor_mode = monitor_mode
         self.val_every_n_epochs = val_every_n_epochs
+        if isinstance(train_transform, dict) and "class_path" in train_transform:
+            train_transform = obj_from_config(train_transform)
+        self.train_transform = train_transform
         self.ema_decay = ema_decay
         #: parameter name -> EMA tensor (set during ``fit`` when ``ema_decay``)
         self.ema_params: dict[str, torch.Tensor] | None = None
         self.metrics_history: list[dict[str, float]] = []
+        #: the epoch checkpoints, in order
         self.checkpoints: list[Path] = []
+        #: ``checkpoint_best.pt`` once ``monitor`` selected an epoch
+        self.best_checkpoint: Path | None = None
+        #: the full validation metrics of the selected epoch
+        self.best_metrics: dict[str, float] = {}
+        self._best_monitor: float | None = None
 
     @torch.no_grad()
     def _update_ema(self, module) -> None:
@@ -112,15 +139,38 @@ class Trainer:
         for k, e in self.ema_params.items():
             e.copy_(e * d + params[k] * (1.0 - d))
 
-    def _save(self, module) -> Path:
-        path = self.log_dir / "checkpoints" / f"checkpoint_{module.step:08d}.pt"
+    def _save(self, module, config: dict | None = None, tag: str | None = None) -> Path:
+        tag = tag if tag is not None else f"{module.step:08d}"
+        path = self.log_dir / "checkpoints" / f"checkpoint_{tag}.pt"
         path.parent.mkdir(parents=True, exist_ok=True)
         save_checkpoint(module.model, path)
-        self.checkpoints.append(path)
+        meta = {"step": module.step, "config": config or {}}
+        path.with_name(f"{path.stem}_meta.json").write_text(json.dumps(meta, default=str))
         return path
 
-    def fit(self, module, datamodule, *, resume: bool = False) -> dict[str, float]:
-        """Train; returns the last validation metrics."""
+    @staticmethod
+    def restore(module, path: str | Path) -> None:
+        """Load a checkpoint's weights into ``module.model`` and its step
+        (from ``_meta.json``, where there is one) into ``module.step``."""
+        path = Path(path)
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        module.model.load_state_dict(ckpt["state_dict"])
+        meta = path.with_name(f"{path.stem}_meta.json")
+        if meta.exists():
+            module.step = json.loads(meta.read_text())["step"]
+
+    def _improves(self, value: float) -> bool:
+        if self._best_monitor is None:
+            return True
+        if self.monitor_mode == "max":
+            return value > self._best_monitor
+        return value < self._best_monitor
+
+    def fit(self, module, datamodule, config: dict | None = None, *,
+            resume: bool = False) -> dict[str, float]:
+        """Train; returns the last validation metrics, with
+        ``best_<monitor>`` when ``monitor`` selected an epoch. ``config`` is
+        written beside every checkpoint."""
         if resume:
             msg = "resume is not ported"
             raise NotImplementedError(msg)
@@ -133,6 +183,8 @@ class Trainer:
             acc = MetricAccumulator()
             n_steps = 0
             for batch in train_loader:
+                if self.train_transform is not None:
+                    batch = self.train_transform(batch.to(module.device), module.step)
                 metrics = module.training_step(batch)
                 if self.ema_decay is not None:
                     self._update_ema(module)
@@ -148,12 +200,30 @@ class Trainer:
                 (epoch + 1) % self.val_every_n_epochs == 0 or epoch == self.max_epochs - 1
             ):
                 last_val = self.validate(module, loader=val_loader, params=self.ema_params)
+                if self.monitor is not None and self.monitor in last_val:
+                    value = last_val[self.monitor]
+                    if self._improves(value):
+                        self._best_monitor = value
+                        self.best_metrics = dict(last_val)
+                        # the weights that were evaluated: the EMA's when it is on
+                        with _parameters(module, self.ema_params):
+                            self.best_checkpoint = self._save(module, config, tag="best")
+                        logger.info("New best %s=%.5f (checkpoint_best)", self.monitor, value)
             self.metrics_history.append({**train_metrics, **last_val})
             if self.checkpoint_every_epoch:
-                self._save(module)
+                self.checkpoints.append(self._save(module, config))
             if self.max_steps is not None and module.step >= self.max_steps:
                 break
-        return dict(last_val)
+        out = dict(last_val)
+        if self.monitor is not None and self._best_monitor is not None:
+            out[f"best_{self.monitor}"] = self._best_monitor
+        return out
+
+    def _evaluate(self, module, loader) -> dict[str, float]:
+        acc = MetricAccumulator()
+        for i, batch in enumerate(loader):
+            acc.update(module.validation_step(batch, i))
+        return acc.compute() | module.on_validation_epoch_end()
 
     def validate(self, module, datamodule=None, loader=None, params=None) -> dict[str, float]:
         """Run validation; ``params`` (e.g. :attr:`ema_params`, name ->
@@ -161,24 +231,33 @@ class Trainer:
         if loader is None:
             datamodule.setup("validate")
             loader = datamodule.val_dataloader()
-        model_params = dict(module.model.named_parameters())
-        raw = None
-        if params is not None:
-            with torch.no_grad():
-                raw = {k: p.detach().clone() for k, p in model_params.items()}
-                for k, p in model_params.items():
-                    p.copy_(params[k])
-        try:
-            acc = MetricAccumulator()
-            for i, batch in enumerate(loader):
-                acc.update(module.validation_step(batch, i))
-            metrics = acc.compute()
-            metrics |= module.on_validation_epoch_end()
-        finally:
-            if raw is not None:
-                with torch.no_grad():
-                    for k, p in model_params.items():
-                        p.copy_(raw[k])
+        with _parameters(module, params):
+            metrics = self._evaluate(module, loader)
         if self.print_validation_results:
             print(format_results_table(metrics, highlight=module.highlight_metric))
         return metrics
+
+    def test(self, module, datamodule) -> dict[str, float]:
+        """Validation steps over the test data, with the model's weights."""
+        datamodule.setup("test")
+        return self._evaluate(module, datamodule.test_dataloader())
+
+
+@contextlib.contextmanager
+def _parameters(module, params: dict[str, torch.Tensor] | None):
+    """``module.model`` with ``params`` (name -> tensor) in place of its
+    parameters inside the block (nothing changes for ``None``)."""
+    if params is None:
+        yield
+        return
+    model_params = dict(module.model.named_parameters())
+    with torch.no_grad():
+        raw = {k: p.detach().clone() for k, p in model_params.items()}
+        for k, p in model_params.items():
+            p.copy_(params[k])
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for k, p in model_params.items():
+                p.copy_(raw[k])

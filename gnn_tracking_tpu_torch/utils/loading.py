@@ -5,6 +5,7 @@ the datasets, loaders and data module that feed the trainer (JAX
 
 from __future__ import annotations
 
+import random
 from collections import deque
 from collections.abc import Iterator, Sequence
 from concurrent.futures import ThreadPoolExecutor
@@ -78,8 +79,9 @@ class TrackingDataset:
 
 
 class GraphLoader:
-    """Host-side loader: optional shuffling (explicit generator, reseeded
-    from ``seed`` once per loader), subsampling, and ``prefetch`` graphs
+    """Host-side loader: optional shuffling (``random.Random(seed)``, made
+    once per loader, so an epoch's order is the JAX loader's), subsampling,
+    and ``prefetch`` graphs
     loaded ahead in background threads (npz decompression releases the
     GIL). One graph per batch; the JAX loader's padding and multi-graph
     batches are not ported."""
@@ -100,7 +102,7 @@ class GraphLoader:
         self._dataset = dataset
         self._shuffle = shuffle
         self._sample_size = sample_size
-        self._generator = torch.Generator().manual_seed(seed)
+        self._rng = random.Random(seed)
         self._prefetch = prefetch
         self.batch_size = batch_size
 
@@ -109,12 +111,9 @@ class GraphLoader:
         return n if self._sample_size is None else min(n, self._sample_size)
 
     def _indices(self) -> list[int]:
-        n = len(self._dataset)
-        order = (
-            torch.randperm(n, generator=self._generator).tolist()
-            if self._shuffle
-            else list(range(n))
-        )
+        order = list(range(len(self._dataset)))
+        if self._shuffle:
+            self._rng.shuffle(order)
         return order[: len(self)]
 
     def __iter__(self) -> Iterator[EventGraph]:
@@ -141,8 +140,8 @@ class TrackingDataModule:
         )
 
     Config keys: ``dirs``, ``start``, ``stop``, ``sector``, ``batch_size``
-    (1 only), ``sample_size``. The training loader shuffles with a
-    generator seeded from ``seed``. ``PaddingConfig`` is a TPU static-shape
+    (1 only), ``sample_size``. The training loader shuffles with
+    ``random.Random(seed)``, as the JAX loader does. ``PaddingConfig`` is a TPU static-shape
     device and is not ported.
     """
 

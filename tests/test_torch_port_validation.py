@@ -495,6 +495,32 @@ def test_validation_modules_import_no_pandas_networkx_sklearn():
             assert name.split(".")[0] not in ("pandas", "networkx", "sklearn"), f"{f.name} imports {name}"
 
 
+def test_port_imports_yaml_only_inside_functions():
+    """The card's machine has no PyYAML: no module of the port (nor
+    ``chip_smoke.py``) imports ``yaml`` outside a function body, and
+    ``training/run.py`` imports it only inside ``cli_main``."""
+    import ast
+
+    def module_level(node, inside=False):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            inside = True
+        if isinstance(node, ast.Import):
+            yield from ((a.name, inside) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, inside
+        for child in ast.iter_child_nodes(node):
+            yield from module_level(child, inside)
+
+    files = sorted((REPO / "gnn_tracking_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    inside_only = []
+    for f in files:
+        for name, inside in module_level(ast.parse(f.read_text())):
+            if name.split(".")[0] == "yaml":
+                assert inside, f"{f.relative_to(REPO)} imports yaml at module level"
+                inside_only.append(f.name)
+    assert inside_only == ["run.py"]
+
+
 # ------------------------------------------------------------ CUDA: the card
 @pytest.fixture
 def cuda():
