@@ -191,8 +191,46 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    recorded; ``TrackingPredictor(checkpoint_best.pt).predict_dir(...,
    evaluate=True)`` over the validation events gives finite ``trk.*``
    values and labels equal to the plain path's;
-12. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
-   also with ``cli_launches``, their launches in phase 11's ``fit``), the
+12. stages chained through checkpoints (``pipeline_phase``) on 4 training
+   and 32 serving point clouds of 32,768 hits / 2,048 particles
+   (``make_point_cloud``, edge-less npz): (a) ``MLModule`` at ``ml.yml``'s
+   widths, ``Trainer.fit`` for 1 epoch over 2 clouds, its epoch checkpoint
+   restored bitwise by ``training.restore.get_model``; (b) the bake,
+   ``DataTransformer(ml_graph_construction_from_chkpt(k 16, radius 1.0))``
+   over the 4 clouds: row #13 once a cloud, each graph equal to the plain
+   path's up to ties (``compare_neighbours``) and to the saved npz;
+   (c) ``ec.yml``'s ``ECForGraphTCN`` on the baked graphs' 28 edge features,
+   focal loss, bf16 (kernels A / B): step 0's gradients against the plain
+   path's (5e-2 of each tensor's largest), a 1-epoch fit, a fresh module
+   and trainer resuming it for 1 more (``fit(resume=True)``), held to an
+   uninterrupted 2-epoch fit (equal step counts, parameters bitwise or
+   within 1e-6 relative; both with the default shuffled training loader,
+   whose second epoch the resumed fit must read); (d) ``TCModule`` around
+   ``PreTrainedECGraphTCN(ec_from_chkpt(...), tc.yml's widths)`` with
+   ``frozen_prefixes=("model/ec",)``: step 0's gradients against the plain
+   path's (``compare_grads``, the EC's none), a 1-epoch fit, the EC bitwise
+   unchanged and the TC's ``W`` within 1e-6 of the restored EC's; (e)
+   ``inference.main --ml-chkpt --ml-neighbors 64 --ml-radius 1.0
+   --evaluate`` over the serving clouds at ``--batch-size`` 1 and 2 (labels
+   equal across batch sizes, and on the first 2 clouds to the plain path's;
+   rows #12, #1, #9, #16 launched; events/s of each, over the 31 / 30
+   clouds after the first batch); the briefly trained latent is one
+   cluster an event, so the same model with a particle-structured latent
+   (each hit at its particle's unit-normal 8-d centre plus 0.02 of ``H``)
+   serves the first 2 clouds one by one and as one batch (``predict_batch``:
+   DBSCAN's radius graph with ``batch`` ids, per-event renumbering) on the
+   kernels and on the plain path: more than 1,024 clusters an event, the
+   batch's labels equal to each event's and to the plain path's; then
+   ``TrackingPredictor(precision="bf16")`` over the 32 clouds (kernel A
+   launched, beta within 0.05 of f32's) and its forward on one transformed
+   cloud against the plain path's (W, H and B each within 5e-2 of its
+   largest magnitude, at the checkpoint's EC cut and at a cut that passes
+   every edge to the condensation layers); warm events/s of f32 at batch 1 and 2 and of bf16, 3 passes
+   over the 32 clouds in host memory, and the phase's wall time. Every
+   kernel of ``PIPE_KERNELS`` must launch on the path;
+13. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+   also with ``cli_launches``, their launches in phase 11's ``fit``; the
+   kernels of phase 12's path with ``pipeline_launches``), the
    ``nvidia-smi`` name/power line, and last the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
@@ -240,7 +278,8 @@ copies a call, sweeps) and stops. ``--digests
 FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
 #2 with C32 / D32 and A-D at widths their resident kernels take: each
 output's digest) and writes FILE, or holds the digests bitwise against
-FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops. ``--wide-only``
+FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops;
+``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -4632,6 +4671,401 @@ def tc_cli_phase(seed: int, tmp: Path) -> dict:
     return summary
 
 
+# stages chained through checkpoints (phase 12)
+PIPE_TRAIN_CLOUDS, PIPE_SERVE_CLOUDS, PIPE_ML_CLOUDS = 4, 32, 2
+PIPE_CHECKED_CLOUDS = 2  # served again on the plain path and with a particle-structured latent
+PIPE_WARM_PASSES = 3  # timed passes over the serving clouds in host memory, a mode
+PIPE_BAKE = {"max_num_neighbors": 16, "max_radius": 1.0}  # row #13 (k <= knn.SPLIT_MAX_K)
+PIPE_SERVE = {"max_num_neighbors": 64, "max_radius": 1.0}  # inference.main's --ml-neighbors / --ml-radius
+# ec.yml's widths on the learned graph's 28 edge features ([x_i - x_j, x_i + x_j])
+PIPE_EC_MODEL = {**EC_MODEL, "edge_indim": 2 * NODE_DIM}
+PIPE_TC_MODEL = {"h_dim": 64, "e_dim": 64, "h_outdim": 8, "hidden_dim": 128, "L_hc": 3}  # tc.yml's widths
+#: the kernels of phase 12's path, by the module attribute that launches each
+PIPE_KERNELS = {
+    "pairwise_topk_filter": ("pairwise_topk", "pairwise_topk_filter"),
+    "pairwise_topk": ("pairwise_topk", "pairwise_topk"),
+    "fused_relational_fwd": ("fused_relational", "fused_relational_fwd"),
+    "fused_relational_bwd": ("fused_relational", "fused_relational_bwd"),
+    "fused_relational_bf16_fwd": ("fused_relational", "fused_relational_bf16_fwd"),
+    "fused_relational_bf16_bwd": ("fused_relational", "fused_relational_bf16_bwd"),
+    "sorted_segment_sum": ("csr_segment", "sorted_segment_sum"),
+    "sorted_gather": ("csr_segment", "sorted_gather"),
+    "cc_neighbors": ("cc_kernel", "cc_neighbors"),
+}
+
+
+def save_point_clouds(directory: Path, seeds) -> None:
+    """``make_point_cloud`` clouds of ``ML_HITS`` hits and ``ML_PARTICLES``
+    particles as edge-less npz (the true edges between consecutive hits of a
+    particle as ``true_edge_index``), the serving input of ``--ml-chkpt``."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.utils.loading import save_graph
+
+    directory.mkdir(parents=True)
+    for i, s in enumerate(seeds):
+        pc = make_point_cloud(s, ML_HITS, ML_PARTICLES)
+        g = EventGraph.from_arrays(x=pc["x"], particle_id=pc["particle_id"], pt=pc["pt"], eta=pc["eta"],
+                                   reconstructable=pc["reconstructable"])
+        te = torch.from_numpy(pc["edge_index"])
+        save_graph(g.replace(true_edge_index=te, true_edge_mask=torch.ones(te.shape[1], dtype=torch.bool)),
+                   directory / f"cloud{i:02d}.npz")
+
+
+def pipeline_phase(seed: int, tmp: Path) -> dict:
+    """Phase 12 (see the module docstring). Returns the launches of
+    ``PIPE_KERNELS`` on the phase's path (each stage's counts set to 0 just
+    before it and read just after; the comparisons with the plain path, the
+    step-0 gradients and the uninterrupted fit that the resume is held to
+    are not counted) and the phase's summary."""
+    import importlib
+
+    import torch
+    from torch.func import functional_call
+
+    from gnn_tracking_tpu_torch import inference
+    from gnn_tracking_tpu_torch.graph_construction.data_transformer import DataTransformer
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.losses.oc import CondensationLossTiger
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.models.graph_construction import GraphConstructionFCNN
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import PreTrainedECGraphTCN
+    from gnn_tracking_tpu_torch.training import restore
+    from gnn_tracking_tpu_torch.training.module import ECModule, MLModule, TCModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, load_graph
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in PIPE_KERNELS.values()}}
+    path_launches = dict.fromkeys(PIPE_KERNELS, 0)
+
+    def counts() -> dict:
+        return {k: getattr(ops[m], f).launches for k, (m, f) in PIPE_KERNELS.items()}
+
+    def counted(fn):
+        """``fn()`` and its launches, counted from 0."""
+        for m, f in PIPE_KERNELS.values():
+            getattr(ops[m], f).launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, counts()
+
+    def on_path(fn):
+        """``fn()`` as a stage of the path: its launches, counted from 0
+        and added to the path's."""
+        out, launched = counted(fn)
+        for k, n in launched.items():
+            path_launches[k] += n
+        return out, launched
+
+    def sync() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    t_phase = sync()
+    clouds, serve, baked, runs = tmp / "pipe_clouds", tmp / "pipe_serve", tmp / "pipe_baked", tmp / "pipe_runs"
+    save_point_clouds(clouds, range(seed + 600, seed + 600 + PIPE_TRAIN_CLOUDS))
+    save_point_clouds(serve, range(seed + 700, seed + 700 + PIPE_SERVE_CLOUDS))
+    summary: dict = {}
+    stage_s: dict = {}
+
+    # ---- (a) the metric-learning stage, its checkpoint restored
+    ml_model = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 601))
+    ml_module = MLModule(model=ml_model, loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR,
+                         device="cuda")
+    ml_trainer = Trainer(max_epochs=1, log_dir=runs, name="ml", print_validation_results=False)
+    t0 = sync()
+    on_path(lambda: ml_trainer.fit(ml_module, TrackingDataModule(train={"dirs": [clouds], "stop": PIPE_ML_CLOUDS},
+                                                                 seed=seed)))
+    stage_s["ml_fit"] = sync() - t0
+    ml_ckpt = ml_trainer.checkpoints[-1]
+    restored = restore.get_model(ml_ckpt, device="cuda")
+    assert isinstance(restored, GraphConstructionFCNN) and ml_module.step == PIPE_ML_CLOUDS
+    for k, v in ml_model.state_dict().items():
+        assert torch.equal(restored.state_dict()[k], v), f"restored ML checkpoint: {k} differs"
+
+    # ---- (b) the bake: kNN graphs of every training cloud from the ML checkpoint
+    gc = restore.ml_graph_construction_from_chkpt(ml_ckpt, **PIPE_BAKE, device="cuda")
+    t0 = sync()
+    _, bake_launches = on_path(lambda: DataTransformer(gc, device="cuda").process_directories([clouds], [baked]))
+    stage_s["bake"] = sync() - t0
+    assert bake_launches["pairwise_topk"] == PIPE_TRAIN_CLOUDS, f"bake: row #13 launched {bake_launches}"
+    k = PIPE_BAKE["max_num_neighbors"]
+    bake_ties, baked_edges = [], []
+    for f in sorted(clouds.glob("*.npz")):
+        g = load_graph(f, device="cuda")
+        with torch.no_grad():
+            h = gc.ml(g)["H"]
+            built = gc(g)
+            with plain_path():
+                plain = gc(g)
+
+        def with_dists(graph):
+            src, dst = graph.edge_index.long()
+            return graph.edge_index, graph.edge_mask, (h[src] - h[dst]).norm(dim=1)
+
+        bake_ties.append(compare_neighbours(f"bake {f.name}: kernels vs plain", with_dists(built), with_dists(plain), k))
+        saved = load_graph(baked / f.name, device="cuda")
+        assert torch.equal(saved.edge_index, built.compact().edge_index), f"bake {f.name}: the saved graph differs"
+        baked_edges.append(saved.num_edges)
+    assert json.loads((baked / "transform_config.yml").read_text())["init_args"]["max_num_neighbors"] == k
+    log(f"pipeline (a, b): ML fit {stage_s['ml_fit']:.2f} s ({PIPE_ML_CLOUDS} steps), checkpoint restored "
+        f"bitwise; bake of {PIPE_TRAIN_CLOUDS} clouds {stage_s['bake']:.2f} s, row #13 once a cloud, graphs equal "
+        f"to the plain path's up to {bake_ties} tie rows; {baked_edges} edges kept")
+
+    # ---- (c) the EC stage in bf16: step 0 against the plain path, then the resume drill
+    def ec_module():
+        model = ECForGraphTCN(**PIPE_EC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 610))
+        return ECModule(model=model, loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR, precision="bf16",
+                        device="cuda")
+
+    g0 = load_graph(sorted(baked.glob("*.npz"))[0], device="cuda").sort_edges_by_target()
+    probe = ec_module()
+
+    def ec_step0():
+        probe.model.train()
+        probe.model.zero_grad(set_to_none=True)
+        out, data = probe.apply_model(g0)
+        loss, _ = probe.get_losses(out, data)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in probe.model.named_parameters()}
+        probe.model.zero_grad(set_to_none=True)
+        return grads
+
+    gk = ec_step0()
+    with plain_path():
+        gp = ec_step0()
+    ec_worst = max((gk[n] - gp[n]).abs().max().item() / gp[n].abs().max().item() for n in gp)
+    assert ec_worst <= 5e-2, f"EC step 0: a gradient differs by {ec_worst:.3e} of its largest magnitude"
+    del probe
+    modules = {name: ec_module() for name in ("first", "resumed", "whole")}
+    first = Trainer(max_epochs=1, log_dir=runs, name="ec", print_validation_results=False)
+    t0 = sync()
+    # the default shuffled loader: the resumed fit reads the second epoch's order
+    on_path(lambda: first.fit(modules["first"], TrackingDataModule(train={"dirs": [baked]}, seed=seed)))
+    stage_s["ec_fit"] = sync() - t0
+    resumed = Trainer(max_epochs=1, log_dir=runs, name="ec", print_validation_results=False)
+    t0 = sync()
+    on_path(lambda: resumed.fit(modules["resumed"], TrackingDataModule(train={"dirs": [baked]}, seed=seed),
+                                resume=True))
+    stage_s["ec_resumed_fit"] = sync() - t0
+    Trainer(max_epochs=2, log_dir=runs, name="ec_whole", print_validation_results=False).fit(
+        modules["whole"], TrackingDataModule(train={"dirs": [baked]}, seed=seed))
+    steps = {name: m.step for name, m in modules.items()}
+    assert steps == {"first": PIPE_TRAIN_CLOUDS, "resumed": 2 * PIPE_TRAIN_CLOUDS,
+                     "whole": 2 * PIPE_TRAIN_CLOUDS}, steps
+    whole = dict(modules["whole"].model.named_parameters())
+    bitwise = all(torch.equal(p, whole[n]) for n, p in modules["resumed"].model.named_parameters())
+    resume_rel = max((p - whole[n]).abs().max().item() / whole[n].abs().max().item()
+                     for n, p in modules["resumed"].model.named_parameters())
+    assert bitwise or resume_rel <= 1e-6, f"resumed EC fit: parameters {resume_rel:.3e} relative from uninterrupted"
+    ec_ckpt = resumed.checkpoints[-1]
+    log(f"pipeline (c): EC step 0 gradients within {ec_worst:.3e} of their largest magnitude of the plain "
+        f"path's (bound 5e-2); fit {stage_s['ec_fit']:.2f} s, resumed fit {stage_s['ec_resumed_fit']:.2f} s; "
+        f"steps {steps}; resumed parameters {'bitwise' if bitwise else f'{resume_rel:.3e} relative from'} "
+        f"the uninterrupted fit's")
+
+    # ---- (d) the TC stage around the frozen EC
+    ec = restore.ec_from_chkpt(ec_ckpt, device="cuda")
+    ec_ref = restore.ec_from_chkpt(ec_ckpt, device="cuda")
+    ec_before = {n: v.clone() for n, v in ec.state_dict().items()}
+    tc_model = PreTrainedECGraphTCN(ec, **PIPE_TC_MODEL, device="cuda",
+                                    generator=torch.Generator().manual_seed(seed + 620))
+    # the briefly trained EC puts most weights below 0.5: cut at the median (in a gap), as phase 4 does
+    threshold = calibrate_ec_threshold(tc_model, g0)
+    tc = TCModule(model=tc_model, loss_fct=CondensationLossTiger(**LOSS), lr=LR, frozen_prefixes=("model/ec",),
+                  device="cuda")
+    assert len(tc.frozen) == len(ec_before), (len(tc.frozen), len(ec_before))
+
+    def tc_step0():
+        tc_model.train()
+        tc_model.zero_grad(set_to_none=True)
+        out, data = tc.apply_model(g0)
+        loss, _ = tc.get_losses(out, data)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in tc_model.named_parameters()}
+        tc_model.zero_grad(set_to_none=True)
+        return grads
+
+    gk = tc_step0()
+    with plain_path():
+        gp = tc_step0()
+    worst_name, worst, at_floor, no_grad, _ = compare_grads(gk, gp)
+    assert len(no_grad) == len(ec_before), "the frozen EC's parameters must get no gradient"
+    tc_trainer = Trainer(max_epochs=1, log_dir=runs, name="tc", print_validation_results=False)
+    t0 = sync()
+    on_path(lambda: tc_trainer.fit(tc, TrackingDataModule(train={"dirs": [baked]}, seed=seed)))
+    stage_s["tc_fit"] = sync() - t0
+    assert tc.step == PIPE_TRAIN_CLOUDS
+    for n, v in ec.state_dict().items():
+        assert torch.equal(v, ec_before[n]), f"the frozen EC's {n} changed"
+    with torch.no_grad():
+        tc_model.eval()
+        w_tc, w_ref = tc_model(g0)["W"], ec_ref(g0)["W"]
+    w_rel = (w_tc - w_ref).abs().max().item() / w_ref.abs().max().item()
+    assert w_rel <= 1e-6, f"the TC's W is {w_rel:.3e} relative from the restored EC's"
+    tc_ckpt = tc_trainer.checkpoints[-1]
+    log(f"pipeline (d): TC step 0: {len(gk) - len(no_grad)} gradients agree with the plain path's (worst "
+        f"{worst_name}: {worst:.3e} relative; at the floor only: {at_floor or 'none'}), the EC's "
+        f"{len(no_grad)} frozen; fit {stage_s['tc_fit']:.2f} s; the EC bitwise unchanged, W {w_rel:.3e} "
+        f"relative from the restored EC's, {float((w_ref > threshold).float().mean()):.4f} of the edges above the "
+        f"cut at {threshold:.6f}")
+
+    # ---- (e) serving point clouds through inference.main with --ml-chkpt
+    argv = ["--chkpt", str(tc_ckpt), "--ml-chkpt", str(ml_ckpt),
+            "--ml-neighbors", str(PIPE_SERVE["max_num_neighbors"]), "--ml-radius", str(PIPE_SERVE["max_radius"]),
+            "--evaluate", "--indir", str(serve), "--device", "cuda"]
+    served, serve_launches = {}, dict.fromkeys(PIPE_KERNELS, 0)
+    for batch in (1, 2):
+        t0 = sync()
+        stats, launched = on_path(lambda b=batch: inference.main(
+            [*argv, "--batch-size", str(b), "--outdir", str(tmp / f"pipe_labels{b}")]))
+        served[batch] = {"stats": stats, "wall_s": sync() - t0}
+        serve_launches = {k: serve_launches[k] + n for k, n in launched.items()}
+        assert all(math.isfinite(v) for key, v in stats.items() if key.startswith("trk.")), stats
+    for name in ("pairwise_topk_filter", "fused_relational_fwd", "sorted_segment_sum", "cc_neighbors"):
+        assert serve_launches[name] > 0, f"serving never launched {name}"
+    for batch in (1, 2):
+        eps_cli = served[batch]["stats"]["events_per_s"]
+        assert math.isfinite(eps_cli) and eps_cli > 0, f"batch {batch}: events/s {eps_cli}"
+    gc64 = restore.ml_graph_construction_from_chkpt(ml_ckpt, **PIPE_SERVE, device="cuda")
+    plain_predictor = inference.TrackingPredictor(tc_ckpt, graph_transform=gc64, device="cuda")
+    files = sorted(serve.glob("*.npz"))
+    assert len(files) == PIPE_SERVE_CLOUDS
+    for i, f in enumerate(files):
+        one = np.load(tmp / "pipe_labels1" / f"{f.stem}_labels.npz")
+        two = np.load(tmp / "pipe_labels2" / f"{f.stem}_labels.npz")
+        assert np.array_equal(one["labels"], two["labels"]), f"{f.name}: batch sizes 1 and 2 label differently"
+        if i < PIPE_CHECKED_CLOUDS:
+            with plain_path():
+                want = plain_predictor.predict(load_graph(f, device="cuda"))
+            assert np.array_equal(one["labels"], want["labels"]), f"{f.name}: labels differ from the plain path's"
+    graphs = [load_graph(f, device="cpu") for f in files]
+
+    # The briefly trained latent is one cluster an event (trk.* 0), so the
+    # labels above hold DBSCAN's batch ids and renumbering to nothing. The
+    # same model with a particle-structured latent on the first clouds, one
+    # by one and as one batch, on the kernels and on the plain path.
+    class StructuredLatent(torch.nn.Module):
+        """The TC model, each hit's latent moved to its particle's unit-normal
+        8-d centre plus 0.02 of ``H``; noise hits (id 0) at their own
+        features ``x[:, 6:14]``."""
+
+        def __init__(self, model, centres):
+            super().__init__()
+            self.model, self.centres = model, centres
+
+        def forward(self, data):
+            out = dict(self.model(data))
+            pid = data.particle_id.long()
+            own = data.x[:, 6:14].float()
+            out["H"] = torch.where((pid > 0)[:, None], self.centres[pid], own) + 0.02 * out["H"].float()
+            return out
+
+    centres = torch.from_numpy(np.random.default_rng(seed + 710).normal(size=(ML_PARTICLES, 8)).astype(np.float32))
+    structured = inference.TrackingPredictor(StructuredLatent(plain_predictor.model, centres.to("cuda")),
+                                             graph_transform=gc64, device="cuda")
+    checked = graphs[:PIPE_CHECKED_CLOUDS]
+    singles = [structured.predict(g) for g in checked]
+    batched, batch_launches = counted(lambda: structured.predict_batch(checked))
+    with plain_path():
+        plain_batched = structured.predict_batch(checked)
+    assert batch_launches["pairwise_topk_filter"] > 0 and batch_launches["cc_neighbors"] > 0, batch_launches
+    structured_clusters = []
+    for f, one, many, plain in zip(files, singles, batched, plain_batched):
+        n_clusters = int(one["labels"].max()) + 1
+        structured_clusters.append(n_clusters)
+        assert n_clusters > ML_PARTICLES // 2, f"{f.name}: {n_clusters} clusters of the structured latent"
+        assert np.array_equal(many["labels"], one["labels"]), f"{f.name}: predict_batch labels differ from predict's"
+        assert np.array_equal(plain["labels"], many["labels"]), f"{f.name}: batched labels differ from the plain path's"
+
+    # bf16 over every serving cloud, then kernel A at tc.yml's widths against
+    # its plain bf16 version on one transformed cloud
+    bf16 = inference.TrackingPredictor(tc_ckpt, precision="bf16", graph_transform=gc64, device="cuda")
+    t0 = sync()
+    (bf16_stats, bf16_launches) = on_path(lambda: bf16.predict_dir(serve, tmp / "pipe_labels_bf16"))
+    bf16_s = sync() - t0
+    assert bf16_launches["fused_relational_bf16_fwd"] > 0, bf16_launches
+    assert math.isfinite(bf16_stats["events_per_s"]) and bf16_stats["events_per_s"] > 0, bf16_stats
+    beta_err = 0.0
+    for f in files:
+        got = np.load(tmp / "pipe_labels_bf16" / f"{f.stem}_labels.npz")
+        f32 = np.load(tmp / "pipe_labels1" / f"{f.stem}_labels.npz")
+        assert got["labels"].shape == f32["labels"].shape == (ML_HITS,)
+        beta_err = max(beta_err, float(np.abs(got["beta"] - f32["beta"]).max()))
+        assert beta_err <= 0.05, f"{f.name}: bf16 beta {beta_err} from f32's"
+    with torch.no_grad():
+        g_bf16 = gc64(graphs[0].to("cuda")).to("cuda", dtype=torch.bfloat16).sort_edges_by_target()
+    cast = {k: v.detach().to(torch.bfloat16) for k, v in bf16.model.named_parameters()}
+
+    def bf16_forward():
+        with torch.no_grad():
+            out = functional_call(bf16.model, cast, (g_bf16,))
+        kept = float(out["ec_edge_mask"][g_bf16.edge_mask].float().mean())
+        return {k: out[k].float() for k in ("W", "H", "B")}, kept
+
+    # At the checkpoint's cut the bf16 EC's weights (most near its floor) may
+    # pass no edge, and H and B then hold only the node encoders; a cut at -1
+    # passes every edge, so H and B also hold the condensation layers' kernel A.
+    bf16_rel, bf16_kept, served_cut = {}, {}, bf16.model.ec_threshold
+    try:
+        for cut_name, cut in (("served_cut", served_cut), ("every_edge", -1.0)):
+            bf16.model.ec_threshold = cut
+            (kernel_out, bf16_kept[cut_name]), forward_launches = counted(bf16_forward)
+            assert forward_launches["fused_relational_bf16_fwd"] > 0, forward_launches
+            with plain_path():
+                plain_out, _ = bf16_forward()
+            bf16_rel[cut_name] = {k: (kernel_out[k] - plain_out[k]).abs().max().item()
+                                  / plain_out[k].abs().max().item() for k in plain_out}
+    finally:
+        bf16.model.ec_threshold = served_cut
+    assert bf16_kept["every_edge"] == 1.0, bf16_kept
+    worst_bf16 = max(v for r in bf16_rel.values() for v in r.values())
+    assert worst_bf16 <= 5e-2, f"bf16 forward against the plain path: {bf16_rel}"
+
+    # warm rates on the device path, the clouds in host memory (no files)
+    def warm_rate(run) -> float:
+        run()
+        t0 = sync()
+        for _ in range(PIPE_WARM_PASSES):
+            run()
+        return PIPE_WARM_PASSES * len(graphs) / (sync() - t0)
+
+    warm = {"f32_batch_1": warm_rate(lambda: [plain_predictor.predict(g) for g in graphs]),
+            "f32_batch_2": warm_rate(lambda: [plain_predictor.predict_batch(graphs[i : i + 2])
+                                              for i in range(0, len(graphs), 2)]),
+            "bf16_batch_1": warm_rate(lambda: [bf16.predict(g) for g in graphs])}
+    for name, n in path_launches.items():
+        assert n > 0, f"phase 12's path never launched {name}"
+    phase_s = sync() - t_phase
+    summary = {
+        "phase_s": phase_s, "stage_s": stage_s, "bake_tie_rows": bake_ties, "baked_edges": baked_edges,
+        "ec_step0_worst": ec_worst, "resume_bitwise": bitwise, "resume_rel": resume_rel,
+        "tc_step0_worst": worst, "ec_w_rel": w_rel,
+        "events_per_s": {"batch_1": served[1]["stats"]["events_per_s"], "batch_2": served[2]["stats"]["events_per_s"],
+                         "bf16": bf16_stats["events_per_s"]},
+        "serve_wall_s": {"batch_1": served[1]["wall_s"], "batch_2": served[2]["wall_s"], "bf16": bf16_s},
+        "warm_events_per_s": warm, "warm_events": PIPE_WARM_PASSES * len(graphs), "ec_threshold": threshold,
+        "trk.double_majority_pt0.9": served[1]["stats"].get("trk.double_majority_pt0.9"),
+        "structured_clusters": structured_clusters, "structured_launches": batch_launches,
+        "bf16_beta_err": beta_err, "bf16_forward_rel": bf16_rel, "bf16_forward_kept": bf16_kept,
+        "serve_launches": serve_launches, "launches": path_launches,
+    }
+    log(f"pipeline (e): served {len(files)} point clouds through inference.main at batch sizes 1 and 2 "
+        f"({served[1]['wall_s']:.2f} / {served[2]['wall_s']:.2f} s a call, checkpoints and the first batch included; "
+        f"{summary['events_per_s']['batch_1']:.2f} / {summary['events_per_s']['batch_2']:.2f} events/s after the first "
+        f"batch), labels equal across batch sizes and on {PIPE_CHECKED_CLOUDS} clouds to the plain path's; the "
+        f"particle-structured latent: {structured_clusters} clusters, predict_batch equal to predict and to the "
+        f"plain path's; bf16 predict_dir {bf16_stats['events_per_s']:.2f} events/s, beta within {beta_err:.4f} of "
+        f"f32's, its forward within {bf16_rel} of the plain path's (edges past the cut {bf16_kept}); warm over {summary['warm_events']} events: "
+        f"{warm['f32_batch_1']:.2f} / {warm['f32_batch_2']:.2f} events/s at batch 1 / 2, bf16 "
+        f"{warm['bf16_batch_1']:.2f}; serving launches {serve_launches}; phase wall time {phase_s:.1f} s")
+    log("pipeline: " + json.dumps(summary))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -4716,6 +5150,9 @@ def main(argv=None) -> int:
                    "(wide_phases: a second build of the wide layout with -DWIDE_PHASES)")
     p.add_argument("--tc-cli-only", action="store_true",
                    help="build, run phase 11 (tc.yml's recipe through the port's CLI: tc_cli_phase), "
+                   "print its summary and stop")
+    p.add_argument("--pipeline-only", action="store_true",
+                   help="build, run phase 12 (stages chained through checkpoints: pipeline_phase), "
                    "print its summary and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
@@ -4854,6 +5291,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tc_tmp:
             tc_cli_phase(args.seed, Path(tc_tmp))
+        print(smi)
+        return 0
+    if args.pipeline_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as pipe_tmp:
+            pipeline_phase(args.seed, Path(pipe_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -5113,7 +5556,11 @@ def main(argv=None) -> int:
     cli = tc_cli_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(cli["fit_launches"]), sorted(cli["fit_launches"])
 
-    # ---- 12. results ------------------------------------------------------
+    # ---- 12. stages chained through checkpoints ---------------------------------
+    pipe = pipeline_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(pipe["launches"]), sorted(pipe["launches"])
+
+    # ---- 13. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -5121,6 +5568,7 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"cli_launches": cli["fit_launches"][r["name"]]} if r["name"] in cli["fit_launches"] else {}),
+            **({"pipeline_launches": pipe["launches"][r["name"]]} if r["name"] in pipe["launches"] else {}),
         }
         for r in results
     ]

@@ -218,3 +218,77 @@ class EventGraph:
             edge_mask=mask,
             extras=extras,
         )
+
+    def mask_edges(self, keep: torch.Tensor) -> "EventGraph":
+        """Mask the edges outside ``keep`` (JAX ``EventGraph.mask_edges``,
+        PyG's ``Data.edge_subgraph``)."""
+        return self.replace(edge_mask=self.edge_mask & keep)
+
+    def compact(self) -> "EventGraph":
+        """Drop the masked nodes and edges (JAX ``EventGraph.compact``):
+        node indices are renumbered, ``extras`` of node length follow the
+        nodes and the others the edges. The derived CSR arrays of
+        ``sort_edges_by_target`` do not describe the kept edges and are
+        dropped."""
+        node_mask, edge_mask = self.node_mask, self.edge_mask
+        new_index = torch.cumsum(node_mask.to(torch.int64), 0) - 1
+        ei = new_index[self.edge_index[:, edge_mask].long()].to(self.edge_index.dtype)
+        te = new_index[self.true_edge_index[:, self.true_edge_mask].long()].to(
+            self.true_edge_index.dtype
+        )
+        n = self.num_nodes
+        nodes = {f: getattr(self, f)[node_mask] for f in NODE_FIELDS if f != "node_mask"}
+        return EventGraph(
+            **nodes,
+            node_mask=torch.ones(int(node_mask.sum()), dtype=torch.bool, device=self.device),
+            edge_index=ei,
+            edge_attr=self.edge_attr[edge_mask],
+            y=self.y[edge_mask],
+            edge_mask=torch.ones(ei.shape[1], dtype=torch.bool, device=self.device),
+            true_edge_index=te,
+            true_edge_mask=torch.ones(te.shape[1], dtype=torch.bool, device=self.device),
+            extras={
+                k: v[node_mask] if v.shape[0] == n else v[edge_mask]
+                for k, v in self.extras.items()
+                if k not in DERIVED_KEYS
+            },
+        )
+
+
+def pad_sizes(n: int, bucket: int = 1024) -> int:
+    """``n`` rounded up to the next multiple of ``bucket`` (JAX
+    ``graphs.pad_sizes``)."""
+    return int(-(-n // bucket) * bucket)
+
+
+def batch_graphs(graphs: list[EventGraph]) -> EventGraph:
+    """Disjoint union of ``graphs`` (JAX ``graphs.batch_graphs``, PyG's
+    ``Batch``): node and edge fields concatenated, ``edge_index`` and
+    ``true_edge_index`` offset by the nodes before each graph, ``batch`` the
+    graph's position. ``extras`` that every graph has are concatenated,
+    except the derived CSR arrays, which describe each graph's own edges
+    (``sort_edges_by_target`` the union to get its own)."""
+    offsets = np.cumsum([0] + [g.num_nodes for g in graphs[:-1]]).tolist()
+
+    def cat(field: str) -> torch.Tensor:
+        return torch.cat([getattr(g, field) for g in graphs])
+
+    def cat_index(field: str) -> torch.Tensor:
+        return torch.cat([getattr(g, field) + off for g, off in zip(graphs, offsets)], dim=1)
+
+    dev = graphs[0].device
+    batch = torch.cat([
+        torch.full((g.num_nodes,), i, dtype=torch.int32, device=dev) for i, g in enumerate(graphs)
+    ])
+    keys = [k for k in graphs[0].extras if k not in DERIVED_KEYS and all(k in g.extras for g in graphs)]
+    return EventGraph(
+        **{f: cat(f) for f in NODE_FIELDS if f != "batch"},
+        batch=batch,
+        edge_index=cat_index("edge_index"),
+        edge_attr=cat("edge_attr"),
+        y=cat("y"),
+        edge_mask=cat("edge_mask"),
+        true_edge_index=cat_index("true_edge_index"),
+        true_edge_mask=cat("true_edge_mask"),
+        extras={k: torch.cat([g.extras[k] for g in graphs]) for k in keys},
+    )

@@ -1,6 +1,7 @@
 """Metric-learning embedding and learned graph construction (counterpart of
 the JAX ``models/graph_construction.py``: ``_LatentNormalization``,
-``GraphConstructionFCNN`` and ``MLGraphConstruction``).
+``GraphConstructionFCNN``, ``MLGraphConstruction`` and
+``MLPCTransformer``).
 
 ``MLGraphConstruction`` embeds the hits, builds a fixed-degree kNN graph in
 the embedding space (``ops/knn.py``), labels its edges with the truth and
@@ -101,6 +102,7 @@ class MLGraphConstruction(nn.Module):
             msg = "embedding_slice requires ml to be None"
             raise ValueError(msg)
         self.ml = ml
+        self.ef = ef
         self.max_radius = max_radius
         self.max_num_neighbors = max_num_neighbors
         self.use_embedding_features = use_embedding_features
@@ -151,3 +153,18 @@ class MLGraphConstruction(nn.Module):
             # the CSR arrays of the input's edges do not describe the new ones
             extras={k: v for k, v in data.extras.items() if k not in DERIVED_KEYS},
         )
+
+
+class MLPCTransformer(nn.Module):
+    """Replace (``original_features=False``) or prepend to the point cloud's
+    features the metric-learning latent ``H`` of ``model``, without building
+    a graph (JAX ``graph_construction.py:267-282``)."""
+
+    def __init__(self, model: nn.Module, original_features: bool = False):
+        super().__init__()
+        self.model = model
+        self.original_features = original_features
+
+    def forward(self, data: EventGraph) -> EventGraph:
+        h = self.model(data)["H"]
+        return data.replace(x=torch.cat([h, data.x], dim=1) if self.original_features else h)

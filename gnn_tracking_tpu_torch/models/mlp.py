@@ -108,3 +108,25 @@ class ResFCNN(nn.Module):
         for lin in self.linears[1:-1]:
             x = math.sqrt(self.alpha) * x + math.sqrt(1 - self.alpha) * lin(torch.relu(x))
         return self.linears[-1](torch.relu(x))
+
+
+def get_pixel_mask(layer: torch.Tensor) -> torch.Tensor:
+    """Pixel detector hits: layers 0-17 (JAX ``mlp.get_pixel_mask``)."""
+    return (layer >= 0) & (layer < 18)
+
+
+class HeterogeneousResFCNN(nn.Module):
+    """Separate ``ResFCNN`` towers for pixel and strip hits (JAX
+    ``mlp.py:154-187``). As in JAX, both towers run densely over all nodes
+    and each node takes its tower's row, so the hits need no order."""
+
+    def __init__(self, in_dim: int, out_dim: int, hidden_dim: int, depth: int,
+                 alpha: float = 0.6, bias: bool = True,
+                 *, generator: torch.Generator | None = None):
+        super().__init__()
+        self.pixel_fcnn = ResFCNN(in_dim, out_dim, hidden_dim, depth, alpha, bias, generator=generator)
+        self.strip_fcnn = ResFCNN(in_dim, out_dim, hidden_dim, depth, alpha, bias, generator=generator)
+
+    def forward(self, x: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
+        pixel = get_pixel_mask(layer)[:, None]
+        return torch.where(pixel, self.pixel_fcnn(x), self.strip_fcnn(x))

@@ -1,41 +1,58 @@
 """Track-condensation networks (counterpart of the JAX
-``models/track_condensation_networks.py``: ``ModularGraphTCN`` with an edge
-classifier, ``GraphTCN`` and ``PerfectECGraphTCN``).
+``models/track_condensation_networks.py``: ``ModularGraphTCN`` with or
+without an edge classifier, ``GraphTCN``, ``PerfectECGraphTCN``,
+``GraphTCNForMLGCPipeline`` and ``PreTrainedECGraphTCN``).
 
 As in the JAX package, the EC cut is an edge mask that the condensation
 interaction networks run under; outputs keep the full (masked) length.
+Every class records its constructor arguments in ``model_config`` (what a
+checkpoint stores); ``PreTrainedECGraphTCN`` records its ``ec`` module
+there, whose own ``model_config`` a checkpoint nests.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from gnn_tracking_tpu_torch.graphs import EventGraph
 from gnn_tracking_tpu_torch.models.edge_classifier import (
     ECForGraphTCN,
     PerfectEdgeClassification,
 )
-from gnn_tracking_tpu_torch.models.mlp import MLP, ResFCNN
+from gnn_tracking_tpu_torch.models.mlp import MLP, HeterogeneousResFCNN, ResFCNN
 from gnn_tracking_tpu_torch.models.resin import ResIN
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 
 
 class ModularGraphTCN(nn.Module):
-    """Edge classifier (``ECForGraphTCN`` or the truth-based
-    ``PerfectEdgeClassification``) + HC encoders + condensation ResIN +
-    beta / cluster-coordinate heads. (The JAX module's EC-less form and its
-    metric-learning options, ``alpha_latent`` and the heterogeneous node
-    encoder, are not ported.)
+    """Optional edge classifier (``ECForGraphTCN``, the truth-based
+    ``PerfectEdgeClassification`` or a restored EC) + HC encoders +
+    condensation ResIN + beta / cluster-coordinate heads (JAX
+    ``ModularGraphTCN``).
+
+    Without ``ec`` the condensation runs on the graph's own edge mask and
+    ``W`` is None; ``feed_edge_weights`` then appends the baked
+    ``extras["ec_score"]`` (``ECCut``) to the edge features. With
+    ``alpha_latent`` the latent is ``sqrt(alpha) * x[:, :n_embedding_coords]``
+    (zero-padded) ``+ sqrt(1 - alpha) * h``. ``heterogeneous_node_encoder``
+    encodes pixel and strip hits (``data.layer``) with separate towers.
 
     Output dict: ``W`` edge weights, ``H`` clustering coordinates,
     ``B`` condensation likelihood, ``ec_hit_mask`` / ``ec_edge_mask``.
     """
 
+    #: the JAX subclasses hold this module's own parameters one level down
+    #: (``utils.param_convert`` drops the level and puts it back)
+    jax_inner_name: str | None = None
+
     def __init__(
         self,
         hc_in: ResIN,
-        ec: ECForGraphTCN | PerfectEdgeClassification,
+        ec: nn.Module | None,
         node_indim: int,
         edge_indim: int,
         h_dim: int = 5,
@@ -46,18 +63,30 @@ class ModularGraphTCN(nn.Module):
         ec_threshold: float = 0.5,
         mask_orphan_nodes: bool = False,
         use_ec_embeddings_for_hc: bool = False,
+        alpha_latent: float = 0.0,
+        n_embedding_coords: int = 0,
+        heterogeneous_node_encoder: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         dev = resolve_device(device)
+        if alpha_latent and not 0 < n_embedding_coords <= h_outdim:
+            msg = f"alpha_latent needs 0 < n_embedding_coords <= h_outdim, got {n_embedding_coords}"
+            raise ValueError(msg)
+        if use_ec_embeddings_for_hc and ec is None:
+            msg = "use_ec_embeddings_for_hc needs an ec"
+            raise ValueError(msg)
         self.ec = ec
         self.hc_in = hc_in
         self.ec_threshold = ec_threshold
         self.feed_edge_weights = feed_edge_weights
         self.mask_orphan_nodes = mask_orphan_nodes
         self.use_ec_embeddings_for_hc = use_ec_embeddings_for_hc
+        self.alpha_latent = alpha_latent
+        self.n_embedding_coords = n_embedding_coords
+        self.heterogeneous_node_encoder = heterogeneous_node_encoder
         x_in, e_in = node_indim, edge_indim
         if use_ec_embeddings_for_hc:
             x_in += ec.ec_node_encoder.linears[-1].weight.shape[0]
@@ -65,10 +94,14 @@ class ModularGraphTCN(nn.Module):
         if feed_edge_weights:
             e_in += 1
         g = generator
-        # depth=1 (== L=2), alpha=0 for backwards compatibility
-        self.hc_node_encoder = ResFCNN(
-            x_in, h_dim, hidden_dim, depth=1, alpha=0.0, bias=False, generator=g
-        )
+        if heterogeneous_node_encoder:
+            self.hc_node_encoder = HeterogeneousResFCNN(
+                x_in, h_dim, hidden_dim, depth=2, alpha=0.0, bias=False, generator=g
+            )
+        else:  # depth=1 (== L=2), alpha=0 for backwards compatibility
+            self.hc_node_encoder = ResFCNN(
+                x_in, h_dim, hidden_dim, depth=1, alpha=0.0, bias=False, generator=g
+            )
         self.hc_edge_encoder = MLP(e_in, e_dim, hidden_dim, L=2, bias=False, generator=g)
         self.p_beta = MLP(h_dim, 1, hidden_dim, L=3, generator=g)
         self.p_cluster = MLP(h_dim, h_outdim, hidden_dim, L=3, generator=g)
@@ -76,26 +109,33 @@ class ModularGraphTCN(nn.Module):
         self.to(dev)
 
     def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
-        hit_mask = data.node_mask
+        hit_mask, ec_edge_mask, edge_weights = data.node_mask, data.edge_mask, None
         xs, edge_attrs = [data.x], [data.edge_attr]
-        ec_result = self.ec(data)
-        edge_weights = ec_result["W"]
-        # EC cut as masking (reference: data.edge_subgraph)
-        ec_edge_mask = data.edge_mask & (edge_weights > self.ec_threshold)
-        if self.mask_orphan_nodes:
-            deg = torch.zeros(data.num_nodes, dtype=torch.int32, device=data.device)
-            for row in data.edge_index:
-                deg.index_add_(0, row, ec_edge_mask.to(torch.int32))
-            hit_mask = data.node_mask & (deg > 0)
-        if self.use_ec_embeddings_for_hc:
-            xs.append(ec_result["node_embedding"])
-            edge_attrs.append(ec_result["edge_embedding"])
+        if self.ec is not None:
+            ec_result = self.ec(data)
+            edge_weights = ec_result["W"]
+            # EC cut as masking (reference: data.edge_subgraph)
+            ec_edge_mask = data.edge_mask & (edge_weights > self.ec_threshold)
+            if self.mask_orphan_nodes:
+                deg = torch.zeros(data.num_nodes, dtype=torch.int32, device=data.device)
+                for row in data.edge_index:
+                    deg.index_add_(0, row, ec_edge_mask.to(torch.int32))
+                hit_mask = data.node_mask & (deg > 0)
+            if self.use_ec_embeddings_for_hc:
+                xs.append(ec_result["node_embedding"])
+                edge_attrs.append(ec_result["edge_embedding"])
         if self.feed_edge_weights:
-            edge_attrs.append(edge_weights.reshape(-1, 1))
+            # without an ec: the scores an ECCut baked into the graph
+            w = data.extras["ec_score"] if self.ec is None else edge_weights
+            edge_attrs.append(w.reshape(-1, 1).to(data.edge_attr.dtype))
         x = torch.cat(xs, dim=1)
         edge_attr = torch.cat(edge_attrs, dim=1)
 
-        h_hc = torch.relu(self.hc_node_encoder(x))
+        if self.heterogeneous_node_encoder:
+            h_hc = self.hc_node_encoder(x, data.layer)
+        else:
+            h_hc = self.hc_node_encoder(x)
+        h_hc = torch.relu(h_hc)
         edge_attr_hc = torch.relu(self.hc_edge_encoder(edge_attr))
         # track condenser runs under the post-EC edge mask
         h_hc, _, _ = self.hc_in(
@@ -105,7 +145,12 @@ class ModularGraphTCN(nn.Module):
         beta = torch.sigmoid(self.p_beta(h_hc))
         epsilon = 1e-6  # soft clipping against NaN in arctanh(beta)
         beta = epsilon + (1 - 2 * epsilon) * beta
-        h = self.p_cluster(h_hc) * self.latent_normalization
+        h = self.p_cluster(h_hc)
+        if self.alpha_latent:
+            nec = self.n_embedding_coords
+            residual = F.pad(data.x[:, :nec], (0, h.shape[1] - nec))
+            h = math.sqrt(self.alpha_latent) * residual + math.sqrt(1 - self.alpha_latent) * h
+        h = h * self.latent_normalization
         return {
             "W": edge_weights,
             "H": h,
@@ -123,6 +168,8 @@ class GraphTCN(ModularGraphTCN):
     ``utils.param_convert`` drops that level. ``model_config`` holds the
     constructor arguments (what a checkpoint stores).
     """
+
+    jax_inner_name = "gtcn"
 
     def __init__(
         self,
@@ -180,6 +227,8 @@ class PerfectECGraphTCN(ModularGraphTCN):
     ``utils.param_convert`` drops the JAX tree's ``gtcn`` level; the EC has
     no parameters. ``model_config`` holds the constructor arguments."""
 
+    jax_inner_name = "gtcn"
+
     def __init__(
         self,
         node_indim: int,
@@ -217,5 +266,111 @@ class PerfectECGraphTCN(ModularGraphTCN):
             h_dim=h_dim, e_dim=e_dim, h_outdim=h_outdim, hidden_dim=hidden_dim,
             feed_edge_weights=feed_edge_weights, ec_threshold=ec_threshold,
             mask_orphan_nodes=mask_orphan_nodes, device=device, generator=generator,
+        )
+        self.model_config = config
+
+
+class GraphTCNForMLGCPipeline(ModularGraphTCN):
+    """``ModularGraphTCN`` without an edge classifier, for graphs built by
+    learned graph construction (JAX ``track_condensation_networks.py:398``);
+    the condensation runs on the graph's own edge mask. As for ``GraphTCN``,
+    ``utils.param_convert`` drops the JAX tree's ``gtcn`` level."""
+
+    jax_inner_name = "gtcn"
+
+    def __init__(
+        self,
+        node_indim: int,
+        edge_indim: int,
+        h_dim: int = 5,
+        e_dim: int = 4,
+        h_outdim: int = 2,
+        hidden_dim: int = 40,
+        L_hc: int = 3,
+        alpha_hc: float = 0.5,
+        alpha_latent: float = 0.0,
+        n_embedding_coords: int = 0,
+        feed_edge_weights: bool = False,
+        heterogeneous_node_encoder: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        resolve_device(device)
+        config = {
+            "node_indim": node_indim, "edge_indim": edge_indim, "h_dim": h_dim,
+            "e_dim": e_dim, "h_outdim": h_outdim, "hidden_dim": hidden_dim, "L_hc": L_hc,
+            "alpha_hc": alpha_hc, "alpha_latent": alpha_latent,
+            "n_embedding_coords": n_embedding_coords, "feed_edge_weights": feed_edge_weights,
+            "heterogeneous_node_encoder": heterogeneous_node_encoder,
+        }
+        hc_in = ResIN(
+            h_dim, e_dim, object_hidden_dim=hidden_dim,
+            relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
+            generator=generator,
+        )
+        super().__init__(
+            hc_in, None, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
+            h_outdim=h_outdim, hidden_dim=hidden_dim, feed_edge_weights=feed_edge_weights,
+            alpha_latent=alpha_latent, n_embedding_coords=n_embedding_coords,
+            heterogeneous_node_encoder=heterogeneous_node_encoder,
+            device=device, generator=generator,
+        )
+        self.model_config = config
+
+
+class PreTrainedECGraphTCN(ModularGraphTCN):
+    """``ModularGraphTCN`` around an edge classifier that was trained before
+    (JAX ``track_condensation_networks.py:465``), e.g. one restored with
+    ``training.restore.ec_from_chkpt``. The ``ec`` module is taken as it
+    is; freeze it with ``TrackingModule(frozen_prefixes=("model/ec",))``.
+    ``node_indim`` / ``edge_indim`` default to the EC's (its
+    ``model_config``). As in JAX the EC's parameters sit under ``ec`` and
+    the module's own under ``gtcn`` in the JAX tree."""
+
+    jax_inner_name = "gtcn"
+
+    def __init__(
+        self,
+        ec: nn.Module,
+        node_indim: int | None = None,
+        edge_indim: int | None = None,
+        h_dim: int = 5,
+        e_dim: int = 4,
+        h_outdim: int = 2,
+        hidden_dim: int = 40,
+        L_hc: int = 3,
+        alpha_hc: float = 0.5,
+        ec_threshold: float = 0.5,
+        mask_orphan_nodes: bool = False,
+        use_ec_embeddings_for_hc: bool = False,
+        feed_edge_weights: bool = False,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        resolve_device(device)
+        ec_config = getattr(ec, "model_config", {})
+        node_indim = ec_config["node_indim"] if node_indim is None else node_indim
+        edge_indim = ec_config["edge_indim"] if edge_indim is None else edge_indim
+        config = {
+            "ec": ec, "node_indim": node_indim, "edge_indim": edge_indim, "h_dim": h_dim,
+            "e_dim": e_dim, "h_outdim": h_outdim, "hidden_dim": hidden_dim, "L_hc": L_hc,
+            "alpha_hc": alpha_hc, "ec_threshold": ec_threshold,
+            "mask_orphan_nodes": mask_orphan_nodes,
+            "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
+            "feed_edge_weights": feed_edge_weights,
+        }
+        hc_in = ResIN(
+            h_dim, e_dim, object_hidden_dim=hidden_dim,
+            relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
+            generator=generator,
+        )
+        super().__init__(
+            hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
+            h_outdim=h_outdim, hidden_dim=hidden_dim, feed_edge_weights=feed_edge_weights,
+            ec_threshold=ec_threshold, mask_orphan_nodes=mask_orphan_nodes,
+            use_ec_embeddings_for_hc=use_ec_embeddings_for_hc,
+            device=device, generator=generator,
         )
         self.model_config = config

@@ -115,11 +115,13 @@ def dbscan(
     min_samples: int = 1,
     max_num_neighbors: int = 128,
     node_mask: torch.Tensor | None = None,
+    batch: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One-shot DBSCAN over points ``x``; ``max_num_neighbors`` must exceed
-    the densest eps-neighbourhood for sklearn-exact labels."""
+    the densest eps-neighbourhood for sklearn-exact labels. With ``batch``
+    (graph ids), points of different graphs are never neighbours."""
     edge_index, edge_mask, dists = radius_graph(
-        x, eps, max_num_neighbors=max_num_neighbors, node_mask=node_mask, loop=False
+        x, eps, max_num_neighbors=max_num_neighbors, node_mask=node_mask, batch=batch, loop=False
     )
     return dbscan_from_graph(
         edge_index, dists, x.shape[0], eps=eps, min_samples=min_samples,

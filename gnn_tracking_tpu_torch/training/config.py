@@ -1,6 +1,6 @@
 """Config-driven object construction and checkpoint discovery (counterpart
 of the JAX ``training/config.py``: ``get_object_from_path``,
-``obj_from_config`` and ``find_latest_checkpoint``).
+``obj_from_config``, ``config_from_obj`` and ``find_latest_checkpoint``).
 
 The YAML configs (``examples/configs/*.yml``) name the JAX package's class
 paths, ``gnn_tracking_tpu.<module>.<Class>``. The loader rewrites that
@@ -86,6 +86,36 @@ def obj_from_config(config: Any) -> Any:
     if isinstance(config, list):
         return [obj_from_config(v) for v in config]
     return config
+
+
+def config_from_obj(obj: Any) -> Any:
+    """Best-effort round trip of an object to ``{class_path, init_args}``
+    (JAX ``config.py:43-68``): a model's ``model_config``; for other objects
+    the constructor's arguments that the object keeps as public attributes
+    of the same name (``device`` and ``generator`` aside), as the JAX
+    function reads a flax module's fields or an object's public
+    attributes. Lists, tuples and dicts are traversed; numbers, strings and
+    None pass through. Raises ``TypeError`` or ``ValueError`` where the
+    object has no inspectable constructor (a function)."""
+    if obj is None or isinstance(obj, (int, float, str, bool)):
+        return obj
+    if isinstance(obj, (list, tuple)):
+        return [config_from_obj(v) for v in obj]
+    if isinstance(obj, dict):
+        return {k: config_from_obj(v) for k, v in obj.items()}
+    cls = type(obj)
+    if hasattr(obj, "model_config"):
+        args = dict(obj.model_config)
+    else:
+        params = inspect.signature(cls).parameters
+        args = {
+            k: getattr(obj, k) for k in params
+            if k not in ("device", "generator") and not k.startswith("_") and hasattr(obj, k)
+        }
+    return {
+        "class_path": f"{cls.__module__}.{cls.__qualname__}",
+        "init_args": {k: config_from_obj(v) for k, v in args.items()},
+    }
 
 
 def find_latest_checkpoint(log_dir: str | Path, trial_name: str = "") -> Path:

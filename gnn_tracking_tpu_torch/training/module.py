@@ -22,8 +22,20 @@ JAX module's does.
 (``postprocessing/dbscanscanner.py``); each returns its figures of merit at
 the end of the validation epoch.
 
-Not ported yet (raise ``NotImplementedError``): a custom optimizer,
-``preproc`` and ``frozen_prefixes``.
+``preproc`` is a module applied to every graph before the model, in eval
+mode as the JAX module applies it (e.g. ``MLGraphConstruction`` from a
+metric-learning checkpoint, ``training.restore``); the graph it returns is
+sorted by target and is what the model and the loss see. Its parameters
+that require a gradient train with the model's, as they do in JAX.
+``frozen_prefixes`` are written the JAX way, against the JAX module's
+parameter tree (``"model/ec"``, ``"model/ec_node_encoder"``,
+``"preproc/..."``): a parameter whose JAX path (``utils.param_convert.jax_names``)
+starts with one of them is frozen. Frozen parameters get no gradient and
+stay out of Adam, so their values are bitwise unchanged, as optax's
+``set_to_zero`` leaves them.
+
+Not ported (raises ``NotImplementedError``): a custom optimizer, which in
+JAX is an optax transform.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from gnn_tracking_tpu_torch.training.precision import get_policy
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 from gnn_tracking_tpu_torch.utils.dictionaries import add_key_suffix
 from gnn_tracking_tpu_torch.utils.nomenclature import denote_pt
+from gnn_tracking_tpu_torch.utils.param_convert import jax_names
 
 
 #: the default seed of a module's random streams and of its model's initial
@@ -74,31 +87,70 @@ class TrackingModule:
     ):
         self.device = resolve_device(device)
         self.policy = get_policy(precision)
-        if optimizer is not None or preproc is not None or frozen_prefixes:
-            msg = "a custom optimizer, preproc and frozen_prefixes are not ported"
+        if optimizer is not None:
+            msg = "a custom optimizer (an optax transform in JAX) is not ported"
             raise NotImplementedError(msg)
         self.model = model.to(self.device)
+        self.preproc = None if preproc is None else preproc.to(self.device).eval()
+        #: the JAX paths of the frozen parameters
+        self.frozen = self._freeze(tuple(frozen_prefixes))
         self.lr = lr
         self.optimizer: torch.optim.Optimizer | None = None
         self.step = 0
+        self.rng_seed = rng_seed
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
 
+    def _named_parameters(self) -> dict[str, torch.Tensor]:
+        """Every parameter by its JAX path: the model's under ``model/``,
+        the preproc's under ``preproc/``."""
+        roots = {"model": self.model, "preproc": self.preproc}
+        out = {}
+        for root, module in roots.items():
+            if module is None:
+                continue
+            paths = jax_names(module)
+            for name, p in module.named_parameters():
+                out[f"{root}/{paths[name]}"] = p
+        return out
+
+    def _freeze(self, prefixes: tuple[str, ...]) -> list[str]:
+        """Freeze (``requires_grad`` off) the parameters whose JAX path
+        starts with a prefix, as JAX's ``_freeze`` labels them; returns
+        their paths."""
+        frozen = []
+        for path, p in self._named_parameters().items():
+            if any(path.startswith(prefix) for prefix in prefixes):
+                p.requires_grad_(False)
+                frozen.append(path)
+        return frozen
+
     def setup_params(self, example: EventGraph | None = None) -> None:
-        """Create the optimizer (the model's parameters exist already; the
-        JAX module initialises its parameters from ``example`` here)."""
+        """Create the optimizer over the trainable parameters (the model's
+        parameters exist already; the JAX module initialises its parameters
+        from ``example`` here)."""
         if self.optimizer is None:
             # Parameters that get no gradient (the EC's, behind the boolean
             # EC cut) are skipped by torch's Adam; optax updates them by
             # exactly zero (0 / (sqrt(0) + eps)). The values agree.
-            self.optimizer = torch.optim.Adam(
-                self.model.parameters(), lr=self.lr, betas=(0.9, 0.999), eps=1e-8
-            )
+            trainable = [p for p in self._named_parameters().values() if p.requires_grad]
+            self.optimizer = torch.optim.Adam(trainable, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+
+    def preprocess(self, data: EventGraph, *, cast: bool = False) -> EventGraph:
+        """``data`` through ``preproc`` (a graph sorted by target), or as it
+        is without one; ``cast`` runs it on the parameters cast to the
+        compute dtype."""
+        if self.preproc is None:
+            return data
+        params = dict(self.preproc.named_parameters())
+        if cast:
+            params = self.policy.cast_to_compute(params)
+        return functional_call(self.preproc, params, (data,)).sort_edges_by_target()
 
     @torch.no_grad()
     def forward(self, data: EventGraph) -> dict[str, Any]:
         """Eval-mode forward."""
         self.model.eval()
-        return self.model(data.to(self.device))
+        return self.model(self.preprocess(data.to(self.device)))
 
     __call__ = forward
 
@@ -110,7 +162,7 @@ class TrackingModule:
     def apply_model(self, data: EventGraph) -> tuple[dict[str, Any], EventGraph]:
         """The model under the precision policy: ``(outputs, graph)``, both
         cast to the output dtype, as the loss sees them."""
-        cdata = self.policy.cast_to_compute(data)
+        cdata = self.preprocess(self.policy.cast_to_compute(data), cast=True)
         # parameters already in the compute dtype pass through as themselves
         params = self.policy.cast_to_compute(dict(self.model.named_parameters()))
         out = functional_call(self.model, params, (cdata,))

@@ -22,6 +22,8 @@ Usage::
     python -m gnn_tracking_tpu_torch.training.run fit --config cfg.yml [--device cpu]
     python -m gnn_tracking_tpu_torch.training.run validate --config cfg.yml \\
         --ckpt_path runs/<name>/checkpoints/checkpoint_best.pt
+    python -m gnn_tracking_tpu_torch.training.run fit --config cfg.yml \\
+        --ckpt_path runs/<name>/checkpoints/checkpoint_<step>.pt   # resume
 """
 
 from __future__ import annotations
@@ -99,14 +101,13 @@ def build_from_config(config: dict[str, Any], *, command: str = "fit",
 
 def run_command(command: str, config: dict[str, Any], *, ckpt_path: str | Path | None = None,
                 device: str | torch.device = "cuda") -> dict[str, float]:
-    """``fit`` / ``validate`` / ``test`` from a parsed config; ``validate``
-    and ``test`` first restore ``ckpt_path`` when given."""
+    """``fit`` / ``validate`` / ``test`` from a parsed config, each first
+    restoring ``ckpt_path`` when given (``Trainer.restore``: the weights,
+    and Adam's state and the step where the checkpoint holds them, so
+    ``fit`` continues the run that wrote it, as JAX's CLI does)."""
     if command not in STAGE_SPLITS:
         msg = f"command must be one of {sorted(STAGE_SPLITS)}, got {command!r}"
         raise ValueError(msg)
-    if command == "fit" and ckpt_path is not None:
-        msg = "fit --ckpt_path (resuming) is not ported: the checkpoint holds no optimizer state"
-        raise NotImplementedError(msg)
     module, datamodule, trainer = build_from_config(config, command=command, device=device)
     if ckpt_path is not None:
         trainer.restore(module, ckpt_path)

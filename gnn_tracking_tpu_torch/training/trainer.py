@@ -10,18 +10,31 @@ exponential moving average of the parameters after each step when
 ``ema * d + p * (1 - d)``, as in JAX), validation every
 ``val_every_n_epochs`` epochs and always after the last, on the EMA weights
 when they exist, and a checkpoint of the raw weights in the serving format
-(``inference.save_checkpoint``), so ``TrackingPredictor(<checkpoint>)``
-serves it; ``checkpoint_<step>_meta.json`` beside it holds the step and the
-config that ``fit`` was given. With ``monitor``, each validation whose
-metric improves (``monitor_mode`` "max" or "min") writes
-``checkpoint_best.pt`` with the weights that were evaluated (the EMA
-weights when ``ema_decay`` is set), and ``fit`` returns
-``best_<monitor>`` beside the last validation's metrics. Epoch metrics are
-means with standard errors (``*_std``).
+(``training.restore.save_checkpoint``, with Adam's state and the step), so
+``TrackingPredictor(<checkpoint>)`` serves it and a later run resumes from
+it; ``checkpoint_<step>_meta.json`` beside it holds the step and the config
+that ``fit`` was given. With ``monitor``, each validation whose metric
+improves (``monitor_mode`` "max" or "min") writes ``checkpoint_best.pt``
+with the weights that were evaluated (the EMA weights when ``ema_decay`` is
+set) and Adam's state, as JAX's ``Checkpointer.save`` does, and ``fit``
+returns ``best_<monitor>`` beside the last validation's metrics. Epoch
+metrics are means with standard errors (``*_std``).
 
-Not ported yet (raise ``NotImplementedError``): ``resume`` and async
-checkpoints (they wait for the optimizer state in the checkpoint). The JAX
-trainer's run loggers and out-of-memory guard have no counterpart here.
+``fit(resume=True)`` restores the newest epoch checkpoint under the
+trainer's ``log_dir`` (``find_latest_checkpoint``: the weights, Adam's state
+and the step; ``module.generator`` starts again from ``module.rng_seed``,
+as a fresh JAX module's ``_rng`` does) and then runs ``max_epochs`` more
+epochs. As in JAX the EMA is not restored (it starts again after the first
+resumed step), and one batch is drawn from the training loader before the
+restore, which uses up the shuffle of the loader's first epoch: a resumed
+epoch reads the order that the same epoch of an uninterrupted run reads
+(JAX ``trainer.py:246``).
+``async_checkpoints=True`` copies the state to the host when it saves and
+writes the files on a background thread; ``fit`` waits for them at its end,
+and :meth:`restore` before it reads (JAX ``trainer.py:106-112``).
+
+The JAX trainer's run loggers and out-of-memory guard have no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -33,13 +46,14 @@ import logging
 import math
 import os
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from gnn_tracking_tpu_torch.inference import save_checkpoint
-from gnn_tracking_tpu_torch.training.config import obj_from_config
+from gnn_tracking_tpu_torch.training.restore import checkpoint_state, load_checkpoint
+from gnn_tracking_tpu_torch.training.config import find_latest_checkpoint, obj_from_config
 
 logger = logging.getLogger(__name__)
 
@@ -98,9 +112,6 @@ class Trainer:
         train_transform=None,
         ema_decay: float | None = None,
     ):
-        if async_checkpoints:
-            msg = "async checkpoints are not ported"
-            raise NotImplementedError(msg)
         if monitor_mode not in ("max", "min"):
             msg = f"monitor_mode must be 'max' or 'min', got {monitor_mode!r}"
             raise ValueError(msg)
@@ -114,6 +125,10 @@ class Trainer:
         self.monitor = monitor
         self.monitor_mode = monitor_mode
         self.val_every_n_epochs = val_every_n_epochs
+        self.async_checkpoints = async_checkpoints
+        #: the background writer of async checkpoints and its pending writes
+        self._writer: ThreadPoolExecutor | None = None
+        self._pending: list[Future] = []
         if isinstance(train_transform, dict) and "class_path" in train_transform:
             train_transform = obj_from_config(train_transform)
         self.train_transform = train_transform
@@ -140,24 +155,48 @@ class Trainer:
             e.copy_(e * d + params[k] * (1.0 - d))
 
     def _save(self, module, config: dict | None = None, tag: str | None = None) -> Path:
+        """Checkpoint the model, Adam's state and the step (copied to the
+        host now; written now, or on the background thread with
+        ``async_checkpoints``) and its ``_meta.json``."""
         tag = tag if tag is not None else f"{module.step:08d}"
         path = self.log_dir / "checkpoints" / f"checkpoint_{tag}.pt"
         path.parent.mkdir(parents=True, exist_ok=True)
-        save_checkpoint(module.model, path)
-        meta = {"step": module.step, "config": config or {}}
-        path.with_name(f"{path.stem}_meta.json").write_text(json.dumps(meta, default=str))
+        state = checkpoint_state(module.model, optimizer=module.optimizer, step=module.step)
+        meta = json.dumps({"step": module.step, "config": config or {}}, default=str)
+
+        def write() -> None:
+            torch.save(state, path)
+            path.with_name(f"{path.stem}_meta.json").write_text(meta)
+
+        if self.async_checkpoints:
+            if self._writer is None:
+                self._writer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoints")
+            self._pending.append(self._writer.submit(write))
+        else:
+            write()
         return path
 
-    @staticmethod
-    def restore(module, path: str | Path) -> None:
-        """Load a checkpoint's weights into ``module.model`` and its step
-        (from ``_meta.json``, where there is one) into ``module.step``."""
-        path = Path(path)
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    def wait(self) -> None:
+        """Block until every checkpoint written in the background is on
+        disk (a write's error is raised here)."""
+        pending, self._pending = self._pending, []
+        for future in pending:
+            future.result()
+
+    def restore(self, module, path: str | Path) -> None:
+        """Load a checkpoint's weights into ``module.model``; where it holds
+        them, Adam's state into ``module``'s optimizer (made first) and the
+        step into ``module.step`` (else the step of ``_meta.json``, where
+        there is one); start ``module.generator`` again from its seed."""
+        self.wait()
+        ckpt, meta = load_checkpoint(path)
         module.model.load_state_dict(ckpt["state_dict"])
-        meta = path.with_name(f"{path.stem}_meta.json")
-        if meta.exists():
-            module.step = json.loads(meta.read_text())["step"]
+        if "optimizer_state" in ckpt:
+            module.setup_params()
+            module.optimizer.load_state_dict(ckpt["optimizer_state"])
+        if "step" in ckpt or "step" in meta:
+            module.step = ckpt.get("step", meta.get("step"))
+        module.generator.manual_seed(module.rng_seed)
 
     def _improves(self, value: float) -> bool:
         if self._best_monitor is None:
@@ -170,13 +209,26 @@ class Trainer:
             resume: bool = False) -> dict[str, float]:
         """Train; returns the last validation metrics, with
         ``best_<monitor>`` when ``monitor`` selected an epoch. ``config`` is
-        written beside every checkpoint."""
-        if resume:
-            msg = "resume is not ported"
-            raise NotImplementedError(msg)
+        written beside every checkpoint. With ``resume``, first restore the
+        newest epoch checkpoint under ``log_dir``, where there is one."""
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader() if datamodule.has("val") else None
+        if resume:
+            try:
+                latest = find_latest_checkpoint(self.log_dir)
+            except FileNotFoundError:
+                latest = None
+            if latest is not None:
+                # JAX draws one batch before it restores (its parameter
+                # template), which uses up one shuffle of the training
+                # loader: the resumed epochs read the orders that an
+                # uninterrupted run's later epochs read
+                batches = iter(train_loader)
+                next(batches, None)
+                del batches
+                self.restore(module, latest)
+                logger.info("Resumed from %s (step %d)", latest, module.step)
         last_val: dict[str, float] = {}
         for epoch in range(self.max_epochs):
             t0 = time.perf_counter()
@@ -214,6 +266,7 @@ class Trainer:
                 self.checkpoints.append(self._save(module, config))
             if self.max_steps is not None and module.step >= self.max_steps:
                 break
+        self.wait()
         out = dict(last_val)
         if self.monitor is not None and self._best_monitor is not None:
             out[f"best_{self.monitor}"] = self._best_monitor

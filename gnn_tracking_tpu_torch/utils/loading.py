@@ -14,7 +14,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gnn_tracking_tpu_torch.graphs import ARRAY_FIELDS, EventGraph
+from gnn_tracking_tpu_torch.graphs import ARRAY_FIELDS, EventGraph, batch_graphs
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 
 
@@ -81,10 +81,11 @@ class TrackingDataset:
 class GraphLoader:
     """Host-side loader: optional shuffling (``random.Random(seed)``, made
     once per loader, so an epoch's order is the JAX loader's), subsampling,
-    and ``prefetch`` graphs
-    loaded ahead in background threads (npz decompression releases the
-    GIL). One graph per batch; the JAX loader's padding and multi-graph
-    batches are not ported."""
+    batches of ``batch_size`` graphs (above 1: their disjoint union,
+    ``graphs.batch_graphs``, sorted by target, as the JAX loader batches
+    them) and ``prefetch`` batches made ahead in background threads (npz
+    decompression releases the GIL). The JAX loader's padding is not
+    ported."""
 
     def __init__(
         self,
@@ -96,9 +97,9 @@ class GraphLoader:
         seed: int = 0,
         prefetch: int = 2,
     ):
-        if batch_size != 1:
-            msg = "batch_size > 1 (batch_graphs) is not ported"
-            raise NotImplementedError(msg)
+        if batch_size < 1:
+            msg = f"batch_size must be at least 1, got {batch_size}"
+            raise ValueError(msg)
         self._dataset = dataset
         self._shuffle = shuffle
         self._sample_size = sample_size
@@ -106,28 +107,38 @@ class GraphLoader:
         self._prefetch = prefetch
         self.batch_size = batch_size
 
-    def __len__(self) -> int:
+    def _n_graphs(self) -> int:
         n = len(self._dataset)
         return n if self._sample_size is None else min(n, self._sample_size)
 
-    def _indices(self) -> list[int]:
+    def __len__(self) -> int:
+        return -(-self._n_graphs() // self.batch_size)
+
+    def _batches(self) -> list[list[int]]:
         order = list(range(len(self._dataset)))
         if self._shuffle:
             self._rng.shuffle(order)
-        return order[: len(self)]
+        order = order[: self._n_graphs()]
+        return [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+
+    def _batch(self, indices: list[int]) -> EventGraph:
+        graphs = [self._dataset[i] for i in indices]
+        if len(graphs) == 1:
+            return graphs[0]
+        return batch_graphs(graphs).sort_edges_by_target()
 
     def __iter__(self) -> Iterator[EventGraph]:
-        indices = self._indices()
+        batches = self._batches()
         if self._prefetch <= 0:
-            for i in indices:
-                yield self._dataset[i]
+            for b in batches:
+                yield self._batch(b)
             return
         with ThreadPoolExecutor(max_workers=self._prefetch) as pool:
-            ahead = deque(pool.submit(self._dataset.__getitem__, i) for i in indices[: self._prefetch])
-            for k in range(len(indices)):
+            ahead = deque(pool.submit(self._batch, b) for b in batches[: self._prefetch])
+            for k in range(len(batches)):
                 graph = ahead.popleft().result()
-                if k + self._prefetch < len(indices):
-                    ahead.append(pool.submit(self._dataset.__getitem__, indices[k + self._prefetch]))
+                if k + self._prefetch < len(batches):
+                    ahead.append(pool.submit(self._batch, batches[k + self._prefetch]))
                 yield graph
 
 
@@ -139,8 +150,8 @@ class TrackingDataModule:
             val=dict(dirs=["/data/val"], stop=50),
         )
 
-    Config keys: ``dirs``, ``start``, ``stop``, ``sector``, ``batch_size``
-    (1 only), ``sample_size``. The training loader shuffles with
+    Config keys: ``dirs``, ``start``, ``stop``, ``sector``, ``batch_size``,
+    ``sample_size``. The training loader shuffles with
     ``random.Random(seed)``, as the JAX loader does. ``PaddingConfig`` is a TPU static-shape
     device and is not ported.
     """

@@ -13,7 +13,13 @@ this module's own copy). Flax ``[in, out]`` kernels are transposed into
 PyTorch's ``[out, in]``. Path names map as ``TorchLinear_i`` /
 ``NormalLinear_i`` -> ``linears.i``, ``layer_i`` -> ``layers.i``; the
 ``gtcn`` level of a JAX ``GraphTCN`` is dropped (the port's ``GraphTCN`` is
-a ``ModularGraphTCN``).
+a ``ModularGraphTCN``; so are ``PerfectECGraphTCN``,
+``GraphTCNForMLGCPipeline`` and ``PreTrainedECGraphTCN``).
+
+:func:`jax_names` goes the other way, from the port's parameter names to
+the JAX tree's paths (``model/ec/ec_node_encoder/TorchLinear_0/kernel``),
+so that prefixes written the JAX way (``frozen_prefixes``,
+``training.restore.inject_params``) select the same parameters.
 """
 
 from __future__ import annotations
@@ -115,3 +121,50 @@ def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
                 raise ValueError(msg)
             target.copy_(torch.from_numpy(np.array(src)).to(target.dtype))
     return module
+
+
+def port_prefix(jax_path: str) -> str:
+    """The port's name of a JAX path below a model (``"ec/layer_0"`` ->
+    ``"ec.layers.0"``): each component renamed as :func:`params_from_jax`
+    renames it, the ``gtcn`` level dropped."""
+    parts = [_rename(k) for k in jax_path.split("/") if k]
+    return ".".join(p for p in parts if p is not None)
+
+
+def _leaf(name: str) -> str:
+    m = _RELATIONAL.match(name)
+    if m:  # the JAX default (XLA) layout of the relational MLP
+        kind = "kernel" if m.group(1) == "w" else "bias"
+        return f"relational_model/TorchLinear_{int(m.group(2)) - 1}/{kind}"
+    return "kernel" if name == "weight" else name
+
+
+def jax_names(module: nn.Module) -> dict[str, str]:
+    """Port parameter name -> its path in the JAX params tree of the same
+    model (the inverse of :func:`params_from_jax`'s renaming): ``linears.i``
+    -> ``TorchLinear_i`` / ``NormalLinear_i`` (by the layer's class),
+    ``layers.i`` -> ``layer_i``, ``weight`` -> ``kernel``, the fused
+    ``relational_w{i}`` / ``_b{i}`` -> ``relational_model/TorchLinear_{i-1}``
+    (JAX's default layout), and the own parameters and children of a
+    module with ``jax_inner_name`` other than ``ec`` and ``hc_in`` under
+    that level."""
+    out: dict[str, str] = {}
+
+    def walk(mod: nn.Module, port: list[str], jax: list[str]) -> None:
+        inner = getattr(mod, "jax_inner_name", None)
+
+        def own(child: str) -> list[str]:
+            return jax if inner is None or child in ("ec", "hc_in") else [*jax, inner]
+
+        for name, _ in mod.named_parameters(recurse=False):
+            out[".".join([*port, name])] = "/".join([*own(name), _leaf(name)])
+        for name, child in mod.named_children():
+            if isinstance(child, nn.ModuleList):
+                for i, item in child.named_children():
+                    level = f"layer_{i}" if name == "layers" else f"{type(item).__name__}_{i}"
+                    walk(item, [*port, name, i], [*own(name), level])
+            else:
+                walk(child, [*port, name], [*own(name), name])
+
+    walk(module, [], [])
+    return out

@@ -133,7 +133,7 @@ def test_test_config_refuses_padding_config_and_unported_classes(data_root):
     assert isinstance(module.model, GraphTCN) and module.model.model_config["L_ec"] == 2
     assert trainer.max_epochs == 1 and not trainer.print_validation_results
     for missing in (
-        "gnn_tracking_tpu.models.track_condensation_networks.GraphTCNForMLGCPipeline",
+        "gnn_tracking_tpu.models.track_condensation_networks.PointCloudTCN",
         "gnn_tracking_tpu.models.meta.MetaModel",
     ):
         bad = copy.deepcopy(config)
@@ -322,8 +322,25 @@ def test_validate_and_test_restore_the_port_checkpoint(cli_runs):
         assert nan_equal(got_val[k], want[k], 0.0), k
         assert nan_equal(got_test[k], want[k], 0.0), k
     assert got_val["total"] == approx(rec["port_result"]["best_total"], rel=1e-12)
-    with pytest.raises(NotImplementedError, match="resum"):
+    # fit --ckpt_path resumes: the weights, Adam's state and the step of the
+    # checkpoint (here checkpoint_best's, the EMA weights), then max_epochs more
+    # epochs (tests/test_torch_port_pipeline.py checks the resumed run itself)
+    resumed = {}
+    build = port_run.build_from_config
+
+    def recording_build(cfg, **kw):
+        module, dm, trainer = build(cfg, **kw)
+        resumed["module"] = module
+        return module, dm, trainer
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(port_run, "build_from_config", recording_build)
+    try:
         port_run.cli_main(["fit", *args])
+    finally:
+        mp.undo()
+    best_step = torch.load(best, weights_only=True)["step"]
+    assert resumed["module"].step == best_step + 2 * 2  # 2 epochs x 2 events
 
 
 # ------------------------------------------------------------ the models

@@ -125,6 +125,9 @@ def test_dbscan_matches_sklearn(min_samples):
 
 def test_unported_options_raise(models):
     _, pm, _ = models
-    for kw in ({"precision": "bf16"}, {"padding": object()}, {"graph_transform": lambda g: g}):
-        with pytest.raises(NotImplementedError):
-            TrackingPredictor(pm, device="cpu", **kw)
+    # padding buckets stay refused (a TPU static-shape device); bf16 and
+    # graph_transform are ported (tests/test_torch_port_pipeline_serving.py)
+    with pytest.raises(NotImplementedError):
+        TrackingPredictor(pm, device="cpu", padding=object())
+    with pytest.raises(ValueError, match="precision"):
+        TrackingPredictor(pm, device="cpu", precision="fp8")
