@@ -7,6 +7,7 @@ Run from the repository root with no arguments::
                           [--ec-steps 10] [--val-epochs 75] [--profile]
     python3 chip_smoke.py --split-only [--package-root DIR]   # (or another *-only mode)
     python3 chip_smoke.py --band-only [--package-root DIR] [--band-digests FILE]
+    python3 chip_smoke.py --variants-only   # phase 13 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -228,10 +229,53 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    every edge to the condensation layers); warm events/s of f32 at batch 1 and 2 and of bf16, 3 passes
    over the 32 clouds in host memory, and the phase's wall time. Every
    kernel of ``PIPE_KERNELS`` must launch on the path;
-13. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+13. the remaining losses and models on the kernels they run
+   (``variants_phase``), all f32: (a) ``CondensationLossRG(max_num_neighbors
+   256, max_n_objects 2048)`` under ``TCModule`` on phase 5's GraphTCN and
+   event (the EC cut calibrated as there): step 0's loss and gradients
+   against the plain path's (``compare_grads``), then ``VAR_STEPS`` timed
+   steps with their split and the loss's radius graph (row #12, once a
+   step) timed alone; (b) the residual variants, each from the same weights
+   on both paths with step 0's outputs within 1e-4 of their largest
+   magnitude, the loss within 1e-5 and the gradients by ``compare_grads``:
+   ``PerfectECGraphTCN(tc.yml's widths, L_hc 4, skip2)`` with and without
+   ``compat_overlap``, ``ECForGraphTCN(ec.yml's widths, skip_top)`` and
+   ``ModularGraphTCN(hc_in=ResIN(64, 64, 128, 4 layers, skip2, add_bn))``,
+   which then takes 2 optimizer steps on each path (the plain path from
+   the kernels' weights before each): its running averages within 1e-4 of
+   the plain path's (each tensor's largest magnitude), and
+   its eval-mode outputs on the kernels' weights within 1e-4 of the plain
+   path's; its step-0 gradients are held to a float64 evaluation
+   (``compare_grads_f64``); (c)
+   ``PointCloudTCN`` at the JAX defaults (h 10, e 10, out 5, hidden 100, 3 +
+   1 blocks of 3 layers) on a 32,768-hit point cloud of 2,048 particles
+   (``make_point_cloud``) under ``TCModule`` with the Tiger loss: step 0
+   against the plain path on the kernels' neighbour choice (``TopkReplay``,
+   which holds each row #13 call against its plain version), the gradients
+   of both held to a float64 evaluation (``compare_grads_f64``: the random
+   model's latent is collapsed, and most of the loss's gradients are
+   rounding in f32 on either path), and so are the gradients of a fixed
+   random projection of ``H`` and ``B``; ``VAR_STEPS`` timed steps (row #13 four times a
+   step), then ``TrackingPredictor`` and DBSCAN (rows #12 / #16) on its
+   trained ``H`` (``EPS``, ``CAP``), labels equal to those of the plain
+   path's DBSCAN on the same ``H``, and again on a particle-structured
+   latent (each hit at its particle's unit-normal centre plus 0.02 of
+   ``H``: more than 1,024 clusters); (d) ``MLGraphConstruction`` with
+   ``GraphConstructionHeteroEncResFCNN`` at ``ml.yml``'s widths (pixel and
+   strip towers, ``hetero_layers``) and ``EFMLP(14, 28, hidden 128, depth
+   3)`` cutting at a gap near the median score, at k = 64 on a 32,768-hit
+   cloud: the kNN graph equal to the plain path's up to ties
+   (``compare_neighbours``) and the filter's cut equal on every other row;
+   ``GraphConstructionResIN(hidden 40, 2 layers)`` over that graph within
+   1e-4 of the plain path's; ``VAR_ML_STEPS`` ``MLModule`` steps of the
+   hetero embedding with the hinge loss (row #12 at k = 256) after step 0's
+   gradients against the plain path. Rows #1, #2, #9, #10, #12, #13 and #16
+   must launch on the phase's path;
+14. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
-   kernels of phase 12's path with ``pipeline_launches``), the
-   ``nvidia-smi`` name/power line, and last the device JSON line.
+   kernels of phase 12's path with ``pipeline_launches``, and of phase
+   13's with ``variants_launches``), the ``nvidia-smi`` name/power line,
+   and last the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
 ``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
@@ -279,7 +323,8 @@ FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
 #2 with C32 / D32 and A-D at widths their resident kernels take: each
 output's digest) and writes FILE, or holds the digests bitwise against
 FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops;
-``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops. ``--wide-only``
+``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops;
+``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -639,6 +684,70 @@ def plain_path():
             setattr(mod, name, fn)
 
 
+class TopkReplay:
+    """The resident top-k calls of ``ops/knn.py`` (rows #13 and #12) made on
+    the kernels' path, recorded, then replayed on the plain path, so that a
+    step-0 comparison holds both paths to one neighbour choice: where the
+    latent has equal distances (dead ReLUs give many hits one point), the
+    kernel and its plain version may keep different tied neighbours, which
+    is not an error of either but changes the gradients. :meth:`check`
+    holds every recorded call against its plain version on the same input
+    (``compare_topk``)."""
+
+    NAMES = ("pairwise_topk", "pairwise_topk_filter")
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def _patched(self, make):
+        from gnn_tracking_tpu_torch.ops import knn
+
+        saved = {n: getattr(knn, n) for n in self.NAMES}
+        for n, fn in saved.items():
+            setattr(knn, n, make(n, fn))
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(knn, n, fn)
+
+    def record(self):
+        def make(name, fn):
+            def recorded(x, **kw):
+                out = fn(x, **kw)
+                self.calls.append((name, x.detach().clone(), dict(kw), out))
+                return out
+            return recorded
+
+        return self._patched(make)
+
+    def replay(self):
+        calls = iter(list(self.calls))
+
+        def make(name, _):
+            def replayed(x, **kw):
+                n, x0, kw0, out = next(calls)
+                assert n == name and x.shape == x0.shape and kw.keys() == kw0.keys(), (name, n)
+                return out
+            return replayed
+
+        return self._patched(make)
+
+    def check(self) -> dict:
+        """Each recorded call against its plain version: the largest squared
+        distance error, and the boundary and tie rows (``compare_topk``)."""
+        from gnn_tracking_tpu_torch.ops.pairwise_topk import pairwise_topk_filter_plain, pairwise_topk_plain
+
+        err, n_boundary, n_tie = 0.0, 0, 0
+        for name, x, kw, (kd, ki) in self.calls:
+            plain = pairwise_topk_plain if name == "pairwise_topk" else pairwise_topk_filter_plain
+            pd, pi = plain(x, **kw)
+            e, b, t = compare_topk(kd, ki, pd, pi, kw.get("radius2"))
+            err, n_boundary, n_tie = max(err, e), n_boundary + b, n_tie + t
+        return {"calls": len(self.calls), "max_abs_err": err, "boundary_rows": n_boundary, "tie_rows": n_tie}
+
+
 def compare_topk(kd, ki, pd, pi, boundary2):
     """Kernel vs plain top-k. Squared distances in the slots both fill agree
     within 1e-5 * max(boundary, max plain d^2); indices are identical except
@@ -764,6 +873,44 @@ def compare_grads(gk: dict, gp: dict):
         elif ref > 0 and diff / ref >= worst:
             worst_name, worst = name, diff / ref
     return worst_name, worst, at_floor, no_grad, total
+
+
+def compare_grads_f64(gk: dict, gp: dict, g64: dict):
+    """Step-0 parameter gradients through the kernels (``gk``) and the plain
+    path (``gp``), both f32, against a float64 evaluation (``g64``): per
+    tensor, |g_kernel - g64| <= max(4 |g_plain - g64|, 1e-3 |g64|) plus a
+    floor of 1e-7 of the whole gradient's norm: the kernels are no further
+    from the exact gradient than a few times the plain f32 path. For models
+    whose f32 rounding the gradients amplify: a batch norm's backward makes
+    its cotangents zero-mean over the rows, so a weight gradient's sum over
+    the edges cancels, and the kernels' fixed-order sum (tiles in edge
+    order) then carries several times the error of cuBLAS's reduction tree
+    (5x on ``VAR_BN_RESIN``'s layer 1 on an H100); a collapsed random
+    latent makes the condensation loss's distances (the expansion
+    ``|x|^2 + |y|^2 - 2 x.y``) cancel. Returns the worst tensor by
+    |g_kernel - g64| / |g64| among those the plain path computes within
+    1e-3 of ``g64`` (the others are ill-conditioned in f32: both paths'
+    gradients are rounding there), that ratio, the ill-conditioned
+    tensors, and the parameters without a gradient."""
+    no_grad = [n for n in g64 if g64[n] is None]
+    total = math.sqrt(sum(g64[n].square().sum().item() for n in g64 if g64[n] is not None))
+    worst_name, worst, ill = None, 0.0, []
+    for name in gk:
+        if g64[name] is None:
+            assert gk[name] is None and gp[name] is None, f"{name}: a gradient on one path only"
+            continue
+        ek = (gk[name] - g64[name]).norm().item()
+        ep = (gp[name] - g64[name]).norm().item()
+        ref = g64[name].norm().item()
+        lim = max(4 * ep, 1e-3 * ref)
+        assert ek <= lim + 1e-7 * total, (
+            f"{name}: |g_kernel - g64| {ek:.3e} > max(4 x |g_plain - g64| {ep:.3e}, 1e-3 x {ref:.3e}) "
+            f"+ 1e-7 x {total:.3e}")
+        if ep > 1e-3 * ref:
+            ill.append(f"{name} ({ek / max(ref, 1e-30):.1e} / {ep / max(ref, 1e-30):.1e} of {ref:.1e})")
+        elif ek / ref >= worst:
+            worst_name, worst = name, ek / ref
+    return worst_name, worst, ill, no_grad
 
 
 def step_split(module, g, rounds: int = 5) -> dict:
@@ -5066,6 +5213,501 @@ def pipeline_phase(seed: int, tmp: Path) -> dict:
     return summary
 
 
+# ---- phase 13: the remaining losses and models on existing kernels
+VAR_STEPS = 10  # timed training steps of (a) and (c)
+VAR_RG_LOSS = {"max_num_neighbors": 256, "max_n_objects": 2048}
+# tc.yml's widths with four condensation layers (skip2 takes an even count)
+VAR_TCN = {"node_indim": NODE_DIM, "edge_indim": EDGE_DIM, "h_dim": 64, "e_dim": 64, "h_outdim": 8,
+           "hidden_dim": 128, "L_hc": 4}
+VAR_BN_RESIN = {"node_dim": 64, "edge_dim": 64, "object_hidden_dim": 128, "relational_hidden_dim": 128,
+                "n_layers": 4, "residual_type": "skip2", "add_bn": True}
+# the JAX PointCloudTCN's defaults (reference tcn.py:69-115)
+VAR_PC_MODEL = {"node_indim": NODE_DIM, "h_dim": 10, "e_dim": 10, "h_outdim": 5, "hidden_dim": 100,
+                "N_blocks": 3, "L": 3}
+# ml.yml's widths in the heterogeneous encoder form, and an MLP edge filter on the built graph
+VAR_GC_ML = {"in_dim": NODE_DIM, "hidden_dim_enc": 256, "hidden_dim": 256, "out_dim": 8, "depth_enc": 2,
+             "depth": 5}
+VAR_GC_EF = {"node_indim": NODE_DIM, "edge_indim": 2 * NODE_DIM, "hidden_dim": 128, "depth": 3}
+VAR_GC = {"max_num_neighbors": 64, "max_radius": 1.0}
+VAR_GC_RESIN = {"node_indim": NODE_DIM, "edge_indim": 2 * NODE_DIM, "h_outdim": 8, "hidden_dim": 40,
+                "n_layers": 2}
+VAR_ML_STEPS = 5
+#: the kernels of phase 13's path, by the module attribute that launches each
+VARIANT_KERNELS = {
+    "fused_relational_fwd": ("fused_relational", "fused_relational_fwd"),
+    "fused_relational_bwd": ("fused_relational", "fused_relational_bwd"),
+    "sorted_segment_sum": ("csr_segment", "sorted_segment_sum"),
+    "sorted_gather": ("csr_segment", "sorted_gather"),
+    "pairwise_topk_filter": ("pairwise_topk", "pairwise_topk_filter"),
+    "pairwise_topk": ("pairwise_topk", "pairwise_topk"),
+    "cc_neighbors": ("cc_kernel", "cc_neighbors"),
+}
+
+
+def max_rel(a, b) -> float:
+    """``max |a - b|`` over ``max |b|``."""
+    return (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+
+
+def hetero_layers(x):
+    """Detector layers of ``make_point_cloud``'s hits from their radius:
+    the barrel's 16 radii as layers 0, 2, ..., 30, so that layers from 18
+    on are strips (``mlp.get_pixel_mask``)."""
+    import torch
+
+    r = np.hypot(x[:, 0], x[:, 1])
+    return torch.from_numpy(2 * np.abs(r[:, None] - LAYER_RADII[None, :]).argmin(axis=1)).to(torch.int32)
+
+
+def variants_phase(seed: int) -> dict:
+    """Phase 13 (see the module docstring). Returns the launches of
+    ``VARIANT_KERNELS`` on the phase's path (each stage's counts set to 0
+    just before it and read just after; the step-0 comparisons with the
+    plain path and the plain path's own steps are not counted) and the
+    phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.inference import TrackingPredictor
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.losses.metric_learning import GraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.losses.oc import CondensationLossRG, CondensationLossTiger
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.models.edge_filter import EFMLP
+    from gnn_tracking_tpu_torch.models.graph_construction import (
+        GraphConstructionHeteroEncResFCNN,
+        GraphConstructionResIN,
+        MLGraphConstruction,
+    )
+    from gnn_tracking_tpu_torch.models.resin import ResIN
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import (
+        GraphTCN,
+        ModularGraphTCN,
+        PerfectECGraphTCN,
+        PointCloudTCN,
+    )
+    from gnn_tracking_tpu_torch.ops import knn
+    from gnn_tracking_tpu_torch.ops.dbscan import dbscan
+    from gnn_tracking_tpu_torch.training.module import ECModule, MLModule, TCModule
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in VARIANT_KERNELS.values()}}
+    path_launches = dict.fromkeys(VARIANT_KERNELS, 0)
+
+    def on_path(fn):
+        """``fn()`` as a stage of the path: its launches, counted from 0 and
+        added to the path's."""
+        for m, f in VARIANT_KERNELS.values():
+            getattr(ops[m], f).launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launched = {k: getattr(ops[m], f).launches for k, (m, f) in VARIANT_KERNELS.items()}
+        for k, n in launched.items():
+            path_launches[k] += n
+        return out, launched
+
+    def sync() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def step0(module, g):
+        """Outputs, loss and parameter gradients of one training step's
+        forward and backward (no optimizer step)."""
+        model = module.model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        out, data = module.apply_model(g)
+        loss, _ = module.get_losses(out, data)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        outs = {k: v.detach().clone() for k, v in out.items() if isinstance(v, torch.Tensor)}
+        return outs, loss.item(), grads
+
+    def step0_f64(module, state, g):
+        """Step 0's parameter gradients of a float64 copy of ``module``'s
+        model (at ``state``) on ``g`` in float64."""
+        model = copy.deepcopy(module.model)
+        model.load_state_dict(state)
+        model.double().train()
+        g64 = g.to(g.device, dtype=torch.float64)
+        out = model(g64)
+        loss, _ = module.get_losses(out, g64)
+        loss.backward()
+        return {n: None if p.grad is None else p.grad.detach().float() for n, p in model.named_parameters()}
+
+    def held_to_plain(what, make_module, g, *, out_keys, bn=False):
+        """Step 0 through the kernels against the plain path, from the same
+        weights (and running averages): the forward outputs ``out_keys``
+        within 1e-4 of their largest magnitude, the loss within 1e-5
+        relative, the gradients by ``compare_grads``. With ``bn``, both
+        start again from the same state and take 2 optimizer steps (the
+        kernels' on the path), then the running averages and the eval-mode
+        outputs are held to the plain path's. Returns the summary."""
+        kernel, plain = make_module(), make_module()
+        plain.model.load_state_dict(kernel.model.state_dict())
+        init = {k: v.clone() for k, v in kernel.model.state_dict().items()}
+        ok, lk, gk = step0(kernel, g)
+        with plain_path():
+            op, lp, gp = step0(plain, g)
+        out_rel = {k: max_rel(ok[k], op[k]) for k in out_keys}
+        assert all(v <= 1e-4 for v in out_rel.values()), f"{what}: outputs against the plain path {out_rel}"
+        assert abs(lk - lp) <= 1e-5 * abs(lp), f"{what}: loss {lk} against the plain path's {lp}"
+        if bn:
+            # the batch norms' backward subtracts the batch means of its
+            # cotangents: the f32 rounding of either path is amplified there,
+            # so both are held to a float64 evaluation instead (as phase 3
+            # holds row #1; compare_grads_f64)
+            with plain_path():
+                g64 = step0_f64(plain, init, g)
+            worst_name, worst, at_floor, no_grad = compare_grads_f64(gk, gp, g64)
+        else:
+            worst_name, worst, at_floor, no_grad, _ = compare_grads(gk, gp)
+        summary = {"loss": lk, "outputs_rel": out_rel, "grad_worst": worst, "grad_worst_name": worst_name,
+                   "grads_at_floor": at_floor, "no_grad": len(no_grad)}
+        if bn:
+            for m in (kernel, plain):
+                m.model.load_state_dict(init)
+            # before each step the plain path takes the kernels' weights (its
+            # running averages stay its own): Adam moves a weight whose
+            # gradient is rounding noise by a whole step, so two paths'
+            # own weights part after one step, and their statistics with them
+            two_steps_s = 0.0
+            for _ in range(2):
+                with torch.no_grad():
+                    weights = dict(kernel.model.named_parameters())
+                    for n, p in plain.model.named_parameters():
+                        p.copy_(weights[n])
+                t0 = sync()
+                on_path(lambda: kernel.training_step(g))
+                two_steps_s += sync() - t0
+                with plain_path():
+                    plain.training_step(g)
+            summary["two_steps_s"] = two_steps_s
+            stats_k = {k: v for k, v in kernel.model.state_dict().items() if k.endswith((".mean", ".var"))}
+            stats_p = plain.model.state_dict()
+            assert stats_k, f"{what}: no running averages"
+            stats_rel = {k: max_rel(v, stats_p[k]) for k, v in stats_k.items()}
+            moved = sum(not torch.equal(v, init[k]) for k, v in stats_k.items())
+            assert moved == len(stats_k), f"{what}: {len(stats_k) - moved} running averages never moved"
+            assert max(stats_rel.values()) <= 1e-4, f"{what}: running averages against the plain path {stats_rel}"
+            # eval mode (the running averages) through the kernels and the
+            # plain path, on the kernels' trained weights: after Adam's first
+            # steps the two paths' weights differ by whole steps where a
+            # gradient is rounding noise (a bias that a batch norm removes in
+            # training, but not in eval mode)
+            with torch.no_grad():
+                kernel.model.eval()
+                ek = kernel.model(g)
+                with plain_path():
+                    ep = kernel.model(g)
+            eval_rel = {k: max_rel(ek[k], ep[k]) for k in out_keys}
+            assert all(v <= 1e-4 for v in eval_rel.values()), f"{what}: eval outputs {eval_rel}"
+            summary |= {"running_averages": len(stats_k), "running_averages_rel": max(stats_rel.values()),
+                        "eval_outputs_rel": eval_rel}
+        log(f"variants (b) {what}: step 0 against the plain path: outputs {out_rel}, loss {lk:.6f} "
+            f"(plain {lp:.6f}), gradients worst {worst_name} {worst:.3e} relative (at the floor only, or with "
+            f"float64 ill-conditioned: "
+            f"{at_floor or 'none'})" + (f"; after 2 steps {summary['running_averages']} running averages within "
+                                         f"{summary['running_averages_rel']:.3e} of the plain path's, eval "
+                                         f"outputs {summary['eval_outputs_rel']}" if bn else ""))
+        return summary
+
+    t_phase = sync()
+    dev = torch.device("cuda")
+    summary: dict = {}
+    part_s: dict = {}
+
+    # ---- (a) the radius-graph condensation loss on the serving GraphTCN
+    t_part = sync()
+    g = EventGraph.from_arrays(**make_train_event(seed + 800)).sort_edges_by_target().to(dev)
+    rg_model = GraphTCN(**MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 801))
+    rg = TCModule(model=rg_model, loss_fct=CondensationLossRG(**VAR_RG_LOSS), lr=LR, device="cuda")
+    rg.setup_params(g)
+    threshold = calibrate_ec_threshold(rg_model, g)
+    probe = TCModule(model=copy.deepcopy(rg_model), loss_fct=CondensationLossRG(**VAR_RG_LOSS), lr=LR,
+                     device="cuda")
+    ok, lk, gk = step0(probe, g)
+    with plain_path():
+        op, lp, gp = step0(probe, g)
+    del probe
+    worst_name, worst, at_floor, no_grad, _ = compare_grads(gk, gp)
+    assert abs(lk - lp) <= 1e-5 * abs(lp), f"RG loss step 0: {lk} against the plain path's {lp}"
+    h_out = ok["H"].float().contiguous()
+    edge_index, edge_mask, _ = knn.radius_graph(h_out, 1.0, max_num_neighbors=VAR_RG_LOSS["max_num_neighbors"],
+                                                node_mask=g.node_mask)
+    rg_edges = int(edge_mask.sum())
+    rg_full_rows = int((edge_mask.view(-1, VAR_RG_LOSS["max_num_neighbors"]).all(dim=1)).sum())
+    for _ in range(2):
+        rg.training_step(g)
+    t0 = sync()
+    rg_metrics, rg_launches = on_path(lambda: [rg.training_step(g) for _ in range(VAR_STEPS)])
+    rg_dt = sync() - t0
+    metrics = rg_metrics[-1]
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    assert rg_launches["pairwise_topk_filter"] == VAR_STEPS, f"RG loss: row #12 launched {rg_launches}"
+    rg_split = step_split(rg, g)
+    with torch.no_grad():
+        h_now = rg_model(g)["H"].float().contiguous()
+    radius_ms = host_ms(lambda: knn.radius_graph(h_now, 1.0, max_num_neighbors=VAR_RG_LOSS["max_num_neighbors"],
+                                                 node_mask=g.node_mask))
+    part_s["a_rg_loss"] = sync() - t_part
+    summary["rg_loss"] = {
+        "step0_loss": lk, "step0_plain_loss": lp, "grad_worst": worst, "grad_worst_name": worst_name,
+        "grads_at_floor": at_floor, "ec_no_grad": len(no_grad), "ec_threshold": threshold,
+        "radius_edges_step0": rg_edges, "full_rows_step0": rg_full_rows, "steps": VAR_STEPS,
+        "steps_per_s": VAR_STEPS / rg_dt, "step_ms": rg_dt / VAR_STEPS * 1e3, **rg_split,
+        "radius_graph_ms": radius_ms, "launches_per_step": {k: v / VAR_STEPS for k, v in rg_launches.items()},
+        "total": metrics["total"], "repulsive": metrics["repulsive"],
+    }
+    log(f"variants (a): CondensationLossRG({VAR_RG_LOSS}) on the GraphTCN: step 0 loss {lk:.6f} (plain "
+        f"{lp:.6f}), gradients worst {worst_name} {worst:.3e} relative (at the floor only: {at_floor or 'none'}), "
+        f"{len(no_grad)} EC parameters without gradient; the radius graph at step 0 {rg_edges} edges, "
+        f"{rg_full_rows} full rows; {VAR_STEPS} steps {rg_dt / VAR_STEPS * 1e3:.2f} ms a step, split {rg_split}, "
+        f"the loss's radius graph {radius_ms:.3f} ms alone")
+
+    # ---- (b) the residual variants, each held to the plain path
+    t_part = sync()
+    g_b = EventGraph.from_arrays(**make_train_event(seed + 810)).sort_edges_by_target().to(dev)
+    variants = {}
+
+    def tc_module(model_fn):
+        return lambda: TCModule(model=model_fn(), loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+
+    for compat in (False, True):
+        name = f"PerfectECGraphTCN skip2{' compat_overlap' if compat else ''}"
+        variants[name] = held_to_plain(name, tc_module(lambda c=compat: PerfectECGraphTCN(
+            **VAR_TCN, residual_type="skip2", compat_overlap=c, device="cpu",
+            generator=torch.Generator().manual_seed(seed + 811))), g_b, out_keys=("H", "B"))
+    variants["ECForGraphTCN skip_top"] = held_to_plain(
+        "ECForGraphTCN skip_top",
+        lambda: ECModule(model=ECForGraphTCN(**EC_MODEL, residual_type="skip_top", device="cpu",
+                                             generator=torch.Generator().manual_seed(seed + 812)),
+                         loss_fct=EdgeWeightFocalLoss(**EC_LOSS), lr=LR, device="cuda"),
+        g_b, out_keys=("W",))
+    variants["ModularGraphTCN skip2 add_bn"] = held_to_plain(
+        "ModularGraphTCN skip2 add_bn",
+        tc_module(lambda: ModularGraphTCN(
+            ResIN(**VAR_BN_RESIN, generator=torch.Generator().manual_seed(seed + 813)), None, NODE_DIM, EDGE_DIM,
+            h_dim=VAR_BN_RESIN["node_dim"], e_dim=VAR_BN_RESIN["edge_dim"], h_outdim=8,
+            hidden_dim=VAR_BN_RESIN["object_hidden_dim"], device="cpu",
+            generator=torch.Generator().manual_seed(seed + 814))),
+        g_b, out_keys=("H", "B"), bn=True)
+    part_s["b_residual_variants"] = sync() - t_part
+    summary["residual_variants"] = variants
+
+    # ---- (c) PointCloudTCN on point clouds: rows #13, #1 / #2, #9 / #10; DBSCAN on its H
+    t_part = sync()
+    pc = make_point_cloud(seed + 820, ML_HITS, ML_PARTICLES)
+    cloud = EventGraph.from_arrays(x=pc["x"], edge_index=pc["edge_index"], particle_id=pc["particle_id"],
+                                   pt=pc["pt"], eta=pc["eta"], reconstructable=pc["reconstructable"])
+    cloud = cloud.sort_edges_by_target().to(dev)
+    pc_model = PointCloudTCN(**VAR_PC_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 821))
+    pc_module = TCModule(model=pc_model, loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+    pc_module.setup_params(cloud)
+    probe = TCModule(model=copy.deepcopy(pc_model), loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+    pc_init = {k: v.clone() for k, v in probe.model.state_dict().items()}
+    replay = TopkReplay()
+    with replay.record():
+        ok, lk, gk = step0(probe, cloud)
+    with plain_path(), replay.replay():
+        op, lp, gp = step0(probe, cloud)
+    # twelve message-passing layers: some gradients are 1e-6 of the whole
+    # and carry f32 rounding of its size, so both f32 paths are held to a
+    # float64 evaluation (on the same neighbour choice)
+    with plain_path(), replay.replay():
+        g64 = step0_f64(probe, pc_init, cloud)
+    # the random model's latent is collapsed (one cluster at eps 0.3), which
+    # leaves most of the loss's gradients ill-conditioned in f32; those of a
+    # fixed random projection of H and B are not, and hold the backward of
+    # every layer (held to float64 as above: twelve layers of ReLUs with
+    # pre-activations near 0 on the collapsed latent, where either f32 path
+    # flips some of their masks)
+    proj_rng = torch.Generator(device=dev).manual_seed(seed + 822)
+    w_h = torch.randn(ok["H"].shape, generator=proj_rng, device=dev)
+    w_b = torch.randn(ok["B"].shape, generator=proj_rng, device=dev)
+
+    def projection_grads(dtype=torch.float32):
+        model = copy.deepcopy(probe.model)
+        model.load_state_dict(pc_init)
+        model.to(dtype).train()
+        out = model(cloud.to(dev, dtype=dtype))
+        ((out["H"] * w_h.to(dtype)).sum() + (out["B"] * w_b.to(dtype)).sum()).backward()
+        return {n: p.grad.detach().float() for n, p in model.named_parameters()}
+
+    proj_replay = TopkReplay()
+    with proj_replay.record():
+        proj_k = projection_grads()
+    with plain_path(), proj_replay.replay():
+        proj_p = projection_grads()
+    with plain_path(), proj_replay.replay():
+        proj_64 = projection_grads(torch.float64)
+    proj_worst_name, proj_worst, proj_floor, _ = compare_grads_f64(proj_k, proj_p, proj_64)
+    del probe
+    pc_knn = replay.check()
+    assert pc_knn["calls"] == 4 and proj_replay.check()["calls"] == 4, pc_knn
+    pc_out_rel = {k: max_rel(ok[k], op[k]) for k in ("H", "B")}
+    assert all(v <= 1e-4 for v in pc_out_rel.values()), f"PointCloudTCN outputs against the plain path {pc_out_rel}"
+    assert abs(lk - lp) <= 1e-5 * abs(lp), f"PointCloudTCN step 0: {lk} against the plain path's {lp}"
+    pc_worst_name, pc_worst, pc_floor, pc_no_grad = compare_grads_f64(gk, gp, g64)
+    assert not pc_no_grad, pc_no_grad
+    for _ in range(2):
+        pc_module.training_step(cloud)
+    t0 = sync()
+    pc_all, pc_launches = on_path(lambda: [pc_module.training_step(cloud) for _ in range(VAR_STEPS)])
+    pc_dt = sync() - t0
+    pc_metrics = pc_all[-1]
+    assert all(math.isfinite(v) for v in pc_metrics.values()), pc_metrics
+    # 4 blocks a forward, each one kNN (row #13 at k <= knn.SPLIT_MAX_K)
+    assert pc_launches["pairwise_topk"] == 4 * VAR_STEPS, f"PointCloudTCN: row #13 launched {pc_launches}"
+    pc_split = step_split(pc_module, cloud)
+    # DBSCAN at the serving eps and cap on the trained H: through the
+    # kernels (served) and, on the same H, through the plain path
+    pc_model.eval()
+    with torch.no_grad():
+        h_pc = pc_model(cloud)["H"].float().contiguous()
+    eps_pc = EPS
+    predictor = TrackingPredictor(pc_model, eps=eps_pc, min_samples=MIN_SAMPLES, max_num_neighbors=CAP,
+                                  device="cuda")
+    served, serve_launches = on_path(lambda: predictor.predict(cloud))
+    assert serve_launches["pairwise_topk_filter"] > 0 and serve_launches["cc_neighbors"] > 0, serve_launches
+    with torch.no_grad():
+        labels_k = dbscan(h_pc, eps=eps_pc, min_samples=MIN_SAMPLES, max_num_neighbors=CAP)
+        with plain_path():
+            labels_p = dbscan(h_pc, eps=eps_pc, min_samples=MIN_SAMPLES, max_num_neighbors=CAP)
+    assert torch.equal(labels_k, labels_p), "PointCloudTCN: DBSCAN labels differ from the plain path's"
+    assert np.array_equal(served["labels"], labels_k.cpu().numpy()), "PointCloudTCN: served labels differ"
+    n_clusters = int(labels_k.max()) + 1
+    # the trained H is one cluster: DBSCAN again with each hit moved to its
+    # particle's unit-normal centre plus 0.02 of H (as phase 12 does)
+    centres = torch.randn((ML_PARTICLES, h_pc.shape[1]), generator=proj_rng, device=dev)
+    pid = cloud.particle_id.long()
+    structured = torch.where((pid > 0)[:, None], centres[pid], cloud.x[:, 6 : 6 + h_pc.shape[1]]) + 0.02 * h_pc
+    with torch.no_grad():
+        (labels_s, s_launches) = on_path(lambda: dbscan(structured.contiguous(), eps=EPS, min_samples=MIN_SAMPLES,
+                                                        max_num_neighbors=CAP))
+        with plain_path():
+            labels_sp = dbscan(structured.contiguous(), eps=EPS, min_samples=MIN_SAMPLES, max_num_neighbors=CAP)
+    assert torch.equal(labels_s, labels_sp), "PointCloudTCN: structured DBSCAN labels differ from the plain path's"
+    structured_clusters = int(labels_s.max()) + 1
+    assert structured_clusters > ML_PARTICLES // 2, f"{structured_clusters} clusters of the structured latent"
+    part_s["c_point_cloud_tcn"] = sync() - t_part
+    summary["point_cloud_tcn"] = {
+        "step0_loss": lk, "step0_plain_loss": lp, "outputs_rel": pc_out_rel, "grad_worst": pc_worst,
+        "grad_worst_name": pc_worst_name, "grads_at_floor": pc_floor, "steps": VAR_STEPS,
+        "steps_per_s": VAR_STEPS / pc_dt, "step_ms": pc_dt / VAR_STEPS * 1e3, **pc_split,
+        "launches_per_step": {k: v / VAR_STEPS for k, v in pc_launches.items()}, "total": pc_metrics["total"],
+        "dbscan_eps": eps_pc, "clusters": n_clusters, "step0_knn": pc_knn,
+        "projection_grad_worst": proj_worst, "projection_grad_worst_name": proj_worst_name,
+        "projection_grads_at_floor": proj_floor, "structured_clusters": structured_clusters,
+    }
+    log(f"variants (c): PointCloudTCN({VAR_PC_MODEL}) on {ML_HITS} hits: step 0 outputs {pc_out_rel}, loss "
+        f"{lk:.6f} (plain {lp:.6f}), gradients worst {pc_worst_name} {pc_worst:.3e} against float64 (ill-conditioned in f32: "
+        f"{pc_floor or 'none'}, kernel / plain error against float64 of its norm; one neighbour choice on both paths, row #13 against its plain version {pc_knn}); {VAR_STEPS} steps {pc_dt / VAR_STEPS * 1e3:.2f} ms a step, split {pc_split}; "
+        f"DBSCAN at eps {eps_pc:.4g}: {n_clusters} clusters, labels equal to the plain path's; "
+        f"gradients of a random projection of H and B worst {proj_worst_name} {proj_worst:.3e} against float64 "
+        f"(ill-conditioned in f32: {proj_floor or 'none'}); the particle-structured latent {structured_clusters} clusters, "
+        f"labels equal to the plain path's")
+
+    # ---- (d) graph construction: hetero embedding, edge filter, ResIN refinement, ML steps
+    t_part = sync()
+    pcs = [make_point_cloud(seed + 830 + i, ML_HITS, ML_PARTICLES) for i in range(2)]
+    clouds = []
+    for p in pcs:
+        c = EventGraph.from_arrays(x=p["x"], edge_index=p["edge_index"], particle_id=p["particle_id"], pt=p["pt"],
+                                   eta=p["eta"], reconstructable=p["reconstructable"])
+        clouds.append(c.replace(layer=hetero_layers(p["x"])).to(dev))
+    ml = GraphConstructionHeteroEncResFCNN(**VAR_GC_ML, device="cuda",
+                                           generator=torch.Generator().manual_seed(seed + 831))
+    ef = EFMLP(**VAR_GC_EF, device="cuda", generator=torch.Generator().manual_seed(seed + 832))
+    k = VAR_GC["max_num_neighbors"]
+    with torch.no_grad():
+        unfiltered = MLGraphConstruction(ml, **VAR_GC).eval()(clouds[0])
+        with plain_path():
+            plain_unfiltered = MLGraphConstruction(ml, **VAR_GC).eval()(clouds[0])
+        w = torch.sort(ef(unfiltered)["W"][unfiltered.edge_mask]).values
+        lo, hi = int(0.45 * len(w)), int(0.55 * len(w))
+        i = lo + int(torch.argmax(w[lo + 1 : hi + 1] - w[lo:hi]))
+        ef_threshold = float((w[i] + w[i + 1]) / 2)  # mid-gap near the median: an active cut
+        gc = MLGraphConstruction(ml, ef, ec_threshold=ef_threshold, **VAR_GC).eval()
+        built, build_launches = on_path(lambda: gc(clouds[0]))
+        build_ms = host_ms(lambda: gc(clouds[0]))
+        with plain_path():
+            plain_built = gc(clouds[0])
+        h = ml(clouds[0])["H"]
+
+    def with_dists(graph, mask):
+        src, dst = graph.edge_index.long()
+        return graph.edge_index, mask, (h[src] - h[dst]).norm(dim=1)
+
+    assert build_launches["pairwise_topk_filter"] == 1, f"graph construction: row #12 launched {build_launches}"
+    gc_ties = compare_neighbours("graph construction (kNN)", with_dists(unfiltered, unfiltered.edge_mask),
+                                 with_dists(plain_unfiltered, plain_unfiltered.edge_mask), k)
+    assert torch.equal(built.edge_index, unfiltered.edge_index) and torch.equal(
+        plain_built.edge_index, plain_unfiltered.edge_index), "the edge filter moved edges"
+    # the filter's cut on every row whose neighbour set is the plain path's
+    n = built.num_nodes
+    same = (torch.sort(built.edge_index[0].view(n, k), dim=1).values
+            == torch.sort(plain_built.edge_index[0].view(n, k), dim=1).values).all(dim=1)
+    kept_k = torch.sort(torch.where(built.edge_mask, built.edge_index[0], -1).view(n, k), dim=1).values
+    kept_p = torch.sort(torch.where(plain_built.edge_mask, plain_built.edge_index[0], -1).view(n, k), dim=1).values
+    mask_rows_differ = int(((kept_k != kept_p).any(dim=1) & same).sum())
+    assert mask_rows_differ == 0, f"graph construction: the edge filter keeps other edges on {mask_rows_differ} rows"
+    kept, before = int(built.edge_mask.sum()), int(unfiltered.edge_mask.sum())
+    assert 0 < kept < before, (kept, before)
+    # GraphConstructionResIN over the built graph: rows #1 / #9 (forward)
+    refine = GraphConstructionResIN(**VAR_GC_RESIN, device="cuda", generator=torch.Generator().manual_seed(seed + 833))
+    sorted_graph = built.sort_edges_by_target()
+    with torch.no_grad():
+        refined, refine_launches = on_path(lambda: refine(sorted_graph)["H"])
+        with plain_path():
+            refined_plain = refine(sorted_graph)["H"]
+    with torch.no_grad():
+        refine_ms = host_ms(lambda: refine(sorted_graph))
+    refine_rel = max_rel(refined, refined_plain)
+    assert refine_rel <= 1e-4, f"GraphConstructionResIN against the plain path: {refine_rel}"
+    assert refine_launches["fused_relational_fwd"] == VAR_GC_RESIN["n_layers"], refine_launches
+    # MLModule steps of the hetero embedding with the hinge loss (row #12 at k = 256)
+    ml_module = MLModule(model=copy.deepcopy(ml), loss_fct=GraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR,
+                         device="cuda")
+    replay = TopkReplay()
+    with replay.record():
+        ok, lk, gk = step0(ml_module, clouds[1])
+    with plain_path(), replay.replay():
+        op, lp, gp = step0(ml_module, clouds[1])
+    ml_knn = replay.check()
+    ml_worst_name, ml_worst, ml_floor, _, _ = compare_grads(gk, gp)
+    assert abs(lk - lp) <= 1e-5 * abs(lp), f"hetero ML step 0: {lk} against the plain path's {lp}"
+    t0 = sync()
+    ml_all, ml_launches = on_path(lambda: [ml_module.training_step(clouds[1]) for _ in range(VAR_ML_STEPS)])
+    ml_dt = sync() - t0
+    ml_metrics = ml_all[-1]
+    assert ml_launches["pairwise_topk_filter"] == VAR_ML_STEPS, f"hetero ML: row #12 launched {ml_launches}"
+    assert all(math.isfinite(v) for v in ml_metrics.values()), ml_metrics
+    pixel = float((clouds[1].layer < 18).float().mean())
+    part_s["d_graph_construction"] = sync() - t_part
+    summary["graph_construction"] = {
+        "k": k, "build_ms": build_ms, "tie_rows": gc_ties, "edges_before_filter": before, "edges_kept": kept,
+        "ef_threshold": ef_threshold, "refine_rel": refine_rel, "refine_ms": refine_ms, "ml_step0_loss": lk, "ml_grad_worst": ml_worst,
+        "ml_grad_worst_name": ml_worst_name, "ml_grads_at_floor": ml_floor, "ml_steps": VAR_ML_STEPS,
+        "ml_step_ms": ml_dt / VAR_ML_STEPS * 1e3, "pixel_share": pixel, "ml_step0_radius_graph": ml_knn,
+    }
+    log(f"variants (d): MLGraphConstruction(GraphConstructionHeteroEncResFCNN, EFMLP, k {k}) on {ML_HITS} hits "
+        f"({pixel:.3f} pixel): {build_ms:.2f} ms a build (median of 5), the kNN graph equal to the plain path's up to {gc_ties} "
+        f"tie rows, the filter at {ef_threshold:.6f} keeps {kept} of {before} edges as on the plain path; "
+        f"GraphConstructionResIN {refine_ms:.2f} ms a forward, within {refine_rel:.3e} of the plain path's; hetero ML step 0 gradients worst "
+        f"{ml_worst_name} {ml_worst:.3e} (at the floor only: {ml_floor or 'none'}), {VAR_ML_STEPS} steps "
+        f"{ml_dt / VAR_ML_STEPS * 1e3:.2f} ms a step")
+
+    for name, n_launch in path_launches.items():
+        assert n_launch > 0, f"phase 13's path never launched {name}"
+    summary |= {"phase_s": sync() - t_phase, "part_s": part_s, "launches": path_launches}
+    log("variants: " + json.dumps(summary))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -5154,6 +5796,8 @@ def main(argv=None) -> int:
     p.add_argument("--pipeline-only", action="store_true",
                    help="build, run phase 12 (stages chained through checkpoints: pipeline_phase), "
                    "print its summary and stop")
+    p.add_argument("--variants-only", action="store_true",
+                   help="build, run variants_phase (phase 13: the remaining losses and models) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -5297,6 +5941,11 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as pipe_tmp:
             pipeline_phase(args.seed, Path(pipe_tmp))
+        print(smi)
+        return 0
+    if args.variants_only:
+        log(f"package: {root}")
+        variants_phase(args.seed)
         print(smi)
         return 0
     if args.wide_only:
@@ -5560,7 +6209,11 @@ def main(argv=None) -> int:
     pipe = pipeline_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(pipe["launches"]), sorted(pipe["launches"])
 
-    # ---- 13. results ------------------------------------------------------
+    # ---- 13. the remaining losses and models ------------------------------------
+    variants = variants_phase(args.seed)
+    assert {r["name"] for r in results} >= set(variants["launches"]), sorted(variants["launches"])
+
+    # ---- 14. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -5569,6 +6222,7 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             **({"cli_launches": cli["fit_launches"][r["name"]]} if r["name"] in cli["fit_launches"] else {}),
             **({"pipeline_launches": pipe["launches"][r["name"]]} if r["name"] in pipe["launches"] else {}),
+            **({"variants_launches": variants["launches"][r["name"]]} if r["name"] in variants["launches"] else {}),
         }
         for r in results
     ]

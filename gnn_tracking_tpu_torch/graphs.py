@@ -202,13 +202,7 @@ class EventGraph:
             for k, v in self.extras.items()
             if k not in DERIVED_KEYS
         }
-        nodes = torch.arange(n + 1, device=ei.device, dtype=ei.dtype)
-        extras["dst_rowptr"] = torch.searchsorted(ei[1], nodes).to(torch.int32)
-        src_perm = torch.argsort(ei[0], stable=True)
-        src_sorted = ei[0][src_perm].contiguous()
-        extras["src_perm"] = src_perm.to(torch.int32)
-        extras["src_sorted"] = src_sorted
-        extras["src_rowptr"] = torch.searchsorted(src_sorted, nodes).to(torch.int32)
+        extras.update(target_csr(ei, n))
         if with_unsort:
             extras["edge_unsort"] = torch.argsort(order)
         return self.replace(
@@ -253,6 +247,23 @@ class EventGraph:
                 if k not in DERIVED_KEYS
             },
         )
+
+
+def target_csr(edge_index: torch.Tensor, num_nodes: int) -> dict[str, torch.Tensor]:
+    """The derived arrays of :meth:`EventGraph.sort_edges_by_target` for an
+    ``edge_index`` whose targets (row 1) are already non-decreasing, such as
+    the query-major graphs of ``ops/knn.py``: ``dst_rowptr``, ``src_perm``,
+    ``src_sorted`` and ``src_rowptr`` (those of ``CSR_KEYS`` are what the
+    fused interaction-network op takes as ``csr``)."""
+    nodes = torch.arange(num_nodes + 1, device=edge_index.device, dtype=edge_index.dtype)
+    src_perm = torch.argsort(edge_index[0], stable=True)
+    src_sorted = edge_index[0][src_perm].contiguous()
+    return {
+        "dst_rowptr": torch.searchsorted(edge_index[1].contiguous(), nodes).to(torch.int32),
+        "src_perm": src_perm.to(torch.int32),
+        "src_sorted": src_sorted,
+        "src_rowptr": torch.searchsorted(src_sorted, nodes).to(torch.int32),
+    }
 
 
 def pad_sizes(n: int, bucket: int = 1024) -> int:

@@ -1,14 +1,18 @@
-"""Object-condensation loss, dense ("tiger") strategy (counterpart of the
-JAX ``losses/oc.py``: ``condensation_loss``, ``_CondensationLossBase`` and
-``CondensationLossTiger``).
+"""Object-condensation losses (counterpart of the JAX ``losses/oc.py``:
+``condensation_loss``, ``radius_graph_condensation_loss``,
+``_CondensationLossBase``, ``CondensationLossTiger``, ``CondensationLossRG``,
+``object_loss`` and ``ObjectLoss``).
 
-Hits x objects matrices, blocked over objects (``object_block_size``) so
-that at most ``[N, block]`` of them exist at a time; the objects are the
-unique particle ids under a static cap ``max_n_objects`` (``dense_unique``).
-Random draws (repulsive-pair subsampling, ``sample_pids < 1``) come from an
+The dense ("tiger") strategy builds hits x objects matrices, blocked over
+objects (``object_block_size``) so that at most ``[N, block]`` of them
+exist at a time; the objects are the unique particle ids under a static cap
+``max_n_objects`` (``dense_unique``). The radius-graph ("rg") strategy
+repels only along a fixed-degree radius graph of the clustering
+coordinates (``ops/knn.radius_graph``: ``pairwise_topk_filter`` in radius
+mode) and attracts each hit to its object's condensation point. Random
+draws (repulsive-pair subsampling, ``sample_pids < 1``) come from an
 explicit ``torch.Generator`` on the tensors' device; they differ from the
-JAX package's bits, not in distribution. The radius-graph strategy
-(``CondensationLossRG``) and ``ObjectLoss`` are not ported yet.
+JAX package's bits, not in distribution.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any
 import torch
 
 from gnn_tracking_tpu_torch.losses import MultiLossFct, MultiLossFctReturn
+from gnn_tracking_tpu_torch.ops.knn import radius_graph
 from gnn_tracking_tpu_torch.ops.unique import dense_unique
 from gnn_tracking_tpu_torch.utils.graph_masks import get_good_node_mask_tensors
 
@@ -160,6 +165,82 @@ def condensation_loss(
     return losses, {"n_rep": n_rep}
 
 
+def radius_graph_condensation_loss(
+    *,
+    beta: torch.Tensor,
+    x: torch.Tensor,
+    object_id: torch.Tensor,
+    object_mask: torch.Tensor,
+    q_min: float,
+    radius_threshold: float,
+    max_num_neighbors: int,
+    max_n_objects: int,
+    node_mask: torch.Tensor | None = None,
+    noise_threshold: int = 0,
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Radius-graph ("rg") condensation loss (JAX
+    ``radius_graph_condensation_loss``, reference ``oc.py:87-161``):
+    repulsion only along the edges of ``radius_graph(x, radius_threshold)``
+    (no ``batch``, ``loop=False``) whose source is a condensation point of
+    another object; attraction of every other member hit to its object's
+    condensation point. Arguments as for :func:`condensation_loss`;
+    ``max_num_neighbors`` caps the radius graph's degree (the nearest are
+    kept). Returns ``(losses, {})``.
+    """
+    n = beta.shape[0]
+    dev, dtype = beta.device, beta.dtype
+    if node_mask is None:
+        node_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    object_mask = object_mask & node_mask
+    unique_ids, obj_valid, n_objects = dense_unique(object_id, object_mask, max_n_objects)
+    # condensation points among the masked hits only (oc.py:33-43); q is
+    # monotone in beta and positive, so the argmax over q * member picks the
+    # member with the largest beta, ties to the first hit as in jnp.argmax
+    member = (
+        (object_id[:, None] == unique_ids[None, :]) & object_mask[:, None] & obj_valid[None, :]
+    )
+    q = torch.arctanh(beta) ** 2 + q_min
+    alphas = torch.argmax(q[:, None] * member, dim=0)
+    # invalid columns scatter into a slot past the end (JAX's mode="drop")
+    slots = torch.where(obj_valid, alphas, n)
+    is_cp = torch.zeros(n + 1, dtype=torch.bool, device=dev).index_fill_(0, slots, True)[:n]
+    zero = torch.zeros((), dtype=dtype, device=dev)
+
+    # attraction: every masked hit but the CP to its object's CP
+    col = torch.argmax(member.to(torch.uint8), dim=1)
+    cp_of_hit = alphas[col]
+    d2_att = torch.sum((x - x[cp_of_hit]) ** 2, dim=-1)
+    att_mask = member.any(dim=1) & ~is_cp
+    va = torch.sum(torch.where(att_mask, d2_att * q * q[cp_of_hit], zero))
+
+    # repulsion along the radius graph (oc.py:46-69); the graph's distances
+    # are finite on every slot (zero where masked), so the where below
+    # passes no 0 * inf into the gradient
+    edge_index, edge_mask, dists = radius_graph(
+        x, radius_threshold, max_num_neighbors=max_num_neighbors, node_mask=node_mask, loop=False,
+    )
+    src, dst = edge_index.long()
+    rep_mask = edge_mask & is_cp[src] & (object_id[src] != object_id[dst])
+    # sqrt(eps + d^2) guards the gradient at 0 (oc.py:57)
+    guarded = torch.sqrt(_EPS + dists**2)
+    vr = torch.sum(torch.where(rep_mask, (radius_threshold - guarded) * q[src] * q[dst], zero))
+    vr = torch.where(torch.isnan(vr), zero, vr)
+
+    n_hits = node_mask.sum()
+    n_hits_oi = object_mask.sum()
+    norm_rep = _EPS + ((n_objects - 1) * n_hits).to(dtype)
+    norm_att = _EPS + (n_hits_oi - n_objects).to(dtype)
+    coward = torch.sum(torch.where(obj_valid, 1 - beta[alphas], zero))
+    is_noise = (object_id <= noise_threshold) & (object_id >= 0) & node_mask
+    losses = {
+        "attractive": va / norm_att,
+        "repulsive": vr / norm_rep,
+        "coward": coward / torch.clamp(n_objects, min=1),
+        "noise": torch.sum(torch.where(is_noise, beta, zero)) / torch.clamp(is_noise.sum(), min=1),
+    }
+    return losses, {}
+
+
 class _CondensationLossBase(MultiLossFct):
     def __init__(
         self,
@@ -182,7 +263,12 @@ class _CondensationLossBase(MultiLossFct):
         self.sample_pids = sample_pids
         self.max_n_objects = max_n_objects
 
-    def _mask(self, *, pt, particle_id, reconstructable, eta, node_mask, generator):
+    def _masks(self, *, pt, particle_id, reconstructable, eta, node_mask, ec_hit_mask, generator):
+        """``(node_mask, object_mask)``: a post-EC hit mask folds into the
+        validity mask (the reference removes the hits instead,
+        ``oc.py:394-401``); the objects are the good hits under it."""
+        if ec_hit_mask is not None:
+            node_mask = ec_hit_mask if node_mask is None else node_mask & ec_hit_mask
         mask = get_good_node_mask_tensors(
             pt=pt, particle_id=particle_id, reconstructable=reconstructable, eta=eta,
             pt_thld=self.pt_thld, max_eta=self.max_eta,
@@ -195,7 +281,7 @@ class _CondensationLossBase(MultiLossFct):
                 raise ValueError(msg)
             draw = torch.rand(mask.shape, generator=generator, device=mask.device)
             mask = mask & (draw < self.sample_pids)
-        return mask
+        return node_mask, mask
 
     def _weights(self) -> dict[str, float]:
         return {
@@ -231,13 +317,9 @@ class CondensationLossTiger(_CondensationLossBase):
         generator: torch.Generator | None = None,
         **kwargs: Any,
     ) -> MultiLossFctReturn:
-        if ec_hit_mask is not None:
-            # a post-EC node mask folds into the validity mask (the
-            # reference removes the hits instead, oc.py:394-401)
-            node_mask = ec_hit_mask if node_mask is None else node_mask & ec_hit_mask
-        mask = self._mask(
+        node_mask, mask = self._masks(
             pt=pt, particle_id=particle_id, reconstructable=reconstructable, eta=eta,
-            node_mask=node_mask, generator=generator,
+            node_mask=node_mask, ec_hit_mask=ec_hit_mask, generator=generator,
         )
         losses, extra = condensation_loss(
             beta=beta, x=x, object_id=particle_id, object_mask=mask, node_mask=node_mask,
@@ -246,3 +328,110 @@ class CondensationLossTiger(_CondensationLossBase):
             object_block_size=self.object_block_size,
         )
         return MultiLossFctReturn(loss_dct=losses, weight_dct=self._weights(), extra_metrics=extra)
+
+
+class CondensationLossRG(_CondensationLossBase):
+    """Radius-graph condensation loss (reference ``CondensationLossRG``,
+    ``oc.py:164-248``): :func:`radius_graph_condensation_loss` at radius 1
+    with ``max_num_neighbors`` neighbours at most."""
+
+    def __init__(self, *, max_num_neighbors: int = 256, **kwargs):
+        super().__init__(**kwargs)
+        self.max_num_neighbors = max_num_neighbors
+
+    def __call__(
+        self,
+        *,
+        beta: torch.Tensor,
+        x: torch.Tensor,
+        particle_id: torch.Tensor,
+        reconstructable: torch.Tensor,
+        pt: torch.Tensor,
+        eta: torch.Tensor,
+        node_mask: torch.Tensor | None = None,
+        ec_hit_mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
+        **kwargs: Any,
+    ) -> MultiLossFctReturn:
+        node_mask, mask = self._masks(
+            pt=pt, particle_id=particle_id, reconstructable=reconstructable, eta=eta,
+            node_mask=node_mask, ec_hit_mask=ec_hit_mask, generator=generator,
+        )
+        losses, extra = radius_graph_condensation_loss(
+            beta=beta, x=x, object_id=particle_id, object_mask=mask, node_mask=node_mask,
+            q_min=self.q_min, radius_threshold=1.0, max_num_neighbors=self.max_num_neighbors,
+            max_n_objects=self.max_n_objects,
+        )
+        return MultiLossFctReturn(loss_dct=losses, weight_dct=self._weights(), extra_metrics=extra)
+
+
+def object_loss(
+    *,
+    pred: torch.Tensor,
+    beta: torch.Tensor,
+    truth: torch.Tensor,
+    particle_id: torch.Tensor,
+    mode: str = "efficiency",
+    max_n_objects: int = 1024,
+    node_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """beta-weighted MSE of predicted per-track properties (JAX
+    ``object_loss``, reference ``ObjectLoss.object_loss``, ``oc.py:449-468``).
+    ``purity``: the xi-weighted mean over the valid non-noise hits;
+    ``efficiency``: per object (the unique positive ids under
+    ``max_n_objects``) the xi-weighted mean over its hits, averaged over the
+    objects."""
+    n = beta.shape[0]
+    dev, dtype = beta.device, beta.dtype
+    if node_mask is None:
+        node_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    mse = torch.sum((pred - truth) ** 2, dim=1)
+    xi_base = torch.arctanh(beta) ** 2
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    if mode == "purity":
+        xi = torch.where((particle_id != 0) & node_mask, xi_base, zero)
+        # the reference's mean over the (boolean-indexed) hits
+        n_valid = torch.clamp(node_mask.sum(), min=1)
+        return torch.sum(xi * mse) / n_valid / torch.sum(xi)
+    if mode == "efficiency":
+        unique_ids, obj_valid, n_objects = dense_unique(
+            particle_id, (particle_id > 0) & node_mask, max_n_objects
+        )
+        pid_masks = (
+            (particle_id[:, None] == unique_ids[None, :]) & node_mask[:, None] & obj_valid[None, :]
+        )
+        xi_p = torch.where(pid_masks, xi_base[:, None], zero)
+        xi_p_norm = torch.sum(xi_p, dim=0)
+        terms = torch.sum(mse[:, None] * xi_p, dim=0)
+        one = torch.ones((), dtype=dtype, device=dev)
+        ratios = torch.where(obj_valid, terms / torch.where(obj_valid, xi_p_norm, one), zero)
+        return torch.sum(ratios) / torch.clamp(n_objects, min=1)
+    msg = f"Unknown mode: {mode}"
+    raise ValueError(msg)
+
+
+class ObjectLoss:
+    """Loss on predicted object properties (reference ``ObjectLoss``,
+    ``oc.py:439-489``); returns one scalar."""
+
+    def __init__(self, mode: str = "efficiency", max_n_objects: int = 1024):
+        self.mode = mode
+        self.max_n_objects = max_n_objects
+
+    def object_loss(self, *, pred, beta, truth, particle_id, node_mask=None) -> torch.Tensor:
+        return object_loss(
+            pred=pred, beta=beta, truth=truth, particle_id=particle_id, mode=self.mode,
+            max_n_objects=self.max_n_objects, node_mask=node_mask,
+        )
+
+    def __call__(
+        self, *, beta, pred, particle_id, track_params, reconstructable, node_mask=None, **kwargs
+    ) -> torch.Tensor:
+        # the reference indexes by reconstructable > 0 (oc.py:483-489); it
+        # folds into the validity mask here
+        mask = reconstructable > 0
+        if node_mask is not None:
+            mask = mask & node_mask
+        return self.object_loss(
+            pred=pred, beta=beta, truth=track_params, particle_id=particle_id, node_mask=mask
+        )

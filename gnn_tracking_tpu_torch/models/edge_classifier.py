@@ -21,9 +21,11 @@ class ECForGraphTCN(nn.Module):
     """Node/edge encoder MLPs -> ResIN stack -> W head over
     ``[h[src], h[dst], *edge_embeds]`` with an eps-clipped sigmoid. On CUDA
     the graph must be target-sorted (``EventGraph.csr()``): the endpoint
-    gathers' gradients are sorted segment-sums. ``fused_save_acts`` is
-    handed to every interaction network; ``model_config`` holds the
-    constructor arguments (what a checkpoint stores)."""
+    gathers' gradients are sorted segment-sums. ``residual_type`` and
+    ``compat_overlap`` select the ResIN's residual scheme;
+    ``fused_save_acts`` is handed to every interaction network;
+    ``model_config`` holds the constructor arguments (what a checkpoint
+    stores)."""
 
     def __init__(
         self,
@@ -35,6 +37,7 @@ class ECForGraphTCN(nn.Module):
         L_ec: int = 3,
         alpha: float = 0.5,
         residual_type: str = "skip1",
+        compat_overlap: bool = False,
         use_intermediate_edge_embeddings: bool = True,
         use_node_embedding: bool = True,
         fused_save_acts: bool = False,
@@ -49,6 +52,7 @@ class ECForGraphTCN(nn.Module):
             "interaction_node_dim": interaction_node_dim,
             "interaction_edge_dim": interaction_edge_dim, "hidden_dim": hidden_dim,
             "L_ec": L_ec, "alpha": alpha, "residual_type": residual_type,
+            "compat_overlap": compat_overlap,
             "use_intermediate_edge_embeddings": use_intermediate_edge_embeddings,
             "use_node_embedding": use_node_embedding, "fused_save_acts": fused_save_acts,
         }
@@ -63,7 +67,7 @@ class ECForGraphTCN(nn.Module):
             interaction_node_dim, interaction_edge_dim,
             object_hidden_dim=hidden_dim, relational_hidden_dim=hidden_dim,
             alpha=alpha, n_layers=L_ec, residual_type=residual_type,
-            collect_hidden_edge_embeds=use_intermediate_edge_embeddings,
+            compat_overlap=compat_overlap, collect_hidden_edge_embeds=use_intermediate_edge_embeddings,
             fused_save_acts=fused_save_acts, generator=g,
         )
         self.use_intermediate_edge_embeddings = use_intermediate_edge_embeddings
@@ -120,6 +124,7 @@ class PerfectEdgeClassification(nn.Module):
             msg = f"tpr={tpr}, tnr={tnr}: both must lie in [0, 1]"
             raise ValueError(msg)
         self.tpr, self.tnr, self.false_below_pt = tpr, tnr, false_below_pt
+        self.model_config = {"tpr": tpr, "tnr": tnr, "false_below_pt": false_below_pt, "seed": seed}
         self.generator = torch.Generator().manual_seed(seed)
 
     def _uniform(self, n: int, device: torch.device) -> torch.Tensor:

@@ -1,15 +1,15 @@
-"""Metric-learning embedding and learned graph construction (counterpart of
-the JAX ``models/graph_construction.py``: ``_LatentNormalization``,
-``GraphConstructionFCNN``, ``MLGraphConstruction`` and
-``MLPCTransformer``).
+"""Metric-learning embeddings and learned graph construction (counterpart
+of the JAX ``models/graph_construction.py``: ``_LatentNormalization``,
+``GraphConstructionFCNN``, ``GraphConstructionHeteroResFCNN``,
+``GraphConstructionHeteroEncResFCNN``, ``GraphConstructionResIN``,
+``MLGraphConstruction`` and ``MLPCTransformer``).
 
 ``MLGraphConstruction`` embeds the hits, builds a fixed-degree kNN graph in
-the embedding space (``ops/knn.py``), labels its edges with the truth and
-builds edge features. Its graph has ``N * k`` edge slots; the radius cut
-and false-edge subsampling only change ``edge_mask``.
-
-Not ported yet (``NotImplementedError``): the edge filter ``ef``, and the
-heterogeneous and ResIN embedding models.
+the embedding space (``ops/knn.py``), labels its edges with the truth,
+builds edge features and, with an edge filter ``ef``
+(``models/edge_filter.py``), masks the edges whose filter score is not
+above ``ec_threshold``. Its graph has ``N * k`` edge slots; the radius cut,
+false-edge subsampling and the filter only change ``edge_mask``.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import torch
 from torch import nn
 
 from gnn_tracking_tpu_torch.graphs import DERIVED_KEYS, EventGraph
-from gnn_tracking_tpu_torch.models.mlp import ResFCNN
+from gnn_tracking_tpu_torch.models.mlp import MLP, HeterogeneousResFCNN, ResFCNN
+from gnn_tracking_tpu_torch.models.resin import ResIN
 from gnn_tracking_tpu_torch.ops.knn import knn_with_max_radius
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 
@@ -70,10 +71,139 @@ class GraphConstructionFCNN(nn.Module):
         return {"H": self.latent_norm(self.fcnn(data.x))}
 
 
+class GraphConstructionHeteroResFCNN(nn.Module):
+    """Separate ``ResFCNN`` towers (no biases) for pixel and strip hits
+    (``data.layer``), with a learnable latent normalization (JAX
+    ``graph_construction.py:59-79``). Output dict: ``H``."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        hidden_dim: int,
+        out_dim: int,
+        depth: int,
+        alpha: float = 0.6,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.fcnn = HeterogeneousResFCNN(
+            in_dim, out_dim, hidden_dim, depth, alpha=alpha, bias=False, generator=generator
+        )
+        self.latent_norm = _LatentNormalization()
+        self.model_config = {
+            "in_dim": in_dim, "hidden_dim": hidden_dim, "out_dim": out_dim,
+            "depth": depth, "alpha": alpha,
+        }
+        self.to(dev)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+        return {"H": self.latent_norm(self.fcnn(data.x, data.layer))}
+
+
+class GraphConstructionHeteroEncResFCNN(nn.Module):
+    """A heterogeneous (pixel / strip) encoder to ``hidden_dim``, ReLU, then
+    one shared ``ResFCNN`` (no biases) and a learnable latent normalization
+    (JAX ``graph_construction.py:82-115``). Output dict: ``H``."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        hidden_dim_enc: int,
+        hidden_dim: int,
+        out_dim: int,
+        depth_enc: int,
+        depth: int,
+        alpha: float = 0.6,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.in_dim = in_dim
+        g = generator
+        self.encoder = HeterogeneousResFCNN(
+            in_dim, hidden_dim, hidden_dim_enc, depth_enc, alpha=alpha, bias=False, generator=g
+        )
+        self.fcnn = ResFCNN(hidden_dim, out_dim, hidden_dim, depth, alpha=alpha, bias=False, generator=g)
+        self.latent_norm = _LatentNormalization()
+        self.model_config = {
+            "in_dim": in_dim, "hidden_dim_enc": hidden_dim_enc, "hidden_dim": hidden_dim,
+            "out_dim": out_dim, "depth_enc": depth_enc, "depth": depth, "alpha": alpha,
+        }
+        self.to(dev)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+        if data.x.shape[-1] != self.in_dim:
+            msg = f"expected {self.in_dim} node features, got {data.x.shape[-1]}"
+            raise ValueError(msg)
+        enc = torch.relu(self.encoder(data.x, data.layer))
+        return {"H": self.latent_norm(self.fcnn(enc))}
+
+
+class GraphConstructionResIN(nn.Module):
+    """Refinement of a built graph's latent: node and edge encoders, a
+    ``ResIN`` stack over the graph (the fused op: on CUDA the graph must be
+    sorted by target, ``EventGraph.sort_edges_by_target``), a decoder, and a
+    residual back to the first ``h_outdim`` input coordinates, ``H =
+    alpha_fcnn * x[:, :h_outdim] + (1 - alpha_fcnn) * delta``, with a
+    learnable latent normalization (JAX ``graph_construction.py:118-168``).
+    Output dict: ``H``."""
+
+    def __init__(
+        self,
+        node_indim: int,
+        edge_indim: int,
+        h_outdim: int = 8,
+        hidden_dim: int = 40,
+        alpha: float = 0.5,
+        n_layers: int = 1,
+        alpha_fcnn: float = 0.5,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.node_indim, self.edge_indim = node_indim, edge_indim
+        self.h_outdim, self.alpha_fcnn = h_outdim, alpha_fcnn
+        g = generator
+        self.node_encoder = MLP(node_indim, hidden_dim, hidden_dim, L=2, bias=False, generator=g)
+        self.edge_encoder = MLP(edge_indim, hidden_dim, hidden_dim, L=2, bias=False, generator=g)
+        self.resin = ResIN(
+            hidden_dim, hidden_dim, object_hidden_dim=hidden_dim,
+            relational_hidden_dim=hidden_dim, n_layers=n_layers, alpha=alpha, generator=g,
+        )
+        self.decoder = MLP(hidden_dim, h_outdim, hidden_dim, L=2, bias=False, generator=g)
+        self.latent_norm = _LatentNormalization()
+        self.model_config = {
+            "node_indim": node_indim, "edge_indim": edge_indim, "h_outdim": h_outdim,
+            "hidden_dim": hidden_dim, "alpha": alpha, "n_layers": n_layers,
+            "alpha_fcnn": alpha_fcnn,
+        }
+        self.to(dev)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+        if data.x.shape[-1] != self.node_indim or data.edge_attr.shape[-1] != self.edge_indim:
+            msg = (f"expected {self.node_indim} node and {self.edge_indim} edge features, got "
+                   f"{data.x.shape[-1]} and {data.edge_attr.shape[-1]}")
+            raise ValueError(msg)
+        x_fcnn = data.x[:, : self.h_outdim]
+        x = self.node_encoder(data.x)
+        edge_attr = self.edge_encoder(data.edge_attr)
+        x, _, _ = self.resin(x, data.edge_index, edge_attr, data.edge_mask, csr=data.csr())
+        h = self.alpha_fcnn * x_fcnn + (1 - self.alpha_fcnn) * self.decoder(x)
+        return {"H": self.latent_norm(h)}
+
+
 class MLGraphConstruction(nn.Module):
     """Learned graph construction: embed, kNN with a radius cut, truth
-    labels, optional false-edge subsampling (in training mode only) and edge
-    features ``[x_i - x_j, x_i + x_j]``.
+    labels, optional false-edge subsampling (in training mode only), edge
+    features ``[x_i - x_j, x_i + x_j]``, and with an edge filter ``ef`` the
+    cut ``W > ec_threshold`` on its scores (``ef`` sees the built graph).
 
     Without ``ml``, the embedding is ``data.x[:, embedding_slice]``.
     """
@@ -92,9 +222,9 @@ class MLGraphConstruction(nn.Module):
         embedding_slice: tuple[int | None, int | None] = (None, None),
     ):
         super().__init__()
-        if ef is not None:
-            msg = "the edge filter (ef) is not ported"
-            raise NotImplementedError(msg)
+        if ef is not None and ec_threshold is None:
+            msg = "ec_threshold must be set if ec/ef is not None"
+            raise ValueError(msg)
         if ml is None and use_embedding_features:
             msg = "use_embedding_features requires ml to be not None"
             raise ValueError(msg)
@@ -144,7 +274,7 @@ class MLGraphConstruction(nn.Module):
         if self.build_edge_features:
             edge_attr = torch.cat([x[src] - x[dst], x[src] + x[dst]], dim=1)
 
-        return data.replace(
+        out = data.replace(
             x=x,
             edge_index=edge_index,
             edge_attr=edge_attr,
@@ -153,6 +283,9 @@ class MLGraphConstruction(nn.Module):
             # the CSR arrays of the input's edges do not describe the new ones
             extras={k: v for k, v in data.extras.items() if k not in DERIVED_KEYS},
         )
+        if self.ef is not None:
+            out = out.mask_edges(self.ef(out)["W"] > self.ec_threshold)
+        return out
 
 
 class MLPCTransformer(nn.Module):

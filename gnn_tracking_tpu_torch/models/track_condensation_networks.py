@@ -1,13 +1,15 @@
 """Track-condensation networks (counterpart of the JAX
 ``models/track_condensation_networks.py``: ``ModularGraphTCN`` with or
 without an edge classifier, ``GraphTCN``, ``PerfectECGraphTCN``,
-``GraphTCNForMLGCPipeline`` and ``PreTrainedECGraphTCN``).
+``GraphTCNForMLGCPipeline``, ``PreTrainedECGraphTCN``, and the
+point-cloud-direct ``INConvBlock`` and ``PointCloudTCN``).
 
 As in the JAX package, the EC cut is an edge mask that the condensation
 interaction networks run under; outputs keep the full (masked) length.
 Every class records its constructor arguments in ``model_config`` (what a
-checkpoint stores); ``PreTrainedECGraphTCN`` records its ``ec`` module
-there, whose own ``model_config`` a checkpoint nests.
+checkpoint stores); a module among them (``ModularGraphTCN``'s ``hc_in``
+and ``ec``, ``PreTrainedECGraphTCN``'s ``ec``) is recorded as itself, and a
+checkpoint nests its own ``model_config``.
 """
 
 from __future__ import annotations
@@ -18,14 +20,121 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from gnn_tracking_tpu_torch.graphs import EventGraph
+from gnn_tracking_tpu_torch.graphs import EventGraph, target_csr
 from gnn_tracking_tpu_torch.models.edge_classifier import (
     ECForGraphTCN,
     PerfectEdgeClassification,
 )
+from gnn_tracking_tpu_torch.models.dynamic_edge_conv import dynamic_edge_conv
+from gnn_tracking_tpu_torch.models.interaction_network import InteractionNetwork
 from gnn_tracking_tpu_torch.models.mlp import MLP, HeterogeneousResFCNN, ResFCNN
 from gnn_tracking_tpu_torch.models.resin import ResIN
 from gnn_tracking_tpu_torch.utils.device import resolve_device
+
+
+class INConvBlock(nn.Module):
+    """Dynamic edge convolution followed by interaction networks, for the
+    point-cloud-direct ``PointCloudTCN`` (JAX
+    ``track_condensation_networks.py:30-76``, reference ``tcn.py:23-66``).
+
+    The node encoder (``MLP(2 * indim, h_dim)``) is the ``"add"`` edge
+    convolution's message network over the kNN graph of ``x`` at ``k``
+    neighbours; edge features are ``relu(edge_encoder([h_src, h_dst]))``;
+    then ``L`` interaction networks ``in_i`` run on that graph (the fused
+    op, with the graph's CSR arrays: the kNN graph is query-major, so its
+    targets are sorted), each followed by ``h = alpha * h + (1 - alpha) *
+    delta_h``. Returns ``h``."""
+
+    def __init__(
+        self,
+        indim: int,
+        h_dim: int,
+        e_dim: int,
+        L: int,
+        k: int,
+        hidden_dim: int = 100,
+        alpha: float = 0.5,
+        *,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.k, self.alpha, self.n_layers = k, alpha, L
+        g = generator
+        self.node_encoder = MLP(2 * indim, h_dim, hidden_dim, L=1, generator=g)
+        self.edge_encoder = MLP(2 * h_dim, e_dim, hidden_dim, L=1, generator=g)
+        for i in range(L):
+            self.add_module(f"in_{i}", InteractionNetwork(
+                h_dim, e_dim, node_outdim=h_dim, edge_outdim=e_dim, node_hidden_dim=hidden_dim,
+                edge_hidden_dim=hidden_dim, generator=g,
+            ))
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        node_mask: torch.Tensor | None = None,
+        batch: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        h, edge_index, edge_mask = dynamic_edge_conv(
+            self.node_encoder, x, self.k, "add", node_mask=node_mask, batch=batch
+        )
+        h = torch.relu(h)
+        src, dst = edge_index.long()
+        edge_attr = torch.relu(self.edge_encoder(torch.cat([h[src], h[dst]], dim=1)))
+        csr = target_csr(edge_index, x.shape[0])
+        for i in range(self.n_layers):
+            delta_h, edge_attr = getattr(self, f"in_{i}")(
+                h, edge_index, edge_attr, edge_mask, csr=csr
+            )
+            h = self.alpha * h + (1 - self.alpha) * delta_h
+        return h
+
+
+class PointCloudTCN(nn.Module):
+    """Point-cloud-direct track condensation: no pre-built graph (JAX
+    ``track_condensation_networks.py:79-117``, reference ``tcn.py:69-115``).
+
+    ``block_0`` (at ``k = N_blocks`` neighbours, as in JAX) and
+    ``N_blocks`` more ``INConvBlock``s (``block_{i+1}`` at ``k =
+    max(N_blocks - i, 1)``), then the heads ``B`` (``sigmoid + 1e-11``) and
+    ``X``. Output dict: ``H``, ``B``, and ``W`` / ``P`` None.
+    ``model_config`` holds the constructor arguments."""
+
+    def __init__(
+        self,
+        node_indim: int,
+        h_dim: int = 10,
+        e_dim: int = 10,
+        h_outdim: int = 5,
+        hidden_dim: int = 100,
+        N_blocks: int = 3,
+        L: int = 3,
+        *,
+        device: str | torch.device = "cuda",
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.model_config = {
+            "node_indim": node_indim, "h_dim": h_dim, "e_dim": e_dim, "h_outdim": h_outdim,
+            "hidden_dim": hidden_dim, "N_blocks": N_blocks, "L": L,
+        }
+        g = generator
+        self.n_blocks = N_blocks
+        self.block_0 = INConvBlock(node_indim, h_dim, e_dim, L, N_blocks, hidden_dim, generator=g)
+        for i in range(N_blocks):
+            self.add_module(f"block_{i + 1}", INConvBlock(
+                h_dim, h_dim, e_dim, L, max(N_blocks - i, 1), hidden_dim, generator=g
+            ))
+        self.B = MLP(h_dim, 1, hidden_dim, L=3, generator=g)
+        self.X = MLP(h_dim, h_outdim, hidden_dim, L=3, generator=g)
+        self.to(dev)
+
+    def forward(self, data: EventGraph) -> dict[str, torch.Tensor | None]:
+        h = data.x
+        for i in range(self.n_blocks + 1):
+            h = getattr(self, f"block_{i}")(h, node_mask=data.node_mask, batch=data.batch)
+        beta = torch.sigmoid(self.B(h)).squeeze(-1) + 1e-11
+        return {"W": None, "H": self.X(h), "B": beta, "P": None}
 
 
 class ModularGraphTCN(nn.Module):
@@ -72,6 +181,15 @@ class ModularGraphTCN(nn.Module):
     ):
         super().__init__()
         dev = resolve_device(device)
+        self.model_config = {
+            "hc_in": hc_in, "ec": ec, "node_indim": node_indim, "edge_indim": edge_indim,
+            "h_dim": h_dim, "e_dim": e_dim, "h_outdim": h_outdim, "hidden_dim": hidden_dim,
+            "feed_edge_weights": feed_edge_weights, "ec_threshold": ec_threshold,
+            "mask_orphan_nodes": mask_orphan_nodes,
+            "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc, "alpha_latent": alpha_latent,
+            "n_embedding_coords": n_embedding_coords,
+            "heterogeneous_node_encoder": heterogeneous_node_encoder,
+        }
         if alpha_latent and not 0 < n_embedding_coords <= h_outdim:
             msg = f"alpha_latent needs 0 < n_embedding_coords <= h_outdim, got {n_embedding_coords}"
             raise ValueError(msg)
@@ -137,10 +255,11 @@ class ModularGraphTCN(nn.Module):
             h_hc = self.hc_node_encoder(x)
         h_hc = torch.relu(h_hc)
         edge_attr_hc = torch.relu(self.hc_edge_encoder(edge_attr))
-        # track condenser runs under the post-EC edge mask
+        # track condenser runs under the post-EC edge mask (its batch
+        # norms, where it has them, under the post-EC hit mask)
         h_hc, _, _ = self.hc_in(
             h_hc, data.edge_index, edge_attr_hc, ec_edge_mask,
-            csr=data.csr(),
+            node_mask=hit_mask, csr=data.csr(),
         )
         beta = torch.sigmoid(self.p_beta(h_hc))
         epsilon = 1e-6  # soft clipping against NaN in arctanh(beta)
@@ -244,6 +363,8 @@ class PerfectECGraphTCN(ModularGraphTCN):
         ec_threshold: float = 0.5,
         mask_orphan_nodes: bool = False,
         feed_edge_weights: bool = False,
+        residual_type: str = "skip1",
+        compat_overlap: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -255,11 +376,12 @@ class PerfectECGraphTCN(ModularGraphTCN):
             "alpha_hc": alpha_hc, "ec_tpr": ec_tpr, "ec_tnr": ec_tnr,
             "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
             "feed_edge_weights": feed_edge_weights,
+            "residual_type": residual_type, "compat_overlap": compat_overlap,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
         )
         super().__init__(
             hc_in, PerfectEdgeClassification(tpr=ec_tpr, tnr=ec_tnr), node_indim, edge_indim,
@@ -292,6 +414,8 @@ class GraphTCNForMLGCPipeline(ModularGraphTCN):
         n_embedding_coords: int = 0,
         feed_edge_weights: bool = False,
         heterogeneous_node_encoder: bool = False,
+        residual_type: str = "skip1",
+        compat_overlap: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -303,11 +427,12 @@ class GraphTCNForMLGCPipeline(ModularGraphTCN):
             "alpha_hc": alpha_hc, "alpha_latent": alpha_latent,
             "n_embedding_coords": n_embedding_coords, "feed_edge_weights": feed_edge_weights,
             "heterogeneous_node_encoder": heterogeneous_node_encoder,
+            "residual_type": residual_type, "compat_overlap": compat_overlap,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
         )
         super().__init__(
             hc_in, None, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
@@ -345,6 +470,8 @@ class PreTrainedECGraphTCN(ModularGraphTCN):
         mask_orphan_nodes: bool = False,
         use_ec_embeddings_for_hc: bool = False,
         feed_edge_weights: bool = False,
+        residual_type: str = "skip1",
+        compat_overlap: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -360,11 +487,12 @@ class PreTrainedECGraphTCN(ModularGraphTCN):
             "mask_orphan_nodes": mask_orphan_nodes,
             "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
             "feed_edge_weights": feed_edge_weights,
+            "residual_type": residual_type, "compat_overlap": compat_overlap,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
         )
         super().__init__(
             hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,

@@ -24,6 +24,7 @@ CPU).
 
 from __future__ import annotations
 
+import inspect
 import json
 from pathlib import Path
 from typing import Any
@@ -31,16 +32,23 @@ from typing import Any
 import torch
 from torch import nn
 
-from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN, PerfectEdgeClassification
+from gnn_tracking_tpu_torch.models.edge_filter import EFDeepSet, EFMLP
 from gnn_tracking_tpu_torch.models.graph_construction import (
     GraphConstructionFCNN,
+    GraphConstructionHeteroEncResFCNN,
+    GraphConstructionHeteroResFCNN,
+    GraphConstructionResIN,
     MLGraphConstruction,
     MLPCTransformer,
 )
+from gnn_tracking_tpu_torch.models.resin import ResIN
 from gnn_tracking_tpu_torch.models.track_condensation_networks import (
     GraphTCN,
     GraphTCNForMLGCPipeline,
+    ModularGraphTCN,
     PerfectECGraphTCN,
+    PointCloudTCN,
     PreTrainedECGraphTCN,
 )
 from gnn_tracking_tpu_torch.training.config import drop_layout_args, obj_from_config, resolve_class
@@ -48,11 +56,14 @@ from gnn_tracking_tpu_torch.utils.device import resolve_device
 from gnn_tracking_tpu_torch.utils.param_convert import jax_names, port_prefix
 
 
-#: the models a checkpoint can hold, by class name
+#: the models a checkpoint can hold, and the modules they hold as arguments
+#: (``ModularGraphTCN``'s ``hc_in`` and ``ec``), by class name
 _MODEL_CLASSES = {
     cls.__name__: cls
     for cls in (GraphTCN, ECForGraphTCN, PerfectECGraphTCN, GraphTCNForMLGCPipeline,
-                PreTrainedECGraphTCN, GraphConstructionFCNN)
+                PreTrainedECGraphTCN, ModularGraphTCN, PointCloudTCN, GraphConstructionFCNN,
+                GraphConstructionHeteroResFCNN, GraphConstructionHeteroEncResFCNN,
+                GraphConstructionResIN, EFDeepSet, EFMLP, ResIN, PerfectEdgeClassification)
 }
 
 
@@ -83,7 +94,11 @@ def build_model(config: dict[str, Any], *, device: str | torch.device = "cuda") 
         k: build_model(v, device="cpu") if _is_model_config(v) else v
         for k, v in config["init_args"].items()
     }
-    return _MODEL_CLASSES[name](**init_args, device=device)
+    cls = _MODEL_CLASSES[name]
+    if "device" in inspect.signature(cls).parameters:
+        return cls(**init_args, device=device)
+    # a module without a device of its own (ResIN) moves with its parent
+    return cls(**init_args)
 
 
 def _to_host(tree: Any) -> Any:

@@ -2,7 +2,9 @@
 
 Counterpart of the JAX ``utils/param_convert.py``. The input is a JAX
 ``params`` tree as nested dicts of numpy arrays (optionally wrapped as
-``{"params": ...}``), in either interaction-network layout:
+``{"params": ...}``, or with the model's batch-norm running averages as
+``{"params": ..., "batch_stats": ...}``), in either interaction-network
+layout:
 
 * XLA: ``relational_model/TorchLinear_{0,1,2}/{kernel,bias}``;
 * fused: ``relational_w1, relational_b1, ..., relational_b3``.
@@ -11,7 +13,9 @@ Both become the port's fused parameters ``relational_w{1,2,3}`` /
 ``relational_b{1,2,3}`` (the re-nesting of the JAX ``mlp_to_fused``, in
 this module's own copy). Flax ``[in, out]`` kernels are transposed into
 PyTorch's ``[out, in]``. Path names map as ``TorchLinear_i`` /
-``NormalLinear_i`` -> ``linears.i``, ``layer_i`` -> ``layers.i``; the
+``NormalLinear_i`` -> ``linears.i``, ``layer_i`` -> ``layers.i``; a
+``MaskedBatchNorm``'s ``scale`` / ``bias`` are its parameters of those
+names and its ``batch_stats`` ``mean`` / ``var`` its buffers; the
 ``gtcn`` level of a JAX ``GraphTCN`` is dropped (the port's ``GraphTCN`` is
 a ``ModularGraphTCN``; so are ``PerfectECGraphTCN``,
 ``GraphTCNForMLGCPipeline`` and ``PreTrainedECGraphTCN``).
@@ -33,6 +37,8 @@ from torch import nn
 
 _INDEXED = re.compile(r"^(TorchLinear|NormalLinear|layer)_(\d+)$")
 _RELATIONAL = re.compile(r"^relational_([wb])([123])$")
+#: the parameters of a JAX ``MaskedBatchNorm`` (a ``scale`` elsewhere has no counterpart)
+_BN_LEAVES = {"scale", "bias"}
 
 
 def _rename(key: str) -> str | None:
@@ -62,12 +68,14 @@ def _relational_from_mlp(mlp: dict) -> dict[str, np.ndarray]:
 
 
 def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
-    """Flatten a JAX params tree into a port ``state_dict`` of numpy arrays.
+    """Flatten a JAX params tree (or ``{"params", "batch_stats"}``) into a
+    port ``state_dict`` of numpy arrays.
 
     Raises on any leaf it cannot place.
     """
-    if isinstance(tree, dict) and set(tree) == {"params"}:
-        tree = tree["params"]
+    batch_stats = None
+    if isinstance(tree, dict) and set(tree) in ({"params"}, {"params", "batch_stats"}):
+        tree, batch_stats = tree["params"], tree.get("batch_stats")
     out: dict[str, np.ndarray] = {}
 
     def put(name: str, value: np.ndarray) -> None:
@@ -76,21 +84,26 @@ def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
             raise ValueError(msg)
         out[name] = np.asarray(value)
 
-    def walk(node: dict, prefix: list[str]) -> None:
+    def walk(node: dict, prefix: list[str], stats: bool) -> None:
         for key, value in node.items():
-            if key == "relational_model":
+            if key == "relational_model" and not stats:
                 for leaf, arr in _relational_from_mlp(value).items():
                     put(".".join([*prefix, leaf]), arr)
                 continue
             if isinstance(value, dict):
                 part = _rename(key)
-                walk(value, prefix if part is None else [*prefix, part])
+                walk(value, prefix if part is None else [*prefix, part], stats)
                 continue
             arr = np.asarray(value)
             m = _RELATIONAL.match(key)
-            if key == "kernel":
+            if stats and key in ("mean", "var"):
+                put(".".join([*prefix, key]), arr)
+            elif stats:
+                msg = f"JAX batch_stats leaf {'/'.join([*prefix, key])!r} has no counterpart in the port"
+                raise ValueError(msg)
+            elif key == "kernel":
                 put(".".join([*prefix, "weight"]), arr.T)
-            elif key == "bias" or key == "latent_normalization":
+            elif key in ("bias", "latent_normalization") or (key == "scale" and set(node) == _BN_LEAVES):
                 put(".".join([*prefix, key]), arr)
             elif m:
                 put(".".join([*prefix, key]), arr.T if m.group(1) == "w" else arr)
@@ -98,20 +111,25 @@ def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
                 msg = f"JAX leaf {'/'.join([*prefix, key])!r} has no counterpart in the port"
                 raise ValueError(msg)
 
-    walk(tree, [])
+    walk(tree, [], False)
+    if batch_stats:
+        walk(batch_stats, [], True)
     return out
 
 
 def load_jax_params(module: nn.Module, tree: Any) -> nn.Module:
     """Copy a JAX params tree into ``module`` (cast to each parameter's
-    dtype and device). Raises unless every JAX leaf and every parameter of
-    the module are matched one to one with equal shapes."""
+    dtype and device); ``{"params", "batch_stats"}`` also fills the batch
+    norms' running averages. Raises unless every JAX leaf and every entry of
+    the module's ``state_dict`` (parameters and buffers) are matched one to
+    one with equal shapes."""
     state = params_from_jax(tree)
     own = module.state_dict()
     unused = sorted(set(state) - set(own))
     missing = sorted(set(own) - set(state))
     if unused or missing:
-        msg = f"JAX leaves without a port parameter: {unused}; port parameters without a JAX leaf: {missing}"
+        msg = (f"JAX leaves without a port parameter: {unused}; port parameters without a JAX leaf: "
+               f"{missing} (batch-norm running averages come from the tree's batch_stats)")
         raise ValueError(msg)
     with torch.no_grad():
         for name, target in own.items():

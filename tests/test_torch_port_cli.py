@@ -80,7 +80,17 @@ def data_root(tmp_path_factory):
     return root
 
 
+TEST_CONFIGS = Path(__file__).parent / "test_configs"
+#: configs of tests/test_configs (placeholders for the data directories)
+HETERO_CONFIGS = ("ml_hetero.yml", "ml_heteroenc.yml")
+
+
 def example_config(name: str, root: Path) -> dict:
+    if name in HETERO_CONFIGS:
+        config = yaml.safe_load((TEST_CONFIGS / name).read_text().replace("__TMPDIR__", str(root)))
+        # padding buckets are a TPU static-shape device, which the port refuses
+        del config["data"]["init_args"]["padding"]
+        return config
     config = yaml.safe_load((CONFIGS / name).read_text())
     data = config["data"]["init_args"]
     data["train"]["dirs"] = [str(root / "train")]
@@ -133,13 +143,54 @@ def test_test_config_refuses_padding_config_and_unported_classes(data_root):
     assert isinstance(module.model, GraphTCN) and module.model.model_config["L_ec"] == 2
     assert trainer.max_epochs == 1 and not trainer.print_validation_results
     for missing in (
-        "gnn_tracking_tpu.models.track_condensation_networks.PointCloudTCN",
+        "gnn_tracking_tpu.parallel.sharded_model.ShardedTCN",
         "gnn_tracking_tpu.models.meta.MetaModel",
     ):
         bad = copy.deepcopy(config)
         bad["model"]["init_args"]["model"]["class_path"] = missing
         with pytest.raises(NotPortedError, match=missing.replace(".", r"\.")):
             port_run.build_from_config(bad, device="cpu")
+
+
+YAML_MODELS = {
+    "point-cloud-tcn-rg": (
+        {"class_path": "gnn_tracking_tpu.models.track_condensation_networks.PointCloudTCN",
+         "init_args": {"h_dim": 4, "e_dim": 4, "h_outdim": 2, "hidden_dim": 8, "N_blocks": 1, "L": 1}},
+        {"class_path": "gnn_tracking_tpu.losses.oc.CondensationLossRG",
+         "init_args": {"max_n_objects": 32, "max_num_neighbors": 8}}),
+    "modular-skip2-bn": (
+        {"class_path": "gnn_tracking_tpu.models.track_condensation_networks.ModularGraphTCN",
+         "init_args": {"hc_in": {"class_path": "gnn_tracking_tpu.models.resin.ResIN",
+                                 "init_args": {"node_dim": 4, "edge_dim": 4, "n_layers": 2,
+                                               "residual_type": "skip2", "add_bn": True}},
+                       "ec": None, "h_dim": 4, "e_dim": 4, "h_outdim": 2, "hidden_dim": 8}},
+        None),
+    "perfect-ec-skip2-compat": (
+        {"class_path": "gnn_tracking_tpu.models.track_condensation_networks.PerfectECGraphTCN",
+         "init_args": {"h_dim": 4, "e_dim": 4, "h_outdim": 2, "hidden_dim": 8, "L_hc": 4,
+                       "residual_type": "skip2", "compat_overlap": True}},
+        None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(YAML_MODELS))
+def test_yaml_builds_and_trains_the_remaining_models_and_losses(data_root, case):
+    """``tests/test_configs/tc.yml`` (without its padding block) with the
+    model, and the loss where given, replaced by classes this port took
+    last: built through ``training/run.build_from_config`` (input widths
+    from the first event) and stepped once with finite losses."""
+    config = yaml.safe_load((TEST_CONFIGS / "tc.yml").read_text().replace("__TMPDIR__", str(data_root)))
+    del config["data"]["init_args"]["padding"]
+    model, loss = YAML_MODELS[case]
+    config["model"]["init_args"]["model"] = model
+    if loss is not None:
+        config["model"]["init_args"]["loss_fct"] = loss
+    module, datamodule, _ = port_run.build_from_config(config, device="cpu")
+    assert type(module.model).__name__ == model["class_path"].rpartition(".")[2]
+    assert module.model.model_config["node_indim"] == 14
+    datamodule.setup("fit")
+    metrics = module.training_step(next(iter(datamodule.train_dataloader())))
+    assert np.isfinite(metrics["total"]) and module.step == 1
 
 
 def test_chip_smoke_tc_config_is_tc_yml_with_its_overrides(data_root, tmp_path):
@@ -170,6 +221,9 @@ SHRINK = {
         "module": {"precision": "f32"},
     },
     "ml.yml": {"model": {"hidden_dim": 32, "depth": 2}},
+    # already small
+    "ml_hetero.yml": {},
+    "ml_heteroenc.yml": {},
 }
 
 
@@ -253,7 +307,7 @@ def cli_runs(data_root, tmp_path_factory):
     return run
 
 
-@pytest.mark.parametrize("name", ["tc.yml", "ec.yml", "ml.yml"])
+@pytest.mark.parametrize("name", ["tc.yml", "ec.yml", "ml.yml", *HETERO_CONFIGS])
 def test_cli_fit_losses_follow_jax(cli_runs, name):
     """Per-step training losses: rtol 1e-4 (f32), components also within
     1e-4 of the step's total."""
