@@ -8,6 +8,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py --split-only [--package-root DIR]   # (or another *-only mode)
     python3 chip_smoke.py --band-only [--package-root DIR] [--band-digests FILE]
     python3 chip_smoke.py --variants-only   # phase 13 alone
+    python3 chip_smoke.py --etl-only        # phase 14 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -271,11 +272,32 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    hetero embedding with the hinge loss (row #12 at k = 256) after step 0's
    gradients against the plain path. Rows #1, #2, #9, #10, #12, #13 and #16
    must launch on the phase's path;
-14. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+14. the offline ETL at a full TrackML event's size (``etl_phase``):
+   **etl-trackml-110k**, ``ETL_COPIES`` copies of the vendored event made
+   into one (``make_pileup``: each copy rotated in phi by a seeded angle,
+   hit ids offset, particle ids offset past 2^53), ~110k hits; (a)
+   ``preprocessing.build_point_clouds.main`` over it and over the vendored
+   event at 1 and 32 sectors (``--pixel-only --add-true-edges``), wall time
+   a file and hits a sector; (b) ``graph_construction.build_graphs.main
+   --device cuda`` over the four point-cloud directories (``edge_join``,
+   ``csrc/edge_join.cu``, counted at its launches), then the kernel against
+   its plain version on the card on every point cloud, with the defaults
+   and with ``remove_intersecting=False, edge_augmentation="add_two_hop"``:
+   edges, order, ``y`` and float64 attributes bitwise; the kernel timed on
+   the full event at 1 sector (CUDA events, median of 5 rounds of 5, and
+   its kernels on the device) beside the plain version and the bound (its
+   FP64 operations on this input's work, ``EDGE_JOIN_OPS``, or its bytes);
+   (c) ``tc.yml``'s recipe through ``run_command("fit", ...)`` for 2 steps
+   on the 32-sector graphs of the full event, then ``predict_dir`` of its
+   ``checkpoint_best.pt`` over the 32 (labels equal to the plain path's);
+   rows #1, #2, #9, #10, #12 and #16 must launch on that path;
+15. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
-   kernels of phase 12's path with ``pipeline_launches``, and of phase
-   13's with ``variants_launches``), the ``nvidia-smi`` name/power line,
-   and last the device JSON line.
+   kernels of phase 12's path with ``pipeline_launches``, of phase
+   13's with ``variants_launches`` and of phase 14's served path with
+   ``etl_launches``; ``edge_join``'s ``launches`` are phase 14's
+   ``build_graphs`` calls), the ``nvidia-smi`` name/power line, and last
+   the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
 ``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
@@ -324,7 +346,8 @@ FILE`` builds, runs ``bitwise_digests`` (rows #11-#13 at d <= 32, rows #1 /
 output's digest) and writes FILE, or holds the digests bitwise against
 FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops;
 ``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops;
-``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops. ``--wide-only``
+``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops;
+``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -346,6 +369,7 @@ import copy
 import hashlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -417,6 +441,7 @@ TPU_KERNELS = {
     "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:308 and :610 (bf16), beyond shared memory",
     "fused_relational_wide_tc_bwd": "gnn_tracking_tpu/ops/pallas/fused_relational.py:781, "
     "gnn_tracking_tpu/ops/pallas/fused_relational_t.py:377 and :680 (bf16), beyond shared memory",
+    "edge_join": "csrc/edge_join.cpp:49 (the JAX package's host-native layer-pair join; no pallas_call)",
 }
 SOURCES = {
     "fused_relational_fwd": "gnn_tracking_tpu_torch/csrc/fused_relational.cu",
@@ -435,6 +460,7 @@ SOURCES = {
     "pairwise_topk_streaming": "gnn_tracking_tpu_torch/csrc/pairwise_topk_split.cu",
     **{f"fused_relational_wide_{k}": "gnn_tracking_tpu_torch/csrc/fused_relational_wide.cu"
        for k in ("fwd", "bwd", "tc_fwd", "tc_bwd")},
+    "edge_join": "gnn_tracking_tpu_torch/csrc/edge_join.cu",
 }
 # metric-learning validation (examples/configs/ml.yml's gc_scanner)
 VAL_KS = list(range(1, 9))
@@ -446,6 +472,14 @@ SPLIT_SWEEP_KS = (1, 2, 4, 8, 16, 32, 64, 256)
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def make_event(seed: int):
@@ -5708,6 +5742,270 @@ def variants_phase(seed: int) -> dict:
     return summary
 
 
+# the offline ETL at a full TrackML event's size (phase 14)
+ETL_COPIES = 20  # the vendored event is a 1/20 sample of a TrackML event (~110k hits)
+# nonzero particle ids of copy c: + c * (2^58 + 1). The vendored ids reach 8.7e17 (2^59.6), and some
+# differ by a multiple of 2^58, so c * 2^58 would make 168 of them collide; the odd stride does not,
+# and a float64 parse of the offset ids merges 168 particles
+ETL_PID_STRIDE = (1 << 58) + 1
+ETL_SECTORS = (1, 32)
+ETL_CSVS = ("detectors.csv.gz", "event000000001-cells.csv.gz", "event000000001-hits.csv.gz",
+            "event000000001-particles.csv.gz", "event000000001-truth.csv.gz")
+# H100 SXM data sheet: FP64 outside the tensor cores
+PEAK_F64_FLOPS = 33.5e12
+#: the cut's float64 operations in csrc/edge_join.cu, counted from its source: a candidate pair's
+#: slope cut (2 subtractions, 2 wrap compares, a division, a compare), then on the pairs that pass
+#: the z0 cut (a subtraction, a product, a division, a subtraction, a compare), the dR cut (a
+#: subtraction, 2 products, a sum, a square root, a compare) and the intersecting-line cut (a
+#: product, a division, a sum, 2 compares); a hit's eta (atan2, a division, tan, log, a negation)
+EDGE_JOIN_OPS = {"pairs": 6, "slope": 5, "z0": 6, "intersect": 5, "hits": 5}
+#: the served path's kernels (phase 11's) on the built graphs
+ETL_SERVE_KERNELS = TC_CLI_KERNELS
+
+
+def write_csv(path: Path, table: dict) -> None:
+    """A table (dict of numpy columns) as a gzipped CSV; floats in their
+    shortest round-trip text, so that a correctly rounded parse returns
+    their bits."""
+    import gzip
+
+    cols = [v.astype(str) for v in table.values()]
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        f.write(",".join(table) + "\n")
+        f.write("\n".join(",".join(row) for row in zip(*cols)) + "\n")
+
+
+def make_pileup(seed: int, src: Path, dst: Path, copies: int = ETL_COPIES) -> dict:
+    """etl-trackml-110k: ``copies`` copies of the vendored event in one
+    event (``event000000002``), each rotated in phi by a seeded angle (hits,
+    truth positions and momenta, particle vertices and momenta alike), hit
+    ids offset a copy (cells follow their hits), nonzero particle ids offset
+    by ``c * ETL_PID_STRIDE`` (past 2^53: a float64 parse would merge
+    particles), module ids unchanged. Returns the row counts."""
+    from gnn_tracking_tpu_torch.utils.csv_io import read_csv
+
+    rng = np.random.default_rng(seed + 2000)
+    angles = rng.uniform(0, 2 * np.pi, copies)
+    dst.mkdir(parents=True, exist_ok=True)
+    tables = {k: read_csv(src / f"event000000001-{k}.csv.gz") for k in ("hits", "cells", "truth", "particles")}
+    stride = int(tables["hits"]["hit_id"].max()) + 1
+
+    def rotated(t, c, pairs):
+        out = dict(t)
+        cos, sin = math.cos(angles[c]), math.sin(angles[c])
+        for a, b in pairs:
+            out[a] = t[a] * cos - t[b] * sin
+            out[b] = t[a] * sin + t[b] * cos
+        return out
+
+    merged = {k: [] for k in tables}
+    for c in range(copies):
+        hits = rotated(tables["hits"], c, [("x", "y")])
+        truth = rotated(tables["truth"], c, [("tx", "ty"), ("tpx", "tpy")])
+        particles = rotated(tables["particles"], c, [("vx", "vy"), ("px", "py")])
+        cells = dict(tables["cells"])
+        for t in (hits, truth, cells):
+            t["hit_id"] = t["hit_id"] + c * stride
+        truth["particle_id"] = np.where(truth["particle_id"] != 0, truth["particle_id"] + c * ETL_PID_STRIDE, 0)
+        particles["particle_id"] = particles["particle_id"] + c * ETL_PID_STRIDE
+        for k, t in (("hits", hits), ("truth", truth), ("particles", particles), ("cells", cells)):
+            merged[k].append(t)
+    rows = {}
+    for k, parts in merged.items():
+        table = {col: np.concatenate([p[col] for p in parts]) for col in parts[0]}
+        write_csv(dst / f"event000000002-{k}.csv.gz", table)
+        rows[k] = len(next(iter(table.values())))
+    shutil.copy(src / "detectors.csv.gz", dst / "detectors.csv.gz")
+    pids = np.concatenate([p["particle_id"] for p in merged["particles"]])
+    assert len(np.unique(pids)) == len(pids), "the copies' particle ids collide"
+    assert len(np.unique(pids.astype(np.float64))) < len(pids), "a float64 parse must merge particles"
+    return rows
+
+
+def edge_join_bound(stats: dict, n_hits: int) -> tuple[float, str, float, float]:
+    """The least time of one join: its float64 operations (``EDGE_JOIN_OPS``
+    on this input's work, ``edge_join_plain``'s ``stats``) at the FP64 peak,
+    or its bytes (r, phi, z and the layer of every hit in, 48 bytes an edge
+    out) at the memory rate, whichever is larger."""
+    ops = sum(EDGE_JOIN_OPS[k] * (n_hits if k == "hits" else stats[k]) for k in EDGE_JOIN_OPS)
+    nbytes = 16 * n_hits + 48 * stats["edges"]
+    t_ops, t_bytes = ops / PEAK_F64_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes
+
+
+def etl_phase(seed: int, tmp: Path) -> dict:
+    """Phase 14 (see the module docstring). Returns the kernels line's entry
+    for ``edge_join`` (its launches those of ``build_graphs.main`` over the
+    four point-cloud directories, counts set to 0 just before and read just
+    after), the served path's launches and the phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.graph_construction import build_graphs
+    from gnn_tracking_tpu_torch.graph_construction.graph_builder import GraphBuilder
+    from gnn_tracking_tpu_torch.inference import TrackingPredictor
+    from gnn_tracking_tpu_torch.ops import edge_join as ej
+    from gnn_tracking_tpu_torch.preprocessing import build_point_clouds
+    from gnn_tracking_tpu_torch.training import run as tc_run
+    from gnn_tracking_tpu_torch.utils.loading import load_graph, save_graph
+
+    card = card_line()
+
+    def say(msg: str) -> None:
+        log(f"{msg} [{card}]")
+
+    t_phase = time.perf_counter()
+    raw = {"vendored": tmp / "etl_raw_vendored", "pileup": tmp / "etl_raw_110k"}
+    raw["vendored"].mkdir()
+    for name in ETL_CSVS:
+        shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw["vendored"] / name)
+    t0 = time.perf_counter()
+    rows = make_pileup(seed, raw["vendored"], raw["pileup"])
+    say(f"etl: etl-trackml-110k made in {time.perf_counter() - t0:.2f} s: {rows}")
+
+    # ---- (a) point clouds through the CLI
+    summary = {"card": card, "pileup_rows": rows, "point_clouds": {}, "graphs": {}}
+    for event, d in raw.items():
+        for n_sectors in ETL_SECTORS:
+            out = tmp / f"etl_pc_{event}_{n_sectors}"
+            t0 = time.perf_counter()
+            build_point_clouds.main(["--indir", str(d), "--outdir", str(out), "--detector-config",
+                                     str(d / "detectors.csv.gz"), "--n-sectors", str(n_sectors),
+                                     "--pixel-only", "--add-true-edges"])
+            wall = time.perf_counter() - t0
+            files = sorted(out.glob("*.npz"))
+            assert len(files) == n_sectors, (event, n_sectors, len(files))
+            sizes = []
+            for f in files:
+                with np.load(f) as pc:
+                    assert pc["x"].shape[1] == 14 and np.isfinite(pc["x"]).all(), f
+                    assert pc["particle_id"].dtype == np.int64, f
+                    sizes.append(int(pc["x"].shape[0]))
+            summary["point_clouds"][f"{event}/{n_sectors}"] = {
+                "wall_s": wall, "hits_per_sector_mean": statistics.mean(sizes), "hits_per_sector_max": max(sizes)}
+            say(f"etl (a): build_point_clouds {event}, {n_sectors} sectors: {wall:.2f} s a file of CSVs, "
+                f"{statistics.mean(sizes):.0f} hits a sector (largest {max(sizes)})")
+    pixel_hits = summary["point_clouds"]["pileup/1"]["hits_per_sector_max"]
+    assert 40_000 < pixel_hits < 70_000, f"the pile-up's pixel hits: {pixel_hits}"
+
+    # ---- (b) graphs through the CLI on the card; edge_join counted at its launches
+    ej.edge_join.launches = 0
+    for event in raw:
+        for n_sectors in ETL_SECTORS:
+            pcs, out = tmp / f"etl_pc_{event}_{n_sectors}", tmp / f"etl_graphs_{event}_{n_sectors}"
+            t0 = time.perf_counter()
+            build_graphs.main(["--indir", str(pcs), "--outdir", str(out), "--device", "cuda"])
+            torch.cuda.synchronize()
+            summary["graphs"][f"{event}/{n_sectors}"] = {"wall_s_per_event": time.perf_counter() - t0}
+    join_launches = ej.edge_join.launches
+    assert join_launches == 2 * sum(ETL_SECTORS), f"edge_join launched {join_launches} times"
+
+    # the kernel against its plain version on the card, every point cloud, two configurations
+    configs = {"defaults": {}, "two hop": {"remove_intersecting": False, "edge_augmentation": "add_two_hop"}}
+    max_err = 0.0
+    for event in raw:
+        for n_sectors in ETL_SECTORS:
+            pcs = tmp / f"etl_pc_{event}_{n_sectors}"
+            for cname, kw in configs.items():
+                gb = GraphBuilder(pcs, tmp / "etl_unused", device="cuda", **kw)
+                n_edges, n_true = 0, 0
+                for f in sorted(pcs.glob("*.npz")):
+                    pc = load_graph(f, device="cpu")
+                    got = gb.join(pc)
+                    want = gb.join(pc, join_fn=ej.edge_join_plain)
+                    for k in want:
+                        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, (f, k)
+                        if k in ("dr", "dphi", "dz", "dR") and len(want[k]):
+                            max_err = max(max_err, float(np.abs(got[k] - want[k]).max()))
+                        assert got[k].tobytes() == want[k].tobytes(), f"{f.name} {cname}: {k} differs from plain"
+                    y_got = gb.edges_from_join(got, pc)[2]
+                    y_want = gb.edges_from_join(want, pc)[2]
+                    assert np.array_equal(y_got, y_want), f"{f.name} {cname}: y differs"
+                    n_edges += len(y_got)
+                    n_true += int(y_got.sum())
+                summary["graphs"][f"{event}/{n_sectors}"][f"edges_{cname}"] = n_edges
+                say(f"etl (b): {event}, {n_sectors} sectors, {cname}: the kernel's edges, order, y and float64 "
+                    f"attributes bitwise the plain version's ({n_edges} directed edges, {n_true} true)")
+            with np.load(sorted((tmp / f"etl_graphs_{event}_{n_sectors}").glob("*.npz"))[0]) as g:
+                assert g["edge_index"].dtype == np.int32 and g["edge_attr"].dtype == np.float32
+                assert np.isfinite(g["edge_attr"]).all() and g["y"].dtype == bool
+    for key, v in summary["graphs"].items():
+        say(f"etl (b): build_graphs {key} sectors: {v['wall_s_per_event']:.3f} s an event "
+            f"({v['edges_defaults']} directed edges)")
+
+    # timing on the full event, one sector: the kernel, on the device, the plain version
+    gb = GraphBuilder(tmp / "etl_pc_pileup_1", tmp / "etl_unused", device="cuda")
+    pc = load_graph(sorted((tmp / "etl_pc_pileup_1").glob("*.npz"))[0], device="cpu")
+    inputs, pairs = gb.join_inputs(pc), gb.layer_pairs()
+    kw = {"phi_slope_max": gb.phi_slope_max, "z0_max": gb.z0_max, "dR_max": gb.dR_max}
+    stats = {}
+    ej.edge_join_plain(*inputs, pairs, stats=stats, **kw)
+    ms = cuda_ms(lambda: ej.edge_join(*inputs, pairs, **kw))
+    plain_ms = cuda_ms(lambda: ej.edge_join_plain(*inputs, pairs, **kw), reps=1, rounds=3)
+    device = device_split(lambda: ej.edge_join(*inputs, pairs, **kw),
+                          ["prepare_kernel", "join_kernel<false>", "scan_kernel", "join_kernel<true>"])
+    bound_ms, bound_by, ops, nbytes = edge_join_bound(stats, pc.num_nodes)
+    # build_graphs' event split into its stages (host clock, the join synchronised)
+    stages = {}
+    t0 = time.perf_counter()
+    joined = gb.join(pc)
+    stages["join_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edges = gb.edges_from_join(joined, pc)
+    stages["labels_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = gb.to_graph(pc, *edges[:3])
+    stages["to_graph_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_graph(graph, tmp / "etl_split.npz")
+    stages["save_s"] = time.perf_counter() - t0
+    summary["edge_join"] = {"ms": ms, "device_ms": device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "ops": ops, "bytes": nbytes, "work": stats,
+                            "hits": pc.num_nodes, "launches": join_launches, "build_split": stages}
+    say(f"etl (b): edge_join on etl-trackml-110k (1 sector, {pc.num_nodes} pixel hits): {ms:.4f} ms a call "
+        f"(CUDA events, median of 5 rounds of 5), on the device {device} ms; plain {plain_ms:.2f} ms; "
+        f"{stats['pairs']} candidate pairs, {stats['slope']} pass the slope cut, {stats['z0']} the z0 cut, "
+        f"{stats['edges']} edges; bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} FP64 operations, "
+        f"{nbytes} bytes); {join_launches} launches in build_graphs; the event's build split "
+        f"{ {k: round(v, 3) for k, v in stages.items()} } s")
+
+    # ---- (c) the built graphs served: tc.yml's recipe for 2 steps, then predict_dir
+    ops_mods = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+                for name in {m for m, _ in ETL_SERVE_KERNELS.values()}}
+    graphs32 = tmp / "etl_graphs_pileup_32"
+    config = tc_cli_config(graphs32, graphs32, tmp / "etl_runs")
+    config["data"]["init_args"] = {"train": {"dirs": [str(graphs32)], "stop": 2},
+                                   "val": {"dirs": [str(graphs32)], "start": 2, "stop": 3}}
+    config["trainer"]["max_epochs"] = 1
+    for m, f in ETL_SERVE_KERNELS.values():
+        getattr(ops_mods[m], f).launches = 0
+    t0 = time.perf_counter()
+    fit = tc_run.run_command("fit", config, device="cuda")
+    fit_s = time.perf_counter() - t0
+    best = next((tmp / "etl_runs").rglob("checkpoint_best.pt"))
+    predictor = TrackingPredictor(best, device="cuda")
+    served = predictor.predict_dir(graphs32, tmp / "etl_labels", evaluate=True)
+    serve_launches = {k: getattr(ops_mods[m], f).launches for k, (m, f) in ETL_SERVE_KERNELS.items()}
+    assert math.isfinite(fit[f"best_{TC_MONITOR}"]), fit
+    for name, n in serve_launches.items():
+        assert n > 0, f"the served ETL path never launched {name}"
+    with plain_path():
+        for f in sorted(graphs32.glob("*.npz")):
+            want = predictor.predict(load_graph(f, device="cuda"))
+            got = np.load(tmp / "etl_labels" / f"{f.stem}_labels.npz")
+            assert np.array_equal(got["labels"], want["labels"]), f"{f.name}: labels differ from the plain path"
+    trk = {k: v for k, v in served.items() if k.startswith("trk.")}
+    summary.update(fit_s=fit_s, served_events_per_s=served["events_per_s"], served_trk=trk,
+                   serve_launches=serve_launches, phase_s=time.perf_counter() - t_phase)
+    say(f"etl (c): tc.yml fit on 2 of the 32-sector graphs in {fit_s:.2f} s, predict_dir over the 32: "
+        f"{served['events_per_s']:.2f} events/s, labels equal to the plain path's; launches {serve_launches}")
+    log("etl: " + json.dumps(summary, default=float))
+    entry = {"name": "edge_join", "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None, "launches": join_launches}
+    return {"result": entry, "serve_launches": serve_launches, "summary": summary}
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -5798,6 +6096,9 @@ def main(argv=None) -> int:
                    "print its summary and stop")
     p.add_argument("--variants-only", action="store_true",
                    help="build, run variants_phase (phase 13: the remaining losses and models) and stop")
+    p.add_argument("--etl-only", action="store_true",
+                   help="build, run etl_phase (phase 14: the offline ETL at a full TrackML event's size, "
+                   "its graphs served) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -5840,10 +6141,7 @@ def main(argv=None) -> int:
     for name, text in logs.items():
         for line in ptxas_by_kernel(text):
             log(f"  ptxas[{name}]: {line}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"card: {torch.cuda.get_device_name(0)} ({torch.cuda.device_count()} visible), torch {torch.__version__}, CUDA {torch.version.cuda}")
     if args.segment_sum_only:
         log(f"package: {root}")
@@ -5946,6 +6244,12 @@ def main(argv=None) -> int:
     if args.variants_only:
         log(f"package: {root}")
         variants_phase(args.seed)
+        print(smi)
+        return 0
+    if args.etl_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as etl_tmp:
+            etl_phase(args.seed, Path(etl_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -6213,7 +6517,12 @@ def main(argv=None) -> int:
     variants = variants_phase(args.seed)
     assert {r["name"] for r in results} >= set(variants["launches"]), sorted(variants["launches"])
 
-    # ---- 14. results ------------------------------------------------------
+    # ---- 14. the offline ETL at a full event's size, its graphs served ------------
+    etl = etl_phase(args.seed, tmp)
+    results.append(etl["result"])
+    assert {r["name"] for r in results} >= set(etl["serve_launches"]), sorted(etl["serve_launches"])
+
+    # ---- 15. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -6223,6 +6532,7 @@ def main(argv=None) -> int:
             **({"cli_launches": cli["fit_launches"][r["name"]]} if r["name"] in cli["fit_launches"] else {}),
             **({"pipeline_launches": pipe["launches"][r["name"]]} if r["name"] in pipe["launches"] else {}),
             **({"variants_launches": variants["launches"][r["name"]]} if r["name"] in variants["launches"] else {}),
+            **({"etl_launches": etl["serve_launches"][r["name"]]} if r["name"] in etl["serve_launches"] else {}),
         }
         for r in results
     ]

@@ -26,6 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (
     "fused_relational", "fused_relational_bf16", "csr_segment", "pairwise_topk",
     "cc_neighbors", "banded_topk", "ivf_probe", "pairwise_topk_split", "fused_relational_wide",
+    "edge_join",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -131,3 +132,4 @@ def stream_ptr(device) -> ctypes.c_void_p:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+D = ctypes.c_double

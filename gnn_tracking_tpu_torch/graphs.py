@@ -101,11 +101,14 @@ class EventGraph:
         pt: Any = None,
         eta: Any = None,
         reconstructable: Any = None,
+        layer: Any = None,
+        sector: Any = None,
+        true_edge_index: Any = None,
         extras: dict[str, Any] | None = None,
         dtype: torch.dtype = torch.float32,
     ) -> "EventGraph":
         """Build an unmasked graph from host arrays (CPU tensors); node
-        fields not given are zeros."""
+        fields not given are zeros, and so are the true edges."""
         x = torch.as_tensor(np.asarray(x), dtype=dtype)
         n = x.shape[0]
         if edge_index is None:
@@ -123,10 +126,14 @@ class EventGraph:
             else torch.as_tensor(np.asarray(particle_id), dtype=torch.int64)
         )
 
-        def node_field(v):
+        def node_field(v, field_dtype=dtype):
             if v is None:
-                return torch.zeros(n, dtype=dtype)
-            return torch.as_tensor(np.asarray(v), dtype=dtype)
+                return torch.zeros(n, dtype=field_dtype)
+            return torch.as_tensor(np.asarray(v), dtype=field_dtype)
+
+        if true_edge_index is None:
+            true_edge_index = np.zeros((2, 0), dtype=np.int32)
+        true_edge_index = torch.as_tensor(np.asarray(true_edge_index), dtype=torch.int32)
 
         return cls(
             x=x,
@@ -135,8 +142,8 @@ class EventGraph:
             eta=node_field(eta),
             reconstructable=node_field(reconstructable),
             node_mask=torch.ones(n, dtype=torch.bool),
-            layer=torch.zeros(n, dtype=torch.int32),
-            sector=torch.zeros(n, dtype=torch.int32),
+            layer=node_field(layer, torch.int32),
+            sector=node_field(sector, torch.int32),
             batch=torch.zeros(n, dtype=torch.int32),
             edge_index=edge_index,
             edge_attr=edge_attr,
@@ -146,8 +153,8 @@ class EventGraph:
                 else torch.as_tensor(np.asarray(y)).to(torch.bool)
             ),
             edge_mask=torch.ones(e, dtype=torch.bool),
-            true_edge_index=torch.zeros((2, 0), dtype=torch.int32),
-            true_edge_mask=torch.zeros(0, dtype=torch.bool),
+            true_edge_index=true_edge_index,
+            true_edge_mask=torch.ones(true_edge_index.shape[1], dtype=torch.bool),
             extras={
                 k: torch.as_tensor(np.asarray(v)) for k, v in (extras or {}).items()
             },
