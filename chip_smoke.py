@@ -9,6 +9,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py --band-only [--package-root DIR] [--band-digests FILE]
     python3 chip_smoke.py --variants-only   # phase 13 alone
     python3 chip_smoke.py --etl-only        # phase 14 alone
+    python3 chip_smoke.py --drivers-only    # phase 15 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -291,13 +292,36 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    on the 32-sector graphs of the full event, then ``predict_dir`` of its
    ``checkpoint_best.pt`` over the 32 (labels equal to the plain path's);
    rows #1, #2, #9, #10, #12 and #16 must launch on that path;
-15. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+15. the real-data training drivers on a copy of the vendored TrackML event
+   (``drivers_phase``): ``scripts.train_multievent.main`` with the accuracy
+   drill's split (22 variants: 16 train, 2 selection, 4 report) at 2 EC and
+   3 TC epochs with the cosine chain (clip by global norm, then Adam), and
+   ``scripts.train_trackml.main`` with 4 sectors (1 test, 1 selection),
+   stages A, B and C at 2 epochs each, both on the card (``build_data``'s
+   join included), each stage's wall time logged; their figures finite and
+   in range; then rows #1 / #2 at the drivers' widths (``DRIVER_WIDTHS``:
+   K = 48, H = 48, Fo = 16 and K = 96, H = 64, Fo = 32) on a variant's edge
+   count against their plain versions (``width_checks``), step 0 of both
+   recipes' models on a variant with their gradients through the kernels
+   against the plain path's (``compare_grads``; the TC's held to a float64
+   evaluation beside the plain path's, ``compare_grads_f64``: its loss is
+   translation invariant in the latent, so a bias gradient is exactly zero
+   and rounding on both paths), and the TC model with trained weights
+   (``DRIVER_TRAINED``, a selected model of the drill) scanned on the
+   selection variants (double majority above 0.5) and served on a report
+   variant (more than one cluster): its latent within 1e-4 of the plain
+   path's, DBSCAN on the kernels' latent equal to the plain path's and to
+   the served labels (at the latent's norm, ~1e4, the two paths' rounding
+   exceeds eps, so DBSCAN is held on one latent).
+   Rows #1, #2, #9, #10,
+   #12, #13, #16 and ``edge_join`` must launch in the two ``main`` runs;
+16. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
    kernels of phase 12's path with ``pipeline_launches``, of phase
-   13's with ``variants_launches`` and of phase 14's served path with
-   ``etl_launches``; ``edge_join``'s ``launches`` are phase 14's
-   ``build_graphs`` calls), the ``nvidia-smi`` name/power line, and last
-   the device JSON line.
+   13's with ``variants_launches``, of phase 14's served path with
+   ``etl_launches`` and of phase 15's with ``drivers_launches``;
+   ``edge_join``'s ``launches`` are phase 14's ``build_graphs`` calls), the
+   ``nvidia-smi`` name/power line, and last the device JSON line.
 
 ``--segment-sum-only`` builds, runs ``segment_sum_timings`` and stops;
 ``--relational-bwd-only`` builds, runs ``relational_bwd_timings`` (row #2
@@ -347,7 +371,8 @@ output's digest) and writes FILE, or holds the digests bitwise against
 FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, runs ``tc_cli_phase`` (phase 11) and stops;
 ``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops;
 ``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops;
-``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops. ``--wide-only``
+``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops; ``--drivers-only``
+builds, runs ``drivers_phase`` (phase 15) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -6006,6 +6031,265 @@ def etl_phase(seed: int, tmp: Path) -> dict:
     return {"result": entry, "serve_launches": serve_launches, "summary": summary}
 
 
+# the real-data training drivers (phase 15)
+#: the kernels of phase 15's path, by the module attribute that launches each (edge_join: build_data's join)
+DRIVER_KERNELS = {
+    **TC_CLI_KERNELS,
+    "pairwise_topk": ("pairwise_topk", "pairwise_topk"),
+    "edge_join": ("edge_join", "edge_join"),
+}
+#: train_multievent at the accuracy drill's split (16 train, 2 selection, 4 report variants), cut to a few epochs
+DRIVER_MULTIEVENT = ["--n-events", "22", "--n-select", "2", "--n-val", "4", "--epochs-ec", "2", "--epochs-tc", "3",
+                     "--tc-cosine", "--device", "cuda"]
+#: train_trackml's sector split with every stage, cut to a few epochs
+DRIVER_TRACKML = ["--n-sectors", "4", "--holdout", "1", "--select-holdout", "1", "--epochs-ec", "2",
+                  "--epochs-ml", "2", "--epochs-tc", "2", "--tc-cosine", "--device", "cuda"]
+#: rows #1 / #2 at the drivers' widths, (Fx, Fe, H, Fo): the TC recipe's interaction networks
+#: (PerfectECGraphTCN h 16, e 16, hidden 48: K = 48) and the EC's (ECForGraphTCN 32, 32, hidden 64: K = 96)
+DRIVER_WIDTHS = {"TC (K 48, H 48, Fo 16)": (16, 16, 48, 16), "EC (K 96, H 64, Fo 32)": (32, 32, 64, 32)}
+#: trained weights of the drill's TC model (its selected checkpoint, ``params/...`` in JAX's layout), so the
+#: served latents form clusters; written by ``tests/drill_parity.py export``
+DRIVER_TRAINED = REPO / "tests" / "test_data" / "tc_drill_selected.npz"
+
+
+def trained_tc_params(path: Path) -> dict:
+    """The ``params/...`` entries of ``path`` as a nested tree (``load_jax_params``' input)."""
+    tree: dict = {}
+    with np.load(path) as f:
+        for key in f.files:
+            if key.startswith("params/"):
+                *parents, leaf = key.split("/")[1:]
+                node = tree
+                for part in parents:
+                    node = node.setdefault(part, {})
+                node[leaf] = f[key]
+    return tree
+
+
+@contextlib.contextmanager
+def timed_functions(targets: list[tuple], record: dict):
+    """Each ``(module, name)`` function replaced by a wrapper that adds its
+    synchronised wall time to ``record[name]`` (restored after the block)."""
+    import torch
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                record[name] = record.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def drivers_phase(seed: int, tmp: Path) -> dict:
+    """Phase 15 (see the module docstring). Returns the launches of
+    ``DRIVER_KERNELS`` in the two drivers' ``main`` (counts set to 0 just
+    before the first, read just after the second) and the phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.inference import TrackingPredictor
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.ops.dbscan import dbscan
+    from gnn_tracking_tpu_torch.scripts import train_multievent as me
+    from gnn_tracking_tpu_torch.scripts import train_trackml as tt
+    from gnn_tracking_tpu_torch.training.module import ECModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, load_graph
+    from gnn_tracking_tpu_torch.utils.param_convert import load_jax_params
+
+    card = card_line()
+
+    def say(msg: str) -> None:
+        log(f"{msg} [{card}]")
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in DRIVER_KERNELS.values()}}
+
+    def counts() -> dict:
+        return {k: getattr(ops[m], f).launches for k, (m, f) in DRIVER_KERNELS.items()}
+
+    t_phase = time.perf_counter()
+    raw = tmp / "drivers_raw"
+    raw.mkdir()
+    for name in ETL_CSVS:
+        shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw / name)
+
+    # ---- both drivers through their main, on the card; the stages timed, the kernels counted
+    built = {}
+    real_tc_module = me.tc_module
+
+    def tc_module(*args, **kwargs):  # the multievent TC module, kept for the checks below
+        built["tc"] = real_tc_module(*args, **kwargs)
+        epoch_end = built["tc"].on_validation_epoch_end
+
+        def on_validation_epoch_end():
+            foms = epoch_end()
+            built.setdefault("foms", []).append(foms)
+            return foms
+
+        built["tc"].on_validation_epoch_end = on_validation_epoch_end
+        return built["tc"]
+
+    stage_s = {"multievent": {}, "trackml": {}}
+    results = {}
+    for m, f in DRIVER_KERNELS.values():
+        getattr(ops[m], f).launches = 0
+    me.tc_module = tc_module
+    try:
+        with timed_functions([(me, "build_data"), (me, "make_event_dirs"), (me, "stage_ec"), (me, "stage_tc")],
+                             stage_s["multievent"]):
+            t0 = time.perf_counter()
+            results["multievent"] = me.main(["--workdir", str(tmp / "drivers_me"), "--trackml-dir", str(raw),
+                                             "--json", str(tmp / "drivers_me.json"), *DRIVER_MULTIEVENT])
+            stage_s["multievent"]["main"] = time.perf_counter() - t0
+    finally:
+        me.tc_module = real_tc_module
+    with timed_functions([(tt, "build_data"), (tt, "split_sectors"), (tt, "stage_ec"), (tt, "stage_ml"),
+                          (tt, "stage_tc")], stage_s["trackml"]):
+        t0 = time.perf_counter()
+        results["trackml"] = tt.main(["--workdir", str(tmp / "drivers_tt"), "--trackml-dir", str(raw),
+                                      "--json", str(tmp / "drivers_tt.json"), *DRIVER_TRACKML])
+        stage_s["trackml"]["main"] = time.perf_counter() - t0
+    launches = counts()
+    for name, n in launches.items():
+        assert n > 0, f"the drivers' path never launched {name}"
+
+    # ---- what came out: the drivers' keys, finite figures in range
+    me_res, tt_res = results["multievent"], results["trackml"]
+    assert json.loads((tmp / "drivers_me.json").read_text()).keys() == me_res.keys()
+    for i in range(4):
+        for tag in ("last", "selected"):
+            v = me_res[f"tc.test.ev{i}.{tag}.dm_pt0.9"]
+            assert 0.0 <= v <= 1.0, (i, tag, v)
+    for res in (me_res, tt_res):
+        assert 0.5 < res["ec.roc_auc"] <= 1.0, res["ec.roc_auc"]
+        assert 0.0 <= res["tc.select.trk.double_majority_pt0.9"] <= 1.0
+    for k in (8, 12, 16):
+        for fig in ("edge_purity", "true_edge_efficiency"):
+            assert 0.0 < tt_res[f"ml.{fig}_k{k}"] <= 1.0, (k, fig, tt_res[f"ml.{fig}_k{k}"])
+    assert {"tc.test.last.trk.double_majority_pt0.9", "tc.test.selected.trk.double_majority_pt0.9"} <= tt_res.keys()
+    assert tt_res["graph.n_edges"] > 0 and len(built["foms"]) == 3 + 2 * 4  # 3 selections, 4 events twice
+
+    # ---- rows #1 / #2 at the drivers' widths, on the variants' edge count, against their plain versions
+    event = load_graph(tmp / "drivers_me" / "events_train" / "event000.npz", device="cuda").sort_edges_by_target()
+    n_edges = event.num_edges
+    width_checks(seed + 15, {name: ("f32", widths, n_edges) for name, widths in DRIVER_WIDTHS.items()})
+
+    # ---- step-0 gradients of both recipes' models through the kernels against the plain path's;
+    # the TC's also against a float64 evaluation (compare_grads_f64): the condensation loss is
+    # translation invariant in the latent, so the cluster head's bias gradient is exactly zero and
+    # both f32 paths give rounding noise there
+    def step0(module, batch, model=None):
+        model = module.model if model is None else model
+        model.train()
+        model.zero_grad(set_to_none=True)
+        if model is module.model:
+            out, data = module.apply_model(batch)
+        else:
+            data = batch.to(batch.device, dtype=torch.float64)
+            out = model(data)
+        loss, _ = module.get_losses(out, data)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    train_dir = tmp / "drivers_me" / "events_train"
+    ec_in = tt.input_widths(train_dir)
+    ec_model = ECForGraphTCN(*ec_in, interaction_node_dim=32, interaction_edge_dim=32, hidden_dim=64, L_ec=4,
+                                device="cpu", generator=tt.seeded(seed + 15))
+    recipes = {
+        "TC": tt.tc_module(train_dir, 1, h_outdim=4, hidden_dim=48, cosine=True, rng_seed=seed + 15, device="cuda"),
+        "EC": ECModule(model=ec_model, loss_fct=EdgeWeightFocalLoss(alpha=0.25, gamma=2.0), device="cuda"),
+    }
+    grads_summary = {}
+    for name, module in recipes.items():
+        before = counts()
+        gk, lk = step0(module, event)
+        step_launches = {k: v - before[k] for k, v in counts().items()}
+        with plain_path():
+            gp, lp = step0(module, event)
+            if name == "TC":
+                g64, _ = step0(module, event, model=copy.deepcopy(module.model).double())
+        if name == "TC":
+            worst_name, worst, at_floor, no_grad = compare_grads_f64(gk, gp, {k: v.float() for k, v in g64.items()})
+        else:
+            worst_name, worst, at_floor, no_grad, _ = compare_grads(gk, gp)
+        assert not no_grad, no_grad
+        assert step_launches["fused_relational_fwd"] > 0 and step_launches["fused_relational_bwd"] > 0, step_launches
+        assert abs(lk - lp) <= 1e-4 * abs(lp), (name, lk, lp)
+        grads_summary[name] = {"loss": lk, "plain_loss": lp, "worst": worst, "worst_name": worst_name,
+                               "at_floor": at_floor, "launches": step_launches}
+        say(f"drivers: {name} recipe step 0 on event000 ({event.num_nodes} hits, {n_edges} edges): loss {lk:.6f} "
+            f"(plain {lp:.6f}); {len(gk)} parameter gradients agree "
+            + ("within 4x the plain path's error against float64" if name == "TC" else "with the plain path")
+            + f" (worst {worst_name}: {worst:.3e} relative; rounding only: {at_floor or 'none'})")
+
+    # ---- the TC model with trained weights (3 epochs leave one cluster): scanned on the selection
+    # variants, then served on a report variant with labels equal to the plain path's
+    tc = built["tc"]
+    load_jax_params(tc.model, trained_tc_params(DRIVER_TRAINED))
+    select = TrackingDataModule(val={"dirs": [tmp / "drivers_me" / "events_select"]})
+    select.setup("validate")
+    best = Trainer(max_epochs=0, log_dir=tmp / "drivers_trained").validate(tc, loader=select.val_dataloader())
+    assert best["trk.double_majority_pt0.9"] > 0.5, best["trk.double_majority_pt0.9"]
+    predictor = TrackingPredictor(tc.model, eps=best["best_dbscan_eps"],
+                                  min_samples=int(best["best_dbscan_min_samples"]), device="cuda")
+    report = load_graph(tmp / "drivers_me" / "events_val" / "event018.npz", device="cuda")
+    got = predictor.predict(report)
+    assert got["labels"].max() > 0, "served report event: one cluster"
+    # the latent through the kernels and the plain path; then DBSCAN on the kernels' latent through
+    # both (the trained latent reaches norm ~1e4, where the two paths' rounding exceeds eps)
+    graph = report.sort_edges_by_target()
+    tc.model.eval()
+    with torch.no_grad():
+        h_k = tc.model(graph)["H"].float()
+        with plain_path():
+            h_p = tc.model(graph)["H"].float()
+        h_rel = max_rel(h_k, h_p)
+        assert h_rel <= 1e-4, f"trained TC latent against the plain path: {h_rel:.3e}"
+        kw = {"eps": predictor.eps, "min_samples": predictor.min_samples,
+              "max_num_neighbors": predictor.max_num_neighbors, "node_mask": graph.node_mask}
+        labels_k = dbscan(h_k, **kw)
+        with plain_path():
+            labels_p = dbscan(h_k, **kw)
+    assert torch.equal(labels_k, labels_p), (
+        f"served report event: DBSCAN labels differ from the plain path's at {int((labels_k != labels_p).sum())} hits")
+    assert np.array_equal(got["labels"], labels_k[: got["labels"].shape[0]].cpu().numpy()), "served labels differ"
+
+    summary = {"card": card, "launches": launches, "stage_s": stage_s, "step0": grads_summary,
+               "multievent": me_res, "trackml": tt_res, "served_clusters": int(got["labels"].max()) + 1,
+               "trained_select_dm": best["trk.double_majority_pt0.9"], "trained_h_rel": h_rel,
+               "phase_s": time.perf_counter() - t_phase}
+    for driver, parts in stage_s.items():
+        say(f"drivers: {driver} stages " + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items()))
+    say(f"drivers: launches on the path {launches}; multievent ec.roc_auc {me_res['ec.roc_auc']:.4f}, "
+        f"tc.test.last DM {me_res['tc.test.last.dm_pt0.9_mean']:.4f}; trackml ec.roc_auc "
+        f"{tt_res['ec.roc_auc']:.4f}, ml.true_edge_efficiency {tt_res['ml.true_edge_efficiency']:.4f}; "
+        f"trained TC weights: selection DM {best['trk.double_majority_pt0.9']:.4f} (eps {best['best_dbscan_eps']:.4f}, "
+        f"min_samples {int(best['best_dbscan_min_samples'])}), its latent on a report event within {h_rel:.2e} of "
+        f"the plain path's, DBSCAN labels on it equal to the plain path's and the served ones "
+        f"({summary['served_clusters']} clusters); phase {summary['phase_s']:.1f} s")
+    log("drivers: " + json.dumps(summary, default=float))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -6099,6 +6383,9 @@ def main(argv=None) -> int:
     p.add_argument("--etl-only", action="store_true",
                    help="build, run etl_phase (phase 14: the offline ETL at a full TrackML event's size, "
                    "its graphs served) and stop")
+    p.add_argument("--drivers-only", action="store_true",
+                   help="build, run drivers_phase (phase 15: train_multievent and train_trackml through their "
+                   "main on the vendored event, rows #1 / #2 at their widths) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -6250,6 +6537,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as etl_tmp:
             etl_phase(args.seed, Path(etl_tmp))
+        print(smi)
+        return 0
+    if args.drivers_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as drivers_tmp:
+            drivers_phase(args.seed, Path(drivers_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -6522,7 +6815,11 @@ def main(argv=None) -> int:
     results.append(etl["result"])
     assert {r["name"] for r in results} >= set(etl["serve_launches"]), sorted(etl["serve_launches"])
 
-    # ---- 15. results ------------------------------------------------------
+    # ---- 15. the real-data training drivers on the vendored event -------------------
+    drivers = drivers_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(drivers["launches"]), sorted(drivers["launches"])
+
+    # ---- 16. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -6533,6 +6830,7 @@ def main(argv=None) -> int:
             **({"pipeline_launches": pipe["launches"][r["name"]]} if r["name"] in pipe["launches"] else {}),
             **({"variants_launches": variants["launches"][r["name"]]} if r["name"] in variants["launches"] else {}),
             **({"etl_launches": etl["serve_launches"][r["name"]]} if r["name"] in etl["serve_launches"] else {}),
+            **({"drivers_launches": drivers["launches"][r["name"]]} if r["name"] in drivers["launches"] else {}),
         }
         for r in results
     ]

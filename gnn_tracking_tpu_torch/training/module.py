@@ -34,8 +34,13 @@ starts with one of them is frozen. Frozen parameters get no gradient and
 stay out of Adam, so their values are bitwise unchanged, as optax's
 ``set_to_zero`` leaves them.
 
-Not ported (raises ``NotImplementedError``): a custom optimizer, which in
-JAX is an optax transform.
+``optimizer`` takes the port's counterparts of the optax transforms
+(``training/optim.py``: ``adam``, or ``chain(clip_by_global_norm(...),
+adam(...))``, the rate a float or a schedule such as
+``cosine_decay_schedule``), built over the trainable parameters at the
+first step (``lr`` is then unused, as in JAX); anything else raises
+``NotImplementedError``. Without one, the optimizer is the plain
+``torch.optim.Adam`` at ``lr``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from gnn_tracking_tpu_torch.metrics.binary_classification import (
     get_maximized_bcs,
     get_roc_auc_scores,
 )
+from gnn_tracking_tpu_torch.training.optim import as_chain
 from gnn_tracking_tpu_torch.training.precision import get_policy
 from gnn_tracking_tpu_torch.utils.device import resolve_device
 from gnn_tracking_tpu_torch.utils.dictionaries import add_key_suffix
@@ -87,9 +93,8 @@ class TrackingModule:
     ):
         self.device = resolve_device(device)
         self.policy = get_policy(precision)
-        if optimizer is not None:
-            msg = "a custom optimizer (an optax transform in JAX) is not ported"
-            raise NotImplementedError(msg)
+        #: the optimizer's description (``training/optim.py``), or None for plain Adam at ``lr``
+        self.tx = None if optimizer is None else as_chain(optimizer)
         self.model = model.to(self.device)
         self.preproc = None if preproc is None else preproc.to(self.device).eval()
         #: the JAX paths of the frozen parameters
@@ -133,7 +138,10 @@ class TrackingModule:
             # EC cut) are skipped by torch's Adam; optax updates them by
             # exactly zero (0 / (sqrt(0) + eps)). The values agree.
             trainable = [p for p in self._named_parameters().values() if p.requires_grad]
-            self.optimizer = torch.optim.Adam(trainable, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
+            if self.tx is not None:
+                self.optimizer = self.tx.build(trainable)
+            else:
+                self.optimizer = torch.optim.Adam(trainable, lr=self.lr, betas=(0.9, 0.999), eps=1e-8)
 
     def preprocess(self, data: EventGraph, *, cast: bool = False) -> EventGraph:
         """``data`` through ``preproc`` (a graph sorted by target), or as it
@@ -147,10 +155,15 @@ class TrackingModule:
         return functional_call(self.preproc, params, (data,)).sort_edges_by_target()
 
     @torch.no_grad()
-    def forward(self, data: EventGraph) -> dict[str, Any]:
-        """Eval-mode forward."""
+    def forward(self, data: EventGraph, params: dict[str, torch.Tensor] | None = None) -> dict[str, Any]:
+        """Eval-mode forward; ``params`` (name -> tensor, e.g. the trainer's
+        ``ema_params``) replaces the model's parameters for the call, as
+        ``Trainer.validate(params=...)`` does."""
         self.model.eval()
-        return self.model(self.preprocess(data.to(self.device)))
+        data = self.preprocess(data.to(self.device))
+        if params is None:
+            return self.model(data)
+        return functional_call(self.model, params, (data,))
 
     __call__ = forward
 

@@ -10,7 +10,8 @@ exponential moving average of the parameters after each step when
 ``ema * d + p * (1 - d)``, as in JAX), validation every
 ``val_every_n_epochs`` epochs and always after the last, on the EMA weights
 when they exist, and a checkpoint of the raw weights in the serving format
-(``training.restore.save_checkpoint``, with Adam's state and the step), so
+(``training.restore.save_checkpoint``, with Adam's state, the update count
+of an optimizer chain (``training/optim.py``) among it, and the step), so
 ``TrackingPredictor(<checkpoint>)`` serves it and a later run resumes from
 it; ``checkpoint_<step>_meta.json`` beside it holds the step and the config
 that ``fit`` was given. With ``monitor``, each validation whose metric
