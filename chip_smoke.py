@@ -10,6 +10,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py --variants-only   # phase 13 alone
     python3 chip_smoke.py --etl-only        # phase 14 alone
     python3 chip_smoke.py --drivers-only    # phase 15 alone
+    python3 chip_smoke.py --analysis-only   # phase 16 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -315,11 +316,35 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    exceeds eps, so DBSCAN is held on one latent).
    Rows #1, #2, #9, #10,
    #12, #13, #16 and ``edge_join`` must launch in the two ``main`` runs;
-16. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+16. the analysis and metrics layer (``analysis_phase``): (a) on
+   etl-trackml-110k at 1 sector (phase 14's point cloud, or made again),
+   ``get_all_graph_construction_stats`` and ``collect_all_ec_stats`` at
+   ``ANALYSIS_THRESHOLDS`` with the drivers' ``ECForGraphTCN`` (32 / 32,
+   hidden 64, L_ec 4) after ``ANALYSIS_EC_EPOCHS`` epochs of
+   ``train_multievent``'s stage-A recipe on the drill's training variants
+   (W within 1e-4 of its largest magnitude of the plain path's; ROC AUC on
+   the event above 0.8, the study's best MCC above 0.5), the track records
+   at the cut 0.5, and the track
+   records with ``ANALYSIS_TRUE_EDGE_DROP`` of the true edges cut (at
+   least 200 breadth-first searches), each timed on the card (with the
+   connected components' sweep counts) and equal to the CPU port's on the
+   same graph and the card's W (integers equal, floats within 1e-12); (b)
+   the drill's selected TC weights (``DRIVER_TRAINED``) on the 4 report
+   variants at the (eps, min_samples) their scan of the selection variants
+   picks: ``DBSCANPerformanceDetails``, ``tracking_metrics_vs_pt`` /
+   ``_vs_eta`` and every ``common_metrics`` entry, equal to the CPU port's
+   on the kernels' latent; (c) ``MLModule`` with
+   ``OldGraphConstructionHingeEmbeddingLoss`` (row #12 at k = 256) on
+   phase 7's 32,768-hit cloud and model: step 0's gradients against the
+   plain path (``compare_grads``), then ``ANALYSIS_ML_STEPS`` timed steps
+   after ``ML_WARMUP``. Rows #1, #9, #10, #12 and #16 must launch on the
+   phase's path;
+17. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
    kernels of phase 12's path with ``pipeline_launches``, of phase
    13's with ``variants_launches``, of phase 14's served path with
-   ``etl_launches`` and of phase 15's with ``drivers_launches``;
+   ``etl_launches``, of phase 15's with ``drivers_launches`` and of phase
+   16's with ``analysis_launches``;
    ``edge_join``'s ``launches`` are phase 14's ``build_graphs`` calls), the
    ``nvidia-smi`` name/power line, and last the device JSON line.
 
@@ -372,7 +397,8 @@ FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, run
 ``--pipeline-only`` builds, runs ``pipeline_phase`` (phase 12) and stops;
 ``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops;
 ``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops; ``--drivers-only``
-builds, runs ``drivers_phase`` (phase 15) and stops. ``--wide-only``
+builds, runs ``drivers_phase`` (phase 15) and stops; ``--analysis-only`` builds,
+runs ``analysis_phase`` (phase 16) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -6290,6 +6316,384 @@ def drivers_phase(seed: int, tmp: Path) -> dict:
     return summary
 
 
+# the analysis and metrics layer (phase 16)
+#: the kernels of phase 16's path, by the module attribute that launches each
+ANALYSIS_KERNELS = {k: TC_CLI_KERNELS[k] for k in ("fused_relational_fwd", "sorted_segment_sum", "sorted_gather",
+                                                   "pairwise_topk_filter", "cc_neighbors")}
+#: edge-classifier thresholds of (a)'s study
+ANALYSIS_THRESHOLDS = (0.1, 0.3, 0.5, 0.7, 0.9)
+#: epochs of the drivers' EC recipe (stage A of train_multievent) over the drill's 16 training variants
+ANALYSIS_EC_EPOCHS = 6
+#: the share of the pile-up event's true edges that (a)'s breadth-first-search run cuts
+ANALYSIS_TRUE_EDGE_DROP = 0.3
+#: bins of (b)'s binned tracking metrics
+ANALYSIS_PT_BINS = [0.0, 0.5, 0.9, 1.5, 3.0, 10.0]
+ANALYSIS_ETA_BINS = [-4.0, -2.0, -1.0, 0.0, 1.0, 2.0, 4.0]
+#: (c): timed ML steps with the legacy hinge loss, after ML_WARMUP steps
+ANALYSIS_ML_STEPS = 10
+
+
+def assert_same_figures(what: str, got: dict, want: dict) -> float:
+    """Figures of the card's run (``got``) against the CPU port's
+    (``want``): the same keys in the same order, integers equal, floats
+    within 1e-12 relative, NaN where NaN. Returns the largest relative
+    difference."""
+    assert list(got) == list(want), (what, list(got), list(want))
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, (int, np.integer)) and not isinstance(w, bool):
+            assert g == w, f"{what}: {k} {g} != {w}"
+        elif math.isnan(w):
+            assert math.isnan(g), f"{what}: {k} {g} != NaN"
+        elif g != w:
+            rel = abs(g - w) / abs(w) if w else math.inf
+            assert rel <= 1e-12, f"{what}: {k} {g} != {w}"
+            worst = max(worst, rel)
+    return worst
+
+
+def assert_same_table(what: str, got: dict, want: dict) -> float:
+    """A column table of the card's run against the CPU port's: the same
+    columns, dtypes and lengths; integer columns equal, float columns within
+    1e-12 relative (NaN where NaN). Returns the largest relative
+    difference."""
+    assert list(got) == list(want), (what, list(got), list(want))
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k]
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, k, g.dtype, w.dtype, g.shape, w.shape)
+        if w.dtype.kind != "f":
+            assert np.array_equal(g, w), f"{what}: column {k} differs"
+            continue
+        assert np.array_equal(np.isnan(g), np.isnan(w)) and np.array_equal(np.isinf(g), np.isinf(w)), (what, k)
+        fin = np.isfinite(w)
+        diff = np.abs(g[fin] - w[fin])
+        scale = np.abs(w[fin])
+        assert (diff <= 1e-12 * scale).all(), f"{what}: column {k} beyond 1e-12 relative"
+        if diff.size and scale.max() > 0:
+            worst = max(worst, float((diff / np.where(scale > 0, scale, 1)).max()))
+    return worst
+
+
+def analysis_phase(seed: int, tmp: Path) -> dict:
+    """Phase 16 (see the module docstring). Returns the launches of
+    ``ANALYSIS_KERNELS`` on the phase's path (counts set to 0 after the
+    set-up, just before (a), read just after (c); the CPU port's runs and
+    step 0 on the plain path launch nothing) and the phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.analysis import graphs as analysis_graphs
+    from gnn_tracking_tpu_torch.analysis.edge_classification import collect_all_ec_stats
+    from gnn_tracking_tpu_torch.graph_construction.graph_builder import GraphBuilder
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.losses.ec import EdgeWeightFocalLoss
+    from gnn_tracking_tpu_torch.losses.metric_learning import OldGraphConstructionHingeEmbeddingLoss
+    from gnn_tracking_tpu_torch.metrics.binary_classification import roc_auc_score
+    from gnn_tracking_tpu_torch.metrics.cluster_metrics import (
+        common_metrics,
+        tracking_metrics_vs_eta,
+        tracking_metrics_vs_pt,
+    )
+    from gnn_tracking_tpu_torch.models.edge_classifier import ECForGraphTCN
+    from gnn_tracking_tpu_torch.models.graph_construction import GraphConstructionFCNN
+    from gnn_tracking_tpu_torch.ops import csr_segment
+    from gnn_tracking_tpu_torch.postprocessing.dbscanscanner import DBSCANPerformanceDetails
+    from gnn_tracking_tpu_torch.preprocessing import build_point_clouds
+    from gnn_tracking_tpu_torch.scripts import train_multievent as me
+    from gnn_tracking_tpu_torch.scripts import train_trackml as tt
+    from gnn_tracking_tpu_torch.training.module import DEFAULT_RNG_SEED, ECModule, MLModule
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, load_graph
+    from gnn_tracking_tpu_torch.utils.param_convert import load_jax_params
+
+    card = card_line()
+
+    def say(msg: str) -> None:
+        log(f"{msg} [{card}]")
+
+    def sync() -> float:
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in ANALYSIS_KERNELS.values()}}
+
+    def counts() -> dict:
+        return {k: getattr(ops[m], f).launches for k, (m, f) in ANALYSIS_KERNELS.items()}
+
+    t_phase = time.perf_counter()
+    summary = {"card": card, "s": {}}
+    seconds = summary["s"]
+
+    # ---- set-up: the drill's 22 variants of the vendored event (train_multievent's split), the
+    # drivers' EC trained on them, etl-trackml-110k at 1 sector (phase 14's point cloud where it ran)
+    raw = tmp / "analysis_raw"
+    raw.mkdir()
+    for name in ETL_CSVS:
+        shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw / name)
+    t0 = time.perf_counter()
+    _, graph_dir, _ = tt.build_data(raw, tmp / "analysis_drill", device="cuda")
+    train_dir, val_dir, sel_dir = me.make_event_dirs(sorted(graph_dir.glob("*.npz"))[0], tmp / "analysis_drill",
+                                                     22, 0.9, n_select=2, n_val=4)
+    pcs = tmp / "etl_pc_pileup_1"
+    if not pcs.is_dir():
+        make_pileup(seed, raw, tmp / "analysis_raw_110k")
+        build_point_clouds.main(["--indir", str(tmp / "analysis_raw_110k"), "--outdir", str(pcs),
+                                 "--detector-config", str(raw / "detectors.csv.gz"), "--n-sectors", "1",
+                                 "--pixel-only", "--add-true-edges"])
+    gb = GraphBuilder(pcs, tmp / "analysis_unused", device="cuda")
+    pc = load_graph(sorted(pcs.glob("*.npz"))[0], device="cpu")
+    event = gb.to_graph(pc, *gb.edges_from_join(gb.join(pc), pc)[:3]).to("cuda").sort_edges_by_target()
+    node_in, edge_in = tt.input_widths(train_dir)
+    assert (event.x.shape[1], event.edge_attr.shape[1]) == (node_in, edge_in)
+    ec_model = ECForGraphTCN(node_in, edge_in, interaction_node_dim=32, interaction_edge_dim=32, hidden_dim=64,
+                             L_ec=4, device="cpu", generator=tt.seeded(DEFAULT_RNG_SEED))
+    ec_module = ECModule(model=ec_model, loss_fct=EdgeWeightFocalLoss(alpha=0.25, gamma=2.0), lr=2e-3,
+                         device="cuda")
+    ec_fit = Trainer(max_epochs=ANALYSIS_EC_EPOCHS, log_dir=tmp / "analysis_ec", print_validation_results=False).fit(
+        ec_module, TrackingDataModule(train={"dirs": [train_dir], "batch_size": 1}, val={"dirs": [val_dir]}))
+    assert ec_fit["roc_auc"] > 0.9, ec_fit["roc_auc"]
+    # the drill's selected TC weights, and the (eps, min_samples) their scan selects, as phase 15 serves them
+    tc = tt.tc_module(train_dir, 1, h_outdim=4, hidden_dim=48, cosine=True, device="cuda")
+    load_jax_params(tc.model, trained_tc_params(DRIVER_TRAINED))
+    select = TrackingDataModule(val={"dirs": [sel_dir]})
+    select.setup("validate")
+    best = Trainer(max_epochs=0, log_dir=tmp / "analysis_tc").validate(tc, loader=select.val_dataloader())
+    eps, min_samples = best["best_dbscan_eps"], int(best["best_dbscan_min_samples"])
+    seconds["set_up"] = sync() - t0
+    summary["event"] = {"hits": event.num_nodes, "edges": event.num_edges, "true_edges": int(event.y.sum())}
+    say(f"analysis: set-up {seconds['set_up']:.2f} s: etl-trackml-110k at 1 sector ({event.num_nodes} hits, "
+        f"{event.num_edges} edges); the drivers' EC after {ANALYSIS_EC_EPOCHS} epochs of stage A's recipe "
+        f"(ROC AUC {ec_fit['roc_auc']:.4f} on the report variants); the drill's TC weights select eps {eps:.4f}, "
+        f"min_samples {min_samples} (DM {best['trk.double_majority_pt0.9']:.4f})")
+
+    for m, f in ANALYSIS_KERNELS.values():
+        getattr(ops[m], f).launches = 0
+
+    # ---- (a) graph-construction and EC statistics on the full event, card and CPU port
+    event_cpu = event.to("cpu")
+    sweeps: list[int] = []
+    real_cc = analysis_graphs.connected_components
+
+    def counted_cc(*args, **kwargs):
+        out = real_cc(*args, **kwargs)
+        sweeps.append(real_cc.sweeps)
+        return out
+
+    analysis_graphs.connected_components = counted_cc
+    try:
+        t0 = sync()
+        stats = analysis_graphs.get_all_graph_construction_stats(event)
+        seconds["graph_stats"] = sync() - t0
+        summary["cc_sweeps"] = {"segments": sweeps[0], "components": sweeps[1]}
+        t0 = time.perf_counter()
+        stats_cpu = analysis_graphs.get_all_graph_construction_stats(event_cpu)
+        seconds["graph_stats_cpu"] = time.perf_counter() - t0
+    finally:
+        analysis_graphs.connected_components = real_cc
+    worst = {"graph_stats": assert_same_figures("graph-construction stats", stats, stats_cpu)}
+    assert stats["n_edges"] == event.num_edges and 0 < stats["frac_segment50"] <= 1, stats
+
+    ec_model.eval()
+    w_seen = []
+
+    def model_fn(d):
+        with torch.no_grad():
+            out = ec_model(d)
+        w_seen.append(out["W"])
+        return out
+
+    before = counts()
+    t0 = sync()
+    ec_stats = collect_all_ec_stats(model_fn, [event], ANALYSIS_THRESHOLDS)
+    seconds["ec_stats"] = sync() - t0
+    ec_launches = {k: v - before[k] for k, v in counts().items()}
+    for name in ("fused_relational_fwd", "sorted_segment_sum", "sorted_gather"):
+        assert ec_launches[name] > 0, f"the EC study never launched {name}"
+    w_cpu = w_seen[0].cpu()
+    t0 = time.perf_counter()
+    ec_stats_cpu = collect_all_ec_stats(lambda d: {"W": w_cpu}, [event_cpu], ANALYSIS_THRESHOLDS)
+    seconds["ec_stats_cpu"] = time.perf_counter() - t0
+    worst["ec_stats"] = assert_same_table("EC study", ec_stats, ec_stats_cpu)
+    # the kernels' W at the event's size against the plain path's, as width_checks holds row #1; the
+    # EC's own endpoint gathers (row #10, outside the fused op) take their plain version too
+    before = counts()
+    real_gather = csr_segment._gather
+    csr_segment._gather = csr_segment.sorted_gather_plain
+    try:
+        with plain_path(), torch.no_grad():
+            w_plain = ec_model(event)["W"]
+    finally:
+        csr_segment._gather = real_gather
+    assert counts() == before, f"the plain path's W launched kernels: {before} -> {counts()}"
+    w_err = float((w_seen[0] - w_plain).abs().max())
+    w_scale = float(w_seen[0].abs().max())
+    assert w_err <= 1e-4 * w_scale, f"the EC's W on the event: {w_err} from the plain path's (scale {w_scale})"
+    del w_plain
+    auc = roc_auc_score(y_true=event.y, y_score=w_seen[0], mask=event.edge_mask)
+    assert auc > 0.8, f"the EC's W does not separate the event's edges: ROC AUC {auc}"
+    # trained where 29 % of the edges are true, the EC's scores sit low on the event's 2 %: its
+    # separation is held at the study's best threshold, not at 0.5
+    mcc = float(np.max(ec_stats["MCC"]))
+    assert mcc > 0.5, f"the EC's W does not separate the event's edges: MCC {list(ec_stats['MCC'])}"
+    t0 = sync()
+    tgi = analysis_graphs.get_track_graph_info_from_data(event, w=w_seen[0], threshold=0.5)
+    seconds["track_info_cut"] = sync() - t0
+    tgi_cpu = analysis_graphs.get_track_graph_info_from_data(event_cpu, w=w_cpu, threshold=0.5)
+    worst["track_info_cut"] = assert_same_table("track-graph records at the cut 0.5", tgi, tgi_cpu)
+    # the breadth-first search at scale: a share of the true edges cut (both directions of each, by a
+    # symmetric draw a pair), the false edges kept, so a split track's segments share a component
+    u, v = event.edge_index.long()
+    r = torch.rand(event.num_nodes, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed + 90))
+    w_drop = (~(event.y.bool() & ((r[u] + r[v]) % 1.0 < ANALYSIS_TRUE_EDGE_DROP))).double()
+    del u, v
+    t0 = sync()
+    tgi_drop = analysis_graphs.get_track_graph_info_from_data(event, w=w_drop, threshold=0.5)
+    seconds["track_info_drop"] = sync() - t0
+    t0 = time.perf_counter()
+    tgi_drop_cpu = analysis_graphs.get_track_graph_info_from_data(event_cpu, w=w_drop.cpu(), threshold=0.5)
+    seconds["track_info_drop_cpu"] = time.perf_counter() - t0
+    worst["track_info_drop"] = assert_same_table("track-graph records with true edges cut", tgi_drop, tgi_drop_cpu)
+    dist = tgi_drop["distance_largest_segments"]
+    searched = (tgi_drop["n_segments"] > 1) & np.isfinite(dist)
+    assert searched.sum() >= 200, f"only {searched.sum()} breadth-first searches"
+    study = ("threshold", "TPR", "FPR", "MCC", "frac_segment50", "frac_segment75", "frac_segment100", "n_segments")
+    summary |= {"graph_stats": stats, "ec_roc_auc": auc, "ec_stats": {k: ec_stats[k].tolist() for k in study},
+                "ec_launches": ec_launches,
+                "track_info_cut": {"particles": len(tgi["pid"]),
+                                   "multi_segment": int((tgi["n_segments"] > 1).sum()),
+                                   "inf": int(np.isinf(tgi["distance_largest_segments"]).sum()),
+                                   "max_finite_distance": float(np.max(
+                                       tgi["distance_largest_segments"][np.isfinite(
+                                           tgi["distance_largest_segments"])], initial=0))},
+                "track_info_drop": {"particles": len(tgi_drop["pid"]),
+                                    "multi_segment": int((tgi_drop["n_segments"] > 1).sum()),
+                                    "bfs_queries": int(searched.sum()),
+                                    "inf": int(np.isinf(dist).sum()),
+                                    "distances": {int(d): int((dist[searched] == d).sum())
+                                                  for d in np.unique(dist[searched])}},
+                "ec_w_err": w_err}
+    say(f"analysis (a): get_all_graph_construction_stats on {event.num_edges} edges: {seconds['graph_stats']:.3f} s "
+        f"on the card (CC sweeps: segments {sweeps[0]}, components {sweeps[1]}), "
+        f"{seconds['graph_stats_cpu']:.3f} s on the CPU port, equal figures (worst {worst['graph_stats']:.1e}); "
+        f"frac_segment50 {stats['frac_segment50']:.4f}, n_segments {stats['n_segments']:.4f}, orphans "
+        f"{stats['n_orphan_total']}")
+    say(f"analysis (a): collect_all_ec_stats at {len(ANALYSIS_THRESHOLDS)} thresholds: {seconds['ec_stats']:.3f} s "
+        f"on the card (launches {ec_launches}), {seconds['ec_stats_cpu']:.3f} s on the CPU port fed the card's W, "
+        f"equal columns (worst {worst['ec_stats']:.1e}); W within {w_err:.2e} of the plain path's (largest "
+        f"{w_scale:.4f}); the EC's ROC AUC on the event {auc:.4f}, MCC {[round(float(v), 4) for v in ec_stats['MCC']]}, "
+        f"frac_segment50 {[round(float(v), 4) for v in ec_stats['frac_segment50']]}; the track records at 0.5 "
+        f"({seconds['track_info_cut']:.3f} s) equal: {summary['track_info_cut']}")
+    say(f"analysis (a): get_track_graph_info_from_data with {ANALYSIS_TRUE_EDGE_DROP} of the true edges cut: "
+        f"{seconds['track_info_drop']:.3f} s on the card for {summary['track_info_drop']['bfs_queries']} "
+        f"breadth-first searches, {seconds['track_info_drop_cpu']:.3f} s on the CPU port, equal records: "
+        f"{summary['track_info_drop']}")
+
+    # ---- (b) serving analysis on the drill's trained latent, the report variants
+    details = DBSCANPerformanceDetails(eps=eps, min_samples=min_samples)
+    details_cpu = DBSCANPerformanceDetails(eps=eps, min_samples=min_samples)
+    tc.model.eval()
+    seconds["details"] = seconds["details_cpu"] = 0.0
+    before = counts()
+    for i, f in enumerate(sorted(val_dir.glob("*.npz"))):
+        g = load_graph(f, device="cuda").sort_edges_by_target()
+        with torch.no_grad():
+            h = tc.model(g)["H"].float()
+        t0 = sync()
+        details(g, {"H": h}, i)
+        seconds["details"] += sync() - t0
+        t0 = time.perf_counter()
+        details_cpu(g.to("cpu"), {"H": h.cpu()}, i)
+        seconds["details_cpu"] += time.perf_counter() - t0
+    serve_launches = {k: v - before[k] for k, v in counts().items()}
+    for name in ("pairwise_topk_filter", "cc_neighbors"):
+        assert serve_launches[name] > 0, f"DBSCANPerformanceDetails never launched {name}"
+    (hits, clusters), (hits_cpu, clusters_cpu) = details.get_results(), details_cpu.get_results()
+    for i, (a, b, c, d) in enumerate(zip(hits, hits_cpu, clusters, clusters_cpu)):
+        assert_same_table(f"report event {i}: hit records", a, b)
+        worst[f"clusters_{i}"] = assert_same_table(f"report event {i}: cluster records", c, d)
+        assert len(c["c"]) > 1, f"report event {i}: one cluster"
+    keys = {"truth": "id", "predicted": "c", "pts": "pt", "reconstructable": "reconstructable", "eta": "eta"}
+    events = [{k: torch.as_tensor(t[v], device="cuda") for k, v in keys.items()} for t in hits]
+    events_cpu = [{k: t[v] for k, v in keys.items()} for t in hits_cpu]
+    t0 = time.perf_counter()
+    binned = {"pt": tracking_metrics_vs_pt(events, ANALYSIS_PT_BINS),
+              "eta": tracking_metrics_vs_eta(events, ANALYSIS_ETA_BINS)}
+    seconds["binned"] = time.perf_counter() - t0
+    binned_cpu = {"pt": tracking_metrics_vs_pt(events_cpu, ANALYSIS_PT_BINS),
+                  "eta": tracking_metrics_vs_eta(events_cpu, ANALYSIS_ETA_BINS)}
+    for k in binned:
+        worst[f"binned_{k}"] = assert_same_table(f"tracking metrics vs {k}", binned[k], binned_cpu[k])
+    scores, t0 = [], time.perf_counter()
+    for ev in events:
+        scores.append({name: fn(**ev, pt_thlds=[0.0, 0.9]) for name, fn in common_metrics.items()})
+    seconds["common_metrics"] = time.perf_counter() - t0
+    for i, (ev, s) in enumerate(zip(events_cpu, scores)):
+        want = {name: fn(**ev, pt_thlds=[0.0, 0.9]) for name, fn in common_metrics.items()}
+        flat = {k: v for k, v in s.items() if k != "trk"} | s["trk"]
+        worst[f"common_{i}"] = assert_same_figures(f"report event {i}: common_metrics", flat,
+                                                   {k: v for k, v in want.items() if k != "trk"} | want["trk"])
+    mean_v = statistics.mean(s["v_measure"] for s in scores)
+    summary |= {"dbscan": {"eps": eps, "min_samples": min_samples}, "serve_launches": serve_launches,
+                "clusters": [len(c["c"]) for c in clusters],
+                "dm_vs_pt": binned["pt"]["double_majority"].tolist(),
+                "common_metrics": [{k: v for k, v in s.items() if k != "trk"} for s in scores]}
+    say(f"analysis (b): DBSCANPerformanceDetails on the 4 report variants: {seconds['details']:.3f} s on the card "
+        f"(launches {serve_launches}), {seconds['details_cpu']:.3f} s on the CPU port, equal records "
+        f"({summary['clusters']} clusters); tracking_metrics_vs_pt / _eta {seconds['binned']:.3f} s, DM by pt "
+        f"{[round(v, 4) for v in summary['dm_vs_pt']]}; common_metrics {seconds['common_metrics']:.3f} s for 4 "
+        f"events, v_measure mean {mean_v:.4f}; all equal to the CPU port's")
+
+    # ---- (c) the legacy hinge loss in an ML step at ml-training-32k's size
+    g = EventGraph.from_arrays(**make_point_cloud(seed + 80, ML_HITS, ML_PARTICLES)).to("cuda")
+    model = GraphConstructionFCNN(**ML_MODEL, device="cpu", generator=torch.Generator().manual_seed(seed + 81))
+    module = MLModule(model=model, loss_fct=OldGraphConstructionHingeEmbeddingLoss(**ML_LOSS), lr=LR,
+                      device="cuda")
+    module.setup_params(g)
+
+    def step0():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, _ = module.get_losses(model(g), g)
+        loss.backward()
+        grads = {n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return grads, loss.item()
+
+    before = counts()
+    gk, lk = step0()
+    assert counts()["pairwise_topk_filter"] == before["pairwise_topk_filter"] + 1
+    with plain_path():
+        gp, lp = step0()
+    worst_name, worst_grad, at_floor, no_grad, _ = compare_grads(gk, gp)
+    assert not no_grad, no_grad
+    assert abs(lk - lp) <= 1e-4 * abs(lp), (lk, lp)
+    while module.step < ML_WARMUP:
+        module.training_step(g)
+    t0 = sync()
+    for _ in range(ANALYSIS_ML_STEPS):
+        metrics = module.training_step(g)
+    dt = sync() - t0
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    launches = counts()
+    for name, n in launches.items():
+        assert n > 0, f"phase 16's path never launched {name}"
+    summary |= {"old_hinge": {"loss": lk, "plain_loss": lp, "worst": worst_grad, "worst_name": worst_name,
+                              "at_floor": at_floor, "steps_per_s": ANALYSIS_ML_STEPS / dt,
+                              "step_ms": dt / ANALYSIS_ML_STEPS * 1e3, "total": metrics["total"]},
+                "launches": launches, "worst": worst, "phase_s": time.perf_counter() - t_phase}
+    say(f"analysis (c): OldGraphConstructionHingeEmbeddingLoss on {ML_HITS} hits (k = "
+        f"{ML_LOSS['max_num_neighbors']}): step 0 loss {lk:.6f} (plain {lp:.6f}), {len(gk)} parameter gradients "
+        f"agree with the plain path (worst {worst_name}: {worst_grad:.3e}; floor only: {at_floor or 'none'}); "
+        f"{ANALYSIS_ML_STEPS / dt:.2f} steps/s over {ANALYSIS_ML_STEPS} steps after {ML_WARMUP}")
+    say(f"analysis: launches on the path {launches}; phase {summary['phase_s']:.1f} s")
+    log("analysis: " + json.dumps(summary, default=float))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -6386,6 +6790,9 @@ def main(argv=None) -> int:
     p.add_argument("--drivers-only", action="store_true",
                    help="build, run drivers_phase (phase 15: train_multievent and train_trackml through their "
                    "main on the vendored event, rows #1 / #2 at their widths) and stop")
+    p.add_argument("--analysis-only", action="store_true",
+                   help="build, run analysis_phase (phase 16: the analysis and metrics layer on etl-trackml-110k, "
+                   "the drill's trained latent and the legacy hinge loss) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -6543,6 +6950,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as drivers_tmp:
             drivers_phase(args.seed, Path(drivers_tmp))
+        print(smi)
+        return 0
+    if args.analysis_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as analysis_tmp:
+            analysis_phase(args.seed, Path(analysis_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -6819,7 +7232,11 @@ def main(argv=None) -> int:
     drivers = drivers_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(drivers["launches"]), sorted(drivers["launches"])
 
-    # ---- 16. results ------------------------------------------------------
+    # ---- 16. the analysis and metrics layer -------------------------------------------
+    analysis = analysis_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(analysis["launches"]), sorted(analysis["launches"])
+
+    # ---- 17. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -6831,6 +7248,7 @@ def main(argv=None) -> int:
             **({"variants_launches": variants["launches"][r["name"]]} if r["name"] in variants["launches"] else {}),
             **({"etl_launches": etl["serve_launches"][r["name"]]} if r["name"] in etl["serve_launches"] else {}),
             **({"drivers_launches": drivers["launches"][r["name"]]} if r["name"] in drivers["launches"] else {}),
+            **({"analysis_launches": analysis["launches"][r["name"]]} if r["name"] in analysis["launches"] else {}),
         }
         for r in results
     ]

@@ -1,10 +1,13 @@
 """Multi-loss framework (counterpart of the JAX ``losses/__init__.py``):
-loss classes hold hyperparameters and return named losses with weights."""
+loss classes hold hyperparameters and return named losses with weights;
+``DummyMultiLoss`` for speed tests, ``LossClones`` to apply one loss to
+several suffixed inputs, ``unpack_loss_returns`` to flatten returns."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from collections.abc import Mapping
+from typing import Any, Callable
 
 import torch
 
@@ -36,3 +39,41 @@ class MultiLossFct:
 
     def __call__(self, **kwargs: Any) -> MultiLossFctReturn:
         raise NotImplementedError
+
+
+class DummyMultiLoss(MultiLossFct):
+    """The sum of ``x``, for timing a training loop without a real loss."""
+
+    def __call__(self, *, x: torch.Tensor, **kwargs: Any) -> MultiLossFctReturn:
+        return MultiLossFctReturn(loss_dct={"dummy": x.sum()}, weight_dct={"dummy": 1.0})
+
+
+class LossClones:
+    """One loss evaluated on several suffixed inputs: with the prefixes
+    ``("w", "y")``, each ``w_<name>`` / ``y_<name>`` pair is passed as ``w``
+    / ``y`` (the unsuffixed ``w`` and ``y`` dropped, every other keyword
+    passed on) and the results are returned by ``<name>``, sorted. Applies
+    an edge loss to every intermediate edge-classifier layer's output."""
+
+    def __init__(self, loss: Callable[..., Any], prefixes: tuple[str, ...] = ("w", "y")):
+        self._loss = loss
+        self._prefixes = prefixes
+
+    def __call__(self, **kwargs: Any) -> dict[str, Any]:
+        kwargs = dict(kwargs)
+        for prefix in self._prefixes:
+            kwargs.pop(prefix, None)
+        main = self._prefixes[0] + "_"
+        layer_names = sorted(k[len(main):] for k in kwargs if k.startswith(main))
+        losses = {}
+        for layer_name in layer_names:
+            rename = {f"{p}_{layer_name}": p for p in self._prefixes}
+            losses[layer_name] = self._loss(**{rename.get(k, k): v for k, v in kwargs.items()})
+        return losses
+
+
+def unpack_loss_returns(key: str, returns: Any) -> dict[str, Any]:
+    """``{key_subkey: value}`` for a mapping of returns, else ``{key: returns}``."""
+    if isinstance(returns, Mapping):
+        return {f"{key}_{k}": v for k, v in returns.items()}
+    return {key: returns}

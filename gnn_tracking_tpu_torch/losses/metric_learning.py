@@ -1,13 +1,13 @@
-"""Hinge embedding loss for metric-learning graph construction (counterpart
-of the JAX ``losses/metric_learning.py``: ``_hinge_loss_components`` and
-``GraphConstructionHingeEmbeddingLoss``).
+"""Hinge embedding losses for metric-learning graph construction
+(counterpart of the JAX ``losses/metric_learning.py``:
+``_hinge_loss_components``, ``GraphConstructionHingeEmbeddingLoss`` and
+``OldGraphConstructionHingeEmbeddingLoss``).
 
 The attractive term pulls the hits of one particle together along the true
 edges; the repulsive term pushes hits of different particles apart along a
 radius graph of the embedding (``ops/knn.py:radius_graph``, at most
 ``max_num_neighbors`` neighbours per hit). Selection is detached; the loss
 differentiates through distances recomputed from the live ``x``.
-``OldGraphConstructionHingeEmbeddingLoss`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -148,4 +148,81 @@ class GraphConstructionHingeEmbeddingLoss(MultiLossFct):
                 "n_edges_att": att_mask.sum(),
                 "n_edges_rep": rep_mask.sum(),
             },
+        )
+
+
+class OldGraphConstructionHingeEmbeddingLoss(MultiLossFct):
+    """The legacy hinge loss on one merged edge set: the true edges that
+    start at a hit above ``attr_pt_thld``, then the radius graph of the
+    embedding without the edges that repeat such a true edge in its
+    orientation (``i < j``, both hits of one particle, the first above the
+    threshold). Attraction over the merged set's high-pt true edges,
+    repulsion over its edges between different particles or noise, both
+    divided by the number of high-pt true edges."""
+
+    def __init__(
+        self,
+        *,
+        r_emb: float = 1.0,
+        max_num_neighbors: int = 256,
+        attr_pt_thld: float = 0.9,
+        p_attr: float = 1.0,
+        p_rep: float = 1.0,
+        lw_repulsive: float = 1.0,
+    ):
+        self.r_emb = r_emb
+        self.max_num_neighbors = max_num_neighbors
+        self.attr_pt_thld = attr_pt_thld
+        self.p_attr = p_attr
+        self.p_rep = p_rep
+        self.lw_repulsive = lw_repulsive
+
+    def __call__(
+        self,
+        *,
+        x: torch.Tensor,
+        particle_id: torch.Tensor,
+        batch: torch.Tensor | None = None,
+        true_edge_index: torch.Tensor,
+        pt: torch.Tensor,
+        node_mask: torch.Tensor | None = None,
+        true_edge_mask: torch.Tensor | None = None,
+        **kwargs: Any,
+    ) -> MultiLossFctReturn:
+        true_edges = true_edge_index.long()
+        te_mask = pt[true_edges[0]] > self.attr_pt_thld
+        if true_edge_mask is not None:
+            te_mask = te_mask & true_edge_mask
+        near_edges, near_mask, near_dists = radius_graph(
+            x, self.r_emb, max_num_neighbors=self.max_num_neighbors,
+            node_mask=node_mask, batch=batch, loop=False,
+        )
+        near_edges = near_edges.long()
+        near_pid0, near_pid1 = particle_id[near_edges[0]], particle_id[near_edges[1]]
+        dup = (
+            (near_pid0 == near_pid1)
+            & (near_pid0 > 0)
+            & (near_edges[0] < near_edges[1])
+            & (pt[near_edges[0]] > self.attr_pt_thld)
+        )
+        edges = torch.cat([true_edges, near_edges], dim=1)
+        mask = torch.cat([te_mask, near_mask & ~dup])
+
+        pid0, pid1 = particle_id[edges[0]], particle_id[edges[1]]
+        true_edge = (pid0 == pid1) & (pid0 > 0)
+        true_high_pt = true_edge & (pt[edges[0]] > self.attr_pt_thld)
+        # the radius graph's distances are the live x's, by the same formula
+        # (safe norm, as in _hinge_loss_components); only the true edges' are new
+        diff = x[true_edges[0]] - x[true_edges[1]]
+        d2 = (diff * diff).sum(-1)
+        safe = te_mask & (d2 > 0)
+        te_dists = torch.where(safe, torch.sqrt(torch.where(safe, d2, 1.0)), 0.0)
+        dists = torch.cat([te_dists, near_dists])
+        normalization = (true_high_pt & mask).sum() + 1e-8
+        attr = torch.where(true_high_pt & mask, dists**self.p_attr, 0.0).sum() / normalization
+        hinge = torch.relu(self.r_emb - dists**self.p_rep)
+        rep = torch.where(~true_edge & mask, hinge, 0.0).sum() / normalization
+        return MultiLossFctReturn(
+            loss_dct={"attractive": attr, "repulsive": rep},
+            weight_dct={"attractive": 1.0, "repulsive": self.lw_repulsive},
         )

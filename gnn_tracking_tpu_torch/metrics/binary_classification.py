@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from collections.abc import Iterable
 
+import numpy as np
 import torch
 
 _F64 = torch.float64
@@ -54,6 +55,53 @@ def stats_from_counts(c: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         "F1": _zero_divide(2 * tp, 2 * tp + fp + fn),
         "MCC": _zero_divide(tp * tn - fp * fn, mcc_den),
     }
+
+
+def _as_tensor(a, device=None) -> torch.Tensor:
+    return a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a), device=device)
+
+
+class BinaryClassificationStats:
+    """Confusion-matrix figures of merit at one threshold, counted in one
+    pass on the output's device. The statistics (``acc``, ``TPR``, ``TNR``,
+    ``FPR``, ``FNR``, ``balanced_acc``, ``F1``, ``MCC``) and the counts
+    (``TP``, ``TN``, ``FP``, ``FN``) read as attributes (floats);
+    :meth:`get_all` holds the statistics and the true / false and predicted
+    true / false totals."""
+
+    def __init__(self, output, y, thld, mask=None):
+        output = _as_tensor(output)
+        y = _as_tensor(y, output.device).to(torch.bool)
+        mask = None if mask is None else _as_tensor(mask, output.device).to(torch.bool)
+        counts = binary_classification_counts(output, y, thld, mask)
+        stats = stats_from_counts(counts)
+        m = torch.ones_like(y) if mask is None else mask
+        totals = torch.stack([(y & m).sum(), (~y & m).sum()]).to(_F64)
+        # one device-to-host transfer
+        values = torch.cat([torch.stack([v[0] for v in counts.values()]),
+                            torch.stack([v[0] for v in stats.values()]), totals]).cpu().tolist()
+        self._counts = dict(zip(counts, values[:4]))
+        self._stats = dict(zip(stats, values[4:-2]))
+        self.n_true, self.n_false = values[-2:]
+        self.n_predicted_true = self._counts["TP"] + self._counts["FP"]
+        self.n_predicted_false = self._counts["TN"] + self._counts["FN"]
+
+    def __getattr__(self, name):
+        stats = object.__getattribute__(self, "_stats")
+        if name in stats:
+            return stats[name]
+        counts = object.__getattribute__(self, "_counts")
+        if name in counts:
+            return counts[name]
+        raise AttributeError(name)
+
+    def get_all(self) -> dict[str, float]:
+        return self._stats | {
+            "n_true": self.n_true,
+            "n_false": self.n_false,
+            "n_predicted_true": self.n_predicted_true,
+            "n_predicted_false": self.n_predicted_false,
+        }
 
 
 def get_maximized_bcs(

@@ -26,7 +26,8 @@ def connected_components(
     masked nodes stay singletons. Min-label propagation (a segment-min over
     both endpoints of every edge) and six pointer jumps a sweep, until no
     label changes; the JAX function's ``lax.while_loop``, so plain torch
-    (``edges_sorted_by_dst`` is accepted for its signature)."""
+    (``edges_sorted_by_dst`` is accepted for its signature). The call's
+    sweep count is left in ``connected_components.sweeps``."""
     src, dst = edge_index[0].long(), edge_index[1].long()
     dev = edge_index.device
     if edge_mask is None:
@@ -54,7 +55,12 @@ def connected_components(
     while it < num_nodes and bool((labels != prev).any()):
         prev, labels = labels, sweep(labels, labels[src], labels[dst])
         it += 1
+    connected_components.sweeps = it + 2
     return labels
+
+
+#: the number of sweeps of the last call
+connected_components.sweeps = 0
 
 
 def connected_components_neighbors(

@@ -1,6 +1,7 @@
 """DBSCAN hyperparameter scanning for validation (counterpart of the JAX
 ``postprocessing/dbscanscanner.py``: ``OCScanResults``,
-``DBSCANHyperParamScanner`` and ``DBSCANHyperParamScannerFixed``).
+``DBSCANHyperParamScanner``, ``DBSCANHyperParamScannerFixed`` and
+``DBSCANPerformanceDetails``).
 
 On every validation event one radius graph is built in the latent space at
 the largest trial eps and each ``(eps, min_samples)`` trial is clustered on
@@ -19,12 +20,17 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from gnn_tracking_tpu_torch.metrics.cluster_metrics import (
+    cluster_majority,
     flatten_track_metrics,
+    nan_mean,
+    nan_std,
     tracking_metrics,
 )
 from gnn_tracking_tpu_torch.postprocessing.cluster_scanner import ClusterScanner
+from gnn_tracking_tpu_torch.ops.dbscan import dbscan
 from gnn_tracking_tpu_torch.postprocessing.fastrescanner import DBSCANFastRescan
 from gnn_tracking_tpu_torch.utils.dictionaries import add_key_prefix
 
@@ -41,16 +47,6 @@ def descending_order(values: np.ndarray) -> np.ndarray:
     nan = np.isnan(values)
     non_nans, non_nan_idx = values[~nan][::-1], idx[~nan][::-1]
     return np.concatenate([non_nan_idx[non_nans.argsort(kind="quicksort")][::-1], idx[nan]])
-
-
-def _nan_std(v: np.ndarray) -> float:
-    v = v[~np.isnan(v)]
-    return float(v.std(ddof=1)) if len(v) > 1 else float("nan")
-
-
-def _nan_mean(v: np.ndarray) -> float:
-    v = v[~np.isnan(v)]
-    return float(v.mean()) if len(v) else float("nan")
 
 
 class OCScanResults:
@@ -71,9 +67,9 @@ class OCScanResults:
             p: np.array([g[i] for g in groups]) for i, p in enumerate(PARAMETERS)
         }
         for j, c in enumerate(values):
-            self._df_mean[c] = np.array([_nan_mean(table[m, j]) for m in member])
+            self._df_mean[c] = np.array([nan_mean(table[m, j]) for m in member])
         for j, c in enumerate(values):
-            self._df_mean[f"{c}_std"] = np.array([_nan_std(table[m, j]) for m in member]) / scale
+            self._df_mean[f"{c}_std"] = np.array([nan_std(table[m, j]) for m in member]) / scale
 
     @property
     def df(self) -> list[dict[str, float]]:
@@ -208,3 +204,46 @@ class DBSCANHyperParamScannerFixed(DBSCANHyperParamScanner):
 
     def _reset_trials(self) -> None:
         self._trials = list(self._fixed_trials)
+
+
+class DBSCANPerformanceDetails(ClusterScanner):
+    """Per-hit and per-cluster records of DBSCAN at fixed ``(eps,
+    min_samples)`` on every event (``ops/dbscan.dbscan`` on the latent's
+    device). :meth:`get_results` returns two lists, one column table an
+    event each: the unmasked hits (``c``, the label; ``id``,
+    ``reconstructable``, ``pt``, ``eta``) and the clusters (``c``,
+    ascending; ``maj_pid``, the most frequent particle, the smallest on a
+    tie; ``maj_hits``; ``cluster_size``; ``maj_pid_hits``, the particle's
+    unmasked hits; ``maj_frac``; ``maj_pid_frac``)."""
+
+    def __init__(self, eps: float, min_samples: int, max_num_neighbors: int = 128):
+        self.eps = eps
+        self.min_samples = min_samples
+        self.max_num_neighbors = max_num_neighbors
+        self._h_dfs: list[dict[str, np.ndarray]] = []
+        self._c_dfs: list[dict[str, np.ndarray]] = []
+
+    def __call__(self, data, out: dict, i_batch: int) -> None:
+        h = out["H"]
+        node_mask = data.node_mask
+        labels = dbscan(h, eps=self.eps, min_samples=self.min_samples,
+                        max_num_neighbors=min(self.max_num_neighbors, h.shape[0]), node_mask=node_mask)
+        hits = {"c": labels, "id": data.particle_id, "reconstructable": data.reconstructable,
+                "pt": data.pt, "eta": data.eta}
+        hits = {k: v[node_mask] for k, v in hits.items()}
+        clusters = cluster_majority(hits["c"], hits["id"])
+        clusters = {k: v[clusters["valid"]] for k, v in clusters.items()}
+        pids, n_pid = torch.unique(hits["id"], return_counts=True)
+        pid_hits = n_pid[torch.searchsorted(pids, clusters["maj_pid"])]
+        size, best = clusters["cluster_size"], clusters["maj_hits"]
+        clusters = {"c": clusters["c"].to(labels.dtype), "maj_pid": clusters["maj_pid"], "maj_hits": best,
+                    "cluster_size": size, "maj_pid_hits": pid_hits,
+                    "maj_frac": best.double() / size.double(), "maj_pid_frac": best.double() / pid_hits.double()}
+        self._h_dfs.append({k: v.cpu().numpy() for k, v in hits.items()})
+        self._c_dfs.append({k: v.cpu().numpy() for k, v in clusters.items()})
+
+    def get_results(self) -> tuple[list[dict[str, np.ndarray]], list[dict[str, np.ndarray]]]:
+        return self._h_dfs, self._c_dfs
+
+    def get_foms(self) -> dict[str, float]:
+        return {}

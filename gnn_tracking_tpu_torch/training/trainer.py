@@ -45,7 +45,6 @@ import contextlib
 import json
 import logging
 import math
-import os
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
@@ -55,6 +54,7 @@ import torch
 
 from gnn_tracking_tpu_torch.training.restore import checkpoint_state, load_checkpoint
 from gnn_tracking_tpu_torch.training.config import find_latest_checkpoint, obj_from_config
+from gnn_tracking_tpu_torch.utils.nomenclature import random_trial_name
 
 logger = logging.getLogger(__name__)
 
@@ -118,7 +118,7 @@ class Trainer:
             raise ValueError(msg)
         self.max_epochs = max_epochs
         self.max_steps = max_steps
-        self.name = name or f"run-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
+        self.name = name or random_trial_name()
         self.log_dir = Path(log_dir) / self.name
         self.checkpoint_every_epoch = checkpoint_every_epoch
         self.log_every_n_steps = log_every_n_steps

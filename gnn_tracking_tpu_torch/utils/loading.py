@@ -210,3 +210,34 @@ class TrackingDataModule:
 
     def test_dataloader(self) -> GraphLoader:
         return self._loader("test", shuffle=False)
+
+
+class TestTrackingDataModule(TrackingDataModule):
+    """In-memory data module for tests: the same graphs serve as the
+    training, validation and test splits (each sorted by target, as
+    :class:`TrackingDataset` sorts the graphs it loads), the training split
+    shuffled as :class:`TrackingDataModule` shuffles it. ``padding`` is the
+    JAX module's TPU static-shape device and must stay ``None``."""
+
+    __test__ = False  # not a pytest test class
+
+    class _ListDataset:
+        def __init__(self, graphs):
+            self._graphs = graphs
+
+        def __len__(self):
+            return len(self._graphs)
+
+        def __getitem__(self, idx):
+            return self._graphs[idx]
+
+    def __init__(self, graphs: list[EventGraph], padding=None, seed: int = 0):
+        if padding is not None:
+            msg = "padding is not ported: the port runs every event at its own size"
+            raise ValueError(msg)
+        super().__init__(train={}, val={}, test={}, seed=seed)
+        ds = self._ListDataset([g.sort_edges_by_target() for g in graphs])
+        self._datasets = {"train": ds, "val": ds, "test": ds}
+
+    def setup(self, stage: str = "fit") -> None:
+        pass
