@@ -339,12 +339,45 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    plain path (``compare_grads``), then ``ANALYSIS_ML_STEPS`` timed steps
    after ``ML_WARMUP``. Rows #1, #9, #10, #12 and #16 must launch on the
    phase's path;
-17. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+17. the single-device remainder (``remainder_phase``): (a) ``knn_graph_ivf``
+   at k = 8 on phase 8's benchmark cloud and on its spatial cloud (the
+   hits' coordinates of the 262,144-hit point cloud: near-uniform in 3-d;
+   the IVF cannot certify a uniform 8-d cloud; its builds probe
+   ``REMAINDER_SPATIAL``'s 32 cells, after one build at the default widths,
+   which ``spill_passes=False`` at those widths is also held against)
+   under the default and each of ``REMAINDER_IVF_OPTIONS``
+   (``probe_impl="xla"``, ``bucket_impl="scatter"``, ``spill_passes``
+   False / ``"probe"`` / ``"extra"``, ``fast_assign=False``; the port runs
+   the default's build for the TPU hints ``bucket_impl`` and
+   ``fast_assign``): every graph certified and equal to the
+   default's (up to tie rows, ``compare_neighbours``), row #15 launched by
+   every option but ``"xla"``, each build's ms (median of 3) with its
+   ``ivf_knn.record_parts`` split; (b) on the drill's variants of the
+   vendored event, the drill's TC module (``train_trackml.tc_module``): a
+   real CUDA out-of-memory error forced inside a step guarded by
+   ``utils.oom.tolerate_some_oom_errors`` (an allocation of twice the
+   card's memory, after the loss and after Adam's update): the step returns None
+   and leaves the weights, Adam's state, the update count, the step and the
+   generator bitwise as they were; the next step runs; the third forced
+   OOM in a row raises; then the cost of ``TrackingModule``'s undo copy
+   (``_all_or_nothing``): ``REMAINDER_GUARD_PAIRS`` pairs of the same step
+   with and without it, in the order with, without, without, with, and the
+   copy's host time alone; (c) a 2-epoch ``Trainer.fit`` of that TC (16
+   variants an epoch, the drill's transform and EMA, the DBSCAN scanner on
+   the 2 selection variants) with a ``log_dir``: ``metrics.jsonl`` holds
+   two lines, ``run_meta.json`` names the card; ``utils.profiling.device_trace``
+   around ``REMAINDER_TRACE_STEPS`` of its steps writes a trace that names
+   rows #1, #9 and #10 (``REMAINDER_TRACE_NAMES``), and the device's busy
+   share of those steps comes from it (``trace_busy_share``); (d) the plot
+   modules import (the card's machine has no matplotlib). The kernels of
+   ``REMAINDER_KERNELS`` must launch on the phase's path;
+18. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
    kernels of phase 12's path with ``pipeline_launches``, of phase
    13's with ``variants_launches``, of phase 14's served path with
-   ``etl_launches``, of phase 15's with ``drivers_launches`` and of phase
-   16's with ``analysis_launches``;
+   ``etl_launches``, of phase 15's with ``drivers_launches``, of phase
+   16's with ``analysis_launches`` and of phase 17's with
+   ``remainder_launches``;
    ``edge_join``'s ``launches`` are phase 14's ``build_graphs`` calls), the
    ``nvidia-smi`` name/power line, and last the device JSON line.
 
@@ -398,7 +431,8 @@ FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, run
 ``--variants-only`` builds, runs ``variants_phase`` (phase 13) and stops;
 ``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops; ``--drivers-only``
 builds, runs ``drivers_phase`` (phase 15) and stops; ``--analysis-only`` builds,
-runs ``analysis_phase`` (phase 16) and stops. ``--wide-only``
+runs ``analysis_phase`` (phase 16) and stops; ``--remainder-only`` builds,
+runs ``remainder_phase`` (phase 17) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -3194,36 +3228,38 @@ def windowed_build_split(x, k: int, rounds: int = 3) -> dict:
     return out
 
 
-def ivf_build_split(x, k: int, rounds: int = 3) -> dict:
-    """``knn_graph_ivf(x, k)`` in the parts ``ivf_knn.record_parts`` records
+def ivf_build_split(x, k: int, rounds: int = 3, *, warmup: bool = True, what: str = "",
+                    **ivf_kwargs) -> tuple[dict, tuple]:
+    """``knn_graph_ivf(x, k, **ivf_kwargs)`` in the parts ``ivf_knn.record_parts`` records
     for each attempt (``ivf_knn.PARTS``: the coarse quantization, the
     bucketing, the probe launch (row #15), the extra pass, the spill probe,
     the rerank, the certification, the fallback), each between two
     synchronisations, and the rest (the graph's edges, the retry loop);
-    medians of ``rounds`` builds after one warm-up, and the attempts."""
+    medians of ``rounds`` builds (after one warm-up with ``warmup``), and the
+    attempts. Also returns the last build's graph."""
     import torch
 
     from gnn_tracking_tpu_torch.ops import ivf_knn, knn
 
     runs = []
     with ivf_knn.record_parts() as parts, torch.no_grad():
-        for _ in range(rounds + 1):
+        for _ in range(rounds + int(warmup)):
             first = len(parts)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            knn.knn_graph_ivf(x, k)
+            graph = knn.knn_graph_ivf(x, k, **ivf_kwargs)
             torch.cuda.synchronize()
             total = (time.perf_counter() - t0) * 1e3
             attempts = parts[first:]
             runs.append({"total_ms": total, "attempts": len(attempts),
                          **{q: sum(a[q] for a in attempts) for q in ivf_knn.PARTS}})
-    runs = runs[1:]
+    runs = runs[int(warmup):]
     for r in runs:
         r["rest_ms"] = r["total_ms"] - sum(r[q] for q in ivf_knn.PARTS)
     out = {key: statistics.median(r[key] for r in runs) for key in ("total_ms", *ivf_knn.PARTS, "rest_ms")}
     out["attempts"] = runs[0]["attempts"]
-    log(f"IVF build split (medians of {rounds}, synchronised parts): {json.dumps(out)}")
-    return out
+    log(f"IVF build split{what} (medians of {rounds}, synchronised parts): {json.dumps(out)}")
+    return out, graph
 
 
 def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
@@ -3431,7 +3467,7 @@ def graph_construction_phase(seed: int, fcnn) -> tuple[list[dict], dict, dict]:
                                           reps=1, rounds=3),
         }
     windowed_split = windowed_build_split(xyz, GC_K)
-    ivf_split = ivf_build_split(bench, GC_K)
+    ivf_split, _ = ivf_build_split(bench, GC_K)
     log(f"graph construction: the resident top-k at k = {GC_K} took {route} (knn.SPLIT_MAX_K = "
         f"{knn.SPLIT_MAX_K}): knn_graph {times['knn_resident_ms']:.2f} ms a build on the trained latent; "
         f"row #13 {times['split_topk_262k_ms']:.2f} ms, row #12 {times['topk_262k_ms']:.2f} ms on it")
@@ -6694,6 +6730,316 @@ def analysis_phase(seed: int, tmp: Path) -> dict:
     return summary
 
 
+# the single-device remainder (phase 17)
+#: the kernels of phase 17's path, by the module attribute that launches each
+REMAINDER_KERNELS = {**TC_CLI_KERNELS, "ivf_probe": ("ivf_probe", "ivf_probe")}
+#: the IVF's options of (a), each beside the default (``bucket_impl`` and ``fast_assign`` are
+#: TPU hints that the port takes and runs as the default's build)
+REMAINDER_IVF_OPTIONS = {
+    "probe_impl=xla": {"probe_impl": "xla"},
+    "bucket_impl=scatter": {"bucket_impl": "scatter"},
+    "spill_passes=False": {"spill_passes": False},
+    "spill_passes=probe": {"spill_passes": "probe"},
+    "spill_passes=extra": {"spill_passes": "extra"},
+    "fast_assign=False": {"fast_assign": False},
+}
+#: (a): the spatial cloud's probe width: at the default 8 its builds take 3 attempts (8, 16, then
+#: 32 probed cells; ~2.6 s on an H100, 2.1 s of it the fallbacks), at 32 one
+REMAINDER_SPATIAL = {"n_probe": 32}
+#: (a): the option also held against the default at the spatial cloud's default widths (the one
+#: that leans most on the retries: its unprobed spilled queries go to the fallback)
+REMAINDER_DEFAULT_WIDTH_OPTION = {"spill_passes": False}
+#: (b): pairs of steps (one with the undo copy, one without) that time the copy's cost
+REMAINDER_GUARD_PAIRS = 100
+#: the drill's split (16 train, 2 selection, 4 report variants) for (b) and (c)
+REMAINDER_EVENTS = {"n_events": 22, "keep_frac": 0.9, "n_select": 2, "n_val": 4}
+#: (c): the traced training steps (the module's step count before the first; all in the first
+#: of 16 steps an epoch) and their span's name
+REMAINDER_TRACE_FROM, REMAINDER_TRACE_STEPS, REMAINDER_SPAN = 3, 10, "remainder_tc_step"
+#: (c): the device kernels by which the trace names rows #1, #9 and #10
+REMAINDER_TRACE_NAMES = {"fused_relational_fwd": "edge_mlp_kernel", "sorted_segment_sum": "segment_tiles_kernel",
+                         "sorted_gather": "gather_rows_kernel"}
+#: (d): the plot modules, which import matplotlib only inside the methods that draw
+REMAINDER_PLOT_MODULES = ("analysis.plotutils", "analysis.efficiencies", "analysis.latent",
+                          "analysis.edge_classification", "utils.plotting", "utils.colors")
+
+
+def trace_busy_share(path: Path, span: str) -> dict:
+    """A Chrome trace of ``utils.profiling.device_trace``: the window from the
+    first ``span`` annotation's start to the last one's end (host clock), the
+    union of the device's kernel, copy and set intervals inside it, its share
+    of the window, and the kernels' names."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and e.get("name") == span and e.get("cat") == "user_annotation"]
+    assert spans, f"trace {path}: no {span!r} span"
+    t0, t1 = min(e["ts"] for e in spans), max(e["ts"] + e["dur"] for e in spans)
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, t0
+    for a, b in device:
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            busy += b - a
+            end = b
+    kernels = [e["name"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return {"steps": len(spans), "window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "kernel_launches": len(kernels), "kernel_names": sorted(set(kernels))}
+
+
+def remainder_phase(seed: int, tmp: Path) -> dict:
+    """Phase 17 (see the module docstring). Returns the launches of
+    ``REMAINDER_KERNELS`` on the phase's path (counts set to 0 just before
+    (a), read just after (c)) and the phase's summary."""
+    import importlib
+
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import ivf_probe, knn
+    from gnn_tracking_tpu_torch.scripts import train_multievent as me
+    from gnn_tracking_tpu_torch.scripts import train_trackml as tt
+    from gnn_tracking_tpu_torch.training.trainer import Trainer
+    from gnn_tracking_tpu_torch.utils import oom
+    from gnn_tracking_tpu_torch.utils.augmentation import Compose, PhiRotation, ZReflection
+    from gnn_tracking_tpu_torch.utils.loading import TrackingDataModule, load_graph
+    from gnn_tracking_tpu_torch.utils.profiling import annotate, device_trace
+
+    card = card_line()
+
+    def say(msg: str) -> None:
+        log(f"{msg} [{card}]")
+
+    ops = {name: importlib.import_module(f"gnn_tracking_tpu_torch.ops.{name}")
+           for name in {m for m, _ in REMAINDER_KERNELS.values()}}
+
+    def counts() -> dict:
+        return {k: getattr(ops[m], f).launches for k, (m, f) in REMAINDER_KERNELS.items()}
+
+    t_phase = time.perf_counter()
+    summary: dict = {"card": card}
+    for m, f in REMAINDER_KERNELS.values():
+        getattr(ops[m], f).launches = 0
+
+    # ---- (a) every IVF option on phase 8's benchmark cloud and its spatial one, against the default
+    bench = torch.from_numpy(make_bench_latent(seed + 92, GC_HITS)[0]).to("cuda")
+    spatial = torch.from_numpy(make_point_cloud(seed + 90, GC_HITS, GC_PARTICLES)["extras"]["xyz"]).float()
+    clouds = {"bench": (bench, {}), "spatial": (spatial.to("cuda").contiguous(), REMAINDER_SPATIAL)}
+    ivf = {}
+    for cloud, (x, widths) in clouds.items():
+        t_cloud = time.perf_counter()
+        rows = {}
+        if widths:  # the default widths once: the retries that the wider probe saves
+            split, want = ivf_build_split(x, GC_K, rounds=1, warmup=False, what=f" ({cloud}, default widths)")
+            name = ", ".join(f"{k}={v}" for k, v in REMAINDER_DEFAULT_WIDTH_OPTION.items())
+            got_split, got = ivf_build_split(x, GC_K, rounds=1, warmup=False,
+                                             what=f" ({cloud}, default widths, {name})",
+                                             **REMAINDER_DEFAULT_WIDTH_OPTION)
+            ties = compare_neighbours(f"IVF {cloud} default widths {name}", got, want, GC_K)
+            rows["default (default widths)"] = split
+            rows[f"{name} (default widths)"] = {**got_split, "tie_rows": ties, "equal": bool(
+                all(torch.equal(a, b) for a, b in zip(got, want)))}
+        probe0 = ivf_probe.ivf_probe.launches
+        split, want = ivf_build_split(x, GC_K, what=f" ({cloud}, default{', ' if widths else ''}"
+                                      f"{', '.join(f'{k} {v}' for k, v in widths.items())})", **widths)
+        rows["default"] = {**split, "row15_launches": ivf_probe.ivf_probe.launches - probe0}
+        for name, option in REMAINDER_IVF_OPTIONS.items():
+            probe0 = ivf_probe.ivf_probe.launches
+            split, got = ivf_build_split(x, GC_K, warmup=False, what=f" ({cloud}, {name})", **widths, **option)
+            launched = ivf_probe.ivf_probe.launches - probe0
+            # the "xla" probe is its own path: it never reaches row #15, every other option does
+            assert (launched == 0) == (name == "probe_impl=xla"), (cloud, name, launched)
+            ties = compare_neighbours(f"IVF {cloud} {name}", got, want, GC_K)
+            rows[name] = {**split, "row15_launches": launched, "tie_rows": ties,
+                          "equal": bool(all(torch.equal(a, b) for a, b in zip(got, want)))}
+        ivf[cloud] = rows
+        say(f"remainder (a) {cloud} ({GC_HITS} points, k = {GC_K}), {time.perf_counter() - t_cloud:.1f} s: "
+            + "; ".join(f"{n} {r['total_ms']:.2f} ms ({r['attempts']} attempts"
+                        + (f", row #15 x{r['row15_launches']}" if "row15_launches" in r else "")
+                        + ("" if "equal" not in r else f", {'equal' if r['equal'] else str(r['tie_rows']) + ' tie rows'}")
+                        + ")" for n, r in rows.items()))
+    summary["ivf"] = ivf
+
+    # ---- the drill's variants of the vendored event (train_multievent's data)
+    raw = tmp / "remainder_raw"
+    raw.mkdir()
+    for name in ETL_CSVS:
+        shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw / name)
+    work = tmp / "remainder"
+    _, graph_dir, _ = tt.build_data(raw, work, n_sectors=1, device="cuda")
+    train_dir, val_dir, sel_dir = me.make_event_dirs(sorted(Path(graph_dir).glob("*.npz"))[0], work,
+                                                     **REMAINDER_EVENTS)
+
+    # ---- (b) the out-of-memory guard: real CUDA OOMs inside a wrapped TC step
+    module = tt.tc_module(train_dir, 2, h_outdim=4, hidden_dim=48, cosine=True, rng_seed=seed + 17, device="cuda")
+    batch = load_graph(sorted(train_dir.glob("*.npz"))[0], device="cuda").sort_edges_by_target()
+    module.training_step(batch)  # Adam's state exists from here on
+
+    def state():
+        return ([p.detach().clone() for p in module.model.parameters()],
+                [v.clone() for s in module.optimizer.state.values() for v in s.values() if torch.is_tensor(v)],
+                [g["count"] for g in module.optimizer.param_groups], module.step,
+                module.generator.get_state().clone())
+
+    def same(a, b) -> bool:
+        return (all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1])) and len(a[1]) == len(b[1])
+                and a[2:4] == b[2:4] and torch.equal(a[4], b[4]))
+
+    def exhaust():
+        # twice the card's memory: never served, not even from the caching
+        # allocator's reserve, which earlier phases may have grown past the free bytes
+        _, total = torch.cuda.mem_get_info()
+        return torch.empty(2 * total, dtype=torch.uint8, device="cuda")
+
+    real_losses, real_adam = module.get_losses, module.optimizer.step
+
+    def losses_then_oom(out, data):  # in the forward, after the loss has drawn from the generator
+        result = real_losses(out, data)
+        exhaust()
+        return result
+
+    def adam_then_oom():  # half-way: Adam's update has written the weights and moments
+        real_adam()
+        exhaust()
+
+    oom.N_OOM_ERRORS.clear()
+    safe = oom.tolerate_some_oom_errors(lambda b: module.training_step(b), max_consecutive=3)
+    guard = {}
+    for where, attr, fn in (("loss", "get_losses", losses_then_oom), ("adam", "step", adam_then_oom)):
+        before = state()
+        owner = module if attr == "get_losses" else module.optimizer
+        setattr(owner, attr, fn)
+        try:
+            result = safe(batch)
+        finally:
+            delattr(owner, attr)
+        assert result is None, f"(b) an OOM in the {where} was not skipped"
+        assert same(state(), before), f"(b) the OOM in the {where} changed the module"
+        guard[where] = "skipped, module bitwise unchanged"
+    assert oom.N_OOM_ERRORS["<lambda>"] == 2
+    metrics = safe(batch)  # the next ordinary step runs
+    assert metrics is not None and math.isfinite(metrics["total"]) and module.step == 2
+    assert oom.N_OOM_ERRORS["<lambda>"] == 0
+    module.get_losses = losses_then_oom
+    try:
+        for i in range(3):
+            try:
+                safe(batch)
+            except torch.cuda.OutOfMemoryError:
+                assert i == 2, f"(b) raised at the {i + 1}-th OOM in a row, not the 3rd"
+                guard["max_consecutive"] = "raised at the 3rd OOM in a row"
+    finally:
+        del module.get_losses
+    assert "max_consecutive" in guard, "(b) 3 OOMs in a row did not raise"
+    oom.N_OOM_ERRORS.clear()
+    torch.cuda.empty_cache()
+
+    def timed_step(undo: bool) -> float:
+        if not undo:
+            module._all_or_nothing = contextlib.nullcontext
+        try:
+            t0 = time.perf_counter()
+            module.training_step(batch)  # it ends in the host read of its metrics
+            return (time.perf_counter() - t0) * 1e3
+        finally:
+            if not undo:
+                del module._all_or_nothing
+
+    order = (True, False, False, True) * (REMAINDER_GUARD_PAIRS // 2)
+    times = [timed_step(undo) for undo in order]
+    steps = {u: [t for o, t in zip(order, times) if o is u] for u in (True, False)}
+    # each neighbouring pair of steps holds one of each: their difference cancels the drift
+    paired = [(a if oa else b) - (b if oa else a) for oa, a, b in zip(order[::2], times[::2], times[1::2])]
+    t0 = time.perf_counter()
+    for _ in range(200):
+        with module._all_or_nothing():
+            pass
+    copy_host_us = (time.perf_counter() - t0) / 200 * 1e6
+    cost = {"step_ms_with": statistics.median(steps[True]), "step_ms_without": statistics.median(steps[False]),
+            "pairs": len(paired), "paired_diff_ms_mean": statistics.mean(paired),
+            "paired_diff_ms_quartiles": statistics.quantiles(paired, n=4), "copy_host_us": copy_host_us,
+            "tensors": len(module._mutable_tensors())}
+    summary["oom_guard"] = guard
+    summary["undo_cost"] = cost
+    say(f"remainder (b) OOM guard: {guard}; the next step's loss {metrics['total']:.5f}; a step "
+        f"{cost['step_ms_with']:.2f} ms with the undo copy, {cost['step_ms_without']:.2f} without (medians of "
+        f"{len(steps[True])} steps each; {len(paired)} paired differences: mean {cost['paired_diff_ms_mean']:.3f} "
+        f"ms, quartiles {', '.join(f'{q:.3f}' for q in cost['paired_diff_ms_quartiles'])} ms), the copy's host "
+        f"time {copy_host_us:.1f} us for {cost['tensors']} tensors")
+
+    # ---- (c) a 2-epoch fit of the drill's TC with RunLogger; device_trace around 10 of its steps
+    module = tt.tc_module(train_dir, 2, h_outdim=4, hidden_dim=48, cosine=True, rng_seed=seed + 17, device="cuda")
+    trace_dir = tmp / "remainder_trace"
+    traced: dict = {}
+    step_ms: list[float] = []
+    real_step = module.training_step
+
+    def training_step(b):
+        if module.step == REMAINDER_TRACE_FROM:
+            traced["cm"] = device_trace(trace_dir)
+            traced["prof"] = traced["cm"].__enter__()
+        t0 = time.perf_counter()
+        with annotate(REMAINDER_SPAN) if "cm" in traced else contextlib.nullcontext():
+            out = real_step(b)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if "cm" in traced and module.step == REMAINDER_TRACE_FROM + REMAINDER_TRACE_STEPS:
+            traced.pop("cm").__exit__(None, None, None)
+        return out
+
+    module.training_step = training_step
+    dm = TrackingDataModule(train={"dirs": [train_dir], "batch_size": 1}, val={"dirs": [sel_dir]})
+    trainer = Trainer(max_epochs=2, log_dir=tmp / "remainder_runs", name="tc", monitor=tt.MONITOR,
+                      train_transform=Compose([ZReflection(p=0.5, seed=4), PhiRotation(seed=4)]),
+                      ema_decay=0.998, checkpoint_every_epoch=False, print_validation_results=False)
+    t0 = time.perf_counter()
+    val = trainer.fit(module, dm)
+    fit_s = time.perf_counter() - t0
+    assert "cm" not in traced, "(c) the trace did not close"
+    launches = counts()
+    for name, n in launches.items():
+        assert n > 0, f"phase 17's path never launched {name}"
+    history = [json.loads(x) for x in (trainer.log_dir / "metrics.jsonl").read_text().splitlines()]
+    assert len(history) == 2 and [h["step"] for h in history] == [16, 32], [h.get("step") for h in history]
+    assert all(math.isfinite(h["total_train"]) for h in history), history
+    meta = json.loads((trainer.log_dir / "run_meta.json").read_text())
+    assert meta["device"] == torch.cuda.get_device_name(0) and meta["n_devices"] == torch.cuda.device_count(), meta
+    assert 0.0 <= val["trk.double_majority_pt0.9"] <= 1.0
+    busy = trace_busy_share(traced["prof"].trace_path, REMAINDER_SPAN)
+    assert busy["steps"] == REMAINDER_TRACE_STEPS, busy["steps"]
+    for row, kernel in REMAINDER_TRACE_NAMES.items():
+        assert any(kernel in k for k in busy["kernel_names"]), f"(c) the trace names no {kernel} ({row})"
+    traced_ms = step_ms[REMAINDER_TRACE_FROM:REMAINDER_TRACE_FROM + REMAINDER_TRACE_STEPS]
+    untraced = step_ms[1:REMAINDER_TRACE_FROM] + step_ms[REMAINDER_TRACE_FROM + REMAINDER_TRACE_STEPS:]
+    rows_traced = {row: sorted({k for k in busy["kernel_names"] if kernel in k}) for row, kernel in
+                   REMAINDER_TRACE_NAMES.items()}
+    summary["fit"] = {"fit_s": fit_s, "steps": len(step_ms), "history_steps": [h["step"] for h in history],
+                      "run_meta_device": meta["device"], "step_ms_median": statistics.median(untraced),
+                      "traced_step_ms_median": statistics.median(traced_ms), "validation_dm": val[tt.MONITOR],
+                      "trace": {k: v for k, v in busy.items() if k != "kernel_names"},
+                      "trace_distinct_kernels": len(busy["kernel_names"]), "trace_rows": rows_traced}
+    say(f"remainder (c) 2-epoch fit of the drill's TC: {fit_s:.2f} s, {len(step_ms)} steps (median "
+        f"{summary['fit']['step_ms_median']:.2f} ms untraced, {summary['fit']['traced_step_ms_median']:.2f} ms "
+        f"traced), metrics.jsonl steps {summary['fit']['history_steps']}, run_meta.json on {meta['device']}; "
+        f"trace of {busy['steps']} steps: window {busy['window_ms']:.2f} ms, device busy {busy['busy_ms']:.2f} ms "
+        f"({100 * busy['busy_share']:.1f} %), {busy['kernel_launches']} kernel launches, "
+        f"{len(busy['kernel_names'])} kernels")
+
+    # ---- (d) the plot modules import without matplotlib where it is missing
+    try:
+        importlib.import_module("matplotlib")
+        have = True
+    except ImportError:
+        have = False
+    for name in REMAINDER_PLOT_MODULES:
+        importlib.import_module(f"gnn_tracking_tpu_torch.{name}")
+    summary["plots"] = {"imported": list(REMAINDER_PLOT_MODULES), "matplotlib_installed": have}
+    summary["launches"] = launches
+    summary["phase_s"] = time.perf_counter() - t_phase
+    say(f"remainder (d) plot modules imported ({'with' if have else 'without'} matplotlib installed); "
+        f"launches on the path {launches}; phase {summary['phase_s']:.1f} s")
+    log("remainder: " + json.dumps({k: v for k, v in summary.items() if k != "ivf"}, default=float))
+    log("remainder ivf: " + json.dumps(ivf, default=float))
+    return summary
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -6793,6 +7139,9 @@ def main(argv=None) -> int:
     p.add_argument("--analysis-only", action="store_true",
                    help="build, run analysis_phase (phase 16: the analysis and metrics layer on etl-trackml-110k, "
                    "the drill's trained latent and the legacy hinge loss) and stop")
+    p.add_argument("--remainder-only", action="store_true",
+                   help="build, run phase 17 (the IVF's options, the OOM guard, RunLogger and "
+                   "device_trace, the plot modules) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -6956,6 +7305,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as analysis_tmp:
             analysis_phase(args.seed, Path(analysis_tmp))
+        print(smi)
+        return 0
+    if args.remainder_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as remainder_tmp:
+            remainder_phase(args.seed, Path(remainder_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -7236,7 +7591,11 @@ def main(argv=None) -> int:
     analysis = analysis_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(analysis["launches"]), sorted(analysis["launches"])
 
-    # ---- 17. results ------------------------------------------------------
+    # ---- 17. the single-device remainder: the IVF's options, the OOM guard, the run loggers ---
+    remainder = remainder_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(remainder["launches"]), sorted(remainder["launches"])
+
+    # ---- 18. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -7249,6 +7608,7 @@ def main(argv=None) -> int:
             **({"etl_launches": etl["serve_launches"][r["name"]]} if r["name"] in etl["serve_launches"] else {}),
             **({"drivers_launches": drivers["launches"][r["name"]]} if r["name"] in drivers["launches"] else {}),
             **({"analysis_launches": analysis["launches"][r["name"]]} if r["name"] in analysis["launches"] else {}),
+            **({"remainder_launches": remainder["launches"][r["name"]]} if r["name"] in remainder["launches"] else {}),
         }
         for r in results
     ]

@@ -8,3 +8,5 @@ kernel under ``csrc/``, built with ``nvcc`` at first use (``_build.py``).
 Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; a CPU tensor takes each kernel's plain PyTorch version.
 """
+
+__version__ = "0.1.0"

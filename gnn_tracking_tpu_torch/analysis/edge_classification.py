@@ -1,9 +1,8 @@
 """Edge-classification analysis across thresholds (counterpart of the JAX
 ``analysis/edge_classification.py``: ``get_all_ec_stats`` and
-``collect_all_ec_stats``), on the graph's device.
-
-The plot ``ThresholdTrackInfoPlot`` is not ported: it needs matplotlib,
-which the card's machine lacks."""
+``collect_all_ec_stats``, on the graph's device, and the plot
+``ThresholdTrackInfoPlot`` over ``collect_all_ec_stats``' column table;
+matplotlib is imported by the methods that draw)."""
 
 from __future__ import annotations
 
@@ -90,3 +89,35 @@ def collect_all_ec_stats(
         )
     keys = list(dict.fromkeys(k for r in averaged for k in r))
     return {k: np.array([r.get(k, np.nan) for r in averaged], dtype=np.float64) for k in keys}
+
+
+class ThresholdTrackInfoPlot:
+    """Track-connectivity figures against the EC threshold, over a column
+    table such as :func:`collect_all_ec_stats` returns."""
+
+    def __init__(self, df: dict[str, np.ndarray]):
+        self.df = df
+        self.ax = None
+
+    def plot(self):
+        from matplotlib import pyplot as plt
+
+        _, self.ax = plt.subplots()
+        self.plot_frac_segments()
+        self.plot_tpr_fpr()
+        self.add_legend()
+        return self.ax
+
+    def plot_frac_segments(self) -> None:
+        for col, color in [("frac_segment50", "C0"), ("frac_segment75", "C1"), ("frac_segment100", "C2")]:
+            if col in self.df:
+                self.ax.plot(self.df["threshold"], self.df[col], label=col, color=color)
+
+    def plot_tpr_fpr(self) -> None:
+        for col, color in [("TPR_thld", "C3"), ("FPR_thld", "C4"), ("MCC_thld", "C5")]:
+            if col in self.df:
+                self.ax.plot(self.df["threshold"], self.df[col], label=col, color=color, ls="--")
+
+    def add_legend(self) -> None:
+        self.ax.set_xlabel("EC threshold")
+        self.ax.legend()

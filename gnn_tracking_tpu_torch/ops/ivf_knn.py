@@ -1,17 +1,28 @@
 """IVF-certified exact kNN for full-detector point clouds (counterpart of
-``gnn_tracking_tpu/ops/ivf_knn.py``, its default configuration).
+``gnn_tracking_tpu/ops/ivf_knn.py``, every option of it).
 
-1. coarse quantization: k-means cells (``LLOYD_ITERS`` Lloyd sweeps from
-   seeds spread along the principal axis);
+1. coarse quantization: k-means cells (``lloyd_iters`` Lloyd sweeps from
+   seeds spread along the principal axis), the assignment in blocks of
+   ``block_n`` points;
 2. bucketing: points sorted by cell into ``[C, cell_cap]`` query slabs and
-   wider ``[C, cand_cap]`` candidate slabs (gather formulation); points over
-   a cap go to the spill set (not a query slot) and the residual set (not a
-   candidate slot);
+   wider ``[C, cand_cap]`` candidate slabs (gather formulation: slot
+   ``(c, r)`` reads the cell-sorted stream); points over a cap go to the
+   spill set (not a query slot) and the residual set (not a candidate
+   slot);
 3. probe: every query slot scans the candidate slabs of the ``n_probe``
-   cells nearest its own (``ivf_probe``, the CUDA kernel
-   ``csrc/ivf_probe.cu``; direct distances, sorted); the residual set is
-   merged into every query (extra pass) and the spilled queries get their
-   own probe (spill probe), each on a size ladder;
+   cells nearest its own. ``probe_impl="pallas"`` (or None, the default on
+   the card and on the CPU) is ``ivf_probe``, the CUDA kernel
+   ``csrc/ivf_probe.cu`` (direct distances, sorted); ``"xla"`` is the JAX
+   function's other probe, plain tensor code: ``group_cells`` cells at a
+   time, each shifted by its centroid, norm-expansion distances and the
+   ``k + 8`` smallest (``cand_cap`` then defaults to ``cell_cap``). With
+   ``spill_passes`` True or ``"extra"`` the residual set is merged into
+   every query (extra pass); with True or ``"probe"`` the spilled queries get
+   their own probe (spill probe); each on a size ladder;
+3b. exact distances: the ``"xla"`` probe's rows are always re-ranked by the
+   direct formula; the kernel probe's are cut to ``k``, and only rows that
+   went through a norm-expansion merge are re-ranked (every row after an
+   extra pass, else the spilled ones after a spill probe);
 4. certification: a query is exact iff its k-th distance beats the
    triangle bound ``|q - c_j| - rad_j`` of every cell it did not visit;
 5. fallback: brute force for the uncertified queries, on a cap ladder.
@@ -21,12 +32,14 @@ the host. One call reads: the spill and residual counts (one transfer),
 then the number of uncertified queries once before the fallback ladder and
 once after each rung that runs. A fully certified call makes two reads.
 
-Not ported (``NotImplementedError``): ``probe_impl="xla"``,
-``bucket_impl="scatter"``, ``spill_passes`` other than True. The JAX
-function's ``fast_assign``, ``lloyd_iters`` and ``block_n`` are not
-arguments: cell assignment runs in float32 with TF32 off (the JAX package's
-chip assigns at its default matmul precision; assignment moves cells, never
-the exact result), with the JAX defaults ``LLOYD_ITERS`` and ``BLOCK_N``.
+``bucket_impl`` and ``fast_assign`` take the JAX function's values and
+defaults and are checked. On the TPU they are hints of layout and
+precision: the slab build as a gather or a scatter (bitwise equal tables),
+and the cell assignment's product at the default or the highest matmul
+precision (which moves cells, never the exact result). They have no CUDA
+counterpart: every call builds the gather tables and assigns at the
+process's float32 matmul setting (PyTorch's default: TF32 off), as the
+JAX package does on the CPU.
 
 :func:`record_parts` times each call's steps.
 """
@@ -43,10 +56,6 @@ from gnn_tracking_tpu_torch.ops.ivf_probe import ivf_probe
 from gnn_tracking_tpu_torch.ops.windowed_topk import _fallback_brute, principal_axis
 
 _FAR = 1e30
-#: Lloyd sweeps of the coarse quantizer
-LLOYD_ITERS = 2
-#: points per block of the assignment, extra-pass and certification sweeps
-BLOCK_N = 4096
 #: the steps of an ``ivf_knn`` call that :func:`record_parts` times, in order
 PARTS = ("quantize_ms", "bucket_ms", "probe_ms", "extra_ms", "spill_ms", "rerank_ms", "certify_ms",
          "fallback_ms")
@@ -123,12 +132,12 @@ def _pdist2(q, c):
     return torch.clamp(qn + cn - 2.0 * (q @ c.T), min=0.0)
 
 
-def _assign_blocks(x, centroids):
+def _assign_blocks(x, centroids, block_n):
     """Nearest-centroid id (first on ties) and squared distance per point,
     blockwise over the points."""
     ids, ds = [], []
-    for s in range(0, x.shape[0], BLOCK_N):
-        d = _pdist2(x[s : s + BLOCK_N], centroids)
+    for s in range(0, x.shape[0], block_n):
+        d = _pdist2(x[s : s + block_n], centroids)
         dmin, a = torch.min(d, dim=1)
         ids.append(a)
         ds.append(dmin)
@@ -167,6 +176,37 @@ def _ladder(count, rungs):
     return next((c for c in rungs if count <= c), rungs[-1])
 
 
+def _probe_xla(xb3, ib2, xc3, ic2, vc2, nbr, centroids, *, kw, loop, group_cells):
+    """The JAX function's ``probe_impl="xla"``: ``group_cells`` cells at a
+    time, each cell's query slots and its probed candidate slabs shifted by
+    its centroid (distances are shift-invariant; the local frame keeps the
+    norm expansion precise), the ``kw`` smallest of the norm-expansion
+    distances per slot (ties to the first candidate in ``nbr`` order).
+    Returns ``[C * cell_cap, kw]`` distances and ids; an unfilled column
+    keeps the id of the candidate that it sorted to."""
+    n_cells, cell_cap, d = xb3.shape
+    width = nbr.shape[1] * xc3.shape[1]
+    pd, pi = [], []
+    for s in range(0, n_cells, group_cells):
+        cells = torch.arange(s, min(s + group_cells, n_cells), device=xb3.device)
+        g = len(cells)
+        shift = centroids[cells][:, None, :]
+        q = xb3[cells] - shift
+        cc = nbr[cells]
+        cx = xc3[cc].reshape(g, width, d) - shift
+        cid = ic2[cc].reshape(g, width).long()
+        qn = (q * q).sum(-1, keepdim=True)
+        cn = (cx * cx).sum(-1)[:, None, :]
+        dd = torch.clamp(qn + cn - 2.0 * torch.bmm(q, cx.transpose(1, 2)), min=0.0)
+        bad = ~vc2[cc].reshape(g, 1, width)
+        if not loop:
+            bad = bad | (cid[:, None, :] == ib2[cells].long()[:, :, None])
+        sd, si = _topk_stable(torch.where(bad, math.inf, dd).reshape(g * cell_cap, width), kw)
+        pd.append(sd)
+        pi.append(torch.gather(cid.repeat_interleave(cell_cap, dim=0), 1, si))
+    return torch.cat(pd), torch.cat(pi)
+
+
 def ivf_knn(
     x: torch.Tensor,
     *,
@@ -178,31 +218,42 @@ def ivf_knn(
     n_probe: int = 8,
     extra_cap: int = 8192,
     fallback_cap: int = 8192,
+    lloyd_iters: int = 2,
+    block_n: int = 4096,
+    group_cells: int = 32,
     certify: bool = True,
     fallback: bool = True,
-    spill_passes: bool = True,
+    spill_passes: bool | str = True,
     probe_impl: str | None = None,
     cand_cap: int | None = None,
+    fast_assign: bool = True,
     bucket_impl: str = "gather",
     return_stats: bool = False,
 ):
-    """Exact kNN via certified IVF probing.
+    """Exact kNN via certified IVF probing (the JAX function's arguments,
+    the same defaults, except that ``probe_impl=None`` takes the kernel
+    probe on the CPU too).
 
     Returns ``(dists_sq [N, k], idx [N, k] int64, n_uncertified [])`` in the
     input's indexing (and a dict of bucketing statistics with
     ``return_stats``). Infinite distances mark missing neighbours;
     ``n_uncertified`` is 0 when every query is proven exact (-1 with
-    ``certify=False``).
+    ``certify=False``). ``spill_passes`` False, ``"probe"`` or ``"extra"``
+    leave out the extra pass, the spill probe or both (their rows stay
+    uncertified, or are certified as the JAX function certifies them).
     """
-    if probe_impl not in (None, "pallas"):
-        msg = f"probe_impl={probe_impl!r}: only the kernel probe is ported"
-        raise NotImplementedError(msg)
-    if bucket_impl != "gather":
-        msg = f"bucket_impl={bucket_impl!r}: only 'gather' is ported"
-        raise NotImplementedError(msg)
-    if spill_passes is not True:
-        msg = f"spill_passes={spill_passes!r}: only True is ported"
-        raise NotImplementedError(msg)
+    if probe_impl is None:
+        probe_impl = "pallas"
+    if probe_impl not in ("pallas", "xla"):
+        raise ValueError(f"probe_impl must be 'pallas' or 'xla', got {probe_impl!r}")
+    if fast_assign not in (True, False):
+        raise ValueError(f"fast_assign must be True or False, got {fast_assign!r}")
+    if bucket_impl not in ("gather", "scatter"):
+        raise ValueError(f"bucket_impl must be 'gather' or 'scatter', got {bucket_impl!r}")
+    if spill_passes not in (True, False, "probe", "extra"):
+        raise ValueError(f"spill_passes must be True, False, 'probe' or 'extra', got {spill_passes!r}")
+    extra_on = spill_passes in (True, "extra")
+    spill_on = spill_passes in (True, "probe")
     n, d = x.shape
     dev = x.device
     rec = None
@@ -226,7 +277,8 @@ def ivf_knn(
     fallback_cap = min(fallback_cap, n)
     extra_cap = min(extra_cap, n)
     if cand_cap is None:
-        cand_cap = cell_cap * 8 // 3
+        # the kernel probe scans a wider candidate table almost for free
+        cand_cap = cell_cap * 8 // 3 if probe_impl == "pallas" else cell_cap
     cand_cap = max(cand_cap, cell_cap)
     kw = k + 8
 
@@ -234,14 +286,14 @@ def ivf_knn(
     order0 = _principal_order(xf, node_mask)
     stride = max(1, n // n_cells)
     centroids = xf[order0[(torch.arange(n_cells, device=dev) * stride) % n]]
-    for _ in range(LLOYD_ITERS):
-        a, _ = _assign_blocks(xf, centroids)
+    for _ in range(lloyd_iters):
+        a, _ = _assign_blocks(xf, centroids, block_n)
         sums = torch.zeros_like(centroids).index_add_(0, a, xf * w[:, None])
         cnts = torch.zeros(n_cells, device=dev).index_add_(0, a, w)
         centroids = torch.where(
             cnts[:, None] > 0, sums / torch.clamp(cnts, min=1.0)[:, None], centroids
         )
-    assign, _ = _assign_blocks(xf, centroids)
+    assign, _ = _assign_blocks(xf, centroids, block_n)
     assign = torch.where(node_mask, assign, n_cells - 1)
     # cell radius over all assigned valid points (spilled ones too)
     dist_own = torch.sqrt(torch.clamp(((xf - centroids[assign]) ** 2).sum(1), min=0.0))
@@ -291,14 +343,17 @@ def ivf_knn(
     # --- 3. probe ----------------------------------------------------------
     nbr = _topk_stable(_pdist2(centroids, centroids), n_probe)[1]  # [C, T], self first
     laps.lap("bucket_ms")
+    xb3 = xb.reshape(n_cells, cell_cap, d)
+    ib2 = ib.reshape(n_cells, cell_cap)
     xc3 = xcb.reshape(n_cells, cand_cap, d)
     ic2 = icb.reshape(n_cells, cand_cap)
     vc2 = vcb.reshape(n_cells, cand_cap)
-    pd, pi = ivf_probe(
-        xb.reshape(n_cells, cell_cap, d), ib.reshape(n_cells, cell_cap), xc3, ic2,
-        nbr.to(torch.int32), kw=kw, loop=loop,
-    )
-    pi = pi.long()
+    if probe_impl == "pallas":
+        pd, pi = ivf_probe(xb3, ib2, xc3, ic2, nbr.to(torch.int32), kw=kw, loop=loop)
+        pi = pi.long()
+    else:
+        pd, pi = _probe_xla(xb3, ib2, xc3, ic2, vc2, nbr, centroids, kw=kw, loop=loop,
+                            group_cells=group_cells)
     # slot results back to the input's indexing through the inverse map
     n_slots = pd.shape[0]
     slot_of = torch.full((n + 1,), n_slots, dtype=torch.int64, device=dev)
@@ -311,14 +366,15 @@ def ivf_knn(
     rungs = [c for c in (256, 2048) if c < extra_cap] + [extra_cap]
     laps.lap("probe_ms")
 
-    if n_resid > 0:
+    extra_ran = extra_on and n_resid > 0
+    if extra_ran:
         # extra pass: every query merges the residual set's top-kw (ids
         # disjoint from every candidate slab) into its probe result
         cap = _ladder(n_resid, rungs)
         x_r, ids_r, valid_r = x_resid[:cap], resid_ids[:cap], resid_valid[:cap]
         de, ie = [], []
-        for s in range(0, n, BLOCK_N):
-            dd = _pdist2(xf[s : s + BLOCK_N], x_r)
+        for s in range(0, n, block_n):
+            dd = _pdist2(xf[s : s + block_n], x_r)
             bad = ~valid_r[None, :]
             if not loop:
                 bad = bad | (ids_r[None, :] == torch.arange(s, s + dd.shape[0], device=dev)[:, None])
@@ -328,7 +384,7 @@ def ivf_knn(
         dists, idx = _merge_sorted_pairs(dists, idx, torch.cat(de), torch.cat(ie), kw)
         laps.lap("extra_ms")
 
-    if n_spill > 0:
+    if spill_on and n_spill > 0:
         # spill probe: the spilled queries scan their own cell's probe list
         cap = _ladder(n_spill, rungs)
         ids_c, x_c, valid_c = spill_ids[:cap], x_spill[:cap], spill_valid[:cap]
@@ -359,21 +415,23 @@ def ivf_knn(
         laps.lap("spill_ms")
 
     # --- 3b. exact distances -------------------------------------------------
-    # The probe's distances are already direct and sorted, so its rows are
-    # cut to k. Rows that went through a norm-expansion merge are re-ranked
-    # by the direct formula: all rows after an extra pass, else the spilled.
+    # The kernel probe's distances are already direct and sorted, so its
+    # rows are cut to k, and only rows that went through a norm-expansion
+    # merge are re-ranked by the direct formula: all rows after an extra
+    # pass, else the spilled ones. The "xla" probe's rows all are.
     def rerank(rows):
         dn, ix = dists[rows], idx[rows]
         dr = ((xf[rows][:, None, :] - xf[ix]) ** 2).sum(-1)
         sd, si = _topk_stable(torch.where(torch.isfinite(dn), dr, math.inf), k)
         return sd, torch.gather(ix, 1, si)
 
-    if n_resid > 0:
-        out = [rerank(torch.arange(s, min(s + 8192, n), device=dev)) for s in range(0, n, 8192)]
+    if probe_impl == "xla" or extra_ran:
+        step = min(block_n, 8192)
+        out = [rerank(torch.arange(s, min(s + step, n), device=dev)) for s in range(0, n, step)]
         dists, idx = torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
     else:
         dk, ik = dists[:, :k].clone(), idx[:, :k].clone()
-        if n_spill > 0:
+        if spill_on and n_spill > 0:
             dm, im = rerank(spill_ids)
             keep = spill_valid[:, None]
             dk[spill_ids] = torch.where(keep, dm, dk[spill_ids])
@@ -394,11 +452,12 @@ def ivf_knn(
     found_all = torch.isfinite(dists).all(dim=1)
     visited = nbr[assign]  # [N, T]
     cert = []
-    for s in range(0, n, 2048):
-        q = xf[s : s + 2048]
+    step = min(block_n, 2048)
+    for s in range(0, n, step):
+        q = xf[s : s + step]
         bound = torch.sqrt(_pdist2(q, centroids)) - rad[None, :]
-        bound = bound.scatter(1, visited[s : s + 2048], math.inf)
-        r = kth[s : s + 2048]
+        bound = bound.scatter(1, visited[s : s + step], math.inf)
+        r = kth[s : s + step]
         # margin: never let rounding certify a borderline query
         cert.append(r <= bound.amin(dim=1) - 1e-5 * torch.clamp(r, min=1.0))
     certified = (torch.cat(cert) & found_all & (spill_lost == 0)) | ~node_mask

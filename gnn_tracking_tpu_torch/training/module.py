@@ -3,7 +3,13 @@
 
 A module holds the model, the loss and the optimizer. ``training_step``
 runs forward, loss, ``backward`` and one optimizer step, and returns the
-step's metrics as floats after one device-to-host transfer. The optimizer is
+step's metrics as floats after one device-to-host transfer. A step is all
+or nothing, as the JAX module's jitted step is: where it raises (a CUDA
+out-of-memory error in the forward, the backward or inside Adam's update),
+the weights, the model's buffers, Adam's state, ``step`` and the
+generator are put back as they were before it (from a copy that the step
+keeps of them: one more copy of the weights and Adam's moments on the
+device). The optimizer is
 ``torch.optim.Adam`` with optax's ``adam`` defaults (betas 0.9 / 0.999, eps
 1e-8 added outside the square root in both frameworks). Random draws of the
 loss come from the module's ``torch.Generator``.
@@ -45,6 +51,7 @@ first step (``lr`` is then unused, as in JAX); anything else raises
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -76,6 +83,17 @@ def to_floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
     return dict(zip(metrics, values.cpu().tolist()))
 
 
+def _by_device_and_dtype(dst: list[torch.Tensor], src: list[torch.Tensor]):
+    """``(dst, src)`` sublists, one pair for each device and dtype of
+    ``src``, for ``torch._foreach_copy_``."""
+    groups: dict[tuple, tuple[list, list]] = {}
+    for d, s in zip(dst, src):
+        pair = groups.setdefault((s.device, s.dtype), ([], []))
+        pair[0].append(d)
+        pair[1].append(s)
+    return list(groups.values())
+
+
 class TrackingModule:
     """Model + Adam, stepped one event graph at a time."""
 
@@ -104,6 +122,11 @@ class TrackingModule:
         self.step = 0
         self.rng_seed = rng_seed
         self.generator = torch.Generator(device=self.device).manual_seed(rng_seed)
+        #: ``_all_or_nothing``'s kept copy: the optimizer's state and groups
+        #: (and their sizes) when it was taken, and its ``(copy, live)`` pairs
+        #: of lists, one per device and dtype
+        self._backup_key: tuple | None = None
+        self._backup_pairs: list[tuple[list, list]] = []
 
     def _named_parameters(self) -> dict[str, torch.Tensor]:
         """Every parameter by its JAX path: the model's under ``model/``,
@@ -183,17 +206,68 @@ class TrackingModule:
 
     def training_step(self, data: EventGraph) -> dict[str, float]:
         """One optimization step; returns the train metrics (``total`` is
-        the loss before the step)."""
+        the loss before the step). An exception inside leaves the module as
+        it was before the step (``_all_or_nothing``) and goes through."""
         self.setup_params(data)
         self.model.train()
-        out, data = self.apply_model(data.to(self.device))
-        loss, metrics = self.get_losses(out, data)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
+        with self._all_or_nothing():
+            out, data = self.apply_model(data.to(self.device))
+            loss, metrics = self.get_losses(out, data)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+            metrics["total"] = loss
+            floats = to_floats(metrics)
         self.step += 1
-        metrics["total"] = loss
-        return to_floats(metrics)
+        return floats
+
+    def _mutable_tensors(self) -> list[torch.Tensor]:
+        """What a training step changes in place: the trainable parameters,
+        the model's buffers and the optimizer's state tensors."""
+        params = [p for group in self.optimizer.param_groups for p in group["params"]]
+        state = [v for s in self.optimizer.state.values() for v in s.values() if torch.is_tensor(v)]
+        return params + list(self.model.buffers()) + state
+
+    @contextlib.contextmanager
+    def _all_or_nothing(self):
+        """Inside the block, a copy of ``_mutable_tensors``, the optimizer's
+        group settings, which parameters have state, and the generator's
+        state; where the block raises, all of them are put back, the
+        gradients are dropped, and the exception goes on.
+
+        The copy is kept between steps and refreshed with one
+        ``_foreach_copy_`` per device and dtype. It is taken anew, with the
+        list of tensors, when the optimizer's state or groups are other
+        objects or of another size (the first step, ``load_state_dict``);
+        the tensors themselves, the model's buffers too, are updated in
+        place. The host's bookkeeping stays off the step's path."""
+        opt = self.optimizer
+        key = self._backup_key
+        if (key is None or key[0] is not opt.state or key[1] is not opt.param_groups
+                or key[2:] != (len(opt.state), len(opt.param_groups))):
+            live = self._mutable_tensors()
+            self._backup_key = (opt.state, opt.param_groups, len(opt.state), len(opt.param_groups))
+            self._backup_pairs = _by_device_and_dtype([t.detach().clone() for t in live], live)
+        else:
+            with torch.no_grad():
+                for copy, src in self._backup_pairs:
+                    torch._foreach_copy_(copy, src)
+        groups = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
+        had_state = set(opt.state)
+        generator = self.generator.get_state()
+        try:
+            yield
+        except BaseException:
+            with torch.no_grad():
+                for copy, dst in self._backup_pairs:
+                    torch._foreach_copy_(dst, copy)
+            for group, saved in zip(opt.param_groups, groups):
+                group.update(saved)
+            for p in [p for p in opt.state if p not in had_state]:
+                del opt.state[p]
+            opt.zero_grad(set_to_none=True)
+            self.generator.set_state(generator)
+            raise
 
     @torch.no_grad()
     def validation_step(self, data: EventGraph, batch_idx: int) -> dict[str, float]:

@@ -34,52 +34,34 @@ epoch reads the order that the same epoch of an uninterrupted run reads
 writes the files on a background thread; ``fit`` waits for them at its end,
 and :meth:`restore` before it reads (JAX ``trainer.py:106-112``).
 
-The JAX trainer's run loggers and out-of-memory guard have no counterpart
-here.
+As in JAX, every training step goes through ``utils.oom.tolerate_some_oom_errors``:
+a step that runs out of memory is undone (``TrackingModule.training_step``),
+its batch is skipped (no EMA update, no step counted), and the tenth such
+step in a row raises. After each epoch a ``training.loggers.RunLogger`` on
+``log_dir`` (made at the end of the first epoch) appends ``module.step``
+and the epoch's metrics to ``metrics.jsonl`` and has written
+``run_meta.json``.
 """
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import json
 import logging
-import math
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from gnn_tracking_tpu_torch.training.restore import checkpoint_state, load_checkpoint
 from gnn_tracking_tpu_torch.training.config import find_latest_checkpoint, obj_from_config
+from gnn_tracking_tpu_torch.training.loggers import RunLogger
+from gnn_tracking_tpu_torch.training.logging_utils import MetricAccumulator
+from gnn_tracking_tpu_torch.training.restore import checkpoint_state, load_checkpoint
 from gnn_tracking_tpu_torch.utils.nomenclature import random_trial_name
+from gnn_tracking_tpu_torch.utils.oom import tolerate_some_oom_errors
 
 logger = logging.getLogger(__name__)
-
-
-class MetricAccumulator:
-    """Per-batch metric dicts -> epoch means and standard errors (``*_std``:
-    std / sqrt(n), NaN below two values); NaN values are skipped."""
-
-    def __init__(self):
-        self._values: dict[str, list[float]] = collections.defaultdict(list)
-
-    def update(self, metrics: dict[str, float]) -> None:
-        for k, v in metrics.items():
-            v = float(v)
-            if not math.isnan(v):
-                self._values[k].append(v)
-
-    def compute(self) -> dict[str, float]:
-        out = {k: float(np.mean(v)) for k, v in self._values.items()}
-        for k, v in self._values.items():
-            if not k.endswith("_std"):
-                out[f"{k}_std"] = (
-                    float(np.std(v) / math.sqrt(len(v))) if len(v) > 1 else float("nan")
-                )
-        return out
 
 
 def format_results_table(metrics: dict[str, float], *, highlight=None) -> str:
@@ -137,6 +119,7 @@ class Trainer:
         #: parameter name -> EMA tensor (set during ``fit`` when ``ema_decay``)
         self.ema_params: dict[str, torch.Tensor] | None = None
         self.metrics_history: list[dict[str, float]] = []
+        self._run_logger: RunLogger | None = None
         #: the epoch checkpoints, in order
         self.checkpoints: list[Path] = []
         #: ``checkpoint_best.pt`` once ``monitor`` selected an epoch
@@ -215,6 +198,7 @@ class Trainer:
         datamodule.setup("fit")
         train_loader = datamodule.train_dataloader()
         val_loader = datamodule.val_dataloader() if datamodule.has("val") else None
+        safe_step = tolerate_some_oom_errors(lambda batch: module.training_step(batch))
         if resume:
             try:
                 latest = find_latest_checkpoint(self.log_dir)
@@ -238,7 +222,9 @@ class Trainer:
             for batch in train_loader:
                 if self.train_transform is not None:
                     batch = self.train_transform(batch.to(module.device), module.step)
-                metrics = module.training_step(batch)
+                metrics = safe_step(batch)
+                if metrics is None:  # a skipped out-of-memory batch
+                    continue
                 if self.ema_decay is not None:
                     self._update_ema(module)
                 acc.update(metrics)
@@ -262,7 +248,11 @@ class Trainer:
                         with _parameters(module, self.ema_params):
                             self.best_checkpoint = self._save(module, config, tag="best")
                         logger.info("New best %s=%.5f (checkpoint_best)", self.monitor, value)
-            self.metrics_history.append({**train_metrics, **last_val})
+            epoch_metrics = {**train_metrics, **last_val}
+            self.metrics_history.append(epoch_metrics)
+            if self._run_logger is None:
+                self._run_logger = RunLogger(self.log_dir, config=config, device=module.device)
+            self._run_logger.log(module.step, epoch_metrics)
             if self.checkpoint_every_epoch:
                 self.checkpoints.append(self._save(module, config))
             if self.max_steps is not None and module.step >= self.max_steps:

@@ -502,8 +502,13 @@ def test_ivf_knn_options():
     d, _, u = port_ivf.ivf_knn(xt, k=k, **{**kw, "n_probe": 1})
     assert int(u) == 0  # ... but the fallback ladder makes it exact
     np.testing.assert_allclose(d.numpy(), brute_knn(x, k), rtol=1e-5, atol=1e-6)
-    for bad in ({"probe_impl": "xla"}, {"bucket_impl": "scatter"}, {"spill_passes": "probe"}):
-        with pytest.raises(NotImplementedError):
+    # every option of the JAX function runs (tests/test_torch_port_ivf_options.py holds each to JAX)
+    for option in ({"probe_impl": "xla"}, {"bucket_impl": "scatter"}, {"spill_passes": "probe"}):
+        d, _, u = port_ivf.ivf_knn(xt, k=k, **kw, **option)
+        assert int(u) == 0
+        np.testing.assert_allclose(d.numpy(), brute_knn(x, k), rtol=1e-5, atol=1e-6)
+    for bad in ({"probe_impl": "triton"}, {"bucket_impl": "sort"}, {"spill_passes": "both"}):
+        with pytest.raises(ValueError):
             port_ivf.ivf_knn(xt, k=k, **bad)
 
 
