@@ -11,6 +11,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py --etl-only        # phase 14 alone
     python3 chip_smoke.py --drivers-only    # phase 15 alone
     python3 chip_smoke.py --analysis-only   # phase 16 alone
+    python3 chip_smoke.py --parallel-only   # phase 18 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -371,13 +372,44 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    share of those steps comes from it (``trace_busy_share``); (d) the plot
    modules import (the card's machine has no matplotlib). The kernels of
    ``REMAINDER_KERNELS`` must launch on the phase's path;
-18. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+18. the parallel package as ranks on this card (``parallel_phase``; ranks
+   are processes sharing the one card over gloo, started by
+   ``parallel.multihost.spawn`` with a ``FileStore`` in a temporary
+   directory, the kernels built once before): first a probe, two gloo ranks
+   calling each collective by hand on CUDA tensors (which gloo accepts, and
+   which abort a rank: point-to-point does, so the ring fetch stages its
+   buffers through pinned host memory, ``parallel.mesh.GLOO_CUDA_OPS``);
+   then etl-trackml-110k's 1-sector graph (phase 14's point cloud where it
+   ran; 55,660 hits, 6.09M edges) partitioned into 2 phi-sorted shards
+   (``sort_edges``) and the references, the fast path on this card (one
+   rank, no exchange, no collectives, the same kernels) from each step's
+   starting weights and Adam state. (a) ``ShardedTCTrainer`` with
+   ``tc.yml``'s ``PerfectECGraphTCN(64, 64, 8, 128, L_hc 3)``,
+   ``max_n_objects`` 2048 and a subsample seed, in 2 ranks, with the
+   ``a2a``, ``all_gather`` and ``ring`` fetches (ring distance 1 asserted)
+   and the halo-split layout (``halo_edges_last``, a2a): the forward's H / B
+   unpartitioned, 3 steps' losses, gradients and weights
+   (``_check_steps``; rtol 1e-5 / 2e-5), each step and the exchange alone
+   timed per rank with its halo rows, bytes and transport, one more step
+   traced by ``torch.profiler`` in rank 0 (rows #1, #2, #9, #10 by kernel
+   name); (b) ``ShardedGraphTCNTrainer`` with ``GraphTCN(64, 64, 8, 128,
+   L_ec 6, L_hc 3)`` (an EC cut that no rounding moves an edge across,
+   ``parallel_threshold``): W / H / B, the cut, one step; (c) ``DPTrainer``'s
+   step over 2 ranks, each one training-graphtcn-32k event, against the
+   single-process step on both; (d) ``DataGraphTCNTrainer`` over 2 x 2 = 4
+   ranks (the event and its phi rotation, 2 shards each; the EC cut to 2
+   layers so that four ranks fit the card) against the per-event average;
+   (e) (a)'s sharded step through an NCCL group of world size 1. Rows #1,
+   #2, #9 and #10 must launch in every rank; the phase's wall time and its
+   parts are logged;
+19. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
    kernels of phase 12's path with ``pipeline_launches``, of phase
    13's with ``variants_launches``, of phase 14's served path with
    ``etl_launches``, of phase 15's with ``drivers_launches``, of phase
-   16's with ``analysis_launches`` and of phase 17's with
-   ``remainder_launches``;
+   16's with ``analysis_launches``, of phase 17's with
+   ``remainder_launches`` and of phase 18's ranks with
+   ``parallel_launches``;
    ``edge_join``'s ``launches`` are phase 14's ``build_graphs`` calls), the
    ``nvidia-smi`` name/power line, and last the device JSON line.
 
@@ -432,7 +464,8 @@ FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, run
 ``--etl-only`` builds, runs ``etl_phase`` (phase 14) and stops; ``--drivers-only``
 builds, runs ``drivers_phase`` (phase 15) and stops; ``--analysis-only`` builds,
 runs ``analysis_phase`` (phase 16) and stops; ``--remainder-only`` builds,
-runs ``remainder_phase`` (phase 17) and stops. ``--wide-only``
+runs ``remainder_phase`` (phase 17) and stops; ``--parallel-only`` builds, runs
+``parallel_phase`` (phase 18) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -7040,6 +7073,613 @@ def remainder_phase(seed: int, tmp: Path) -> dict:
     return summary
 
 
+# ---- 18. parallelism: ranks on the card ------------------------------------------------------
+
+#: (a): tc.yml's PerfectECGraphTCN at its widths, its loss weights, max_n_objects and a subsample seed
+PARALLEL_TC_MODEL = {"h_dim": 64, "e_dim": 64, "h_outdim": 8, "hidden_dim": 128, "L_hc": 3}
+PARALLEL_TC_WEIGHTS = {"attractive": 1.0, "repulsive": 1.0, "coward": 0.1, "noise": 1.0}
+PARALLEL_K, PARALLEL_SUBSAMPLE_SEED, PARALLEL_SHARDS, PARALLEL_STEPS = 2048, 7, 2, 3
+#: (a): each exchange, and the halo-split layout (a2a, its edges ordered [local | halo] blocks)
+PARALLEL_IMPLS = ("a2a", "all_gather", "ring", "split")
+#: (b): the full GraphTCN at tc.yml's widths; (d) cuts its EC to 2 layers, so that four ranks'
+#: activations on two full events fit one card
+PARALLEL_GTCN_MODEL = {"h_dim": 64, "e_dim": 64, "h_outdim": 8, "hidden_dim": 128, "L_ec": 6, "L_hc": 3}
+PARALLEL_GRID_MODEL = {**PARALLEL_GTCN_MODEL, "L_ec": 2}
+PARALLEL_GTCN_WEIGHTS = {**PARALLEL_TC_WEIGHTS, "edge": 1.0}
+#: (d): the second event is the first with every hit's phi turned by this angle (another partition)
+PARALLEL_ROTATION = 2.0
+#: the kernels each rank must launch, and their device kernels' names in a profiler trace
+PARALLEL_KERNELS = {k: TC_CLI_KERNELS[k] for k in
+                    ("fused_relational_fwd", "fused_relational_bwd", "sorted_segment_sum", "sorted_gather")}
+PARALLEL_TRACE_NAMES = {"fused_relational_fwd": "edge_mlp_kernel", "fused_relational_bwd": "edge_mlp_bwd_kernel",
+                        "sorted_segment_sum": "segment_tiles_kernel", "sorted_gather": "gather_rows_kernel"}
+#: tolerances (JAX's own sharded tests: tests/test_sharded_model.py:130-136,
+#: test_sharded_training.py:148): the forward; each step from the same weights and Adam state
+#: (losses with an atol; gradients per tensor norm-wise, with a floor of 1e-6 of the whole
+#: gradient's norm: a gradient that is exactly zero, as that of the latent's last bias under the
+#: loss's translation invariance, is f32 rounding on both paths; the weights after it per tensor
+#: norm-wise over the elements whose gradient exceeds PARALLEL_ADAM_FLOOR, every other element
+#: within PARALLEL_ADAM_MOVE: Adam divides each gradient element by its own size plus 1e-8, so
+#: below that a rounding-sized difference moves a weight by a share of the rate, 1e-3)
+PARALLEL_FWD_RTOL, PARALLEL_STEP_RTOL, PARALLEL_LOSS_ATOL, PARALLEL_GRAD_FLOOR = 1e-5, 2e-5, 1e-7, 1e-6
+PARALLEL_ADAM_FLOOR, PARALLEL_ADAM_MOVE = 1e-6, 4e-3
+#: (b) / (d): the least gap around the EC cut (a hundred float32 steps at 0.5)
+PARALLEL_CUT_GAP = 6e-6
+#: the collectives the probe tries on CUDA tensors over gloo, point-to-point last
+PARALLEL_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all", "p2p")
+
+
+def _launch_counts() -> dict:
+    import importlib
+
+    return {k: getattr(importlib.import_module(f"gnn_tracking_tpu_torch.ops.{m}"), f).launches
+            for k, (m, f) in PARALLEL_KERNELS.items()}
+
+
+def _reset_launches() -> None:
+    import importlib
+
+    for m, f in PARALLEL_KERNELS.values():
+        getattr(importlib.import_module(f"gnn_tracking_tpu_torch.ops.{m}"), f).launches = 0
+
+
+def _grads(model) -> dict:
+    return {n: None if p.grad is None else p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _params(model) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+
+
+def _state(model, optimizer) -> dict:
+    """The weights and the optimizer's state before a step, on the host."""
+    import torch
+
+    opt = optimizer.state_dict()
+    return {"params": _params(model), "opt": {
+        "state": {i: {k: v.detach().cpu().clone() if torch.is_tensor(v) else v for k, v in st.items()}
+                  for i, st in opt["state"].items()},
+        "param_groups": copy.deepcopy(opt["param_groups"])}}
+
+
+def _steps(model, optimizer, step, n: int, record: bool) -> dict:
+    """``n`` calls of ``step()`` (each timed, ending in a synchronise); with
+    ``record`` each one's starting state, step-0... gradients and the final
+    weights, for ``_check_steps``."""
+    import torch
+
+    res = {"losses": [], "step_ms": [], "before": [], "grads": []}
+    for _ in range(n):
+        if record:
+            res["before"].append(_state(model, optimizer))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res["losses"].append({k: float(v) for k, v in step().items()})
+        torch.cuda.synchronize()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if record:
+            res["grads"].append(_grads(model))
+    if record:
+        res["after"] = _params(model)
+    return res
+
+
+def parallel_probe_rank(rank: int, world: int, out: str) -> None:
+    """Each collective of ``PARALLEL_PROBE_OPS`` called by hand on CUDA tensors
+    over the gloo default group: accepted (and right) or refused, written to
+    ``out`` after each, so that a crash leaves the earlier findings."""
+    import torch
+    import torch.distributed as dist
+
+    found = {}
+    dev = torch.device("cuda")
+    for op in PARALLEL_PROBE_OPS:
+        t = torch.full((4, 3), float(rank + 1), device=dev)
+        try:
+            if op == "all_reduce":
+                dist.all_reduce(t)
+                ok = bool((t == sum(range(1, world + 1))).all())
+            elif op == "broadcast":
+                dist.broadcast(t, src=0)
+                ok = bool((t == 1).all())
+            elif op == "all_gather":
+                outs = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(outs, t)
+                ok = all(bool((o == i + 1).all()) for i, o in enumerate(outs))
+            elif op == "all_to_all":
+                o = torch.empty_like(t)
+                dist.all_to_all_single(o, t)
+                ok = bool((o.view(world, -1) == torch.arange(1, world + 1, device=dev)[:, None]).all())
+            else:
+                got = torch.empty_like(t)
+                works = dist.batch_isend_irecv([dist.P2POp(dist.isend, t, (rank + 1) % world),
+                                                dist.P2POp(dist.irecv, got, (rank - 1) % world)])
+                for w in works:
+                    w.wait()
+                ok = bool((got == (rank - 1) % world + 1).all())
+            torch.cuda.synchronize()
+            found[op] = "accepted" if ok else "accepted, wrong result"
+        except RuntimeError as e:  # the finding is the refusal itself
+            found[op] = f"refused: {str(e).splitlines()[0][:160]}"
+        Path(out % rank).write_text(json.dumps(found))
+
+
+def _tc_trainer(spec: dict, case: dict, mesh):
+    import torch
+
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN, PerfectECGraphTCN
+    from gnn_tracking_tpu_torch.parallel.sharded_model import ShardedGraphTCNTrainer, ShardedTCTrainer
+
+    split = case.get("split", 0)
+    if case["model"] == "tc":
+        model = PerfectECGraphTCN(**spec["widths"], **PARALLEL_TC_MODEL, halo_edge_split=split, device="cpu")
+        cls, weights = ShardedTCTrainer, PARALLEL_TC_WEIGHTS
+    else:
+        widths = PARALLEL_GTCN_MODEL if case["model"] == "gtcn" else PARALLEL_GRID_MODEL
+        model = GraphTCN(**spec["widths"], **widths, ec_threshold=case["threshold"], halo_edge_split=split,
+                         device="cpu")
+        cls, weights = ShardedGraphTCNTrainer, PARALLEL_GTCN_WEIGHTS
+    model.load_state_dict(spec["state"][case["model"]])
+    kw = {"max_n_objects": PARALLEL_K, "loss_weights": weights, "optimizer": None}
+    if case.get("grid"):
+        from gnn_tracking_tpu_torch.parallel.mesh2d import DataGraphTCNTrainer
+
+        return DataGraphTCNTrainer(mesh, model=model, **kw)
+    return cls(mesh, model=model, halo_impl=case.get("impl", "a2a"), ring_max_dist=1, **kw)
+
+
+def _parallel_sharded_case(rank: int, spec: dict, case: dict) -> dict:
+    """(a) / (b) / (d) / (e) in one rank: the forward, then ``case["steps"]``
+    training steps (each timed, ending in a synchronise), the launches of
+    ``PARALLEL_KERNELS`` over them, the exchange alone and its halo rows and
+    bytes, and (``profile``) one more step under ``torch.profiler``."""
+    import torch
+    import torch.distributed as dist
+
+    from gnn_tracking_tpu_torch.parallel.halo import HaloExchange
+    from gnn_tracking_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*case["mesh"], device="cuda")
+    trainer = _tc_trainer(spec, case, mesh)
+    sg_l, cd_l = trainer.place(spec["sg"][case["partition"]], spec["cd"][case["partition"]])
+    trainer.init(sg_l)
+    if case.get("force_sharded"):
+        trainer._step = trainer._build_step_sharded()
+    forward = [t.cpu() for t in trainer.forward(sg_l)]  # collectives: every rank takes part
+    _reset_launches()
+    res = _steps(trainer.model, trainer.optimizer, lambda: trainer.training_step(sg_l, cd_l), case["steps"],
+                 rank == 0)
+    res.update(forward=forward if rank == 0 else None, launches=_launch_counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    # the exchange alone, at the HC layers' width, on every rank at once
+    impl = trainer.halo_impl
+    ex = HaloExchange(sg_l, trainer.group, impl, 1)
+    x = torch.randn(sg_l.n_local, PARALLEL_TC_MODEL["h_dim"], device=mesh.device)
+    ex(x)
+    if trainer.group is not None:
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ex(x)
+    torch.cuda.synchronize()
+    p, h, f = sg_l.n_shards, sg_l.n_halo, x.shape[1]
+    hp = sg_l.send_local.shape[-1]
+    rows = {"all_gather": p * sg_l.n_local, "a2a": p * hp, "ring": len(getattr(ex.fetch, "steps", [])) * hp}[impl]
+    res.update(exchange_ms=(time.perf_counter() - t0) * 1e2, halo_rows=int(sg_l.halo_mask.sum()), halo_slots=h,
+               exchange_rows=rows, exchange_bytes=rows * f * 4, transport={impl: ex.transport})
+    if case.get("profile"):  # one more step, traced in rank 0
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) if rank == 0 else contextlib.nullcontext() as prof:
+            trainer.training_step(sg_l, cd_l)
+            torch.cuda.synchronize()
+        if rank == 0:
+            names = {e.key for e in prof.key_averages()}
+            res["traced"] = {k: any(v in n for n in names) for k, v in PARALLEL_TRACE_NAMES.items()}
+    return res
+
+
+def _parallel_dp_case(rank: int, spec: dict, case: dict) -> dict:
+    """(c) in one rank: ``DPTrainer``'s step on this rank's 32k event."""
+    import torch
+
+    from gnn_tracking_tpu_torch.parallel.dp import make_dp_train_step
+    from gnn_tracking_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(case["mesh"][0], 1, device="cuda")
+    module = _dp_module(spec["state"]["dp"], spec["dp_threshold"])
+    step = make_dp_train_step(module, mesh)
+    ev = spec["dp_events"][mesh.data_rank].to(mesh.device)
+    _reset_launches()
+    res = _steps(module.model, module.optimizer, lambda: step([ev]), 1, rank == 0)
+    return res | {"launches": _launch_counts()}
+
+
+def _dp_module(state: dict, threshold: float):
+    import torch
+
+    from gnn_tracking_tpu_torch.losses.oc import CondensationLossTiger
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN
+    from gnn_tracking_tpu_torch.training.module import TCModule
+
+    model = GraphTCN(**{**MODEL, "ec_threshold": threshold}, device="cpu")
+    model.load_state_dict(state)
+    return TCModule(model=model, loss_fct=CondensationLossTiger(**LOSS), lr=LR, device="cuda")
+
+
+def parallel_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of phase 18: every case of the spec file whose world size is
+    this group's, its results written to ``spec["out"] % rank``."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False, mmap=True)
+    results = {}
+    for case in spec["cases"]:
+        t0 = time.perf_counter()
+        fn = _parallel_dp_case if case["kind"] == "dp" else _parallel_sharded_case
+        results[case["name"]] = fn(rank, spec, case) | {"case_s": time.perf_counter() - t0}
+    torch.save(results, spec["out"] % rank)
+
+
+def _spawn_ranks(tmp: Path, name: str, world: int, spec: dict, backend: str = "gloo") -> list[dict]:
+    """The cases of ``spec`` in ``world`` ranks on this card (a ``FileStore`` in
+    ``tmp``); each rank's results."""
+    import torch
+
+    from gnn_tracking_tpu_torch.parallel.multihost import spawn
+
+    spec = {**spec, "out": str(tmp / f"{name}_rank%d.pt")}
+    torch.save(spec, tmp / f"{name}_spec.pt")
+    spawn(parallel_rank, world, (str(tmp / f"{name}_spec.pt"),), store_file=str(tmp / f"{name}_store"),
+          backend=backend, device="cuda", timeout_s=600)
+    return [torch.load(spec["out"] % r, weights_only=False) for r in range(world)]
+
+
+def _check_steps(what: str, got: dict, ref: dict) -> dict:
+    """Each step of the ranks (``got``, rank 0) against the reference's
+    step from the same weights and optimizer state, at the ``PARALLEL_*``
+    tolerances: its losses, its gradients and the weights after it (see
+    there). Returns the worst relative differences."""
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    after = [b["params"] for b in got["before"][1:]] + [got["after"]]
+    for i in range(len(got["losses"])):
+        for k, v in ref["losses"][i].items():
+            a = got["losses"][i][k]
+            assert abs(a - v) <= PARALLEL_STEP_RTOL * abs(v) + PARALLEL_LOSS_ATOL, (
+                f"{what}: step {i} loss {k} {a} against {v}")
+            worst["loss"] = max(worst["loss"], abs(a - v) / max(abs(v), 1e-30))
+        grads = ref["grads"][i]
+        total = math.sqrt(sum(float(g.double().square().sum()) for g in grads.values() if g is not None))
+        for n, g in grads.items():
+            if g is None:
+                assert got["grads"][i][n] is None, f"{what}: step {i}: {n} has a gradient only when sharded"
+                continue
+            diff = float((got["grads"][i][n].double() - g.double()).norm())
+            assert diff <= PARALLEL_STEP_RTOL * float(g.double().norm()) + PARALLEL_GRAD_FLOOR * total, (
+                f"{what}: step {i} gradient {n} differs by {diff:.3e} (norm {float(g.norm()):.3e})")
+            if float(g.double().norm()) > PARALLEL_GRAD_FLOOR * total:
+                worst["grad"] = max(worst["grad"], diff / float(g.double().norm()))
+        for n, p in ref["after"][i].items():
+            d = after[i][n].double() - p.double()
+            steady = grads[n].abs() > PARALLEL_ADAM_FLOOR if grads[n] is not None else d != d
+            diff, ref_norm = float(d[steady].norm()), float(p.double()[steady].norm())
+            assert diff <= PARALLEL_STEP_RTOL * ref_norm, (
+                f"{what}: step {i}: weights {n} after it differ by {diff:.3e} (norm {ref_norm:.3e})")
+            assert float(d.abs().max()) <= PARALLEL_ADAM_MOVE, (
+                f"{what}: step {i}: a weight of {n} moved {float(d.abs().max()):.3e} from the reference's")
+            worst["param"] = max(worst["param"], diff / max(ref_norm, 1e-30))
+    return worst
+
+
+def parallel_threshold(model, graphs) -> tuple[float, dict]:
+    """An EC cut for (b) / (d) that no rounding difference between the ranks
+    and the fast path can move an edge across: the middle of the widest gap
+    between adjacent edge weights of the middle 40 % (at least
+    ``PARALLEL_CUT_GAP`` wide), else below every weight (every edge passes).
+    A random EC's weights on 6M edges crowd within a few float32 steps of
+    each other, where ``calibrate_ec_threshold``'s gap is a few ulps. Sets
+    the model's threshold; returns it and the weights' quantiles (all of
+    ``graphs``' edges)."""
+    import torch
+
+    with torch.no_grad():
+        w = torch.sort(torch.cat([model.ec(g)["W"][g.edge_mask] for g in graphs])).values
+    lo, hi = int(0.3 * len(w)), int(0.7 * len(w))
+    i = lo + int(torch.argmax(w[lo + 1 : hi + 1] - w[lo:hi]))
+    gap = float(w[i + 1] - w[i])
+    threshold = float((w[i] + w[i + 1]) / 2) if gap >= PARALLEL_CUT_GAP else float(w[0]) - 1e-3
+    model.ec_threshold = model.model_config["ec_threshold"] = threshold
+    q = {f"q{p}": float(w[min(int(p / 100 * len(w)), len(w) - 1)]) for p in (0, 30, 50, 70, 100)}
+    return threshold, {**q, "gap": gap, "passed": float((w > threshold).float().mean())}
+
+
+def _load_state(model, optimizer, state: dict) -> None:
+    import torch
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state["params"][n])
+    optimizer.load_state_dict(state["opt"])
+
+
+def _reference(trainer, events, run: dict, forward: bool = False) -> dict:
+    """The fast path on this card (one rank, no exchange, no collectives),
+    from each starting state of the ranks' steps (``run["before"]``): one
+    step on the mean of ``events``' losses (their gradients summed over the
+    events over their count); with ``forward``, the forward of the first
+    event from the first state."""
+    import torch
+
+    trainer.init(events[0][0])
+    ref = {"losses": [], "grads": [], "after": [], "step_ms": []}
+    for i, state in enumerate(run["before"]):
+        _load_state(trainer.model, trainer.optimizer, state)
+        if i == 0 and forward:
+            ref["forward"] = [t.cpu() for t in trainer.forward(events[0][0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.model.train()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        per_event = []
+        for sg_l, cd_l in events:
+            losses = trainer._shard_losses(trainer._apply(sg_l, exchange=False), sg_l, cd_l, None)
+            total = sum(trainer.loss_weights.get(k, 0.0) * v for k, v in losses.items())
+            (total / len(events)).backward()
+            per_event.append({k: float(v.detach()) for k, v in (losses | {"total": total}).items()})
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["losses"].append({k: sum(e[k] for e in per_event) / len(events) for k in per_event[0]})
+        ref["grads"].append(_grads(trainer.model))
+        ref["after"].append(_params(trainer.model))
+    return ref
+
+
+def _parallel_event(seed: int, tmp: Path):
+    """etl-trackml-110k's 1-sector graph as phase 14 builds it (its point
+    cloud where phase 14 ran, else made again), on the host."""
+    from gnn_tracking_tpu_torch.graph_construction.graph_builder import GraphBuilder
+    from gnn_tracking_tpu_torch.preprocessing import build_point_clouds
+    from gnn_tracking_tpu_torch.utils.loading import load_graph
+
+    pcs = tmp / "etl_pc_pileup_1"
+    if not pcs.is_dir():
+        raw = tmp / "parallel_raw"
+        raw.mkdir()
+        for name in ETL_CSVS:
+            shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw / name)
+        make_pileup(seed, raw, tmp / "parallel_raw_110k")
+        build_point_clouds.main(["--indir", str(tmp / "parallel_raw_110k"), "--outdir", str(pcs),
+                                 "--detector-config", str(raw / "detectors.csv.gz"), "--n-sectors", "1",
+                                 "--pixel-only", "--add-true-edges"])
+    gb = GraphBuilder(pcs, tmp / "parallel_unused", device="cuda")
+    pc = load_graph(sorted(pcs.glob("*.npz"))[0], device="cpu")
+    return gb.to_graph(pc, *gb.edges_from_join(gb.join(pc), pc)[:3]).to("cpu")
+
+
+def parallel_phase(seed: int, tmp: Path) -> dict:
+    """Phase 18 (see the module docstring). Returns the launches of
+    ``PARALLEL_KERNELS`` summed over every rank of (a)-(e) (each rank a
+    fresh process, its counts set to 0 just before its steps and read just
+    after) and the phase's summary."""
+    import torch
+
+    from gnn_tracking_tpu_torch.graphs import EventGraph
+    from gnn_tracking_tpu_torch.models.track_condensation_networks import GraphTCN, PerfectECGraphTCN
+    from gnn_tracking_tpu_torch.parallel.dp import make_dp_train_step
+    from gnn_tracking_tpu_torch.parallel.halo import (
+        partition_event,
+        ring_halo_distance,
+        unpartition_edges,
+        unpartition_nodes,
+    )
+    from gnn_tracking_tpu_torch.parallel.mesh import make_mesh
+    from gnn_tracking_tpu_torch.parallel.mesh2d import sharded_buckets, stack_sharded
+    from gnn_tracking_tpu_torch.parallel.multihost import spawn
+    from gnn_tracking_tpu_torch.parallel.sharded_model import (
+        ShardedGraphTCNTrainer,
+        ShardedTCTrainer,
+        shard_as_eventgraph,
+    )
+    from gnn_tracking_tpu_torch.parallel.sharded_tc import partition_condensation
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    summary = {"card": card, "s": {}, "parent_reserved_gib": torch.cuda.memory_reserved() / 2**30}
+
+    def say(msg: str) -> None:
+        log(f"parallel: {msg} [{card}]")
+
+    # ---- the probe: which collectives gloo takes on CUDA tensors (two ranks of their own)
+    t0 = time.perf_counter()
+    probe = str(tmp / "probe_rank%d.json")
+    try:
+        spawn(parallel_probe_rank, 2, (probe,), store_file=str(tmp / "probe_store"), backend="gloo",
+              device="cuda", timeout_s=60)
+        probe_exit = "both ranks ended"
+    except Exception as e:  # noqa: BLE001 -- a rank that dies in a refused collective is a finding
+        probe_exit = f"{type(e).__name__}: {str(e).strip().splitlines()[-1][:200]}"
+    found = [json.loads(Path(probe % r).read_text()) if Path(probe % r).exists() else {} for r in range(2)]
+    summary["probe"] = {"rank0": found[0], "rank1": found[1], "exit": probe_exit}
+    summary["s"]["probe"] = time.perf_counter() - t0
+    say(f"gloo on CUDA tensors: {json.dumps(found)}; {probe_exit} ({summary['s']['probe']:.1f} s)")
+
+    # ---- the inputs: the full event and a rotation of it, their partitions and truth tables
+    t0 = time.perf_counter()
+    event = _parallel_event(seed, tmp)
+    n, e = event.num_nodes, event.num_edges
+    second = event.replace(x=event.x.clone())
+    second.x[:, 1] = torch.remainder(second.x[:, 1] + PARALLEL_ROTATION + math.pi, 2 * math.pi) - math.pi
+    summary["s"]["event"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sg = {"p2": partition_event(event, PARALLEL_SHARDS, sort_edges=True)}
+    summary["s"]["partition_event"] = time.perf_counter() - t0
+    sg["p1"] = partition_event(event, 1, sort_edges=True)
+    sg["split"] = partition_event(event, PARALLEL_SHARDS, sort_edges=True, halo_edges_last=True)
+    sg["p1_second"] = partition_event(second, 1, sort_edges=True)
+    buckets = sharded_buckets([event, second], PARALLEL_SHARDS, sort_edges=True)
+    grid = [partition_event(g, PARALLEL_SHARDS, sort_edges=True, pad_to=buckets) for g in (event, second)]
+    sg["grid"] = stack_sharded(grid)
+
+    def truth(g, part):
+        return partition_condensation(g, part, max_n_objects=PARALLEL_K, subsample_seed=PARALLEL_SUBSAMPLE_SEED)
+
+    cd = {k: truth(event, sg[k]) for k in ("p1", "p2", "split")}
+    cd["p1_second"] = truth(second, sg["p1_second"])
+    cd["grid"] = stack_sharded([truth(g, s) for g, s in zip((event, second), grid)])
+    ring = ring_halo_distance(sg["p2"])
+    assert ring <= 1, f"ring halo distance {ring}: the ring fetch would drop rows"
+    p2 = sg["p2"]
+    summary["event"] = {"hits": n, "edges": e, "shard_rows": p2.n_local, "halo_rows": p2.halo_mask.sum(1).tolist(),
+                        "halo_slots": p2.n_halo, "pair_slots": p2.send_local.shape[-1],
+                        "shard_edges": p2.edge_mask.sum(1).tolist(), "ring_distance": ring,
+                        "e_split": sg["split"].e_split, "objects": int(cd["p1"].n_objects)}
+    say(f"etl-trackml-110k at 1 sector ({summary['s']['event']:.1f} s), {PARALLEL_SHARDS} shards "
+        f"(partition_event into them {summary['s']['partition_event']:.2f} s on the host): "
+        + json.dumps(summary["event"]))
+
+    # ---- seeded weights, the EC cuts near the median weight on the fast path
+    widths = {"node_indim": event.x.shape[1], "edge_indim": event.edge_attr.shape[1]}
+    gen = torch.Generator().manual_seed(seed + 18)
+    models = {
+        "tc": lambda: PerfectECGraphTCN(**widths, **PARALLEL_TC_MODEL, device="cpu"),
+        "gtcn": lambda: GraphTCN(**widths, **PARALLEL_GTCN_MODEL, device="cpu"),
+        "grid": lambda: GraphTCN(**widths, **PARALLEL_GRID_MODEL, device="cpu"),
+    }
+    state = {k: type(make())(**make().model_config, device="cpu", generator=gen).state_dict()
+             for k, make in models.items()}
+    state["dp"] = GraphTCN(**MODEL, device="cpu", generator=gen).state_dict()
+    mesh1 = make_mesh(1, 1, device="cuda")
+    thresholds = {}
+
+    def fast_trainer(key):
+        model = models[key]()
+        model.load_state_dict(state[key])
+        if key != "tc":
+            model.ec_threshold = model.model_config["ec_threshold"] = thresholds.get(key, 0.5)
+            return ShardedGraphTCNTrainer(mesh1, model=model, max_n_objects=PARALLEL_K,
+                                          loss_weights=PARALLEL_GTCN_WEIGHTS)
+        return ShardedTCTrainer(mesh1, model=model, max_n_objects=PARALLEL_K, loss_weights=PARALLEL_TC_WEIGHTS)
+
+    cuts = {}
+    for key in ("gtcn", "grid"):
+        trainer = fast_trainer(key)
+        events = [shard_as_eventgraph(trainer.place(sg[k]), local_csr=True)
+                  for k in (("p1",) if key == "gtcn" else ("p1", "p1_second"))]
+        thresholds[key], cuts[key] = parallel_threshold(trainer.model.model, events)
+        del trainer, events
+    dp_events = [EventGraph.from_arrays(**make_train_event(seed + 5 + i)).sort_edges_by_target() for i in range(2)]
+    dp_model = GraphTCN(**MODEL, device="cpu")
+    dp_model.load_state_dict(state["dp"])
+    thresholds["dp"] = calibrate_ec_threshold(dp_model.to("cuda"), dp_events[0].to("cuda"))
+    del dp_model
+    torch.cuda.empty_cache()
+    say(f"EC cuts {thresholds}; (b) / (d) edge weights {json.dumps(cuts)}")
+
+    # ---- the ranks: (a), (b), (c) in two gloo ranks; (d) in four; (e) one NCCL rank
+    cases = [{"name": f"a_{impl}", "kind": "sharded", "model": "tc", "mesh": (1, PARALLEL_SHARDS),
+              "impl": "a2a" if impl == "split" else impl, "partition": "split" if impl == "split" else "p2",
+              "split": sg["split"].e_split if impl == "split" else 0, "steps": PARALLEL_STEPS,
+              "profile": impl == "a2a"} for impl in PARALLEL_IMPLS]
+    cases.append({"name": "b", "kind": "sharded", "model": "gtcn", "mesh": (1, PARALLEL_SHARDS), "partition": "p2",
+                  "threshold": thresholds["gtcn"], "steps": 1})
+    cases.append({"name": "c", "kind": "dp", "mesh": (2, 1)})
+    base = {"state": state, "widths": widths, "dp_events": dp_events, "dp_threshold": thresholds["dp"]}
+    runs = {}
+    for name, world, backend, group in (
+        ("two", 2, "gloo", cases),
+        ("four", 4, "gloo", [{"name": "d", "kind": "sharded", "model": "grid", "grid": True,
+                              "mesh": (2, PARALLEL_SHARDS), "partition": "grid", "threshold": thresholds["grid"],
+                              "steps": 1}]),
+        ("nccl", 1, "nccl", [{"name": "e", "kind": "sharded", "model": "tc", "mesh": (1, 1), "partition": "p1",
+                              "steps": PARALLEL_STEPS, "force_sharded": True}]),
+    ):
+        t0 = time.perf_counter()
+        used = {c["partition"] for c in group if "partition" in c}  # only what the group's cases read
+        spec = {**base, "cases": group, "sg": {k: sg[k] for k in used}, "cd": {k: cd[k] for k in used}}
+        ranks = _spawn_ranks(tmp, name, world, spec, backend=backend)
+        summary["s"][f"{name}_ranks"] = time.perf_counter() - t0
+        runs |= {case["name"]: [r[case["name"]] for r in ranks] for case in group}
+    launches = dict.fromkeys(PARALLEL_KERNELS, 0)
+    for name, ranks in runs.items():
+        for r, res in enumerate(ranks):
+            for k, v in res["launches"].items():
+                assert v > 0, f"({name}) rank {r} never launched {k}"
+                launches[k] += v
+
+    # ---- the references: the fast path on this card from each step's starting state, and the checks
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+
+    def close(what, x, y):
+        assert torch.allclose(x, y, rtol=PARALLEL_FWD_RTOL, atol=PARALLEL_FWD_RTOL * float(y.abs().max())), (
+            f"{what} differs by {float((x - y).abs().max()):.3e}")
+        return float((x - y).abs().max() / y.abs().max())
+
+    def rank_stats(ranks):
+        return {k: [res.get(k) for res in ranks] for k in ("step_ms", "case_s", "launches", "peak_gib")}
+
+    trainer = fast_trainer("tc")
+    events = [trainer.place(sg["p1"], cd["p1"])]
+    for impl in (*PARALLEL_IMPLS, "e"):
+        name = "e" if impl == "e" else f"a_{impl}"
+        run = runs[name][0]
+        ref = _reference(trainer, events, run, forward=True)
+        part = {"split": sg["split"], "e": sg["p1"]}.get(impl, sg["p2"])
+        fwd = [close(f"({name}) forward {k}", unpartition_nodes(x, part, n), unpartition_nodes(y, sg["p1"], n))
+               for k, x, y in zip(("H", "B"), run["forward"], ref["forward"])]
+        summary[name] = {"fwd_rel": fwd, "worst": _check_steps(f"({name})", run, ref),
+                         "losses": [s["total"] for s in run["losses"]], **rank_stats(runs[name]),
+                         "fast_path_step_ms": ref["step_ms"]}
+        summary[name] |= {k: [res[k] for res in runs[name]] for k in
+                          ("exchange_ms", "halo_rows", "exchange_rows", "exchange_bytes", "transport")}
+        if "traced" in run:
+            assert all(run["traced"].values()), run["traced"]
+            summary[name]["traced"] = run["traced"]
+        say(f"({name}): " + json.dumps(summary[name]))
+    trainer = fast_trainer("gtcn")
+    run = runs["b"][0]
+    ref = _reference(trainer, [trainer.place(sg["p1"], cd["p1"])], run, forward=True)
+    pairs = {}
+    for i, k in enumerate(("H", "B", "W", "cut")):
+        unpart = unpartition_edges if k in ("W", "cut") else unpartition_nodes
+        size = e if k in ("W", "cut") else n
+        pairs[k] = (unpart(run["forward"][i], sg["p2"], size), unpart(ref["forward"][i], sg["p1"], size))
+    say(f"(b) forward: cut differs on {int((pairs['cut'][0] != pairs['cut'][1]).sum())} edges, max |diff| "
+        + json.dumps({k: float((x.double() - y.double()).abs().max()) for k, (x, y) in pairs.items() if k != "cut"}))
+    assert torch.equal(*pairs["cut"]), "(b): the EC cut differs"
+    fwd = [close(f"(b) forward {k}", *pairs[k]) for k in ("H", "B", "W")]
+    summary["b"] = {"fwd_rel": fwd, "worst": _check_steps("(b)", run, ref), "losses": run["losses"][0],
+                    **rank_stats(runs["b"]), "fast_path_step_ms": ref["step_ms"]}
+    say("(b) ShardedGraphTCNTrainer: " + json.dumps(summary["b"]))
+    trainer = fast_trainer("grid")
+    run = runs["d"][0]
+    ref = _reference(trainer, [trainer.place(sg[k], cd[k]) for k in ("p1", "p1_second")], run)
+    summary["d"] = {"worst": _check_steps("(d)", run, ref), "losses": run["losses"][0], **rank_stats(runs["d"]),
+                    "fast_path_step_ms": ref["step_ms"]}
+    say("(d) DataGraphTCNTrainer 2 x 2: " + json.dumps(summary["d"]))
+    del trainer
+    run = runs["c"][0]
+    module = _dp_module(state["dp"], thresholds["dp"])
+    step = make_dp_train_step(module, mesh1)
+    _load_state(module.model, module.optimizer, run["before"][0])
+    ref = _steps(module.model, module.optimizer, lambda: step([g.to("cuda") for g in dp_events]), 1, True)
+    ref["after"] = [ref["after"]]
+    summary["c"] = {"worst": _check_steps("(c)", run, ref), "losses": run["losses"][0], **rank_stats(runs["c"]),
+                    "single_process_step_ms": ref["step_ms"]}
+    say("(c) DPTrainer over 2 ranks: " + json.dumps(summary["c"]))
+    summary["s"]["references"] = time.perf_counter() - t0
+    summary["reference_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    summary["s"]["phase"] = time.perf_counter() - t_phase
+    say(f"phase 18: {json.dumps(summary['s'])}; references' peak {summary['reference_peak_gib']:.1f} GiB; "
+        f"launches over the ranks {launches}")
+    return {"launches": launches, "summary": summary}
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -7142,6 +7782,9 @@ def main(argv=None) -> int:
     p.add_argument("--remainder-only", action="store_true",
                    help="build, run phase 17 (the IVF's options, the OOM guard, RunLogger and "
                    "device_trace, the plot modules) and stop")
+    p.add_argument("--parallel-only", action="store_true",
+                   help="build, run phase 18 (the parallel package: sharded, data-parallel and 2-D trainers "
+                   "as ranks on this card) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -7311,6 +7954,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as remainder_tmp:
             remainder_phase(args.seed, Path(remainder_tmp))
+        print(smi)
+        return 0
+    if args.parallel_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as parallel_tmp:
+            parallel_phase(args.seed, Path(parallel_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -7595,7 +8244,11 @@ def main(argv=None) -> int:
     remainder = remainder_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(remainder["launches"]), sorted(remainder["launches"])
 
-    # ---- 18. results ------------------------------------------------------
+    # ---- 18. parallelism: sharded, data-parallel and 2-D trainers as ranks on this card ---
+    parallel = parallel_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(parallel["launches"]), sorted(parallel["launches"])
+
+    # ---- 19. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -7609,6 +8262,7 @@ def main(argv=None) -> int:
             **({"drivers_launches": drivers["launches"][r["name"]]} if r["name"] in drivers["launches"] else {}),
             **({"analysis_launches": analysis["launches"][r["name"]]} if r["name"] in analysis["launches"] else {}),
             **({"remainder_launches": remainder["launches"][r["name"]]} if r["name"] in remainder["launches"] else {}),
+            **({"parallel_launches": parallel["launches"][r["name"]]} if r["name"] in parallel["launches"] else {}),
         }
         for r in results
     ]

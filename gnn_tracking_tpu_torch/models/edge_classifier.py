@@ -41,6 +41,7 @@ class ECForGraphTCN(nn.Module):
         use_intermediate_edge_embeddings: bool = True,
         use_node_embedding: bool = True,
         fused_save_acts: bool = False,
+        halo_edge_split: int = 0,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -55,6 +56,7 @@ class ECForGraphTCN(nn.Module):
             "compat_overlap": compat_overlap,
             "use_intermediate_edge_embeddings": use_intermediate_edge_embeddings,
             "use_node_embedding": use_node_embedding, "fused_save_acts": fused_save_acts,
+            "halo_edge_split": halo_edge_split,
         }
         g = generator
         self.ec_node_encoder = MLP(
@@ -68,7 +70,7 @@ class ECForGraphTCN(nn.Module):
             object_hidden_dim=hidden_dim, relational_hidden_dim=hidden_dim,
             alpha=alpha, n_layers=L_ec, residual_type=residual_type,
             compat_overlap=compat_overlap, collect_hidden_edge_embeds=use_intermediate_edge_embeddings,
-            fused_save_acts=fused_save_acts, generator=g,
+            fused_save_acts=fused_save_acts, halo_edge_split=halo_edge_split, generator=g,
         )
         self.use_intermediate_edge_embeddings = use_intermediate_edge_embeddings
         self.use_node_embedding = use_node_embedding
@@ -82,19 +84,22 @@ class ECForGraphTCN(nn.Module):
         self.W = MLP(w_in, 1, hidden_dim, L=3, generator=g)
         self.to(dev)
 
-    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+    def forward(self, data: EventGraph, exchange=None) -> dict[str, torch.Tensor]:
+        """``exchange``: the graph-parallel hook (see ``ResIN``); the W head
+        then gathers the endpoints' embeddings from the extended array."""
         edge_index = data.edge_index
         h_ec = torch.relu(self.ec_node_encoder(data.x))
         edge_attr_ec = torch.relu(self.ec_edge_encoder(data.edge_attr))
         h_ec, edge_attr_ec, edge_attrs_ec = self.ec_resin(
             h_ec, edge_index, edge_attr_ec, data.edge_mask,
-            csr=data.csr(),
+            csr=data.csr(), exchange=exchange,
         )
         w_input = [edge_attr_ec]
         if self.use_intermediate_edge_embeddings:
             w_input = edge_attrs_ec
         if self.use_node_embedding:
-            h_src, h_dst = gather_endpoints(h_ec, edge_index, data.csr())
+            h_src, h_dst = _endpoints(h_ec, edge_index, data.csr(), exchange,
+                                      self.ec_resin.halo_edge_split)
             w_input = [h_src, h_dst, *w_input]
         eps = 0.001
         logits = self.W(torch.cat(w_input, dim=1))
@@ -104,6 +109,20 @@ class ECForGraphTCN(nn.Module):
             "node_embedding": h_ec,
             "edge_embedding": edge_attr_ec,
         }
+
+
+def _endpoints(h, edge_index, csr, exchange, split: int):
+    """``(h[src], h[dst])`` (``gather_endpoints``); under an exchange from the
+    extended array, per edge block where the layers split them."""
+    if exchange is None:
+        return gather_endpoints(h, edge_index, csr)
+    h_ext = exchange(h)
+    if not split:
+        return gather_endpoints(h_ext, edge_index, exchange.csr)
+    ei_local, ei_halo = exchange.block_edges()
+    local = gather_endpoints(h, ei_local, exchange.block_csr("local"))
+    halo = gather_endpoints(h_ext, ei_halo, exchange.block_csr("halo"))
+    return torch.cat([local[0], halo[0]]), torch.cat([local[1], halo[1]])
 
 
 class PerfectEdgeClassification(nn.Module):
@@ -130,7 +149,11 @@ class PerfectEdgeClassification(nn.Module):
     def _uniform(self, n: int, device: torch.device) -> torch.Tensor:
         return torch.rand(n, generator=self.generator).to(device)
 
-    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+    def forward(self, data: EventGraph, exchange=None) -> dict[str, torch.Tensor]:
+        if exchange is not None and self.false_below_pt > 0.0:
+            # the pt cut reads the sources' pt, which a shard's view does not carry
+            msg = "false_below_pt is not supported under graph sharding"
+            raise NotImplementedError(msg)
         r = data.y.to(torch.bool)
         if not math.isclose(self.tpr, 1.0):
             r = torch.where(r, self._uniform(r.shape[0], r.device) <= self.tpr, r)

@@ -76,13 +76,40 @@ class InteractionNetwork(nn.Module):
         *,
         csr: dict[str, torch.Tensor] | None = None,
         relu_edge: bool = False,
+        exchange=None,
+        halo_split: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """``csr``: the target-sorted graph's CSR arrays (``EventGraph.csr()``,
         needed on CUDA); ``relu_edge`` applies a ReLU to ``edge_attr`` inside
-        the op, gradient included."""
-        e_tilde, agg = fused_relational(
-            x, edge_attr, edge_index, edge_mask, self.relational_weights(),
-            csr=csr, relu_edge=relu_edge, save_acts=self.fused_save_acts,
-        )
+        the op, gradient included.
+
+        ``exchange`` (``parallel.halo.HaloExchange``) is the graph-parallel
+        hook: ``x`` holds the shard's own rows and the edge sources index the
+        extended array ``[x; halo rows]`` that it fetches; the op then runs on
+        that array with the exchange's CSR arrays, and the update covers the
+        shard's rows. ``halo_split`` (the partition's ``e_split``, edges
+        before it with local sources): the local block's edges run on ``x``
+        while the exchange is in flight, the rest on the extended array after
+        it, each block with its own CSR, their aggregations summed."""
+        kw = {"relu_edge": relu_edge, "save_acts": self.fused_save_acts}
+        w = self.relational_weights()
+        if exchange is None:
+            e_tilde, agg = fused_relational(x, edge_attr, edge_index, edge_mask, w, csr=csr, **kw)
+        elif not halo_split:
+            e_tilde, agg = fused_relational(exchange(x), edge_attr, edge_index, edge_mask, w,
+                                            csr=exchange.csr, **kw)
+            agg = agg[: x.shape[0]]
+        else:
+            if halo_split != exchange.e_split:
+                msg = f"halo_split={halo_split} is not the partition's e_split={exchange.e_split}"
+                raise ValueError(msg)
+            s = halo_split
+            ei_local, ei_halo = exchange.block_edges()
+            started = exchange.start(x)
+            e_local, agg = fused_relational(x, edge_attr[:s], ei_local, edge_mask[:s], w,
+                                            csr=exchange.block_csr("local"), **kw)
+            e_halo, agg_halo = fused_relational(exchange.finish(started, x), edge_attr[s:], ei_halo,
+                                                edge_mask[s:], w, csr=exchange.block_csr("halo"), **kw)
+            e_tilde, agg = torch.cat([e_local, e_halo]), agg + agg_halo[: x.shape[0]]
         x_tilde = self.object_model(torch.cat([x, agg], dim=1))
         return x_tilde, e_tilde

@@ -85,7 +85,9 @@ class ResIN(nn.Module):
     Layers after the first see ``relu(x)`` and ``relu(e)``; the edge ReLU
     runs inside the fused op. Returns ``(node embedding, last edge
     embedding, list of edge embeddings from all levels including the input,
-    or None)``. ``model_config`` holds the constructor arguments.
+    or None)``. ``halo_edge_split`` is the partition's ``e_split`` for the
+    graph-parallel hook (see :meth:`forward`). ``model_config`` holds the
+    constructor arguments.
     """
 
     def __init__(
@@ -102,6 +104,7 @@ class ResIN(nn.Module):
         add_bn: bool = False,
         compat_overlap: bool = False,
         fused_save_acts: bool = False,
+        halo_edge_split: int = 0,
         *,
         generator: torch.Generator | None = None,
     ):
@@ -121,12 +124,14 @@ class ResIN(nn.Module):
             "residual_type": residual_type,
             "collect_hidden_edge_embeds": collect_hidden_edge_embeds, "connect_to": connect_to,
             "add_bn": add_bn, "compat_overlap": compat_overlap, "fused_save_acts": fused_save_acts,
+            "halo_edge_split": halo_edge_split,
         }
         self.alpha = alpha
         self.residual_type = residual_type
         self.collect_hidden_edge_embeds = collect_hidden_edge_embeds
         self.connect_to = connect_to
         self.compat_overlap = compat_overlap
+        self.halo_edge_split = halo_edge_split
         self.layers = nn.ModuleList(
             InteractionNetwork(
                 node_dim, edge_dim, node_outdim=node_dim, edge_outdim=edge_dim,
@@ -165,17 +170,24 @@ class ResIN(nn.Module):
         *,
         node_mask: torch.Tensor | None = None,
         csr: dict[str, torch.Tensor] | None = None,
+        exchange=None,
     ) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor] | None]:
         """``node_mask`` selects the rows of the nodes' batch statistics
-        (``add_bn``; None: every row)."""
+        (``add_bn``; None: every row). ``exchange`` is the graph-parallel
+        hook (``parallel.halo.HaloExchange``; see ``InteractionNetwork``): every
+        layer fetches the halo rows of its input, and its output covers the
+        shard's own rows; ``halo_edge_split`` then overlaps the fetch with the
+        local edges. The batch norms' statistics are the shard's own, as in
+        JAX."""
         edge_attrs = [edge_attr] if self.collect_hidden_edge_embeds else None
+        split = {"exchange": exchange, "halo_split": self.halo_edge_split} if exchange is not None else {}
 
         def run(i, x_in, e_in, relu_in):
             # the node relu in autograd, the edge relu in the fused op (its
             # gradient too)
             return self.layers[i](
                 torch.relu(x_in) if relu_in else x_in, edge_index, e_in, edge_mask,
-                csr=csr, relu_edge=relu_in,
+                csr=csr, relu_edge=relu_in, **split,
             )
 
         def bn(i, x_in, e_in):

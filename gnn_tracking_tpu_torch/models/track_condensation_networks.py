@@ -226,18 +226,28 @@ class ModularGraphTCN(nn.Module):
         self.latent_normalization = nn.Parameter(torch.ones(1))
         self.to(dev)
 
-    def forward(self, data: EventGraph) -> dict[str, torch.Tensor]:
+    def forward(self, data: EventGraph, exchange=None) -> dict[str, torch.Tensor]:
+        """``exchange``: the graph-parallel hook (``parallel.halo.HaloExchange``;
+        see ``ResIN``), handed to the edge classifier and the condensation
+        ResIN: with it this module runs on one shard of a partitioned event
+        (``parallel.sharded_model.ShardedTCN``). Under it
+        ``mask_orphan_nodes`` counts the shard's own edges only, as in JAX
+        (an edge whose source lies on another shard adds to its target
+        alone)."""
         hit_mask, ec_edge_mask, edge_weights = data.node_mask, data.edge_mask, None
         xs, edge_attrs = [data.x], [data.edge_attr]
         if self.ec is not None:
-            ec_result = self.ec(data)
+            ec_result = self.ec(data) if exchange is None else self.ec(data, exchange=exchange)
             edge_weights = ec_result["W"]
             # EC cut as masking (reference: data.edge_subgraph)
             ec_edge_mask = data.edge_mask & (edge_weights > self.ec_threshold)
             if self.mask_orphan_nodes:
-                deg = torch.zeros(data.num_nodes, dtype=torch.int32, device=data.device)
+                n = data.num_nodes
+                deg = torch.zeros(n, dtype=torch.int32, device=data.device)
                 for row in data.edge_index:
-                    deg.index_add_(0, row, ec_edge_mask.to(torch.int32))
+                    # sources in a shard's halo (>= n) are not its nodes (JAX drops them)
+                    local = row < n
+                    deg.index_add_(0, torch.where(local, row, 0), (ec_edge_mask & local).to(torch.int32))
                 hit_mask = data.node_mask & (deg > 0)
             if self.use_ec_embeddings_for_hc:
                 xs.append(ec_result["node_embedding"])
@@ -259,7 +269,7 @@ class ModularGraphTCN(nn.Module):
         # norms, where it has them, under the post-EC hit mask)
         h_hc, _, _ = self.hc_in(
             h_hc, data.edge_index, edge_attr_hc, ec_edge_mask,
-            node_mask=hit_mask, csr=data.csr(),
+            node_mask=hit_mask, csr=data.csr(), exchange=exchange,
         )
         beta = torch.sigmoid(self.p_beta(h_hc))
         epsilon = 1e-6  # soft clipping against NaN in arctanh(beta)
@@ -306,6 +316,7 @@ class GraphTCN(ModularGraphTCN):
         mask_orphan_nodes: bool = False,
         use_ec_embeddings_for_hc: bool = False,
         feed_edge_weights: bool = False,
+        halo_edge_split: int = 0,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -317,17 +328,17 @@ class GraphTCN(ModularGraphTCN):
             "L_ec": L_ec, "L_hc": L_hc, "alpha_ec": alpha_ec, "alpha_hc": alpha_hc,
             "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
             "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
-            "feed_edge_weights": feed_edge_weights,
+            "feed_edge_weights": feed_edge_weights, "halo_edge_split": halo_edge_split,
         }
         ec = ECForGraphTCN(
             node_indim, edge_indim, interaction_node_dim=h_dim,
             interaction_edge_dim=e_dim, hidden_dim=hidden_dim, L_ec=L_ec,
-            alpha=alpha_ec, device="cpu", generator=generator,
+            alpha=alpha_ec, halo_edge_split=halo_edge_split, device="cpu", generator=generator,
         )
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            generator=generator,
+            halo_edge_split=halo_edge_split, generator=generator,
         )
         super().__init__(
             hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
@@ -365,6 +376,7 @@ class PerfectECGraphTCN(ModularGraphTCN):
         feed_edge_weights: bool = False,
         residual_type: str = "skip1",
         compat_overlap: bool = False,
+        halo_edge_split: int = 0,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -377,11 +389,13 @@ class PerfectECGraphTCN(ModularGraphTCN):
             "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
             "feed_edge_weights": feed_edge_weights,
             "residual_type": residual_type, "compat_overlap": compat_overlap,
+            "halo_edge_split": halo_edge_split,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap,
+            halo_edge_split=halo_edge_split, generator=generator,
         )
         super().__init__(
             hc_in, PerfectEdgeClassification(tpr=ec_tpr, tnr=ec_tnr), node_indim, edge_indim,
@@ -416,6 +430,7 @@ class GraphTCNForMLGCPipeline(ModularGraphTCN):
         heterogeneous_node_encoder: bool = False,
         residual_type: str = "skip1",
         compat_overlap: bool = False,
+        halo_edge_split: int = 0,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -428,11 +443,13 @@ class GraphTCNForMLGCPipeline(ModularGraphTCN):
             "n_embedding_coords": n_embedding_coords, "feed_edge_weights": feed_edge_weights,
             "heterogeneous_node_encoder": heterogeneous_node_encoder,
             "residual_type": residual_type, "compat_overlap": compat_overlap,
+            "halo_edge_split": halo_edge_split,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap,
+            halo_edge_split=halo_edge_split, generator=generator,
         )
         super().__init__(
             hc_in, None, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,
@@ -472,6 +489,7 @@ class PreTrainedECGraphTCN(ModularGraphTCN):
         feed_edge_weights: bool = False,
         residual_type: str = "skip1",
         compat_overlap: bool = False,
+        halo_edge_split: int = 0,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -488,11 +506,13 @@ class PreTrainedECGraphTCN(ModularGraphTCN):
             "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
             "feed_edge_weights": feed_edge_weights,
             "residual_type": residual_type, "compat_overlap": compat_overlap,
+            "halo_edge_split": halo_edge_split,
         }
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            residual_type=residual_type, compat_overlap=compat_overlap, generator=generator,
+            residual_type=residual_type, compat_overlap=compat_overlap,
+            halo_edge_split=halo_edge_split, generator=generator,
         )
         super().__init__(
             hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,

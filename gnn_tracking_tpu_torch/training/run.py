@@ -10,7 +10,8 @@ init_args}`` trees naming ``gnn_tracking_tpu.*`` classes, which
   initialises from the first event): where the model's ``init_args`` leave
   out ``node_indim`` / ``edge_indim`` / ``in_dim``, they are read from the
   first event of the loader that the command uses (fit: train, validate:
-  val, test: test); widths the YAML gives are used as given;
+  val, test: test); widths the YAML gives are used as given; a wrapper's
+  ``model`` (``parallel.sharded_model.ShardedTCN``) is built so too;
 * the model's initial weights come from a ``torch.Generator`` seeded with
   the module's ``rng_seed`` (default 42, as in JAX).
 
@@ -69,6 +70,27 @@ def _first_event(datamodule, command: str):
     return next(iter(loader))
 
 
+def _build_model(model_cfg: dict[str, Any], first_event, generator: torch.Generator):
+    """The model of a ``{class_path, init_args}`` tree on the CPU: input
+    widths the arguments leave out from ``first_event()``, weights from
+    ``generator``. A wrapper's ``model`` argument (``ShardedTCN``) is built
+    the same way first."""
+    model_cls = resolve_class(model_cfg["class_path"])
+    init_args = dict(model_cfg.get("init_args", {}))
+    inner = init_args.get("model")
+    if isinstance(inner, dict) and "class_path" in inner:
+        init_args["model"] = _build_model(inner, first_event, generator)
+    model_args = drop_layout_args(model_cls, obj_from_config(init_args))
+    missing = _missing_widths(model_cls, model_args)
+    if missing:
+        event = first_event()
+        for a in missing:
+            field, axis = WIDTH_ARGS[a]
+            model_args[a] = int(getattr(event, field).shape[axis])
+        logger.info("input widths from the first event: %s", {a: model_args[a] for a in missing})
+    return model_cls(**model_args, device="cpu", generator=generator)
+
+
 def build_from_config(config: dict[str, Any], *, command: str = "fit",
                       device: str | torch.device = "cuda"):
     """``(module, datamodule, trainer)`` from a config tree, the module on
@@ -79,17 +101,8 @@ def build_from_config(config: dict[str, Any], *, command: str = "fit",
     module_cls = resolve_class(module_cfg["class_path"])
     module_args = dict(module_cfg.get("init_args", {}))
     model_cfg = module_args.pop("model")
-    model_cls = resolve_class(model_cfg["class_path"])
-    model_args = drop_layout_args(model_cls, obj_from_config(model_cfg.get("init_args", {})))
-    missing = _missing_widths(model_cls, model_args)
-    if missing:
-        event = _first_event(datamodule, command)
-        for a in missing:
-            field, axis = WIDTH_ARGS[a]
-            model_args[a] = int(getattr(event, field).shape[axis])
-        logger.info("input widths from the first event: %s", {a: model_args[a] for a in missing})
     generator = torch.Generator().manual_seed(int(module_args.get("rng_seed", DEFAULT_RNG_SEED)))
-    model = model_cls(**model_args, device="cpu", generator=generator)
+    model = _build_model(model_cfg, lambda: _first_event(datamodule, command), generator)
     module = module_cls(model=model, device=dev, **obj_from_config(module_args))
     trainer_cfg = config.get("trainer", {})
     if isinstance(trainer_cfg, dict) and "class_path" in trainer_cfg:

@@ -142,14 +142,43 @@ def test_test_config_refuses_padding_config_and_unported_classes(data_root):
     module, _, trainer = port_run.build_from_config(config, device="cpu")
     assert isinstance(module.model, GraphTCN) and module.model.model_config["L_ec"] == 2
     assert trainer.max_epochs == 1 and not trainer.print_validation_results
-    for missing in (
-        "gnn_tracking_tpu.parallel.sharded_model.ShardedTCN",
-        "gnn_tracking_tpu.models.meta.MetaModel",
-    ):
-        bad = copy.deepcopy(config)
-        bad["model"]["init_args"]["model"]["class_path"] = missing
-        with pytest.raises(NotPortedError, match=missing.replace(".", r"\.")):
-            port_run.build_from_config(bad, device="cpu")
+    missing = "gnn_tracking_tpu.models.meta.MetaModel"
+    bad = copy.deepcopy(config)
+    bad["model"]["init_args"]["model"]["class_path"] = missing
+    with pytest.raises(NotPortedError, match=missing.replace(".", r"\.")):
+        port_run.build_from_config(bad, device="cpu")
+
+
+SHARDED_TCN = "gnn_tracking_tpu.parallel.sharded_model.ShardedTCN"
+
+
+@pytest.mark.parametrize("form", ["wrapping", "in_place"])
+def test_yaml_naming_sharded_tcn_fails_as_jax_does(data_root, tmp_path, form):
+    """A YAML that names ``ShardedTCN`` (the port maps it to its class now):
+    wrapping the test config's GraphTCN, both CLIs build it and stop at the
+    first step with the same TypeError (a sharded model takes a shard and
+    its row count, which the single-device module does not give it); with
+    GraphTCN's arguments in its place, both refuse them when they build."""
+    config = yaml.safe_load((TEST_CONFIGS / "tc.yml").read_text().replace("__TMPDIR__", str(data_root)))
+    del config["data"]["init_args"]["padding"]
+    config["trainer"]["log_dir"] = str(tmp_path / "runs")
+    inner = config["model"]["init_args"]["model"]
+    if form == "wrapping":
+        config["model"]["init_args"]["model"] = {"class_path": SHARDED_TCN, "init_args": {"model": inner}}
+        message = r"missing 1 required positional argument: 'n_local'"
+    else:
+        inner["class_path"] = SHARDED_TCN
+        message = r"ShardedTCN.__init__\(\) got an unexpected keyword argument"
+    path = tmp_path / "sharded.yml"
+    path.write_text(yaml.safe_dump(config))
+    with pytest.raises(TypeError, match=message):
+        jax_run.cli_main(["fit", "--config", str(path)])
+    with pytest.raises(TypeError, match=message):
+        port_run.cli_main(["fit", "--config", str(path), "--device", "cpu"])
+    if form == "wrapping":
+        module, _, _ = port_run.build_from_config(config, device="cpu")
+        assert type(module.model).__name__ == "ShardedTCN" and type(module.model.model) is GraphTCN
+        assert module.model.model.model_config["node_indim"] == 14
 
 
 YAML_MODELS = {

@@ -55,14 +55,18 @@ def _imports(path: Path) -> set[str]:
 
 
 def test_port_imports_no_jax():
-    files = sorted((REPO / "gnn_tracking_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the package, the smoke script, and the rank processes of the parallel tests
+    files = sorted((REPO / "gnn_tracking_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "tests" / "_torch_parallel_ranks.py"]
     assert len(files) > 15
-    # the bf16 EC slice's modules, and the wrapper of csrc/fused_relational_bf16.cu
+    # the bf16 EC slice's modules, the wrapper of csrc/fused_relational_bf16.cu, the parallel package
     scanned = {f.relative_to(REPO).as_posix() for f in files}
     assert scanned >= {
         f"gnn_tracking_tpu_torch/{m}.py" for m in (
             "training/precision", "losses/ec", "metrics/binary_classification",
             "ops/fused_relational", "training/module", "models/edge_classifier",
+            *(f"parallel/{p}" for p in ("mesh", "multihost", "halo", "sharded_tc", "sharded_model", "dp",
+                                        "mesh2d")),
         )
     }
     assert (REPO / "gnn_tracking_tpu_torch/csrc/fused_relational_bf16.cu").exists()
