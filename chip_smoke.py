@@ -12,6 +12,7 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py --drivers-only    # phase 15 alone
     python3 chip_smoke.py --analysis-only   # phase 16 alone
     python3 chip_smoke.py --parallel-only   # phase 18 alone
+    python3 chip_smoke.py --fulldetector-only   # phase 19 alone
 
 Phases, in order (any failure exits nonzero; nothing is swallowed):
 
@@ -402,14 +403,39 @@ Phases, in order (any failure exits nonzero; nothing is swallowed):
    (e) (a)'s sharded step through an NCCL group of world size 1. Rows #1,
    #2, #9 and #10 must launch in every rank; the phase's wall time and its
    parts are logged;
-19. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
+19. the full-detector training driver (``fulldetector_phase``;
+   ``scripts/train_fulldetector.py``, JAX's BASELINE config 5): the
+   driver's synthetic event (seed 0: 16,384 tracks x 16 hits + 2 % noise =
+   267,386 hits, 2,139,088 edges) partitioned as the driver partitions it.
+   (a) One rank, the fast path: rows #1-#4, #9 and #10 at the event's
+   shapes against their plain versions (``fd_kernel_checks``), timed; step
+   0 of the driver's ``GraphTCN(32, 32, 8, 128, L_ec 6, L_hc 3)`` (an EC
+   cut that no rounding moves an edge across, ``parallel_threshold``)
+   through the kernels against the plain path in f32 (1e-4) and bf16 (5e-2
+   of each tensor's largest magnitude), a tensor that misses the gate held
+   against a float64 evaluation (``fd_compare``, ``segment_plain``), and
+   with ``remat`` against the f32 gradients (rtol 1e-5 / atol 1e-7; row #1
+   launched twice a layer); then the driver's ``main`` at its defaults on
+   one event, ``FD_STEPS`` steps each in f32, bf16 and with ``--remat``
+   (finite losses; each step timed, the median of steps 1 on; peak memory
+   from the driver's summary) and the step's forward / loss / backward /
+   Adam split (``fd_split``); (b) the 2 x 2 mesh in four gloo ranks sharing
+   the card (``fulldetector_rank``, the driver's ``build_trainer``), events
+   0 and 1 in 2 shards each, ``FD_GRID_STEPS`` steps held step by step to
+   the fast path on both events (phase 18's ``_reference`` /
+   ``_check_steps``), then the driver's ``main`` on that mesh (its own four
+   ranks; finite losses, its step time); (c) ``demo_pipeline --epochs 1`` on the vendored
+   event, ``demo_sharded`` in 2 ranks sharing the card (its own bar: a
+   double majority above 0.7) and ``mlb_scan --quick``. Every kernel of
+   ``FD_KERNELS`` (and the demos' rows #12, #13, #16) must launch;
+20. a JSON line of per-kernel results (rows #1, #2, #9, #10, #12 and #16
    also with ``cli_launches``, their launches in phase 11's ``fit``; the
    kernels of phase 12's path with ``pipeline_launches``, of phase
    13's with ``variants_launches``, of phase 14's served path with
    ``etl_launches``, of phase 15's with ``drivers_launches``, of phase
    16's with ``analysis_launches``, of phase 17's with
-   ``remainder_launches`` and of phase 18's ranks with
-   ``parallel_launches``;
+   ``remainder_launches``, of phase 18's ranks with
+   ``parallel_launches`` and of phase 19 with ``fulldetector_launches``;
    ``edge_join``'s ``launches`` are phase 14's ``build_graphs`` calls), the
    ``nvidia-smi`` name/power line, and last the device JSON line.
 
@@ -465,7 +491,8 @@ FILE where another tree's run wrote it, and stops. ``--tc-cli-only`` builds, run
 builds, runs ``drivers_phase`` (phase 15) and stops; ``--analysis-only`` builds,
 runs ``analysis_phase`` (phase 16) and stops; ``--remainder-only`` builds,
 runs ``remainder_phase`` (phase 17) and stops; ``--parallel-only`` builds, runs
-``parallel_phase`` (phase 18) and stops. ``--wide-only``
+``parallel_phase`` (phase 18) and stops; ``--fulldetector-only`` builds, runs
+``fulldetector_phase`` (phase 19) and stops. ``--wide-only``
 builds, runs (for the tree beside this script) ``wide_dim_checks``,
 ``resident_wide_checks``, ``width_checks`` at ``WIDE_CHECKS`` and
 ``wide_edge_checks``, then (for either tree) ``wide_timings`` (the call,
@@ -7109,17 +7136,18 @@ PARALLEL_CUT_GAP = 6e-6
 PARALLEL_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "all_to_all", "p2p")
 
 
-def _launch_counts() -> dict:
+def _launch_counts(table: dict | None = None) -> dict:
+    """The launch counts of ``table``'s kernels (default ``PARALLEL_KERNELS``)."""
     import importlib
 
     return {k: getattr(importlib.import_module(f"gnn_tracking_tpu_torch.ops.{m}"), f).launches
-            for k, (m, f) in PARALLEL_KERNELS.items()}
+            for k, (m, f) in (table or PARALLEL_KERNELS).items()}
 
 
-def _reset_launches() -> None:
+def _reset_launches(table: dict | None = None) -> None:
     import importlib
 
-    for m, f in PARALLEL_KERNELS.values():
+    for m, f in (table or PARALLEL_KERNELS).values():
         getattr(importlib.import_module(f"gnn_tracking_tpu_torch.ops.{m}"), f).launches = 0
 
 
@@ -7680,6 +7708,544 @@ def parallel_phase(seed: int, tmp: Path) -> dict:
     return {"launches": launches, "summary": summary}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the full-detector training driver, its options and the demos
+
+#: (a): the driver at the JAX script's defaults on one rank (1 x 1, the fast path, one event)
+FD_ARGV = ["--n-data", "1", "--n-graph", "1", "--n-events", "1"]
+FD_STEPS = 12
+FD_MODES = {"f32": [], "bf16": ["--bf16"], "remat": ["--remat"]}
+#: (b): the 2 x 2 mesh in four ranks sharing the card, one event a data rank
+FD_GRID_ARGV = ["--n-data", "2", "--n-graph", "2", "--n-events", "2"]
+FD_GRID_STEPS = 3
+#: the kernels of (a) and (b), by the module attribute that launches each
+FD_KERNELS = {**PARALLEL_KERNELS,
+              "fused_relational_bf16_fwd": ("fused_relational", "fused_relational_bf16_fwd"),
+              "fused_relational_bf16_bwd": ("fused_relational", "fused_relational_bf16_bwd")}
+#: (c): the demos' kernels in this process (demo_sharded's ranks count their own)
+FD_DEMO_KERNELS = {**TC_CLI_KERNELS, "pairwise_topk": ("pairwise_topk", "pairwise_topk")}
+
+
+def fd_grads(trainer, sg_l, cd_l) -> tuple[dict, float]:
+    """One step's parameter gradients on the fast path (no optimizer step)."""
+    trainer.model.train()
+    trainer.model.zero_grad(set_to_none=True)
+    losses = trainer._shard_losses(trainer._apply(sg_l, exchange=False), sg_l, cd_l, None)
+    total = sum(trainer.loss_weights.get(k, 0.0) * v for k, v in losses.items())
+    total.backward()
+    grads = _grads(trainer.model)
+    trainer.model.zero_grad(set_to_none=True)
+    return grads, float(total.detach())
+
+
+def fd_compare(gk: dict, gp: dict, make_g64, *, bf16: bool) -> dict:
+    """Step 0's gradients through the kernels (``gk``) against the plain
+    path's (``gp``) at the existing gates: f32 ``compare_grads``' (per
+    tensor |gk - gp| <= 1e-4 |gp| + 1e-7 of the whole norm), bf16 phase
+    9's (max |gk - gp| <= 5e-2 of the tensor's largest magnitude). A tensor
+    that misses it (cancelling sums) is held against a float64 evaluation
+    (``make_g64()``, made once when first needed): the kernels no further
+    from it than 4x the plain path, or than the gate. Returns the worst
+    tensor and those held against float64."""
+    import torch
+
+    total = math.sqrt(sum(float(g.double().square().sum()) for g in gp.values() if g is not None))
+    worst, ratio, at_floor, missed = None, 0.0, [], []
+    for n, p in gp.items():
+        if p is None:
+            assert gk[n] is None, f"{n}: a gradient through the kernels only"
+            continue
+        k = gk[n]
+        assert k is not None and bool(torch.isfinite(k).all()), f"{n}: no finite gradient through the kernels"
+        if bf16:
+            top = float(p.abs().max())
+            r = float((k - p).abs().max()) / top if top else math.inf
+            ok = r <= 5e-2
+        else:
+            ref = float(p.double().norm())
+            diff = float((k.double() - p.double()).norm())
+            r = diff / ref if ref else math.inf
+            ok = diff <= 1e-4 * ref + 1e-7 * total
+            if ok and r > 1e-4:  # within the floor of the whole norm only
+                at_floor.append(n)
+                continue
+        if not ok:
+            missed.append(n)
+        elif r >= ratio:
+            worst, ratio = n, r
+    held = {}
+    if missed:
+        g64 = make_g64()
+        total64 = math.sqrt(sum(float(g.square().sum()) for g in g64.values() if g is not None))
+        for n in missed:
+            ref = float(g64[n].norm())
+            ek, ep = float((gk[n].double() - g64[n]).norm()), float((gp[n].double() - g64[n]).norm())
+            lim = max(4 * ep, (5e-2 if bf16 else 1e-4) * ref) + 1e-7 * total64
+            assert ek <= lim, f"{n}: |g_kernel - g64| {ek:.3e} > {lim:.3e} (|g_plain - g64| {ep:.3e}, |g64| {ref:.3e})"
+            held[n] = {"kernel": ek, "plain": ep, "norm": ref, "floor": 1e-7 * total64}
+    return {"worst": worst, "worst_rel": ratio, "at_floor": at_floor, "held_to_f64": held}
+
+
+@contextlib.contextmanager
+def segment_plain():
+    """``ops/csr_segment``'s kernel routes (rows #9 / #10: the models'
+    endpoint gathers and their backward sums outside the fused op) on their
+    plain versions, which take any dtype: with ``plain_path`` a float64
+    evaluation of a model on the card."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import csr_segment as cs
+
+    def segment_sum_csr(messages, rowptr, *, perm=None):
+        n = rowptr.shape[0] - 1
+        ids = torch.repeat_interleave(torch.arange(n, device=rowptr.device), rowptr.long().diff())
+        rows = messages if perm is None else messages.index_select(0, perm.long())
+        return cs.sorted_segment_sum_plain(rows, ids, n)
+
+    sites = {"_gather": lambda values, dst: cs.sorted_gather_plain(values, dst.long()),
+             "_segment_sum": lambda messages, dst, n, rowptr: cs.sorted_segment_sum_plain(messages, dst.long(), n),
+             "segment_sum_csr": segment_sum_csr}
+    saved = {k: getattr(cs, k) for k in sites}
+    for k, fn in sites.items():
+        setattr(cs, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(cs, k, fn)
+
+
+def fd_split(trainer, sg_l, cd_l, rounds: int = 3) -> dict:
+    """Median forward / loss / backward / Adam times (ms) of a fast-path
+    step, each part ended by a synchronise."""
+    import torch
+
+    def once():
+        marks = [time.perf_counter()]
+        trainer.model.train()
+        out = trainer._apply(sg_l, exchange=False)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses = trainer._shard_losses(out, sg_l, cd_l, None)
+        total = sum(trainer.loss_weights.get(k, 0.0) * v for k, v in losses.items())
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        trainer.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+
+    torch.cuda.synchronize()
+    splits = [once() for _ in range(rounds)]
+    return {k: statistics.median(s[i] for s in splits)
+            for i, k in enumerate(("forward_ms", "loss_ms", "backward_ms", "adam_ms"))}
+
+
+def fd_kernel_checks(model, g, seed: int) -> dict:
+    """Rows #1-#4, #9 and #10 at the full-detector event's shapes (EC layer
+    1's inputs: 267,386 rows of 32 features, 2,139,088 edges, hidden 128),
+    each against its plain version on the card as phases 3 and 9 hold them
+    (rows #1 / #9 within 1e-4 / 1e-6 of the largest magnitude, row #2 within
+    4x the plain f32 error against float64, A / B phase 9's ``bf16_check``,
+    row #10 bitwise; each repeating bitwise), and timed (``cuda_ms``; rows #9
+    / #10 on the device, ``graph_ms``) beside the plain version and the bound."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import csr_segment
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+
+    dev = g.x.device
+    csr = g.csr()
+    rowptr, dst = csr["dst_rowptr"], g.edge_index[1]
+    n, e = g.x.shape[0], g.edge_index.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    out = {}
+    with torch.no_grad():
+        x = torch.relu(model.ec.ec_node_encoder(g.x)).contiguous()
+        ea = model.ec.ec_edge_encoder(g.edge_attr).contiguous()
+        w = {k: v.detach() for k, v in model.ec.ec_resin.layers[1].relational_weights().items()}
+        mask = g.edge_mask
+        fx, fe, hid, fo = x.shape[1], ea.shape[1], w["w2"].shape[0], w["w3"].shape[0]
+        n_valid = int(mask.sum())
+        flops_f = 2.0 * n_valid * ((2 * fx + fe) * hid + hid * hid + hid * fo)
+        flops_b = 2.0 * n_valid * (3 * (2 * fx + fe) * hid + 3 * hid * hid + 2 * hid * fo)
+        g_e = torch.randn((e, fo), generator=gen, device=dev)
+        g_a = torch.randn((n, fo), generator=gen, device=dev)
+        w64 = {k: v.double() for k, v in w.items()}
+        # row #1 (relu_edge: the layer's own call) and row #2
+        k1 = fr.fused_relational_fwd(x, ea, g.edge_index, mask, w, rowptr=rowptr, relu_edge=True)
+        k1b = fr.fused_relational_fwd(x, ea, g.edge_index, mask, w, rowptr=rowptr, relu_edge=True)
+        p1 = fr.fused_relational_plain(x, ea, g.edge_index, mask, w, relu_edge=True)
+        err1 = 0.0
+        for name, kt, kt2, pt in zip(("e_tilde", "agg"), k1, k1b, p1):
+            assert torch.equal(kt, kt2), f"fused_relational_fwd {name}: second launch differs"
+            err = float((kt - pt).abs().max())
+            assert err <= 1e-4 * float(pt.abs().max()), f"fused_relational_fwd {name}: {err}"
+            err1 = max(err1, err)
+        bargs = (x, ea, g.edge_index, mask, w, g_e, g_a)
+        k2 = fr.fused_relational_bwd(*bargs, csr, relu_edge=True)
+        k2b = fr.fused_relational_bwd(*bargs, csr, relu_edge=True)
+        p2 = fr.fused_relational_bwd_plain(*bargs, relu_edge=True)
+        r2 = fr.fused_relational_bwd_plain(x.double(), ea.double(), g.edge_index, mask, w64, g_e.double(),
+                                           g_a.double(), relu_edge=True)
+
+        def flat(o):
+            return {"g_x": o[0], "g_edge_attr": o[1], **o[2]}
+
+        err2 = 0.0
+        for (name, kt), kt2, pt, rt in zip(flat(k2).items(), flat(k2b).values(), flat(p2).values(),
+                                           flat(r2).values()):
+            assert torch.equal(kt, kt2), f"fused_relational_bwd {name}: second launch differs"
+            ek, ep = float((kt.double() - rt).abs().max()), float((pt.double() - rt).abs().max())
+            assert math.isfinite(ek) and ek <= 4 * ep, f"fused_relational_bwd {name}: {ek:.3e} > 4 x {ep:.3e}"
+            err2 = max(err2, float((kt - pt).abs().max()))
+        del k2b, p2, r2
+        args = (x, ea, g.edge_index, mask, w)
+        for key, fn, plain, flops, err in (
+            ("fused_relational_fwd", lambda: fr.fused_relational_fwd(*args, rowptr=rowptr, relu_edge=True),
+             lambda: fr.fused_relational_plain(*args, relu_edge=True), flops_f, err1),
+            ("fused_relational_bwd", lambda: fr.fused_relational_bwd(*bargs, csr, relu_edge=True),
+             lambda: fr.fused_relational_bwd_plain(*bargs, relu_edge=True), flops_b, err2),
+        ):
+            outs = k1 if key.endswith("fwd") else (k2[0], k2[1], *k2[2].values())
+            by = nbytes(x, ea, g.edge_index, mask, *w.values(), *outs) + (
+                nbytes(g_e, g_a, *csr.values()) if key.endswith("bwd") else nbytes(rowptr))
+            b_ms, b_by = bound(flops, by)
+            out[key] = {"max_abs_err": err, "ms": cuda_ms(fn, rounds=3), "plain_ms": cuda_ms(plain, reps=1, rounds=3),
+                        "bound_ms": b_ms, "bound_by": b_by}
+        del k1, k1b, p1, k2
+        # A / B: the same layer in bf16
+        bf = torch.bfloat16
+        xb, eab = x.to(bf), ea.to(bf)
+        wb = {k: v.to(bf) for k, v in w.items()}
+        g_eb, g_ab = g_e.to(bf), g_a.to(bf)
+        ref_f = dict(zip(("e_tilde", "agg"), fr.fused_relational_plain(
+            xb.double(), eab.double(), g.edge_index, mask, {k: v.double() for k, v in wb.items()}, relu_edge=True)))
+        a = dict(zip(("e_tilde", "agg"), fr.fused_relational_bf16_fwd(xb, eab, g.edge_index, mask, wb, rowptr=rowptr,
+                                                                       relu_edge=True)))
+        a2 = dict(zip(("e_tilde", "agg"), fr.fused_relational_bf16_fwd(xb, eab, g.edge_index, mask, wb,
+                                                                        rowptr=rowptr, relu_edge=True)))
+        pa = dict(zip(("e_tilde", "agg"), fr.fused_relational_bf16_plain(xb, eab, g.edge_index, mask, wb,
+                                                                         relu_edge=True)))
+        errs_a = bf16_check("fused_relational_bf16_fwd (full detector)", a, a2, pa, ref_f)
+        del a2, pa, ref_f
+        bb = (xb, eab, g.edge_index, mask, wb, g_eb, g_ab)
+        ref_b = flat(fr.fused_relational_bwd_plain(xb.double(), eab.double(), g.edge_index, mask,
+                                                   {k: v.double() for k, v in wb.items()}, g_eb.double(),
+                                                   g_ab.double(), relu_edge=True))
+        b = flat(fr.fused_relational_bf16_bwd(*bb, csr, relu_edge=True))
+        b2 = flat(fr.fused_relational_bf16_bwd(*bb, csr, relu_edge=True))
+        pb = flat(fr.fused_relational_bf16_bwd_plain(*bb, relu_edge=True))
+        errs_b = bf16_check("fused_relational_bf16_bwd (full detector)", b, b2, pb, ref_b)
+        del b2, pb, ref_b
+        for key, fn, plain, flops, errs, outs in (
+            ("fused_relational_bf16_fwd",
+             lambda: fr.fused_relational_bf16_fwd(xb, eab, g.edge_index, mask, wb, rowptr=rowptr, relu_edge=True),
+             lambda: fr.fused_relational_bf16_plain(xb, eab, g.edge_index, mask, wb, relu_edge=True), flops_f,
+             errs_a, a.values()),
+            ("fused_relational_bf16_bwd", lambda: fr.fused_relational_bf16_bwd(*bb, csr, relu_edge=True),
+             lambda: fr.fused_relational_bf16_bwd_plain(*bb, relu_edge=True), flops_b, errs_b, b.values()),
+        ):
+            by = nbytes(xb, eab, g.edge_index, mask, *wb.values(), *outs) + (
+                nbytes(g_eb, g_ab, *csr.values()) if key.endswith("bwd") else nbytes(rowptr))
+            b_ms, b_by = bound(flops, by, PEAK_BF16_FLOPS)
+            out[key] = {"max_abs_err": max(er[1] for er in errs), "ms": cuda_ms(fn, rounds=3),
+                        "plain_ms": cuda_ms(plain, reps=1, rounds=3), "bound_ms": b_ms, "bound_by": b_by}
+        del a, b
+        # rows #9 / #10 at the edge width
+        msgs = torch.where(mask[:, None], torch.randn((e, fo), generator=gen, device=dev), 0.0)
+        k9 = csr_segment.sorted_segment_sum(msgs, dst, n, rowptr=rowptr)
+        assert torch.equal(k9, csr_segment.sorted_segment_sum(msgs, dst, n, rowptr=rowptr)), "row #9 repeat"
+        p9 = csr_segment.sorted_segment_sum_plain(msgs, dst, n)
+        err9 = float((k9 - p9).abs().max())
+        assert err9 <= 1e-6 * float(p9.abs().max()), f"sorted_segment_sum: {err9}"
+        b_ms, b_by = bound(float(e * fo), nbytes(msgs, rowptr, p9))
+        out["sorted_segment_sum"] = {
+            "max_abs_err": err9, "ms": graph_ms(lambda: csr_segment.sorted_segment_sum(msgs, dst, n, rowptr=rowptr)),
+            "plain_ms": graph_ms(lambda: csr_segment.sorted_segment_sum_plain(msgs, dst, n)),
+            "library_ms": graph_ms(lambda: torch.segment_reduce(msgs, "sum", offsets=rowptr.long(), unsafe=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        vals = torch.randn((n, fx), generator=gen, device=dev)
+        k10 = csr_segment.sorted_gather(vals, dst, rowptr=rowptr)
+        assert torch.equal(k10, csr_segment.sorted_gather_plain(vals, dst)), "sorted_gather differs from index_select"
+        b_ms, b_by = bound(0.0, nbytes(vals, dst, k10))
+        out["sorted_gather"] = {
+            "max_abs_err": 0.0, "ms": graph_ms(lambda: csr_segment.sorted_gather(vals, dst, rowptr=rowptr)),
+            "plain_ms": graph_ms(lambda: csr_segment.sorted_gather_plain(vals, dst)),
+            "library_ms": graph_ms(lambda: torch.index_select(vals, 0, dst)), "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def fulldetector_rank(rank: int, world: int, spec_path: str) -> None:
+    """One rank of phase 19 (b): the driver's trainer (``build_trainer``) on
+    its shard of the stacked events, the spec's EC cut, ``FD_GRID_STEPS``
+    steps recorded as ``_steps`` records them (rank 0: each step's starting
+    state, gradients and the weights after), its launches and peak memory."""
+    import torch
+
+    from gnn_tracking_tpu_torch.scripts import train_fulldetector as fd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False, mmap=True)
+    args = fd.parse_args([*FD_GRID_ARGV, "--steps", str(FD_GRID_STEPS)])
+    mesh = fd.make_data_graph_mesh(args.n_data, args.n_graph, device="cuda")
+    trainer = fd.build_trainer(args, mesh, spec["sgs"].x.shape[-1], spec["sgs"].edge_attr.shape[-1])
+    trainer.model.model.ec_threshold = spec["threshold"]
+    sg_l, cd_l = trainer.place(spec["sgs"], spec["cds"])
+    trainer.init(sg_l)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(FD_KERNELS)
+    res = _steps(trainer.model, trainer.optimizer, lambda: trainer.training_step(sg_l, cd_l), FD_GRID_STEPS,
+                 rank == 0)
+    res.update(launches=_launch_counts(FD_KERNELS), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    torch.save(res, spec["out"] % rank)
+
+
+def fulldetector_phase(seed: int, tmp: Path) -> dict:
+    """Phase 19 (see the module docstring). Returns the launches of the
+    phase's kernels summed over (a)'s three driver runs, (b)'s ranks and (c)'s
+    demos in this process (each set to 0 just before and read just after)
+    and the phase's summary."""
+    import torch
+
+    from gnn_tracking_tpu_torch.ops import fused_relational as fr
+    from gnn_tracking_tpu_torch.parallel.halo import partition_event
+    from gnn_tracking_tpu_torch.parallel.mesh2d import DataGraphTCNTrainer, stack_sharded
+    from gnn_tracking_tpu_torch.parallel.multihost import spawn
+    from gnn_tracking_tpu_torch.parallel.sharded_model import shard_as_eventgraph
+    from gnn_tracking_tpu_torch.parallel.sharded_tc import partition_condensation
+    from gnn_tracking_tpu_torch.scripts import demo_pipeline, demo_sharded, mlb_scan
+    from gnn_tracking_tpu_torch.scripts import train_fulldetector as fd
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    summary = {"card": card, "s": {}}
+
+    def say(msg: str) -> None:
+        log(f"fulldetector: {msg} [{card}]")
+
+    # ---- the event and its 1-shard partition, as the driver makes them
+    t0 = time.perf_counter()
+    event = fd.full_detector_event(0)
+    summary["s"]["event"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sgs, cds = fd.partition_events([event], 1, 512)
+    summary["s"]["partition"] = time.perf_counter() - t0
+    n_hits, n_edges = int(event.node_mask.sum()), event.num_edges
+    assert (n_hits, n_edges) == (267386, 2139088), (n_hits, n_edges)
+    say(f"event {n_hits} hits / {n_edges} edges ({summary['s']['event']:.1f} s), partitioned in "
+        f"{summary['s']['partition']:.1f} s; {int(cds.n_objects[0])} objects of {int(cds.obj_valid.shape[-1])} slots")
+
+    # ---- (a) step 0 through the kernels against the plain path: f32, bf16, and remat against f32
+    args = {m: fd.parse_args([*FD_ARGV, *flags]) for m, flags in FD_MODES.items()}
+    mesh1 = fd.make_data_graph_mesh(1, 1, device="cuda")
+    widths = (sgs.x.shape[-1], sgs.edge_attr.shape[-1])
+
+    def trainer_for(mode, threshold=None):
+        trainer = fd.build_trainer(args[mode], mesh1, *widths)
+        if threshold is not None:
+            trainer.model.model.ec_threshold = threshold
+        sg_l, cd_l = trainer.place(sgs, cds)
+        trainer.init(sg_l)
+        return trainer, sg_l, cd_l
+
+    t0 = time.perf_counter()
+    trainer, sg_l, cd_l = trainer_for("f32")
+    ev_view = shard_as_eventgraph(sg_l, local_csr=True)
+    threshold, cut = parallel_threshold(trainer.model.model, [ev_view])
+    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    summary["cut"] = {"threshold": threshold, **cut}
+    kernels = fd_kernel_checks(trainer.model.model, ev_view, seed)
+    say("kernels at the event's shapes (EC layer 1): " + json.dumps(kernels))
+
+    def f64_grads(mode):
+        def make():
+            t64, s64, c64 = trainer_for("f32", threshold)
+            t64.model.load_state_dict(state)
+            t64.model.double()
+            s64 = s64._map(lambda t: t.double() if t.is_floating_point() else t)
+            with plain_path(), segment_plain():
+                g64, _ = fd_grads(t64, s64, c64)
+            del t64
+            torch.cuda.empty_cache()
+            return g64
+        return make
+
+    checks = {}
+    for mode in ("f32", "bf16", "remat"):
+        tr, s_l, c_l = (trainer, sg_l, cd_l) if mode == "f32" else trainer_for(mode, threshold)
+        tr.model.model.ec_threshold = threshold
+        tr.model.load_state_dict(state)
+        _reset_launches(FD_KERNELS)
+        fr._compact.calls = 0
+        gk, lk = fd_grads(tr, s_l, c_l)
+        launches0, partitions0 = _launch_counts(FD_KERNELS), fr._compact.calls
+        with plain_path():
+            gp, lp = fd_grads(tr, s_l, c_l)
+        res = fd_compare(gk, gp, f64_grads(mode), bf16=mode == "bf16")
+        checks[mode] = {"loss": lk, "plain_loss": lp, **res, "launches": launches0, "partitions": partitions0}
+        if mode == "f32":
+            g_f32 = gk
+        if mode == "remat":  # the same kernels, the layers recomputed: the gradients of (a) f32
+            worst = 0.0
+            for n, g in g_f32.items():
+                if g is None:
+                    assert gk[n] is None, n
+                    continue
+                assert torch.allclose(gk[n], g, rtol=1e-5, atol=1e-7), f"remat gradient {n} differs"
+                worst = max(worst, float((gk[n] - g).abs().max()))
+            checks[mode]["vs_f32_max_abs"] = worst
+            checks[mode]["bitwise_f32"] = all(g is None or torch.equal(gk[n], g) for n, g in g_f32.items())
+        for v in (lk, lp):
+            assert math.isfinite(v), f"({mode}) step 0 loss {v}"
+        say(f"(a) step 0 {mode}: " + json.dumps(checks[mode]))
+        if mode != "f32":
+            del tr
+        torch.cuda.empty_cache()
+    L = 9  # the GraphTCN's interaction layers (L_ec 6 + L_hc 3)
+    assert checks["f32"]["launches"]["fused_relational_fwd"] == L, checks["f32"]["launches"]
+    assert checks["remat"]["launches"]["fused_relational_fwd"] == 2 * L, checks["remat"]["launches"]
+    assert checks["bf16"]["launches"]["fused_relational_bf16_bwd"] == L, checks["bf16"]["launches"]
+    summary["checks"] = checks
+    del trainer, gk, gp, g_f32
+    torch.cuda.empty_cache()
+    summary["s"]["checks"] = time.perf_counter() - t0
+
+    # ---- (a) the driver's main at its defaults: f32, bf16, remat (the phase's main path)
+    _reset_launches(FD_KERNELS)
+    runs = {}
+    step_ms: list[float] = []
+    orig_step = DataGraphTCNTrainer.training_step
+
+    def timed_step(self, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig_step(self, *a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    DataGraphTCNTrainer.training_step = timed_step
+    try:
+        for mode, flags in FD_MODES.items():
+            step_ms.clear()
+            before = _launch_counts(FD_KERNELS)
+            t0 = time.perf_counter()
+            path = tmp / f"fd_{mode}.json"
+            s = fd.main([*FD_ARGV, *flags, "--steps", str(FD_STEPS), "--json", str(path)])
+            hist = json.loads(path.read_text())["history"]
+            assert s["all_finite"] and all(math.isfinite(h["total"]) for h in hist), mode
+            assert (s["n_hits_per_event"], s["n_edges_per_event"]) == (n_hits, n_edges)
+            runs[mode] = {**s, "wall_s": time.perf_counter() - t0, "step0_ms": step_ms[0],
+                          "median_step_ms": statistics.median(step_ms[1:]), "step_ms": list(step_ms),
+                          "peak_gib": s["device_peak_bytes"] / 2**30,
+                          "launches": {k: v - before[k] for k, v in _launch_counts(FD_KERNELS).items()}}
+            torch.cuda.empty_cache()
+            say(f"(a) train_fulldetector {mode}: " + json.dumps(runs[mode]))
+    finally:
+        DataGraphTCNTrainer.training_step = orig_step
+    launches = _launch_counts(FD_KERNELS)
+    for k in FD_KERNELS:
+        assert launches[k] > 0, f"(a) never launched {k}"
+    summary["runs"] = runs
+
+    # ---- (a) each step's split, at the driver's configuration (its own EC cut)
+    splits = {}
+    for mode in FD_MODES:
+        tr, s_l, c_l = trainer_for(mode)
+        orig_step(tr, s_l, c_l)  # the first Adam step's lazy set-up
+        splits[mode] = fd_split(tr, s_l, c_l)
+        del tr
+        torch.cuda.empty_cache()
+    summary["split"] = splits
+    say("(a) step split (median of 3): " + json.dumps(splits))
+    del sg_l, cd_l, ev_view
+
+    # ---- (b) 2 x 2 in four ranks sharing the card, against the fast path on both events
+    t0 = time.perf_counter()
+    events = [event, fd.full_detector_event(1)]
+    grid_sgs, grid_cds = fd.partition_events(events, 2, 512)
+    singles = []
+    for i, ev in enumerate(events):
+        sg1 = partition_event(ev, 1, sort_edges=True)
+        singles.append((stack_sharded([sg1]), stack_sharded([partition_condensation(
+            ev, sg1, max_n_objects=512, subsample_seed=1000 + i)])))
+    ref_trainer = fd.build_trainer(args["f32"], mesh1, *widths)
+    placed = [ref_trainer.place(s, c) for s, c in singles]
+    grid_threshold, grid_cut = parallel_threshold(ref_trainer.model.model,
+                                                  [shard_as_eventgraph(s, local_csr=True) for s, _ in placed])
+    del ref_trainer, placed
+    torch.cuda.empty_cache()
+    spec = {"sgs": grid_sgs, "cds": grid_cds, "threshold": grid_threshold, "out": str(tmp / "fd_grid_rank%d.pt")}
+    torch.save(spec, tmp / "fd_grid_spec.pt")
+    t1 = time.perf_counter()
+    spawn(fulldetector_rank, 4, (str(tmp / "fd_grid_spec.pt"),), store_file=str(tmp / "fd_grid_store"),
+          backend="gloo", device="cuda", timeout_s=900)
+    summary["s"]["grid_ranks"] = time.perf_counter() - t1
+    grid = [torch.load(spec["out"] % r, weights_only=False) for r in range(4)]
+    for r, res in enumerate(grid):
+        for k in PARALLEL_KERNELS:
+            assert res["launches"][k] > 0, f"(b) rank {r} never launched {k}"
+        for k, v in res["launches"].items():
+            launches[k] += v
+    ref_trainer = fd.build_trainer(args["f32"], mesh1, *widths)
+    ref_trainer.model.model.ec_threshold = grid_threshold
+    ref = _reference(ref_trainer, [ref_trainer.place(s, c) for s, c in singles], grid[0])
+    summary["grid"] = {"cut": {"threshold": grid_threshold, **grid_cut}, "worst": _check_steps("(b)", grid[0], ref),
+                       "losses": [s["total"] for s in grid[0]["losses"]],
+                       "step_ms": [res["step_ms"] for res in grid], "peak_gib": [res["peak_gib"] for res in grid],
+                       "launches": [res["launches"] for res in grid], "fast_path_step_ms": ref["step_ms"]}
+    del ref_trainer, ref, grid, singles
+    torch.cuda.empty_cache()
+    # the driver's own entry point on that mesh: its four ranks, spawned by its main
+    t1 = time.perf_counter()
+    path = tmp / "fd_grid.json"
+    main_2x2 = fd.main([*FD_GRID_ARGV, "--steps", str(FD_GRID_STEPS), "--json", str(path)])
+    assert main_2x2["all_finite"] and main_2x2["mesh"] == "2x2", main_2x2
+    summary["grid"]["driver_main"] = {**main_2x2, "wall_s": time.perf_counter() - t1,
+                                      "losses": [h["total"] for h in json.loads(path.read_text())["history"]]}
+    summary["s"]["grid"] = time.perf_counter() - t0
+    say("(b) 2 x 2, four ranks on the card: " + json.dumps(summary["grid"]))
+
+    # ---- (c) the demos, once each, at their smallest size
+    t0 = time.perf_counter()
+    raw = tmp / "fd_raw"
+    raw.mkdir(exist_ok=True)
+    for name in ETL_CSVS:
+        shutil.copy(REPO / "tests" / "test_data" / "trackml" / name, raw / name)
+    _reset_launches(FD_DEMO_KERNELS)
+    demos = {}
+    t1 = time.perf_counter()
+    figures = demo_pipeline.main(["--epochs", "1", "--workdir", str(tmp / "fd_demo"), "--trackml-dir", str(raw)])
+    demos["demo_pipeline"] = {"s": time.perf_counter() - t1, "n_figures": len(figures),
+                              "double_majority_pt0.9": figures["trk.double_majority_pt0.9"]}
+    t1 = time.perf_counter()
+    sharded = demo_sharded.main(["--ranks", "2"])
+    demos["demo_sharded"] = {"s": time.perf_counter() - t1, "best_dm": sharded["best_dm"],
+                             "best_eps": sharded["best_eps"], "last_total": sharded["losses"][-1]["total"]}
+    t1 = time.perf_counter()
+    scan = mlb_scan.main(["--quick", "--workdir", str(tmp / "fd_mlb"), "--trackml-dir", str(raw)])
+    demos["mlb_scan"] = {"s": time.perf_counter() - t1,
+                         "eff_k8": [r["evals"][8]["eff"] for r in scan], "purity_k8": [r["evals"][8]["purity"] for r in scan]}
+    demo_launches = _launch_counts(FD_DEMO_KERNELS)
+    for k, v in demo_launches.items():
+        assert v > 0, f"(c) the demos never launched {k}"
+        launches[k] = launches.get(k, 0) + v
+    summary["demos"] = {**demos, "launches": demo_launches}
+    summary["s"]["demos"] = time.perf_counter() - t0
+    say("(c) demos: " + json.dumps(summary["demos"]))
+    summary["kernels"] = kernels
+    summary["s"]["phase"] = time.perf_counter() - t_phase
+    say(f"phase 19: {json.dumps(summary['s'])}; launches {launches}")
+    return {"launches": launches, "summary": summary}
+
+
 def ptxas_by_kernel(text: str) -> list[str]:
     """``nvcc -Xptxas -v``'s register, stack and spill lines, each after the
     kernel it belongs to (names demangled with the toolkit's ``cu++filt``
@@ -7785,6 +8351,9 @@ def main(argv=None) -> int:
     p.add_argument("--parallel-only", action="store_true",
                    help="build, run phase 18 (the parallel package: sharded, data-parallel and 2-D trainers "
                    "as ranks on this card) and stop")
+    p.add_argument("--fulldetector-only", action="store_true",
+                   help="build, run phase 19 (the full-detector driver at 267,386 hits, its 2 x 2 mesh "
+                   "in four ranks and the demos) and stop")
     p.add_argument("--band-digests", type=Path, default=None,
                    help="with --band-only: a file of row #14's output digests to compare with "
                    "(another tree's run), or to write where there is none")
@@ -7960,6 +8529,12 @@ def main(argv=None) -> int:
         log(f"package: {root}")
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as parallel_tmp:
             parallel_phase(args.seed, Path(parallel_tmp))
+        print(smi)
+        return 0
+    if args.fulldetector_only:
+        log(f"package: {root}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as fd_tmp:
+            fulldetector_phase(args.seed, Path(fd_tmp))
         print(smi)
         return 0
     if args.wide_only:
@@ -8248,7 +8823,11 @@ def main(argv=None) -> int:
     parallel = parallel_phase(args.seed, tmp)
     assert {r["name"] for r in results} >= set(parallel["launches"]), sorted(parallel["launches"])
 
-    # ---- 19. results ------------------------------------------------------
+    # ---- 19. the full-detector training driver, its 2 x 2 mesh, the demos -----------
+    fulldetector = fulldetector_phase(args.seed, tmp)
+    assert {r["name"] for r in results} >= set(fulldetector["launches"]), sorted(fulldetector["launches"])
+
+    # ---- 20. results ------------------------------------------------------
     kernels = [
         {
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
@@ -8263,6 +8842,8 @@ def main(argv=None) -> int:
             **({"analysis_launches": analysis["launches"][r["name"]]} if r["name"] in analysis["launches"] else {}),
             **({"remainder_launches": remainder["launches"][r["name"]]} if r["name"] in remainder["launches"] else {}),
             **({"parallel_launches": parallel["launches"][r["name"]]} if r["name"] in parallel["launches"] else {}),
+            **({"fulldetector_launches": fulldetector["launches"][r["name"]]}
+               if r["name"] in fulldetector["launches"] else {}),
         }
         for r in results
     ]

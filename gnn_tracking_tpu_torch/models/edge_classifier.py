@@ -23,7 +23,8 @@ class ECForGraphTCN(nn.Module):
     the graph must be target-sorted (``EventGraph.csr()``): the endpoint
     gathers' gradients are sorted segment-sums. ``residual_type`` and
     ``compat_overlap`` select the ResIN's residual scheme;
-    ``fused_save_acts`` is handed to every interaction network;
+    ``fused_save_acts`` is handed to every interaction network and
+    ``remat`` to the ResIN (each layer recomputed in the backward pass);
     ``model_config`` holds the constructor arguments (what a checkpoint
     stores)."""
 
@@ -42,6 +43,7 @@ class ECForGraphTCN(nn.Module):
         use_node_embedding: bool = True,
         fused_save_acts: bool = False,
         halo_edge_split: int = 0,
+        remat: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -56,7 +58,7 @@ class ECForGraphTCN(nn.Module):
             "compat_overlap": compat_overlap,
             "use_intermediate_edge_embeddings": use_intermediate_edge_embeddings,
             "use_node_embedding": use_node_embedding, "fused_save_acts": fused_save_acts,
-            "halo_edge_split": halo_edge_split,
+            "halo_edge_split": halo_edge_split, "remat": remat,
         }
         g = generator
         self.ec_node_encoder = MLP(
@@ -70,7 +72,7 @@ class ECForGraphTCN(nn.Module):
             object_hidden_dim=hidden_dim, relational_hidden_dim=hidden_dim,
             alpha=alpha, n_layers=L_ec, residual_type=residual_type,
             compat_overlap=compat_overlap, collect_hidden_edge_embeds=use_intermediate_edge_embeddings,
-            fused_save_acts=fused_save_acts, halo_edge_split=halo_edge_split, generator=g,
+            fused_save_acts=fused_save_acts, halo_edge_split=halo_edge_split, remat=remat, generator=g,
         )
         self.use_intermediate_edge_embeddings = use_intermediate_edge_embeddings
         self.use_node_embedding = use_node_embedding

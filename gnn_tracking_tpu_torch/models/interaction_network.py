@@ -10,7 +10,9 @@ the object model is ``MLP([x, agg])``. Parameters use the fused layout
 observable through the mask is the same). bf16 inputs and weights (the
 ``bf16`` precision policy) take the op's bf16 route; ``fused_save_acts``
 (the JAX option of that name) keeps its gathered endpoint rows for the
-backward.
+backward. ``aggr="mean"`` / ``"max"`` aggregate with
+``ops.segment.scatter_edges_to_nodes`` after the relational MLP in plain
+tensor code, as the JAX module takes its XLA path for them.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import torch
 from torch import nn
 
 from gnn_tracking_tpu_torch.models.mlp import MLP
-from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational
+from gnn_tracking_tpu_torch.ops.fused_relational import fused_relational, fused_relational_plain
+from gnn_tracking_tpu_torch.ops.segment import scatter_edges_to_nodes
+
+AGGREGATIONS = ("add", "mean", "max")
 
 
 def _uniform(shape, fan_in, generator):
@@ -42,11 +47,16 @@ class InteractionNetwork(nn.Module):
         node_hidden_dim: int | None = 40,
         edge_hidden_dim: int | None = 40,
         fused_save_acts: bool = False,
+        aggr: str = "add",
         *,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        if aggr not in AGGREGATIONS:
+            msg = f"Unknown aggregation: {aggr}"
+            raise ValueError(msg)
         self.fused_save_acts = fused_save_acts
+        self.aggr = aggr
         fan1 = 2 * node_indim + edge_indim
         h = edge_hidden_dim or max(fan1, edge_outdim)
         self.relational_w1 = _uniform((h, fan1), fan1, generator)
@@ -93,7 +103,15 @@ class InteractionNetwork(nn.Module):
         it, each block with its own CSR, their aggregations summed."""
         kw = {"relu_edge": relu_edge, "save_acts": self.fused_save_acts}
         w = self.relational_weights()
-        if exchange is None:
+        if self.aggr != "add":
+            if halo_split:
+                msg = "halo_split supports add aggregation only"
+                raise ValueError(msg)
+            x_ext = x if exchange is None else exchange(x)
+            e_tilde, _ = fused_relational_plain(x_ext, edge_attr, edge_index, edge_mask, w, relu_edge=relu_edge)
+            agg = scatter_edges_to_nodes(e_tilde, edge_index.long(), x_ext.shape[0], edge_mask,
+                                         aggr=self.aggr)[: x.shape[0]]
+        elif exchange is None:
             e_tilde, agg = fused_relational(x, edge_attr, edge_index, edge_mask, w, csr=csr, **kw)
         elif not halo_split:
             e_tilde, agg = fused_relational(exchange(x), edge_attr, edge_index, edge_mask, w,

@@ -9,6 +9,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gnn_tracking_tpu_torch.models.interaction_network import InteractionNetwork
 
@@ -83,9 +84,11 @@ class ResIN(nn.Module):
       output of every layer from there on.
 
     Layers after the first see ``relu(x)`` and ``relu(e)``; the edge ReLU
-    runs inside the fused op. Returns ``(node embedding, last edge
-    embedding, list of edge embeddings from all levels including the input,
-    or None)``. ``halo_edge_split`` is the partition's ``e_split`` for the
+    runs inside the fused op. ``remat`` recomputes each interaction layer in
+    the backward pass (``torch.utils.checkpoint``, JAX's ``nn.remat``): a
+    layer keeps only its inputs, the same gradients. Returns ``(node
+    embedding, last edge embedding, list of edge embeddings from all levels
+    including the input, or None)``. ``halo_edge_split`` is the partition's ``e_split`` for the
     graph-parallel hook (see :meth:`forward`). ``model_config`` holds the
     constructor arguments.
     """
@@ -105,6 +108,7 @@ class ResIN(nn.Module):
         compat_overlap: bool = False,
         fused_save_acts: bool = False,
         halo_edge_split: int = 0,
+        remat: bool = False,
         *,
         generator: torch.Generator | None = None,
     ):
@@ -124,9 +128,10 @@ class ResIN(nn.Module):
             "residual_type": residual_type,
             "collect_hidden_edge_embeds": collect_hidden_edge_embeds, "connect_to": connect_to,
             "add_bn": add_bn, "compat_overlap": compat_overlap, "fused_save_acts": fused_save_acts,
-            "halo_edge_split": halo_edge_split,
+            "halo_edge_split": halo_edge_split, "remat": remat,
         }
         self.alpha = alpha
+        self.remat = remat
         self.residual_type = residual_type
         self.collect_hidden_edge_embeds = collect_hidden_edge_embeds
         self.connect_to = connect_to
@@ -185,10 +190,11 @@ class ResIN(nn.Module):
         def run(i, x_in, e_in, relu_in):
             # the node relu in autograd, the edge relu in the fused op (its
             # gradient too)
-            return self.layers[i](
-                torch.relu(x_in) if relu_in else x_in, edge_index, e_in, edge_mask,
-                csr=csr, relu_edge=relu_in, **split,
-            )
+            args = (torch.relu(x_in) if relu_in else x_in, edge_index, e_in, edge_mask)
+            kw = {"csr": csr, "relu_edge": relu_in, **split}
+            if self.remat and torch.is_grad_enabled():
+                return checkpoint(self.layers[i], *args, use_reentrant=False, **kw)
+            return self.layers[i](*args, **kw)
 
         def bn(i, x_in, e_in):
             if not self.add_bn:

@@ -294,8 +294,9 @@ class GraphTCN(ModularGraphTCN):
 
     The JAX GraphTCN wraps a ModularGraphTCN whose own parameters sit under
     ``gtcn`` in its tree; this class *is* the ModularGraphTCN, so
-    ``utils.param_convert`` drops that level. ``model_config`` holds the
-    constructor arguments (what a checkpoint stores).
+    ``utils.param_convert`` drops that level. ``remat`` recomputes every
+    interaction layer (EC and HC) in the backward pass. ``model_config``
+    holds the constructor arguments (what a checkpoint stores).
     """
 
     jax_inner_name = "gtcn"
@@ -317,6 +318,7 @@ class GraphTCN(ModularGraphTCN):
         use_ec_embeddings_for_hc: bool = False,
         feed_edge_weights: bool = False,
         halo_edge_split: int = 0,
+        remat: bool = False,
         *,
         device: str | torch.device = "cuda",
         generator: torch.Generator | None = None,
@@ -329,16 +331,18 @@ class GraphTCN(ModularGraphTCN):
             "ec_threshold": ec_threshold, "mask_orphan_nodes": mask_orphan_nodes,
             "use_ec_embeddings_for_hc": use_ec_embeddings_for_hc,
             "feed_edge_weights": feed_edge_weights, "halo_edge_split": halo_edge_split,
+            "remat": remat,
         }
         ec = ECForGraphTCN(
             node_indim, edge_indim, interaction_node_dim=h_dim,
             interaction_edge_dim=e_dim, hidden_dim=hidden_dim, L_ec=L_ec,
-            alpha=alpha_ec, halo_edge_split=halo_edge_split, device="cpu", generator=generator,
+            alpha=alpha_ec, halo_edge_split=halo_edge_split, remat=remat, device="cpu",
+            generator=generator,
         )
         hc_in = ResIN(
             h_dim, e_dim, object_hidden_dim=hidden_dim,
             relational_hidden_dim=hidden_dim, alpha=alpha_hc, n_layers=L_hc,
-            halo_edge_split=halo_edge_split, generator=generator,
+            halo_edge_split=halo_edge_split, remat=remat, generator=generator,
         )
         super().__init__(
             hc_in, ec, node_indim, edge_indim, h_dim=h_dim, e_dim=e_dim,

@@ -121,12 +121,13 @@ def _rank_main(rank, fn, nprocs, init_method, backend, device, timeout_s, args):
 
 
 def spawn(fn, nprocs: int, args: tuple = (), *, store_file: str, backend: str = "gloo",
-          device: str | torch.device = "cpu", timeout_s: float = 300.0) -> None:
+          device: str | torch.device = "cuda", timeout_s: float = 300.0) -> None:
     """Run ``fn(rank, nprocs, *args)`` in ``nprocs`` fresh processes
     (``spawn``), each a rank of one default process group over a
-    ``FileStore`` at ``store_file`` (no port); waits for all, and raises
-    with a rank's traceback where one fails. ``fn`` must be importable by
-    name (a module-level function)."""
+    ``FileStore`` at ``store_file`` (no port), on the card unless ``device``
+    asks for the CPU; waits for all, and raises with a rank's traceback
+    where one fails. ``fn`` must be importable by name (a module-level
+    function)."""
     import torch.multiprocessing as mp
 
     mp.start_processes(

@@ -118,11 +118,19 @@ def sharded_edge_bce(w: torch.Tensor, y: torch.Tensor, edge_mask: torch.Tensor, 
 
 def _shard_of(obj, mesh, *, event: bool):
     """This rank's view of a partition (``[P, ...]``) or of a stack of them
-    (``[S, P, ...]``, ``event=True``: first the rank's event)."""
+    (``[S, P, ...]``, ``event=True``: first the rank's event). As JAX's
+    ``shard_map`` hands each data coordinate a block of ``S / n_data``
+    events and its trainer takes the block's first, a data rank trains
+    event ``data_rank * S / n_data`` (only event 0 of two on a 1 x 1 mesh)."""
     if obj.is_shard:
         return obj
     if event:  # a graph's every table is per shard, so its first axis is indexed as one
-        obj = obj.shard(mesh.data_rank) if isinstance(obj, ShardedGraph) else obj.event(mesh.data_rank)
+        n_events = obj.x.shape[0] if isinstance(obj, ShardedGraph) else obj.obj_valid.shape[0]
+        if n_events % mesh.n_data:
+            msg = f"a stack of {n_events} events does not split over {mesh.n_data} data ranks"
+            raise ValueError(msg)
+        i = mesh.data_rank * (n_events // mesh.n_data)
+        obj = obj.shard(i) if isinstance(obj, ShardedGraph) else obj.event(i)
     return obj.shard(mesh.graph_rank)
 
 

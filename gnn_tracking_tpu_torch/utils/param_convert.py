@@ -7,9 +7,13 @@ Counterpart of the JAX ``utils/param_convert.py``. The input is a JAX
 layout:
 
 * XLA: ``relational_model/TorchLinear_{0,1,2}/{kernel,bias}``;
+* split (``split_relational=True``): ``relational_dst/{kernel,bias}``,
+  ``relational_src/kernel``, ``relational_edge/kernel`` (the first layer's
+  row blocks of ``[x_dst, x_src, e]``, the bias on the ``dst`` block) and
+  ``relational_rest/TorchLinear_{0,1}`` (the second and third layers);
 * fused: ``relational_w1, relational_b1, ..., relational_b3``.
 
-Both become the port's fused parameters ``relational_w{1,2,3}`` /
+All become the port's fused parameters ``relational_w{1,2,3}`` /
 ``relational_b{1,2,3}`` (the re-nesting of the JAX ``mlp_to_fused``, in
 this module's own copy). Flax ``[in, out]`` kernels are transposed into
 PyTorch's ``[out, in]``. Path names map as ``TorchLinear_i`` /
@@ -67,6 +71,33 @@ def _relational_from_mlp(mlp: dict) -> dict[str, np.ndarray]:
     return out
 
 
+#: the parameter blocks of a JAX ``split_relational`` interaction network
+_SPLIT = ("relational_dst", "relational_src", "relational_edge", "relational_rest")
+
+
+def _relational_from_split(node: dict) -> dict[str, np.ndarray]:
+    """The fused parameters of a ``split_relational`` tree: the first
+    layer's kernel the three blocks stacked in ``[x_dst, x_src, e]`` order,
+    its bias ``relational_dst``'s, the next two layers
+    ``relational_rest``'s. Exact: the split layer is the row split of the
+    fused one."""
+    want = {"relational_dst": {"kernel", "bias"}, "relational_src": {"kernel"}, "relational_edge": {"kernel"},
+            "relational_rest": {"TorchLinear_0", "TorchLinear_1"}}
+    for key, leaves in want.items():
+        if set(node[key]) != leaves:
+            msg = f"{key} has leaves {sorted(node[key])}, expected {sorted(leaves)}"
+            raise ValueError(msg)
+    kernel = np.concatenate([np.asarray(node[k]["kernel"]) for k in _SPLIT[:3]], axis=0)
+    out = {"relational_w1": kernel.T, "relational_b1": np.asarray(node["relational_dst"]["bias"])}
+    for i, layer in enumerate((node["relational_rest"]["TorchLinear_0"], node["relational_rest"]["TorchLinear_1"])):
+        if set(layer) != {"kernel", "bias"}:
+            msg = f"relational_rest/TorchLinear_{i} has leaves {sorted(layer)}"
+            raise ValueError(msg)
+        out[f"relational_w{i + 2}"] = np.asarray(layer["kernel"]).T
+        out[f"relational_b{i + 2}"] = np.asarray(layer["bias"])
+    return out
+
+
 def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
     """Flatten a JAX params tree (or ``{"params", "batch_stats"}``) into a
     port ``state_dict`` of numpy arrays.
@@ -85,6 +116,14 @@ def params_from_jax(tree: Any) -> dict[str, np.ndarray]:
         out[name] = np.asarray(value)
 
     def walk(node: dict, prefix: list[str], stats: bool) -> None:
+        if not stats and any(k in node for k in _SPLIT):
+            missing = [k for k in _SPLIT if k not in node]
+            if missing:
+                msg = f"split relational MLP at {'/'.join(prefix)!r} lacks {missing}"
+                raise ValueError(msg)
+            for leaf, arr in _relational_from_split(node).items():
+                put(".".join([*prefix, leaf]), arr)
+            node = {k: v for k, v in node.items() if k not in _SPLIT}
         for key, value in node.items():
             if key == "relational_model" and not stats:
                 for leaf, arr in _relational_from_mlp(value).items():

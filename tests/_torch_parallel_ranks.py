@@ -171,7 +171,34 @@ def dp_case(rank: int, world: int, case: dict) -> dict:
     return out if rank == 0 else {}
 
 
-CASES = {"fetch": fetch_case, "apply": apply_case, "loss": loss_case, "trainer": trainer_case, "dp": dp_case}
+def fulldetector_case(rank: int, world: int, case: dict) -> dict:
+    """``scripts/train_fulldetector``'s rank training (its ``train``) on
+    ``case["argv"]``'s mesh, events and model, from the weights
+    ``case["state"]`` (JAX's initial parameters): the loss history."""
+    from gnn_tracking_tpu_torch.scripts import train_fulldetector as fd
+
+    args = fd.parse_args(case["argv"])
+    events = [fd.full_detector_event(s, n_tracks=args.n_tracks, hits_per_track=args.hits_per_track)
+              for s in range(args.n_events)]
+    sgs, cds = fd.partition_events(events, args.n_graph, args.max_objects)
+    build = fd.build_trainer
+
+    def from_state(*a, **kw):
+        trainer = build(*a, **kw)
+        trainer.model.load_state_dict({k: torch.tensor(np.array(v)) for k, v in case["state"].items()})
+        return trainer
+
+    fd.build_trainer = from_state
+    try:
+        out = fd.train(args, fd.make_data_graph_mesh(args.n_data, args.n_graph, device="cpu"), sgs, cds,
+                       verbose=False)
+    finally:
+        fd.build_trainer = build
+    return {"history": out["history"]} if rank == 0 else {}
+
+
+CASES = {"fetch": fetch_case, "apply": apply_case, "loss": loss_case, "trainer": trainer_case, "dp": dp_case,
+         "fulldetector": fulldetector_case}
 
 
 def run_spec(rank: int, world: int, spec_path: str) -> None:
